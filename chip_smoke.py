@@ -11,14 +11,29 @@ What it does, in order — any failure raises and the run exits non-zero:
 2. ``data``      — a NELL-2-shaped synthetic sparse tensor (FROSTT's NELL-2
    dimensions 12092 x 9184 x 28818, power-law fibers, ``--nnz`` samples,
    seed 0) and its three mode-rooted CSFs: the host-side preprocessing.
+   Then a dense f32 tensor 1024 x 768 x 1152 (non-cubic, every mode a
+   multiple of 128) drawn on the card from a seeded generator.
 3. ``kernels``   — each kernel's wrapper against its plain PyTorch version
    on the card, at the main path's shapes and at small ragged shapes, with
    CUDA-event timings (median after warm-up) beside the least time the card
-   could take for the same bytes and operations.
-4. ``main_path`` — launch counters set to 0, then ``cp_als(sparse=coo,
-   rank=32, n_iter=3, backend="hopper")`` on the paper's array config and
-   ``api.matmul`` at an LM MLP projection (512 x 4096 x 14336), each against
-   ``backend="exact"``; then the counters are read.
+   could take for the same bytes and operations and, where one PyTorch call
+   computes the same function, that call's time.
+4. ``main_path`` — three paths, each run with every launch counter set to 0
+   just before it and read just after:
+   a. ``cp_als(sparse=coo, rank=32, n_iter=3, backend="hopper")`` on the
+      paper's array config and ``api.matmul`` at an LM MLP projection
+      (512 x 4096 x 14336), each against ``backend="exact"``;
+   b. the dense entry point: ``api.mttkrp(x, factors, mode,
+      backend="hopper")`` and ``backends.get("hopper", compiled=False)``
+      for every mode of the dense tensor, against ``backend="exact"``;
+   c. ``cp_als`` on the sparse tensor with ``backends.get("hopper",
+      compiled=False)`` (the blocked segment-sum stream), against the exact
+      run of (a).
+5. ``sweep_time`` — one warm sweep of each CP-ALS engine, and the parts of a
+   ``hopper`` sweep timed alone.
+
+TF32 is switched off for matmuls and cuDNN before anything runs: the plain
+versions of the dense MTTKRP kernels are f32 matrix products.
 
 Output: one JSON object per line; the ``kernels`` line, the card's name and
 power limit as nvidia-smi prints them, and last
@@ -28,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -41,6 +57,7 @@ NELL2_SHAPE = (12092, 9184, 28818)       # FROSTT NELL-2 dimensions
 RANK = 32                                # the paper's §V operating point
 SWEEPS = 3
 MLP_SHAPE = (512, 4096, 14336)           # x (512, d_model) @ w (d_model, d_ff)
+DENSE_SHAPE = (1024, 768, 1152)          # 3.62 GB of f32; every mode % 128 == 0
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates).
 HBM_BYTES_PER_S = 3.35e12
@@ -244,6 +261,188 @@ def small_stream_cases(torch):
     return cases
 
 
+# ------------------------------------------------- kernels 3 and 4 (dense)
+
+
+def dense_case(torch, x0, b, c, timed=False):
+    """Kernel 3 against its plain version: allclose at rtol 2e-4 and 2e-4 of
+    the largest entry (the reference's own tolerance for its kernel)."""
+    from repro_torch.core.mttkrp import khatri_rao
+    from repro_torch.kernels.mttkrp import mttkrp_fused, mttkrp_fused_torch
+
+    i, jk = x0.shape
+    r = b.shape[1]
+    got = mttkrp_fused(x0, b, c)
+    torch.cuda.synchronize()
+    want = mttkrp_fused_torch(x0, b, c)
+    diff = (got - want).abs()
+    top = float(want.abs().max())
+    big = want.abs() >= 1e-3 * top
+    case = {
+        "shape": [i, b.shape[0], c.shape[0], r],
+        "max_abs_err": float(diff.max()),
+        "max_err_over_max": float(diff.max()) / max(top, 1e-30),
+        "max_rel_err": float((diff[big] / want.abs()[big]).max()) if bool(big.any()) else 0.0,
+        "finite": bool(torch.isfinite(got).all()),
+        "deterministic": bool(torch.equal(mttkrp_fused(x0, b, c), got)),
+    }
+    if not (case["finite"] and case["deterministic"]
+            and torch.allclose(got, want, rtol=2e-4, atol=2e-4 * top)):
+        raise AssertionError(f"mttkrp_fused disagrees with its plain version: {case}")
+    if timed:
+        case["ms"] = time_ms(torch, lambda: mttkrp_fused(x0, b, c))
+        case["plain_ms"] = time_ms(torch, lambda: mttkrp_fused_torch(x0, b, c), iters=3, reps=1)
+        case["library_ms"] = time_ms(torch, lambda: x0 @ khatri_rao([b, c]))
+        bytes_ms = 1e3 * (nbytes(x0, b, c) + 4 * i * r) / HBM_BYTES_PER_S
+        ops_ms = 1e3 * (2.0 * i * jk * r + jk * r) / F32_FLOPS_PER_S
+        case["bound_ms"] = max(bytes_ms, ops_ms)
+        case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return case
+
+
+def psram_case(torch, q, adc_bits=16, timed=False):
+    """Kernel 4 against its plain version: within two ADC codes of each
+    bi-row tile's full scale plus rtol 2e-4 (the reference's own tolerance
+    for its kernel against its XLA twin)."""
+    from repro_torch.core.quantization import adc_transfer
+    from repro_torch.kernels.mttkrp import mttkrp_psram_fused, mttkrp_psram_torch
+
+    qx, sx, qb, sb, qc, sc = q
+    i, jk = qx.shape
+    r = qb.shape[1]
+    bi = min(128, i)
+    got = mttkrp_psram_fused(*q, adc_bits=adc_bits)
+    torch.cuda.synchronize()
+    want = mttkrp_psram_torch(*q, adc_bits=adc_bits)
+    fs = want.abs().reshape(i // bi, -1).amax(dim=1).clamp_min(1e-30)
+    lsb = (2.0 * fs / 2 ** adc_bits).repeat_interleave(bi)[:, None]
+    diff = (got - want).abs()
+    case = {
+        "shape": [i, qb.shape[0], qc.shape[0], r], "adc_bits": adc_bits, "bi": bi,
+        "max_abs_err": float(diff.max()),
+        "max_err_in_codes": float((diff / lsb).max()),
+        "elements_a_code_apart": int((diff >= 0.5 * lsb).sum()),
+        "elements": got.numel(),
+        "finite": bool(torch.isfinite(got).all()),
+        "deterministic": bool(torch.equal(mttkrp_psram_fused(*q, adc_bits=adc_bits), got)),
+    }
+    if not (case["finite"] and case["deterministic"]
+            and bool((diff <= 2 * lsb + 2e-4 * want.abs()).all())):
+        raise AssertionError(f"mttkrp_psram_fused disagrees with its plain version: {case}")
+    if timed:
+        def library():
+            kr = (qb.float()[:, None, :] * qc.float()[None]) * (sb[:, None, :] * sc[None])
+            out = (qx.float() * sx) @ kr.reshape(jk, r)
+            tiles = out.reshape(i // bi, bi, r)
+            full = tiles.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+            return adc_transfer(tiles, 2 ** adc_bits, full).reshape(i, r)
+
+        case["ms"] = time_ms(torch, lambda: mttkrp_psram_fused(*q, adc_bits=adc_bits))
+        case["plain_ms"] = time_ms(
+            torch, lambda: mttkrp_psram_torch(*q, adc_bits=adc_bits), iters=3, reps=1)
+        case["library_ms"] = time_ms(torch, library, iters=3, reps=1)
+        bytes_ms = 1e3 * (nbytes(*q) + 4 * i * r) / HBM_BYTES_PER_S
+        # per entry of X_(0): its scale multiply and R multiply-adds; per KR
+        # entry 3 multiplies; per output the ADC (~6)
+        ops_ms = 1e3 * (2.0 * i * jk * r + i * jk + 3.0 * jk * r + 6.0 * i * r) \
+            / F32_FLOPS_PER_S
+        case["bound_ms"] = max(bytes_ms, ops_ms)
+        case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return case
+
+
+def small_dense_cases(torch):
+    """Ragged where legal (I % bi == 0 and K % bk == 0 with bi = min(128, I),
+    bk = min(128, K)): element-wise loads (J*K odd), rank over one column
+    tile, rank under 8, ADC at 8 bits."""
+    from repro_torch.kernels.mttkrp import quantize_mttkrp_operands
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    exact, psram = [], []
+    for i, j, k, r in [(96, 5, 40, 7), (32, 3, 11, 40), (128, 7, 36, 16), (384, 2, 256, 33)]:
+        x0 = torch.randn((i, j * k), generator=gen, device="cuda")
+        b = torch.rand((j, r), generator=gen, device="cuda")
+        c = torch.randn((k, r), generator=gen, device="cuda")
+        exact.append(dense_case(torch, x0, b, c))
+        q = quantize_mttkrp_operands(x0, b, c)
+        psram += [psram_case(torch, q, adc_bits=bits) for bits in (16, 8)]
+    return exact, psram
+
+
+# ---------------------------------------------------------- kernel 5
+
+
+def segment_case(torch, data, ids, n_seg, timed=False, cpu_bit_check=False):
+    """Kernel 5 against its plain version on the card, whose atomic
+    index_add_ adds in no fixed order: every element within the worst case
+    of two recursive f32 sums of its slot's rows, ``2 (bn - 1) 2^-24`` times
+    the sum of their magnitudes; the error against 1e-6 of the largest
+    partial is reported. With ``cpu_bit_check`` the kernel is held BIT-EQUAL
+    to the plain version run on the CPU, whose index_add_ adds the rows in
+    order like the kernel."""
+    from repro_torch.kernels.segment_sum import blocked_segment_sum, blocked_segment_sum_torch
+
+    b, bn, r = data.shape
+    got = blocked_segment_sum(data, ids, n_seg)
+    torch.cuda.synchronize()
+    want = blocked_segment_sum_torch(data, ids, n_seg)
+    diff = (got - want).abs()
+    top = float(want.abs().max())
+    mag = blocked_segment_sum_torch(data.abs(), ids, n_seg)
+    case = {
+        "blocks": b, "rows": bn, "rank": r, "n_seg": n_seg,
+        "max_abs_err": float(diff.max()),
+        "max_err_over_max": float(diff.max()) / max(top, 1e-30),
+        "within_1e-6_of_max": float(diff.max()) <= 1e-6 * top,
+        "max_err_over_magnitude": float((diff / mag.clamp_min(1e-30)).max()),
+        "share_differing": float((got != want).float().mean()),
+        "finite": bool(torch.isfinite(got).all()),
+    }
+    del mag
+    if not case["finite"] or case["max_err_over_magnitude"] > 2 * (bn - 1) * 2.0 ** -24:
+        raise AssertionError(f"blocked_segment_sum disagrees with its plain version: {case}")
+    if cpu_bit_check:
+        case["bit_equal_to_ordered_plain"] = bool(torch.equal(
+            got.cpu(), blocked_segment_sum_torch(data.cpu(), ids.cpu(), n_seg)))
+        if not case["bit_equal_to_ordered_plain"]:
+            raise AssertionError(
+                f"blocked_segment_sum is not bit-equal to the ordered plain version: {case}")
+    if timed:
+        slot = (torch.arange(b, device="cuda").view(b, 1) * n_seg + ids).reshape(-1)
+        rows = data.reshape(b * bn, r)
+        lib_out = torch.zeros((b * n_seg, r), device="cuda")
+
+        def library():
+            lib_out.zero_()
+            return lib_out.index_add_(0, slot, rows)
+
+        case["ms"] = time_ms(torch, lambda: blocked_segment_sum(data, ids, n_seg))
+        case["plain_ms"] = time_ms(
+            torch, lambda: blocked_segment_sum_torch(data, ids, n_seg), iters=3, reps=1)
+        case["library_ms"] = time_ms(torch, library, iters=3, reps=1)
+        moved = nbytes(data, ids) + 4 * b * n_seg * r
+        bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+        ops_ms = 1e3 * (b * bn * r) / F32_FLOPS_PER_S
+        case["bound_ms"] = max(bytes_ms, ops_ms)
+        case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return case
+
+
+def small_segment_cases(torch):
+    """Unsorted ids, rank over one column tile, more slots than rows, a
+    64 KB shared-memory tile; all bit-equal to the CPU plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cases = []
+    for b, bn, r, n_seg, sort in [(9, 100, 40, 17, False), (3, 5, 3, 9, False),
+                                  (4, 600, 8, 500, False), (64, 256, 32, 40, True)]:
+        data = torch.randn((b, bn, r), generator=gen, device="cuda")
+        ids = torch.randint(0, n_seg, (b, bn), generator=gen, device="cuda", dtype=torch.int32)
+        if sort:
+            ids = ids.sort(dim=1).values.contiguous()
+        cases.append(segment_case(torch, data, ids, n_seg, cpu_bit_check=True))
+    return cases
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -257,18 +456,38 @@ def main(argv=None) -> int:
 
     import torch
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
 
-    from repro_torch import api
+    from repro_torch import api, backends
     from repro_torch.backends import resolve_config
     from repro_torch.core.cp_als import cp_als, init_factors
+    from repro_torch.core.mttkrp import cp_chain_exact
     from repro_torch.kernels import _build
+    from repro_torch.kernels.mttkrp import (
+        mttkrp_fused, mttkrp_psram_fused, quantize_mttkrp_operands)
     from repro_torch.kernels.psram_matmul import psram_matmul
+    from repro_torch.kernels.segment_sum import blocked_segment_sum
     from repro_torch.kernels.stream_mttkrp import stream_mttkrp_fused
     from repro_torch.sparse import csf_for_mode, powerlaw_coo
+    from repro_torch.sparse.stream import _segment_blocks
+
+    kernel_fns = {"stream_mttkrp_fused": stream_mttkrp_fused, "psram_matmul": psram_matmul,
+                  "mttkrp_fused": mttkrp_fused, "mttkrp_psram_fused": mttkrp_psram_fused,
+                  "blocked_segment_sum": blocked_segment_sum}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for fn in kernel_fns.values():
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in kernel_fns.items()}
 
     report: dict = {}
     card = smi_line()
@@ -296,10 +515,17 @@ def main(argv=None) -> int:
     csfs = [csf_for_mode(coo, m) for m in range(3)]
     csf_s = time.perf_counter() - t0
     init = init_factors(0, NELL2_SHAPE, RANK, device="cuda")
+    t0 = time.perf_counter()
+    xd = torch.randn(DENSE_SHAPE, generator=torch.Generator(device="cuda").manual_seed(5),
+                     device="cuda")
+    fd = init_factors(0, DENSE_SHAPE, RANK, device="cuda")
+    torch.cuda.synchronize()
     report["data"] = {
         "phase": "data", "shape": list(NELL2_SHAPE), "nnz_requested": opts.nnz,
         "nnz": coo.nnz, "synth_s": synth_s, "csf_build_s": csf_s,
         "max_fiber": [int(c.fiber_lengths().max()) for c in csfs],
+        "dense_shape": list(DENSE_SHAPE), "dense_bytes": nbytes(xd),
+        "dense_synth_s": time.perf_counter() - t0,
     }
     emit(report["data"])
 
@@ -315,9 +541,35 @@ def main(argv=None) -> int:
                    (130, 64, 257, 8),
                    (16, 2048, 8, 16),        # accumulator beyond 2^24
                ])]
+    d_main, p_main = [], []
+    for mode in range(3):
+        others = [d for d in range(3) if d != mode]
+        x0 = xd.permute([mode] + others).reshape(DENSE_SHAPE[mode], -1).contiguous()
+        b, c = fd[others[0]], fd[others[1]]
+        d_main.append(dense_case(torch, x0, b, c, timed=True))
+        q = quantize_mttkrp_operands(x0, b, c)
+        del x0
+        p_main.append(psram_case(torch, q, timed=True))
+        del q
+    d_small, p_small = small_dense_cases(torch)
+    seg_main, seg_host_s = [], []
+    for mode in range(3):
+        t0 = time.perf_counter()
+        ip, vp, local, seg_rows, n_seg = _segment_blocks(csfs[mode], cfg.rows)
+        seg_host_s.append(time.perf_counter() - t0)
+        chain = cp_chain_exact(ip, vp, tuple(init), mode)         # (B, rows, R)
+        # mode 0 (the longest fibers) is also held bit for bit at full size
+        seg_main.append(segment_case(torch, chain, local, n_seg, timed=True,
+                                     cpu_bit_check=mode == 0))
+        del chain
+    seg_small = small_segment_cases(torch)
     report["kernel_cases"] = {
         "phase": "kernel_cases", "stream_main": a_main, "stream_small": a_small,
         "matmul_main": b_main, "matmul_small": b_small,
+        "dense_main": d_main, "dense_small": d_small,
+        "dense_psram_main": p_main, "dense_psram_small": p_small,
+        "segment_main": seg_main, "segment_small": seg_small,
+        "segment_host_s": seg_host_s,
     }
     emit(report["kernel_cases"])
 
@@ -325,8 +577,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     held_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    stream_mttkrp_fused.launches = 0
-    psram_matmul.launches = 0
+    zero_counts()
 
     t0 = time.perf_counter()
     hop = cp_als(None, RANK, n_iter=SWEEPS, sparse=coo, backend="hopper",
@@ -341,8 +592,7 @@ def main(argv=None) -> int:
     y = api.matmul(x, w, backend="hopper", config=cfg)
     torch.cuda.synchronize()
 
-    launches = {"stream_mttkrp_fused": stream_mttkrp_fused.launches,
-                "psram_matmul": psram_matmul.launches}
+    launches = read_counts()
 
     t0 = time.perf_counter()
     exact = cp_als(None, RANK, n_iter=SWEEPS, sparse=coo, backend="exact",
@@ -351,8 +601,6 @@ def main(argv=None) -> int:
     exact_s = time.perf_counter() - t0
     y_exact = api.matmul(x, w, backend="exact")
     matmul_rel = float(torch.linalg.norm(y - y_exact) / torch.linalg.norm(y_exact))
-
-    import math
 
     main_path = {
         "phase": "main_path", "sweeps": SWEEPS, "rank": RANK,
@@ -381,14 +629,88 @@ def main(argv=None) -> int:
     if tuple(y.shape) != (m, n) or not matmul_rel < 0.05:
         raise AssertionError(f"api.matmul strays from exact: rel {matmul_rel}")
 
+    # 4b. the dense entry point, fused (int8 + ADC) and legacy (exact) --------
+    del x, w, y, y_exact
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    legacy = backends.get("hopper", cfg, compiled=False)
+    zero_counts()
+    t0 = time.perf_counter()
+    dense_rel, legacy_rel = [], []
+    for mode in range(3):
+        want = api.mttkrp(xd, fd, mode, backend="exact")
+        got = api.mttkrp(xd, fd, mode, backend="hopper", config=cfg)
+        got_legacy = legacy.mttkrp(xd, fd, mode)
+        for out in (got, got_legacy):
+            if tuple(out.shape) != (DENSE_SHAPE[mode], RANK) or not out.is_cuda \
+                    or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"dense MTTKRP of mode {mode}: shape {tuple(out.shape)}, "
+                                     f"device {out.device}, or non-finite values")
+        norm = torch.linalg.norm(want)
+        dense_rel.append(float(torch.linalg.norm(got - want) / norm))
+        legacy_rel.append(float(torch.linalg.norm(got_legacy - want) / norm))
+    dense_launches = read_counts()
+    dense_s = time.perf_counter() - t0
+    dense_peak = torch.cuda.max_memory_allocated()
+    # one whole call of each entry point per mode (unfolding copy, operand
+    # quantization and the kernel), after the counted run
+    api_ms = {
+        "hopper": [time_ms(torch, lambda m=m: api.mttkrp(xd, fd, m, backend="hopper", config=cfg),
+                           warmup=1, iters=3, reps=1) for m in range(3)],
+        "hopper_legacy": [time_ms(torch, lambda m=m: legacy.mttkrp(xd, fd, m),
+                                  warmup=1, iters=3, reps=1) for m in range(3)],
+        "exact": [time_ms(torch, lambda m=m: api.mttkrp(xd, fd, m, backend="exact"),
+                          warmup=1, iters=3, reps=1) for m in range(3)],
+    }
+    dense_path = {
+        "phase": "main_path_dense", "shape": list(DENSE_SHAPE), "rank": RANK,
+        "rel_err_hopper": dense_rel, "rel_err_hopper_legacy": legacy_rel,
+        "launches": dense_launches, "seconds": dense_s, "device_bytes_peak": dense_peak,
+        "call_ms": api_ms,
+    }
+    report["main_path_dense"] = dense_path
+    emit(dense_path)
+    del xd, want, got, got_legacy
+    if not max(dense_rel) < 0.05 or not max(legacy_rel) < 1e-5:
+        raise AssertionError(f"dense MTTKRP strays from exact: {dense_path}")
+    if dense_launches["mttkrp_psram_fused"] < 3 or dense_launches["mttkrp_fused"] < 3:
+        raise AssertionError(f"the dense path did not launch the dense kernels: {dense_path}")
+
+    # 4c. CP-ALS on the legacy per-op path: the blocked segment-sum stream ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    leg = cp_als(None, RANK, n_iter=SWEEPS, sparse=coo, backend=legacy,
+                 csfs=csfs, init=init)
+    torch.cuda.synchronize()
+    leg_s = time.perf_counter() - t0
+    leg_launches = read_counts()
+    blocks = [_segment_blocks(c, cfg.rows) for c in csfs]
+    legacy_path = {
+        "phase": "main_path_legacy", "sweeps": SWEEPS, "rank": RANK,
+        "fit_hopper_legacy": leg.fit, "fit_exact": exact.fit, "iters": leg.iters,
+        "cp_als_s": leg_s, "launches": leg_launches,
+        "n_seg": [bl[4] for bl in blocks],
+        "partials_bytes": [bl[2].shape[0] * bl[4] * RANK * 4 for bl in blocks],
+        "chain_bytes": [bl[2].numel() * RANK * 4 for bl in blocks],
+        "device_bytes_peak": torch.cuda.max_memory_allocated(),
+    }
+    report["main_path_legacy"] = legacy_path
+    emit(legacy_path)
+    if not math.isfinite(leg.fit) or abs(leg.fit - exact.fit) >= 1e-4:
+        raise AssertionError(f"legacy CP-ALS strays from exact: {legacy_path}")
+    if leg_launches["blocked_segment_sum"] < 3 * SWEEPS or leg.iters != SWEEPS:
+        raise AssertionError(f"the legacy path did not launch the segment-sum kernel: {legacy_path}")
+    if not all(f.is_cuda and torch.isfinite(f).all() for f in leg.factors):
+        raise AssertionError("legacy CP-ALS factors are not finite tensors on the card")
+
     # per-sweep time, warm: cp_als sorts and merges duplicates on the host
     # before its first sweep, so a sweep is timed on its own — a backend
     # instance that stamps the clock (after a synchronize) whenever mode 0 is
     # asked for marks each sweep's start; the fit of sweep i ends before the
     # stamp of sweep i+1
-    from repro_torch import backends
-
-    def sweep_ms(name):
+    def sweep_ms(name, **kwargs):
         stamps = []
 
         class Stamped(type(backends.get(name, cfg))):
@@ -398,16 +720,17 @@ def main(argv=None) -> int:
                     stamps.append(time.perf_counter())
                 return super().mttkrp(data, factors, mode)
 
-        cp_als(None, RANK, n_iter=SWEEPS + 1, sparse=coo, backend=Stamped(cfg),
+        cp_als(None, RANK, n_iter=SWEEPS + 1, sparse=coo, backend=Stamped(cfg, **kwargs),
                csfs=csfs, init=init, tol=0)
         return [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
 
     sweeps = {name: sweep_ms(name) for name in ("hopper", "exact")}
+    sweeps["hopper_legacy"] = sweep_ms("hopper", compiled=False)
 
     # what a hopper sweep holds besides its three kernel-A launches, each
     # piece timed alone at the sweep's shapes (plain PyTorch, all of it)
     from repro_torch.kernels.stream_mttkrp import quantize_stream_factors
-    from repro_torch.sparse.stream import stream_mttkrp
+    from repro_torch.sparse.stream import stream_mttkrp, stream_mttkrp_blocked
 
     fs = tuple(hop.factors)
     gram = fs[0].T @ fs[0]
@@ -418,11 +741,16 @@ def main(argv=None) -> int:
             torch, lambda: [quantize_stream_factors(fs, mode) for mode in range(3)]),
         "pinv_3_modes": time_ms(
             torch, lambda: [torch.linalg.pinv(gram) for _ in range(3)]),
+        # one mode of a legacy sweep: exact chain + kernel 5 + scatter
+        "legacy_mttkrp_per_mode": [time_ms(
+            torch, lambda m=m: stream_mttkrp_blocked(csfs[m], fs, cfg), iters=3, reps=1)
+            for m in range(3)],
     }
     report["sweep_time"] = {
         "phase": "sweep_time",
         "per_sweep_ms_hopper": statistics.median(sweeps["hopper"]),
         "per_sweep_ms_exact": statistics.median(sweeps["exact"]),
+        "per_sweep_ms_hopper_legacy": statistics.median(sweeps["hopper_legacy"]),
         "sweeps_ms": sweeps,
         "sweep_parts_ms": sweep_parts_ms,
         "before_first_sweep_s": hop_s - 1e-3 * SWEEPS * statistics.median(sweeps["hopper"]),
@@ -430,13 +758,27 @@ def main(argv=None) -> int:
     emit(report["sweep_time"])
 
     # the contract's kernel table -------------------------------------------
-    mean = lambda key: statistics.fmean(c[key] for c in a_main)
+    def mean(key, cases=a_main):
+        return statistics.fmean(c[key] for c in cases)
+
+    def row(name, source, replaces, main, small, tolerance, **extra):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name] + dense_launches[name] + leg_launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in main + small),
+            "ms": mean("ms", main), "plain_ms": mean("plain_ms", main),
+            "bound_ms": mean("bound_ms", main), "bound_by": main[0]["bound_by"],
+            "library_ms": mean("library_ms", main), "tolerance": tolerance,
+            "per_mode_ms": [c["ms"] for c in main], **extra,
+        }
+
     kernels = {"kernels": [
         {
             "name": "stream_mttkrp_fused", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/stream_mttkrp.cu",
             "replaces": "src/repro/kernels/stream_mttkrp.py:173",
-            "launches": launches["stream_mttkrp_fused"],
+            "launches": launches["stream_mttkrp_fused"]
+            + dense_launches["stream_mttkrp_fused"] + leg_launches["stream_mttkrp_fused"],
             "max_abs_err": max(c["max_abs_err"] for c in a_main + a_small),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": a_main[0]["bound_by"], "library_ms": None,
@@ -449,13 +791,30 @@ def main(argv=None) -> int:
             "name": "psram_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/psram_matmul.cu",
             "replaces": "src/repro/kernels/psram_matmul.py:80",
-            "launches": launches["psram_matmul"],
+            "launches": launches["psram_matmul"] + dense_launches["psram_matmul"]
+            + leg_launches["psram_matmul"],
             "max_abs_err": max(c["max_abs_err"] for c in [b_main] + b_small),
             "ms": b_main["ms"], "plain_ms": b_main["plain_ms"],
             "bound_ms": b_main["bound_ms"], "bound_by": b_main["bound_by"],
             "library_ms": b_main["library_ms"],
             "tolerance": "bit-equal",
         },
+        row("mttkrp_fused", "src/repro_torch/kernels/csrc/mttkrp.cu",
+            "src/repro/kernels/mttkrp.py:54", d_main, d_small,
+            "allclose rtol 2e-4, atol 2e-4 * max|plain|",
+            max_rel_err=max(c["max_rel_err"] for c in d_main + d_small),
+            max_err_over_max=max(c["max_err_over_max"] for c in d_main + d_small)),
+        row("mttkrp_psram_fused", "src/repro_torch/kernels/csrc/mttkrp.cu",
+            "src/repro/kernels/mttkrp.py:121", p_main, p_small,
+            "per element: 2 ADC codes of its 128-row tile's full scale + rtol 2e-4",
+            elements_a_code_apart=sum(c["elements_a_code_apart"] for c in p_main + p_small),
+            elements=sum(c["elements"] for c in p_main + p_small)),
+        row("blocked_segment_sum", "src/repro_torch/kernels/csrc/segment_sum.cu",
+            "src/repro/kernels/segment_sum.py:44", seg_main, seg_small,
+            "bit-equal to the row-ordered CPU plain version (small cases, mode 0 "
+            "at full size); against the card's atomic plain version within "
+            "2 (bn-1) 2^-24 of each slot's summed magnitudes",
+            max_err_over_max=max(c["max_err_over_max"] for c in seg_main + seg_small)),
     ]}
     report["kernels"] = kernels
     if opts.out is not None:

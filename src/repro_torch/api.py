@@ -3,12 +3,15 @@
 >>> from repro_torch import api
 >>> out = api.execute(api.MTTKRPProblem(coo, factors, mode=0), backend="hopper")
 >>> y   = api.matmul(x, w, backend="hopper")
+>>> a   = api.mttkrp(x3, factors, mode=1, backend="hopper")   # dense (I, J, K)
 
 ``execute`` accepts an :class:`MTTKRPProblem` or raw data plus ``factors=``.
 All take ``backend=`` as a registry name (or a prebuilt
 :class:`~repro_torch.backends.Backend`) and ``config=`` as one
-``PsramConfig`` (default: the paper's §V-A operating point). Results live on
-the device of the tensors handed in. This module is deliberately thin —
+``PsramConfig`` (default: the paper's §V-A operating point). Data may be a
+dense 3-mode tensor (the quantized dense KR kernel on ``"hopper"``), a COO
+triple or a sparse container. Results live on the device of the tensors
+handed in. This module is deliberately thin —
 every behavior lives in ``repro_torch.backends``.
 
 ``estimate`` of the reference facade waits for the cost side

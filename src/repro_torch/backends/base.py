@@ -136,6 +136,14 @@ class Backend:
         of per-shard partial Grams."""
         return f.T @ f
 
+    # -- shared helpers ----------------------------------------------------
+    def _require(self, what: str, ok: bool) -> None:
+        if not ok:
+            raise CapabilityError(
+                f"backend {self.name!r} does not support {what} "
+                f"(capabilities: {self.capabilities()})"
+            )
+
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"<{type(self).__name__} name={self.name!r}>"
 

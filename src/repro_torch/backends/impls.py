@@ -5,9 +5,11 @@ name               wraps
 =================  =========================================================
 ``exact``          float einsum / COO scatter-add — the parity baseline
 ``hopper``         the hand-written CUDA kernel family (plain PyTorch
-                   versions for CPU tensors): pSRAM int8 matmul, fused
-                   streaming sparse MTTKRP — the reference package's
-                   ``"pallas"`` backend
+                   versions for CPU tensors): pSRAM int8 matmul, quantized
+                   dense KR MTTKRP, fused streaming sparse MTTKRP; with
+                   ``compiled=False`` the legacy per-op path (exact dense
+                   KR MTTKRP, blocked segment-sum stream) — the reference
+                   package's ``"pallas"`` backend
 =================  =========================================================
 
 Numeric contract the parity suite (tests/test_torch_cp_als.py) enforces:
@@ -48,9 +50,14 @@ class ExactBackend(Backend):
 @register("hopper")
 class HopperBackend(Backend):
     """The fused kernel family written by hand for Hopper: the pSRAM int8
-    matmul and the fused streaming sparse MTTKRP (int8 factor gathers +
-    exact Hadamard + per-segment sums + chunk-wide ADC + ordered
-    cross-block accumulation).
+    matmul, the quantized dense matricized-KR MTTKRP and the fused streaming
+    sparse MTTKRP (int8 factor gathers + exact Hadamard + per-segment sums +
+    chunk-wide ADC + ordered cross-block accumulation).
+
+    ``compiled=False`` selects the legacy per-op path of the reference's
+    ``"pallas"`` backend: the exact dense MTTKRP kernel on dense data, and on
+    sparse data the exact chain through the blocked segment-sum kernel
+    (``sparse.stream.stream_mttkrp_blocked``).
 
     ``lowering`` is ``"auto"`` (follow the device of the tensors: CUDA →
     the kernels, CPU → their plain PyTorch versions), or a resolved name
@@ -60,10 +67,8 @@ class HopperBackend(Backend):
     oracle (``bit_exact=False``) and stays within the documented ADC
     envelope (``rel_tol=0.05``) of ``exact``.
 
-    Only the default ``compiled=True`` family on sparse data is ported.
-    ``compiled=False`` (the per-op path: exact dense kernel, blocked
-    segment-sum stream), dense data and ``autotune=True`` raise
-    :class:`CapabilityError` naming what brings them.
+    ``autotune=True`` raises :class:`CapabilityError` until the autotune
+    sweeps are ported.
     """
 
     def __init__(self, config=None, lowering: str = "auto",
@@ -72,11 +77,6 @@ class HopperBackend(Backend):
         self.compiled = bool(compiled)
         self.autotune = bool(autotune)
         self.lowering = validate_lowering(lowering)
-        if not self.compiled:
-            raise CapabilityError(
-                "backend 'hopper' with compiled=False needs the dense MTTKRP "
-                "and blocked segment-sum kernels, which are not ported yet "
-                "(ROADMAP Queue A item 1: mttkrp_fused, blocked_segment_sum)")
         if self.autotune:
             raise CapabilityError(
                 "backend 'hopper' with autotune=True needs the autotune "
@@ -87,8 +87,9 @@ class HopperBackend(Backend):
             executes=True, cost_model=False, matmul=True, lossy=True,
             bit_exact=False, rel_tol=0.05, prefers_csf=True,
             compiled=self.compiled, autotune=self.autotune,
-            description="fused Hopper kernel family (int8 matmul, fused "
-                        "streaming sparse MTTKRP)",
+            description="fused Hopper kernel family (int8 matmul, quantized "
+                        "KR dense, fused streaming sparse)"
+                        + ("" if self.compiled else " [legacy per-op]"),
         )
 
     def matmul(self, x, w):
@@ -100,14 +101,27 @@ class HopperBackend(Backend):
     def mttkrp(self, data, factors, mode: int):
         norm = normalize_mttkrp_data(data)
         if norm.kind == "dense":
-            raise CapabilityError(
-                "backend 'hopper' on a dense tensor needs the quantized "
-                "dense MTTKRP kernel, which is not ported yet (ROADMAP "
-                "Queue A item 1: mttkrp_psram_fused); CP-ALS streams dense "
-                "input as all-entries COO instead")
-        from repro_torch.kernels.ops import fused_stream_mttkrp_op
+            from repro_torch.kernels.ops import mttkrp_op, mttkrp_psram_op
 
-        return fused_stream_mttkrp_op(
-            mode_csf(norm, mode), tuple(factors), self.config,
-            adc_bits=self.config.adc.bits, lowering=self.lowering,
-            autotune=self.autotune)
+            self._require("N-mode dense MTTKRP (3-mode kernel)",
+                          norm.dense.ndim == 3)
+            others = [d for d in range(3) if d != mode]
+            xt = norm.dense.permute([mode] + others)
+            op = mttkrp_psram_op if self.compiled else mttkrp_op
+            # as in the reference, the dense ops run at their defaults
+            # (adc_bits=16, bi=bk=128) whatever the config says, so that the
+            # two packages give the same numbers
+            return op(xt, factors[others[0]], factors[others[1]],
+                      lowering=self.lowering)
+        csf = mode_csf(norm, mode)
+        if self.compiled:
+            from repro_torch.kernels.ops import fused_stream_mttkrp_op
+
+            return fused_stream_mttkrp_op(
+                csf, tuple(factors), self.config,
+                adc_bits=self.config.adc.bits, lowering=self.lowering,
+                autotune=self.autotune)
+        from repro_torch.sparse.stream import stream_mttkrp_blocked
+
+        return stream_mttkrp_blocked(
+            csf, tuple(factors), self.config, lowering=self.lowering)

@@ -10,6 +10,10 @@ caller converts its arrays with ``numpy.asarray`` first.
 * :func:`coo` / :func:`csf` — a COO triple / the fields of a CSF.
 * :func:`layout` — a ``(ip, vp, lp, sp, n_seg)`` stream layout.
 * :func:`factor_quants` — ``(qs, ss)`` quantized factor codes and scales.
+* :func:`dense` — a dense tensor or its unfolding.
+* :func:`mttkrp_quants` — the six quantized operands of the dense psram
+  MTTKRP ``(qx0, sx, qb, sb, qc, sc)``.
+* :func:`segment_blocks` — ``(data, seg_ids)`` blocks of the segment sum.
 """
 from __future__ import annotations
 
@@ -72,3 +76,22 @@ def factor_quants(qs, ss, device="cuda"):
         tuple(_tensor(q, torch.int8, device) for q in qs),
         tuple(_tensor(s, torch.float32, device) for s in ss),
     )
+
+
+def dense(x, device="cuda") -> torch.Tensor:
+    """A dense tensor (or an unfolding ``(I, J*K)``) as an f32 tensor."""
+    return _tensor(x, torch.float32, device)
+
+
+def mttkrp_quants(qx0, sx, qb, sb, qc, sc, device="cuda"):
+    """The dense psram MTTKRP's operands ``(qx0, sx, qb, sb, qc, sc)``: int8
+    codes of the unfolding and both factors, f32 ``(n, 1)`` per-row scales."""
+    codes = [_tensor(q, torch.int8, device) for q in (qx0, qb, qc)]
+    scales = [_tensor(s, torch.float32, device) for s in (sx, sb, sc)]
+    return codes[0], scales[0], codes[1], scales[1], codes[2], scales[2]
+
+
+def segment_blocks(data, seg_ids, device="cuda"):
+    """The blocked segment sum's operands: ``(B, bn, R)`` f32 chain rows and
+    their ``(B, bn)`` int32 block-local segment ids."""
+    return _tensor(data, torch.float32, device), _tensor(seg_ids, torch.int32, device)

@@ -12,9 +12,11 @@ Paths ported (all N-mode generic):
   * ``mttkrp_sparse``       — COO scatter-add; the paper's CP1→CP2→CP3
                               chain vectorized over nonzeros.
 
-Still to come from the reference module: the quantized chain
-(``cp_chain_psram``, ``mttkrp_sparse_psram``, ``…_scheduled``) and the flat
-blocked fold (``mttkrp_sparse_blocked``).
+The dense matricized-KR MTTKRP on the array (exact and quantized, the
+Khatri-Rao product formed on the fly) lives with its kernels in
+``repro_torch.kernels.mttkrp``. Still to come from the reference module: the
+quantized chain (``cp_chain_psram``, ``mttkrp_sparse_psram``,
+``…_scheduled``) and the flat blocked fold (``mttkrp_sparse_blocked``).
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@
 module: a plain PyTorch version, a launch counter on the wrapper, and a note
 on which TPU kernel it replaces and what bounds it on the card.
 
-Ported: the pSRAM int8 matmul (``psram_matmul``) and the fused streaming
-MTTKRP (``stream_mttkrp``). Still to come from the reference package: the
-dense MTTKRP pair, the blocked segment sum, flash attention.
+Ported: the pSRAM int8 matmul (``psram_matmul``), the fused streaming
+MTTKRP (``stream_mttkrp``), the dense MTTKRP pair, exact and quantized
+(``mttkrp``), and the blocked segment sum (``segment_sum``). Still to come
+from the reference package: flash attention and the autotune sweeps.
 """

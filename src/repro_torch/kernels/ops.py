@@ -7,9 +7,9 @@ its plain PyTorch version (``"torch"``), the oracle from ``ref.py``
 (``"ref"``). A resolved string with no table entry raises ``RuntimeError``
 naming the op.
 
-Ported: :func:`psram_matmul_op`, :func:`fused_stream_mttkrp_op`. The dense
-MTTKRP pair, the blocked segment sum and attention ops come with their
-kernels.
+Ported: :func:`psram_matmul_op`, :func:`mttkrp_op`, :func:`mttkrp_psram_op`,
+:func:`fused_stream_mttkrp_op`, :func:`blocked_segment_sum_op`. The attention
+op comes with its kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +21,14 @@ from repro_torch.backends.lowering import require_cuda, resolve_lowering
 from repro_torch.core.quantization import quantize_symmetric
 
 from . import ref
+from .mttkrp import (
+    mttkrp_fused,
+    mttkrp_fused_torch,
+    mttkrp_psram_fused,
+    mttkrp_psram_torch,
+)
 from .psram_matmul import psram_matmul, psram_matmul_torch
+from .segment_sum import blocked_segment_sum, blocked_segment_sum_torch
 
 
 def _dispatch(op: str, table: dict, lowering: str):
@@ -88,6 +95,79 @@ def psram_matmul_op(
         "ref": ref.psram_matmul_ref,
     }, low)
     return fn(qx, qw, sx, sw, adc_bits=adc_bits)
+
+
+def _unfold0(x):
+    """The mode-0 unfolding ``(I, J*K)`` of a 3-mode tensor, contiguous (a
+    view where ``x`` already is; one copy of a permuted tensor)."""
+    if x.ndim != 3:
+        raise ValueError(f"x must be a 3-mode tensor (I, J, K), got {tuple(x.shape)}")
+    i, j, k = x.shape
+    return x.reshape(i, j * k).contiguous()
+
+
+def mttkrp_op(
+    x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, lowering: str = "auto",
+    bi: int = 128, bk: int = 128,
+) -> torch.Tensor:
+    """Dense mode-0 MTTKRP (exact arithmetic); x is the 3-mode tensor
+    (I, J, K)."""
+    low = resolve_lowering(lowering, x, b, c)
+    require_cuda(low, x)
+    x0 = _unfold0(x)
+    b, c = b.contiguous(), c.contiguous()
+    fn = _dispatch("mttkrp", {
+        "cuda": lambda: mttkrp_fused(x0, b, c, bi=bi, bk=bk),
+        "torch": lambda: mttkrp_fused_torch(x0, b, c, bi=bi, bk=bk),
+        "ref": lambda: ref.mttkrp_ref(x0, b, c),
+    }, low)
+    return fn()
+
+
+def _store_mttkrp_factors(b, c):
+    qb, sb = quantize_symmetric(b, axis=-1)
+    qc, sc = quantize_symmetric(c, axis=-1)
+    return qb.contiguous(), sb.to(torch.float32), qc.contiguous(), sc.to(torch.float32)
+
+
+def mttkrp_psram_op(
+    x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, lowering: str = "auto",
+    bi: int = 128, bk: int = 128, adc_bits: int = 16,
+) -> torch.Tensor:
+    """Dense mode-0 MTTKRP through the array numerics — the fused
+    matricized-KR variant: int8 operands, KR tiles from quantized factor
+    rows, ADC transfer epilogue per output tile. x is (I, J, K). The KR
+    factors are the stored operand (quantization cached on identity), the
+    unfolding is drive-quantized per call."""
+    low = resolve_lowering(lowering, x, b, c)
+    require_cuda(low, x)
+    qb, sb, qc, sc = _stored((b, c), "mttkrp_bc", _store_mttkrp_factors)
+    qx, sx = _quant_drive_rows(_unfold0(x))
+    ops = (qx, sx, qb, sb, qc, sc)
+    fn = _dispatch("mttkrp_psram", {
+        "cuda": lambda: mttkrp_psram_fused(*ops, bi=bi, bk=bk, adc_bits=adc_bits),
+        "torch": lambda: mttkrp_psram_torch(*ops, bi=bi, adc_bits=adc_bits),
+        "ref": lambda: ref.mttkrp_psram_ref(*ops, bi=bi, adc_bits=adc_bits),
+    }, low)
+    return fn()
+
+
+def blocked_segment_sum_op(
+    data: torch.Tensor, seg_ids: torch.Tensor, n_seg: int, lowering: str = "auto"
+) -> torch.Tensor:
+    """Per-block segment sums for the CSF streaming path: (B, n_seg, R).
+
+    ``data`` (B, bn, R) holds blocks of CP2 chain rows, ``seg_ids`` (B, bn)
+    their block-local output-row segment; see kernels/segment_sum.py.
+    """
+    low = resolve_lowering(lowering, data, seg_ids)
+    require_cuda(low, data)
+    fn = _dispatch("blocked_segment_sum", {
+        "cuda": blocked_segment_sum,
+        "torch": blocked_segment_sum_torch,
+        "ref": ref.blocked_segment_sum_ref,
+    }, low)
+    return fn(data, seg_ids, n_seg)
 
 
 def fused_stream_mttkrp_op(

@@ -1,9 +1,10 @@
 """Plain oracles for the ported kernels — the mathematical definition, written
 with no regard for performance (the ``"ref"`` lowering).
 
-Ported: :func:`psram_matmul_ref` and the flat fused-stream oracle
-:func:`stream_mttkrp_fused_ref`. The oracles of the dense MTTKRP pair, the
-blocked segment sum and attention come with their kernels.
+Ported: :func:`psram_matmul_ref`, the dense MTTKRP pair
+(:func:`mttkrp_ref`, :func:`mttkrp_psram_ref`), the blocked segment sum
+(:func:`blocked_segment_sum_ref`) and the flat fused-stream oracle
+:func:`stream_mttkrp_fused_ref`. The attention oracle comes with its kernel.
 """
 from __future__ import annotations
 
@@ -30,6 +31,52 @@ def psram_matmul_ref(
     full_scale = float(QMAX) * float(QMAX) * qx.shape[-1]
     acc = adc_requantize(acc, ADCConfig(bits=adc_bits), full_scale)
     return acc * (sx * sw)
+
+
+def mttkrp_ref(x0: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Dense mode-0 MTTKRP from the unfolding: A = X_(0) @ (B ⊙row-major C).
+
+    x0: (I, J*K) row-major over (j, k); b: (J, R); c: (K, R) -> (I, R).
+    """
+    j, r = b.shape
+    k = c.shape[0]
+    kr = (b[:, None, :] * c[None, :, :]).reshape(j * k, r)
+    return x0 @ kr
+
+
+def mttkrp_psram_ref(
+    qx0: torch.Tensor,    # (I, J*K) int8 per-row-quantized unfolding
+    sx: torch.Tensor,     # (I, 1) f32
+    qb: torch.Tensor,     # (J, R) int8
+    sb: torch.Tensor,     # (J, 1) f32
+    qc: torch.Tensor,     # (K, R) int8
+    sc: torch.Tensor,     # (K, 1) f32
+    bi: int = 128,
+    adc_bits: int = 16,
+) -> torch.Tensor:
+    """Quantized matricized-KR MTTKRP + per-output-tile observed-range ADC —
+    the oracle of ``mttkrp_psram_fused`` / ``mttkrp_psram_torch``."""
+    i = qx0.shape[0]
+    j, r = qb.shape
+    k = qc.shape[0]
+    kr = (qb.to(torch.float32)[:, None] * qc.to(torch.float32)[None]
+          ) * (sb[:, None] * sc[None])
+    out = (qx0.to(torch.float32) * sx) @ kr.reshape(j * k, r)
+    bi = min(bi, i)
+    tiles = out.reshape(i // bi, bi, r)
+    full_scale = tiles.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+    return adc_transfer(tiles, 2 ** adc_bits, full_scale).reshape(i, r)
+
+
+def blocked_segment_sum_ref(
+    data: torch.Tensor,     # (B, bn, R) chain-row blocks
+    seg_ids: torch.Tensor,  # (B, bn) block-local segment ids in [0, n_seg)
+    n_seg: int,
+) -> torch.Tensor:
+    """Per-block partial segment sums via a one-hot einsum: (B, n_seg, R)."""
+    sids = torch.arange(n_seg, device=seg_ids.device)
+    onehot = (seg_ids[:, None, :] == sids[None, :, None]).to(torch.float32)
+    return torch.einsum("bsn,bnr->bsr", onehot, data.to(torch.float32))
 
 
 def stream_mttkrp_fused_ref(ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits,

@@ -16,11 +16,14 @@ no scatter matrix anywhere:
 Ported here: the host-side blocking (``_block_segments``,
 ``_compiled_layout``, :func:`stream_layout`) — numpy, cached on the CSF,
 equal array-for-array to the reference's, which is what lets a kernel of
-the port be compared with the reference kernel on one layout — and the
-exact eager :func:`stream_mttkrp` that CP-ALS's convergence metric needs.
+the port be compared with the reference kernel on one layout — the exact
+eager :func:`stream_mttkrp` that CP-ALS's convergence metric needs, and
+:func:`stream_mttkrp_blocked`, the same schedule on the blocked segment-sum
+kernel (the ``compiled=False`` sparse path of the ``"hopper"`` backend).
 Still to come from the reference module: the schedule IR
 (``build_stream_program``), the quantized chain (``psram=True``), the
-compiled/blocked executors and pricing.
+compiled blocked-fold executor (``_stream_exec_compiled``,
+``_blocked_fold_flat``, ``blocked_fold_reference``) and pricing.
 """
 from __future__ import annotations
 
@@ -172,3 +175,64 @@ def stream_mttkrp(
         out.index_add_(0, i_b[:, mode].long(),
                        cp_chain_exact(i_b, v_b, factors, mode))
     return out
+
+
+def _segment_blocks(csf: CSF, rows: int):
+    """``_block_segments`` with its arrays on the CSF's device, plus the
+    padded stream the exact chain runs over: ``(ip, vp, local, seg_rows,
+    n_seg)`` with ``ip (B, rows, nmodes)`` coordinates (0 in the padding),
+    ``vp (B, rows)`` values (0.0 in the padding), ``local (B, rows) int32``
+    and ``seg_rows (B*n_seg,) int64``. Cached on the CSF, like the layout of
+    the fused kernel: CP-ALS reuses it every sweep."""
+    key = ("_stream_segment_blocks", rows)
+    cached = csf.__dict__.get(key)
+    if cached is not None:
+        return cached
+    local, seg_rows, n_seg = _block_segments(csf, rows)
+    n_blocks = local.shape[0]
+    idx = csf.expanded_indices_np()
+    padn = n_blocks * rows - idx.shape[0]
+    vals = csf.values.detach().cpu().numpy()
+    dev = csf.device
+    result = (
+        torch.as_tensor(np.pad(idx, ((0, padn), (0, 0))).reshape(n_blocks, rows, -1),
+                        device=dev),
+        torch.as_tensor(np.pad(vals, (0, padn)).reshape(n_blocks, rows), device=dev),
+        torch.as_tensor(local, device=dev),
+        torch.as_tensor(seg_rows.reshape(-1), device=dev),
+        n_seg,
+    )
+    csf.__dict__[key] = result
+    return result
+
+
+def stream_mttkrp_blocked(
+    csf: CSF,
+    factors: tuple,
+    config: PsramConfig | None = None,
+    lowering: str = "auto",
+) -> torch.Tensor:
+    """The same streaming schedule on the blocked segment-sum kernel:
+    (out_rows, R).
+
+    The exact chain ``x_p · ⊙ other-factor rows`` over the padded stream
+    (``(B, rows, R)``; padding rows are zero), one blocked segment sum per
+    block of ``rows`` nonzeros (kernels/segment_sum.py), then the
+    ``(B, n_seg)`` partials are scattered into ``out_rows + 1`` rows — the
+    last one the sacrificial row of unused slots — with ``index_add_``:
+    O(segments) adds, no global scatter matrix. Combining partials
+    reassociates the float adds, so this path is allclose (~1e-5 relative),
+    not bit-equal, to :func:`stream_mttkrp`.
+    """
+    from repro_torch.kernels.ops import blocked_segment_sum_op
+
+    cfg = resolve_config(config)
+    mode = csf.mode_order[0]
+    out_rows = csf.shape[mode]
+    ip, vp, local, seg_rows, n_seg = _segment_blocks(csf, cfg.rows)
+    d = cp_chain_exact(ip, vp, tuple(factors), mode)        # (B, rows, R)
+    partials = blocked_segment_sum_op(d, local, n_seg, lowering=lowering)
+    rank = d.shape[-1]
+    out = torch.zeros((out_rows + 1, rank), dtype=torch.float32, device=d.device)
+    out.index_add_(0, seg_rows, partials.reshape(-1, rank))
+    return out[:out_rows]

@@ -5,8 +5,8 @@ reference.
 * parity: ``"hopper"`` (plain PyTorch versions on CPU tensors) lands inside
   its documented ``rel_tol`` of ``"exact"`` on a dense-COO-ified and a
   power-law sparse fixture, for every data form;
-* registry error paths: unknown names, dense data / ``compiled=False`` /
-  ``autotune=True`` on ``"hopper"`` (kernels of later slices);
+* registry error paths: unknown names, 4-mode dense data on ``"hopper"``
+  (3-mode dense kernels only), ``autotune=True`` (a later slice);
 * CP-ALS from the reference's own initial factors (``init=``) reaches the
   reference's ``cp_als(backend="pallas")`` fit within 5e-3 after the same
   number of sweeps.
@@ -137,10 +137,13 @@ def test_registry_error_paths(dense_fixture):
         backends.get("pallas")
     with pytest.raises(KeyError):
         api.mttkrp(x, fs, 0, backend="psram-stream")
-    with pytest.raises(backends.CapabilityError, match="ROADMAP"):
-        backends.get("hopper").mttkrp(x, fs, 0)                 # dense data
-    with pytest.raises(backends.CapabilityError, match="compiled=False"):
-        backends.get("hopper", compiled=False)
+    x4 = x[..., None].expand(*x.shape, 2)
+    fs4 = (*fs, fs[0][:2])
+    for compiled in (True, False):                              # dense: 3-mode kernels only
+        be = backends.get("hopper", compiled=compiled)
+        assert be.capabilities().compiled is compiled
+        with pytest.raises(backends.CapabilityError, match="3-mode"):
+            be.mttkrp(x4, fs4, 0)
     with pytest.raises(backends.CapabilityError, match="autotune"):
         backends.get("hopper", autotune=True)
     with pytest.raises(ValueError, match="unknown kernel lowering"):

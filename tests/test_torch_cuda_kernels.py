@@ -15,7 +15,9 @@ import torch
 
 from repro_torch.core.psram import PsramConfig
 from repro_torch.core.quantization import quantize_symmetric
+from repro_torch.kernels import mttkrp as dm
 from repro_torch.kernels import psram_matmul as pm
+from repro_torch.kernels import segment_sum as ss
 from repro_torch.kernels import stream_mttkrp as sm
 from repro_torch.sparse import csf_for_mode, powerlaw_coo, stream_layout
 
@@ -81,3 +83,75 @@ def test_stream_kernel_bit_equal_to_stream_ordered_plain(card, shape, nnz, rank,
     assert torch.equal(got.cpu(), want)
     # deterministic: a second launch gives the same bits
     assert torch.equal(sm.stream_mttkrp_fused(*args), got)
+
+
+DENSE_SHAPES = [
+    (256, 24, 128, 32),   # two row tiles, 16-byte rows
+    (96, 5, 40, 7),       # bi = I = 96, bk = K = 40, rank under one column tile
+    (32, 3, 11, 40),      # J*K = 33: element loads; rank over one column tile
+    (128, 7, 36, 16),     # J*K = 252: 16-byte f32 rows, element-wise int8 rows
+]
+
+
+def _dense_operands(card, i, j, k, r, seed):
+    rng = np.random.default_rng(seed)
+    x0 = torch.tensor(rng.standard_normal((i, j * k)).astype(np.float32), device=card)
+    b = torch.tensor(rng.uniform(size=(j, r)).astype(np.float32), device=card)
+    c = torch.tensor(rng.standard_normal((k, r)).astype(np.float32), device=card)
+    return x0, b, c
+
+
+@pytest.mark.parametrize("i,j,k,r", DENSE_SHAPES)
+def test_dense_mttkrp_kernel_vs_plain(card, i, j, k, r):
+    """Exact kernel: f32 FMAs reassociated against the plain version (the
+    reference's own tolerance, rtol 2e-4 and 2e-4 of the largest entry);
+    deterministic from launch to launch."""
+    x0, b, c = _dense_operands(card, i, j, k, r, i + j + k + r)
+    before = dm.mttkrp_fused.launches
+    got = dm.mttkrp_fused(x0, b, c)
+    torch.cuda.synchronize()
+    assert dm.mttkrp_fused.launches == before + 1
+    want = dm.mttkrp_fused_torch(x0, b, c)
+    atol = 2e-4 * float(want.abs().max())
+    assert torch.allclose(got, want, rtol=2e-4, atol=atol)
+    assert torch.allclose(got.cpu(), dm.mttkrp_fused_torch(x0.cpu(), b.cpu(), c.cpu()),
+                          rtol=2e-4, atol=atol)
+    assert torch.equal(dm.mttkrp_fused(x0, b, c), got)
+
+
+@pytest.mark.parametrize("i,j,k,r", DENSE_SHAPES)
+@pytest.mark.parametrize("adc_bits", [16, 8])
+def test_dense_psram_kernel_vs_plain(card, i, j, k, r, adc_bits):
+    """int8 kernel: the ADC of each bi-row tile over its own full scale, so
+    within two codes of that scale plus rtol 2e-4 of the plain version."""
+    q = dm.quantize_mttkrp_operands(*_dense_operands(card, i, j, k, r, 7 * i + r))
+    before = dm.mttkrp_psram_fused.launches
+    got = dm.mttkrp_psram_fused(*q, adc_bits=adc_bits)
+    torch.cuda.synchronize()
+    assert dm.mttkrp_psram_fused.launches == before + 1
+    want = dm.mttkrp_psram_torch(*q, adc_bits=adc_bits)
+    bi = min(128, i)
+    fs = want.abs().reshape(i // bi, -1).amax(dim=1).clamp_min(1e-30)
+    lsb = (2.0 * fs / 2 ** adc_bits).repeat_interleave(bi)[:, None]
+    assert ((got - want).abs() <= 2 * lsb + 2e-4 * want.abs()).all()
+    assert torch.equal(dm.mttkrp_psram_fused(*q, adc_bits=adc_bits), got)
+
+
+@pytest.mark.parametrize("b,bn,r,n_seg,sorted_ids", [
+    (64, 256, 32, 40, True), (9, 100, 40, 17, False), (3, 5, 3, 9, False),
+    (4, 600, 8, 500, False),    # a 64 KB shared-memory tile
+])
+def test_segment_sum_kernel_bit_equal_to_cpu_plain(card, b, bn, r, n_seg, sorted_ids):
+    """The kernel adds every row in order, as the plain version's index_add_
+    does on the CPU: bit-equal."""
+    rng = np.random.default_rng(b * bn)
+    data = torch.tensor(rng.standard_normal((b, bn, r)).astype(np.float32), device=card)
+    ids = rng.integers(0, n_seg, size=(b, bn)).astype(np.int32)
+    if sorted_ids:
+        ids.sort(axis=1)
+    ids = torch.tensor(ids, device=card)
+    before = ss.blocked_segment_sum.launches
+    got = ss.blocked_segment_sum(data, ids, n_seg)
+    torch.cuda.synchronize()
+    assert ss.blocked_segment_sum.launches == before + 1
+    assert torch.equal(got.cpu(), ss.blocked_segment_sum_torch(data.cpu(), ids.cpu(), n_seg))
