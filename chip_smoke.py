@@ -29,11 +29,25 @@ What it does, in order — any failure raises and the run exits non-zero:
    c. ``cp_als`` on the sparse tensor with ``backends.get("hopper",
       compiled=False)`` (the blocked segment-sum stream), against the exact
       run of (a).
+   d. ``main_path_flash``: ``kernels.ops.flash_attention_op`` at its
+      docstring's shape, a 32k-token causal prefill at granite-8b's
+      attention widths (B=1, H=32, Hkv=8, D=128, bf16), and on layer 0's
+      post-RoPE q/k/v of the served model below, against the model's own
+      attention and (one-ulp envelope) against the kernel's plain version;
+   e. ``main_path_serve``: granite-8b at full width and depth (36 layers,
+      bf16, 8.25 B random parameters seeded on the card) through
+      ``ServeEngine.generate`` on 8 prompts x 1024 tokens, 64 new tokens,
+      greedy — then the same with ``psram_projections`` and
+      ``psram_stored_int8`` (every projection through kernel 2). Each run
+   also profiles 8 decode steps (device busy time, idle share, top
+   kernels); kernel 2 is held bit-equal to its plain version on the
+   operands layer 0's seven projections give it in a prefill and a
+   decode step.
 5. ``sweep_time`` — one warm sweep of each CP-ALS engine, and the parts of a
    ``hopper`` sweep timed alone.
 
 TF32 is switched off for matmuls and cuDNN before anything runs: the plain
-versions of the dense MTTKRP kernels are f32 matrix products.
+versions of the dense MTTKRP and flash kernels are f32 matrix products.
 
 Output: one JSON object per line; the ``kernels`` line, the card's name and
 power limit as nvidia-smi prints them, and last
@@ -42,6 +56,7 @@ power limit as nvidia-smi prints them, and last
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -58,10 +73,14 @@ RANK = 32                                # the paper's §V operating point
 SWEEPS = 3
 MLP_SHAPE = (512, 4096, 14336)           # x (512, d_model) @ w (d_model, d_ff)
 DENSE_SHAPE = (1024, 768, 1152)          # 3.62 GB of f32; every mode % 128 == 0
+FLASH_MAIN = (1, 32, 8, 32768, 128)      # (B, H, Hkv, S, D): prefill_32k at granite-8b's widths
+SERVE_ARCH = "granite_8b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 1024, 64
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 
 
@@ -130,12 +149,14 @@ def matmul_case(torch, m, k, n, seed, adc_bits=16, timed=False):
             full_scale = float(QMAX) * float(QMAX) * k
             return adc_transfer(acc, 2 ** adc_bits, full_scale) * (sx * sw)
 
-        lib_out = library()
-        case["library_equal"] = bool(torch.equal(lib_out, want))
         case["ms"] = time_ms(torch, lambda: psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits))
         case["plain_ms"] = time_ms(
             torch, lambda: psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits), iters=3, reps=2)
-        case["library_ms"] = time_ms(torch, library)
+        if m > 16:                        # torch._int_mm takes more than 16 rows only
+            case["library_equal"] = bool(torch.equal(library(), want))
+            case["library_ms"] = time_ms(torch, library)
+        else:
+            case["library_equal"] = case["library_ms"] = None
         bytes_ms = 1e3 * (nbytes(qx, qw, sx, sw) + 4 * m * n) / HBM_BYTES_PER_S
         ops_ms = 1e3 * (2.0 * m * k * n) / INT8_OPS_PER_S
         case["bound_ms"] = max(bytes_ms, ops_ms)
@@ -443,6 +464,246 @@ def small_segment_cases(torch):
     return cases
 
 
+
+# ---------------------------------------------------------- kernel 6
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().float().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def flash_case(torch, b, h, hkv, s, d, dtype, causal=True, softcap=0.0, seed=0, timed=False):
+    """Kernel 6 against its plain version on seeded normal q/k/v (see
+    :func:`flash_check`), and with ``timed`` its times and bound."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+    got, case = flash_check(torch, q, k, v, causal, softcap)
+    if timed:
+        sc = d ** -0.5
+        case["ms"] = time_ms(torch, lambda: flash_attention(q, k, v, causal=causal, softcap=softcap))
+        case["plain_ms"] = time_ms(torch, lambda: flash_attention_torch(
+            q, k, v, causal=causal, softcap=softcap), warmup=1, iters=3, reps=1)
+        if softcap > 0:
+            case["library_ms"] = None
+        else:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            case["library_ms"] = time_ms(torch, lambda: sdpa(
+                q, k, v, is_causal=causal, scale=sc, enable_gqa=True))
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        ops_ms = 1e3 * 4.0 * d * pairs / peak
+        bytes_ms = 1e3 * (nbytes(q, k, v) + nbytes(got)) / HBM_BYTES_PER_S
+        case["bound_ms"] = max(ops_ms, bytes_ms)
+        case["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        case["tflops"] = 4.0 * d * pairs / (case["ms"] * 1e-3) / 1e12
+    return case
+
+
+def flash_check(torch, q, k, v, causal=True, softcap=0.0):
+    """Kernel 6 against its plain version (an exact f32 softmax, rounded once
+    to the input dtype) on q (B, H, S, D), k/v (B, Hkv, S, D). f32: within
+    1e-5 of max |out|. bf16: every element within one bf16 ulp of the plain
+    version plus 2^-16 of sum_j p_j |v_j| (the plain version on |v|): the
+    envelope of the reassociated f32 sums and of the kernel's two-term bf16
+    split of the softmax weights. Returns (kernel output, report)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_torch
+
+    b, h, s, d = q.shape
+    hkv, dtype = k.shape[1], q.dtype
+    got = flash_attention(q, k, v, causal=causal, softcap=softcap)
+    torch.cuda.synchronize()
+    want = flash_attention_torch(q, k, v, causal=causal, softcap=softcap)
+    diff = (got.float() - want.float()).abs()
+    top = float(want.abs().max())
+    case = {
+        "shape": [b, h, hkv, s, d], "dtype": str(dtype).replace("torch.", ""),
+        "causal": causal, "softcap": softcap,
+        "max_abs_err": float(diff.max()), "max_err_over_max": float(diff.max()) / max(top, 1e-30),
+        "finite": bool(torch.isfinite(got).all()),
+        "deterministic": bool(torch.equal(flash_attention(q, k, v, causal=causal,
+                                                          softcap=softcap), got)),
+    }
+    if dtype == torch.float32:
+        ok = float(diff.max()) <= 1e-5 * top
+    else:
+        ulp = bf16_ulp(torch, want)
+        mag = flash_attention_torch(q, k, v.abs(), causal=causal, softcap=softcap).float()
+        envelope = ulp + 2.0 ** -16 * mag
+        # the largest error as a share of its element's envelope (<= 1 passes)
+        case["max_err_over_envelope"] = float((diff / envelope).max())
+        case["share_over_one_ulp"] = float((diff > ulp).float().mean())
+        case["share_differing"] = float((diff > 0).float().mean())
+        ok = case["max_err_over_envelope"] <= 1.0
+        del ulp, mag, envelope
+    if not (ok and case["finite"] and case["deterministic"]):
+        raise AssertionError(f"flash_attention disagrees with its plain version: {case}")
+    return got, case
+
+
+def small_flash_cases(torch):
+    """f32 and bf16; MHA / GQA / MQA; non-causal; softcap 50 at gemma2's
+    widths (H=32, Hkv=16, D=128); S in {64, 128, 384}; a ragged S; and a
+    shape the reference refuses, which must raise."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    cases = []
+    for i, (b, h, hkv, s, d, causal, softcap) in enumerate([
+        (2, 4, 4, 128, 64, True, 0.0),       # MHA
+        (2, 8, 2, 384, 128, True, 0.0),      # GQA
+        (1, 8, 1, 64, 32, True, 0.0),        # MQA
+        (2, 4, 2, 384, 64, False, 0.0),      # non-causal
+        (1, 32, 16, 128, 128, True, 50.0),   # softcap at gemma2's widths
+        (1, 4, 2, 100, 128, True, 0.0),      # a partial q tile and kv tile
+    ]):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append(flash_case(torch, b, h, hkv, s, d, dtype, causal, softcap, seed=20 + i))
+    z = torch.zeros((1, 2, 192, 64), device="cuda", dtype=torch.bfloat16)
+    try:
+        flash_attention(z, z, z)          # 192 % min(128, 192): the reference asserts
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash_attention took a shape the reference refuses")
+    return cases
+
+
+# ------------------------------------------------------------ serving
+
+
+def serve_run(torch, cfg, params, prompts, eng_cls, zero_counts, read_counts):
+    """One ``ServeEngine.generate`` (after a short warm-up) with the launch
+    counters set to 0 just before it and read just after, then its prefill
+    and a decode step timed alone, and the first decode step's logits held
+    against ``forward`` on prompt + token. Returns (report, launches,
+    prefill logits)."""
+    from repro_torch.models import transformer
+
+    b, p = prompts.shape
+    eng = eng_cls(cfg, params, max_len=p + SERVE_NEW, device="cuda")
+    eng.generate(prompts, p, 2)                                   # warm-up
+    zero_counts()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, p, SERVE_NEW)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    out = {"generate_s": total_s, "tokens_per_s": b * SERVE_NEW / total_s,
+           "tokens_shape": list(toks.shape),
+           "tokens_in_vocab": bool(((toks >= 0) & (toks < cfg.vocab_size)).all())}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = eng.prefill_fn(params, prompts)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        tok = logits.argmax(-1).to(torch.int32)
+        first, cache = eng.step_fn(params, cache, tok, p)
+        torch.cuda.synchronize()
+        step_ms = []
+        for i in range(1, 9):
+            t0 = time.perf_counter()
+            eng.step_fn(params, cache, tok, p + i)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        out["decode_ms_per_step"] = statistics.median(step_ms)
+        out["decode_tokens_per_s"] = b / (1e-3 * out["decode_ms_per_step"])
+        out["decode_profile"] = profile_decode(torch, eng, params, cache, tok, p + 9, 8)
+        full = transformer.forward(params, torch.cat([prompts, tok[:, None]], dim=1), cfg)[:, -1]
+        out["decode_vs_forward_rel_l2"] = float(torch.linalg.norm(first - full)
+                                                / torch.linalg.norm(full))
+        out["finite"] = bool(torch.isfinite(logits).all() and torch.isfinite(first).all())
+    return out, launches, logits
+
+
+def profile_decode(torch, eng, params, cache, tok, pos: int, n: int) -> dict:
+    """``n`` decode steps from cache position ``pos`` under
+    ``torch.profiler``: host ms a step, the card's busy ms a step (the sum of
+    its kernels' times), the idle share, launches a step and the kernels that
+    take the most device time. The profiler's own cost inflates the host
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            eng.step_fn(params, cache, tok, pos + i)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if not kernels or busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time in the decode steps")
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    return {
+        "steps": n, "host_ms_per_step": wall_ms / n,
+        "device_busy_ms_per_step": busy_ms / n,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / n,
+        "top_kernels": [{"name": e.key[:90], "ms_per_step": dev_us(e) / 1e3 / n,
+                         "launches_per_step": e.count / n} for e in top],
+    }
+
+
+def served_matmul_cases(torch, eng, params, prompts):
+    """Kernel 2 held BIT-EQUAL to its plain version on the served model's own
+    operands: the codes and scales that layer 0's seven projections (wq, wk,
+    wv, wo, wi, wg, wo) hand the kernel in one prefill (M = B*S rows) and in
+    one decode step (M = B rows). The model's module-level ``psram_matmul``
+    is wrapped for these two calls only; its launches here are not counted
+    on the main path."""
+    import repro_torch.core.photonic_layer as photonic
+    from repro_torch.kernels.psram_matmul import psram_matmul_torch
+
+    launch = photonic.psram_matmul
+    seen = []
+
+    def record(qx, qw, sx, sw, adc_bits=16):
+        out = launch(qx, qw, sx, sw, adc_bits=adc_bits)
+        if len(seen) < 7:
+            seen.append((qx, qw, sx, sw, adc_bits, out))
+        return out
+
+    cases = []
+    photonic.psram_matmul = record
+    try:
+        with torch.inference_mode():
+            logits, cache = eng.prefill_fn(params, prompts)
+            torch.cuda.synchronize()
+            calls, seen = seen, []
+            eng.step_fn(params, cache, logits.argmax(-1).to(torch.int32), prompts.shape[1])
+            torch.cuda.synchronize()
+            calls += seen
+    finally:
+        photonic.psram_matmul = launch
+    del logits, cache
+    if len(calls) != 14:
+        raise AssertionError(f"layer 0 made {len(calls)} kernel-2 calls in a prefill and a "
+                             f"decode step, not 2 x 7")
+    for qx, qw, sx, sw, adc_bits, got in calls:
+        want = psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits)
+        case = {"shape": [qx.shape[0], qx.shape[1], qw.shape[1]], "adc_bits": adc_bits,
+                "max_abs_err": float((got - want).abs().max()),
+                "bit_equal": bool(torch.equal(got, want))}
+        cases.append(case)
+        if not case["bit_equal"]:
+            raise AssertionError(f"psram_matmul differs from its plain version on the "
+                                 f"served model's operands: {case}")
+        del want
+    return cases
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -468,6 +729,7 @@ def main(argv=None) -> int:
     from repro_torch.core.cp_als import cp_als, init_factors
     from repro_torch.core.mttkrp import cp_chain_exact
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mttkrp import (
         mttkrp_fused, mttkrp_psram_fused, quantize_mttkrp_operands)
     from repro_torch.kernels.psram_matmul import psram_matmul
@@ -478,7 +740,8 @@ def main(argv=None) -> int:
 
     kernel_fns = {"stream_mttkrp_fused": stream_mttkrp_fused, "psram_matmul": psram_matmul,
                   "mttkrp_fused": mttkrp_fused, "mttkrp_psram_fused": mttkrp_psram_fused,
-                  "blocked_segment_sum": blocked_segment_sum}
+                  "blocked_segment_sum": blocked_segment_sum,
+                  "flash_attention": flash_attention}
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -534,6 +797,8 @@ def main(argv=None) -> int:
               for m in range(3)]
     a_small = small_stream_cases(torch)
     b_main = matmul_case(torch, *MLP_SHAPE, seed=1, timed=True)
+    # the served model's decode shape: one row per prompt, granite-8b's MLP
+    b_decode = matmul_case(torch, SERVE_BATCH, 4096, 14336, seed=6, timed=True)
     b_small = [matmul_case(torch, m, k, n, seed=2 + i, adc_bits=bits)
                for i, (m, k, n, bits) in enumerate([
                    (77, 1043, 131, 16),      # nothing a multiple of a tile; K odd
@@ -563,13 +828,16 @@ def main(argv=None) -> int:
                                      cpu_bit_check=mode == 0))
         del chain
     seg_small = small_segment_cases(torch)
+    f_main = flash_case(torch, *FLASH_MAIN, torch.bfloat16, causal=True, seed=21, timed=True)
+    f_small = small_flash_cases(torch)
     report["kernel_cases"] = {
         "phase": "kernel_cases", "stream_main": a_main, "stream_small": a_small,
-        "matmul_main": b_main, "matmul_small": b_small,
+        "matmul_main": b_main, "matmul_decode": b_decode, "matmul_small": b_small,
         "dense_main": d_main, "dense_small": d_small,
         "dense_psram_main": p_main, "dense_psram_small": p_small,
         "segment_main": seg_main, "segment_small": seg_small,
         "segment_host_s": seg_host_s,
+        "flash_main": f_main, "flash_small": f_small,
     }
     emit(report["kernel_cases"])
 
@@ -705,6 +973,136 @@ def main(argv=None) -> int:
     if not all(f.is_cuda and torch.isfinite(f).all() for f in leg.factors):
         raise AssertionError("legacy CP-ALS factors are not finite tensors on the card")
 
+
+    # 4d. the flash kernel's own entry point --------------------------------
+    from repro_torch.kernels.ops import flash_attention_op
+    from repro_torch.models import get_config, transformer
+    from repro_torch.models.layers import _mask_bias, _proj, _sdpa, apply_rope, rmsnorm
+    from repro_torch.serve import ServeEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b, h, hkv, s, d = FLASH_MAIN
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    fq = torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    fk = torch.randn((b, hkv, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    fv = torch.randn((b, hkv, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    zero_counts()
+    t0 = time.perf_counter()
+    fo = flash_attention_op(fq, fk, fv, causal=True)
+    torch.cuda.synchronize()
+    flash_s = time.perf_counter() - t0
+    flash_launches = read_counts()
+    flash_path = {
+        "phase": "main_path_flash", "shape": list(FLASH_MAIN), "dtype": "bfloat16",
+        "seconds": flash_s, "finite": bool(torch.isfinite(fo).all()),
+        "out_shape": list(fo.shape), "launches": flash_launches,
+    }
+    del fq, fk, fv, fo
+    if not flash_path["finite"] or flash_launches["flash_attention"] < 1:
+        raise AssertionError(f"flash_attention_op did not run the kernel: {flash_path}")
+
+    # 4e. serving granite-8b, exact and pSRAM projections -----------------
+    scfg = get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sparams = transformer.init(7, scfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(2, scfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
+                            dtype=torch.int32,
+                            generator=torch.Generator(device="cuda").manual_seed(8))
+    exact_run, exact_launches, exact_logits = serve_run(
+        torch, scfg, sparams, prompts, ServeEngine, zero_counts, read_counts)
+
+    # the flash kernel against the served model's own attention: layer 0's
+    # post-RoPE q/k/v of the prompts, (B, S, H, D) for the model, (B, H, S, D)
+    # for the kernel; the reference's bf16 tolerance for its kernel, 3e-2
+    with torch.inference_mode():
+        p0 = sparams["blocks"][0]["layer0"]
+        x0 = rmsnorm(p0["pre_norm"], sparams["embed"][prompts], scfg.norm_eps)
+        pos = torch.arange(SERVE_PROMPT, device="cuda", dtype=torch.int32).expand(SERVE_BATCH, -1)
+        shp = (SERVE_BATCH, SERVE_PROMPT)
+        q0 = apply_rope(_proj(x0, p0["mixer"]["wq"], scfg).reshape(*shp, scfg.n_heads, -1), pos, scfg)
+        k0 = apply_rope(_proj(x0, p0["mixer"]["wk"], scfg).reshape(*shp, scfg.n_kv_heads, -1),
+                        pos, scfg)
+        v0 = _proj(x0, p0["mixer"]["wv"], scfg).reshape(*shp, scfg.n_kv_heads, -1)
+        idx = torch.arange(SERVE_PROMPT, device="cuda")
+        model_attn = _sdpa(q0, k0, v0, _mask_bias(idx[:, None], idx[None, :], True, 0), scfg)
+        qkv = [t.transpose(1, 2).contiguous() for t in (q0, k0, v0)]
+        zero_counts()
+        flash_attn = flash_attention_op(*qkv, causal=True).transpose(1, 2)
+        flash_launches["flash_attention"] += read_counts()["flash_attention"]
+        attn_diff = (flash_attn.float() - model_attn.float()).abs()
+        attn_ok = bool((attn_diff <= 3e-2 + 3e-2 * model_attn.float().abs()).all())
+        # and the kernel against its plain version on the same served q/k/v,
+        # at the one-ulp envelope of the seeded cases (raises if outside)
+        _, served_vs_plain = flash_check(torch, *qkv, causal=True)
+        flash_path["served_layer0"] = {
+            "shape": [SERVE_BATCH, scfg.n_heads, SERVE_PROMPT, scfg.head_dim],
+            "max_abs_err": float(attn_diff.max()), "within_3e-2": attn_ok,
+            "vs_plain": served_vs_plain}
+        del x0, q0, k0, v0, qkv, model_attn, flash_attn, attn_diff
+    report["main_path_flash"] = flash_path
+    emit(flash_path)
+    if not attn_ok:
+        raise AssertionError(f"flash_attention_op strays from the served model's attention: "
+                             f"{flash_path}")
+
+    exact_peak = torch.cuda.max_memory_allocated()
+    del sparams
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pcfg = dataclasses.replace(scfg, psram_projections=True, psram_stored_int8=True)
+    pparams = transformer.init(9, pcfg, device="cuda")
+    int8_bytes = sum(w["q"].numel() for g in pparams["blocks"] for lay in g.values()
+                     for blk in (lay["mixer"], lay["mlp"]) for w in blk.values())
+    psram_run, psram_launches, psram_logits = serve_run(
+        torch, pcfg, pparams, prompts, ServeEngine, zero_counts, read_counts)
+    served_matmul = served_matmul_cases(
+        torch, ServeEngine(pcfg, pparams, max_len=SERVE_PROMPT + SERVE_NEW, device="cuda"),
+        pparams, prompts)
+    # the same prompts through an exact model whose weights are the array's
+    # words dequantized (q * scale, rounded to bf16)
+    dparams = {**pparams, "blocks": [
+        {key: {**lay, **{blk: {name: (w["q"].float() * w["scale"]).to(torch.bfloat16)
+                               for name, w in lay[blk].items()}
+                         for blk in ("mixer", "mlp")}}
+         for key, lay in g.items()}
+        for g in pparams["blocks"]]}
+    with torch.inference_mode():
+        deq_logits, _ = transformer.prefill(dparams, prompts, scfg, SERVE_PROMPT)
+    psram_vs_deq = float(torch.linalg.norm(psram_logits - deq_logits)
+                         / torch.linalg.norm(deq_logits))
+    serve_path = {
+        "phase": "main_path_serve", "arch": SERVE_ARCH, "layers": scfg.num_layers,
+        "params": scfg.param_count(), "dtype": scfg.dtype, "init_s": init_s,
+        "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT, "max_new": SERVE_NEW,
+        "exact": {**exact_run, "launches": exact_launches, "device_bytes_peak": exact_peak},
+        "psram": {**psram_run, "launches": psram_launches, "int8_weight_bytes": int8_bytes,
+                  "prefill_vs_dequantized_rel_l2": psram_vs_deq,
+                  "layer0_matmul_vs_plain": served_matmul,
+                  "device_bytes_peak": torch.cuda.max_memory_allocated()},
+        "psram_launches_per_forward": psram_launches["psram_matmul"] / (1 + SERVE_NEW),
+    }
+    report["main_path_serve"] = serve_path
+    emit(serve_path)
+    del pparams, dparams, psram_logits, deq_logits, exact_logits
+    torch.cuda.empty_cache()
+    for name, run in (("exact", exact_run), ("psram", psram_run)):
+        if not (run["finite"] and run["tokens_in_vocab"]
+                and run["tokens_shape"] == [SERVE_BATCH, SERVE_NEW]):
+            raise AssertionError(f"serving ({name}) gave no finite in-vocab tokens: {serve_path}")
+        if not run["decode_vs_forward_rel_l2"] <= 0.05:
+            raise AssertionError(f"decode strays from forward ({name}): {serve_path}")
+    if not (math.isfinite(psram_vs_deq) and psram_vs_deq < 0.5):
+        raise AssertionError(f"pSRAM prefill logits are garbage: {serve_path}")
+    if psram_launches["psram_matmul"] < 7 * scfg.num_layers * (1 + SERVE_NEW):
+        raise AssertionError(f"the pSRAM serve path did not launch kernel 2 on every "
+                             f"projection: {serve_path}")
+
     # per-sweep time, warm: cp_als sorts and merges duplicates on the host
     # before its first sweep, so a sweep is timed on its own — a backend
     # instance that stamps the clock (after a synchronize) whenever mode 0 is
@@ -761,10 +1159,17 @@ def main(argv=None) -> int:
     def mean(key, cases=a_main):
         return statistics.fmean(c[key] for c in cases)
 
+    f_served = flash_path["served_layer0"]["vs_plain"]
+    main_paths = (launches, dense_launches, leg_launches, flash_launches, exact_launches,
+                  psram_launches)
+
+    def total(name):
+        return sum(counts[name] for counts in main_paths)
+
     def row(name, source, replaces, main, small, tolerance, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name] + dense_launches[name] + leg_launches[name],
+            "launches": total(name),
             "max_abs_err": max(c["max_abs_err"] for c in main + small),
             "ms": mean("ms", main), "plain_ms": mean("plain_ms", main),
             "bound_ms": mean("bound_ms", main), "bound_by": main[0]["bound_by"],
@@ -777,8 +1182,7 @@ def main(argv=None) -> int:
             "name": "stream_mttkrp_fused", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/stream_mttkrp.cu",
             "replaces": "src/repro/kernels/stream_mttkrp.py:173",
-            "launches": launches["stream_mttkrp_fused"]
-            + dense_launches["stream_mttkrp_fused"] + leg_launches["stream_mttkrp_fused"],
+            "launches": total("stream_mttkrp_fused"),
             "max_abs_err": max(c["max_abs_err"] for c in a_main + a_small),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": a_main[0]["bound_by"], "library_ms": None,
@@ -791,13 +1195,16 @@ def main(argv=None) -> int:
             "name": "psram_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/psram_matmul.cu",
             "replaces": "src/repro/kernels/psram_matmul.py:80",
-            "launches": launches["psram_matmul"] + dense_launches["psram_matmul"]
-            + leg_launches["psram_matmul"],
-            "max_abs_err": max(c["max_abs_err"] for c in [b_main] + b_small),
+            "launches": total("psram_matmul"),
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in [b_main, b_decode] + b_small + served_matmul),
             "ms": b_main["ms"], "plain_ms": b_main["plain_ms"],
             "bound_ms": b_main["bound_ms"], "bound_by": b_main["bound_by"],
             "library_ms": b_main["library_ms"],
-            "tolerance": "bit-equal",
+            "tolerance": "bit-equal (seeded shapes, and the served model's layer-0 "
+                         "operands in a prefill and a decode step)",
+            "decode_shape": b_decode["shape"], "decode_ms": b_decode["ms"],
+            "decode_bound_ms": b_decode["bound_ms"], "decode_library_ms": b_decode["library_ms"],
         },
         row("mttkrp_fused", "src/repro_torch/kernels/csrc/mttkrp.cu",
             "src/repro/kernels/mttkrp.py:54", d_main, d_small,
@@ -815,6 +1222,23 @@ def main(argv=None) -> int:
             "at full size); against the card's atomic plain version within "
             "2 (bn-1) 2^-24 of each slot's summed magnitudes",
             max_err_over_max=max(c["max_err_over_max"] for c in seg_main + seg_small)),
+        {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:74",
+            "launches": total("flash_attention"),
+            "max_abs_err": max(c["max_abs_err"] for c in [f_main, f_served] + f_small),
+            "ms": f_main["ms"], "plain_ms": f_main["plain_ms"],
+            "bound_ms": f_main["bound_ms"], "bound_by": f_main["bound_by"],
+            "library_ms": f_main["library_ms"],
+            "tolerance": "bf16: one bf16 ulp of the plain version + 2^-16 of sum_j p_j |v_j| "
+                         "per element (seeded cases and the served layer-0 q/k/v); f32: "
+                         "1e-5 of max|out|; against the served model's attention "
+                         "allclose 3e-2",
+            "max_err_over_envelope": max(c.get("max_err_over_envelope", 0.0)
+                                         for c in [f_main, f_served] + f_small),
+            "tflops": f_main["tflops"],
+        },
     ]}
     report["kernels"] = kernels
     if opts.out is not None:

@@ -8,10 +8,13 @@ box without one raises rather than carrying on on the CPU.
 
 Ported so far: the sparse CP-ALS main path — ``core.quantization``,
 ``core.mttkrp``, ``core.cp_als``, ``sparse.formats`` / ``synth`` /
-``stream`` (layout + exact eager executor), the backend registry with the
-``"exact"`` and ``"hopper"`` backends, ``api`` (execute / mttkrp / matmul),
-and two hand-written CUDA kernels (``kernels/csrc``): the fused streaming
-MTTKRP and the pSRAM int8 matmul.
+``stream`` — the backend registry with the ``"exact"`` and ``"hopper"``
+backends (dense data and ``compiled=False`` included), ``api`` (execute /
+mttkrp / matmul), the dense decoder family (``models``, ``configs``,
+``core.photonic_layer``), ``serve.ServeEngine`` and ``launch.serve``, and
+six hand-written CUDA kernels (``kernels/csrc``), one for every Pallas
+kernel of the reference: the fused streaming MTTKRP, the pSRAM int8 matmul,
+the dense MTTKRP pair, the blocked segment sum and flash attention.
 """
 from ._device import as_device
 

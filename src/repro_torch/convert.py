@@ -14,6 +14,8 @@ caller converts its arrays with ``numpy.asarray`` first.
 * :func:`mttkrp_quants` — the six quantized operands of the dense psram
   MTTKRP ``(qx0, sx, qb, sb, qc, sc)``.
 * :func:`segment_blocks` — ``(data, seg_ids)`` blocks of the segment sum.
+* :func:`model_params` / :func:`model_cache` — a dense LM's parameters /
+  KV cache, from the reference's pytrees as nested dicts of numpy arrays.
 """
 from __future__ import annotations
 
@@ -95,3 +97,47 @@ def segment_blocks(data, seg_ids, device="cuda"):
     """The blocked segment sum's operands: ``(B, bn, R)`` f32 chain rows and
     their ``(B, bn)`` int32 block-local segment ids."""
     return _tensor(data, torch.float32, device), _tensor(seg_ids, torch.int32, device)
+
+
+def _array_tensor(a, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype (``bfloat16`` arrays, which
+    numpy holds as ``ml_dtypes``, carried over bit for bit)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(as_device(device))
+    return torch.from_numpy(np.array(a)).to(as_device(device))
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _array_tensor(tree, device)
+
+
+def _split_groups(tree, n: int, device):
+    """A pytree of stacked ``(G, ...)`` leaves as a list of G pytrees."""
+    if isinstance(tree, dict):
+        parts = {k: _split_groups(v, n, device) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in parts} for g in range(n)]
+    a = np.asarray(tree)
+    if a.shape[0] != n:
+        raise ValueError(f"stacked leaf has {a.shape[0]} groups, expected {n}")
+    return [_array_tensor(a[g], device) for g in range(n)]
+
+
+def model_params(tree, cfg, device="cuda") -> dict:
+    """The reference's dense-LM parameter pytree (``{"embed", "blocks",
+    "final_norm"[, "head"]}``, ``blocks`` stacked over ``cfg.num_groups``)
+    as the port's params: ``blocks`` becomes a list of per-group dicts;
+    ``{"q", "scale"}`` int8 array words are kept as they are."""
+    out = {k: _tree(v, device) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = _split_groups(tree["blocks"], cfg.num_groups, device)
+    return out
+
+
+def model_cache(tree, device="cuda") -> list:
+    """The reference's stacked KV cache ``{"layer<i>": {"k", "v"}}`` with
+    ``(G, B, S, Hkv, hd)`` leaves as the port's list of per-group caches."""
+    n = np.asarray(next(iter(next(iter(tree.values())).values()))).shape[0]
+    return _split_groups(tree, n, device)

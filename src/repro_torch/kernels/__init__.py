@@ -7,6 +7,7 @@ on which TPU kernel it replaces and what bounds it on the card.
 
 Ported: the pSRAM int8 matmul (``psram_matmul``), the fused streaming
 MTTKRP (``stream_mttkrp``), the dense MTTKRP pair, exact and quantized
-(``mttkrp``), and the blocked segment sum (``segment_sum``). Still to come
-from the reference package: flash attention and the autotune sweeps.
+(``mttkrp``), the blocked segment sum (``segment_sum``) and flash attention
+(``flash_attention``) — every Pallas kernel of the reference package. Still
+to come: the autotune sweeps.
 """

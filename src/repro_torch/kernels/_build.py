@@ -22,7 +22,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = ("psram_matmul", "stream_mttkrp", "mttkrp", "segment_sum")
+KERNEL_SOURCES = ("psram_matmul", "stream_mttkrp", "mttkrp", "segment_sum",
+                  "flash_attention")
 
 # No --use_fast_math: the kernels' epilogues are held bit-equal to their plain
 # PyTorch versions (true division, rintf, no flush-to-zero).

@@ -8,8 +8,9 @@ its plain PyTorch version (``"torch"``), the oracle from ``ref.py``
 naming the op.
 
 Ported: :func:`psram_matmul_op`, :func:`mttkrp_op`, :func:`mttkrp_psram_op`,
-:func:`fused_stream_mttkrp_op`, :func:`blocked_segment_sum_op`. The attention
-op comes with its kernel.
+:func:`fused_stream_mttkrp_op`, :func:`blocked_segment_sum_op`,
+:func:`flash_attention_op` — every op of the reference's ``kernels/ops.py``
+that reaches a Pallas kernel.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from .mttkrp import (
     mttkrp_psram_fused,
     mttkrp_psram_torch,
 )
+from .flash_attention import flash_attention, flash_attention_torch
 from .psram_matmul import psram_matmul, psram_matmul_torch
 from .segment_sum import blocked_segment_sum, blocked_segment_sum_torch
 
@@ -190,3 +192,25 @@ def fused_stream_mttkrp_op(
         csf, factors, cfg, adc_bits=adc_bits, lowering=low,
         exec_blocks=exec_blocks,
     )
+
+
+def flash_attention_op(
+    q, k, v, causal: bool = True, softcap: float = 0.0, scale: float | None = None,
+    lowering: str = "auto", bq: int = 128, bkv: int = 128,
+) -> torch.Tensor:
+    """Attention ``(B, H, Sq, D)`` from q ``(B, H, Sq, D)`` and k/v
+    ``(B, Hkv, Skv, D)``: GQA, causal (top-left), logit softcap; see
+    kernels/flash_attention.py. A lowering name outside the table (the
+    reference's ``"xla"``, ``"pallas"``, ...) raises ``RuntimeError`` naming
+    the op."""
+    low = resolve_lowering(lowering, q, k, v) if lowering == "auto" else lowering
+    require_cuda(low, q)
+    fn = _dispatch("flash_attention", {
+        "cuda": lambda: flash_attention(q, k, v, causal=causal, softcap=softcap,
+                                        scale=scale, bq=bq, bkv=bkv),
+        "torch": lambda: flash_attention_torch(q, k, v, causal=causal, softcap=softcap,
+                                               scale=scale, bq=bq, bkv=bkv),
+        "ref": lambda: ref.attention_ref(q, k, v, causal=causal, softcap=softcap,
+                                         scale=scale),
+    }, low)
+    return fn()

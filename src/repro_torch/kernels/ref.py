@@ -3,8 +3,9 @@ with no regard for performance (the ``"ref"`` lowering).
 
 Ported: :func:`psram_matmul_ref`, the dense MTTKRP pair
 (:func:`mttkrp_ref`, :func:`mttkrp_psram_ref`), the blocked segment sum
-(:func:`blocked_segment_sum_ref`) and the flat fused-stream oracle
-:func:`stream_mttkrp_fused_ref`. The attention oracle comes with its kernel.
+(:func:`blocked_segment_sum_ref`), the flat fused-stream oracle
+:func:`stream_mttkrp_fused_ref` and the attention oracle
+:func:`attention_ref`.
 """
 from __future__ import annotations
 
@@ -113,3 +114,31 @@ def stream_mttkrp_fused_ref(ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits,
                       device=parts.device)
     out.index_add_(0, sp.reshape(-1).long(), parts.reshape(-1, rank))
     return out[:out_rows]
+
+
+def attention_ref(
+    q: torch.Tensor,      # (B, H, S, D)
+    k: torch.Tensor,      # (B, Hkv, S, D)
+    v: torch.Tensor,      # (B, Hkv, S, D)
+    causal: bool = True,
+    softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Vanilla softmax attention with GQA broadcast, fp32 softmax; the
+    weights are cast to ``v``'s dtype before the PV product, as in the
+    reference. The causal mask is ``tril((S, S))``: it assumes Sq == Skv."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    rep = h // hkv
+    k = torch.repeat_interleave(k, rep, dim=1)
+    v = torch.repeat_interleave(v, rep, dim=1)
+    scale = (d ** -0.5) if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask[None, None], logits,
+                             torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)

@@ -1,0 +1,64 @@
+"""Serving launcher: batched request demo against a dense arch.
+
+    python -m repro_torch.launch.serve --arch granite_8b [--reduced] \\
+        [--batch 8] [--prompt-len 16] [--max-new 32] [--device cuda|cpu]
+
+Runs on the card unless ``--device cpu`` is given (and raises without one).
+Weights and prompts are random, from fixed seeds. The time is a host clock
+around ``generate`` that ends in ``torch.cuda.synchronize()`` on the card;
+the reference's ``obs.stopwatch`` comes with ``obs`` (ROADMAP Queue A item
+5), and its ``--model-parallel`` with a mesh (item 4).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch._device import as_device
+    from repro_torch.models.registry import get_config, get_module
+    from repro_torch.serve import ServeEngine
+
+    dev = as_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    mod = get_module(cfg)
+    params = mod.init(0, cfg, device=dev)
+    eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.max_new, device=dev)
+    prompts = torch.randint(2, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=torch.Generator(device=dev).manual_seed(1),
+                            device=dev, dtype=torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, args.prompt_len, args.max_new,
+                        temperature=args.temperature, generator=gen)
+    sync()
+    dt = time.perf_counter() - t0
+    total = args.batch * args.max_new
+    print(f"generated {tuple(toks.shape)} in {dt:.2f}s  ({total/dt:.1f} tok/s batched) "
+          f"on {dev.type}")
+    print("sample:", toks[0][:16].tolist())
+
+
+if __name__ == "__main__":
+    main()

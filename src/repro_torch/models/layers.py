@@ -1,0 +1,375 @@
+"""Shared layers: param-def machinery, RMSNorm, RoPE variants, GQA attention
+(full / sliding-window / softcapped; einsum and memory-chunked paths; KV-cache
+decode), and gated MLPs with the optional pSRAM (photonic-offload) projection
+path.
+
+Param-def pattern, as in the reference: every block exposes ``defs(cfg)``
+returning a nested dict of ``{"shape", "axes", "init", "scale", "dtype"}``
+leaves (lists stand for the repeated layer groups); :func:`init_params`
+builds tensors from defs with an explicit ``torch.Generator``, one draw per
+leaf in tree order. Parameters are plain nested dicts of tensors.
+
+Tensor layouts and casts are the reference's: activations ``(B, S, d)``,
+q/k/v ``(B, S, H, hd)``; logits are formed in the input dtype and cast to
+f32, softmax weights are cast to ``v``'s dtype before the PV product.
+
+Ported: ``ddef``/``wdef``/``is_quantized``/``init_params``, ``rmsnorm``,
+``apply_rope`` (full, partial, none), ``_mask_bias``, ``_sdpa``,
+``_sdpa_chunked``, ``attention_fwd``, ``_new_kv``,
+``attention_decode_append``, ``attention_cache_defs``, ``mlp_defs``,
+``mlp_fwd``. Still to come from the reference module: M-RoPE (with
+qwen2-vl), ``attention_decode`` (the write-through decode the encoder-decoder
+family uses), ``stack_defs``/``specs_of``/``shapes_of`` (the scanned,
+sharded layout) and the ``dist.sharding.hint`` annotations, which have no
+counterpart until the port has a mesh (ROADMAP Queue A items 4 and 9).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.photonic_layer import maybe_psram_matmul, psram_linear
+from repro_torch.core.quantization import quantize_symmetric
+
+from .config import ArchConfig
+
+NEG_INF = -1e30
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "int8": torch.int8}
+
+
+def as_dtype(name) -> torch.dtype:
+    """A config's dtype string (or a torch dtype) as a torch dtype."""
+    return name if isinstance(name, torch.dtype) else _DTYPES[str(name)]
+
+
+# ---------------------------------------------------------------------------
+# param defs
+# ---------------------------------------------------------------------------
+
+def ddef(shape, axes, init="normal", scale=None, dtype=None):
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} and axes {axes} differ in rank")
+    return {"shape": tuple(shape), "axes": tuple(axes), "init": init,
+            "scale": scale, "dtype": dtype}
+
+
+def _is_def(x):
+    return isinstance(x, dict) and set(x) == {"shape", "axes", "init", "scale", "dtype"}
+
+
+def wdef(cfg, shape, axes):
+    """Projection-weight def: int8 words + per-column scale when the pSRAM
+    stored-weight path is on (weights stationary in the array), else a plain
+    dense def."""
+    if cfg.psram_projections and cfg.psram_stored_int8:
+        scale_shape = (1,) * (len(shape) - 1) + (shape[-1],)
+        scale_axes = (None,) * (len(shape) - 1) + (axes[-1],)
+        return {
+            "q": ddef(shape, axes, init="qnormal", dtype="int8"),
+            "scale": ddef(scale_shape, scale_axes, init="qscale", dtype="float32"),
+        }
+    return ddef(shape, axes)
+
+
+def is_quantized(w) -> bool:
+    return isinstance(w, dict) and set(w) == {"q", "scale"} and not _is_def(w)
+
+
+def _init_leaf(gen, d, dtype, device):
+    dt = as_dtype(d["dtype"] or dtype)
+    shape = d["shape"]
+    if d["init"] == "zeros":
+        return torch.zeros(shape, dtype=dt, device=device)
+    if d["init"] == "ones":
+        return torch.ones(shape, dtype=dt, device=device)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    if d["init"] == "qnormal":  # pre-programmed array words
+        w = torch.randn(shape, generator=gen, device=device) / math.sqrt(fan_in)
+        q, _ = quantize_symmetric(w, axis=tuple(range(len(shape) - 1)))
+        return q
+    if d["init"] == "qscale":
+        # matches qnormal: scale ~= max|w| / 127 per output column; the
+        # reference takes fan_in = shape[-1] here, kept as it is
+        fan_in = shape[-1]
+        return torch.full(shape, 4.0 / math.sqrt(max(fan_in, 2)) / 127.0, dtype=dt,
+                          device=device)
+    scale = d["scale"] if d["scale"] is not None else 1.0 / math.sqrt(fan_in)
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dt)
+
+
+def init_params(gen: torch.Generator, defs, dtype=torch.float32, device="cpu"):
+    """Tensors for ``defs`` (nested dicts and lists of defs), drawn from
+    ``gen`` (a generator on ``device``) one leaf after another in tree order.
+    The values are not the reference's (a torch generator is not a JAX key);
+    ``convert.model_params`` carries the reference's own over."""
+    if _is_def(defs):
+        return _init_leaf(gen, defs, dtype, device)
+    if isinstance(defs, dict):
+        return {name: init_params(gen, d, dtype, device) for name, d in defs.items()}
+    if isinstance(defs, (list, tuple)):
+        return [init_params(gen, d, dtype, device) for d in defs]
+    raise TypeError(f"not a param def tree: {type(defs).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# norm
+# ---------------------------------------------------------------------------
+
+def rmsnorm_defs(d):
+    return {"w": ddef((d,), ("embed",), init="ones")}
+
+
+def rmsnorm(p, x, eps):
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["w"].to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def _rot_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(x, pos, cfg: ArchConfig):
+    """x: (B, S, H, hd); pos: (B, S) int32. cos/sin are formed in f32 and
+    cast to ``x``'s dtype before the products, as in the reference."""
+    if cfg.rope == "none":
+        return x
+    if cfg.rope == "mrope":
+        raise NotImplementedError(
+            "M-RoPE is not ported to repro_torch yet: it waits for qwen2-vl "
+            "(ROADMAP Queue A item 7)")
+    hd = x.shape[-1]
+    rot = int(hd * cfg.rope_partial_frac) if cfg.rope == "partial" else hd
+    rot -= rot % 2
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    inv = cfg.rope_theta ** (-torch.arange(0, rot, 2, dtype=torch.float32,
+                                           device=x.device) / rot)   # (rot/2,)
+    angles = pos.to(torch.float32)[..., None] * inv                   # (B, S, rot/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    cos = torch.cat([cos, cos], dim=-1).to(x.dtype)                   # (B, S, 1, rot)
+    sin = torch.cat([sin, sin], dim=-1).to(x.dtype)
+    y = x_rot * cos + _rot_half(x_rot) * sin
+    return torch.cat([y, x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attention_defs(cfg: ArchConfig):
+    d = cfg.d_model
+    return {
+        "wq": wdef(cfg, (d, cfg.q_dim), ("embed", "qdim")),
+        "wk": wdef(cfg, (d, cfg.kv_dim), ("embed", "kvdim")),
+        "wv": wdef(cfg, (d, cfg.kv_dim), ("embed", "kvdim")),
+        "wo": wdef(cfg, (cfg.q_dim, d), ("qdim", "embed")),
+    }
+
+
+def _proj(x, w, cfg: ArchConfig):
+    if is_quantized(w):  # stored-int8 array words (weights stationary)
+        return psram_linear(x, w, adc_bits=cfg.adc_bits).to(x.dtype)
+    return maybe_psram_matmul(x, w, cfg.psram_projections, cfg.adc_bits)
+
+
+def _mask_bias(q_pos, k_pos, causal, window):
+    """(..., Sq, Sk) additive f32 bias from position grids."""
+    ok = torch.ones(torch.broadcast_shapes(q_pos.shape, k_pos.shape), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= q_pos >= k_pos
+    if window:
+        ok &= (q_pos - k_pos) < window
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def _scale(cfg: ArchConfig, hd: int) -> float:
+    return cfg.query_scale if cfg.query_scale is not None else hd ** -0.5
+
+
+def _sdpa(q, k, v, bias, cfg: ArchConfig):
+    """Grouped-query attention core. q:(B,Sq,H,hd) k/v:(B,Sk,Hkv,hd); heads
+    are grouped kv-major (``q.reshape(b, sq, hkv, rep, hd)``)."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    qg = q.reshape(b, sq, hkv, rep, hd)
+    logits = torch.einsum("bqkrd,bskd->bkrqs", qg, k).to(torch.float32) * _scale(cfg, hd)
+    if cfg.attn_softcap > 0:
+        logits = torch.tanh(logits / cfg.attn_softcap) * cfg.attn_softcap
+    logits = logits + bias  # bias broadcasts over (b, hkv, rep)
+    if cfg.attn_probs_bf16:
+        # flash-style: f32 max/sum statistics, bf16 weights
+        m = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - m).to(torch.bfloat16)
+        denom = e.to(torch.float32).sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        p = e / denom.to(torch.bfloat16)
+    else:
+        p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrqs,bskd->bqkrd", p.to(v.dtype), v)
+    return out.reshape(b, sq, h, hd)
+
+
+def _sdpa_chunked(q, k, v, cfg: ArchConfig, causal, window, q0: int = 0):
+    """Memory-bounded attention: a loop over q chunks (exact softmax)."""
+    b, s, h, hd = q.shape
+    cq = min(cfg.attn_chunk, s)
+    if s % cq:
+        raise ValueError(f"sequence {s} is not a multiple of the q chunk {cq}")
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    outs = []
+    for i in range(s // cq):
+        q_pos = (q0 + i * cq + torch.arange(cq, device=q.device))[:, None]
+        bias = _mask_bias(q_pos, k_pos, causal, window)  # (cq, Sk)
+        outs.append(_sdpa(q[:, i * cq:(i + 1) * cq], k, v, bias, cfg))
+    return torch.cat(outs, dim=1)
+
+
+def attention_fwd(
+    p, x, cfg: ArchConfig, pos, *, layer_local: bool = False,
+    kv_override=None, causal: bool = True,
+):
+    """Full-sequence attention (train / prefill). Returns (y, (k, v))."""
+    b, s, d = x.shape
+    q = _proj(x, p["wq"], cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    if kv_override is None:
+        k = _proj(x, p["wk"], cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        v = _proj(x, p["wv"], cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        k = apply_rope(k, pos, cfg)
+    else:  # cross attention: kv precomputed from the encoder
+        k, v = kv_override
+    q = apply_rope(q, pos, cfg)
+    window = cfg.sliding_window if layer_local else 0
+    if cfg.attention_impl == "chunked" and s > cfg.attn_chunk:
+        out = _sdpa_chunked(q, k, v, cfg, causal, window)
+    else:
+        qp = torch.arange(s, device=x.device)[:, None]
+        kp = torch.arange(k.shape[1], device=x.device)[None, :]
+        out = _sdpa(q, k, v, _mask_bias(qp, kp, causal, window), cfg)
+    y = _proj(out.reshape(b, s, cfg.q_dim), p["wo"], cfg)
+    return y, (k, v)
+
+
+def _cache_pos(cache_pos, device) -> torch.Tensor:
+    """``cache_pos`` (an int, or a ``(b,)`` tensor of per-row lengths) as a
+    (1 or b, 1) int32 tensor on ``device``. An int is filled in on the device:
+    ``torch.as_tensor(int, device="cuda")`` is a blocking host-to-device copy,
+    which would wait for the card at every layer of every decode step."""
+    if isinstance(cache_pos, torch.Tensor):
+        return cache_pos.to(device=device, dtype=torch.int32).reshape(-1, 1)
+    return torch.full((1, 1), int(cache_pos), dtype=torch.int32, device=device)
+
+
+def _decode_pos(cache_pos, b: int, device) -> torch.Tensor:
+    """``cache_pos`` (a scalar, or ``(b,)`` per-row lengths) as a (b, 1)
+    int32 position grid."""
+    return _cache_pos(cache_pos, device).expand(b, 1)
+
+
+def _new_kv(p, x, cfg: ArchConfig, cache_pos):
+    """Project + rope the decode token's q/k/v (shared by both decode paths).
+
+    ``cache_pos`` is a scalar (whole batch at one position) or a ``(b,)``
+    vector (continuous batching: every row decodes at its own length).
+    """
+    b = x.shape[0]
+    q = _proj(x, p["wq"], cfg).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    pos = _decode_pos(cache_pos, b, x.device)
+    q = apply_rope(q, pos, cfg)
+    kn = _proj(x, p["wk"], cfg).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    kn = apply_rope(kn, pos, cfg)
+    vn = _proj(x, p["wv"], cfg).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    return kn, vn, q
+
+
+def attention_decode_append(
+    p, x, cfg: ArchConfig, k_old, v_old, cache_pos, *, layer_local: bool = False,
+    precomputed=None,
+):
+    """Decode against a *stale* cache slice plus the explicit new token.
+
+    k_old/v_old hold positions < cache_pos (position cache_pos may be
+    stale); the new token's kn/vn enter through a two-block softmax combine
+    (history logits, new-token logit) instead of a write into the cache
+    first. ``o_h`` is in ``v``'s dtype, the combine weights in f32.
+    """
+    b = x.shape[0]
+    kn, vn, q = precomputed if precomputed is not None else _new_kv(p, x, cfg, cache_pos)
+    s_k = k_old.shape[1]
+    hkv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    hd = cfg.head_dim
+    scale = _scale(cfg, hd)
+    qg = q.reshape(b, 1, hkv, rep, hd)
+    lg_h = torch.einsum("bqkrd,bskd->bkrqs", qg, k_old).to(torch.float32) * scale
+    lg_n = torch.einsum("bqkrd,bskd->bkrqs", qg, kn).to(torch.float32) * scale
+    if cfg.attn_softcap > 0:
+        lg_h = torch.tanh(lg_h / cfg.attn_softcap) * cfg.attn_softcap
+        lg_n = torch.tanh(lg_n / cfg.attn_softcap) * cfg.attn_softcap
+    k_pos = torch.arange(s_k, device=x.device)[None, :]
+    # cache_pos: scalar -> (1, 1); per-row -> (b, 1). Strict: slot
+    # cache_pos is stale in k_old either way.
+    cp = _cache_pos(cache_pos, x.device)
+    valid = k_pos < cp
+    if layer_local and cfg.sliding_window:
+        valid &= (cp - k_pos) < cfg.sliding_window
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    lg_h = lg_h + torch.where(valid[:, None, None, None, :], zero, torch.full_like(zero, NEG_INF))
+    m_h = lg_h.amax(dim=-1, keepdim=True)
+    e_h = torch.exp(lg_h - m_h)
+    s_h = e_h.sum(dim=-1, keepdim=True)
+    o_h = torch.einsum("bkrqs,bskd->bqkrd", e_h.to(v_old.dtype), v_old)
+    m = torch.maximum(m_h, lg_n)
+    alpha = torch.exp(m_h - m)                              # (b,kv,rep,1,1)
+    beta = torch.exp(lg_n - m)
+    aw = alpha.permute(0, 3, 1, 2, 4)                       # -> (b,1,kv,rep,1)
+    bw = beta.permute(0, 3, 1, 2, 4)
+    denom = s_h * alpha + beta
+    dw = denom.permute(0, 3, 1, 2, 4)
+    out = (o_h * aw + bw * vn[:, :, :, None, :].to(o_h.dtype)) / dw
+    return _proj(out.reshape(b, 1, cfg.q_dim).to(x.dtype), p["wo"], cfg)
+
+
+def attention_cache_defs(cfg: ArchConfig, batch: int, seq: int):
+    shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    axes = ("batch", "seq_kv", "kv_heads", None)
+    return {"k": ddef(shape, axes, init="zeros"), "v": ddef(shape, axes, init="zeros")}
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_defs(cfg: ArchConfig, d_ff=None):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act in ("swiglu", "geglu"):
+        return {
+            "wi": wdef(cfg, (d, ff), ("embed", "ff")),
+            "wg": wdef(cfg, (d, ff), ("embed", "ff")),
+            "wo": wdef(cfg, (ff, d), ("ff", "embed")),
+        }
+    return {"wi": wdef(cfg, (d, ff), ("embed", "ff")),
+            "wo": wdef(cfg, (ff, d), ("ff", "embed"))}
+
+
+def mlp_fwd(p, x, cfg: ArchConfig):
+    """Gated MLP. GELU is the tanh form (``jax.nn.gelu``'s default)."""
+    h = _proj(x, p["wi"], cfg)
+    if cfg.act == "swiglu":
+        h = F.silu(_proj(x, p["wg"], cfg)) * h
+    elif cfg.act == "geglu":
+        h = F.gelu(_proj(x, p["wg"], cfg), approximate="tanh") * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return _proj(h, p["wo"], cfg)

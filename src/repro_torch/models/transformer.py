@@ -1,0 +1,149 @@
+"""Decoder-only LM assembled from block groups (the dense family).
+
+Provides ``param_defs / init / forward / prefill / decode`` — the serve
+steps in ``serve/`` wrap these. The reference scans stacked ``(G, ...)``
+group params with ``lax.scan``; the port keeps one param dict per group in
+``params["blocks"]`` (a list) and loops over it, and likewise one cache dict
+per group. ``cfg.scan_layers``/``remat``/``remat_policy`` therefore have no
+effect here.
+
+Ported: ``param_defs``, ``init``, ``cache_defs``, ``init_cache``,
+``_positions``, ``_embed``, ``_unembed``, ``forward``, ``prefill``,
+``decode_step_deltas``, ``decode_step``. Still to come from the reference
+module: ``loss_fn``/``cross_entropy`` (with training, ROADMAP Queue A item 9),
+``prefill_paged`` (with the paged serve loop, item 8), the MoE, hybrid and
+SSM families (item 7), ``param_specs``/``cache_specs`` (sharding, item 4).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch._device import as_device
+
+from .blocks import apply_decode_deltas, group_cache_defs, group_decode_tokens, group_defs, group_fwd
+from .config import ArchConfig
+from .layers import NEG_INF, as_dtype, ddef, init_params, rmsnorm, rmsnorm_defs
+
+
+def param_defs(cfg: ArchConfig):
+    defs = {
+        "embed": ddef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), scale=1.0),
+        "blocks": [group_defs(cfg) for _ in range(cfg.num_groups)],
+        "final_norm": rmsnorm_defs(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = ddef((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"))
+    return defs
+
+
+def init(seed_or_gen, cfg: ArchConfig, device="cuda"):
+    """Random parameters in ``cfg.dtype`` on ``device``, from a seed or a
+    ``torch.Generator`` (on ``device``)."""
+    dev = as_device(device)
+    gen = seed_or_gen
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=dev).manual_seed(int(seed_or_gen))
+    return init_params(gen, param_defs(cfg), dtype=as_dtype(cfg.dtype), device=dev)
+
+
+def cache_defs(cfg: ArchConfig, batch: int, seq: int):
+    return [group_cache_defs(cfg, batch, seq) for _ in range(cfg.num_groups)]
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq: int, dtype=None, device="cuda"):
+    """An all-zero KV cache: a list over groups of ``{"layer<i>": {"k", "v"}}``
+    with ``(B, seq, Hkv, hd)`` leaves."""
+    return init_params(None, cache_defs(cfg, batch, seq),
+                       dtype=as_dtype(dtype or cfg.dtype), device=as_device(device))
+
+
+def _positions(cfg: ArchConfig, batch: int, seq: int, device):
+    if cfg.rope == "mrope":
+        raise NotImplementedError("M-RoPE waits for qwen2-vl (ROADMAP Queue A item 7)")
+    return torch.arange(seq, dtype=torch.int32, device=device).expand(batch, seq)
+
+
+def _embed(params, tokens, cfg: ArchConfig):
+    x = params["embed"][tokens]
+    if cfg.scale_embeddings:
+        # the reference's Python-float factor takes x's dtype first (weak type)
+        # (filled on the device: no blocking host-to-device copy a step)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
+
+
+def _unembed(params, x, cfg: ArchConfig):
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    logits = (x @ w.to(x.dtype)).to(torch.float32)
+    if cfg.final_softcap > 0:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    if cfg.padded_vocab != cfg.vocab_size:  # mask pad columns out of the lse
+        iota = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(iota < cfg.vocab_size, logits,
+                             torch.full_like(logits, NEG_INF))
+    return logits
+
+
+def forward(params, tokens, cfg: ArchConfig):
+    """tokens: (B, S) int -> logits (B, S, V) f32."""
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg)
+    pos = _positions(cfg, b, s, x.device)
+    for p_group in params["blocks"]:
+        x, _ = group_fwd(p_group, x, cfg, pos)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _unembed(params, x, cfg)
+
+
+def _pad_seq(a, cache_len):
+    """(B, S, Hkv, hd) -> (B, cache_len, Hkv, hd), zeros after S."""
+    out = a.new_zeros((a.shape[0], cache_len, *a.shape[2:]))
+    out[:, :a.shape[1]] = a
+    return out
+
+
+def prefill(params, tokens, cfg: ArchConfig, cache_len: int):
+    """Forward + populate a KV cache of length cache_len. Returns
+    (last-token logits (B, V), cache) — a list of per-group caches whose
+    ``(B, S, Hkv, hd)`` k/v are zero-padded to ``cache_len``."""
+    b, s = tokens.shape
+    if cache_len < s:
+        raise ValueError(f"cache_len {cache_len} < prompt length {s}")
+    x = _embed(params, tokens, cfg)
+    pos = _positions(cfg, b, s, x.device)
+    caches = []
+    for p_group in params["blocks"]:
+        x, group_cache = group_fwd(p_group, x, cfg, pos, collect_cache=True)
+        caches.append({key: {name: _pad_seq(t, cache_len) for name, t in layer.items()}
+                       for key, layer in group_cache.items()})
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = _unembed(params, x[:, -1:, :], cfg)
+    return logits[:, 0], caches
+
+
+def decode_step_deltas(params, cache, token, cache_pos, cfg: ArchConfig):
+    """One decode step against a READ-ONLY cache, returning the per-group,
+    per-layer one-token deltas instead of a written-back cache.
+
+    token: (B,) int; cache_pos: an int (whole batch at one position) or a
+    (B,) tensor (continuous batching). Returns (logits (B, V), deltas) with
+    deltas a list over groups of ``{"layer<i>": {"k", "v"}}``, each
+    ``(B, 1, Hkv, hd)``.
+    """
+    x = _embed(params, token[:, None], cfg)
+    deltas = []
+    for p_group, cache_group in zip(params["blocks"], cache):
+        x, d = group_decode_tokens(p_group, x, cfg, cache_group, cache_pos)
+        deltas.append(d)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _unembed(params, x, cfg)[:, 0], deltas
+
+
+def decode_step(params, cache, token, cache_pos, cfg: ArchConfig):
+    """One decode step. token: (B,) int; cache_pos: the number of tokens
+    already in the cache (an int, or a (B,) tensor for per-row positions).
+    Returns (logits (B, V), cache) — the cache is written IN PLACE."""
+    logits, deltas = decode_step_deltas(params, cache, token, cache_pos, cfg)
+    return logits, apply_decode_deltas(cache, deltas, cfg, cache_pos)

@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.photonic_layer import program_weights, psram_linear
 from repro_torch.core.psram import PsramConfig
 from repro_torch.core.quantization import quantize_symmetric
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mttkrp as dm
 from repro_torch.kernels import psram_matmul as pm
 from repro_torch.kernels import segment_sum as ss
@@ -155,3 +157,72 @@ def test_segment_sum_kernel_bit_equal_to_cpu_plain(card, b, bn, r, n_seg, sorted
     torch.cuda.synchronize()
     assert ss.blocked_segment_sum.launches == before + 1
     assert torch.equal(got.cpu(), ss.blocked_segment_sum_torch(data.cpu(), ids.cpu(), n_seg))
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().float().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,softcap", [
+    (2, 4, 4, 256, 64, True, 0.0),
+    (2, 4, 2, 256, 64, True, 0.0),     # GQA
+    (1, 8, 1, 128, 32, True, 0.0),     # MQA
+    (2, 4, 4, 256, 64, False, 0.0),
+    (2, 4, 2, 128, 64, True, 50.0),    # softcap
+    (1, 4, 2, 100, 128, True, 0.0),    # ragged: one partial q tile and kv tile
+    (1, 2, 2, 64, 16, False, 0.0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_vs_plain(card, b, h, hkv, s, d, causal, softcap, dtype):
+    """f32: within 1e-5 of max |out| (online vs exact softmax, sums in another
+    order). bf16: every element within one bf16 ulp of the plain version
+    (which rounds its f32 result once) plus 2^-16 of sum_j p_j |v_j|, the
+    envelope of the reassociated sums and of the two-term bf16 split of P."""
+    gen = torch.Generator(device=card).manual_seed(b * h + s + d)
+    q = torch.randn((b, h, s, d), generator=gen, device=card).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device=card).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device=card).to(dtype)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_torch(q, k, v, causal=causal, softcap=softcap)
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * float(want.abs().max())
+    else:
+        mag = fa.flash_attention_torch(q, k, v.abs(), causal=causal, softcap=softcap).float()
+        assert bool((diff <= _bf16_ulp(want) + 2.0 ** -16 * mag).all())
+    assert torch.equal(fa.flash_attention(q, k, v, causal=causal, softcap=softcap), got)
+
+
+def test_flash_kernel_refuses_what_the_reference_refuses(card):
+    q = torch.zeros((1, 2, 192, 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of bq"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dims"):
+        z = torch.zeros((1, 2, 64, 48), device=card, dtype=torch.bfloat16)
+        fa.flash_attention(z, z, z)
+
+
+def test_psram_linear_bf16_activation_launches_the_kernel(card):
+    """A 3-D bf16 activation through psram_linear: one kernel launch,
+    bit-equal to the plain version on the same codes and scales."""
+    rng = np.random.default_rng(17)
+    x = torch.tensor(rng.standard_normal((2, 37, 96)).astype(np.float32),
+                     device=card).to(torch.bfloat16)
+    w = torch.tensor(rng.standard_normal((96, 72)).astype(np.float32) / 10, device=card)
+    prog = program_weights(w)
+    before = pm.psram_matmul.launches
+    got = psram_linear(x, prog)
+    torch.cuda.synchronize()
+    assert pm.psram_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 37, 72)
+    qx, sx = quantize_symmetric(x.reshape(-1, 96), axis=-1)
+    want = pm.psram_matmul_torch(qx, prog["q"], sx.float(), prog["scale"])
+    assert torch.equal(got.reshape(-1, 72), want)
+    with pytest.raises(ValueError, match="saturate"):
+        psram_linear(x, prog, saturate=False)

@@ -1,0 +1,94 @@
+"""The port's serving engine held against the JAX reference on the CPU.
+
+Reduced (f32) granite-8b with the reference's own params carried over by
+``convert.model_params``; the same numpy-seeded prompts go through the
+reference's ``ServeEngine`` and the port's. Greedy tokens must be equal; the
+prefill logits within 1e-5 of max |logit| (f32 matmuls, sums in another
+order). Temperature sampling cannot give JAX's bits and is not compared.
+"""
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.registry import get_config as jget_config
+from repro.models.registry import get_module as jget_module
+from repro.serve import ServeEngine as JServeEngine
+from repro.serve import make_prefill as jmake_prefill
+from repro_torch import convert
+from repro_torch.models.config import ArchConfig
+from repro_torch.serve import ServeEngine, make_prefill, make_serve_step
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+B, PROMPT, NEW = 2, 8, 4
+
+
+@pytest.fixture(scope="module")
+def served():
+    jcfg = jget_config("granite_8b").reduced()
+    params = jget_module(jcfg).init(jax.random.PRNGKey(0), jcfg)
+    prompts = np.random.default_rng(11).integers(2, jcfg.vocab_size, (B, PROMPT), dtype=np.int32)
+    eng = JServeEngine(jcfg, params, max_len=PROMPT + NEW)
+    toks = np.asarray(eng.generate(jnp.asarray(prompts), PROMPT, NEW))
+    logits, _ = jmake_prefill(jcfg, PROMPT + NEW)(params, jnp.asarray(prompts))
+    cfg = ArchConfig(**dataclasses.asdict(jcfg))
+    port_params = convert.model_params(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    return cfg, port_params, prompts, toks, np.asarray(logits)
+
+
+def test_greedy_tokens_equal_reference(served):
+    cfg, params, prompts, want, _ = served
+    eng = ServeEngine(cfg, params, max_len=PROMPT + NEW, device="cpu")
+    got = eng.generate(torch.tensor(prompts), PROMPT, NEW)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (B, NEW)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_prefill_logits_match_reference(served):
+    cfg, params, prompts, _, want = served
+    logits, cache = make_prefill(cfg, PROMPT + NEW)(params, torch.tensor(prompts))
+    assert float((logits.numpy() - want).__abs__().max()) <= 1e-5 * float(np.abs(want).max())
+    assert len(cache) == cfg.num_groups
+    assert tuple(cache[0]["layer0"]["k"].shape) == (B, PROMPT + NEW, cfg.n_kv_heads, cfg.head_dim)
+
+
+def test_serve_step_deltas_leave_the_cache(served):
+    """``deltas=True`` returns the new token's k/v and writes nothing; the
+    plain step writes exactly those deltas at ``cache_pos``."""
+    cfg, params, prompts, _, _ = served
+    logits, cache = make_prefill(cfg, PROMPT + NEW)(params, torch.tensor(prompts))
+    tok = logits.argmax(-1).to(torch.int32)
+    before = cache[0]["layer0"]["k"].clone()
+    lg_d, deltas = make_serve_step(cfg, deltas=True)(params, cache, tok, PROMPT)
+    assert torch.equal(cache[0]["layer0"]["k"], before)
+    lg, cache = make_serve_step(cfg)(params, cache, tok, PROMPT)
+    assert torch.equal(lg, lg_d)
+    assert torch.equal(cache[0]["layer0"]["k"][:, PROMPT:PROMPT + 1], deltas[0]["layer0"]["k"])
+    with pytest.raises(NotImplementedError, match="paged"):
+        make_prefill(cfg, paged=True)
+
+
+def test_temperature_sampling_is_seeded(served):
+    cfg, params, prompts, _, _ = served
+    eng = ServeEngine(cfg, params, max_len=PROMPT + NEW, device="cpu")
+    runs = [eng.generate(torch.tensor(prompts), PROMPT, NEW, temperature=0.8,
+                         generator=torch.Generator().manual_seed(5)) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert int(runs[0].min()) >= 0 and int(runs[0].max()) < cfg.vocab_size
+
+
+def test_serve_cli_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "granite_8b", "--reduced",
+         "--device", "cpu", "--batch", "2", "--prompt-len", "8", "--max-new", "4"],
+        capture_output=True, text=True, timeout=300, cwd=str(ROOT), env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "generated (2, 4)" in proc.stdout and "on cpu" in proc.stdout
