@@ -59,6 +59,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -93,6 +94,24 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def sass_counts(libs: dict) -> dict:
+    """Per built library, how many Hopper warpgroup MMAs (``HGMMA``), TMA
+    loads (``UTMALDG``) and warp-level MMAs (``HMMA``) its SASS holds, by
+    ``cuobjdump -sass`` from nvcc's directory; None where it is missing."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    counts = {}
+    for name, path in libs.items():
+        sass = subprocess.run([str(tool), "-sass", str(path)], check=True, capture_output=True,
+                              text=True, timeout=300).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                        for op in ("HGMMA", "UTMALDG", "HMMA")}
+    return counts
 
 
 def time_ms(torch, fn, warmup: int = 2, iters: int = 5, reps: int = 4) -> float:
@@ -474,15 +493,18 @@ def bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-def flash_case(torch, b, h, hkv, s, d, dtype, causal=True, softcap=0.0, seed=0, timed=False):
-    """Kernel 6 against its plain version on seeded normal q/k/v (see
-    :func:`flash_check`), and with ``timed`` its times and bound."""
+def flash_case(torch, b, h, hkv, s, d, dtype, causal=True, softcap=0.0, seed=0, timed=False,
+               skv=None):
+    """Kernel 6 against its plain version on seeded normal q/k/v (``s``
+    queries, ``skv`` keys, default ``s``; see :func:`flash_check`), and with
+    ``timed`` its times, bound and (bf16) the floor of its two-term design."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_torch
 
+    skv = s if skv is None else skv
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, hkv, skv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, hkv, skv, d), generator=gen, device="cuda").to(dtype)
     got, case = flash_check(torch, q, k, v, causal, softcap)
     if timed:
         sc = d ** -0.5
@@ -495,12 +517,16 @@ def flash_case(torch, b, h, hkv, s, d, dtype, causal=True, softcap=0.0, seed=0, 
             sdpa = torch.nn.functional.scaled_dot_product_attention
             case["library_ms"] = time_ms(torch, lambda: sdpa(
                 q, k, v, is_causal=causal, scale=sc, enable_gqa=True))
-        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        # unmasked (query, key) pairs: row i sees keys 0..min(i, skv - 1)
+        pairs = b * h * (sum(min(i + 1, skv) for i in range(s)) if causal else s * skv)
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         ops_ms = 1e3 * 4.0 * d * pairs / peak
         bytes_ms = 1e3 * (nbytes(q, k, v) + nbytes(got)) / HBM_BYTES_PER_S
         case["bound_ms"] = max(ops_ms, bytes_ms)
         case["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        if dtype == torch.bfloat16:
+            # P V twice (hi + lo): 6 D operations a pair on the tensor cores
+            case["floor_ms"] = max(1e3 * 6.0 * d * pairs / peak, bytes_ms)
         case["tflops"] = 4.0 * d * pairs / (case["ms"] * 1e-3) / 1e12
     return case
 
@@ -515,14 +541,15 @@ def flash_check(torch, q, k, v, causal=True, softcap=0.0):
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_torch
 
     b, h, s, d = q.shape
-    hkv, dtype = k.shape[1], q.dtype
+    hkv, skv, dtype = k.shape[1], k.shape[2], q.dtype
     got = flash_attention(q, k, v, causal=causal, softcap=softcap)
     torch.cuda.synchronize()
     want = flash_attention_torch(q, k, v, causal=causal, softcap=softcap)
     diff = (got.float() - want.float()).abs()
     top = float(want.abs().max())
     case = {
-        "shape": [b, h, hkv, s, d], "dtype": str(dtype).replace("torch.", ""),
+        "shape": [b, h, hkv, s, d] + ([skv] if skv != s else []),
+        "dtype": str(dtype).replace("torch.", ""),
         "causal": causal, "softcap": softcap,
         "max_abs_err": float(diff.max()), "max_err_over_max": float(diff.max()) / max(top, 1e-30),
         "finite": bool(torch.isfinite(got).all()),
@@ -548,21 +575,25 @@ def flash_check(torch, q, k, v, causal=True, softcap=0.0):
 
 def small_flash_cases(torch):
     """f32 and bf16; MHA / GQA / MQA; non-causal; softcap 50 at gemma2's
-    widths (H=32, Hkv=16, D=128); S in {64, 128, 384}; a ragged S; and a
-    shape the reference refuses, which must raise."""
+    widths (H=32, Hkv=16, D=128); S in {64, 128, 384}; a ragged S; causal
+    with Sq != Skv both ways (top-left aligned); and a shape the reference
+    refuses, which must raise."""
     from repro_torch.kernels.flash_attention import flash_attention
 
     cases = []
-    for i, (b, h, hkv, s, d, causal, softcap) in enumerate([
-        (2, 4, 4, 128, 64, True, 0.0),       # MHA
-        (2, 8, 2, 384, 128, True, 0.0),      # GQA
-        (1, 8, 1, 64, 32, True, 0.0),        # MQA
-        (2, 4, 2, 384, 64, False, 0.0),      # non-causal
-        (1, 32, 16, 128, 128, True, 50.0),   # softcap at gemma2's widths
-        (1, 4, 2, 100, 128, True, 0.0),      # a partial q tile and kv tile
+    for i, (b, h, hkv, s, d, causal, softcap, skv) in enumerate([
+        (2, 4, 4, 128, 64, True, 0.0, None),       # MHA
+        (2, 8, 2, 384, 128, True, 0.0, None),      # GQA
+        (1, 8, 1, 64, 32, True, 0.0, None),        # MQA
+        (2, 4, 2, 384, 64, False, 0.0, None),      # non-causal
+        (1, 32, 16, 128, 128, True, 50.0, None),   # softcap at gemma2's widths
+        (1, 4, 2, 100, 128, True, 0.0, None),      # a partial q tile and kv tile
+        (1, 8, 2, 128, 128, True, 0.0, 384),       # causal, Sq < Skv
+        (1, 8, 2, 384, 128, True, 0.0, 128),       # causal, Sq > Skv
     ]):
         for dtype in (torch.float32, torch.bfloat16):
-            cases.append(flash_case(torch, b, h, hkv, s, d, dtype, causal, softcap, seed=20 + i))
+            cases.append(flash_case(torch, b, h, hkv, s, d, dtype, causal, softcap, seed=20 + i,
+                                    skv=skv))
     z = torch.zeros((1, 2, 192, 64), device="cuda", dtype=torch.bfloat16)
     try:
         flash_attention(z, z, z)          # 192 % min(128, 192): the reference asserts
@@ -762,12 +793,21 @@ def main(argv=None) -> int:
     ptxas = {name: [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, path in libs.items() if path.with_suffix(".log").exists()}
+    sass = sass_counts(libs)
     report["device"] = {
         "phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
-        "build_s": build_s, "ptxas": ptxas,
+        "build_s": build_s, "ptxas": ptxas, "sass": sass,
+        "sass_check": "flash_attention: wgmma + TMA only" if sass is not None
+                      else "skipped, no cuobjdump beside nvcc",
     }
     emit(report["device"])
+    # the bf16 flash kernel runs on wgmma fed by TMA; no mma.sync kernel is left
+    if sass is not None:
+        flash_sass = sass["flash_attention"]
+        if not (flash_sass["HGMMA"] > 0 and flash_sass["UTMALDG"] > 0
+                and flash_sass["HMMA"] == 0):
+            raise AssertionError(f"flash_attention's SASS is not wgmma + TMA only: {flash_sass}")
 
     # 2. data: host-side preprocessing --------------------------------------
     cfg = resolve_config(None)

@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of ``kernels/csrc`` — from the sources in
 the repository and nothing else.
 
-Each ``csrc/<name>.cu`` is a self-contained translation unit with a plain C
-interface. It is compiled at first use by ``nvcc`` for ``sm_90a`` into its
-own shared library under the build directory (git-ignored), and loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so editing a source rebuilds it and nothing stale is ever loaded.
+Each ``csrc/<name>.cu`` is a translation unit with a plain C interface (it
+may include the shared ``csrc/*.cuh`` headers). It is compiled at first use
+by ``nvcc`` for ``sm_90a`` into its own shared library under the build
+directory (git-ignored), and loaded with ``ctypes``. The library's file name
+carries a hash of the source, the headers and the flags, so editing either
+rebuilds it and nothing stale is ever loaded.
 :func:`build_all` starts one ``nvcc`` per source at once, which is what a
 program that needs every kernel should call first.
 
@@ -74,9 +75,12 @@ def _source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    """The hash-named shared library ``name`` builds into."""
+    """The hash-named shared library ``name`` builds into: the hash covers
+    the source, the shared headers (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256()
     h.update(_source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 

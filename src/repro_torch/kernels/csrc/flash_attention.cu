@@ -8,15 +8,17 @@
 // one CTA owns a (batch*head, q tile) pair, the kv axis is a loop inside it,
 // and those three stay in registers for the whole walk. Tiles wholly above
 // the causal diagonal are never loaded (the loop stops at the diagonal), and
-// the q tiles are handed out heaviest first so the last wave is short.
+// the q tiles are handed out heaviest first, every head's heaviest tile
+// before any lighter one, so the last wave is short.
 //
 // Semantics kept from the reference (and its plain version in
 // kernels/flash_attention.py): s = dot(q, k) * scale; then
 // tanh(s / softcap) * softcap when softcap > 0; then the causal mask
-// row >= col applied as -1e30 (not -inf), top-left aligned; online max, sum
-// and accumulator in f32; out = acc / max(l, 1e-30) rounded once to q's
-// dtype. The kv head of flat head bh is (bh / H) * Hkv + (bh % H) / (H / Hkv).
-// expf, tanhf and the divisions are the accurate ones (no --use_fast_math).
+// row >= col applied as -1e30 (not -inf), top-left aligned (row i sees keys
+// 0..i, also where Sq != Skv); online max, sum and accumulator in f32;
+// out = acc / max(l, 1e-30) rounded once to q's dtype. The kv head of flat
+// head bh is (bh / H) * Hkv + (bh % H) / (H / Hkv). expf, tanhf and the
+// divisions are the accurate ones (no --use_fast_math).
 //
 // What bounds it: operations. A causal prefill at 32k tokens and D = 128 does
 // 4 * D operations per unmasked (query, key) pair against 4 * D bytes per
@@ -24,33 +26,57 @@
 //
 // Two kernels:
 //
-// * bf16 (the serving path's type): the products run on the tensor cores
-//   through warp-level mma.sync m16n8k16 with f32 accumulation. A CTA is 4
-//   warps over a 64-row q tile (16 rows a warp, q fragments held in
-//   registers); each 64-key tile of K and V is staged in shared memory by
-//   cp.async, the next tile's K load overlapping this tile's softmax and PV
-//   product, and V's next load the next tile's QK^T. Q K^T: products of two
-//   bf16 values are exact in f32, so the tensor cores compute the same sums
-//   as f32 FMAs up to order. P V: the reference keeps P in f32; a bf16 P
-//   would cost 2^-9 relative per weight. Here P is split into two bf16 terms
-//   (hi = bf16(p), lo = bf16(p - hi)) and both are multiplied into the f32
-//   accumulator, which keeps every weight to 2^-17 relative (V is bf16 and
-//   exact). The accumulator fragments of Q K^T are the A fragments of P V,
-//   so P never leaves registers; V's B fragments come from ldmatrix.trans.
+// * bf16 (the serving path's type), built on Hopper's warpgroup MMA (wgmma)
+//   and the tensor memory accelerator (TMA). A CTA is three warpgroups over
+//   a 128-row q tile: warpgroup 0 is the producer — one thread issues TMA
+//   loads of the Q tile (once) and of 128-key K and V tiles into a two-stage
+//   ring in shared memory, each stage with its own full (bytes landed) and
+//   empty (consumers done) mbarrier, K and V apart so that Q K^T can start
+//   before V lands; it gives its registers away (setmaxnreg 24). Warpgroups
+//   1 and 2 are consumers (setmaxnreg 240), each owning 64 q rows:
+//     S = Q K^T   wgmma m64n128k16, both operands from shared memory, K-major,
+//                 in the 128-byte swizzle the TMA writes (descriptors match);
+//                 products of two bf16 values are exact in f32, so the
+//                 tensor cores compute the same sums as f32 FMAs up to order;
+//     softmax     in registers, in the order above; only tiles that cross
+//                 the diagonal or Skv evaluate the mask;
+//     O += P V    wgmma m64nDk16 with A from registers: the f32 accumulator
+//                 layout of S is the A-fragment layout once packed to bf16,
+//                 so P never touches shared memory; B is V as it lies (keys x
+//                 D, D contiguous), an MN-major operand read through the
+//                 descriptor's transpose bit, never copied. The reference
+//                 keeps P in f32, where one bf16 P would cost 2^-9 a weight:
+//                 P is split into hi = bf16(p) and lo = bf16(p - hi), both
+//                 multiplied into the f32 accumulator (2^-17 a weight). That
+//                 makes 6 * D operations a pair on the tensor cores where the
+//                 function needs 4 * D: the design's own floor is 1.5 times
+//                 the operation bound.
+//   Schedule: the consumers take turns on the tensor cores (ping-pong over
+//   two named barriers), each turn P V of the previous tile then Q K^T of
+//   this one, so one consumer's softmax runs while the other's products
+//   do. On the H100 at the 32k prefill this beat each consumer running its
+//   tiles alone, and issuing the next tile's Q K^T under this tile's P V
+//   (with or without ping-pong), in alternating runs of one process. A
+//   wgmma under a condition makes ptxas serialise around it, so the loop
+//   is peeled.
+//   Head dims under 64 are held 64 wide in shared memory: the TMA box is
+//   64 columns and fills the columns past D with zeros, Q K^T reads only
+//   the first D, and P V runs 64 wide and stores D. Rows past Sq and keys
+//   past Skv arrive as zeros; keys past Skv are masked to -1e30.
 // * f32: IEEE f32 FMAs on the CUDA cores, no TF32. A CTA is 128 threads
 //   over a 32-row q tile, 4 threads per row, each holding a quarter of the
 //   row's q and accumulator (dims sub, sub + 4, ...); a score is the
 //   quarter-sums added by a butterfly, so the four threads agree bit for bit.
-//
-// Row strides in shared memory are padded (D + 8 bf16) so that the 8 rows x
-// 4 words of a fragment load, and the 8 rows of an ldmatrix phase, fall in 32
-// different banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr float NEG = -1e30f;
 
@@ -62,258 +88,411 @@ __device__ __forceinline__ float score(float dot, float scale, float softcap, bo
 
 // ------------------------------------------------------------------ bf16 ---
 
-constexpr int BQ = 64;            // q rows per CTA: 4 warps x 16
-constexpr int BKV = 64;           // keys per shared-memory tile
-constexpr int THREADS = 128;
+constexpr int BQ = 128;           // q rows per CTA: two consumer warpgroups x 64
+constexpr int BN = 128;           // keys per K/V tile
+constexpr int STAGES = 2;         // K/V tiles in the ring
+constexpr int WG = 128;           // threads of a warpgroup
+constexpr int BF16_THREADS = 3 * WG;
+constexpr int ROW_BYTES = 128;    // one row of a 128-byte swizzle atom: 64 bf16
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int D>
+struct Tiles {
+    static constexpr int DP = D < 64 ? 64 : D;        // columns held in shared memory
+    static constexpr int HALVES = DP / 64;            // 128-byte column blocks
+    static constexpr int Q_BYTES = HALVES * BQ * ROW_BYTES;
+    static constexpr int KV_BYTES = HALVES * BN * ROW_BYTES;
+    static constexpr int BARRIERS = 1 + 4 * STAGES;
+    // + up to 1023 bytes to align the ring to the swizzle's 1024-byte period
+    static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
+};
+
+// wgmma descriptor of a shared-memory operand in the 128-byte swizzle:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+           (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// 16 bytes global -> shared; src_bytes = 0 fills the 16 bytes with zeros.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    const int n = valid ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
+// Pin registers at this point of the program: an in-flight wgmma writes its
+// accumulator and reads its A fragment behind the compiler's back, so every
+// use after the wait must stay after it, and the A registers must not be
+// reused before it.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// two bf16 values as one 32-bit fragment register, the first in the low half
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 first, __nv_bfloat16 second) {
-    return static_cast<uint32_t>(__bfloat16_as_ushort(first)) |
-           (static_cast<uint32_t>(__bfloat16_as_ushort(second)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float first, float second) {
-    return pack2(__float2bfloat16_rn(first), __float2bfloat16_rn(second));
-}
-
-// rows [r0, r0 + 64) of a (rows, D) bf16 matrix into a padded shared tile;
-// rows at or past n_rows read as zeros
-template <int D, int STRIDE>
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*tile)[STRIDE],
-                                          const __nv_bfloat16* __restrict__ base, int r0,
-                                          int n_rows, int tid) {
-    constexpr int CHUNKS = D / 8;                 // 16-byte chunks per row
+__device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
-    for (int it = 0; it < (BKV * CHUNKS) / THREADS; ++it) {
-        const int c = tid + it * THREADS;
-        const int row = c / CHUNKS;
-        const int col = (c % CHUNKS) * 8;
-        const bool valid = r0 + row < n_rows;
-        const __nv_bfloat16* src = base + (valid ? static_cast<size_t>(r0 + row) * D + col : 0);
-        cp_async16(&tile[row][col], src, valid);
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// D = A B for a 64 x N tile, A (64 x 16) and B (16 x N) bf16 in shared
+// memory, both K-major (N = 128): _init overwrites d, the other
+// accumulates; the register-A form takes A as a fragment and B MN-major
+// (transpose bit), N = 128 or 64. N is the extent of d times 2.
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+        : "l"(a), "l"(b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+    return static_cast<uint32_t>(__bfloat16_as_ushort(v.x)) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(v.y)) << 16);
+}
+
+// The tile's scores in place: scale, softcap, then (MASK) the causal and
+// past-Skv mask. Element 4j+e of the accumulator is row (e < 2 ? row0 :
+// row1), column kv0 + 8j + 2*t4 + (e & 1).
+template <bool MASK, bool CAP, int NS>
+__device__ __forceinline__ void tile_scores(float (&s)[NS], int kv0, int row0, int row1, int t4,
+                                            int Skv, int causal, float scale, float softcap) {
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float x = __fmul_rn(s[4 * j + e], scale);
+            if (CAP) x = __fmul_rn(tanhf(__fdiv_rn(x, softcap)), softcap);
+            if (MASK) {
+                const int col = kv0 + 8 * j + 2 * t4 + (e & 1);
+                const int row = e < 2 ? row0 : row1;
+                if (col >= Skv || (causal && col > row)) x = NEG;
+            }
+            s[4 * j + e] = x;
+        }
     }
+}
+
+// S = Q K^T for the warpgroup's 64 rows and one 128-key tile
+template <int D, int NS>
+__device__ __forceinline__ void issue_qk(float (&s)[NS], uint32_t q_wg, uint32_t kb) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t da = sw128_desc(q_wg + (kk / 4) * BQ * ROW_BYTES + (kk % 4) * 32, 16, 1024);
+        const uint64_t db = sw128_desc(kb + (kk / 4) * BN * ROW_BYTES + (kk % 4) * 32, 16, 1024);
+        if (kk == 0) {
+            wgmma_ss_init(s, da, db);
+        } else {
+            wgmma_ss(s, da, db);
+        }
+    }
+}
+
+// O += P_hi V + P_lo V for one 128-key tile of V
+template <int NO>
+__device__ __forceinline__ void issue_pv(float (&o)[NO], const uint32_t (&ph)[BN / 16][4],
+                                         const uint32_t (&pl)[BN / 16][4], uint32_t vb) {
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+        const uint64_t db = sw128_desc(vb + kc * 16 * ROW_BYTES, BN * ROW_BYTES, 1024);
+        wgmma_rs(o, ph[kc], db);
+        wgmma_rs(o, pl[kc], db);
+    }
+}
+
+// One tile's online softmax for rows row0 and row1: scores, mask, running
+// max and sum, O rescaled, and P as hi + lo bf16 A fragments — for 16 keys
+// kc, registers (row0, keys 2t4..), (row1, keys 2t4..), (row0, keys
+// 8+2t4..), (row1, keys 8+2t4..): accumulator blocks 2kc and 2kc+1 as they
+// lie.
+template <int NS, int NO>
+__device__ __forceinline__ void online_softmax(float (&s)[NS], float (&o)[NO],
+                                               uint32_t (&ph)[BN / 16][4],
+                                               uint32_t (&pl)[BN / 16][4], float& m0, float& m1,
+                                               float& l0, float& l1, bool edge, int kv0, int row0,
+                                               int row1, int t4, int Skv, int causal, float scale,
+                                               float softcap) {
+    if (softcap > 0.f) {
+        if (edge) {
+            tile_scores<true, true>(s, kv0, row0, row1, t4, Skv, causal, scale, softcap);
+        } else {
+            tile_scores<false, true>(s, kv0, row0, row1, t4, Skv, causal, scale, softcap);
+        }
+    } else {
+        if (edge) {
+            tile_scores<true, false>(s, kv0, row0, row1, t4, Skv, causal, scale, softcap);
+        } else {
+            tile_scores<false, false>(s, kv0, row0, row1, t4, Skv, causal, scale, softcap);
+        }
+    }
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            s[4 * j + e] = expf(s[4 * j + e] - mn0);
+            s[4 * j + 2 + e] = expf(s[4 * j + 2 + e] - mn1);
+            sum0 += s[4 * j + e];
+            sum1 += s[4 * j + 2 + e];
+        }
+    }
+    l0 = l0 * alpha0 + sum0;          // this thread's share of the row sums
+    l1 = l1 * alpha1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+        o[4 * j] *= alpha0;
+        o[4 * j + 1] *= alpha0;
+        o[4 * j + 2] *= alpha1;
+        o[4 * j + 3] *= alpha1;
+    }
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const float x0 = s[4 * (2 * kc + (r >> 1)) + (r & 1) * 2];
+            const float x1 = s[4 * (2 * kc + (r >> 1)) + (r & 1) * 2 + 1];
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+            ph[kc][r] = bf2_bits(hi);
+            pl[kc][r] = bf2_bits(__floats2bfloat162_rn(x0 - __low2float(hi), x1 - __high2float(hi)));
+        }
+    }
+}
+
+// named barriers 1 and 2 hand the tensor cores from one consumer warpgroup
+// to the other (both warpgroups, 256 threads, take part)
+__device__ __forceinline__ void named_sync(int id) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(2 * WG) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(2 * WG) : "memory");
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int H,
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int H,
                   int Hkv, int Sq, int Skv, float scale, float softcap, int causal) {
-    constexpr int STRIDE = D + 8;
-    static_assert(D % 16 == 0 && (BKV * (D / 8)) % THREADS == 0, "D must be a multiple of 16");
-    __shared__ __align__(16) __nv_bfloat16 Ks[BKV][STRIDE];
-    __shared__ __align__(16) __nv_bfloat16 Vs[BKV][STRIDE];
+    using T = Tiles<D>;
+    constexpr int NS = BN / 2;        // S accumulator floats per thread
+    constexpr int NO = T::DP / 2;     // O accumulator floats per thread
+    static_assert(D % 16 == 0 && D <= 128, "D must be 16, 32, 64 or 128");
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t k_s = q_s + T::Q_BYTES;                   // stage st at + st * KV_BYTES
+    const uint32_t v_s = k_s + STAGES * T::KV_BYTES;
+    const uint32_t bars = v_s + STAGES * T::KV_BYTES;
+    const uint32_t q_full = bars;
+    auto k_full = [&](int st) { return bars + 8u * (1 + st); };
+    auto v_full = [&](int st) { return bars + 8u * (1 + STAGES + st); };
+    auto k_empty = [&](int st) { return bars + 8u * (1 + 2 * STAGES + st); };
+    auto v_empty = [&](int st) { return bars + 8u * (1 + 3 * STAGES + st); };
 
     const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int g = lane >> 2;          // fragment row group
-    const int tig = lane & 3;         // thread in group
-    const int qt = gridDim.x - 1 - blockIdx.x;    // heaviest (last) q tiles first
-    const int q0 = qt * BQ;
-    const int bh = blockIdx.y;
+    const int bh = blockIdx.x;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;       // heaviest q tiles first
     const int kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-    const __nv_bfloat16* qb = q + static_cast<size_t>(bh) * Sq * D;
-    const __nv_bfloat16* kb = k + static_cast<size_t>(kvh) * Skv * D;
-    const __nv_bfloat16* vb = v + static_cast<size_t>(kvh) * Skv * D;
+    int n_tiles = (Skv + BN - 1) / BN;
+    if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Sq) - 1) / BN + 1);
 
-    int n_tiles = (Skv + BKV - 1) / BKV;
-    if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Sq) - 1) / BKV + 1);
-
-    // Q staged through Vs, K tile 0 into Ks: one group
-    load_tile<D, STRIDE>(Vs, qb, q0, Sq, tid);
-    load_tile<D, STRIDE>(Ks, kb, 0, Skv, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    uint32_t qf[D / 16][4];
-    const int wr = warp * 16 + g;     // the warp's fragment rows wr, wr + 8
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-        const int c = kk * 16 + tig * 2;
-        qf[kk][0] = *reinterpret_cast<const uint32_t*>(&Vs[wr][c]);
-        qf[kk][1] = *reinterpret_cast<const uint32_t*>(&Vs[wr + 8][c]);
-        qf[kk][2] = *reinterpret_cast<const uint32_t*>(&Vs[wr][c + 8]);
-        qf[kk][3] = *reinterpret_cast<const uint32_t*>(&Vs[wr + 8][c + 8]);
+    if (tid == 0) {
+        mbar_init(q_full, 1);
+        for (int st = 0; st < STAGES; ++st) {
+            mbar_init(k_full(st), 1);
+            mbar_init(v_full(st), 1);
+            mbar_init(k_empty(st), 2 * WG);
+            mbar_init(v_empty(st), 2 * WG);
+        }
+        mbar_init_fence();
     }
     __syncthreads();
-    load_tile<D, STRIDE>(Vs, vb, 0, Skv, tid);
-    cp_async_commit();
 
-    const int row0 = q0 + wr;         // global rows of c0,c1 and of c2,c3
-    const int row1 = row0 + 8;
-    float o[D / 8][4];
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-    float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
-
-    for (int t = 0; t < n_tiles; ++t) {
-        const int kv0 = t * BKV;
-        const bool more = t + 1 < n_tiles;
-        cp_async_wait<1>();           // K tile t has landed (V tile t may be in flight)
-        __syncthreads();
-
-        float s[BKV / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < BKV / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-            for (int nt = 0; nt < BKV / 8; ++nt) {
-                const __nv_bfloat16* kr = &Ks[nt * 8 + g][kk * 16 + tig * 2];
-                mma_bf16(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                         *reinterpret_cast<const uint32_t*>(kr + 8));
+    if (tid < WG) {
+        // ---- producer: one thread keeps the ring full
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+        if (tid == 0) {
+            mbar_expect_tx(q_full, T::Q_BYTES);
+            for (int h = 0; h < T::HALVES; ++h) {
+                tma_load_3d(q_s + h * BQ * ROW_BYTES, &qmap, q_full, 64 * h, q0, bh);
+            }
+            for (int t = 0; t < n_tiles; ++t) {
+                const int st = t % STAGES;
+                const uint32_t par = ((t / STAGES) & 1) ^ 1;    // the first wait passes
+                mbar_wait(k_empty(st), par);
+                mbar_expect_tx(k_full(st), T::KV_BYTES);
+                for (int h = 0; h < T::HALVES; ++h) {
+                    tma_load_3d(k_s + st * T::KV_BYTES + h * BN * ROW_BYTES, &kmap, k_full(st), 64 * h,
+                             t * BN, kvh);
+                }
+                mbar_wait(v_empty(st), par);
+                mbar_expect_tx(v_full(st), T::KV_BYTES);
+                for (int h = 0; h < T::HALVES; ++h) {
+                    tma_load_3d(v_s + st * T::KV_BYTES + h * BN * ROW_BYTES, &vmap, v_full(st), 64 * h,
+                             t * BN, kvh);
+                }
             }
         }
-        __syncthreads();              // every warp is done with Ks
-        if (more) {
-            load_tile<D, STRIDE>(Ks, kb, kv0 + BKV, Skv, tid);
-            cp_async_commit();
+    } else {
+        // ---- consumers: 64 q rows each
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+        const int c = tid / WG - 1;
+        const int ltid = tid % WG;
+        const int warp = ltid / 32;
+        const int lane = ltid % 32;
+        const int g = lane / 4;                  // accumulator row group
+        const int t4 = lane % 4;                 // thread in group
+        const int wrow0 = q0 + 64 * c;           // the warpgroup's first row
+        const int row0 = wrow0 + 16 * warp + g;  // rows of elements 4j, 4j+1 and 4j+2, 4j+3
+        const int row1 = row0 + 8;
+        const uint32_t q_wg = q_s + c * 64 * ROW_BYTES;
+
+        float o[NO];
+#pragma unroll
+        for (int i = 0; i < NO; ++i) o[i] = 0.f;
+        float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+        mbar_wait(q_full, 0);
+
+        uint32_t ph[BN / 16][4], pl[BN / 16][4];
+        auto edge_of = [&](int kv0) { return kv0 + BN > Skv || (causal && kv0 + BN - 1 > wrow0); };
+        // ping-pong (see the note at the top): warpgroup 0 takes the first turn
+        if (c == 1) named_arrive(1);
+        {
+            float s[NS];
+            mbar_wait(k_full(0), 0);
+            named_sync(1 + c);
+            wgmma_fence();
+            issue_qk<D>(s, q_wg, k_s);
+            wgmma_commit();
+            named_arrive(2 - c);
+            wgmma_wait_all();
+            pin(s);
+            mbar_arrive(k_empty(0));
+            online_softmax(s, o, ph, pl, m0, m1, l0, l1, edge_of(0), 0, row0, row1, t4, Skv, causal,
+                           scale, softcap);
+        }
+        for (int t = 1; t < n_tiles; ++t) {
+            const int st = t % STAGES, pst = (t - 1) % STAGES;
+            float s[NS];
+            mbar_wait(k_full(st), (t / STAGES) & 1);
+            mbar_wait(v_full(pst), ((t - 1) / STAGES) & 1);
+            named_sync(1 + c);
+            pin(o);
+            wgmma_fence();
+            issue_pv(o, ph, pl, v_s + pst * T::KV_BYTES);
+            issue_qk<D>(s, q_wg, k_s + st * T::KV_BYTES);
+            wgmma_commit();
+            named_arrive(2 - c);
+            wgmma_wait_all();
+            pin(o);
+            pin(s);
+            pin(ph);
+            pin(pl);
+            mbar_arrive(v_empty(pst));
+            mbar_arrive(k_empty(st));
+            online_softmax(s, o, ph, pl, m0, m1, l0, l1, edge_of(t * BN), t * BN, row0, row1, t4,
+                           Skv, causal, scale, softcap);
+        }
+        {
+            const int pst = (n_tiles - 1) % STAGES;
+            mbar_wait(v_full(pst), ((n_tiles - 1) / STAGES) & 1);
+            named_sync(1 + c);
+            pin(o);
+            wgmma_fence();
+            issue_pv(o, ph, pl, v_s + pst * T::KV_BYTES);
+            wgmma_commit();
+            if (c == 0) named_arrive(2);
+            wgmma_wait_all();
+            pin(o);
+            pin(ph);
+            pin(pl);
+            mbar_arrive(v_empty(pst));
         }
 
-        // scores, masks and the online softmax (rows row0 and row1)
-        float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-        for (int nt = 0; nt < BKV / 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int col = kv0 + nt * 8 + tig * 2 + e;
-                const bool out_col = col >= Skv;
-                s[nt][e] = score(s[nt][e], scale, softcap, out_col || (causal && col > row0));
-                s[nt][2 + e] = score(s[nt][2 + e], scale, softcap, out_col || (causal && col > row1));
-                mx0 = fmaxf(mx0, s[nt][e]);
-                mx1 = fmaxf(mx1, s[nt][2 + e]);
-            }
-        }
 #pragma unroll
         for (int off = 1; off < 4; off <<= 1) {
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+            l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+            l1 += __shfl_xor_sync(0xffffffffu, l1, off);
         }
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
-        float sum0 = 0.f, sum1 = 0.f;
+        const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+        __nv_bfloat16* ob = out + static_cast<size_t>(bh) * Sq * D;
 #pragma unroll
-        for (int nt = 0; nt < BKV / 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                s[nt][e] = expf(s[nt][e] - mn0);
-                s[nt][2 + e] = expf(s[nt][2 + e] - mn1);
-                sum0 += s[nt][e];
-                sum1 += s[nt][2 + e];
+        for (int j = 0; j < D / 8; ++j) {
+            const int col = 8 * j + 2 * t4;
+            if (row0 < Sq) {
+                *reinterpret_cast<__nv_bfloat162*>(&ob[static_cast<size_t>(row0) * D + col]) =
+                    __floats2bfloat162_rn(__fdiv_rn(o[4 * j], d0), __fdiv_rn(o[4 * j + 1], d0));
+            }
+            if (row1 < Sq) {
+                *reinterpret_cast<__nv_bfloat162*>(&ob[static_cast<size_t>(row1) * D + col]) =
+                    __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2], d1), __fdiv_rn(o[4 * j + 3], d1));
             }
         }
-        l0 = l0 * alpha0 + sum0;      // this thread's share of the row sums
-        l1 = l1 * alpha1 + sum1;
-        m0 = mn0;
-        m1 = mn1;
-#pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
-            o[i][0] *= alpha0;
-            o[i][1] *= alpha0;
-            o[i][2] *= alpha1;
-            o[i][3] *= alpha1;
-        }
-
-        if (more) {
-            cp_async_wait<1>();       // V tile t has landed (K tile t+1 may be in flight)
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-
-        // P V over four 16-key steps; P as hi + lo bf16 A fragments
-#pragma unroll
-        for (int j = 0; j < BKV / 16; ++j) {
-            // reg order of an A fragment: (row g, keys 2tig..), (row g+8, keys
-            // 2tig..), (row g, keys 8+2tig..), (row g+8, keys 8+2tig..) — the
-            // C fragments of n-tiles 2j and 2j+1 as they lie
-            uint32_t ph[4], pl[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const float x0 = s[2 * j + (r >> 1)][(r & 1) * 2];
-                const float x1 = s[2 * j + (r >> 1)][(r & 1) * 2 + 1];
-                const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-                ph[r] = pack2(h0, h1);
-                pl[r] = pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
-            }
-            const int mat = lane >> 3;
-            const int vrow = j * 16 + (mat & 1) * 8 + (lane & 7);
-#pragma unroll
-            for (int dt = 0; dt < D / 8; dt += 2) {
-                uint32_t vb4[4];
-                ldmatrix_x4_trans(vb4, &Vs[vrow][(dt + (mat >> 1)) * 8]);
-                mma_bf16(o[dt], ph, vb4[0], vb4[1]);
-                mma_bf16(o[dt], pl, vb4[0], vb4[1]);
-                mma_bf16(o[dt + 1], ph, vb4[2], vb4[3]);
-                mma_bf16(o[dt + 1], pl, vb4[2], vb4[3]);
-            }
-        }
-        __syncthreads();              // every warp is done with Vs
-        if (more) {
-            load_tile<D, STRIDE>(Vs, vb, kv0 + BKV, Skv, tid);
-            cp_async_commit();
-        }
     }
+}
 
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    __nv_bfloat16* ob = out + static_cast<size_t>(bh) * Sq * D;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-        const int c = i * 8 + tig * 2;
-        if (row0 < Sq) {
-            *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row0) * D + c]) =
-                pack_bf16(__fdiv_rn(o[i][0], d0), __fdiv_rn(o[i][1], d0));
-        }
-        if (row1 < Sq) {
-            *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row1) * D + c]) =
-                pack_bf16(__fdiv_rn(o[i][2], d1), __fdiv_rn(o[i][3], d1));
-        }
-    }
+// A (heads, S, D) bf16 tensor as a 3-D TMA map with (64-column, `rows`-row,
+// 1-head) boxes; boxes past S or D fill with zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int rows) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                                static_cast<cuuint64_t>(heads)};
+    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+    return hopper::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, ptr, dims, box);
 }
 
 // ------------------------------------------------------------------- f32 ---
 
 constexpr int FQ = 32;            // q rows per CTA (4 threads a row)
 constexpr int FKV = 32;           // keys per shared-memory tile
+constexpr int F32_THREADS = 128;
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F32_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int H, int Hkv, int Sq,
                  int Skv, float scale, float softcap, int causal) {
@@ -345,8 +524,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int kv0 = t * FKV;
         __syncthreads();              // the previous tile is consumed
 #pragma unroll
-        for (int it = 0; it < (FKV * D / 4) / THREADS; ++it) {
-            const int c = tid + it * THREADS;
+        for (int it = 0; it < (FKV * D / 4) / F32_THREADS; ++it) {
+            const int c = tid + it * F32_THREADS;
             const int r = c / (D / 4);
             const int col = (c % (D / 4)) * 4;
             float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
@@ -404,14 +583,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
                    int Hkv, int Sq, int Skv, int bf16, float scale, float softcap, int causal,
                    cudaStream_t stream) {
     if (bf16) {
-        dim3 grid((Sq + BQ - 1) / BQ, B * H);
-        flash_bf16_kernel<D><<<grid, THREADS, 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-            static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, Hkv, Sq,
-            Skv, scale, softcap, causal);
+        CUtensorMap qm, km, vm;
+        if (!tensor_map(&qm, q, D, Sq, B * H, BQ) || !tensor_map(&km, k, D, Skv, B * Hkv, BN) ||
+            !tensor_map(&vm, v, D, Skv, B * Hkv, BN)) {
+            return cudaErrorInvalidValue;
+        }
+        const int smem = Tiles<D>::SMEM;
+        const cudaError_t err = cudaFuncSetAttribute(
+            flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+        const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+        flash_bf16_kernel<D><<<grid, BF16_THREADS, smem, stream>>>(
+            qm, km, vm, static_cast<__nv_bfloat16*>(out), H, Hkv, Sq, Skv, scale, softcap, causal);
     } else {
         dim3 grid((Sq + FQ - 1) / FQ, B * H);
-        flash_f32_kernel<D><<<grid, THREADS, 0, stream>>>(
+        flash_f32_kernel<D><<<grid, F32_THREADS, 0, stream>>>(
             static_cast<const float*>(q), static_cast<const float*>(k),
             static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, Sq, Skv, scale,
             softcap, causal);
@@ -423,12 +609,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 // q (B,H,Sq,D), k/v (B,Hkv,Skv,D), out (B,H,Sq,D): contiguous device pointers,
 // 16-byte aligned, all f32 (bf16 = 0) or all bf16 (bf16 = 1). D in
-// {16, 32, 64, 128}; H a multiple of Hkv. Returns the launch's cudaError_t.
+// {16, 32, 64, 128}; H a multiple of Hkv; Sq / 128 <= 65535 in bf16.
+// Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int H, int Hkv, int Sq, int Skv, int D, int bf16,
                                       float scale, float softcap, int causal, void* stream) {
     if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaSuccess);
     if (Hkv <= 0 || H % Hkv != 0 || Skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (bf16 && (Sq + BQ - 1) / BQ > 65535) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
         case 16: return static_cast<int>(launch<16>(q, k, v, out, B, H, Hkv, Sq, Skv, bf16, scale, softcap, causal, s));

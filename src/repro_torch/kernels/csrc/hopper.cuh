@@ -1,0 +1,131 @@
+// Hopper (sm_90a) building blocks shared by the kernels of this directory:
+// mbarriers, TMA loads and the host-side encoding of TMA tensor maps.
+// Included by flash_attention.cu and mttkrp.cu; kernels/_build.py hashes
+// this header into every library name, so editing it rebuilds them.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#if CUDART_VERSION < 12050
+#error "the kernels need CUDA 12.5 or newer (cudaGetDriverEntryPointByVersion)"
+#endif
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// make the initialised barriers visible to the TMA unit (call before the
+// CTA-wide barrier that follows the inits)
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive and announce `bytes` of TMA traffic for the barrier's current phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed; a
+// wait that lasts ~2^34 cycles (seconds) traps, so a lost arrival ends the
+// launch with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    long long start = 0;
+    for (;;) {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (start == 0) {
+            start = clock64();
+        } else if (clock64() - start > (1ll << 34)) {
+            __trap();
+        }
+    }
+}
+
+// an L2 policy for data read once: evicted first, so what is reused stays
+__device__ __forceinline__ uint64_t evict_first_policy() {
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+    return policy;
+}
+
+// one TMA box of a 2-D map (column, row) into shared memory, its bytes
+// counted on `bar`, under the L2 `policy`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, uint64_t policy) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+        "[%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "l"(policy)
+        : "memory");
+}
+
+// one TMA box of a 3-D map (column, row, head) into shared memory, its
+// bytes counted on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                                 cudaEnableDefault, &found);
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+            fn = reinterpret_cast<EncodeTiled>(p);
+        }
+    }
+    return fn;
+}
+
+// A row-major tensor of `rank` (2 or 3) dims, innermost first, as a TMA map
+// with boxes `box` in the 128-byte swizzle (box[0] * element bytes == 128);
+// boxes reaching past the tensor fill with zeros. False if the driver
+// refuses it (alignment: the base and every row stride a multiple of 16
+// bytes).
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, int rank,
+                       const void* ptr, const cuuint64_t* dims, const cuuint32_t* box) {
+    const EncodeTiled encode = encoder();
+    if (encode == nullptr || rank < 2 || rank > 3) return false;
+    cuuint64_t strides[2];
+    cuuint64_t stride = static_cast<cuuint64_t>(elem_bytes);
+    for (int d = 0; d + 1 < rank; ++d) strides[d] = stride *= dims[d];
+    const cuuint32_t elem[3] = {1, 1, 1};
+    return encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper

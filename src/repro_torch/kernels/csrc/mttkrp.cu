@@ -27,12 +27,19 @@
 //   reduces the tile's max|acc|, and only then applies the transfer curve.
 //   The CTA tiling of the contraction (128 rows, 32 columns) is free and has
 //   nothing to do with `bi`.
-// * Per stage, a CTA brings a 128 x 32 tile of X_(0) into shared memory and
+// * Per 32-column stage, a CTA has a tile of X_(0) in shared memory and
 //   forms the 32 x 32 KR tile kr[kk, r] = b[j, r] * c[k, r] (column
-//   j*K + k) in shared memory from L2-resident factor rows. Each thread then
-//   accumulates an 8-row x 4-column block with f32 FMAs. The next stage's
-//   global loads are issued into registers before the current stage is
-//   multiplied (two shared-memory buffers, one barrier per stage).
+//   j*K + k) in shared memory from L2-resident factor rows.
+//   - The exact variant with 16-byte aligned rows (every CP-ALS shape) runs
+//     mttkrp_ring_kernel: a two-stage TMA ring of 256 x 32 X tiles under
+//     mbarriers, so X never passes through registers, three CTAs a SM; the
+//     KR tile's (j, k) advance without a division; each thread accumulates
+//     an 8-row x 8-column block (details at the kernel).
+//   - The int8 variant, and the exact one on rows that are not 16-byte
+//     aligned, run mttkrp_partials_kernel: 128 x 32 X tiles loaded into
+//     registers one stage ahead and stored to shared memory (as f32, scaled,
+//     for int8), each thread accumulating an 8-row x 4-column block (two
+//     shared-memory buffers, one barrier per stage).
 //
 // What bounds it: at CP-ALS shapes (R = 32) the exact variant reads X_(0)
 // once, 4 bytes per entry, for 2R = 64 flops per entry: bytes and f32 FMA
@@ -51,7 +58,11 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int TI = 128;        // rows of X_(0) per CTA
 constexpr int TR = 32;         // rank columns per CTA
@@ -64,29 +75,18 @@ constexpr int KR_PER_THREAD = TK * TR / THREADS;
 constexpr int ADC_THREADS = 256;
 
 // Registers that carry one stage of X_(0) from global to shared memory:
-// 16-byte loads where `VEC`, else one element per load.
+// 16-byte loads where `VEC` (int8 only), else one element per load.
 template <bool QUANT, bool VEC>
 struct XRaw {
+    static_assert(QUANT || !VEC, "aligned f32 rows go through mttkrp_ring_kernel");
     using type = typename std::conditional<
-        QUANT, typename std::conditional<VEC, int4[2], int[32]>::type,
-        typename std::conditional<VEC, float4[8], float[32]>::type>::type;
+        QUANT, typename std::conditional<VEC, int4[2], int[32]>::type, float[32]>::type;
 };
 
 template <bool QUANT, bool VEC>
 __device__ __forceinline__ void load_x(typename XRaw<QUANT, VEC>::type& raw, const void* xv,
                                        int i0, long long col0, int I, long long JK, int tid) {
-    if constexpr (!QUANT && VEC) {
-        const float* x = static_cast<const float*>(xv);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-            const int idx = u * THREADS + tid;
-            const int row = i0 + (idx >> 3);
-            const long long col = col0 + (idx & 7) * 4;
-            raw[u] = (row < I && col < JK)
-                         ? __ldcs(reinterpret_cast<const float4*>(x + row * JK + col))
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-    } else if constexpr (QUANT && VEC) {
+    if constexpr (VEC) {
         const int8_t* x = static_cast<const int8_t*>(xv);
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
@@ -118,13 +118,7 @@ template <bool QUANT, bool VEC>
 __device__ __forceinline__ void store_x(float (*xs)[XS], const typename XRaw<QUANT, VEC>::type& raw,
                                         const float* srow, const float* __restrict__ sx,
                                         int i0, int I, int tid) {
-    if constexpr (!QUANT && VEC) {
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-            const int idx = u * THREADS + tid;
-            *reinterpret_cast<float4*>(&xs[idx >> 3][(idx & 7) * 4]) = raw[u];
-        }
-    } else if constexpr (QUANT && VEC) {
+    if constexpr (VEC) {
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
             const int idx = u * THREADS + tid;
@@ -285,6 +279,176 @@ mttkrp_partials_kernel(const void* __restrict__ xv, const float* __restrict__ sx
     }
 }
 
+// ---- the exact variant on an asynchronous ring (16-byte aligned rows) ----
+//
+// X_(0) never passes through registers: thread 0 keeps two 256 x 32 tiles
+// in flight by TMA (the 128-byte swizzle, streaming past L2 with an
+// evict-first policy so the factors stay there), each stage behind its own
+// mbarrier; the shared memory holds three such CTAs a SM (on the H100,
+// three stages at two CTAs a SM, and 128-row tiles with 4 x 8 outputs a
+// thread, were both slower). The KR tile of a stage is formed by all
+// threads from L2-resident rows of b and c, with (j, k) advanced from stage
+// to stage without a division, one stage ahead in registers. Each thread accumulates an 8-row x
+// 8-rank block: per 4 columns, 8 swizzled 16-byte loads of x (8 consecutive
+// rows a warp: conflict-free) and 8 of KR feed 256 FMAs. One CTA barrier a
+// stage releases the stage to the TMA and publishes the next KR tile.
+
+constexpr int XI = 256;                    // rows of X_(0) per CTA
+constexpr int X_STAGES = 2;                // X tiles in the ring
+constexpr int X_THREADS = 128;             // 32 row groups x 4 rank groups
+constexpr int X_CTAS_PER_SM = 3;           // what the shared memory holds
+constexpr int X_STAGE_BYTES = XI * TK * 4; // 128-byte rows
+constexpr int X_SMEM = 1024 + X_STAGES * X_STAGE_BYTES + 2 * TK * TR * 4 + 8 * X_STAGES;
+
+// KR entries (kk = (tid >> 5) + 4u, rank r0 + (tid & 31)), u = 0..7, of the
+// stage starting at column col = j * K + k; 0 outside the matrix.
+__device__ __forceinline__ void kr_stage(float (&kr)[KR_PER_THREAD], const float* __restrict__ b,
+                                         const float* __restrict__ c, long long j, int k,
+                                         long long col, int r0, int K, int R, long long JK,
+                                         int tid) {
+    const int r = r0 + (tid & 31);
+    const int first = tid >> 5;
+    col += first;
+    k += first;
+    while (k >= K) {
+        k -= K;
+        ++j;
+    }
+#pragma unroll
+    for (int u = 0; u < KR_PER_THREAD; ++u) {
+        kr[u] = (col < JK && r < R)
+                    ? __fmul_rn(__ldg(b + j * R + r), __ldg(c + static_cast<long long>(k) * R + r))
+                    : 0.f;
+        col += 4;
+        k += 4;
+        while (k >= K) {
+            k -= K;
+            ++j;
+        }
+    }
+}
+
+__global__ void __launch_bounds__(X_THREADS, X_CTAS_PER_SM)
+mttkrp_ring_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ b,
+                   const float* __restrict__ c, float* __restrict__ partials, int I, int K, int R,
+                   long long JK, int n_chunks, int chunks_per_split) {
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+    const float* xs = reinterpret_cast<const float*>(base);
+    float (*ks)[TK][TR] = reinterpret_cast<float (*)[TK][TR]>(base + X_STAGES * X_STAGE_BYTES);
+    const uint32_t x_s = smem_u32(base);
+    const uint32_t bars = x_s + X_STAGES * X_STAGE_BYTES + 2 * TK * TR * 4;
+
+    const int tid = threadIdx.x;
+    const int tx = tid & 3;           // ranks 8 tx .. 8 tx + 7
+    const int ty = tid >> 2;          // rows ty + 32 m, m = 0..7
+    const int i0 = blockIdx.x * XI;
+    const int r0 = blockIdx.y * TR;
+    const int t_begin = blockIdx.z * chunks_per_split;
+    const int n = min(n_chunks, t_begin + chunks_per_split) - t_begin;
+
+    if (tid == 0) {
+        for (int st = 0; st < X_STAGES; ++st) mbar_init(bars + 8 * st, 1);
+        mbar_init_fence();
+    }
+    __syncthreads();
+    const uint64_t policy = evict_first_policy();
+    if (tid == 0) {
+        for (int st = 0; st < min(X_STAGES, n); ++st) {
+            mbar_expect_tx(bars + 8 * st, X_STAGE_BYTES);
+            tma_load_2d(x_s + st * X_STAGE_BYTES, &xmap, bars + 8 * st, (t_begin + st) * TK, i0,
+                        policy);
+        }
+    }
+
+    // (j, k) of the first column of the stage whose KR tile is in `kr`
+    long long col = static_cast<long long>(t_begin) * TK;
+    long long j = col / K;
+    int k = static_cast<int>(col - j * K);
+    auto advance = [&]() {
+        col += TK;
+        k += TK;
+        while (k >= K) {
+            k -= K;
+            ++j;
+        }
+    };
+    float kr[KR_PER_THREAD];
+    kr_stage(kr, b, c, j, k, col, r0, K, R, JK, tid);
+#pragma unroll
+    for (int u = 0; u < KR_PER_THREAD; ++u) ks[0][4 * u + (tid >> 5)][tid & 31] = kr[u];
+    if (n > 1) {
+        advance();
+        kr_stage(kr, b, c, j, k, col, r0, K, R, JK, tid);
+    }
+    __syncthreads();
+
+    float acc[8][8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[m][q] = 0.f;
+
+    const int sw = ty & 7;            // the swizzle phase of every row this thread reads
+    for (int u = 0; u < n; ++u) {
+        const int st = u % X_STAGES;
+        const int buf = u & 1;
+        mbar_wait(bars + 8 * st, (u / X_STAGES) & 1);
+        const float* xt = xs + st * (X_STAGE_BYTES / 4) + ty * TK;
+#pragma unroll
+        for (int k4 = 0; k4 < TK / 4; ++k4) {
+            float4 xv[8];
+#pragma unroll
+            for (int m = 0; m < 8; ++m) {
+                xv[m] = *reinterpret_cast<const float4*>(xt + m * 32 * TK + ((k4 ^ sw) << 2));
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const float4 ka = *reinterpret_cast<const float4*>(&ks[buf][4 * k4 + q][8 * tx]);
+                const float4 kb = *reinterpret_cast<const float4*>(&ks[buf][4 * k4 + q][8 * tx + 4]);
+#pragma unroll
+                for (int m = 0; m < 8; ++m) {
+                    const float x = q == 0 ? xv[m].x : q == 1 ? xv[m].y : q == 2 ? xv[m].z : xv[m].w;
+                    acc[m][0] = fmaf(x, ka.x, acc[m][0]);
+                    acc[m][1] = fmaf(x, ka.y, acc[m][1]);
+                    acc[m][2] = fmaf(x, ka.z, acc[m][2]);
+                    acc[m][3] = fmaf(x, ka.w, acc[m][3]);
+                    acc[m][4] = fmaf(x, kb.x, acc[m][4]);
+                    acc[m][5] = fmaf(x, kb.y, acc[m][5]);
+                    acc[m][6] = fmaf(x, kb.z, acc[m][6]);
+                    acc[m][7] = fmaf(x, kb.w, acc[m][7]);
+                }
+            }
+        }
+        if (u + 1 < n) {
+#pragma unroll
+            for (int v = 0; v < KR_PER_THREAD; ++v) ks[buf ^ 1][4 * v + (tid >> 5)][tid & 31] = kr[v];
+        }
+        __syncthreads();              // stage st and KR tile buf are consumed
+        if (tid == 0 && u + X_STAGES < n) {
+            mbar_expect_tx(bars + 8 * st, X_STAGE_BYTES);
+            tma_load_2d(x_s + st * X_STAGE_BYTES, &xmap, bars + 8 * st,
+                        (t_begin + u + X_STAGES) * TK, i0, policy);
+        }
+        if (u + 2 < n) {
+            advance();
+            kr_stage(kr, b, c, j, k, col, r0, K, R, JK, tid);
+        }
+    }
+
+    float* dst = partials + static_cast<size_t>(blockIdx.z) * I * R;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+        const int row = i0 + ty + 32 * m;
+        if (row >= I) continue;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+            const int r = r0 + 8 * tx + q;
+            if (r < R) dst[static_cast<size_t>(row) * R + r] = acc[m][q];
+        }
+    }
+}
+
 // Pass 2 of the exact variant: out[e] = sum over splits, in split order.
 __global__ void __launch_bounds__(256)
 mttkrp_sum_kernel(const float* __restrict__ partials, float* __restrict__ out,
@@ -328,19 +492,14 @@ mttkrp_adc_kernel(const float* __restrict__ partials, float* __restrict__ out,
     }
 }
 
-template <bool QUANT>
-cudaError_t launch_partials(bool vec, const void* x, const float* sx, const void* b,
-                            const float* sb, const void* c, const float* sc, float* partials,
-                            int I, int K, int R, long long JK, int n_chunks,
-                            int chunks_per_split, int splits, cudaStream_t stream) {
+template <bool QUANT, bool VEC>
+cudaError_t launch_partials(const void* x, const float* sx, const void* b, const float* sb,
+                            const void* c, const float* sc, float* partials, int I, int K, int R,
+                            long long JK, int n_chunks, int chunks_per_split, int splits,
+                            cudaStream_t stream) {
     const dim3 grid((I + TI - 1) / TI, (R + TR - 1) / TR, splits);
-    if (vec) {
-        mttkrp_partials_kernel<QUANT, true><<<grid, THREADS, 0, stream>>>(
-            x, sx, b, sb, c, sc, partials, I, K, R, JK, n_chunks, chunks_per_split);
-    } else {
-        mttkrp_partials_kernel<QUANT, false><<<grid, THREADS, 0, stream>>>(
-            x, sx, b, sb, c, sc, partials, I, K, R, JK, n_chunks, chunks_per_split);
-    }
+    mttkrp_partials_kernel<QUANT, VEC><<<grid, THREADS, 0, stream>>>(
+        x, sx, b, sb, c, sc, partials, I, K, R, JK, n_chunks, chunks_per_split);
     return cudaGetLastError();
 }
 
@@ -357,8 +516,10 @@ bool bad_shape(int I, int J, int K, int R, int splits, int chunks_per_split) {
 
 // Exact variant. x0 (I, J*K) f32 row-major, b (J, R), c (K, R) f32, partials
 // (splits, I, R) f32 scratch, out (I, R) f32. `vec` = 1 when every row of x0
-// starts on a 16-byte boundary (J*K % 4 == 0 and an aligned base). Returns
-// the first failing cudaError_t as an int (0 = launched).
+// starts on a 16-byte boundary (J*K % 4 == 0, J*K < 2^31 and an aligned
+// base): the TMA ring kernel, 256-row CTA tiles; else element-wise loads,
+// 128-row tiles. Returns the first failing cudaError_t as an int (0 =
+// launched).
 extern "C" int mttkrp_fused_launch(const void* x0, const void* b, const void* c, void* partials,
                                    void* out, int I, int J, int K, int R, int splits,
                                    int chunks_per_split, int vec, void* stream_ptr) {
@@ -366,9 +527,28 @@ extern "C" int mttkrp_fused_launch(const void* x0, const void* b, const void* c,
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const long long JK = static_cast<long long>(J) * K;
     const int n_chunks = static_cast<int>((JK + TK - 1) / TK);
-    cudaError_t err = launch_partials<false>(vec != 0, x0, nullptr, b, nullptr, c, nullptr,
-                                             static_cast<float*>(partials), I, K, R, JK, n_chunks,
-                                             chunks_per_split, splits, stream);
+    cudaError_t err;
+    if (vec) {
+        if (JK >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+        CUtensorMap xmap;
+        const cuuint64_t dims[2] = {static_cast<cuuint64_t>(JK), static_cast<cuuint64_t>(I)};
+        const cuuint32_t box[2] = {TK, XI};
+        if (!encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2, x0, dims, box)) {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
+        err = cudaFuncSetAttribute(mttkrp_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   X_SMEM);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const dim3 grid((I + XI - 1) / XI, (R + TR - 1) / TR, splits);
+        mttkrp_ring_kernel<<<grid, X_THREADS, X_SMEM, stream>>>(
+            xmap, static_cast<const float*>(b), static_cast<const float*>(c),
+            static_cast<float*>(partials), I, K, R, JK, n_chunks, chunks_per_split);
+        err = cudaGetLastError();
+    } else {
+        err = launch_partials<false, false>(x0, nullptr, b, nullptr, c, nullptr,
+                                            static_cast<float*>(partials), I, K, R, JK, n_chunks,
+                                            chunks_per_split, splits, stream);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long n_values = static_cast<long long>(I) * R;
     mttkrp_sum_kernel<<<static_cast<unsigned int>((n_values + 255) / 256), 256, 0, stream>>>(
@@ -392,8 +572,8 @@ extern "C" int mttkrp_psram_launch(const void* qx0, const void* sx, const void* 
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const long long JK = static_cast<long long>(J) * K;
     const int n_chunks = static_cast<int>((JK + TK - 1) / TK);
-    cudaError_t err = launch_partials<true>(
-        vec != 0, qx0, static_cast<const float*>(sx), qb, static_cast<const float*>(sb), qc,
+    cudaError_t err = (vec ? launch_partials<true, true> : launch_partials<true, false>)(
+        qx0, static_cast<const float*>(sx), qb, static_cast<const float*>(sb), qc,
         static_cast<const float*>(sc), static_cast<float*>(partials), I, K, R, JK, n_chunks,
         chunks_per_split, splits, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -402,6 +582,13 @@ extern "C" int mttkrp_psram_launch(const void* qx0, const void* sx, const void* 
         static_cast<const float*>(partials), static_cast<float*>(out), n_values, splits, bi * R,
         levels, code_max);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The TMA ring kernel's CTA tile rows and CTAs a SM, from which the caller
+// plans the split of the contraction into one wave.
+extern "C" void mttkrp_ring_shape(int* rows, int* ctas_per_sm) {
+    *rows = XI;
+    *ctas_per_sm = X_CTAS_PER_SM;
 }
 
 // The runtime's text for an error code returned by a launch entry.

@@ -7,10 +7,15 @@ C++, ``sm_90a``); it replaces the TPU kernel
 running max, denominator and accumulator in VMEM scratch, becomes a loop
 inside one CTA per (batch*head, q tile) that keeps them in registers; tiles
 wholly above the causal diagonal are skipped. bf16 inputs run their products
-on the tensor cores (exact bf16 products, f32 accumulation; the softmax
-weights as a two-term bf16 split, 2^-17 relative); f32 inputs run IEEE f32
-FMAs, no TF32. What bounds it on the card is operations — see the source
-note in the ``.cu`` file.
+on the tensor cores through ``wgmma``, fed by TMA loads of K and V tiles
+(exact bf16 products, f32 accumulation; the softmax weights as a two-term
+bf16 split, 2^-17 relative); f32 inputs run IEEE f32 FMAs, no TF32. What
+bounds it on the card is operations — see the source note in the ``.cu``
+file.
+
+The causal mask is top-left aligned, as the reference kernel's
+``rows >= cols`` on global indices: row ``i`` sees keys ``0..i`` whether
+``Sq`` equals ``Skv`` or not.
 
 :func:`flash_attention` is the wrapper: for CUDA tensors it launches the
 kernel (or raises); for CPU tensors — and only because they lie on the CPU —
@@ -43,9 +48,7 @@ _PLAIN_BLOCK_ELEMS = 1 << 26
 
 def check_shapes(q, k, v, causal: bool = True, bq: int = 128, bkv: int = 128):
     """Validate the operands as the reference does; returns
-    ``(b, h, hkv, sq, skv, d)``. Causal attention needs ``Sq == Skv``: the
-    mask is top-left aligned and the reference's oracle builds it as
-    ``tril((S, S))``."""
+    ``(b, h, hkv, sq, skv, d)``."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(
             f"q, k, v must be (B, H, S, D); got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -62,8 +65,6 @@ def check_shapes(q, k, v, causal: bool = True, bq: int = 128, bkv: int = 128):
         raise ValueError(
             f"Sq={sq} must be a multiple of bq={bq} and Skv={skv} of bkv={bkv} "
             "(the reference's tiling)")
-    if causal and sq != skv:
-        raise ValueError(f"causal attention needs Sq == Skv, got {sq} and {skv}")
     if q.dtype != k.dtype or q.dtype != v.dtype:
         raise TypeError(f"q, k, v must share a dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if len({q.device, k.device, v.device}) != 1:
@@ -92,7 +93,7 @@ def flash_attention_torch(q, k, v, causal: bool = True, softcap: float = 0.0,
             vf = v[bi, g].to(torch.float32)
             for r0 in range(0, sq, rows):
                 r1 = min(sq, r0 + rows)
-                kend = r1 if causal else skv                      # keys any row here sees
+                kend = min(r1, skv) if causal else skv            # keys any row here sees
                 qf = q[bi, heads, r0:r1].to(torch.float32)        # (rep, n, D)
                 s = (qf @ kf[:kend].T) * sc                       # (rep, n, kend)
                 if softcap > 0:

@@ -20,9 +20,11 @@ The hand-written Hopper kernels live in ``csrc/mttkrp.cu`` (CUDA C++,
 The TPU grid walks a row block's whole contraction in order, carrying the
 accumulator in VMEM; on the card the contraction is split across CTAs into
 ``(splits, I, R)`` partials that a second pass adds in a fixed order (and, for
-the psram variant, digitises per ``bi`` tile only then). Bound on the card:
-bytes for the exact kernel (``X_(0)`` read once), f32 operations for the int8
-one. Design notes are in the ``.cu`` file.
+the psram variant, digitises per ``bi`` tile only then). The exact kernel
+streams ``X_(0)`` through a TMA ring in shared memory where its rows are
+16-byte aligned. Bound on the card: bytes for the exact kernel (``X_(0)``
+read once), f32 operations for the int8 one. Design notes are in the ``.cu``
+file.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses its
 plain PyTorch version for CPU tensors — only because they lie on the CPU:
@@ -154,16 +156,26 @@ def _entry(name: str, n_ptrs: int, tail):
     return lib, fn
 
 
-def split_plan(sms: int, i: int, jk: int, r: int) -> tuple[int, int]:
+def split_plan(sms: int, i: int, jk: int, r: int, ti: int = TI,
+               ctas_per_sm: int = 8) -> tuple[int, int]:
     """``(splits, stages per split)`` of the contraction on a card with
-    ``sms`` SMs: enough CTAs for about eight per SM, every split non-empty.
-    Depends on the SM count and the shapes only, so a launch is
-    deterministic on one kind of card."""
+    ``sms`` SMs and CTA tiles of ``ti`` rows: about ``ctas_per_sm`` CTAs per
+    SM and no more, every split non-empty. Depends on the SM count and the
+    shapes only, so a launch is deterministic on one kind of card."""
     n_chunks = -(-jk // TK)
-    ctas = -(-i // TI) * -(-r // TR)
-    want = max(1, min(n_chunks, 65535, -(-8 * sms // ctas)))
+    ctas = -(-i // ti) * -(-r // TR)
+    want = max(1, min(n_chunks, 65535, ctas_per_sm * sms // ctas))
     per = -(-n_chunks // want)
     return -(-n_chunks // per), per
+
+
+def _ring_shape() -> tuple[int, int]:
+    """``(rows of a CTA tile, CTAs a SM)`` of the exact kernel's TMA ring, as
+    the built library states them."""
+    lib = _build.load("mttkrp")
+    rows, per_sm = ctypes.c_int(), ctypes.c_int()
+    lib.mttkrp_ring_shape(ctypes.byref(rows), ctypes.byref(per_sm))
+    return rows.value, per_sm.value
 
 
 def _sms(device) -> int:
@@ -186,8 +198,10 @@ def mttkrp_fused(x0, b, c, bi: int = 128, bk: int = 128) -> torch.Tensor:
     if not x0.is_cuda:
         return mttkrp_fused_torch(x0, b, c, bi=bi, bk=bk)
     _require_contiguous(x0=x0, b=b, c=c)
-    splits, per = split_plan(_sms(x0.device), i, j * k, r)
-    vec = int((j * k) % 4 == 0 and x0.data_ptr() % 16 == 0)
+    # 16-byte aligned rows go through the TMA ring, one wave of CTAs
+    vec = int((j * k) % 4 == 0 and j * k < 2 ** 31 and x0.data_ptr() % 16 == 0)
+    splits, per = (split_plan(_sms(x0.device), i, j * k, r, *_ring_shape()) if vec
+                   else split_plan(_sms(x0.device), i, j * k, r))
     with torch.cuda.device(x0.device):
         partials = torch.empty((splits, i, r), dtype=torch.float32, device=x0.device)
         out = torch.empty((i, r), dtype=torch.float32, device=x0.device)

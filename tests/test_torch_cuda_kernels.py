@@ -92,6 +92,9 @@ DENSE_SHAPES = [
     (96, 5, 40, 7),       # bi = I = 96, bk = K = 40, rank under one column tile
     (32, 3, 11, 40),      # J*K = 33: element loads; rank over one column tile
     (128, 7, 36, 16),     # J*K = 252: 16-byte f32 rows, element-wise int8 rows
+    (384, 37, 12, 32),    # I not a multiple of the ring's 256 rows; J*K = 444 splits unevenly
+    (512, 13, 7, 33),     # J*K = 91 (not a multiple of 4): element loads; K < 32 stages
+    (128, 3, 100, 32),    # J*K = 300: the ring's stages straddle j, 10 stages split unevenly
 ]
 
 
@@ -165,38 +168,52 @@ def _bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-@pytest.mark.parametrize("b,h,hkv,s,d,causal,softcap", [
-    (2, 4, 4, 256, 64, True, 0.0),
-    (2, 4, 2, 256, 64, True, 0.0),     # GQA
-    (1, 8, 1, 128, 32, True, 0.0),     # MQA
-    (2, 4, 4, 256, 64, False, 0.0),
-    (2, 4, 2, 128, 64, True, 50.0),    # softcap
-    (1, 4, 2, 100, 128, True, 0.0),    # ragged: one partial q tile and kv tile
-    (1, 2, 2, 64, 16, False, 0.0),
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,softcap,tile", [
+    (2, 4, 4, 256, 256, 64, True, 0.0, 128),
+    (2, 4, 2, 256, 256, 64, True, 0.0, 128),     # GQA
+    (1, 8, 1, 128, 128, 32, True, 0.0, 128),     # MQA
+    (2, 4, 4, 256, 256, 64, False, 0.0, 128),
+    (2, 4, 2, 128, 128, 64, True, 50.0, 128),    # softcap
+    (1, 4, 2, 100, 100, 128, True, 0.0, 128),    # ragged: one partial q tile and kv tile
+    (1, 2, 2, 64, 64, 16, False, 0.0, 128),
+    # the bf16 kernel's 128-row tiles: S under one (64, 100) and across
+    # them (320 = 2.5 tiles), every head dim, GQA rep 4, softcap 50
+    (1, 4, 1, 64, 64, 16, True, 0.0, 128),
+    (1, 8, 2, 320, 320, 32, True, 0.0, 64),
+    (2, 8, 2, 100, 100, 64, True, 50.0, 128),
+    (1, 8, 2, 320, 320, 128, True, 50.0, 64),
+    (1, 8, 2, 320, 320, 128, False, 0.0, 64),
+    # causal with Sq != Skv, top-left aligned
+    (1, 2, 2, 64, 128, 16, True, 0.0, 64),
+    (1, 2, 2, 128, 64, 16, True, 0.0, 64),
+    (1, 8, 2, 128, 384, 128, True, 0.0, 128),
+    (1, 8, 2, 384, 128, 128, True, 0.0, 128),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_flash_kernel_vs_plain(card, b, h, hkv, s, d, causal, softcap, dtype):
+def test_flash_kernel_vs_plain(card, b, h, hkv, sq, skv, d, causal, softcap, tile, dtype):
     """f32: within 1e-5 of max |out| (online vs exact softmax, sums in another
     order). bf16: every element within one bf16 ulp of the plain version
     (which rounds its f32 result once) plus 2^-16 of sum_j p_j |v_j|, the
-    envelope of the reassociated sums and of the two-term bf16 split of P."""
-    gen = torch.Generator(device=card).manual_seed(b * h + s + d)
-    q = torch.randn((b, h, s, d), generator=gen, device=card).to(dtype)
-    k = torch.randn((b, hkv, s, d), generator=gen, device=card).to(dtype)
-    v = torch.randn((b, hkv, s, d), generator=gen, device=card).to(dtype)
+    envelope of the reassociated sums and of the two-term bf16 split of P.
+    ``tile`` is the reference's bq = bkv, which only validates the shapes."""
+    gen = torch.Generator(device=card).manual_seed(b * h + sq + skv + d)
+    q = torch.randn((b, h, sq, d), generator=gen, device=card).to(dtype)
+    k = torch.randn((b, hkv, skv, d), generator=gen, device=card).to(dtype)
+    v = torch.randn((b, hkv, skv, d), generator=gen, device=card).to(dtype)
+    kw = dict(causal=causal, softcap=softcap, bq=tile, bkv=tile)
     before = fa.flash_attention.launches
-    got = fa.flash_attention(q, k, v, causal=causal, softcap=softcap)
+    got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    want = fa.flash_attention_torch(q, k, v, causal=causal, softcap=softcap)
+    want = fa.flash_attention_torch(q, k, v, **kw)
     diff = (got.float() - want.float()).abs()
     if dtype == torch.float32:
         assert float(diff.max()) <= 1e-5 * float(want.abs().max())
     else:
-        mag = fa.flash_attention_torch(q, k, v.abs(), causal=causal, softcap=softcap).float()
+        mag = fa.flash_attention_torch(q, k, v.abs(), **kw).float()
         assert bool((diff <= _bf16_ulp(want) + 2.0 ** -16 * mag).all())
-    assert torch.equal(fa.flash_attention(q, k, v, causal=causal, softcap=softcap), got)
+    assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
 
 
 def test_flash_kernel_refuses_what_the_reference_refuses(card):

@@ -145,10 +145,15 @@ def test_wrappers_keep_the_reference_preconditions():
         tk.mttkrp_psram_fused(q[0], q[1][:-1], *q[2:])
     # the kernel's split of the contraction is index arithmetic: every split
     # holds at least one stage and together they hold all of them
-    for i, jk_, r in ((1024, 884736, 32), (5, 32, 3), (128, 33, 40), (4096, 100000, 64)):
+    # (and a plan for larger tiles, fewer CTAs a SM, fills the card in one wave)
+    for i, jk_, r in ((1024, 884736, 32), (5, 32, 3), (128, 33, 40), (4096, 100000, 64),
+                      (1152, 786432, 32)):
         n_chunks = -(-jk_ // tk.TK)
-        splits, per = tk.split_plan(132, i, jk_, r)
-        assert 1 <= splits <= 65535 and (splits - 1) * per < n_chunks <= splits * per
+        for ti, per_sm in ((tk.TI, 8), (256, 3)):
+            splits, per = tk.split_plan(132, i, jk_, r, ti, per_sm)
+            assert 1 <= splits <= 65535 and (splits - 1) * per < n_chunks <= splits * per
+            ctas = -(-i // ti) * -(-r // tk.TR)
+            assert splits * ctas <= max(per_sm * 132, ctas)
 
 
 # ---------------------------------------------------------------- op level
