@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--nnz N] [--out report.json]
+    python3 chip_smoke.py [--nnz N] [--out report.json] [--tuning]
 
 What it does, in order — any failure raises and the run exits non-zero:
 
@@ -17,7 +17,14 @@ What it does, in order — any failure raises and the run exits non-zero:
    on the card, at the main path's shapes and at small ragged shapes, with
    CUDA-event timings (median after warm-up) beside the least time the card
    could take for the same bytes and operations and, where one PyTorch call
-   computes the same function, that call's time.
+   computes the same function, that call's time. Kernel 2 twice: its tile
+   route at the MLP projection and its decode route at granite-8b's four
+   decode shapes (8 rows), each timed against the tile route in turns, plus
+   both routes at M = 1 and 16 (the ends of the rows ``M_DECODE`` sends to
+   the decode route; ``--tuning`` sweeps M over 1..64 and times every
+   cluster size, the evidence kept in PERF.md). The ordered fold
+   as the exact-fit MTTKRP launches it, and ``stream_mttkrp`` on the skewed
+   mode 0 at full size, bit-equal to the same on the CPU.
 4. ``main_path`` — three paths, each run with every launch counter set to 0
    just before it and read just after:
    a. ``cp_als(sparse=coo, rank=32, n_iter=3, backend="hopper")`` on the
@@ -38,18 +45,21 @@ What it does, in order — any failure raises and the run exits non-zero:
       bf16, 8.25 B random parameters seeded on the card) through
       ``ServeEngine.generate`` on 8 prompts x 1024 tokens, 64 new tokens,
       greedy — then the same with ``psram_projections`` and
-      ``psram_stored_int8`` (every projection through kernel 2). Each run
+      ``psram_stored_int8`` (every projection through kernel 2: the tile
+      route in a prefill, the decode route in a decode step). Each run
    also profiles 8 decode steps (device busy time, idle share, top
    kernels); kernel 2 is held bit-equal to its plain version on the
    operands layer 0's seven projections give it in a prefill and a
-   decode step.
+   decode step, and every decode projection of 16 greedy tokens is held
+   bit-equal to the tile route on the same operands.
 5. ``sweep_time`` — one warm sweep of each CP-ALS engine, and the parts of a
    ``hopper`` sweep timed alone.
 
 TF32 is switched off for matmuls and cuDNN before anything runs: the plain
 versions of the dense MTTKRP and flash kernels are f32 matrix products.
 
-Output: one JSON object per line; the ``kernels`` line, the card's name and
+Output: one JSON object per line (each phase's with its wall seconds,
+``phase_wall_s``); the ``kernels`` line, the card's name and
 power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -77,6 +87,15 @@ DENSE_SHAPE = (1024, 768, 1152)          # 3.62 GB of f32; every mode % 128 == 0
 FLASH_MAIN = (1, 32, 8, 32768, 128)      # (B, H, Hkv, S, D): prefill_32k at granite-8b's widths
 SERVE_ARCH = "granite_8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 1024, 64
+# granite-8b's decode projections at M = SERVE_BATCH rows: q/o, k/v, wi/wg, down
+DECODE_SHAPES = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336), (8, 14336, 4096))
+CROSSOVER_M = (1, 2, 4, 8, 16, 32, 64)    # --tuning; by default the ends of the decode range
+CROSSOVER_M_DEFAULT = (1, 16)
+# eager launches a pSRAM decode step made on the tile route; the decode route
+# must not add any
+PSRAM_DECODE_LAUNCH_CEILING = 6529
+TOKENS_CHECKED = 16                       # greedy tokens compared across kernel 2's routes
+CROSSOVER_KN = ((4096, 14336), (4096, 1024))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates).
 HBM_BYTES_PER_S = 3.35e12
@@ -85,7 +104,16 @@ BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 
 
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(obj: dict) -> None:
+    """Print ``obj`` as one JSON line; a phase's object first gets the wall
+    seconds since the previous line (``phase_wall_s``)."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        obj["phase_wall_s"] = now - _LAST_EMIT[0]
+    _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -131,6 +159,45 @@ def time_ms(torch, fn, warmup: int = 2, iters: int = 5, reps: int = 4) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) / reps)
     return statistics.median(times)
+
+
+def graph_ms(torch, fns, reps: int = 1, iters: int = 5) -> float:
+    """Device milliseconds per call, host out of the way: the calls ``fns``
+    (each ``reps`` times, in turn) captured in one CUDA graph, the graph
+    replayed ``iters`` times, the median replay over the number of calls.
+    Handing ``fns`` that cycle over copies of an operand larger than the
+    50 MB L2 times the calls cold, as the served decode step finds its
+    weights."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:                       # warm-up: builds, allocations
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / (reps * len(fns)))
+    del graph
+    return statistics.median(times)
+
+
+def cold_copies(torch, t, total_bytes: float = 128e6, most: int = 64) -> list:
+    """``t`` and copies of it, together past the 50 MB L2."""
+    n = max(1, min(most, math.ceil(total_bytes / nbytes(t))))
+    return [t] + [t.clone() for _ in range(n - 1)]
 
 
 def nbytes(*tensors) -> int:
@@ -181,6 +248,125 @@ def matmul_case(torch, m, k, n, seed, adc_bits=16, timed=False):
         case["bound_ms"] = max(bytes_ms, ops_ms)
         case["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     return case
+
+
+def matmul_codes(torch, m, k, n, seed):
+    from repro_torch.core.quantization import quantize_symmetric
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    qx, sx = quantize_symmetric(x, axis=-1)
+    qw, sw = quantize_symmetric(w, axis=0)
+    return qx, qw, sx, sw
+
+
+def decode_case(torch, m, k, n, seed, timed=False, tuning=False):
+    """Kernel 2's decode route against its plain version and the tile route
+    (both bit-equal) at one shape, every cluster size included; with
+    ``timed`` both routes timed in turns (decode, tile, tile, decode), the
+    bound, and the library: ``torch._int_mm`` on qx zero-padded to 32 rows
+    (it takes more than 16 only) plus the ADC epilogue; with ``tuning``
+    also every cluster size timed (the evidence for the library's choice)."""
+    from repro_torch.core.quantization import QMAX, adc_transfer
+    from repro_torch.kernels.psram_matmul import _decode_cluster, _launch, psram_matmul_torch
+
+    qx, qw, sx, sw = matmul_codes(torch, m, k, n, seed)
+    got = _launch(qx, qw, sx, sw, route="decode")
+    torch.cuda.synchronize()
+    want = psram_matmul_torch(qx, qw, sx, sw)
+    tile = _launch(qx, qw, sx, sw, route="tile")
+    case = {
+        "shape": [m, k, n],
+        "cluster": _decode_cluster(k, n, torch.cuda.get_device_properties(0).multi_processor_count),
+        "max_abs_err": float((got - want).abs().max()),
+        "bit_equal": bool(torch.equal(got, want)),
+        "bit_equal_to_tile": bool(torch.equal(got, tile)),
+        "deterministic": bool(torch.equal(_launch(qx, qw, sx, sw, route="decode"), got)),
+        "every_cluster_equal": all(
+            torch.equal(_launch(qx, qw, sx, sw, route="decode", cluster=c), got)
+            for c in (1, 2, 4, 8)),
+    }
+    if not (case["bit_equal"] and case["bit_equal_to_tile"] and case["deterministic"]
+            and case["every_cluster_equal"]):
+        raise AssertionError(f"psram_matmul's decode route differs from its plain version: {case}")
+    if timed:
+        # device time of cold calls (CUDA graph over weight copies past the
+        # L2), the routes in turns: decode, tile, tile, decode
+        ws = cold_copies(torch, qw)
+        runs = {route: [lambda w=w, r=route: _launch(qx, w, sx, sw, route=r) for w in ws]
+                for route in ("decode", "tile")}
+        d1, t1 = graph_ms(torch, runs["decode"]), graph_ms(torch, runs["tile"])
+        t2, d2 = graph_ms(torch, runs["tile"]), graph_ms(torch, runs["decode"])
+        if tuning:
+            case["cluster_ms"] = {c: graph_ms(torch, [
+                lambda w=w, c=c: _launch(qx, w, sx, sw, route="decode", cluster=c)
+                for w in ws]) for c in (1, 2, 4, 8)}
+        # and one call at a time from the host, as the eager decode step makes it
+        case["call_ms"] = time_ms(torch, lambda: _launch(qx, qw, sx, sw, route="decode"))
+        case["weight_copies"] = len(ws)
+        pad = max(0, 32 - m)
+        qx_pad = torch.nn.functional.pad(qx, (0, 0, 0, pad)).contiguous()
+
+        def library_on(w):
+            acc = torch._int_mm(qx_pad, w)[:m]
+            full_scale = float(QMAX) * float(QMAX) * k
+            return adc_transfer(acc, 2 ** 16, full_scale) * (sx * sw)
+
+        library = lambda: library_on(qw)
+
+        case.update({
+            "ms": (d1 + d2) / 2, "tile_ms": (t1 + t2) / 2, "ms_runs": [d1, d2],
+            "tile_ms_runs": [t1, t2],
+            "plain_ms": time_ms(torch, lambda: psram_matmul_torch(qx, qw, sx, sw),
+                                iters=3, reps=2),
+            "library": f"torch._int_mm on qx zero-padded from {m} to {m + pad} rows + ADC",
+            "library_equal": bool(torch.equal(library(), want)),
+            "library_ms": graph_ms(torch, [lambda w=w: library_on(w) for w in ws]),
+        })
+        bytes_ms = 1e3 * (nbytes(qx, qw, sx, sw) + 4 * m * n) / HBM_BYTES_PER_S
+        ops_ms = 1e3 * (2.0 * m * k * n) / INT8_OPS_PER_S
+        case["bound_ms"] = max(bytes_ms, ops_ms)
+        case["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        if case["ms"] >= case["tile_ms"]:
+            raise AssertionError(f"the decode route is not faster than the tile route: {case}")
+    return case
+
+
+def crossover_sweep(torch, ms):
+    """Both routes of kernel 2 timed in one process over the rows ``ms`` at
+    two decode widths (the decode route up to its 16 rows), device time of
+    cold calls (:func:`graph_ms`): where the decode route stops winning is
+    ``M_DECODE``'s evidence. Fails if the tile route is faster at any
+    ``M <= M_DECODE`` (the rows routed to the decode kernel)."""
+    from repro_torch.kernels.psram_matmul import M_DECODE, _launch
+
+    rows = []
+    for k, n in CROSSOVER_KN:
+        qw = None
+        for m in ms:
+            qx, qw_m, sx, sw = matmul_codes(torch, m, k, n, seed=m + n)
+            if qw is None:
+                qw = qw_m
+                ws = cold_copies(torch, qw)
+            call = lambda w, r: _launch(qx, w, sx, sw, route=r)
+            row = {"shape": [m, k, n],
+                   "tile_ms": graph_ms(torch, [lambda w=w: call(w, "tile") for w in ws])}
+            row["decode_ms"] = graph_ms(torch, [lambda w=w: call(w, "decode") for w in ws]) \
+                if m <= 16 else None
+            rows.append(row)
+            if m <= M_DECODE and row["decode_ms"] >= row["tile_ms"]:
+                raise AssertionError(f"the tile route beats the decode route at M = {m} "
+                                     f"<= M_DECODE: {row}")
+    return rows
+
+
+def small_decode_cases(torch):
+    """Ragged decode rows: one row, odd K, N under one column block, M
+    across two n8 tiles, a K that is not a multiple of 32."""
+    return [decode_case(torch, m, k, n, seed=30 + i) for i, (m, k, n) in enumerate([
+        (1, 7, 3), (3, 1043, 131), (5, 33, 7), (9, 4096, 1024), (13, 100, 1000),
+        (16, 2048, 8), (16, 4100, 72)])]
 
 
 # ---------------------------------------------------------------- kernel A
@@ -362,6 +548,7 @@ def psram_case(torch, q, adc_bits=16, timed=False):
         "max_abs_err": float(diff.max()),
         "max_err_in_codes": float((diff / lsb).max()),
         "elements_a_code_apart": int((diff >= 0.5 * lsb).sum()),
+        **code_flip_analysis(torch, got, want, fs, bi, lsb),
         "elements": got.numel(),
         "finite": bool(torch.isfinite(got).all()),
         "deterministic": bool(torch.equal(mttkrp_psram_fused(*q, adc_bits=adc_bits), got)),
@@ -389,6 +576,27 @@ def psram_case(torch, q, adc_bits=16, timed=False):
         case["bound_ms"] = max(bytes_ms, ops_ms)
         case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     return case
+
+
+def code_flip_analysis(torch, got, want, fs, bi, lsb) -> dict:
+    """Why kernel 4 strays past one ADC code: per ``bi``-row tile, the
+    kernel's full scale relative to the plain version's, estimated as the
+    median of ``got / want - 1`` over the tile's large elements (most keep
+    their code, so their ratio is exactly that of the two LSBs); then what is
+    left of each element once that scale is taken out, in codes. A whole
+    number of codes (at most one) and a small residual confirm: one code
+    flipped at a rounding boundary, every code's LSB moved by the tile's
+    full scale (f32 reassociation of the tile's max)."""
+    i = got.shape[0]
+    g, w = got.reshape(i // bi, -1), want.reshape(i // bi, -1)
+    big = w.abs() >= 0.25 * fs[:, None]
+    ratio = torch.where(big, g / w.where(big, torch.ones_like(w)) - 1, torch.nan)
+    delta = ratio.nanmedian(dim=1).values.nan_to_num(0.0)              # (tiles,)
+    flips = ((g - w * (1 + delta[:, None])) / lsb.reshape(i // bi, bi)[:, :1]).double()
+    k = flips.round()
+    return {"full_scale_rel_diff_max": float(delta.abs().max()),
+            "codes_flipped_max": int(k.abs().max()),
+            "residual_in_codes": float((flips - k).abs().max())}
 
 
 def small_dense_cases(torch):
@@ -482,6 +690,135 @@ def small_segment_cases(torch):
         cases.append(segment_case(torch, data, ids, n_seg, cpu_bit_check=True))
     return cases
 
+
+
+# ------------------------------------------------------- the ordered fold
+
+
+def fold_chunks_case(torch, csf, factors):
+    """The ordered fold as the exact-fit MTTKRP launches it: once a step of
+    ``stream_mttkrp`` (64Ki nonzeros), over one mode's whole stream, with the
+    chain of every step formed first. Per launch: the kernel's time, its
+    plain version's (``index_add_``: on the card atomic and unordered; the
+    library call is the same ``index_add_``) and its byte bound (d read, the
+    segments' offsets and rows read, and each segment's out row read and
+    written once: the rows a step folds, not all of out). The kernel's result is
+    held within the worst case of two recursive f32 sums of each row's run
+    of the plain version, and repeatable."""
+    from repro_torch.core.mttkrp import cp_chain_exact
+    from repro_torch.kernels.ordered_fold import _fold_runs, ordered_fold_torch
+    from repro_torch.sparse.stream import _DEFAULT_EXEC_NNZ, _fold_segments
+
+    mode = csf.mode_order[0]
+    rows, rank = csf.shape[mode], factors[0].shape[1]
+    idx = csf.expanded_indices()
+    d = cp_chain_exact(idx, csf.values, tuple(factors), mode)
+    ids = idx[:, mode].long()
+    step = _DEFAULT_EXEC_NNZ
+    seg_ptr, seg_rows, chunk_seg = _fold_segments(csf, step)
+    los = list(range(0, csf.nnz, step))
+    parts = [(d[lo:lo + step], ids[lo:lo + step], (chunk_seg[c], chunk_seg[c + 1], lo))
+             for c, lo in enumerate(los)]
+
+    def fold(out):                       # as stream_mttkrp launches it
+        for dc, _, (first, last, lo) in parts:
+            _fold_runs(out, dc, seg_ptr, seg_rows, first, last, lo)
+        return out
+
+    def plain(out, src=None):
+        for dc, ic, _ in parts:
+            ordered_fold_torch(out, dc if src is None else src(dc), ic)
+        return out
+
+    zeros = lambda: torch.zeros((rows, rank), device="cuda")
+    got = fold(zeros())
+    torch.cuda.synchronize()
+    want = plain(zeros())
+    mag = plain(zeros(), torch.abs)
+    run = int(csf.fiber_lengths().max())
+    diff = (got - want).abs()
+    case = {
+        "mode": mode, "nnz": csf.nnz, "rank": rank, "launches_per_call": len(parts),
+        "segments": int(seg_rows.numel()), "longest_run": run,
+        "max_abs_err": float(diff.max()),
+        "max_err_over_magnitude": float((diff / mag.clamp_min(1e-30)).max()),
+        "repeatable": bool(torch.equal(fold(zeros()), got)),
+        "finite": bool(torch.isfinite(got).all()),
+    }
+    del mag
+    if not (case["repeatable"] and case["finite"]
+            and case["max_err_over_magnitude"] <= 2 * (run - 1) * 2.0 ** -24):
+        raise AssertionError(f"ordered_fold disagrees with its plain version: {case}")
+    buf = zeros()
+    n = len(parts)
+    # device time a launch: the whole stream's steps captured in one graph
+    # (d is 2.1 GB, cold), and one call at a time from the host
+    case["ms"] = graph_ms(torch, [lambda: fold(buf)], iters=3) / n
+    case["plain_ms"] = graph_ms(torch, [lambda: plain(buf)], iters=3) / n
+    case["call_ms"] = time_ms(torch, lambda: fold(buf), warmup=1, iters=3, reps=1) / n
+    case["library_ms"] = case["plain_ms"]
+    case["library"] = "index_add_ per step (the plain version itself)"
+    moved = nbytes(d, seg_ptr, seg_rows) + 2 * 4 * rank * seg_rows.numel()
+    case["bound_ms"] = 1e3 * moved / HBM_BYTES_PER_S / n
+    case["bound_by"] = "bytes"
+    case["all_steps_ms"] = case["ms"] * n
+    return case
+
+
+def stream_fold_check(torch, csf, factors):
+    """The exact eager ``stream_mttkrp`` at full size through the ordered
+    fold: twice on the card (bit-equal), and on the CPU from the same tree,
+    values and factors (bit-equal: the CPU's index_add_ adds in stream
+    order)."""
+    from repro_torch.sparse.formats import CSF
+    from repro_torch.sparse.stream import stream_mttkrp
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = stream_mttkrp(csf, factors)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0           # with the host's run cuts, made once
+    again = stream_mttkrp(csf, factors)
+    warm_ms = time_ms(torch, lambda: stream_mttkrp(csf, factors), warmup=0, iters=3, reps=1)
+    host = CSF(shape=csf.shape, mode_order=csf.mode_order, fids=csf.fids, fptr=csf.fptr,
+               values=csf.values.cpu())
+    host.__dict__["_expanded_np"] = csf.expanded_indices_np()
+    t0 = time.perf_counter()
+    want = stream_mttkrp(host, tuple(f.cpu() for f in factors))
+    case = {
+        "mode": csf.mode_order[0], "nnz": csf.nnz, "longest_run": int(csf.fiber_lengths().max()),
+        "card_first_s": card_s, "card_warm_ms": warm_ms, "cpu_s": time.perf_counter() - t0,
+        "repeatable": bool(torch.equal(again, got)),
+        "bit_equal_to_cpu": bool(torch.equal(got.cpu(), want)),
+        "max_abs_err": float((got.cpu() - want).abs().max()),
+    }
+    if not (case["repeatable"] and case["bit_equal_to_cpu"]):
+        raise AssertionError(f"stream_mttkrp on the card is not the ordered fold: {case}")
+    return case
+
+
+def small_fold_cases(torch):
+    """The fold kernel on its own against the CPU's index_add_ (bit-equal):
+    16-byte and 4-byte copies, a misaligned d, one-row stages (R over
+    2048), a run longer than the ring, empty rows, a nonzero start."""
+    from repro_torch.kernels.ordered_fold import ordered_fold, ordered_fold_torch
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cases = []
+    for n, rows, r, offset in [(5000, 23, 32, 0), (5000, 23, 6, 0), (5000, 23, 40, 1),
+                               (300, 23, 3000, 0), (70000, 4, 32, 0)]:
+        ids = torch.randint(0, rows, (n,), generator=gen, device="cuda").sort().values
+        d = torch.randn((n * r + offset,), generator=gen, device="cuda")[offset:].view(n, r)
+        start = torch.randn((rows, r), generator=gen, device="cuda")
+        got = ordered_fold(start.clone(), d, ids)
+        want = ordered_fold_torch(start.cpu(), d.cpu(), ids.cpu())
+        case = {"n": n, "rows": rows, "rank": r, "offset": offset,
+                "max_abs_err": float((got.cpu() - want).abs().max()),
+                "bit_equal_to_cpu": bool(torch.equal(got.cpu(), want))}
+        cases.append(case)
+        if not case["bit_equal_to_cpu"]:
+            raise AssertionError(f"ordered_fold is not bit-equal to the CPU fold: {case}")
+    return cases
 
 
 # ---------------------------------------------------------- kernel 6
@@ -612,7 +949,7 @@ def serve_run(torch, cfg, params, prompts, eng_cls, zero_counts, read_counts):
     counters set to 0 just before it and read just after, then its prefill
     and a decode step timed alone, and the first decode step's logits held
     against ``forward`` on prompt + token. Returns (report, launches,
-    prefill logits)."""
+    prefill logits, engine, generated tokens)."""
     from repro_torch.models import transformer
 
     b, p = prompts.shape
@@ -649,7 +986,7 @@ def serve_run(torch, cfg, params, prompts, eng_cls, zero_counts, read_counts):
         out["decode_vs_forward_rel_l2"] = float(torch.linalg.norm(first - full)
                                                 / torch.linalg.norm(full))
         out["finite"] = bool(torch.isfinite(logits).all() and torch.isfinite(first).all())
-    return out, launches, logits
+    return out, launches, logits, eng, toks
 
 
 def profile_decode(torch, eng, params, cache, tok, pos: int, n: int) -> dict:
@@ -677,14 +1014,52 @@ def profile_decode(torch, eng, params, cache, tok, pos: int, n: int) -> dict:
     if not kernels or busy_ms <= 0:
         raise AssertionError("the profiler saw no device time in the decode steps")
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    k2 = [e for e in kernels if "psram_matmul" in e.key]
     return {
         "steps": n, "host_ms_per_step": wall_ms / n,
         "device_busy_ms_per_step": busy_ms / n,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches_per_step": sum(e.count for e in kernels) / n,
+        "kernel2_ms_per_step": sum(dev_us(e) for e in k2) / 1e3 / n,
+        "kernel2_launches_per_step": sum(e.count for e in k2) / n,
+        "kernel2_names": sorted({e.key[:60] for e in k2}),
         "top_kernels": [{"name": e.key[:90], "ms_per_step": dev_us(e) / 1e3 / n,
                          "launches_per_step": e.count / n} for e in top],
     }
+
+
+def routes_agree(torch, eng, prompts, toks):
+    """``eng.generate`` for the first ``TOKENS_CHECKED`` tokens with the
+    model's module-level ``psram_matmul`` wrapped so that every call of the
+    decode route is also launched on the tile route: each decode projection
+    must be BIT-EQUAL across the routes, and the tokens equal to ``toks``'s
+    (the main path's run). Since every projection agrees, the tile route
+    would have served these tokens too."""
+    import repro_torch.core.photonic_layer as photonic
+    from repro_torch.kernels.psram_matmul import M_DECODE, _launch
+
+    launch = photonic.psram_matmul
+    counts = {"compared": 0, "differing": 0}
+
+    def both(qx, qw, sx, sw, adc_bits=16):
+        out = launch(qx, qw, sx, sw, adc_bits=adc_bits)
+        if qx.shape[0] <= M_DECODE:
+            counts["compared"] += 1
+            tile = _launch(qx, qw, sx, sw, adc_bits=adc_bits, route="tile")
+            counts["differing"] += int(not torch.equal(out, tile))
+        return out
+
+    photonic.psram_matmul = both
+    try:
+        again = eng.generate(prompts, prompts.shape[1], TOKENS_CHECKED)
+    finally:
+        photonic.psram_matmul = launch
+    counts["tokens_equal"] = bool(torch.equal(again, toks[:, :TOKENS_CHECKED]))
+    n_proj = 7 * eng.cfg.num_layers * TOKENS_CHECKED      # a step a token
+    if counts["differing"] or counts["compared"] != n_proj or not counts["tokens_equal"]:
+        raise AssertionError(f"kernel 2's routes disagree on the served decode steps "
+                             f"(expected {n_proj} compared): {counts}")
+    return counts
 
 
 def served_matmul_cases(torch, eng, params, prompts):
@@ -707,14 +1082,18 @@ def served_matmul_cases(torch, eng, params, prompts):
         return out
 
     cases = []
+    routes = launch.routes
     photonic.psram_matmul = record
     try:
         with torch.inference_mode():
+            r0 = dict(routes)
             logits, cache = eng.prefill_fn(params, prompts)
             torch.cuda.synchronize()
+            r1 = dict(routes)
             calls, seen = seen, []
             eng.step_fn(params, cache, logits.argmax(-1).to(torch.int32), prompts.shape[1])
             torch.cuda.synchronize()
+            r2 = dict(routes)
             calls += seen
     finally:
         photonic.psram_matmul = launch
@@ -722,9 +1101,17 @@ def served_matmul_cases(torch, eng, params, prompts):
     if len(calls) != 14:
         raise AssertionError(f"layer 0 made {len(calls)} kernel-2 calls in a prefill and a "
                              f"decode step, not 2 x 7")
-    for qx, qw, sx, sw, adc_bits, got in calls:
+    # every projection of the prefill took the tile route, every one of the
+    # decode step the decode route
+    took = [{r: r1[r] - r0[r] for r in routes}, {r: r2[r] - r1[r] for r in routes}]
+    n_proj = 7 * eng.cfg.num_layers
+    if took != [{"tile": n_proj, "decode": 0}, {"tile": 0, "decode": n_proj}]:
+        raise AssertionError(f"the served projections did not take the expected routes "
+                             f"(prefill, decode step): {took}")
+    for i, (qx, qw, sx, sw, adc_bits, got) in enumerate(calls):
         want = psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits)
         case = {"shape": [qx.shape[0], qx.shape[1], qw.shape[1]], "adc_bits": adc_bits,
+                "route": "tile" if i < 7 else "decode",
                 "max_abs_err": float((got - want).abs().max()),
                 "bit_equal": bool(torch.equal(got, want))}
         cases.append(case)
@@ -744,7 +1131,11 @@ def main(argv=None) -> int:
                         help="requested samples of the synthetic tensor")
     parser.add_argument("--out", type=Path, default=None,
                         help="also write the whole report to this JSON file")
+    parser.add_argument("--tuning", action="store_true",
+                        help="also time kernel 2's decode route at every cluster size "
+                             "and both routes over every M of the crossover sweep")
     opts = parser.parse_args(argv)
+    _LAST_EMIT[0] = time.perf_counter()
 
     import torch
 
@@ -763,6 +1154,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mttkrp import (
         mttkrp_fused, mttkrp_psram_fused, quantize_mttkrp_operands)
+    from repro_torch.kernels.ordered_fold import ordered_fold
     from repro_torch.kernels.psram_matmul import psram_matmul
     from repro_torch.kernels.segment_sum import blocked_segment_sum
     from repro_torch.kernels.stream_mttkrp import stream_mttkrp_fused
@@ -772,16 +1164,19 @@ def main(argv=None) -> int:
     kernel_fns = {"stream_mttkrp_fused": stream_mttkrp_fused, "psram_matmul": psram_matmul,
                   "mttkrp_fused": mttkrp_fused, "mttkrp_psram_fused": mttkrp_psram_fused,
                   "blocked_segment_sum": blocked_segment_sum,
-                  "flash_attention": flash_attention}
+                  "flash_attention": flash_attention, "ordered_fold": ordered_fold}
 
     def zero_counts():
         torch.cuda.synchronize()
         for fn in kernel_fns.values():
             fn.launches = 0
+        psram_matmul.routes = {route: 0 for route in psram_matmul.routes}
 
     def read_counts():
         torch.cuda.synchronize()
-        return {name: fn.launches for name, fn in kernel_fns.items()}
+        counts = {name: fn.launches for name, fn in kernel_fns.items()}
+        counts.update({f"psram_matmul_{route}": n for route, n in psram_matmul.routes.items()})
+        return counts
 
     report: dict = {}
     card = smi_line()
@@ -837,8 +1232,11 @@ def main(argv=None) -> int:
               for m in range(3)]
     a_small = small_stream_cases(torch)
     b_main = matmul_case(torch, *MLP_SHAPE, seed=1, timed=True)
-    # the served model's decode shape: one row per prompt, granite-8b's MLP
-    b_decode = matmul_case(torch, SERVE_BATCH, 4096, 14336, seed=6, timed=True)
+    # the served model's decode shapes: one row per prompt, every projection
+    b_decode = [decode_case(torch, *shape, seed=6 + i, timed=True, tuning=opts.tuning)
+                for i, shape in enumerate(DECODE_SHAPES)]
+    b_decode_small = small_decode_cases(torch)
+    b_crossover = crossover_sweep(torch, CROSSOVER_M if opts.tuning else CROSSOVER_M_DEFAULT)
     b_small = [matmul_case(torch, m, k, n, seed=2 + i, adc_bits=bits)
                for i, (m, k, n, bits) in enumerate([
                    (77, 1043, 131, 16),      # nothing a multiple of a tile; K odd
@@ -868,11 +1266,19 @@ def main(argv=None) -> int:
                                      cpu_bit_check=mode == 0))
         del chain
     seg_small = small_segment_cases(torch)
+    # the ordered fold: as the exact-fit MTTKRP of a hopper sweep launches it
+    # (the last mode), and the skewed mode 0 (a 2.5 M-nonzero head row)
+    # through stream_mttkrp at full size, against the CPU
+    fold_main = fold_chunks_case(torch, csfs[2], init)
+    fold_skew = stream_fold_check(torch, csfs[0], init)
+    fold_small = small_fold_cases(torch)
     f_main = flash_case(torch, *FLASH_MAIN, torch.bfloat16, causal=True, seed=21, timed=True)
     f_small = small_flash_cases(torch)
     report["kernel_cases"] = {
         "phase": "kernel_cases", "stream_main": a_main, "stream_small": a_small,
         "matmul_main": b_main, "matmul_decode": b_decode, "matmul_small": b_small,
+        "matmul_decode_small": b_decode_small, "matmul_crossover": b_crossover,
+        "fold_main": fold_main, "fold_skew": fold_skew, "fold_small": fold_small,
         "dense_main": d_main, "dense_small": d_small,
         "dense_psram_main": p_main, "dense_psram_small": p_small,
         "segment_main": seg_main, "segment_small": seg_small,
@@ -932,6 +1338,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"the main path did not launch the stream kernel: {main_path}")
     if launches["psram_matmul"] < 1:
         raise AssertionError(f"api.matmul did not launch the matmul kernel: {main_path}")
+    if launches["ordered_fold"] < SWEEPS:
+        raise AssertionError(f"the exact-fit MTTKRP did not launch the ordered fold: {main_path}")
     if not all(f.is_cuda and torch.isfinite(f).all() for f in hop.factors) or not y.is_cuda:
         raise AssertionError("results are not finite tensors on the card")
     if tuple(y.shape) != (m, n) or not matmul_rel < 0.05:
@@ -1053,7 +1461,7 @@ def main(argv=None) -> int:
     prompts = torch.randint(2, scfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
                             dtype=torch.int32,
                             generator=torch.Generator(device="cuda").manual_seed(8))
-    exact_run, exact_launches, exact_logits = serve_run(
+    exact_run, exact_launches, exact_logits, _, _ = serve_run(
         torch, scfg, sparams, prompts, ServeEngine, zero_counts, read_counts)
 
     # the flash kernel against the served model's own attention: layer 0's
@@ -1099,8 +1507,13 @@ def main(argv=None) -> int:
     pparams = transformer.init(9, pcfg, device="cuda")
     int8_bytes = sum(w["q"].numel() for g in pparams["blocks"] for lay in g.values()
                      for blk in (lay["mixer"], lay["mlp"]) for w in blk.values())
-    psram_run, psram_launches, psram_logits = serve_run(
+    psram_run, psram_launches, psram_logits, peng, ptoks = serve_run(
         torch, pcfg, pparams, prompts, ServeEngine, zero_counts, read_counts)
+    # the first TOKENS_CHECKED greedy tokens again, every decode projection
+    # also computed on the tile route and held bit-equal: what the tile
+    # route would have served, and the same tokens
+    psram_run["decode_route_vs_tile_route"] = routes_agree(torch, peng, prompts, ptoks)
+    del peng, ptoks
     served_matmul = served_matmul_cases(
         torch, ServeEngine(pcfg, pparams, max_len=SERVE_PROMPT + SERVE_NEW, device="cuda"),
         pparams, prompts)
@@ -1142,6 +1555,12 @@ def main(argv=None) -> int:
     if psram_launches["psram_matmul"] < 7 * scfg.num_layers * (1 + SERVE_NEW):
         raise AssertionError(f"the pSRAM serve path did not launch kernel 2 on every "
                              f"projection: {serve_path}")
+    if psram_launches["psram_matmul_decode"] < 7 * scfg.num_layers * (SERVE_NEW - 1):
+        raise AssertionError(f"the pSRAM decode steps did not take kernel 2's decode "
+                             f"route: {serve_path}")
+    if psram_run["decode_profile"]["kernel_launches_per_step"] > PSRAM_DECODE_LAUNCH_CEILING:
+        raise AssertionError(f"a pSRAM decode step launches more than "
+                             f"{PSRAM_DECODE_LAUNCH_CEILING} kernels: {serve_path}")
 
     # per-sweep time, warm: cp_als sorts and merges duplicates on the host
     # before its first sweep, so a sweep is timed on its own — a backend
@@ -1233,18 +1652,35 @@ def main(argv=None) -> int:
         },
         {
             "name": "psram_matmul", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/psram_matmul.cu",
+            "source": "src/repro_torch/kernels/csrc/psram_matmul.cu (psram_matmul_kernel: "
+                      "the tile route, M > M_DECODE)",
             "replaces": "src/repro/kernels/psram_matmul.py:80",
-            "launches": total("psram_matmul"),
-            "max_abs_err": max(c["max_abs_err"]
-                               for c in [b_main, b_decode] + b_small + served_matmul),
+            "launches": total("psram_matmul_tile"),
+            "max_abs_err": max(c["max_abs_err"] for c in [b_main] + b_small
+                               + [c for c in served_matmul if c["route"] == "tile"]),
             "ms": b_main["ms"], "plain_ms": b_main["plain_ms"],
             "bound_ms": b_main["bound_ms"], "bound_by": b_main["bound_by"],
             "library_ms": b_main["library_ms"],
             "tolerance": "bit-equal (seeded shapes, and the served model's layer-0 "
-                         "operands in a prefill and a decode step)",
-            "decode_shape": b_decode["shape"], "decode_ms": b_decode["ms"],
-            "decode_bound_ms": b_decode["bound_ms"], "decode_library_ms": b_decode["library_ms"],
+                         "operands in a prefill)",
+        },
+        {
+            "name": "psram_matmul_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/psram_matmul.cu (psram_matmul_decode_kernel: "
+                      "the decode route, M <= M_DECODE)",
+            "replaces": "src/repro/kernels/psram_matmul.py:80",
+            "launches": total("psram_matmul_decode"),
+            "max_abs_err": max(c["max_abs_err"] for c in b_decode + b_decode_small
+                               + [c for c in served_matmul if c["route"] == "decode"]),
+            "ms": b_decode[2]["ms"], "plain_ms": b_decode[2]["plain_ms"],
+            "bound_ms": b_decode[2]["bound_ms"], "bound_by": b_decode[2]["bound_by"],
+            "library_ms": b_decode[2]["library_ms"], "library": b_decode[2]["library"],
+            "tolerance": "bit-equal to the plain version and to the tile route (seeded "
+                         "shapes, every cluster size, and the served model's layer-0 "
+                         "operands in a decode step)",
+            "shape": b_decode[2]["shape"], "tile_ms": b_decode[2]["tile_ms"],
+            "per_shape": [{k: c[k] for k in ("shape", "cluster", "ms", "tile_ms", "bound_ms",
+                                             "library_ms")} for c in b_decode],
         },
         row("mttkrp_fused", "src/repro_torch/kernels/csrc/mttkrp.cu",
             "src/repro/kernels/mttkrp.py:54", d_main, d_small,
@@ -1255,7 +1691,9 @@ def main(argv=None) -> int:
             "src/repro/kernels/mttkrp.py:121", p_main, p_small,
             "per element: 2 ADC codes of its 128-row tile's full scale + rtol 2e-4",
             elements_a_code_apart=sum(c["elements_a_code_apart"] for c in p_main + p_small),
-            elements=sum(c["elements"] for c in p_main + p_small)),
+            elements=sum(c["elements"] for c in p_main + p_small),
+            max_err_in_codes=max(c["max_err_in_codes"] for c in p_main + p_small),
+            main_max_err_in_codes=[c["max_err_in_codes"] for c in p_main]),
         row("blocked_segment_sum", "src/repro_torch/kernels/csrc/segment_sum.cu",
             "src/repro/kernels/segment_sum.py:44", seg_main, seg_small,
             "bit-equal to the row-ordered CPU plain version (small cases, mode 0 "
@@ -1278,6 +1716,23 @@ def main(argv=None) -> int:
             "max_err_over_envelope": max(c.get("max_err_over_envelope", 0.0)
                                          for c in [f_main, f_served] + f_small),
             "tflops": f_main["tflops"],
+        },
+        {
+            "name": "ordered_fold", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ordered_fold.cu",
+            "replaces": "src/repro/core/mttkrp.py:112 (jax.ops.segment_sum, the exact "
+                        "sparse CP3 scatter; no Pallas kernel)",
+            "launches": total("ordered_fold"),
+            "max_abs_err": max([fold_main["max_abs_err"], fold_skew["max_abs_err"]]
+                               + [c["max_abs_err"] for c in fold_small]),
+            "ms": fold_main["ms"], "plain_ms": fold_main["plain_ms"],
+            "bound_ms": fold_main["bound_ms"], "bound_by": fold_main["bound_by"],
+            "library_ms": fold_main["library_ms"], "library": fold_main["library"],
+            "tolerance": "bit-equal to the CPU's stream-ordered index_add_ (small cases; "
+                         "mode 0 of the sparse tensor at full size through stream_mttkrp) "
+                         "and repeatable; against the card's atomic index_add_ within "
+                         "2 (L-1) 2^-24 of each row's summed magnitudes",
+            "all_steps_ms": fold_main["all_steps_ms"],
         },
     ]}
     report["kernels"] = kernels

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch._device import ieee_f32
+
 from .base import Backend, Capabilities, CapabilityError, register
 from .lowering import validate_lowering
 from .workload import mode_csf, normalize_mttkrp_data, to_coo_triple
@@ -26,7 +28,9 @@ from .workload import mode_csf, normalize_mttkrp_data, to_coo_triple
 
 @register("exact")
 class ExactBackend(Backend):
-    """Float reference numerics — the baseline every backend is compared to."""
+    """Float reference numerics — the baseline every backend is compared to.
+    Its products run in IEEE f32 whatever TF32 setting the caller chose
+    (:func:`repro_torch._device.ieee_f32`)."""
 
     def capabilities(self) -> Capabilities:
         return Capabilities(
@@ -34,6 +38,7 @@ class ExactBackend(Backend):
             description="exact float einsum / COO scatter-add",
         )
 
+    @ieee_f32()
     def matmul(self, x, w):
         return x.to(torch.float32) @ w.to(torch.float32)
 

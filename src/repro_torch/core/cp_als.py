@@ -28,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch._device import as_device
+from repro_torch._device import as_device, ieee_f32
 
 from .mttkrp import khatri_rao, mttkrp_dense, mttkrp_sparse
 from .psram import PsramConfig
@@ -154,6 +154,7 @@ def _initial_factors(init, seed, shape, rank, device) -> list[torch.Tensor]:
     return factors
 
 
+@ieee_f32()
 def cp_als(
     x: torch.Tensor | None,
     rank: int,
@@ -193,6 +194,9 @@ def cp_als(
     is lossy or a callable), the fit inner product is recomputed with the
     exact sparse/dense path each sweep while the factor updates still come
     from the engine under test.
+
+    The Grams, the solve and the fit run in IEEE f32 whatever TF32 setting
+    the caller chose (:func:`repro_torch._device.ieee_f32`).
     """
     if backend is None and config is not None:
         raise ValueError(

@@ -24,6 +24,9 @@ import string
 
 import torch
 
+from repro_torch._device import ieee_f32
+from repro_torch.kernels.ordered_fold import ordered_fold, row_runs
+
 
 def khatri_rao(mats: list[torch.Tensor]) -> torch.Tensor:
     """Column-wise Kronecker product: (prod(I_n), R) from [(I_n, R)]."""
@@ -39,8 +42,10 @@ def matricize(x: torch.Tensor, mode: int) -> torch.Tensor:
     return x.permute(order).reshape(x.shape[mode], -1)
 
 
+@ieee_f32()
 def mttkrp_dense(x: torch.Tensor, factors: list[torch.Tensor], mode: int) -> torch.Tensor:
-    """Exact dense MTTKRP via a single einsum (mode-generic)."""
+    """Exact dense MTTKRP via a single einsum (mode-generic), in IEEE f32
+    whatever TF32 setting the caller chose."""
     n = x.ndim
     letters = string.ascii_lowercase
     operands, subs = [x], [letters[:n]]
@@ -53,6 +58,7 @@ def mttkrp_dense(x: torch.Tensor, factors: list[torch.Tensor], mode: int) -> tor
     return torch.einsum(expr, *operands)
 
 
+@ieee_f32()
 def mttkrp_dense_kr(x: torch.Tensor, factors: list[torch.Tensor], mode: int) -> torch.Tensor:
     """Oracle: X_(n) @ KhatriRao(other factors) — materializes the KR operand.
 
@@ -93,19 +99,41 @@ def mttkrp_sparse(
 
     CP1: Hadamard of the gathered factor rows of all non-target modes.
     CP2: scale by the nonzero value.
-    CP3: scatter-add into the target factor row (``index_add_``).
+    CP3: scatter-add into the target factor row, in stream order.
 
-    Fold order: on the CPU ``index_add_`` adds in stream order; on a CUDA
-    device it uses atomics, so the adds land in no fixed order and the
-    result may differ in the last bits from run to run. The reference's
-    bit-identity of this eager path to an ordered segment sum is therefore
-    **not** claimed here yet — it arrives with the ordered fold of the
-    ``psram-stream`` slice.
+    Fold order: the nonzeros are stably sorted by their target row (which
+    keeps each row's input order), the chain runs over the sorted stream
+    (pointwise per nonzero, so its bits do not change), and
+    ``kernels.ordered_fold`` adds each row's contributions in that order:
+    the order of one global ``jax.ops.segment_sum`` over the unsorted
+    stream. The result is **bit-identical** to the reference's on the CPU
+    and, on the card, to the CPU's and repeatable from run to run. The sort
+    is made once per mode and kept with ``indices`` (:func:`_sorted_stream`).
     """
-    scaled = cp_chain_exact(indices, values, factors, mode)
+    ids, perm, sorted_idx, runs = _sorted_stream(indices, mode, out_rows)
+    scaled = cp_chain_exact(sorted_idx, values[perm], factors, mode)
     out = torch.zeros((out_rows, scaled.shape[-1]), dtype=scaled.dtype,
                       device=scaled.device)
-    return out.index_add_(0, indices[:, mode].long(), scaled)  # CP 3
+    return ordered_fold(out, scaled, ids, runs=runs)  # CP 3
+
+
+def _sorted_stream(indices: torch.Tensor, mode: int, out_rows: int):
+    """``(ids, perm, indices[perm], runs)``: the stable sort of the nonzeros
+    by their ``mode`` coordinate, and on a CUDA device the target rows' runs
+    (``kernels.ordered_fold.row_runs``; None on the CPU). A CP-ALS run asks
+    for every mode once a sweep of the same COO, so the result is kept on
+    ``indices`` per ``(mode, out_rows)`` and made anew only once the tensor
+    has been written in place (its version counter moved)."""
+    cache = indices.__dict__.setdefault("_sorted_stream", {})
+    key = (mode, out_rows)
+    hit = cache.get(key)
+    if hit is not None and hit[0] == indices._version:
+        return hit[1]
+    ids, perm = torch.sort(indices[:, mode].long(), stable=True)
+    runs = row_runs(ids, out_rows) if ids.is_cuda else None
+    entry = (ids, perm, indices[perm], runs)
+    cache[key] = (indices._version, entry)
+    return entry
 
 
 def dense_to_coo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -5,9 +5,11 @@
 module: a plain PyTorch version, a launch counter on the wrapper, and a note
 on which TPU kernel it replaces and what bounds it on the card.
 
-Ported: the pSRAM int8 matmul (``psram_matmul``), the fused streaming
-MTTKRP (``stream_mttkrp``), the dense MTTKRP pair, exact and quantized
-(``mttkrp``), the blocked segment sum (``segment_sum``) and flash attention
-(``flash_attention``) — every Pallas kernel of the reference package. Still
-to come: the autotune sweeps.
+Ported: the pSRAM int8 matmul (``psram_matmul``: a tile route and a
+decode-row route), the fused streaming MTTKRP (``stream_mttkrp``), the dense
+MTTKRP pair, exact and quantized (``mttkrp``), the blocked segment sum
+(``segment_sum``) and flash attention (``flash_attention``) — every Pallas
+kernel of the reference package — plus the port's own ordered fold
+(``ordered_fold``), which keeps the exact sparse MTTKRP's scatter in stream
+order on the card. Still to come: the autotune sweeps.
 """

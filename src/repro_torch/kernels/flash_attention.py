@@ -24,7 +24,16 @@ softmax in f32 over blocks of q rows, per kv head, never materialising more
 than one block's logits, rounded once to q's dtype at the end.
 
 Layouts are the reference's: q ``(B, H, Sq, D)``, k/v ``(B, Hkv, Skv, D)``,
-out ``(B, H, Sq, D)`` in q's dtype. ``bq``/``bkv`` are the reference's tile
+out ``(B, H, Sq, D)`` in q's dtype.
+
+The wrapper takes what the reference takes, up to ``D = 128``: any float
+dtype (f32 and bf16 run as they are; fp16 and f64 are staged to f32, run
+through the f32 kernel and cast back — the reference's kernel computes in
+f32 whatever it is given), and any head dim up to the largest of
+:data:`KERNEL_HEAD_DIMS` (one that is not in it is zero-padded to the next
+one: zero q/k columns add nothing to ``QKᵀ``, zero v columns are sliced
+off, and the softmax scale is formed from the true ``D``). A head dim above
+128 raises: no kernel is instantiated for it. ``bq``/``bkv`` are the reference's tile
 sizes: they are validated as the reference does (``Sq % min(bq, Sq) == 0``,
 ``Skv % min(bkv, Skv) == 0``) but they are not numerics — only the order of
 sums depends on them — so the CUDA tile is the kernel's own.
@@ -119,19 +128,39 @@ def _entry():
     return lib, fn
 
 
-def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0,
-                    scale: float | None = None, bq: int = 128, bkv: int = 128):
-    """Attention ``(B, H, Sq, D)`` in q's dtype. CUDA tensors (f32 or bf16,
-    contiguous, ``D`` in :data:`KERNEL_HEAD_DIMS`) go through the kernel on
-    the current stream, without synchronizing; CPU tensors through
-    :func:`flash_attention_torch`."""
-    b, h, hkv, sq, skv, d = check_shapes(q, k, v, causal, bq, bkv)
-    if not q.is_cuda:
-        return flash_attention_torch(q, k, v, causal, softcap, scale, bq, bkv)
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the flash kernel takes float32 or bfloat16, got {q.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head dims {KERNEL_HEAD_DIMS}, got {d}")
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernel runs a true head dim ``d`` at: the smallest of
+    :data:`KERNEL_HEAD_DIMS` that holds it; above 128 a ``ValueError``."""
+    for dk in KERNEL_HEAD_DIMS:
+        if d <= dk:
+            return dk
+    raise ValueError(
+        f"the flash kernel takes head dims up to {KERNEL_HEAD_DIMS[-1]} (zero-padded to "
+        f"one of {KERNEL_HEAD_DIMS}), got {d}")
+
+
+def padded_attention(fn, q, k, v, causal: bool = True, softcap: float = 0.0,
+                     scale: float | None = None, **kw):
+    """``fn`` (an attention of this module's signature) at the kernel's head
+    dim: q/k/v zero-padded from ``D`` to :func:`kernel_head_dim`, the scale
+    formed from the true ``D``, the padded output columns sliced off. Zero
+    q/k columns add nothing to ``QKᵀ`` and zero v columns only make zero
+    output columns, so this is ``fn`` at ``D`` up to the order of its sums."""
+    d = q.shape[-1]
+    dk = kernel_head_dim(d)
+    sc = _scale(d, scale)
+    if dk == d:
+        return fn(q, k, v, causal=causal, softcap=softcap, scale=sc, **kw)
+    pad = lambda t: torch.nn.functional.pad(t, (0, dk - d)).contiguous()
+    out = fn(pad(q), pad(k), pad(v), causal=causal, softcap=softcap, scale=sc, **kw)
+    return out[..., :d].contiguous()
+
+
+def _launch(q, k, v, causal, softcap, scale):
+    """One launch of the kernel on contiguous f32/bf16 q/k/v whose head dim
+    is one of :data:`KERNEL_HEAD_DIMS`."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -140,11 +169,30 @@ def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, h, hkv, sq, skv, d, int(q.dtype == torch.bfloat16),
-                 _scale(d, scale), float(softcap), int(bool(causal)),
+                 float(scale), float(softcap), int(bool(causal)),
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, lib, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0,
+                    scale: float | None = None, bq: int = 128, bkv: int = 128):
+    """Attention ``(B, H, Sq, D)`` in q's dtype. CUDA tensors (any float
+    dtype, ``D`` up to 128; see the module note on staging and padding) go
+    through one kernel launch on the current stream, without synchronizing;
+    CPU tensors through :func:`flash_attention_torch`."""
+    b, h, hkv, sq, skv, d = check_shapes(q, k, v, causal, bq, bkv)
+    if not q.is_cuda:
+        return flash_attention_torch(q, k, v, causal, softcap, scale, bq, bkv)
+    if not q.dtype.is_floating_point:
+        raise TypeError(f"the flash kernel takes float tensors, got {q.dtype}")
+    kernel_head_dim(d)                      # raises above 128 before any copy
+    if q.dtype in (torch.float32, torch.bfloat16):
+        return padded_attention(_launch, q, k, v, causal, softcap, scale)
+    f32 = lambda t: t.to(torch.float32)
+    return padded_attention(_launch, f32(q), f32(k), f32(v), causal, softcap,
+                            scale).to(q.dtype)
 
 
 #: kernel launches made by :func:`flash_attention` (CUDA path only)

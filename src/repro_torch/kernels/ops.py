@@ -18,6 +18,7 @@ import weakref
 
 import torch
 
+from repro_torch._device import ieee_f32
 from repro_torch.backends.lowering import require_cuda, resolve_lowering
 from repro_torch.core.quantization import quantize_symmetric
 
@@ -108,12 +109,13 @@ def _unfold0(x):
     return x.reshape(i, j * k).contiguous()
 
 
+@ieee_f32()
 def mttkrp_op(
     x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, lowering: str = "auto",
     bi: int = 128, bk: int = 128,
 ) -> torch.Tensor:
-    """Dense mode-0 MTTKRP (exact arithmetic); x is the 3-mode tensor
-    (I, J, K)."""
+    """Dense mode-0 MTTKRP (exact arithmetic, IEEE f32 whatever TF32 setting
+    the caller chose); x is the 3-mode tensor (I, J, K)."""
     low = resolve_lowering(lowering, x, b, c)
     require_cuda(low, x)
     x0 = _unfold0(x)

@@ -33,6 +33,7 @@ import torch
 from repro_torch.backends.base import resolve_config
 from repro_torch.core.mttkrp import cp_chain_exact
 from repro_torch.core.psram import PsramConfig
+from repro_torch.kernels.ordered_fold import _fold_runs, ordered_fold, ordered_fold_max_rank
 
 from .formats import CSF
 
@@ -146,10 +147,13 @@ def stream_mttkrp(
 
     ``csf``'s root mode is the target mode. The stream is walked in steps of
     ``exec_blocks`` blocks (default ~64Ki nonzeros): the chain runs inside
-    the step and its per-nonzero updates are added into the output with
-    ``index_add_`` — stream order on the CPU, atomics on a CUDA device (see
-    ``core.mttkrp.mttkrp_sparse`` on what that means for bit-identity).
-    ``exec_blocks`` changes the size of the temporaries only.
+    the step and its per-nonzero updates are added into the output by
+    ``kernels.ordered_fold`` in stream order, each step's fold starting from
+    the rows' current values — the fold order of one global
+    ``jax.ops.segment_sum`` over the sorted stream, so the result is
+    **bit-identical** to the reference's eager executor on the CPU and, on
+    the card, to the CPU's and repeatable. ``exec_blocks`` changes the size
+    of the temporaries only (a root fiber split across steps is one fold).
 
     ``psram=True`` (the quantized chain) and ``compiled=True`` (the blocked
     fold) belong to the ``psram-stream`` slice of the port and raise here.
@@ -170,11 +174,46 @@ def stream_mttkrp(
     factors = tuple(factors)
     out = torch.zeros((out_rows, factors[0].shape[-1]), dtype=torch.float32,
                       device=values.device)
-    for lo in range(0, csf.nnz, step):
+    runs = None
+    if values.is_cuda:          # the runs' checks, made once here and not at each launch
+        runs = _fold_segments(csf, step)
+        if factors[0].shape[-1] > ordered_fold_max_rank():
+            raise ValueError(f"the ordered fold takes up to {ordered_fold_max_rank()} "
+                             f"rank columns, got {factors[0].shape[-1]}")
+    for c, lo in enumerate(range(0, csf.nnz, step)):
         i_b, v_b = indices[lo:lo + step], values[lo:lo + step]
-        out.index_add_(0, i_b[:, mode].long(),
-                       cp_chain_exact(i_b, v_b, factors, mode))
+        d = cp_chain_exact(i_b, v_b, factors, mode)
+        if runs is None:                  # the CPU's index_add_, in stream order
+            ordered_fold(out, d, i_b[:, mode])
+        else:
+            seg_ptr, seg_rows, chunk_seg = runs
+            _fold_runs(out, d.contiguous(), seg_ptr, seg_rows, chunk_seg[c], chunk_seg[c + 1], lo)
     return out
+
+
+def _fold_segments(csf: CSF, step: int):
+    """The sorted stream's row runs cut at every step boundary, for the
+    ordered fold of :func:`stream_mttkrp`: ``(seg_ptr, seg_rows, chunk_seg)``
+    with ``seg_ptr (n_seg + 1,)`` contiguous int64 stream offsets and
+    ``seg_rows (n_seg,)`` contiguous int64 rows on the CSF's device (the
+    output's), and ``chunk_seg`` the host list of each step's first segment
+    (and the total last). Host numpy, cached on the CSF per step size, like
+    ``_segment_blocks``."""
+    key = ("_fold_segments", step)
+    cached = csf.__dict__.get(key)
+    if cached is not None:
+        return cached
+    rid = csf.row_of_nonzero().astype(np.int64)
+    nnz = len(rid)
+    starts = np.flatnonzero(np.r_[True, rid[1:] != rid[:-1]]) if nnz else np.zeros(0, np.int64)
+    bounds = np.arange(0, nnz, step, dtype=np.int64)
+    cuts = np.union1d(starts, bounds)
+    chunk_seg = np.searchsorted(cuts, np.r_[bounds, nnz]).tolist()
+    dev = csf.device
+    result = (torch.as_tensor(np.r_[cuts, nnz].astype(np.int64), device=dev),
+              torch.as_tensor(rid[cuts], device=dev), chunk_seg)
+    csf.__dict__[key] = result
+    return result
 
 
 def _segment_blocks(csf: CSF, rows: int):

@@ -270,3 +270,100 @@ def test_cp_als_reaches_the_reference_fit_from_its_initial_factors(n_iter):
     assert abs(got.fit - ref.fit) < 5e-3
     assert abs(got_exact.fit - ref_exact.fit) < 1e-4
     assert isinstance(t_coo, COO) and t_coo.mode_order == (0, 1, 2)
+
+
+# -------------------------------------------------------------- TF32 pin
+
+
+def _tf32_state():
+    """(matmul, cuDNN) in IEEE f32, as the backends read their switches."""
+    b = torch.backends
+    if hasattr(b.cuda.matmul, "fp32_precision"):
+        return (b.cuda.matmul.fp32_precision == "ieee",
+                b.cudnn.conv.fp32_precision == b.cudnn.rnn.fp32_precision == "ieee")
+    return not b.cuda.matmul.allow_tf32, not b.cudnn.allow_tf32
+
+
+def _tf32_snapshot():
+    """Every getter of the TF32 settings, a getter that refuses as "refused"."""
+    b = torch.backends
+    getters = [torch.get_float32_matmul_precision, lambda: b.cuda.matmul.allow_tf32,
+               lambda: b.cudnn.allow_tf32]
+    if hasattr(b.cuda.matmul, "fp32_precision"):
+        getters += [lambda o=o: o.fp32_precision
+                    for o in (b.cuda.matmul, b.cudnn.conv, b.cudnn.rnn)]
+    out = []
+    for get in getters:
+        try:
+            out.append(get())
+        except RuntimeError:
+            out.append("refused")
+    return out
+
+
+def _set_tf32(caller):
+    """The caller's setting: legacy flags (matmul, cuDNN), a legacy matmul
+    precision, or the per-backend switch where this PyTorch has it."""
+    b = torch.backends
+    if isinstance(caller, tuple):
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = caller
+    elif caller == "switch:tf32":
+        if hasattr(b.cuda.matmul, "fp32_precision"):
+            b.cuda.matmul.fp32_precision = "tf32"
+        else:
+            b.cuda.matmul.allow_tf32 = True
+    else:
+        torch.set_float32_matmul_precision(caller)
+
+
+@pytest.mark.parametrize("caller", [(False, True), (True, True), (True, False),
+                                    "medium", "high", "highest", "switch:tf32"])
+def test_exact_entry_points_pin_ieee_f32_and_restore_the_callers_setting(caller, dense_fixture):
+    """Inside the exact entry points TF32 is off for matmuls and cuDNN; the
+    caller's settings come back afterwards exactly as every getter read
+    them (a ``"medium"`` stays ``"medium"``), also after an exception."""
+    from repro_torch._device import _precision_switches, ieee_f32
+
+    b = torch.backends
+    saved = (torch.get_float32_matmul_precision(), b.cudnn.allow_tf32,
+             [s.fp32_precision for s in _precision_switches()])
+    seen = []
+    try:
+        _set_tf32(caller)
+        want = _tf32_snapshot()
+        with ieee_f32():
+            seen.append(_tf32_state())
+        assert seen == [(True, True)] and _tf32_snapshot() == want
+        with pytest.raises(ZeroDivisionError):
+            with ieee_f32():
+                1 / 0
+        assert _tf32_snapshot() == want
+
+        @ieee_f32()
+        def probe():
+            seen.append(_tf32_state())
+
+        probe()
+        probe()
+        assert seen[1:] == [(True, True)] * 2 and _tf32_snapshot() == want
+        # the exact entry points see TF32 off and leave the caller's setting
+        import repro_torch.core.mttkrp as tm
+        real = tm.torch.einsum
+
+        def spy(*a, **kw):
+            seen.append(_tf32_state())
+            return real(*a, **kw)
+
+        x, fs = dense_fixture
+        tm.torch.einsum = spy
+        try:
+            backends.get("exact").mttkrp(x, fs, 0)
+            mttkrp_dense(x, list(fs), 1)
+        finally:
+            tm.torch.einsum = real
+        assert seen[3:] == [(True, True)] * 2 and _tf32_snapshot() == want
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        b.cudnn.allow_tf32 = saved[1]
+        for s, value in zip(_precision_switches(), saved[2]):
+            s.fp32_precision = value

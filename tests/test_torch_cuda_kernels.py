@@ -18,10 +18,11 @@ from repro_torch.core.psram import PsramConfig
 from repro_torch.core.quantization import quantize_symmetric
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mttkrp as dm
+from repro_torch.kernels import ordered_fold as of
 from repro_torch.kernels import psram_matmul as pm
 from repro_torch.kernels import segment_sum as ss
 from repro_torch.kernels import stream_mttkrp as sm
-from repro_torch.sparse import csf_for_mode, powerlaw_coo, stream_layout
+from repro_torch.sparse import COO, csf_for_mode, powerlaw_coo, stream_layout
 
 pytestmark = pytest.mark.cuda
 
@@ -217,11 +218,13 @@ def test_flash_kernel_vs_plain(card, b, h, hkv, sq, skv, d, causal, softcap, til
 
 
 def test_flash_kernel_refuses_what_the_reference_refuses(card):
+    """Shapes the reference refuses raise; so does a head dim above the
+    largest kernel (128), the one thing the kernel does not take."""
     q = torch.zeros((1, 2, 192, 64), device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of bq"):
         fa.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="head dims"):
-        z = torch.zeros((1, 2, 64, 48), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        z = torch.zeros((1, 2, 64, 160), device=card, dtype=torch.bfloat16)
         fa.flash_attention(z, z, z)
 
 
@@ -243,3 +246,176 @@ def test_psram_linear_bf16_activation_launches_the_kernel(card):
     assert torch.equal(got.reshape(-1, 72), want)
     with pytest.raises(ValueError, match="saturate"):
         psram_linear(x, prog, saturate=False)
+
+
+# ------------------------------------------------ kernel 2's decode route
+
+DECODE_SHAPES = [
+    (8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336), (8, 14336, 4096),   # granite-8b decode
+    (1, 4096, 1024), (16, 4096, 4096), (9, 4096, 1024),                     # one row, two n8 tiles
+    (3, 1043, 131), (5, 33, 7), (16, 2048, 8), (13, 100, 1000),             # ragged K and N
+]
+
+
+def _codes(card, m, k, n, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=card)
+    w = torch.randn((k, n), generator=gen, device=card)
+    qx, sx = quantize_symmetric(x, axis=-1)
+    qw, sw = quantize_symmetric(w, axis=0)
+    return qx, qw, sx, sw
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_SHAPES)
+def test_psram_matmul_decode_route_bit_equal_and_counted(card, m, k, n):
+    """M <= 16 takes the decode kernel: bit-equal to the plain version (and
+    to the tile route), the same bits on a second launch, counted as the
+    ``decode`` route; every cluster size gives the same bits."""
+    qx, qw, sx, sw = _codes(card, m, k, n, m + k + n)
+    before, routes = pm.psram_matmul.launches, dict(pm.psram_matmul.routes)
+    got = pm.psram_matmul(qx, qw, sx, sw)
+    torch.cuda.synchronize()
+    assert pm.psram_matmul.launches == before + 1
+    assert pm.psram_matmul.routes["decode"] == routes["decode"] + 1
+    assert pm.psram_matmul.routes["tile"] == routes["tile"]
+    want = pm.psram_matmul_torch(qx, qw, sx, sw)
+    assert torch.equal(got, want)
+    assert torch.equal(pm.psram_matmul(qx, qw, sx, sw), got)
+    assert torch.equal(pm._launch(qx, qw, sx, sw, route="tile"), got)
+    assert pm._decode_cluster(k, n, _sms()) in (1, 2, 4, 8)
+    for cluster in (1, 2, 4, 8):
+        assert torch.equal(pm._launch(qx, qw, sx, sw, route="decode", cluster=cluster), got)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (4, 1043, 131)])
+def test_psram_matmul_decode_route_unaligned_operands(card, m, k, n):
+    """Operands that start one byte into their storage (views of a larger
+    buffer) take the guarded loads and give the same bits."""
+    qx, qw, sx, sw = _codes(card, m, k, n, 3 * k + n)
+    bx = torch.empty(qx.numel() + 1, dtype=torch.int8, device=card)
+    bw = torch.empty(qw.numel() + 1, dtype=torch.int8, device=card)
+    ux = bx[1:].view(m, k).copy_(qx)
+    uw = bw[1:].view(k, n).copy_(qw)
+    assert ux.data_ptr() % 4 and uw.data_ptr() % 4
+    got = pm._launch(ux, uw, sx, sw, route="decode")
+    assert torch.equal(got, pm.psram_matmul_torch(qx, qw, sx, sw))
+
+
+# --------------------------------------------------------- the ordered fold
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_exact_sparse_mttkrp_on_the_card_is_ordered(card, mode):
+    """``mttkrp_sparse`` (unsorted COO) and ``stream_mttkrp`` (steps that
+    split the head fiber) on the card: BIT-EQUAL to the same functions on
+    the CPU (stream-ordered index_add_) and the same bits on a second run;
+    every step launches the ordered fold."""
+    from repro_torch.core.mttkrp import mttkrp_sparse
+    from repro_torch.sparse.stream import stream_mttkrp
+
+    coo = powerlaw_coo(5, (300, 200, 100), nnz=60000, rank=4, alpha=1.6, device=card)
+    gen = torch.Generator(device=card).manual_seed(mode)
+    fs = tuple(torch.randn((s, 32), generator=gen, device=card) for s in coo.shape)
+    perm = torch.randperm(coo.nnz, generator=gen, device=card)
+    idx, vals = coo.indices[perm], coo.values[perm]
+    before = of.ordered_fold.launches
+    got = mttkrp_sparse(idx, vals, fs, mode, coo.shape[mode])
+    torch.cuda.synchronize()
+    assert of.ordered_fold.launches == before + 1
+    cpu = lambda t: t.cpu()
+    want = mttkrp_sparse(cpu(idx), cpu(vals), tuple(map(cpu, fs)), mode, coo.shape[mode])
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(mttkrp_sparse(idx, vals, fs, mode, coo.shape[mode]), got)
+    csf = csf_for_mode(coo, mode)
+    cfg = PsramConfig(rows=64)
+    got_s = stream_mttkrp(csf, fs, cfg, exec_blocks=3)
+    csf_cpu = csf_for_mode(COO(indices=cpu(coo.indices), values=cpu(coo.values),
+                               shape=coo.shape), mode)
+    want_s = stream_mttkrp(csf_cpu, tuple(map(cpu, fs)), cfg, exec_blocks=3)
+    assert torch.equal(got_s.cpu(), want_s)
+    assert torch.equal(stream_mttkrp(csf, fs, cfg, exec_blocks=3), got_s)
+
+
+@pytest.mark.parametrize("r,offset", [(32, 0), (6, 0), (40, 1), (3000, 0)])
+def test_ordered_fold_kernel_bit_equal_to_cpu(card, r, offset):
+    """The kernel on its own: 16-byte and 4-byte copies (R % 4, a d that
+    starts one float into its storage), a run longer than the ring, one-row
+    stages (R over 2048), empty rows; the fold starts from out's values."""
+    rng = np.random.default_rng(r + offset)
+    n, rows = 5000 if r < 1000 else 300, 23
+    ids = np.sort(rng.integers(0, rows, size=n))
+    ids[: n // 2] = 4                                  # a long run
+    ids = np.sort(ids)
+    d = torch.tensor(rng.standard_normal((n * r + offset,)).astype(np.float32), device=card)
+    d = d[offset:].view(n, r)
+    start = torch.tensor(rng.standard_normal((rows, r)).astype(np.float32), device=card)
+    tid = torch.tensor(ids, device=card)
+    got = of.ordered_fold(start.clone(), d, tid)
+    want = of.ordered_fold_torch(start.cpu(), d.cpu(), tid.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+# ----------------------------------------------- flash: fp16 and padded D
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.float16, 80),
+                                     (torch.float32, 48), (torch.float32, 96),
+                                     (torch.bfloat16, 80)])
+def test_flash_kernel_fp16_and_padded_head_dims(card, dtype, d):
+    """fp16 runs the f32 kernel on staged copies and rounds once; a head
+    dim outside the kernel's runs zero-padded. One launch each, within the
+    envelope of the dtype it ran in: f32 1e-5 of max |out| (plus one fp16 ulp
+    where the result is rounded to fp16), bf16 one bf16 ulp + 2^-16 of
+    sum_j p_j |v_j|."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    q = torch.randn((1, 8, 256, d), generator=gen, device=card).to(dtype)
+    k = torch.randn((1, 2, 256, d), generator=gen, device=card).to(dtype)
+    v = torch.randn((1, 2, 256, d), generator=gen, device=card).to(dtype)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_torch(q, k, v, causal=True)
+    diff = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        mag = fa.flash_attention_torch(q, k, v.abs(), causal=True).float()
+        assert bool((diff <= _bf16_ulp(want) + 2.0 ** -16 * mag).all())
+    elif dtype == torch.float16:
+        ulp = torch.ldexp(torch.ones_like(diff), torch.frexp(want.float().abs())[1] - 11)
+        assert bool((diff <= ulp + 1e-5 * top).all())
+    else:
+        assert float(diff.max()) <= 1e-5 * top
+    assert torch.equal(fa.flash_attention(q, k, v, causal=True), got)
+
+
+# -------------------------------------------------------- the TF32 pin
+
+
+def test_exact_backend_ignores_the_callers_tf32_setting(card):
+    """Under ``set_float32_matmul_precision("high")`` the exact backend's
+    dense MTTKRP and matmul give the same bits as under "highest", and the
+    caller's setting is back after the call."""
+    from repro_torch import backends
+
+    gen = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn((64, 48, 40), generator=gen, device=card)
+    fs = tuple(torch.randn((s, 16), generator=gen, device=card) for s in x.shape)
+    a = torch.randn((256, 512), generator=gen, device=card)
+    w = torch.randn((512, 384), generator=gen, device=card)
+    exact = backends.get("exact")
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want = [exact.mttkrp(x, fs, m) for m in range(3)] + [exact.matmul(a, w)]
+        torch.set_float32_matmul_precision("high")
+        got = [exact.mttkrp(x, fs, m) for m in range(3)] + [exact.matmul(a, w)]
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert all(torch.equal(g, h) for g, h in zip(got, want))
+    finally:
+        torch.set_float32_matmul_precision(saved)

@@ -143,3 +143,45 @@ def test_plain_version_matches_model_chunked_attention():
     want = _sdpa_chunked(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), cfg,
                          causal=True, window=0)
     np.testing.assert_allclose(got.numpy(), want.transpose(1, 2).numpy(), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("d", [48, 80, 96])
+def test_head_dims_outside_the_kernels_run_padded(d):
+    """A head dim the CUDA kernel is not built for runs zero-padded to the
+    next one it is, with the scale of the true D: the plain version through
+    that padding is within 1e-5 of max |out| of the interpreted Pallas kernel
+    at the true D, as the plain version at D is."""
+    from repro_torch.kernels.flash_attention import kernel_head_dim, padded_attention
+
+    q, k, v = _qkv(1, 4, 2, 128, 128, d, seed=d)
+    kernel = np.asarray(j_flash(*map(jnp.asarray, (q, k, v)), causal=True,
+                                bq=64, bkv=64, interpret=True))
+    top = float(np.abs(kernel).max())
+    tq, tk, tv = _t(q, k, v)
+    plain = flash_attention_torch(tq, tk, tv, causal=True).numpy()
+    padded = padded_attention(flash_attention_torch, tq, tk, tv, causal=True)
+    assert kernel_head_dim(d) > d and tuple(padded.shape) == q.shape
+    assert np.abs(plain - kernel).max() <= 1e-5 * top
+    assert np.abs(padded.numpy() - kernel).max() <= 1e-5 * top
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        kernel_head_dim(160)
+
+
+def test_fp16_is_computed_in_f32_and_rounded_once():
+    """fp16 q/k/v: the plain version (what the card's f32-staged kernel is
+    held against) is the f32 attention of the fp16 values rounded once to
+    fp16, and within one fp16 ulp of each element plus 1e-5 of max |out| of
+    the interpreted Pallas kernel, which also computes in f32 and rounds its
+    result to fp16 once."""
+    q, k, v = (a.astype(np.float16) for a in _qkv(2, 4, 2, 128, 128, 64, seed=16))
+    kernel = np.asarray(j_flash(*map(jnp.asarray, (q, k, v)), causal=True,
+                                bq=64, bkv=64, interpret=True))
+    assert kernel.dtype == np.float16
+    tq, tk, tv = _t(q, k, v)
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.float16
+    f32 = flash_attention_torch(tq.float(), tk.float(), tv.float(), causal=True)
+    assert torch.equal(got, f32.to(torch.float16))
+    got, kernel = got.numpy().astype(np.float32), kernel.astype(np.float32)
+    ulp = np.spacing(np.abs(kernel).astype(np.float16)).astype(np.float32)
+    assert (np.abs(got - kernel) <= ulp + 1e-5 * float(np.abs(kernel).max())).all()

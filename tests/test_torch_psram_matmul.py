@@ -135,3 +135,30 @@ def test_explicit_cuda_lowering_raises_on_cpu_tensors():
         kops.psram_matmul_op(x, w, lowering="cuda")
     with pytest.raises(ValueError, match="unknown kernel lowering"):
         kops.psram_matmul_op(x, w, lowering="pallas")
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 16])
+@pytest.mark.parametrize("k,n", [(33, 37), (1043, 129), (4096, 72)])
+def test_decode_shapes_equal_reference_oracle_and_xla(m, k, n):
+    """The rows the decode route takes (M <= 16), at odd and deep K and a
+    ragged N: the plain version it is held bit-equal to on the card equals
+    the reference's oracle and XLA twin."""
+    ops = _reference_operands(m, k, n, seed=m * 7 + k)
+    want_ref = np.asarray(jref.psram_matmul_ref(*ops))
+    want_xla = np.asarray(psram_matmul_xla(*ops))
+    t_ops = tuple(_t(o) for o in ops)
+    got = psram_matmul(*t_ops).numpy()
+    np.testing.assert_array_equal(got, want_ref)
+    np.testing.assert_array_equal(got, want_xla)
+
+
+def test_route_and_k_limit_are_checked():
+    from repro_torch.kernels.psram_matmul import MAX_K, M_DECODE, _launch
+
+    assert 8 <= M_DECODE <= 16      # the served decode rows (8) take the decode route
+    assert 128 * 128 * MAX_K < 2 ** 31 <= 128 * 128 * (MAX_K + 1)
+    ops = tuple(_t(o) for o in _reference_operands(4, 8, 4))
+    with pytest.raises(ValueError, match="route"):
+        _launch(*ops, route="split")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        _launch(*ops, route="decode")

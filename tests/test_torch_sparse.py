@@ -2,8 +2,9 @@
 MTTKRP held against the JAX reference on the CPU.
 
 Containers, the generator and the stream layout are numpy host code in both
-packages: their arrays must be **equal**. The exact MTTKRP paths add floats
-in another order than XLA's scatter: 1e-5 relative.
+packages: their arrays must be **equal**. The exact MTTKRP paths fold each
+row in stream order, as XLA's scatter does: **equal** to the reference's
+(``test_exact_sparse_mttkrp_equals_the_reference_segment_sum``).
 """
 import dataclasses
 
@@ -216,3 +217,107 @@ def test_device_defaults_to_the_card_and_raises_without_one():
         convert.coo(np.zeros((1, 3), np.int32), np.zeros(1, np.float32), (4, 4, 4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.factors([np.zeros((4, 2), np.float32)])
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_exact_sparse_mttkrp_equals_the_reference_segment_sum(mode):
+    """The ordered fold (its plain version here): ``mttkrp_sparse`` on an
+    unsorted COO with duplicate coordinates, and ``stream_mttkrp`` in steps
+    small enough to split the head row's fiber across steps, are EQUAL to the
+    reference's one global ``jax.ops.segment_sum`` path."""
+    rng = np.random.default_rng(40 + mode)
+    shape = (30, 24, 18)
+    idx = rng.integers(0, shape, size=(2000, 3)).astype(np.int32)
+    idx[:400, mode] = 3                                     # a long run, scattered
+    rng.shuffle(idx)
+    vals = rng.standard_normal(2000).astype(np.float32)
+    fs = _factors(shape, 6, seed=mode)
+    jfs, tfs = tuple(jnp.asarray(f) for f in fs), tuple(torch.tensor(f) for f in fs)
+    want = np.asarray(jm.mttkrp_sparse(jnp.asarray(idx), jnp.asarray(vals), jfs, mode,
+                                       shape[mode]))
+    got = tm.mttkrp_sparse(torch.tensor(idx), torch.tensor(vals), tfs, mode, shape[mode])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    ref, port = _pair(seed_key=11, shape=(40, 30, 20), nnz=3000, alpha=1.6)
+    jc, tc = jf.csf_for_mode(ref, mode), tf.csf_for_mode(port, mode)
+    fs = _factors(ref.shape, 5, seed=mode + 3)
+    jfs, tfs = tuple(jnp.asarray(f) for f in fs), tuple(torch.tensor(f) for f in fs)
+    want_s = np.asarray(jstream.stream_mttkrp(jc, jfs))
+    rows = 8
+    assert tc.fiber_lengths().max() > 2 * rows, "no fiber spans a step"
+    for eb in (None, 1, 3):
+        got_s = tstream.stream_mttkrp(tc, tfs, PsramConfig(rows=rows), exec_blocks=eb)
+        np.testing.assert_array_equal(got_s.numpy(), want_s)
+
+
+@pytest.mark.parametrize("step", [8, 24, 4096])
+def test_fold_segments_cut_the_runs_at_every_step(step):
+    """What the card's ordered fold is handed per step of ``stream_mttkrp``:
+    segments that tile each step exactly, each inside one row's run."""
+    _, port = _pair(seed_key=11, shape=(40, 30, 20), nnz=3000, alpha=1.6)
+    csf = tf.csf_for_mode(port, 0)
+    rid = csf.row_of_nonzero()
+    seg_ptr, seg_rows, chunk_seg = tstream._fold_segments(csf, step)
+    seg_ptr, seg_rows = seg_ptr.numpy(), seg_rows.numpy()
+    assert seg_ptr.dtype == np.int64 and seg_rows.dtype == np.int64
+    los = list(range(0, csf.nnz, step))
+    assert len(chunk_seg) == len(los) + 1 and chunk_seg[-1] == len(seg_rows)
+    for c, lo in enumerate(los):
+        s0, s1 = chunk_seg[c], chunk_seg[c + 1]
+        assert seg_ptr[s0] == lo and seg_ptr[s1] == min(lo + step, csf.nnz)
+        for s in range(s0, s1):
+            assert seg_ptr[s] < seg_ptr[s + 1]
+            assert (rid[seg_ptr[s]:seg_ptr[s + 1]] == seg_rows[s]).all()
+    assert tstream._fold_segments(csf, step)[2] is chunk_seg          # cached
+
+
+def test_ordered_fold_plain_version_and_row_runs():
+    """The plain version adds in stream order from the row's current value
+    (chunked calls compose); ``row_runs`` gives each row's run of sorted ids."""
+    from repro_torch.kernels.ordered_fold import ordered_fold, ordered_fold_torch, row_runs
+
+    rng = np.random.default_rng(3)
+    ids = torch.tensor(np.sort(rng.integers(0, 9, size=300)))
+    d = torch.tensor(rng.standard_normal((300, 5)).astype(np.float32))
+    start = torch.tensor(rng.standard_normal((11, 5)).astype(np.float32))
+    whole = ordered_fold(start.clone(), d, ids)
+    chunked = start.clone()
+    for lo in range(0, 300, 70):
+        ordered_fold(chunked, d[lo:lo + 70], ids[lo:lo + 70])
+    assert torch.equal(whole, chunked)
+    serial = start.clone()
+    for i in range(300):
+        serial[ids[i]] = serial[ids[i]] + d[i]
+    assert torch.equal(whole, serial)
+    assert torch.equal(ordered_fold_torch(start.clone(), d, ids), whole)
+    ptr = row_runs(ids, 11)
+    assert ptr.dtype == torch.int64 and ptr[0] == 0 and ptr[-1] == 300
+    for r in range(11):
+        assert (ids[ptr[r]:ptr[r + 1]] == r).all()
+    with pytest.raises(ValueError, match="does not match"):
+        ordered_fold(start.clone(), d[:, :4], ids)
+
+
+def test_exact_sparse_mttkrp_keeps_its_sort_until_the_coo_is_written():
+    """``mttkrp_sparse`` sorts a COO once per mode and keeps the sort with
+    the indices; an in-place write to them makes it sort anew, and every
+    result stays EQUAL to the reference's on the data it was given."""
+    rng = np.random.default_rng(9)
+    shape = (12, 10, 8)
+    idx = rng.integers(0, shape, size=(500, 3)).astype(np.int32)
+    vals = rng.standard_normal(500).astype(np.float32)
+    fs = _factors(shape, 4, seed=2)
+    jfs, tfs = tuple(jnp.asarray(f) for f in fs), tuple(torch.tensor(f) for f in fs)
+    t_idx, t_vals = torch.tensor(idx), torch.tensor(vals)
+
+    def want(i):
+        return np.asarray(jm.mttkrp_sparse(jnp.asarray(i), jnp.asarray(vals), jfs, 1, shape[1]))
+
+    first = tm.mttkrp_sparse(t_idx, t_vals, tfs, 1, shape[1])
+    kept = tm._sorted_stream(t_idx, 1, shape[1])
+    assert tm._sorted_stream(t_idx, 1, shape[1]) is kept
+    np.testing.assert_array_equal(first.numpy(), want(idx))
+    t_idx[:, 1] = torch.tensor(shape[1] - 1 - idx[:, 1])      # written in place
+    assert tm._sorted_stream(t_idx, 1, shape[1]) is not kept
+    again = tm.mttkrp_sparse(t_idx, t_vals, tfs, 1, shape[1])
+    np.testing.assert_array_equal(again.numpy(), want(t_idx.numpy()))
