@@ -17,25 +17,32 @@ What it does, in order — any failure raises and the run exits non-zero:
    on the card, at the main path's shapes and at small ragged shapes, with
    CUDA-event timings (median after warm-up) beside the least time the card
    could take for the same bytes and operations and, where one PyTorch call
-   computes the same function, that call's time. Kernel 2 twice: its tile
-   route at the MLP projection and its decode route at granite-8b's four
-   decode shapes (8 rows), each timed against the tile route in turns, plus
-   both routes at M = 1 and 16 (the ends of the rows ``M_DECODE`` sends to
-   the decode route; ``--tuning`` sweeps M over 1..64 and times every
-   cluster size, the evidence kept in PERF.md). The ordered fold
+   computes the same function, that call's time. Kernel 2 on its three
+   routes: the wgmma route at the MLP projection and at the served
+   prefill's four projection shapes (M = 8192), each timed in turns with
+   the tile route, and at one 128-deep stage (its fill and epilogue alone);
+   the tile route at a ragged 1000-column head; the decode route at
+   granite-8b's four decode shapes (8 rows), timed against the tile route in
+   turns, plus both at M = 1 and 16 (the ends of the rows ``M_DECODE``
+   sends to the decode route; ``--tuning`` sweeps M over 1..64 and times
+   every cluster size, the evidence kept in PERF.md). The device phase fails
+   unless kernel 2's library holds integer warpgroup MMAs (SASS ``IGMMA``)
+   and TMA loads (``UTMALDG``). The ordered fold
    as the exact-fit MTTKRP launches it, and ``stream_mttkrp`` on the skewed
    mode 0 at full size, bit-equal to the same on the CPU.
 4. ``main_path`` — three paths, each run with every launch counter set to 0
    just before it and read just after:
    a. ``cp_als(sparse=coo, rank=32, n_iter=3, backend="hopper")`` on the
       paper's array config and ``api.matmul`` at an LM MLP projection
-      (512 x 4096 x 14336), each against ``backend="exact"``;
+      (512 x 4096 x 14336, kernel 2's wgmma route) and a 1000-class head
+      (512 x 4096 x 1000, the tile route), each against ``backend="exact"``;
    b. the dense entry point: ``api.mttkrp(x, factors, mode,
       backend="hopper")`` and ``backends.get("hopper", compiled=False)``
       for every mode of the dense tensor, against ``backend="exact"``;
    c. ``cp_als`` on the sparse tensor with ``backends.get("hopper",
-      compiled=False)`` (the blocked segment-sum stream), against the exact
-      run of (a).
+      compiled=False)`` (the blocked segment-sum stream, its partials folded
+      in order), against the exact run of (a); then the blocked path on
+      every mode twice: the same bits.
    d. ``main_path_flash``: ``kernels.ops.flash_attention_op`` at its
       docstring's shape, a 32k-token causal prefill at granite-8b's
       attention widths (B=1, H=32, Hkv=8, D=128, bf16), and on layer 0's
@@ -45,13 +52,14 @@ What it does, in order — any failure raises and the run exits non-zero:
       bf16, 8.25 B random parameters seeded on the card) through
       ``ServeEngine.generate`` on 8 prompts x 1024 tokens, 64 new tokens,
       greedy — then the same with ``psram_projections`` and
-      ``psram_stored_int8`` (every projection through kernel 2: the tile
+      ``psram_stored_int8`` (every projection through kernel 2: the wgmma
       route in a prefill, the decode route in a decode step). Each run
-   also profiles 8 decode steps (device busy time, idle share, top
-   kernels); kernel 2 is held bit-equal to its plain version on the
-   operands layer 0's seven projections give it in a prefill and a
-   decode step, and every decode projection of 16 greedy tokens is held
-   bit-equal to the tile route on the same operands.
+   also profiles 8 decode steps and one prefill (device busy time, idle
+   share, kernel 2's ms and launches, top kernels); kernel 2 is held
+   bit-equal to its plain version on the operands layer 0's seven
+   projections give it in a prefill (and to the tile route) and a decode
+   step, and every decode projection of 16 greedy tokens is held bit-equal
+   to the tile route on the same operands.
 5. ``sweep_time`` — one warm sweep of each CP-ALS engine, and the parts of a
    ``hopper`` sweep timed alone.
 
@@ -83,12 +91,19 @@ NELL2_SHAPE = (12092, 9184, 28818)       # FROSTT NELL-2 dimensions
 RANK = 32                                # the paper's §V operating point
 SWEEPS = 3
 MLP_SHAPE = (512, 4096, 14336)           # x (512, d_model) @ w (d_model, d_ff)
+# a 1000-class head on the same activations: N % 16 = 8, which TMA cannot
+# take, so kernel 2's mma.sync tile route
+RAGGED_SHAPE = (512, 4096, 1000)
 DENSE_SHAPE = (1024, 768, 1152)          # 3.62 GB of f32; every mode % 128 == 0
 FLASH_MAIN = (1, 32, 8, 32768, 128)      # (B, H, Hkv, S, D): prefill_32k at granite-8b's widths
 SERVE_ARCH = "granite_8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 1024, 64
 # granite-8b's decode projections at M = SERVE_BATCH rows: q/o, k/v, wi/wg, down
 DECODE_SHAPES = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336), (8, 14336, 4096))
+# the same projections in a prefill, M = SERVE_BATCH * SERVE_PROMPT rows
+PREFILL_SHAPES = tuple((SERVE_BATCH * SERVE_PROMPT, k, n) for _, k, n in DECODE_SHAPES)
+# the wgmma route with one 128-deep stage: its fill and epilogue alone
+EPILOGUE_SHAPE = (8192, 128, 14336)
 CROSSOVER_M = (1, 2, 4, 8, 16, 32, 64)    # --tuning; by default the ends of the decode range
 CROSSOVER_M_DEFAULT = (1, 16)
 # eager launches a pSRAM decode step made on the tile route; the decode route
@@ -125,9 +140,10 @@ def smi_line() -> str:
 
 
 def sass_counts(libs: dict) -> dict:
-    """Per built library, how many Hopper warpgroup MMAs (``HGMMA``), TMA
-    loads (``UTMALDG``) and warp-level MMAs (``HMMA``) its SASS holds, by
-    ``cuobjdump -sass`` from nvcc's directory; None where it is missing."""
+    """Per built library, how many Hopper warpgroup MMAs (``HGMMA`` float,
+    ``IGMMA`` integer), TMA loads (``UTMALDG``) and warp-level MMAs (``HMMA``
+    float, ``IMMA`` integer) its SASS holds, by ``cuobjdump -sass`` from
+    nvcc's directory; None where it is missing."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
@@ -138,7 +154,7 @@ def sass_counts(libs: dict) -> dict:
         sass = subprocess.run([str(tool), "-sass", str(path)], check=True, capture_output=True,
                               text=True, timeout=300).stdout
         counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
-                        for op in ("HGMMA", "UTMALDG", "HMMA")}
+                        for op in ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")}
     return counts
 
 
@@ -208,26 +224,34 @@ def nbytes(*tensors) -> int:
 
 
 def matmul_case(torch, m, k, n, seed, adc_bits=16, timed=False):
-    """Kernel B against its plain version (bit-equal) at one shape."""
-    from repro_torch.core.quantization import QMAX, adc_transfer, quantize_symmetric
-    from repro_torch.kernels.psram_matmul import psram_matmul, psram_matmul_torch
+    """Kernel 2 on the route ``psram_matmul`` takes at one shape, against its
+    plain version (bit-equal); on the wgmma route also against the tile
+    route and a second launch (bit-equal). With ``timed``: the route's time
+    (the wgmma route in turns with the tile route: wgmma, tile, tile,
+    wgmma), the plain version's, the bound and the library's
+    (``torch._int_mm`` + the ADC epilogue, for more than 16 rows)."""
+    from repro_torch.core.quantization import QMAX, adc_transfer
+    from repro_torch.kernels.psram_matmul import _launch, psram_matmul, psram_matmul_torch
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((m, k), generator=gen, device="cuda")
-    w = torch.randn((k, n), generator=gen, device="cuda")
-    qx, sx = quantize_symmetric(x, axis=-1)
-    qw, sw = quantize_symmetric(w, axis=0)
+    qx, qw, sx, sw = matmul_codes(torch, m, k, n, seed)
+    before = dict(psram_matmul.routes)
     got = psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits)
     torch.cuda.synchronize()
+    route = next(r for r, c in psram_matmul.routes.items() if c != before[r])
     want = psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits)
     diff = (got - want).abs()
+    call = lambda r: (lambda: _launch(qx, qw, sx, sw, adc_bits=adc_bits, route=r))
     case = {
-        "shape": [m, k, n], "adc_bits": adc_bits,
+        "shape": [m, k, n], "adc_bits": adc_bits, "route": route,
         "max_abs_err": float(diff.max()),
         "share_differing": float((got != want).float().mean()),
         "bit_equal": bool(torch.equal(got, want)),
+        "deterministic": bool(torch.equal(call(route)(), got)),
     }
-    if not case["bit_equal"]:
+    del want, diff
+    if route == "wgmma":
+        case["bit_equal_to_tile"] = bool(torch.equal(call("tile")(), got))
+    if not (case["bit_equal"] and case["deterministic"] and case.get("bit_equal_to_tile", True)):
         raise AssertionError(f"psram_matmul differs from its plain version: {case}")
     if timed:
         def library():
@@ -235,11 +259,17 @@ def matmul_case(torch, m, k, n, seed, adc_bits=16, timed=False):
             full_scale = float(QMAX) * float(QMAX) * k
             return adc_transfer(acc, 2 ** adc_bits, full_scale) * (sx * sw)
 
-        case["ms"] = time_ms(torch, lambda: psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits))
+        if route == "wgmma":
+            a1, t1 = time_ms(torch, call("wgmma")), time_ms(torch, call("tile"))
+            t2, a2 = time_ms(torch, call("tile")), time_ms(torch, call("wgmma"))
+            case.update({"ms": (a1 + a2) / 2, "ms_runs": [a1, a2], "tile_ms": (t1 + t2) / 2,
+                         "tile_ms_runs": [t1, t2]})
+        else:
+            case["ms"] = time_ms(torch, call(route))
         case["plain_ms"] = time_ms(
             torch, lambda: psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits), iters=3, reps=2)
         if m > 16:                        # torch._int_mm takes more than 16 rows only
-            case["library_equal"] = bool(torch.equal(library(), want))
+            case["library_equal"] = bool(torch.equal(library(), got))
             case["library_ms"] = time_ms(torch, library)
         else:
             case["library_equal"] = case["library_ms"] = None
@@ -247,6 +277,24 @@ def matmul_case(torch, m, k, n, seed, adc_bits=16, timed=False):
         ops_ms = 1e3 * (2.0 * m * k * n) / INT8_OPS_PER_S
         case["bound_ms"] = max(bytes_ms, ops_ms)
         case["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        case["tops"] = 2.0 * m * k * n / case["ms"] / 1e9
+    return case
+
+
+def epilogue_case(torch, m, k, n, seed):
+    """The wgmma route at one 128-deep stage: its time is the ring's fill,
+    one stage of products and the epilogue (the ADC on 128 accumulators a
+    consumer thread and the f32 store of a 256 x 128 tile a CTA), beside the
+    least time its f32 output takes to write."""
+    from repro_torch.kernels.psram_matmul import _launch, psram_matmul_torch
+
+    qx, qw, sx, sw = matmul_codes(torch, m, k, n, seed)
+    got = _launch(qx, qw, sx, sw, route="wgmma")
+    case = {"shape": [m, k, n], "bit_equal": bool(torch.equal(got, psram_matmul_torch(qx, qw, sx, sw)))}
+    if not case["bit_equal"]:
+        raise AssertionError(f"psram_matmul's wgmma route differs from its plain version: {case}")
+    case["ms"] = time_ms(torch, lambda: _launch(qx, qw, sx, sw, route="wgmma"))
+    case["store_bound_ms"] = 1e3 * 4.0 * m * n / HBM_BYTES_PER_S
     return case
 
 
@@ -982,6 +1030,7 @@ def serve_run(torch, cfg, params, prompts, eng_cls, zero_counts, read_counts):
         out["decode_ms_per_step"] = statistics.median(step_ms)
         out["decode_tokens_per_s"] = b / (1e-3 * out["decode_ms_per_step"])
         out["decode_profile"] = profile_decode(torch, eng, params, cache, tok, p + 9, 8)
+        out["prefill_profile"] = profile_prefill(torch, eng, params, prompts)
         full = transformer.forward(params, torch.cat([prompts, tok[:, None]], dim=1), cfg)[:, -1]
         out["decode_vs_forward_rel_l2"] = float(torch.linalg.norm(first - full)
                                                 / torch.linalg.norm(full))
@@ -989,12 +1038,40 @@ def serve_run(torch, cfg, params, prompts, eng_cls, zero_counts, read_counts):
     return out, launches, logits, eng, toks
 
 
+def device_profile(torch, prof, wall_ms: float, n: int, per: str) -> dict:
+    """What a ``torch.profiler`` window over ``n`` like units of work saw:
+    host ms, the card's busy ms (the sum of its kernels' times), the idle
+    share, kernel launches, kernel 2's ms, launches and kernel names, and
+    the kernels that take the most device time — each ``per`` unit."""
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if not kernels or busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    k2 = [e for e in kernels if "psram_matmul" in e.key]
+    return {
+        f"host_ms{per}": wall_ms / n,
+        f"device_busy_ms{per}": busy_ms / n,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        f"kernel_launches{per}": sum(e.count for e in kernels) / n,
+        f"kernel2_ms{per}": sum(dev_us(e) for e in k2) / 1e3 / n,
+        f"kernel2_launches{per}": sum(e.count for e in k2) / n,
+        "kernel2_names": sorted({e.key[:60] for e in k2}),
+        "top_kernels": [{"name": e.key[:90], f"ms{per}": dev_us(e) / 1e3 / n,
+                         f"launches{per}": e.count / n} for e in top],
+    }
+
+
 def profile_decode(torch, eng, params, cache, tok, pos: int, n: int) -> dict:
     """``n`` decode steps from cache position ``pos`` under
-    ``torch.profiler``: host ms a step, the card's busy ms a step (the sum of
-    its kernels' times), the idle share, launches a step and the kernels that
-    take the most device time. The profiler's own cost inflates the host
-    time."""
+    ``torch.profiler`` (:func:`device_profile`, a step the unit). The
+    profiler's own cost inflates the host time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1004,28 +1081,24 @@ def profile_decode(torch, eng, params, cache, tok, pos: int, n: int) -> dict:
             eng.step_fn(params, cache, tok, pos + i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"steps": n, **device_profile(torch, prof, wall_ms, n, "_per_step")}
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
 
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    if not kernels or busy_ms <= 0:
-        raise AssertionError("the profiler saw no device time in the decode steps")
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    k2 = [e for e in kernels if "psram_matmul" in e.key]
-    return {
-        "steps": n, "host_ms_per_step": wall_ms / n,
-        "device_busy_ms_per_step": busy_ms / n,
-        "idle_share": 1.0 - busy_ms / wall_ms,
-        "kernel_launches_per_step": sum(e.count for e in kernels) / n,
-        "kernel2_ms_per_step": sum(dev_us(e) for e in k2) / 1e3 / n,
-        "kernel2_launches_per_step": sum(e.count for e in k2) / n,
-        "kernel2_names": sorted({e.key[:60] for e in k2}),
-        "top_kernels": [{"name": e.key[:90], "ms_per_step": dev_us(e) / 1e3 / n,
-                         "launches_per_step": e.count / n} for e in top],
-    }
+def profile_prefill(torch, eng, params, prompts) -> dict:
+    """One prefill of ``prompts`` under ``torch.profiler``
+    (:func:`device_profile`): kernel 2's share of its device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.prefill_fn(params, prompts)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    out = device_profile(torch, prof, wall_ms, 1, "")
+    out["kernel2_share_of_busy"] = out["kernel2_ms"] / out["device_busy_ms"]
+    return out
 
 
 def routes_agree(torch, eng, prompts, toks):
@@ -1065,12 +1138,13 @@ def routes_agree(torch, eng, prompts, toks):
 def served_matmul_cases(torch, eng, params, prompts):
     """Kernel 2 held BIT-EQUAL to its plain version on the served model's own
     operands: the codes and scales that layer 0's seven projections (wq, wk,
-    wv, wo, wi, wg, wo) hand the kernel in one prefill (M = B*S rows) and in
-    one decode step (M = B rows). The model's module-level ``psram_matmul``
-    is wrapped for these two calls only; its launches here are not counted
-    on the main path."""
+    wv, wo, wi, wg, wo) hand the kernel in one prefill (M = B*S rows, the
+    wgmma route, also held against the tile route) and in one decode step
+    (M = B rows, the decode route). The model's module-level
+    ``psram_matmul`` is wrapped for these two calls only; its launches here
+    are not counted on the main path."""
     import repro_torch.core.photonic_layer as photonic
-    from repro_torch.kernels.psram_matmul import psram_matmul_torch
+    from repro_torch.kernels.psram_matmul import _launch, psram_matmul_torch
 
     launch = photonic.psram_matmul
     seen = []
@@ -1101,21 +1175,25 @@ def served_matmul_cases(torch, eng, params, prompts):
     if len(calls) != 14:
         raise AssertionError(f"layer 0 made {len(calls)} kernel-2 calls in a prefill and a "
                              f"decode step, not 2 x 7")
-    # every projection of the prefill took the tile route, every one of the
+    # every projection of the prefill took the wgmma route, every one of the
     # decode step the decode route
     took = [{r: r1[r] - r0[r] for r in routes}, {r: r2[r] - r1[r] for r in routes}]
     n_proj = 7 * eng.cfg.num_layers
-    if took != [{"tile": n_proj, "decode": 0}, {"tile": 0, "decode": n_proj}]:
+    if took != [{"wgmma": n_proj, "tile": 0, "decode": 0},
+                {"wgmma": 0, "tile": 0, "decode": n_proj}]:
         raise AssertionError(f"the served projections did not take the expected routes "
                              f"(prefill, decode step): {took}")
     for i, (qx, qw, sx, sw, adc_bits, got) in enumerate(calls):
         want = psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits)
         case = {"shape": [qx.shape[0], qx.shape[1], qw.shape[1]], "adc_bits": adc_bits,
-                "route": "tile" if i < 7 else "decode",
+                "route": "wgmma" if i < 7 else "decode",
                 "max_abs_err": float((got - want).abs().max()),
                 "bit_equal": bool(torch.equal(got, want))}
+        if i < 7:
+            case["bit_equal_to_tile"] = bool(torch.equal(
+                _launch(qx, qw, sx, sw, adc_bits=adc_bits, route="tile"), got))
         cases.append(case)
-        if not case["bit_equal"]:
+        if not (case["bit_equal"] and case.get("bit_equal_to_tile", True)):
             raise AssertionError(f"psram_matmul differs from its plain version on the "
                                  f"served model's operands: {case}")
         del want
@@ -1193,8 +1271,8 @@ def main(argv=None) -> int:
         "phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "ptxas": ptxas, "sass": sass,
-        "sass_check": "flash_attention: wgmma + TMA only" if sass is not None
-                      else "skipped, no cuobjdump beside nvcc",
+        "sass_check": "flash_attention: wgmma + TMA only; psram_matmul: integer wgmma + TMA"
+                      if sass is not None else "skipped, no cuobjdump beside nvcc",
     }
     emit(report["device"])
     # the bf16 flash kernel runs on wgmma fed by TMA; no mma.sync kernel is left
@@ -1203,6 +1281,11 @@ def main(argv=None) -> int:
         if not (flash_sass["HGMMA"] > 0 and flash_sass["UTMALDG"] > 0
                 and flash_sass["HMMA"] == 0):
             raise AssertionError(f"flash_attention's SASS is not wgmma + TMA only: {flash_sass}")
+        # kernel 2's wgmma route: integer warpgroup MMAs fed by TMA
+        k2_sass = sass["psram_matmul"]
+        if not (k2_sass["IGMMA"] > 0 and k2_sass["UTMALDG"] > 0):
+            raise AssertionError(f"psram_matmul's SASS holds no integer wgmma or no TMA load: "
+                                 f"{k2_sass}")
 
     # 2. data: host-side preprocessing --------------------------------------
     cfg = resolve_config(None)
@@ -1232,6 +1315,15 @@ def main(argv=None) -> int:
               for m in range(3)]
     a_small = small_stream_cases(torch)
     b_main = matmul_case(torch, *MLP_SHAPE, seed=1, timed=True)
+    # the served prefill's four projection shapes (M = 8192), the ragged
+    # head (the tile route) and the wgmma route's fill + epilogue alone
+    b_prefill = [matmul_case(torch, *shape, seed=40 + i, timed=True)
+                 for i, shape in enumerate(PREFILL_SHAPES)]
+    b_ragged = matmul_case(torch, *RAGGED_SHAPE, seed=3, timed=True)
+    b_epilogue = epilogue_case(torch, *EPILOGUE_SHAPE, seed=4)
+    if b_main["route"] != "wgmma" or b_ragged["route"] != "tile" \
+            or any(c["route"] != "wgmma" for c in b_prefill):
+        raise AssertionError("kernel 2 took another route than its shapes name")
     # the served model's decode shapes: one row per prompt, every projection
     b_decode = [decode_case(torch, *shape, seed=6 + i, timed=True, tuning=opts.tuning)
                 for i, shape in enumerate(DECODE_SHAPES)]
@@ -1243,7 +1335,11 @@ def main(argv=None) -> int:
                    (5, 7, 3, 16),
                    (130, 64, 257, 8),
                    (16, 2048, 8, 16),        # accumulator beyond 2^24
+                   (17, 4096, 1024, 16),     # the wgmma route: one row past decode,
+                   (200, 1040, 144, 8),      # K and N multiples of 16 but not of a tile,
+                   (257, 2064, 272, 24),     # ragged M
                ])]
+    wgmma_small = [c for c in b_small if c["route"] == "wgmma"]
     d_main, p_main = [], []
     for mode in range(3):
         others = [d for d in range(3) if d != mode]
@@ -1258,7 +1354,7 @@ def main(argv=None) -> int:
     seg_main, seg_host_s = [], []
     for mode in range(3):
         t0 = time.perf_counter()
-        ip, vp, local, seg_rows, n_seg = _segment_blocks(csfs[mode], cfg.rows)
+        ip, vp, local, n_seg = _segment_blocks(csfs[mode], cfg.rows)[:4]
         seg_host_s.append(time.perf_counter() - t0)
         chain = cp_chain_exact(ip, vp, tuple(init), mode)         # (B, rows, R)
         # mode 0 (the longest fibers) is also held bit for bit at full size
@@ -1276,7 +1372,8 @@ def main(argv=None) -> int:
     f_small = small_flash_cases(torch)
     report["kernel_cases"] = {
         "phase": "kernel_cases", "stream_main": a_main, "stream_small": a_small,
-        "matmul_main": b_main, "matmul_decode": b_decode, "matmul_small": b_small,
+        "matmul_main": b_main, "matmul_prefill": b_prefill, "matmul_ragged": b_ragged,
+        "matmul_epilogue": b_epilogue, "matmul_decode": b_decode, "matmul_small": b_small,
         "matmul_decode_small": b_decode_small, "matmul_crossover": b_crossover,
         "fold_main": fold_main, "fold_skew": fold_skew, "fold_small": fold_small,
         "dense_main": d_main, "dense_small": d_small,
@@ -1304,6 +1401,8 @@ def main(argv=None) -> int:
     x = torch.randn((m, k), generator=gen, device="cuda")
     w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
     y = api.matmul(x, w, backend="hopper", config=cfg)
+    w_head = torch.randn((k, RAGGED_SHAPE[2]), generator=gen, device="cuda") / k ** 0.5
+    y_head = api.matmul(x, w_head, backend="hopper", config=cfg)
     torch.cuda.synchronize()
 
     launches = read_counts()
@@ -1315,6 +1414,8 @@ def main(argv=None) -> int:
     exact_s = time.perf_counter() - t0
     y_exact = api.matmul(x, w, backend="exact")
     matmul_rel = float(torch.linalg.norm(y - y_exact) / torch.linalg.norm(y_exact))
+    y_head_exact = api.matmul(x, w_head, backend="exact")
+    head_rel = float(torch.linalg.norm(y_head - y_head_exact) / torch.linalg.norm(y_head_exact))
 
     main_path = {
         "phase": "main_path", "sweeps": SWEEPS, "rank": RANK,
@@ -1325,6 +1426,7 @@ def main(argv=None) -> int:
         "device_bytes_held": held_before,
         "device_bytes_peak": torch.cuda.max_memory_allocated(),
         "matmul_shape": list(MLP_SHAPE), "matmul_rel_err": matmul_rel,
+        "matmul_head_shape": list(RAGGED_SHAPE), "matmul_head_rel_err": head_rel,
         "launches": launches,
         "factors_on": sorted({str(f.device) for f in hop.factors}),
     }
@@ -1336,17 +1438,20 @@ def main(argv=None) -> int:
         raise AssertionError(f"hopper fit strays from exact by more than 0.02: {main_path}")
     if launches["stream_mttkrp_fused"] < 3 * hop.iters or hop.iters != SWEEPS:
         raise AssertionError(f"the main path did not launch the stream kernel: {main_path}")
-    if launches["psram_matmul"] < 1:
-        raise AssertionError(f"api.matmul did not launch the matmul kernel: {main_path}")
+    if launches["psram_matmul_wgmma"] < 1 or launches["psram_matmul_tile"] < 1:
+        raise AssertionError(f"api.matmul did not launch kernel 2's wgmma route (MLP "
+                             f"projection) and tile route (ragged head): {main_path}")
     if launches["ordered_fold"] < SWEEPS:
         raise AssertionError(f"the exact-fit MTTKRP did not launch the ordered fold: {main_path}")
     if not all(f.is_cuda and torch.isfinite(f).all() for f in hop.factors) or not y.is_cuda:
         raise AssertionError("results are not finite tensors on the card")
     if tuple(y.shape) != (m, n) or not matmul_rel < 0.05:
         raise AssertionError(f"api.matmul strays from exact: rel {matmul_rel}")
+    if tuple(y_head.shape) != (m, RAGGED_SHAPE[2]) or not head_rel < 0.05:
+        raise AssertionError(f"api.matmul (ragged head) strays from exact: rel {head_rel}")
 
     # 4b. the dense entry point, fused (int8 + ADC) and legacy (exact) --------
-    del x, w, y, y_exact
+    del x, w, y, y_exact, w_head, y_head, y_head_exact
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     legacy = backends.get("hopper", cfg, compiled=False)
@@ -1402,13 +1507,19 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     leg_s = time.perf_counter() - t0
     leg_launches = read_counts()
+    # the blocked path folds its partials in order: the same bits twice
+    from repro_torch.sparse.stream import stream_mttkrp_blocked
+
+    leg_repeatable = all(
+        torch.equal(stream_mttkrp_blocked(c, leg.factors, cfg),
+                    stream_mttkrp_blocked(c, leg.factors, cfg)) for c in csfs)
     blocks = [_segment_blocks(c, cfg.rows) for c in csfs]
     legacy_path = {
         "phase": "main_path_legacy", "sweeps": SWEEPS, "rank": RANK,
         "fit_hopper_legacy": leg.fit, "fit_exact": exact.fit, "iters": leg.iters,
-        "cp_als_s": leg_s, "launches": leg_launches,
-        "n_seg": [bl[4] for bl in blocks],
-        "partials_bytes": [bl[2].shape[0] * bl[4] * RANK * 4 for bl in blocks],
+        "cp_als_s": leg_s, "launches": leg_launches, "blocked_repeatable": leg_repeatable,
+        "n_seg": [bl[3] for bl in blocks],
+        "partials_bytes": [bl[2].shape[0] * bl[3] * RANK * 4 for bl in blocks],
         "chain_bytes": [bl[2].numel() * RANK * 4 for bl in blocks],
         "device_bytes_peak": torch.cuda.max_memory_allocated(),
     }
@@ -1418,6 +1529,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"legacy CP-ALS strays from exact: {legacy_path}")
     if leg_launches["blocked_segment_sum"] < 3 * SWEEPS or leg.iters != SWEEPS:
         raise AssertionError(f"the legacy path did not launch the segment-sum kernel: {legacy_path}")
+    if leg_launches["ordered_fold"] < 3 * SWEEPS or not leg_repeatable:
+        raise AssertionError(f"the legacy path's partials were not folded in order, or not "
+                             f"repeatably: {legacy_path}")
     if not all(f.is_cuda and torch.isfinite(f).all() for f in leg.factors):
         raise AssertionError("legacy CP-ALS factors are not finite tensors on the card")
 
@@ -1558,6 +1672,14 @@ def main(argv=None) -> int:
     if psram_launches["psram_matmul_decode"] < 7 * scfg.num_layers * (SERVE_NEW - 1):
         raise AssertionError(f"the pSRAM decode steps did not take kernel 2's decode "
                              f"route: {serve_path}")
+    if psram_launches["psram_matmul_wgmma"] < 7 * scfg.num_layers \
+            or psram_launches["psram_matmul_tile"] != 0:
+        raise AssertionError(f"the pSRAM prefill did not take kernel 2's wgmma route on "
+                             f"every projection: {serve_path}")
+    prefill_k2 = psram_run["prefill_profile"]["kernel2_launches"]
+    if prefill_k2 != 7 * scfg.num_layers:
+        raise AssertionError(f"the profiled pSRAM prefill launched kernel 2 {prefill_k2} "
+                             f"times, not {7 * scfg.num_layers}: {serve_path}")
     if psram_run["decode_profile"]["kernel_launches_per_step"] > PSRAM_DECODE_LAUNCH_CEILING:
         raise AssertionError(f"a pSRAM decode step launches more than "
                              f"{PSRAM_DECODE_LAUNCH_CEILING} kernels: {serve_path}")
@@ -1651,18 +1773,41 @@ def main(argv=None) -> int:
             "per_mode_ms": [c["ms"] for c in a_main],
         },
         {
-            "name": "psram_matmul", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/psram_matmul.cu (psram_matmul_kernel: "
-                      "the tile route, M > M_DECODE)",
+            "name": "psram_matmul_wgmma", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/psram_matmul.cu (psram_matmul_wgmma_kernel: "
+                      "the wgmma route, M > M_DECODE, operands TMA can take)",
             "replaces": "src/repro/kernels/psram_matmul.py:80",
-            "launches": total("psram_matmul_tile"),
-            "max_abs_err": max(c["max_abs_err"] for c in [b_main] + b_small
-                               + [c for c in served_matmul if c["route"] == "tile"]),
+            "launches": total("psram_matmul_wgmma"),
+            "max_abs_err": max(c["max_abs_err"] for c in [b_main] + b_prefill + wgmma_small
+                               + [c for c in served_matmul if c["route"] == "wgmma"]),
             "ms": b_main["ms"], "plain_ms": b_main["plain_ms"],
             "bound_ms": b_main["bound_ms"], "bound_by": b_main["bound_by"],
             "library_ms": b_main["library_ms"],
-            "tolerance": "bit-equal (seeded shapes, and the served model's layer-0 "
-                         "operands in a prefill)",
+            "library": "torch._int_mm + ADC",
+            "tolerance": "bit-equal to the plain version and to the tile route (seeded "
+                         "shapes, the prefill's four shapes at M = 8192, and the served "
+                         "model's layer-0 operands in a prefill)",
+            "shape": b_main["shape"], "tile_ms": b_main["tile_ms"],
+            "per_shape": [{k: c[k] for k in ("shape", "ms", "tile_ms", "bound_ms", "plain_ms",
+                                             "library_ms", "tops")}
+                          for c in [b_main] + b_prefill],
+            "epilogue": b_epilogue,
+        },
+        {
+            "name": "psram_matmul_tile", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/psram_matmul.cu (psram_matmul_kernel: "
+                      "the tile route, M > M_DECODE, operands TMA cannot take)",
+            "replaces": "src/repro/kernels/psram_matmul.py:80",
+            "launches": total("psram_matmul_tile"),
+            "max_abs_err": max(c["max_abs_err"] for c in [b_ragged] + b_small
+                               if c["route"] == "tile"),
+            "ms": b_ragged["ms"], "plain_ms": b_ragged["plain_ms"],
+            "bound_ms": b_ragged["bound_ms"], "bound_by": b_ragged["bound_by"],
+            "library_ms": b_ragged["library_ms"],
+            "library": "torch._int_mm + ADC",
+            "tolerance": "bit-equal (seeded shapes; the wgmma route's shapes and served "
+                         "operands also against it)",
+            "shape": b_ragged["shape"], "ms_at_mlp_shape": b_main["tile_ms"],
         },
         {
             "name": "psram_matmul_decode", "route": "cuda",

@@ -106,38 +106,6 @@ struct Tiles {
     static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
 };
 
-// wgmma descriptor of a shared-memory operand in the 128-byte swizzle:
-// start address, leading and stride byte offsets (16-byte units), layout 1
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-           (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin registers at this point of the program: an in-flight wgmma writes its
-// accumulator and reads its A fragment behind the compiler's back, so every
-// use after the wait must stay after it, and the A registers must not be
-// reused before it.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
 // D = A B for a 64 x N tile, A (64 x 16) and B (16 x N) bf16 in shared
 // memory, both K-major (N = 128): _init overwrites d, the other
 // accumulates; the register-A form takes A as a fragment and B MN-major

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
-// mbarriers, TMA loads and the host-side encoding of TMA tensor maps.
-// Included by flash_attention.cu and mttkrp.cu; kernels/_build.py hashes
-// this header into every library name, so editing it rebuilds them.
+// mbarriers, TMA loads, the warpgroup MMA (wgmma) descriptor, fences and
+// register pins, and the host-side encoding of TMA tensor maps. Included by
+// flash_attention.cu, mttkrp.cu and psram_matmul.cu; kernels/_build.py
+// hashes this header into every library name, so editing it rebuilds them.
 #pragma once
 
 #include <cuda.h>
@@ -67,6 +68,13 @@ __device__ __forceinline__ uint64_t evict_first_policy() {
     return policy;
 }
 
+// an L2 policy for data that other CTAs read again: normal eviction
+__device__ __forceinline__ uint64_t evict_normal_policy() {
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n" : "=l"(policy));
+    return policy;
+}
+
 // one TMA box of a 2-D map (column, row) into shared memory, its bytes
 // counted on `bar`, under the L2 `policy`
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -87,6 +95,43 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
         "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
         : "memory");
+}
+
+// wgmma descriptor of a shared-memory operand in the 128-byte swizzle:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+           (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers at this point of the program: an in-flight wgmma writes its
+// accumulator and reads its A fragment behind the compiler's back, so every
+// use after the wait must stay after it, and the A registers must not be
+// reused before it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(int (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)

@@ -1,14 +1,13 @@
 """The pSRAM array's quantized matmul: ``ADC(qx @ qw) * (sx * sw)``.
 
-The hand-written Hopper kernel lives in ``csrc/psram_matmul.cu`` (CUDA C++,
-``sm_90a``); it replaces the TPU kernel
+The hand-written Hopper kernels live in ``csrc/psram_matmul.cu`` (CUDA C++,
+``sm_90a``); they replace the TPU kernel
 ``src/repro/kernels/psram_matmul.py:_kernel`` (launched by ``psram_matmul``).
 The TPU kernel's K grid dimension becomes a loop inside the CTA, the int32
 accumulator stays in registers, and the ADC + dequant epilogue runs on it
-before the one f32 store. What bounds it on the card is operations (the int8
-tensor-core rate at projection shapes): the product runs on the tensor cores
-through warp-level ``mma.sync`` in a plain two-barrier loop — see the source
-note in the ``.cu`` file.
+before the one f32 store. What bounds it on the card at projection shapes is
+operations (the int8 tensor-core rate) — see the source note in the ``.cu``
+file.
 
 :func:`psram_matmul` is the wrapper: for CUDA tensors it launches the kernel
 (or raises); for CPU tensors — and only because they lie on the CPU — it
@@ -19,16 +18,30 @@ double on the host, true division, round-half-even, no FMA contraction).
 The int32→f32 conversion rounds to nearest-even once ``127²·K`` passes 2²⁴
 (K ≥ 1041) in both.
 
-Two routes, one contract. Rows above :data:`M_DECODE` take the tile kernel
-(``psram_matmul_kernel``: 128 x 128 CTA tiles on ``mma.sync``); decode rows
-(``M <= M_DECODE``) take ``psram_matmul_decode_kernel``, a weight-streaming
-pass with the roles of the operands swapped and K split across the warps of
-a CTA and a thread-block cluster (its size chosen by the library,
-``psram_matmul_decode_cluster``), reduced in int32 through distributed
-shared memory in one launch. Integer sums are exact under any split, so
-both routes are bit-equal to the plain version. The int32 sums need
-``128²·K < 2³¹`` (K ≤ :data:`MAX_K`): the CUDA wrapper raises above it, on
-either route. ``psram_matmul.launches`` counts every launch;
+Three routes, one contract, chosen by shape and alignment alone
+(:func:`_route`):
+
+* ``"wgmma"`` — rows above :data:`M_DECODE` whose operands TMA can take
+  (``qx`` and ``qw`` start on 16 bytes, K and N multiples of 16):
+  ``psram_matmul_wgmma_kernel``, warpgroup MMAs (``wgmma`` s8) fed by TMA
+  through a shared-memory ring, the roles of the operands swapped so that
+  ``qx`` is the K-major shared-memory operand and ``qw`` is transposed into
+  register fragments on its way from shared memory — no copy of the weights
+  is made;
+* ``"tile"`` — the other rows above :data:`M_DECODE` (an unaligned base, a
+  K or N not a multiple of 16): ``psram_matmul_kernel``, 128 x 128 CTA
+  tiles on ``mma.sync``;
+* ``"decode"`` — ``M <= M_DECODE``: ``psram_matmul_decode_kernel``, a
+  weight-streaming pass with the roles swapped and K split across the warps
+  of a CTA and a thread-block cluster (its size chosen by the library,
+  ``psram_matmul_decode_cluster``), reduced in int32 through distributed
+  shared memory in one launch.
+
+Integer sums are exact under any split, so every route is bit-equal to the
+plain version. The int32 sums need ``128²·K < 2³¹`` (K ≤ :data:`MAX_K`): the
+CUDA wrapper raises above it, on every route. A route that fails to build or
+to launch raises; nothing gives way to another route or to the plain
+version. ``psram_matmul.launches`` counts every launch;
 ``psram_matmul.routes`` counts them by route.
 """
 from __future__ import annotations
@@ -45,6 +58,8 @@ from . import _build
 M_DECODE = 16
 #: the largest K whose int32 sums are exact for any int8 codes: 128² · K < 2³¹
 MAX_K = (2 ** 31 - 1) // (128 * 128)
+#: the routes of kernel 2, as ``psram_matmul.routes`` counts them
+ROUTES = ("wgmma", "tile", "decode")
 
 
 def _check_operands(qx, qw, sx, sw):
@@ -93,9 +108,31 @@ def _decode_cluster(k: int, n: int, sms: int) -> int:
     return fn(k, n, sms)
 
 
+def _tma_takes(k: int, n: int, aligned: bool) -> bool:
+    """Whether TMA can copy the operands: ``aligned`` (both bases on 16
+    bytes) and row strides of ``k`` and ``n`` bytes that are multiples of 16
+    (``k > 0``)."""
+    return aligned and k > 0 and k % 16 == 0 and n % 16 == 0
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on 16 bytes (TMA's base rule)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _route(m: int, k: int, n: int, aligned: bool) -> str:
+    """The route of an ``(m, k) @ (k, n)`` call: ``"decode"`` for
+    ``m <= M_DECODE``; else ``"wgmma"`` where TMA can take the operands
+    (:func:`_tma_takes`) and ``"tile"`` where it cannot."""
+    if m <= M_DECODE:
+        return "decode"
+    return "wgmma" if _tma_takes(k, n, aligned) else "tile"
+
+
 def _entry(route: str):
     lib = _build.load("psram_matmul")
-    fn = lib.psram_matmul_decode_launch if route == "decode" else lib.psram_matmul_launch
+    fn = {"decode": lib.psram_matmul_decode_launch, "wgmma": lib.psram_matmul_wgmma_launch,
+          "tile": lib.psram_matmul_launch}[route]
     if not fn.argtypes:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 \
@@ -112,9 +149,9 @@ def psram_matmul(
 ) -> torch.Tensor:
     """``ADC(qx @ qw) * (sx * sw)`` as ``(M, N)`` f32. Any ``M, K, N`` (the
     kernels mask ragged edges themselves). CUDA tensors go through one
-    kernel launch on the current stream, without synchronizing: the decode
-    kernel for ``M <= M_DECODE``, else the tile kernel. CPU tensors go
-    through :func:`psram_matmul_torch`."""
+    kernel launch on the current stream, without synchronizing, on the
+    route :func:`_route` names. CPU tensors go through
+    :func:`psram_matmul_torch`."""
     if not qx.is_cuda:
         return psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits)
     return _launch(qx, qw, sx, sw, adc_bits)
@@ -123,12 +160,13 @@ def psram_matmul(
 def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
             cluster: int = 0) -> torch.Tensor:
     """One launch of kernel 2 on CUDA tensors. ``route`` None takes the
-    route :func:`psram_matmul` takes; the checks name ``"tile"`` or
-    ``"decode"`` to hold one route against the other, and ``cluster`` a
-    decode cluster size (1..8; 0 is the library's choice). Either only
-    chooses how the same result is computed."""
-    if route not in (None, "tile", "decode"):
-        raise ValueError(f"route must be 'tile' or 'decode', got {route!r}")
+    route :func:`psram_matmul` takes; the checks name ``"wgmma"``,
+    ``"tile"`` or ``"decode"`` to hold one route against another, and
+    ``cluster`` a decode cluster size (1..8; 0 is the library's choice).
+    Either only chooses how the same result is computed; a route that
+    cannot take the operands raises."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     m, k, n = _check_operands(qx, qw, sx, sw)
     if not qx.is_cuda:
         raise ValueError("kernel 2 launches on CUDA tensors only")
@@ -139,10 +177,14 @@ def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
     for name, t in (("qx", qx), ("qw", qw), ("sx", sx), ("sw", sw)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    aligned = _aligned(qx, qw)
     if route is None:
-        route = "decode" if m <= M_DECODE else "tile"
+        route = _route(m, k, n, aligned)
     if route == "decode" and m > 16:
         raise ValueError(f"the decode route takes up to 16 rows, got {m}")
+    if route == "wgmma" and not _tma_takes(k, n, aligned):
+        raise ValueError(f"the wgmma route needs 16-byte aligned operands and K, N multiples "
+                         f"of 16; got K={k}, N={n}, aligned={aligned}")
     levels = 2 ** adc_bits
     # exactly the plain version's LSB: formed in double, rounded once to f32
     lsb = 2.0 * (float(QMAX) * float(QMAX) * k) / levels
@@ -162,4 +204,4 @@ def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
 #: kernel launches made by :func:`psram_matmul` (CUDA path only), all routes
 psram_matmul.launches = 0
 #: the same launches by route
-psram_matmul.routes = {"tile": 0, "decode": 0}
+psram_matmul.routes = {route: 0 for route in ROUTES}

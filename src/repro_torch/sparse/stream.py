@@ -218,17 +218,29 @@ def _fold_segments(csf: CSF, step: int):
 
 def _segment_blocks(csf: CSF, rows: int):
     """``_block_segments`` with its arrays on the CSF's device, plus the
-    padded stream the exact chain runs over: ``(ip, vp, local, seg_rows,
-    n_seg)`` with ``ip (B, rows, nmodes)`` coordinates (0 in the padding),
-    ``vp (B, rows)`` values (0.0 in the padding), ``local (B, rows) int32``
-    and ``seg_rows (B*n_seg,) int64``. Cached on the CSF, like the layout of
-    the fused kernel: CP-ALS reuses it every sweep."""
+    padded stream the exact chain runs over and the order the partials are
+    folded in: ``(ip, vp, local, n_seg, order, fold_rows, fold_runs)`` with
+    ``ip (B, rows, nmodes)`` coordinates (0 in the padding), ``vp (B, rows)``
+    values (0.0 in the padding), ``local (B, rows) int32``; ``order (P,)
+    int64`` the stable sort of the flattened ``(B*n_seg,)`` segment rows by
+    row, the slots of the sacrificial row ``out_rows`` (unused slots,
+    padding) dropped; ``fold_rows (P,) int64`` the rows in that order
+    (non-decreasing); ``fold_runs (out_rows + 1,) int64`` their
+    ``row_runs``. Stable: each row still receives its partials in
+    (block, segment) order, the order of the reference's
+    ``out.at[seg_rows].add``. Host numpy, cached on the CSF, like the layout
+    of the fused kernel: CP-ALS reuses it every sweep."""
     key = ("_stream_segment_blocks", rows)
     cached = csf.__dict__.get(key)
     if cached is not None:
         return cached
     local, seg_rows, n_seg = _block_segments(csf, rows)
     n_blocks = local.shape[0]
+    out_rows = csf.shape[csf.mode_order[0]]
+    flat = seg_rows.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    order = order[flat[order] != out_rows]
+    fold_rows = flat[order]
     idx = csf.expanded_indices_np()
     padn = n_blocks * rows - idx.shape[0]
     vals = csf.values.detach().cpu().numpy()
@@ -238,8 +250,11 @@ def _segment_blocks(csf: CSF, rows: int):
                         device=dev),
         torch.as_tensor(np.pad(vals, (0, padn)).reshape(n_blocks, rows), device=dev),
         torch.as_tensor(local, device=dev),
-        torch.as_tensor(seg_rows.reshape(-1), device=dev),
         n_seg,
+        torch.as_tensor(order.astype(np.int64), device=dev),
+        torch.as_tensor(fold_rows, device=dev),
+        torch.as_tensor(np.searchsorted(fold_rows, np.arange(out_rows + 1)).astype(np.int64),
+                        device=dev),
     )
     csf.__dict__[key] = result
     return result
@@ -257,21 +272,23 @@ def stream_mttkrp_blocked(
     The exact chain ``x_p · ⊙ other-factor rows`` over the padded stream
     (``(B, rows, R)``; padding rows are zero), one blocked segment sum per
     block of ``rows`` nonzeros (kernels/segment_sum.py), then the
-    ``(B, n_seg)`` partials are scattered into ``out_rows + 1`` rows — the
-    last one the sacrificial row of unused slots — with ``index_add_``:
-    O(segments) adds, no global scatter matrix. Combining partials
-    reassociates the float adds, so this path is allclose (~1e-5 relative),
-    not bit-equal, to :func:`stream_mttkrp`.
+    ``(B, n_seg)`` partials are gathered into the cached stable order of
+    their rows and folded into the output by ``kernels.ordered_fold``:
+    O(segments) adds, no global scatter matrix, each row's partials added in
+    (block, segment) order. So the result is the same bits on the CPU and
+    on the card, and repeatable there. Combining partials reassociates the
+    float adds, so this path is allclose (~1e-5 relative), not bit-equal, to
+    :func:`stream_mttkrp` (and to the reference, whose blocked segment sum
+    is a matrix product).
     """
     from repro_torch.kernels.ops import blocked_segment_sum_op
 
     cfg = resolve_config(config)
     mode = csf.mode_order[0]
-    out_rows = csf.shape[mode]
-    ip, vp, local, seg_rows, n_seg = _segment_blocks(csf, cfg.rows)
+    ip, vp, local, n_seg, order, fold_rows, fold_runs = _segment_blocks(csf, cfg.rows)
     d = cp_chain_exact(ip, vp, tuple(factors), mode)        # (B, rows, R)
     partials = blocked_segment_sum_op(d, local, n_seg, lowering=lowering)
     rank = d.shape[-1]
-    out = torch.zeros((out_rows + 1, rank), dtype=torch.float32, device=d.device)
-    out.index_add_(0, seg_rows, partials.reshape(-1, rank))
-    return out[:out_rows]
+    out = torch.zeros((csf.shape[mode], rank), dtype=torch.float32, device=d.device)
+    return ordered_fold(out, partials.reshape(-1, rank).index_select(0, order), fold_rows,
+                        runs=fold_runs)

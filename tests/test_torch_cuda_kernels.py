@@ -305,6 +305,80 @@ def test_psram_matmul_decode_route_unaligned_operands(card, m, k, n):
     assert torch.equal(got, pm.psram_matmul_torch(qx, qw, sx, sw))
 
 
+# ------------------------------------------------- kernel 2's wgmma route
+
+WGMMA_SHAPES = [
+    (17, 4096, 1024, 16), (200, 1040, 144, 16), (8192 + 64, 4096, 1024, 16),   # ragged M
+    (300, 1040, 400, 8), (257, 2064, 272, 24),          # K, N multiples of 16, not of a tile
+    (17, pm.MAX_K // 16 * 16, 32, 16),                  # K up to MAX_K
+    (1024, 4096, 4096, 16), (1024, 4096, 1024, 16),     # the prefill's four shapes,
+    (1024, 4096, 14336, 16), (1024, 14336, 4096, 16),   # M cut from 8192 to 1024
+]
+
+
+@pytest.mark.parametrize("m,k,n,adc_bits", WGMMA_SHAPES)
+def test_psram_matmul_wgmma_route_bit_equal_and_counted(card, m, k, n, adc_bits):
+    """Rows above 16 with operands TMA can take go to the wgmma kernel:
+    bit-equal to the plain version and to the tile route, the same bits on
+    a second launch, counted as the ``wgmma`` route only."""
+    qx, qw, sx, sw = _codes(card, m, k, n, m + k + n)
+    before, routes = pm.psram_matmul.launches, dict(pm.psram_matmul.routes)
+    got = pm.psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits)
+    torch.cuda.synchronize()
+    assert pm.psram_matmul.launches == before + 1
+    assert pm.psram_matmul.routes == {**routes, "wgmma": routes["wgmma"] + 1}
+    assert torch.equal(got, pm.psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits))
+    assert torch.equal(pm._launch(qx, qw, sx, sw, adc_bits=adc_bits, route="wgmma"), got)
+    assert torch.equal(pm._launch(qx, qw, sx, sw, adc_bits=adc_bits, route="tile"), got)
+
+
+@pytest.mark.parametrize("offset,route", [(1, "tile"), (4, "tile"), (16, "wgmma")])
+def test_psram_matmul_sliced_operands_route_by_alignment(card, offset, route):
+    """Operands that start ``offset`` bytes into their storage: off a
+    16-byte boundary TMA cannot take them, so they go to the tile kernel and
+    a forced wgmma launch raises; every route gives the same bits."""
+    m, k, n = 300, 1040, 144
+    qx, qw, sx, sw = _codes(card, m, k, n, 7 + offset)
+    bx = torch.empty(qx.numel() + offset, dtype=torch.int8, device=card)
+    bw = torch.empty(qw.numel() + offset, dtype=torch.int8, device=card)
+    ux = bx[offset:].view(m, k).copy_(qx)
+    uw = bw[offset:].view(k, n).copy_(qw)
+    routes = dict(pm.psram_matmul.routes)
+    got = pm.psram_matmul(ux, uw, sx, sw)
+    assert pm.psram_matmul.routes[route] == routes[route] + 1
+    assert torch.equal(got, pm.psram_matmul_torch(qx, qw, sx, sw))
+    if route == "tile":
+        with pytest.raises(ValueError, match="wgmma route needs"):
+            pm._launch(ux, uw, sx, sw, route="wgmma")
+    else:
+        assert torch.equal(pm._launch(ux, uw, sx, sw, route="tile"), got)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_blocked_stream_on_the_card_is_ordered(card, mode):
+    """``stream_mttkrp_blocked`` (the ``compiled=False`` sparse path) on the
+    card: one segment-sum launch and one ordered fold, BIT-EQUAL to the same
+    function on the CPU and the same bits on a second run."""
+    from repro_torch.sparse.stream import stream_mttkrp_blocked
+
+    coo = powerlaw_coo(6, (300, 200, 100), nnz=60000, rank=4, alpha=1.6, device=card)
+    gen = torch.Generator(device=card).manual_seed(10 + mode)
+    fs = tuple(torch.randn((s, 32), generator=gen, device=card) for s in coo.shape)
+    csf = csf_for_mode(coo, mode)
+    cfg = PsramConfig(rows=64)
+    folds, sums = of.ordered_fold.launches, ss.blocked_segment_sum.launches
+    got = stream_mttkrp_blocked(csf, fs, cfg)
+    torch.cuda.synchronize()
+    assert of.ordered_fold.launches == folds + 1
+    assert ss.blocked_segment_sum.launches == sums + 1
+    cpu = lambda t: t.cpu()
+    csf_cpu = csf_for_mode(COO(indices=cpu(coo.indices), values=cpu(coo.values),
+                               shape=coo.shape), mode)
+    want = stream_mttkrp_blocked(csf_cpu, tuple(map(cpu, fs)), cfg)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(stream_mttkrp_blocked(csf, fs, cfg), got)
+
+
 # --------------------------------------------------------- the ordered fold
 
 

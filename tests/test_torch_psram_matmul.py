@@ -162,3 +162,54 @@ def test_route_and_k_limit_are_checked():
         _launch(*ops, route="split")
     with pytest.raises(ValueError, match="CUDA tensors only"):
         _launch(*ops, route="decode")
+
+
+# the route rules, written out: decode rows; else wgmma where TMA takes the
+# operands (16-byte bases, K and N multiples of 16); else the mma.sync tiles
+ROUTE_KN = [
+    (4096, 14336, True), (4096, 4096, True), (4096, 1024, True), (14336, 4096, True),
+    (1040, 144, True),                        # multiples of 16, not of a tile
+    (4100, 14336, True), (4096, 14344, True), (33, 9, True), (1043, 131, True),
+    (4096, 14336, False),                     # a sliced or unaligned base
+    (0, 16, True),
+]
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 512, 8192])
+@pytest.mark.parametrize("k,n,aligned", ROUTE_KN)
+def test_route_by_shape_and_alignment(m, k, n, aligned):
+    from repro_torch.kernels.psram_matmul import M_DECODE, _route
+
+    assert M_DECODE == 16
+    if m <= 16:
+        want = "decode"
+    elif aligned and k > 0 and k % 16 == 0 and n % 16 == 0:
+        want = "wgmma"
+    else:
+        want = "tile"
+    assert _route(m, k, n, aligned) == want
+
+
+@pytest.mark.parametrize("offset,aligned", [(0, True), (1, False), (8, False), (16, True)])
+def test_alignment_of_sliced_operands(offset, aligned):
+    """A view that starts ``offset`` bytes into its storage: TMA takes it
+    only on a 16-byte boundary."""
+    from repro_torch.kernels.psram_matmul import _aligned
+
+    base = torch.zeros(4096 + 64, dtype=torch.int8)
+    assert base.data_ptr() % 16 == 0
+    view = base[offset:offset + 4096].view(64, 64)
+    assert _aligned(view, base) is aligned
+    assert _aligned(base) is True
+
+
+@pytest.mark.parametrize("route", [None, "wgmma", "tile", "decode"])
+def test_launch_raises_on_cpu_tensors(route):
+    from repro_torch.kernels.psram_matmul import ROUTES, _launch, psram_matmul as pm
+
+    assert set(pm.routes) == set(ROUTES) == {"wgmma", "tile", "decode"}
+    ops = tuple(_t(o) for o in _reference_operands(32, 64, 32))
+    before = dict(pm.routes)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        _launch(*ops, route=route)
+    assert pm.routes == before

@@ -152,6 +152,54 @@ def test_hopper_legacy_sparse_vs_reference_pallas(mode, rows, reference_tensor):
             got.numpy(), rtol=1e-6, atol=1e-6 * scale)
 
 
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("rows", [256, 16])
+def test_blocked_fold_bit_equal_to_the_index_add_order(mode, rows, reference_tensor):
+    """The partials folded in the cached stable order of their rows give the
+    bits of the earlier scatter: every ``(B, n_seg)`` partial added with one
+    ``index_add_`` into ``out_rows + 1`` rows (the CPU adds in stream order),
+    the sacrificial row dropped."""
+    coo, fs = reference_tensor
+    tcsf = _port_csf(j_csf_for_mode(coo, mode))
+    tfs = tuple(convert.factors(fs, device="cpu"))
+    cfg = PsramConfig(rows=rows)
+    from repro_torch.core.mttkrp import cp_chain_exact
+    from repro_torch.sparse.stream import _block_segments, _segment_blocks
+
+    ip, vp, local, n_seg = _segment_blocks(tcsf, rows)[:4]
+    seg_rows = torch.as_tensor(_block_segments(tcsf, rows)[1].reshape(-1))
+    partials = tk.blocked_segment_sum_torch(cp_chain_exact(ip, vp, tfs, mode), local, n_seg)
+    out_rows = coo.shape[mode]
+    want = torch.zeros((out_rows + 1, 6)).index_add_(0, seg_rows, partials.reshape(-1, 6))
+    for low in ("auto", "torch", "ref"):
+        got = stream_mttkrp_blocked(tcsf, tfs, cfg, lowering=low)
+        assert got.shape == (out_rows, 6)
+        assert torch.equal(got, want[:out_rows])
+
+
+@pytest.mark.parametrize("rows", [256, 16, 7])
+def test_blocked_fold_order_is_stable_and_drops_only_sacrificial_slots(rows, reference_tensor):
+    coo, _ = reference_tensor
+    tcsf = _port_csf(j_csf_for_mode(coo, 1))
+    from repro_torch.kernels.ordered_fold import row_runs
+    from repro_torch.sparse.stream import _block_segments, _segment_blocks
+
+    cached = _segment_blocks(tcsf, rows)
+    assert _segment_blocks(tcsf, rows) is cached                 # cached on the CSF
+    order, fold_rows, fold_runs = (t.numpy() for t in cached[4:])
+    flat = _block_segments(tcsf, rows)[1].reshape(-1)
+    out_rows = coo.shape[1]
+    # exactly the slots of real rows, each once
+    np.testing.assert_array_equal(np.sort(order), np.flatnonzero(flat != out_rows))
+    np.testing.assert_array_equal(fold_rows, flat[order])
+    assert (np.diff(fold_rows) >= 0).all()
+    # stable: a row's slots keep their (block, segment) order
+    same = np.diff(fold_rows) == 0
+    assert (np.diff(order)[same] > 0).all()
+    np.testing.assert_array_equal(
+        fold_runs, row_runs(torch.as_tensor(fold_rows), out_rows).numpy())
+
+
 def test_hopper_legacy_on_any_data_form(reference_tensor):
     """A COO triple and a CSF rooted elsewhere are sorted into the mode's CSF
     first, as on the fused path."""
