@@ -17,7 +17,11 @@ What it does, in order — any failure raises and the run exits non-zero:
    on the card, at the main path's shapes and at small ragged shapes, with
    CUDA-event timings (median after warm-up) beside the least time the card
    could take for the same bytes and operations and, where one PyTorch call
-   computes the same function, that call's time. Kernel 2 on its three
+   computes the same function, that call's time. Kernel 1 on each of its
+   routes (``chunk``, ``three_pass``) at the three mode layouts, the routes
+   bit-equal to each other and the small cases bit-equal to the CPU on both,
+   each call's device time split by operation under ``torch.profiler``
+   (``passes_ms``). Kernel 2 on its three
    routes: the wgmma route at the MLP projection and at the served
    prefill's four projection shapes (M = 8192), each timed in turns with
    the tile route, and at one 128-deep stage (its fill and epilogue alone);
@@ -208,6 +212,34 @@ def graph_ms(torch, fns, reps: int = 1, iters: int = 5) -> float:
         times.append(start.elapsed_time(stop) / (reps * len(fns)))
     del graph
     return statistics.median(times)
+
+
+def pass_split(torch, fn, ms: float, n: int = 5, attempts: int = 3) -> dict:
+    """Device milliseconds per call of ``fn`` by operation: ``n`` calls under
+    ``torch.profiler``, each kernel's (or memset's) device time summed by its
+    name and divided by ``n``. ``ms`` is the call's time by CUDA events: a
+    window whose operations add up to less than 0.8 of it lost records and
+    is profiled again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        split: dict = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            kernel = re.search(r"\b(\w+_kernel)\b", e.key)
+            name = "memset" if "memset" in e.key.lower() else (kernel[1] if kernel else e.key[:40])
+            us = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+            split[name] = split.get(name, 0.0) + us / 1e3 / n
+        if sum(split.values()) >= 0.8 * ms:
+            return split
+    raise AssertionError(f"the profiler saw {split} of a {ms} ms call")
 
 
 def cold_copies(torch, t, total_bytes: float = 128e6, most: int = 64) -> list:
@@ -432,6 +464,7 @@ def stream_case(torch, csf, factors, cfg, adc_bits, exec_blocks=None,
     ``cpu_bit_check`` the kernel is also held BIT-EQUAL to the plain version
     run on the CPU, whose ``index_add_`` adds in stream order like the kernel.
     """
+    from repro_torch.kernels import stream_mttkrp as sm
     from repro_torch.kernels.autotune import stream_params
     from repro_torch.kernels.stream_mttkrp import (
         SegmentPlan, quantize_stream_factors, stream_mttkrp_fused,
@@ -446,9 +479,19 @@ def stream_case(torch, csf, factors, cfg, adc_bits, exec_blocks=None,
     qs, ss = quantize_stream_factors(factors, mode)
     plan = SegmentPlan.build(lp, sp, n_seg, out_rows)
     args = (ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits, out_rows)
+    counts = stream_mttkrp_fused.routes
+    before = dict(counts)
 
     got, got_max = stream_mttkrp_fused(*args, plan=plan, return_chunk_max=True)
     torch.cuda.synchronize()
+    route = next(r for r in counts if counts[r] > before[r])
+    others = [d for d in range(len(qs)) if d != mode]
+    aligned = all(qs[d].data_ptr() % 16 == 0 for d in others)
+    # the routes that can take the layout
+    smem = sm._chunk_smem(got.shape[1], len(qs), plan.chunk_segs)
+    routes = [r for r in sm.ROUTES
+              if r != "chunk" or sm._chunk_takes(got.shape[1], smem, aligned)]
+    on_route = lambda r: sm._launch(*args, plan=plan, return_chunk_max=True, route=r)
     want, want_max = stream_mttkrp_fused_torch(*args, return_chunk_max=True)
 
     # per-row tolerance from the plan: one code per segment of the row
@@ -465,6 +508,7 @@ def stream_case(torch, csf, factors, cfg, adc_bits, exec_blocks=None,
         "mode": mode, "shape": list(csf.shape), "nnz": csf.nnz,
         "rank": int(got.shape[1]), "rows": cfg.rows, "exec_blocks": exec_blocks,
         "chunks": int(ip.shape[0]), "n_seg": n_seg, "segments": plan.total,
+        "chunk_segs": plan.chunk_segs, "route": route,
         "adc_bits": adc_bits,
         "max_abs_err": float(diff.max()),
         "max_err_in_codes": float((diff.max(dim=1).values / row_tol.clamp_min(1e-300)).max())
@@ -484,14 +528,32 @@ def stream_case(torch, csf, factors, cfg, adc_bits, exec_blocks=None,
             return_chunk_max=True)
         case["bit_equal_to_ordered_plain"] = bool(torch.equal(got.cpu(), want_cpu))
         case["chunk_max_bit_equal_to_ordered_plain"] = bool(torch.equal(got_max.cpu(), max_cpu))
+        # every route that can take the layout, each bit-equal to the CPU
+        case["routes_bit_equal"] = {}
+        for r in routes:
+            out_r, max_r = on_route(r)
+            case["routes_bit_equal"][r] = bool(torch.equal(out_r.cpu(), want_cpu)
+                                               and torch.equal(max_r.cpu(), max_cpu))
         if not (case["bit_equal_to_ordered_plain"]
-                and case["chunk_max_bit_equal_to_ordered_plain"]):
+                and case["chunk_max_bit_equal_to_ordered_plain"]
+                and all(case["routes_bit_equal"].values())):
             raise AssertionError(
                 f"stream_mttkrp_fused is not bit-equal to the ordered plain version: {case}")
     if timed:
-        case["ms"] = time_ms(torch, lambda: stream_mttkrp_fused(*args, plan=plan))
+        # each route that can take the layout: the same bits, its time and
+        # its device time by operation; the call's are its route's
+        case["routes"] = {}
+        for r in routes:
+            out_r, max_r = on_route(r)
+            if not (torch.equal(out_r, got) and torch.equal(max_r, got_max)):
+                raise AssertionError(f"kernel 1's {r} route disagrees with the {route} route: "
+                                     f"{case}")
+            launch = lambda r=r: on_route(r)
+            ms = time_ms(torch, launch)
+            case["routes"][r] = {"ms": ms, "passes_ms": pass_split(torch, launch, ms)}
+        case["ms"] = case["routes"][route]["ms"]
+        case["passes_ms"] = case["routes"][route]["passes_ms"]
         case["plain_ms"] = time_ms(torch, lambda: stream_mttkrp_fused_torch(*args), iters=3, reps=1)
-        others = [d for d in range(len(qs)) if d != mode]
         moved = nbytes(ip, vp, lp, sp, *[qs[d] for d in others],
                        *[ss[d] for d in others]) + 4 * got.numel()
         bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
@@ -506,7 +568,9 @@ def stream_case(torch, csf, factors, cfg, adc_bits, exec_blocks=None,
 
 def small_stream_cases(torch):
     """Ragged/small streams: ragged last block, an empty row, a fiber that
-    spans chunks, 4 modes, rank not a multiple of 32, ADC off."""
+    spans chunks, 4 modes, rank not a multiple of 32, ADC off — at ranks the
+    three_pass route alone takes (6, 40) and at ranks both routes take (32,
+    16), each held bit-equal to the CPU on every route that takes it."""
     from repro_torch.core.psram import PsramConfig
     from repro_torch.sparse import csf_for_mode, powerlaw_coo
 
@@ -515,23 +579,25 @@ def small_stream_cases(torch):
     # rows=16, 4 blocks per chunk: the Zipf head row owns far more than the
     # 64 nonzeros of a chunk; 40 rows x ~900 nonzeros leaves tail rows empty
     coo = powerlaw_coo(5, (40, 24, 18), nnz=900, rank=4, alpha=1.6, device="cuda")
-    fs = tuple(torch.randn((s, 6), generator=gen, device="cuda") for s in coo.shape)
     cfg = PsramConfig(rows=16)
-    for mode in range(3):
-        csf = csf_for_mode(coo, mode)
-        if mode == 0:
-            lengths = csf.fiber_lengths()
-            assert csf.nnz % 16 != 0, "fixture lost its ragged last block"
-            assert len(lengths) < 40, "fixture lost its empty rows"
-            assert lengths.max() > 64, "fixture lost its chunk-spanning fiber"
-        for adc_bits in (16, 0):
-            cases.append(stream_case(torch, csf, fs, cfg, adc_bits, exec_blocks=4,
-                                     cpu_bit_check=True))
+    for rank in (6, 32):
+        fs = tuple(torch.randn((s, rank), generator=gen, device="cuda") for s in coo.shape)
+        for mode in range(3):
+            csf = csf_for_mode(coo, mode)
+            if mode == 0:
+                lengths = csf.fiber_lengths()
+                assert csf.nnz % 16 != 0, "fixture lost its ragged last block"
+                assert len(lengths) < 40, "fixture lost its empty rows"
+                assert lengths.max() > 64, "fixture lost its chunk-spanning fiber"
+            for adc_bits in (16, 0):
+                cases.append(stream_case(torch, csf, fs, cfg, adc_bits, exec_blocks=4,
+                                         cpu_bit_check=True))
     coo4 = powerlaw_coo(6, (50, 12, 9, 7), nnz=20000, rank=3, alpha=1.1, device="cuda")
-    fs4 = tuple(torch.randn((s, 40), generator=gen, device="cuda") for s in coo4.shape)
-    for mode in (0, 3):
-        cases.append(stream_case(torch, csf_for_mode(coo4, mode), fs4, PsramConfig(),
-                                 16, cpu_bit_check=True))
+    for rank in (40, 16):
+        fs4 = tuple(torch.randn((s, rank), generator=gen, device="cuda") for s in coo4.shape)
+        for mode in (0, 3):
+            cases.append(stream_case(torch, csf_for_mode(coo4, mode), fs4, PsramConfig(),
+                                     16, cpu_bit_check=True))
     return cases
 
 
@@ -1248,12 +1314,15 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         for fn in kernel_fns.values():
             fn.launches = 0
-        psram_matmul.routes = {route: 0 for route in psram_matmul.routes}
+        for fn in (psram_matmul, stream_mttkrp_fused):
+            fn.routes = {route: 0 for route in fn.routes}
 
     def read_counts():
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in kernel_fns.items()}
-        counts.update({f"psram_matmul_{route}": n for route, n in psram_matmul.routes.items()})
+        for name, fn in (("psram_matmul", psram_matmul), ("stream_mttkrp_fused",
+                                                          stream_mttkrp_fused)):
+            counts.update({f"{name}_{route}": n for route, n in fn.routes.items()})
         return counts
 
     report: dict = {}
@@ -1314,6 +1383,8 @@ def main(argv=None) -> int:
     a_main = [stream_case(torch, csfs[m], tuple(init), cfg, cfg.adc.bits, timed=True)
               for m in range(3)]
     a_small = small_stream_cases(torch)
+    if not any(len(c["routes_bit_equal"]) > 1 for c in a_small):
+        raise AssertionError("no small stream case ran on both of kernel 1's routes")
     b_main = matmul_case(torch, *MLP_SHAPE, seed=1, timed=True)
     # the served prefill's four projection shapes (M = 8192), the ragged
     # head (the tile route) and the wgmma route's fill + epilogue alone
@@ -1438,6 +1509,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"hopper fit strays from exact by more than 0.02: {main_path}")
     if launches["stream_mttkrp_fused"] < 3 * hop.iters or hop.iters != SWEEPS:
         raise AssertionError(f"the main path did not launch the stream kernel: {main_path}")
+    if launches["stream_mttkrp_fused_chunk"] != launches["stream_mttkrp_fused"]:
+        raise AssertionError(f"the main path's stream kernel left the chunk route: {main_path}")
     if launches["psram_matmul_wgmma"] < 1 or launches["psram_matmul_tile"] < 1:
         raise AssertionError(f"api.matmul did not launch kernel 2's wgmma route (MLP "
                              f"projection) and tile route (ragged head): {main_path}")
@@ -1769,8 +1842,14 @@ def main(argv=None) -> int:
             "bound_by": a_main[0]["bound_by"], "library_ms": None,
             "tolerance": "per element: one ADC code (2*chunk full scale/2^16) per "
                          "segment of the row + 1e-6 of the full scales; bit-equal "
-                         "to the stream-ordered plain version on the small cases",
+                         "to the stream-ordered plain version on the small cases, "
+                         "on every route that can take them; the routes bit-equal "
+                         "to each other at full size",
             "per_mode_ms": [c["ms"] for c in a_main],
+            "routes": {r: {"launches": total(f"stream_mttkrp_fused_{r}"),
+                           "per_mode_ms": [c["routes"].get(r, {}).get("ms") for c in a_main]}
+                       for r in stream_mttkrp_fused.routes},
+            "passes_ms": [c["passes_ms"] for c in a_main],
         },
         {
             "name": "psram_matmul_wgmma", "route": "cuda",

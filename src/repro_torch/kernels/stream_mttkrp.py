@@ -21,11 +21,16 @@ Lowerings (``backends.lowering``):
 
 * ``"cuda"``  — :func:`stream_mttkrp_fused`, the wrapper of the hand-written
   Hopper kernel ``csrc/stream_mttkrp.cu`` (replaces the TPU kernel
-  ``_stream_kernel``). Bound by bytes on the card: it reads the stream once,
-  coalesced, gathers factor rows from L2, keeps only the compact
-  per-segment partials in device memory, and adds them per output row in
-  stream order — deterministic, no atomics on the output. Design notes are
-  in the ``.cu`` file.
+  ``_stream_kernel``). It reads the stream once, gathers factor rows from
+  L2, keeps only the compact per-segment partials in device memory, and
+  adds them per output row in stream order — deterministic, no atomics on
+  the output. Two routes, one contract, chosen by :func:`_route` from shapes
+  and alignment alone: ``"chunk"`` (one CTA per chunk: ``cp.async`` row
+  gathers, the partials and the chunk-wide ADC in shared memory) where the
+  rank is 16, 32, 64 or 128, the codes are 16-byte aligned and the chunk
+  fits shared memory, else ``"three_pass"`` (partials, digitize, fold).
+  ``stream_mttkrp_fused.routes`` counts them. Design notes are in the
+  ``.cu`` file.
 * ``"torch"`` — :func:`stream_mttkrp_fused_torch`, the plain PyTorch
   version (``index_add_`` segment sums). What the wrapper uses for CPU
   tensors, and what the CPU tests hold against the reference package.
@@ -52,6 +57,12 @@ from repro_torch.core.quantization import adc_transfer, quantize_symmetric
 from . import _build, ref
 
 MAX_MODES = 8   # MAX_MODES of csrc/stream_mttkrp.cu
+#: the routes of kernel 1, as ``stream_mttkrp_fused.routes`` counts them
+ROUTES = ("chunk", "three_pass")
+_ROUTE_IDS = {"three_pass": 0, "chunk": 1}   # enum Route of the .cu
+CHUNK_RANKS = (16, 32, 64, 128)   # the ranks csrc/stream_mttkrp.cu's chunk kernel is built for
+LONG_RUN = 256         # the row fold gives a run of more segments a CTA of its own
+MAX_SMEM = 232_448     # opt-in dynamic shared memory of one CTA on sm_90 (227 KB)
 
 
 def quantize_stream_factors(factors, mode: int):
@@ -158,6 +169,9 @@ class SegmentPlan:
     seg_chunk: torch.Tensor   # (total,) int32: chunk of each compact segment
     row_ptr: torch.Tensor     # (out_rows + 1,) int32: run of segments per row
     total: int                # number of segments that exist
+    chunk_segs: int           # the most segments one chunk holds
+    long_rows: torch.Tensor   # (n,) int32: rows whose run exceeds long_run segments
+    long_run: int             # the fold's warps leave a longer run to its own CTA
 
     @classmethod
     def build(cls, lp, sp, n_seg: int, out_rows: int) -> "SegmentPlan":
@@ -190,7 +204,10 @@ class SegmentPlan:
             return torch.as_tensor(a.astype(np.int32), device=device)
 
         return cls(seg_ptr=up(seg_ptr), seg_chunk=up(seg_chunk),
-                   row_ptr=up(row_ptr), total=total)
+                   row_ptr=up(row_ptr), total=total,
+                   chunk_segs=int(np.diff(seg_ptr[::e]).max()),
+                   long_rows=up(np.flatnonzero(np.diff(row_ptr) > LONG_RUN)),
+                   long_run=LONG_RUN)
 
 
 def _entry():
@@ -198,8 +215,33 @@ def _entry():
     fn = lib.stream_mttkrp_launch
     if not fn.argtypes:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 \
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.stream_chunk_smem_bytes.restype = ctypes.c_longlong
+        lib.stream_chunk_smem_bytes.argtypes = [ctypes.c_int] * 3
     return lib, fn
+
+
+def _chunk_smem(rank: int, nmodes: int, chunk_segs: int) -> int:
+    """Dynamic shared memory of a chunk-route CTA, as the library lays it
+    out (``stream_chunk_smem_bytes``: the warps' gather rings, 16 warp
+    maxima, the chunk's compact partials)."""
+    lib, _ = _entry()
+    return int(lib.stream_chunk_smem_bytes(nmodes, rank, chunk_segs))
+
+
+def _chunk_takes(rank: int, smem: int, aligned: bool) -> bool:
+    """Whether the chunk route can take a layout: a rank it is built for
+    (:data:`CHUNK_RANKS`: 16-byte factor rows that a warp's lanes cover four
+    columns each), ``aligned`` codes, and a CTA of ``smem`` bytes
+    (:func:`_chunk_smem`) that fits shared memory."""
+    return aligned and rank in CHUNK_RANKS and smem <= MAX_SMEM
+
+
+def _route(rank: int, smem: int, aligned: bool) -> str:
+    """The route of a launch: ``"chunk"`` where :func:`_chunk_takes`, else
+    ``"three_pass"``."""
+    return "chunk" if _chunk_takes(rank, smem, aligned) else "three_pass"
 
 
 def _check_layout(ip, vp, lp, sp, qs, ss, mode, n_seg):
@@ -238,21 +280,39 @@ def stream_mttkrp_fused(ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits,
 
     ``(ip, vp, lp, sp, n_seg)`` is ``sparse.stream.stream_layout``'s tuple,
     ``(qs, ss)`` :func:`quantize_stream_factors`'s. CUDA tensors go through
-    the kernel on the current stream without synchronizing (or raise); CPU
-    tensors — only because they lie on the CPU — through
-    :func:`stream_mttkrp_fused_torch`. ``plan`` is the layout's
-    :class:`SegmentPlan`; without one it is built here, which copies ``lp``
-    and ``sp`` to the host — callers that reuse a layout pass it in.
+    the kernel on the current stream without synchronizing (or raise), on
+    the route :func:`_route` names; CPU tensors — only because they lie on
+    the CPU — through :func:`stream_mttkrp_fused_torch`. ``plan`` is the
+    layout's :class:`SegmentPlan`; without one it is built here, which
+    copies ``lp`` and ``sp`` to the host — callers that reuse a layout pass
+    it in.
     """
-    nb, e, rows, nmodes, rank = _check_layout(ip, vp, lp, sp, qs, ss, mode, n_seg)
     if not ip.is_cuda:
+        _check_layout(ip, vp, lp, sp, qs, ss, mode, n_seg)
         return stream_mttkrp_fused_torch(
             ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits, out_rows,
             return_chunk_max=return_chunk_max)
+    return _launch(ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits, out_rows,
+                   plan=plan, return_chunk_max=return_chunk_max)
+
+
+def _launch(ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits, out_rows,
+            plan: SegmentPlan | None = None, return_chunk_max: bool = False,
+            route: str | None = None):
+    """One launch of kernel 1 on CUDA tensors. ``route`` None takes the
+    route :func:`stream_mttkrp_fused` takes; the checks name ``"chunk"`` or
+    ``"three_pass"`` to hold one route against the other. It only chooses
+    how the same result is computed; a route that cannot take the layout
+    raises."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    nb, e, rows, nmodes, rank = _check_layout(ip, vp, lp, sp, qs, ss, mode, n_seg)
+    if not ip.is_cuda:
+        raise ValueError("kernel 1 launches on CUDA tensors only")
     if not 0 <= adc_bits <= 24:
         raise ValueError(f"adc_bits must be in 0..24 for the kernel, got {adc_bits}")
-    live = [ip, vp, lp, sp] + [t for d in range(nmodes) if d != mode
-                               for t in (qs[d], ss[d])]
+    others = [d for d in range(nmodes) if d != mode]
+    live = [ip, vp, lp, sp] + [t for d in others for t in (qs[d], ss[d])]
     for t in live:
         if t.device != ip.device:
             raise ValueError("layout and quantized factors must live on one device")
@@ -264,6 +324,15 @@ def stream_mttkrp_fused(ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits,
         plan = SegmentPlan.build(lp, sp, n_seg, out_rows)
     if plan.seg_ptr.shape[0] != nb * e + 1 or plan.row_ptr.shape[0] != out_rows + 1:
         raise ValueError("plan does not belong to this layout")
+    aligned = all(qs[d].data_ptr() % 16 == 0 for d in others)
+    smem = _chunk_smem(rank, nmodes, plan.chunk_segs)
+    if route is None:
+        route = _route(rank, smem, aligned)
+    if route == "chunk" and not _chunk_takes(rank, smem, aligned):
+        raise ValueError(
+            f"the chunk route needs 16-byte aligned codes, a rank in {CHUNK_RANKS} "
+            f"and {smem} <= {MAX_SMEM} bytes of shared memory; got rank {rank}, "
+            f"{nmodes} modes, {plan.chunk_segs} segments a chunk, aligned={aligned}")
 
     with torch.cuda.device(ip.device):
         try:
@@ -290,17 +359,22 @@ def stream_mttkrp_fused(ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits,
                  plan.seg_ptr.data_ptr(), plan.seg_chunk.data_ptr(),
                  plan.row_ptr.data_ptr(), parts.data_ptr(), chunk_max.data_ptr(),
                  out.data_ptr(), nb, e, rows, nmodes, mode, rank, out_rows,
-                 plan.total, int(adc_bits), torch.cuda.current_stream().cuda_stream)
+                 plan.total, int(adc_bits), _ROUTE_IDS[route], plan.chunk_segs,
+                 plan.long_rows.data_ptr(), plan.long_rows.numel(), plan.long_run,
+                 torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, lib, "stream_mttkrp")
     stream_mttkrp_fused.launches += 1
+    stream_mttkrp_fused.routes[route] += 1
     if return_chunk_max:
         # the scratch holds the bits of the non-negative f32 max per chunk
         return out, chunk_max.view(torch.float32)
     return out
 
 
-#: kernel launches made by :func:`stream_mttkrp_fused` (CUDA path only)
+#: kernel launches made by :func:`stream_mttkrp_fused` (CUDA path only), all routes
 stream_mttkrp_fused.launches = 0
+#: the same launches by route
+stream_mttkrp_fused.routes = {route: 0 for route in ROUTES}
 
 
 # ----------------------------------------------------------- front door

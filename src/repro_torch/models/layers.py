@@ -30,6 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import as_device
 from repro_torch.core.photonic_layer import maybe_psram_matmul, psram_linear
 from repro_torch.core.quantization import quantize_symmetric
 
@@ -101,11 +102,13 @@ def _init_leaf(gen, d, dtype, device):
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dt)
 
 
-def init_params(gen: torch.Generator, defs, dtype=torch.float32, device="cpu"):
+def init_params(gen: torch.Generator, defs, dtype=torch.float32, device="cuda"):
     """Tensors for ``defs`` (nested dicts and lists of defs), drawn from
-    ``gen`` (a generator on ``device``) one leaf after another in tree order.
-    The values are not the reference's (a torch generator is not a JAX key);
+    ``gen`` (a generator on ``device``, the card unless the caller asks for
+    the CPU) one leaf after another in tree order. The values are not the
+    reference's (a torch generator is not a JAX key);
     ``convert.model_params`` carries the reference's own over."""
+    device = as_device(device)
     if _is_def(defs):
         return _init_leaf(gen, defs, dtype, device)
     if isinstance(defs, dict):

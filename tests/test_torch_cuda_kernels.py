@@ -56,36 +56,101 @@ def test_psram_matmul_kernel_bit_equal_to_plain(card, m, k, n, adc_bits):
     assert torch.equal(got.cpu(), cpu)
 
 
-@pytest.mark.parametrize("shape,nnz,rank,rows,eb,mode,adc_bits", [
-    ((40, 24, 18), 900, 6, 16, 4, 0, 16),      # ragged last block, empty rows, long head fiber
-    ((40, 24, 18), 900, 6, 16, 4, 2, 0),       # ADC off
-    ((50, 12, 9, 7), 20000, 40, 256, 32, 0, 16),   # 4 modes, rank over one 32-column tile
-    ((50, 12, 9, 7), 20000, 40, 256, 32, 3, 16),
-    ((300, 200, 100), 60000, 32, 256, 32, 1, 16),
+@pytest.mark.parametrize("shape,nnz,rank,rows,eb,mode,adc_bits,alpha,route", [
+    ((40, 24, 18), 900, 6, 16, 4, 0, 16, 1.6, "three_pass"),  # ragged last block, empty rows,
+                                                              # long head fiber
+    ((40, 24, 18), 900, 6, 16, 4, 2, 0, 1.6, "three_pass"),   # ADC off
+    ((50, 12, 9, 7), 20000, 40, 256, 32, 0, 16, 1.6, "three_pass"),  # 4 modes, R = 40: over a
+    ((50, 12, 9, 7), 20000, 40, 256, 32, 3, 16, 1.6, "three_pass"),  # 32-column tile, rows not
+                                                                      # a multiple of 16 bytes
+    ((300, 200, 100), 60000, 32, 256, 32, 1, 16, 1.6, "chunk"),
+    ((300, 200, 100), 60000, 16, 256, 32, 0, 16, 1.6, "chunk"),      # 8 blocks a warp
+    ((300, 200, 100), 60000, 64, 256, 32, 2, 16, 1.6, "chunk"),      # 2 blocks a warp
+    ((300, 200, 100), 60000, 128, 16, 7, 0, 0, 1.6, "chunk"),        # 1 block a warp, 7 warps
+    ((300, 200, 100), 60000, 16, 16, 5, 0, 16, 1.6, "chunk"),        # E = 5 on a warp of 8
+    ((300, 200), 30000, 32, 64, 16, 1, 16, 1.6, "chunk"),            # 2 modes: one factor
+    ((40, 24, 18), 900, 32, 16, 4, 0, 16, 1.6, "chunk"),             # rows < a warp's batch
+    ((300, 200, 100), 60000, 32, 18, 8, 2, 16, 1.6, "chunk"),        # rows % 8 != 0
+    ((20, 9, 8, 7, 6), 20000, 32, 256, 32, 0, 16, 1.6, "chunk"),     # 4 non-target factors
+    ((12, 9, 8, 7, 6, 5), 20000, 32, 64, 8, 2, 16, 1.6, "chunk"),    # 5: the f32 chain
+    ((20000, 40, 30), 20000, 64, 64, 64, 0, 16, 0.0, "three_pass"),  # short fibers: the
+                                                              # chunk's partials overflow
+    ((40, 3000, 200), 400000, 32, 16, 32, 0, 16, 1.6, "chunk"),      # a 10,185-segment row
+    ((40, 3000, 200), 400000, 6, 16, 32, 0, 16, 1.6, "three_pass"),  # ... its ring in 4-byte
+                                                                      # copies (R % 4 != 0)
 ])
-def test_stream_kernel_bit_equal_to_stream_ordered_plain(card, shape, nnz, rank, rows,
-                                                         eb, mode, adc_bits):
+def test_stream_kernel_bit_equal_to_stream_ordered_plain(card, shape, nnz, rank, rows, eb,
+                                                         mode, adc_bits, alpha, route):
     """The kernel adds every segment and every output row in stream order,
     which is the order of the plain version's ``index_add_`` on the CPU: the
-    two must agree bit for bit, pre-ADC chunk maxima included."""
-    coo = powerlaw_coo(5, shape, nnz=nnz, rank=4, alpha=1.6, device=card)
+    two must agree bit for bit, pre-ADC chunk maxima included, on the route
+    the layout takes and on every other route that can take it (a route
+    that cannot raises), and a second launch gives the same bits."""
+    coo = powerlaw_coo(5, shape, nnz=nnz, rank=4, alpha=alpha, device=card)
     csf = csf_for_mode(coo, mode)
     gen = torch.Generator(device=card).manual_seed(1)
     fs = tuple(torch.randn((s, rank), generator=gen, device=card) for s in shape)
     ip, vp, lp, sp, n_seg = stream_layout(csf, PsramConfig(rows=rows).rows, eb)
     qs, ss = sm.quantize_stream_factors(fs, mode)
     args = (ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits, shape[mode])
-    before = sm.stream_mttkrp_fused.launches
-    got, got_max = sm.stream_mttkrp_fused(*args, return_chunk_max=True)
+    plan = sm.SegmentPlan.build(lp, sp, n_seg, shape[mode])
+    before, routes = sm.stream_mttkrp_fused.launches, dict(sm.stream_mttkrp_fused.routes)
+    got, got_max = sm.stream_mttkrp_fused(*args, plan=plan, return_chunk_max=True)
     torch.cuda.synchronize()
     assert sm.stream_mttkrp_fused.launches == before + 1
+    assert sm.stream_mttkrp_fused.routes == {**routes, route: routes[route] + 1}
     to_cpu = lambda v: tuple(t.cpu() for t in v) if isinstance(v, tuple) else (
         v.cpu() if isinstance(v, torch.Tensor) else v)
     want, want_max = sm.stream_mttkrp_fused_torch(*map(to_cpu, args), return_chunk_max=True)
     assert torch.equal(got_max.cpu(), want_max)
     assert torch.equal(got.cpu(), want)
-    # deterministic: a second launch gives the same bits
-    assert torch.equal(sm.stream_mttkrp_fused(*args), got)
+    assert torch.equal(sm.stream_mttkrp_fused(*args, plan=plan), got)
+    for other in sm.ROUTES:
+        if other == "chunk" and route != "chunk":
+            with pytest.raises(ValueError, match="chunk route needs"):
+                sm._launch(*args, plan=plan, route=other)
+            continue
+        again, again_max = sm._launch(*args, plan=plan, return_chunk_max=True, route=other)
+        assert torch.equal(again, got) and torch.equal(again_max, got_max)
+
+
+def test_stream_kernel_chunk_route_unaligned_codes(card):
+    """Codes that start 4 bytes into their storage: cp.async cannot copy
+    their rows 16 bytes at a time, so the layout takes the three_pass route
+    and a forced chunk launch raises."""
+    shape, rank, mode = (300, 200, 100), 32, 0
+    coo = powerlaw_coo(5, shape, nnz=60000, rank=4, alpha=1.6, device=card)
+    csf = csf_for_mode(coo, mode)
+    gen = torch.Generator(device=card).manual_seed(2)
+    fs = tuple(torch.randn((s, rank), generator=gen, device=card) for s in shape)
+    ip, vp, lp, sp, n_seg = stream_layout(csf, 256, 32)
+    qs, ss = sm.quantize_stream_factors(fs, mode)
+    shifted = []
+    for q in qs:
+        buf = torch.empty(q.numel() + 4, dtype=torch.int8, device=card)
+        shifted.append(buf[4:].view(q.shape).copy_(q))
+    args = (ip, vp, lp, sp, tuple(shifted), ss, mode, n_seg, 16, shape[mode])
+    routes = dict(sm.stream_mttkrp_fused.routes)
+    got = sm.stream_mttkrp_fused(*args)
+    assert sm.stream_mttkrp_fused.routes["three_pass"] == routes["three_pass"] + 1
+    assert torch.equal(got, sm.stream_mttkrp_fused(ip, vp, lp, sp, qs, ss, mode, n_seg, 16,
+                                                   shape[mode]))
+    with pytest.raises(ValueError, match="chunk route needs"):
+        sm._launch(*args, route="chunk")
+
+
+def test_stream_kernel_constants_are_the_librarys(card):
+    """The route rule reads a chunk-route CTA's size from the library, laid
+    out as the CPU route tests assume it (``chunk_smem`` of
+    ``test_torch_stream_mttkrp.py``): 8 warps x (3 slots of 32 nonzeros'
+    factor rows and scales, 5 slots of their coordinates, values, segment
+    ids and scales; 2 and 3 at rank 128), 16 warp maxima, the partials."""
+    for nmodes, rank, segs in ((3, 32, 40), (2, 16, 1), (8, 128, 300), (5, 64, 2645)):
+        k = nmodes - 1
+        rows_slots, meta_slots = (2, 3) if rank == 128 else (3, 5)
+        ring = 8 * (rows_slots * (32 * k * rank + 32 * k * 4)
+                    + meta_slots * (32 * nmodes * 4 + 3 * 32 * 4)) + 16 * 4
+        assert sm._chunk_smem(rank, nmodes, segs) == ring + 4 * segs * rank
 
 
 DENSE_SHAPES = [

@@ -301,3 +301,16 @@ def test_attn_probs_bf16_matches_reference():
     got = transformer.forward(params, torch.tensor(toks), cfg)
     _close(got, eager)
     _close(got, compiled, rel=2.0 ** -8)
+
+
+def test_init_params_takes_the_card_unless_asked_for_the_cpu():
+    """``init_params`` defaults to the card like every entry point of the
+    port: without one it raises, and ``device="cpu"`` puts the tree on the
+    host."""
+    defs = {"norm": tlayers.rmsnorm_defs(8)}
+    assert tlayers.init_params(None, defs, device="cpu")["norm"]["w"].device.type == "cpu"
+    if torch.cuda.is_available():
+        assert tlayers.init_params(None, defs)["norm"]["w"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tlayers.init_params(None, defs)

@@ -228,3 +228,97 @@ def test_wrapper_rejects_malformed_layouts():
     before = tk.stream_mttkrp_fused.launches
     tk.stream_mttkrp_fused(ip, vp, lp, sp, qs, ss, 0, n_seg, 16, 30)
     assert tk.stream_mttkrp_fused.launches == before         # CPU: no launch
+
+
+def chunk_smem(rank, nmodes, chunk_segs):
+    """A chunk-route CTA's shared memory as the library lays it out: 8 warps
+    x (3 slots of 32 nonzeros' factor rows and scales, 5 slots of their
+    coordinates, values, segment ids and scales; 2 and 3 at rank 128), 16
+    warp maxima and the chunk's partials (the card's ``_chunk_smem`` is held
+    to it in ``test_torch_cuda_kernels.py``)."""
+    k = nmodes - 1
+    rows_slots, meta_slots = (2, 3) if rank == 128 else (3, 5)
+    ring = 8 * (rows_slots * (32 * k * rank + 32 * k * 4)
+                + meta_slots * (32 * nmodes * 4 + 3 * 32 * 4)) + 16 * 4
+    return ring + 4 * chunk_segs * rank
+
+
+@pytest.mark.parametrize("rank,nmodes,chunk_segs,aligned,route", [
+    (32, 3, 40, True, "chunk"),          # the main path: rank 32, ~40 segments a chunk
+    (16, 3, 40, True, "chunk"),
+    (64, 3, 40, True, "chunk"),
+    (128, 3, 40, True, "chunk"),
+    (32, 2, 1, True, "chunk"),
+    (32, 6, 40, True, "chunk"),          # five non-target factors: the f32 chain
+    (40, 4, 40, True, "three_pass"),     # factor rows not a multiple of 16 bytes
+    (48, 3, 40, True, "three_pass"),     # 16-byte rows, but not a rank the kernel is built for
+    (6, 3, 4, True, "three_pass"),
+    (144, 3, 4, True, "three_pass"),     # wider than the adding lanes cover
+    (32, 3, 40, False, "three_pass"),    # codes not on 16 bytes
+    (64, 3, 2645, True, "three_pass"),   # the chunk's partials overflow shared memory
+    (128, 8, 1, True, "three_pass"),     # the gather ring alone overflows it
+])
+def test_route_rule(rank, nmodes, chunk_segs, aligned, route):
+    """Kernel 1's route from shape, alignment and the chunk's shared-memory
+    fit alone."""
+    smem = chunk_smem(rank, nmodes, chunk_segs)
+    assert tk._route(rank, smem, aligned) == route
+    assert tk._chunk_takes(rank, smem, aligned) == (route == "chunk")
+
+
+@pytest.mark.parametrize("rank,nmodes", [(32, 3), (16, 2), (64, 5), (128, 3)])
+def test_route_rule_shared_memory_edge(rank, nmodes):
+    """The route flips where a CTA passes the 227 KB it may opt in to."""
+    fit = (tk.MAX_SMEM - chunk_smem(rank, nmodes, 0)) // (4 * rank)
+    assert tk._route(rank, chunk_smem(rank, nmodes, fit), True) == "chunk"
+    assert tk._route(rank, chunk_smem(rank, nmodes, fit + 1), True) == "three_pass"
+    assert tk._route(rank, tk.MAX_SMEM, True) == "chunk"
+    assert tk._route(rank, tk.MAX_SMEM + 1, True) == "three_pass"
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()) or "default")
+def test_segment_plan_chunk_segs(case):
+    """The plan's ``chunk_segs`` (what sizes a chunk-route CTA) is the most
+    segments one chunk of ``E`` blocks holds, recomputed here from ``lp``."""
+    csf, _, layout, quants = _reference_case(**case)
+    lay, _, _ = _carry(layout, quants)
+    ip, vp, lp, sp, n_seg = lay
+    plan = tk.SegmentPlan.build(lp, sp, n_seg, csf.shape[csf.mode_order[0]])
+    per_chunk = (lp.numpy()[..., -1].astype(np.int64) + 1).sum(axis=1)     # (nb,)
+    assert plan.chunk_segs == int(per_chunk.max())
+    assert plan.total == int(per_chunk.sum())
+    np.testing.assert_array_equal(plan.seg_ptr.numpy()[::lp.shape[1]],
+                                  np.concatenate(([0], np.cumsum(per_chunk))))
+    assert plan.long_rows.numel() == 0                      # no run of 257 segments here
+
+
+@pytest.mark.parametrize("rows", [8, 16, 64])
+def test_segment_plan_long_rows(rows):
+    """The rows the fold gives a CTA of their own: every row whose run holds
+    more than ``LONG_RUN`` segments, recomputed here from ``(lp, sp)``."""
+    from repro_torch.sparse import csf_for_mode, powerlaw_coo, stream_layout
+    coo = powerlaw_coo(5, (40, 3000, 200), nnz=100_000, rank=4, alpha=1.6, device="cpu")
+    ip, vp, lp, sp, n_seg = stream_layout(csf_for_mode(coo, 0), rows, 32)
+    plan = tk.SegmentPlan.build(lp, sp, n_seg, 40)
+    nseg = lp.numpy()[..., -1].reshape(-1).astype(np.int64) + 1
+    seg_row = np.concatenate([sp.numpy().reshape(-1, n_seg)[b, :nseg[b]]
+                              for b in range(len(nseg))])
+    runs = np.bincount(seg_row, minlength=41)[:40]
+    want = np.flatnonzero(runs > tk.LONG_RUN)
+    assert len(want) > 0                                   # the fixture has long runs
+    np.testing.assert_array_equal(plan.long_rows.numpy(), want)
+    assert plan.long_run == tk.LONG_RUN                    # the fold's warps skip these runs
+    assert plan.long_rows.dtype == torch.int32
+
+
+def test_launch_refuses_cpu_tensors_and_unknown_routes():
+    _, _, layout, quants = _reference_case(rows=16, exec_blocks=4)
+    lay, qs, ss = _carry(layout, quants)
+    ip, vp, lp, sp, n_seg = lay
+    args = (ip, vp, lp, sp, qs, ss, 0, n_seg, 16, 30)
+    with pytest.raises(ValueError, match="route must be one of"):
+        tk._launch(*args, route="fast")
+    for route in (None, *tk.ROUTES):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            tk._launch(*args, route=route)
+    assert tk.ROUTES == tuple(tk.stream_mttkrp_fused.routes)
