@@ -31,9 +31,14 @@ What it does, in order — any failure raises and the run exits non-zero:
    sends to the decode route; ``--tuning`` sweeps M over 1..64 and times
    every cluster size, the evidence kept in PERF.md). The device phase fails
    unless kernel 2's library holds integer warpgroup MMAs (SASS ``IGMMA``)
-   and TMA loads (``UTMALDG``). The ordered fold
-   as the exact-fit MTTKRP launches it, and ``stream_mttkrp`` on the skewed
-   mode 0 at full size, bit-equal to the same on the CPU.
+   and TMA loads (``UTMALDG``). The ordered fold on the exact-fit MTTKRP
+   (``stream_mttkrp`` on mode 2 at full size): its chain route (one launch,
+   the contributions formed in the kernel) bit-equal to the parent's stepped
+   route (the chain eagerly in 64Ki-nonzero steps, a fold-route launch
+   each), both timed and split by kernel; ``stream_mttkrp`` on the skewed
+   mode 0 at full size bit-equal to the same on the CPU, and its head row's
+   launch alone; the ``exact`` backend's ``mttkrp_sparse`` on every mode,
+   the call beside its chain-route launch (``exact_sparse_split``).
 4. ``main_path`` — three paths, each run with every launch counter set to 0
    just before it and read just after:
    a. ``cp_als(sparse=coo, rank=32, n_iter=3, backend="hopper")`` on the
@@ -118,6 +123,9 @@ CROSSOVER_KN = ((4096, 14336), (4096, 1024))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates).
 HBM_BYTES_PER_S = 3.35e12
+# cycles between two dependent f32 adds on an SM, the chain floor's unit (an
+# assumption: Hopper's FADD latency is not published)
+FADD_CYCLES = 4
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
@@ -240,6 +248,67 @@ def pass_split(torch, fn, ms: float, n: int = 5, attempts: int = 3) -> dict:
         if sum(split.values()) >= 0.8 * ms:
             return split
     raise AssertionError(f"the profiler saw {split} of a {ms} ms call")
+
+
+def call_split(torch, fn, fold_launches: int, n: int = 3, attempts: int = 3) -> dict:
+    """One whole call of ``fn`` split three ways: device time of the ordered
+    fold's kernels (``fold_ms``: every kernel named ``ordered_*``), device
+    time of every other kernel, copy and memset (``other_ms``: the chain's
+    casts, gathers and products where the call forms them eagerly), and the
+    rest of the call's CUDA-event time, when the card waited on the host
+    (``idle_ms``); with the launches of each. ``n`` calls under
+    ``torch.profiler`` after one warm call; a window that did not record
+    ``fold_launches`` fold launches a call lost records and is profiled
+    again, and the run fails where every attempt did (as :func:`pass_split`
+    does), since the lost records' time would read as idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(torch, fn, warmup=1, iters=3, reps=1)
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        fold_ms = other_ms = fold_n = other_n = 0.0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+            if "ordered_" in e.key:
+                fold_ms, fold_n = fold_ms + us / 1e3 / n, fold_n + e.count / n
+            else:
+                other_ms, other_n = other_ms + us / 1e3 / n, other_n + e.count / n
+        if fold_n == fold_launches:
+            return {"ms": ms, "device_ms": fold_ms + other_ms, "fold_ms": fold_ms,
+                    "other_ms": other_ms, "idle_ms": ms - fold_ms - other_ms,
+                    "fold_launches": fold_n, "other_launches": other_n, "attempts": attempt}
+    raise AssertionError(f"the profiler saw {fold_n} of {fold_launches} fold launches a call "
+                         f"in each of {attempts} windows")
+
+
+def exact_sparse_split(torch, coo, factors) -> list:
+    """The ``exact`` backend's sparse MTTKRP (``mttkrp_sparse`` on the COO)
+    on every mode: the call's time (CUDA events; the COO's sort is kept
+    after the first call) and its one chain-route launch's alone on the same
+    operands, the rest (the values' gather, the output's zeros, the host)
+    the difference. CUDA events only: no profiler window."""
+    from repro_torch.core.mttkrp import _sorted_stream, mttkrp_sparse
+    from repro_torch.kernels.ordered_fold import ordered_chain_fold
+
+    fs = tuple(factors)
+    split = []
+    for m in range(len(coo.shape)):
+        rows = coo.shape[m]
+        call_ms = time_ms(torch, lambda: mttkrp_sparse(coo.indices, coo.values, fs, m, rows),
+                          warmup=1, iters=3, reps=1)
+        perm, coords, runs, longest, _ = _sorted_stream(coo.indices, m, rows)
+        vals = coo.values[perm]
+        out = torch.zeros((rows, fs[0].shape[1]), device="cuda")
+        chain_ms = time_ms(torch, lambda: ordered_chain_fold(
+            out, coords, vals, fs, m, runs, longest_run=longest), warmup=1, iters=3, reps=1)
+        split.append({"mode": m, "longest_run": longest, "call_ms": call_ms,
+                      "chain_ms": chain_ms, "rest_ms": call_ms - chain_ms})
+    return split
 
 
 def cold_copies(torch, t, total_bytes: float = 128e6, most: int = 64) -> list:
@@ -809,105 +878,193 @@ def small_segment_cases(torch):
 # ------------------------------------------------------- the ordered fold
 
 
+def step_cuts(torch, csf, step: int):
+    """The parent's run cuts for its stepped ``stream_mttkrp`` on the card:
+    the sorted stream's row runs cut at every ``step`` boundary, ``(seg_ptr,
+    seg_rows, chunk_seg)`` with ``seg_ptr (n_seg + 1,)`` int64 stream
+    offsets and ``seg_rows (n_seg,)`` int64 rows on the card, and
+    ``chunk_seg`` the host list of each step's first segment (and the total
+    last): step ``c`` folds segments ``[chunk_seg[c], chunk_seg[c + 1])``."""
+    import numpy as np
+
+    rid = csf.row_of_nonzero().astype(np.int64)
+    nnz = len(rid)
+    starts = np.flatnonzero(np.r_[True, rid[1:] != rid[:-1]]) if nnz else np.zeros(0, np.int64)
+    bounds = np.arange(0, nnz, step, dtype=np.int64)
+    cuts = np.union1d(starts, bounds)
+    chunk_seg = np.searchsorted(cuts, np.r_[bounds, nnz]).tolist()
+    return (torch.as_tensor(np.r_[cuts, nnz].astype(np.int64), device="cuda"),
+            torch.as_tensor(rid[cuts], device="cuda"), chunk_seg)
+
+
 def fold_chunks_case(torch, csf, factors):
-    """The ordered fold as the exact-fit MTTKRP launches it: once a step of
-    ``stream_mttkrp`` (64Ki nonzeros), over one mode's whole stream, with the
-    chain of every step formed first. Per launch: the kernel's time, its
-    plain version's (``index_add_``: on the card atomic and unordered; the
-    library call is the same ``index_add_``) and its byte bound (d read, the
-    segments' offsets and rows read, and each segment's out row read and
-    written once: the rows a step folds, not all of out). The kernel's result is
-    held within the worst case of two recursive f32 sums of each row's run
-    of the plain version, and repeatable."""
+    """The exact-fit MTTKRP of a ``hopper`` sweep (``stream_mttkrp`` on one
+    mode at full size) on both of the ordered fold's routes, in one run:
+
+    * ``chain`` — what ``stream_mttkrp`` launches: one chain-route launch
+      over the whole stream, a CTA per root fiber, ``d`` formed in the
+      kernel. Its time (CUDA events, the call's one launch), its plain
+      version's (``cp_chain_exact`` over the stream + ``index_add_``: on the
+      card atomic, unordered), its byte bound (the non-target coordinates,
+      values, runs and non-target factors read once, ``out`` read and
+      written once), the chain floor (the
+      longest run's dependent adds at ``FADD_CYCLES`` each, at the card's
+      top SM clock), the factor rows it gathers from L2 (a count, no rate
+      is sourced for it) and the call's device time by kernel
+      (``call_split``).
+    * ``stepped`` — the parent's ``stream_mttkrp``, composed from its parts:
+      ``cp_chain_exact`` and one fold-route launch (``_fold_runs``) per
+      64Ki-nonzero step over its run cuts (:func:`step_cuts`). Its call
+      time and split, and the fold route's
+      device time a launch (the steps' ``d`` formed first; the whole
+      stream's launches captured in one CUDA graph) beside its byte bound,
+      its plain version (``index_add_``) and the library call (the same).
+
+    The chain route is held BIT-EQUAL to the stepped route (which is
+    bit-equal to the CPU) and repeatable; both within the worst case of two
+    recursive f32 sums of each row's run of the plain version."""
     from repro_torch.core.mttkrp import cp_chain_exact
-    from repro_torch.kernels.ordered_fold import _fold_runs, ordered_fold_torch
-    from repro_torch.sparse.stream import _DEFAULT_EXEC_NNZ, _fold_segments
+    from repro_torch.kernels import ordered_fold as of
+    from repro_torch.sparse.stream import _DEFAULT_EXEC_NNZ, _chain_stream
 
     mode = csf.mode_order[0]
     rows, rank = csf.shape[mode], factors[0].shape[1]
-    idx = csf.expanded_indices()
-    d = cp_chain_exact(idx, csf.values, tuple(factors), mode)
+    idx, vals = csf.expanded_indices(), csf.values
+    fs = tuple(factors)
     ids = idx[:, mode].long()
+    coords, seg_ptr, seg_rows, run, _ = _chain_stream(csf)
     step = _DEFAULT_EXEC_NNZ
-    seg_ptr, seg_rows, chunk_seg = _fold_segments(csf, step)
+    step_ptr, step_rows, chunk_seg = step_cuts(torch, csf, step)
     los = list(range(0, csf.nnz, step))
+    zeros = lambda: torch.zeros((rows, rank), device="cuda")
+
+    def chain(out):                      # as stream_mttkrp launches it
+        return of.ordered_chain_fold(out, coords, vals, fs, mode, seg_ptr, seg_rows,
+                                     longest_run=run)
+
+    def stepped(out):                    # as the parent's stream_mttkrp ran it
+        for c, lo in enumerate(los):
+            d = cp_chain_exact(idx[lo:lo + step], vals[lo:lo + step], fs, mode)
+            of._fold_runs(out, d, step_ptr, step_rows, chunk_seg[c], chunk_seg[c + 1], lo)
+        return out
+
+    before = dict(of.ordered_fold.routes)
+    got = chain(zeros())
+    torch.cuda.synchronize()
+    launched = {r: of.ordered_fold.routes[r] - before[r] for r in before}
+    want_steps = stepped(zeros())
+    plain = of.ordered_chain_fold_torch(zeros(), coords, vals, fs, mode, seg_ptr, seg_rows)
+    mag = of.ordered_chain_fold_torch(zeros(), coords, vals.abs(), tuple(f.abs() for f in fs),
+                                      mode, seg_ptr, seg_rows)
+    diff = (got - plain).abs()
+    case = {
+        "mode": mode, "nnz": csf.nnz, "rank": rank, "runs": int(seg_rows.numel()),
+        "longest_run": run, "launched": launched,
+        "bit_equal_to_stepped": bool(torch.equal(got, want_steps)),
+        "repeatable": bool(torch.equal(chain(zeros()), got)),
+        "finite": bool(torch.isfinite(got).all()),
+        "max_abs_err": float(diff.max()),
+        "max_err_over_magnitude": float((diff / mag.clamp_min(1e-30)).max()),
+    }
+    del plain, mag, diff, want_steps
+    if not (case["bit_equal_to_stepped"] and case["repeatable"] and case["finite"]
+            and launched == {"fold": 0, "chain": 1}
+            and case["max_err_over_magnitude"] <= 2 * (run - 1) * 2.0 ** -24):
+        raise AssertionError(f"the chain route disagrees with the stepped route or its plain "
+                             f"version: {case}")
+    buf = zeros()
+    case["ms"] = time_ms(torch, lambda: chain(buf))
+    case["plain_ms"] = time_ms(torch, lambda: of.ordered_chain_fold_torch(
+        buf, coords, vals, fs, mode, seg_ptr, seg_rows), iters=3, reps=1)
+    case["split"] = call_split(torch, lambda: chain(zeros()), 1)
+    # what the route must move: the target column is not read (a run's row
+    # stands for it), the non-target factors at least once
+    others = [f for d, f in enumerate(fs) if d != mode]
+    moved = nbytes(coords, vals, seg_ptr, seg_rows, *others) + 2 * 4 * rows * rank
+    case["bound_ms"] = 1e3 * moved / HBM_BYTES_PER_S
+    case["bound_by"] = "bytes"
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.split()[0])
+    case["chain_floor_ms"] = run * FADD_CYCLES / (clock_mhz * 1e3)
+    case["sm_clock_max_mhz"] = clock_mhz
+    case["l2_gather_bytes"] = csf.nnz * (len(fs) - 1) * rank * 4
+    # the stepped route: the whole call, then the fold route's launches alone
+    case["stepped"] = {"launches_per_call": len(los),
+                       "ms": time_ms(torch, lambda: stepped(buf), warmup=1, iters=3, reps=1),
+                       "split": call_split(torch, lambda: stepped(zeros()), len(los))}
+    d = cp_chain_exact(idx, vals, fs, mode)
     parts = [(d[lo:lo + step], ids[lo:lo + step], (chunk_seg[c], chunk_seg[c + 1], lo))
              for c, lo in enumerate(los)]
 
-    def fold(out):                       # as stream_mttkrp launches it
+    def fold_steps(out):
         for dc, _, (first, last, lo) in parts:
-            _fold_runs(out, dc, seg_ptr, seg_rows, first, last, lo)
+            of._fold_runs(out, dc, step_ptr, step_rows, first, last, lo)
         return out
 
-    def plain(out, src=None):
+    def index_add_steps(out):
         for dc, ic, _ in parts:
-            ordered_fold_torch(out, dc if src is None else src(dc), ic)
+            of.ordered_fold_torch(out, dc, ic)
         return out
 
-    zeros = lambda: torch.zeros((rows, rank), device="cuda")
-    got = fold(zeros())
-    torch.cuda.synchronize()
-    want = plain(zeros())
-    mag = plain(zeros(), torch.abs)
-    run = int(csf.fiber_lengths().max())
-    diff = (got - want).abs()
-    case = {
-        "mode": mode, "nnz": csf.nnz, "rank": rank, "launches_per_call": len(parts),
-        "segments": int(seg_rows.numel()), "longest_run": run,
-        "max_abs_err": float(diff.max()),
-        "max_err_over_magnitude": float((diff / mag.clamp_min(1e-30)).max()),
-        "repeatable": bool(torch.equal(fold(zeros()), got)),
-        "finite": bool(torch.isfinite(got).all()),
-    }
-    del mag
-    if not (case["repeatable"] and case["finite"]
-            and case["max_err_over_magnitude"] <= 2 * (run - 1) * 2.0 ** -24):
-        raise AssertionError(f"ordered_fold disagrees with its plain version: {case}")
-    buf = zeros()
     n = len(parts)
-    # device time a launch: the whole stream's steps captured in one graph
-    # (d is 2.1 GB, cold), and one call at a time from the host
-    case["ms"] = graph_ms(torch, [lambda: fold(buf)], iters=3) / n
-    case["plain_ms"] = graph_ms(torch, [lambda: plain(buf)], iters=3) / n
-    case["call_ms"] = time_ms(torch, lambda: fold(buf), warmup=1, iters=3, reps=1) / n
-    case["library_ms"] = case["plain_ms"]
-    case["library"] = "index_add_ per step (the plain version itself)"
-    moved = nbytes(d, seg_ptr, seg_rows) + 2 * 4 * rank * seg_rows.numel()
-    case["bound_ms"] = 1e3 * moved / HBM_BYTES_PER_S / n
-    case["bound_by"] = "bytes"
-    case["all_steps_ms"] = case["ms"] * n
+    fold = {"ms": graph_ms(torch, [lambda: fold_steps(buf)], iters=3) / n,
+            "plain_ms": graph_ms(torch, [lambda: index_add_steps(buf)], iters=3) / n}
+    fold["library_ms"] = fold["plain_ms"]
+    fold["library"] = "index_add_ per step (the plain version itself)"
+    fold_moved = nbytes(d, step_ptr, step_rows) + 2 * 4 * rank * step_rows.numel()
+    fold["bound_ms"] = 1e3 * fold_moved / HBM_BYTES_PER_S / n
+    fold["bound_by"] = "bytes"
+    case["stepped"]["fold_launch"] = fold
+    del d, parts
     return case
 
 
 def stream_fold_check(torch, csf, factors):
-    """The exact eager ``stream_mttkrp`` at full size through the ordered
-    fold: twice on the card (bit-equal), and on the CPU from the same tree,
-    values and factors (bit-equal: the CPU's index_add_ adds in stream
-    order)."""
+    """The exact eager ``stream_mttkrp`` at full size on the skewed mode 0
+    (its head row: 2.5 M nonzeros) through the chain route: one chain-route
+    launch and no fold-route launch a call, the same bits twice on the card
+    and on the CPU from the same tree, values and factors (the CPU's steps
+    and index_add_ add in stream order). Also the head row's launch alone:
+    the chain of its 2.5 M dependent adds on one SM."""
+    from repro_torch.kernels import ordered_fold as of
     from repro_torch.sparse.formats import CSF
-    from repro_torch.sparse.stream import stream_mttkrp
+    from repro_torch.sparse.stream import _chain_stream, stream_mttkrp
 
     torch.cuda.synchronize()
+    before = dict(of.ordered_fold.routes)
     t0 = time.perf_counter()
     got = stream_mttkrp(csf, factors)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0           # with the host's run cuts, made once
+    launched = {r: of.ordered_fold.routes[r] - before[r] for r in before}
     again = stream_mttkrp(csf, factors)
     warm_ms = time_ms(torch, lambda: stream_mttkrp(csf, factors), warmup=0, iters=3, reps=1)
+    coords, seg_ptr, seg_rows, _, _ = _chain_stream(csf)
+    lengths = csf.fiber_lengths()
+    h = int(lengths.argmax())
+    head = (coords, csf.values, tuple(factors), csf.mode_order[0],
+            seg_ptr[h:h + 2].contiguous(), seg_rows[h:h + 1].contiguous())
+    head_out = torch.zeros((csf.shape[csf.mode_order[0]], factors[0].shape[1]), device="cuda")
+    head_ms = time_ms(torch, lambda: of.ordered_chain_fold(
+        head_out, *head, longest_run=int(lengths[h])), warmup=1, iters=3, reps=1)
     host = CSF(shape=csf.shape, mode_order=csf.mode_order, fids=csf.fids, fptr=csf.fptr,
                values=csf.values.cpu())
     host.__dict__["_expanded_np"] = csf.expanded_indices_np()
     t0 = time.perf_counter()
     want = stream_mttkrp(host, tuple(f.cpu() for f in factors))
     case = {
-        "mode": csf.mode_order[0], "nnz": csf.nnz, "longest_run": int(csf.fiber_lengths().max()),
-        "card_first_s": card_s, "card_warm_ms": warm_ms, "cpu_s": time.perf_counter() - t0,
+        "mode": csf.mode_order[0], "nnz": csf.nnz, "longest_run": int(lengths[h]),
+        "launched": launched, "card_first_s": card_s, "card_warm_ms": warm_ms,
+        "head_row_ms": head_ms, "cpu_s": time.perf_counter() - t0,
         "repeatable": bool(torch.equal(again, got)),
         "bit_equal_to_cpu": bool(torch.equal(got.cpu(), want)),
         "max_abs_err": float((got.cpu() - want).abs().max()),
     }
-    if not (case["repeatable"] and case["bit_equal_to_cpu"]):
-        raise AssertionError(f"stream_mttkrp on the card is not the ordered fold: {case}")
+    if not (case["repeatable"] and case["bit_equal_to_cpu"]
+            and launched == {"fold": 0, "chain": 1}):
+        raise AssertionError(f"stream_mttkrp on the card is not one in-order chain-route "
+                             f"launch: {case}")
     return case
 
 
@@ -1150,20 +1307,32 @@ def profile_decode(torch, eng, params, cache, tok, pos: int, n: int) -> dict:
     return {"steps": n, **device_profile(torch, prof, wall_ms, n, "_per_step")}
 
 
-def profile_prefill(torch, eng, params, prompts) -> dict:
+def profile_prefill(torch, eng, params, prompts, attempts: int = 3) -> dict:
     """One prefill of ``prompts`` under ``torch.profiler``
-    (:func:`device_profile`): kernel 2's share of its device time."""
+    (:func:`device_profile`): kernel 2's share of its device time. A window
+    whose kernel-2 records fall short of the launches kernel 2's wrapper
+    counted in it lost records (it happens: 247 of 252 once) and is
+    profiled again, at most ``attempts`` times; the last window is returned
+    either way, with ``attempts`` and the count ``kernel2_counted``."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.prefill_fn(params, prompts)
+    from repro_torch.kernels.psram_matmul import psram_matmul
+
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    out = device_profile(torch, prof, wall_ms, 1, "")
+        before = psram_matmul.launches
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.prefill_fn(params, prompts)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        counted = psram_matmul.launches - before
+        out = device_profile(torch, prof, wall_ms, 1, "")
+        if out["kernel2_launches"] == counted:
+            break
     out["kernel2_share_of_busy"] = out["kernel2_ms"] / out["device_busy_ms"]
+    out["attempts"], out["kernel2_counted"] = attempt, counted
     return out
 
 
@@ -1314,14 +1483,15 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         for fn in kernel_fns.values():
             fn.launches = 0
-        for fn in (psram_matmul, stream_mttkrp_fused):
+        for fn in (psram_matmul, stream_mttkrp_fused, ordered_fold):
             fn.routes = {route: 0 for route in fn.routes}
 
     def read_counts():
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in kernel_fns.items()}
         for name, fn in (("psram_matmul", psram_matmul), ("stream_mttkrp_fused",
-                                                          stream_mttkrp_fused)):
+                                                          stream_mttkrp_fused),
+                         ("ordered_fold", ordered_fold)):
             counts.update({f"{name}_{route}": n for route, n in fn.routes.items()})
         return counts
 
@@ -1433,12 +1603,16 @@ def main(argv=None) -> int:
                                      cpu_bit_check=mode == 0))
         del chain
     seg_small = small_segment_cases(torch)
-    # the ordered fold: as the exact-fit MTTKRP of a hopper sweep launches it
-    # (the last mode), and the skewed mode 0 (a 2.5 M-nonzero head row)
-    # through stream_mttkrp at full size, against the CPU
+    # the ordered fold: the exact-fit MTTKRP of a hopper sweep (the last
+    # mode) on its chain route and on the parent's stepped route, and the
+    # skewed mode 0 (a 2.5 M-nonzero head row) through stream_mttkrp at full
+    # size, against the CPU
     fold_main = fold_chunks_case(torch, csfs[2], init)
     fold_skew = stream_fold_check(torch, csfs[0], init)
     fold_small = small_fold_cases(torch)
+    # the exact backend's sparse MTTKRP on every mode: the call and its one
+    # chain-route launch
+    fold_split = exact_sparse_split(torch, coo, init)
     f_main = flash_case(torch, *FLASH_MAIN, torch.bfloat16, causal=True, seed=21, timed=True)
     f_small = small_flash_cases(torch)
     report["kernel_cases"] = {
@@ -1447,6 +1621,7 @@ def main(argv=None) -> int:
         "matmul_epilogue": b_epilogue, "matmul_decode": b_decode, "matmul_small": b_small,
         "matmul_decode_small": b_decode_small, "matmul_crossover": b_crossover,
         "fold_main": fold_main, "fold_skew": fold_skew, "fold_small": fold_small,
+        "exact_sparse_split": fold_split,
         "dense_main": d_main, "dense_small": d_small,
         "dense_psram_main": p_main, "dense_psram_small": p_small,
         "segment_main": seg_main, "segment_small": seg_small,
@@ -1514,8 +1689,9 @@ def main(argv=None) -> int:
     if launches["psram_matmul_wgmma"] < 1 or launches["psram_matmul_tile"] < 1:
         raise AssertionError(f"api.matmul did not launch kernel 2's wgmma route (MLP "
                              f"projection) and tile route (ragged head): {main_path}")
-    if launches["ordered_fold"] < SWEEPS:
-        raise AssertionError(f"the exact-fit MTTKRP did not launch the ordered fold: {main_path}")
+    if launches["ordered_fold_chain"] != hop.iters or launches["ordered_fold_fold"] != 0:
+        raise AssertionError(f"the exact-fit MTTKRP did not run as one chain-route launch a "
+                             f"sweep: {main_path}")
     if not all(f.is_cuda and torch.isfinite(f).all() for f in hop.factors) or not y.is_cuda:
         raise AssertionError("results are not finite tensors on the card")
     if tuple(y.shape) != (m, n) or not matmul_rel < 0.05:
@@ -1602,7 +1778,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"legacy CP-ALS strays from exact: {legacy_path}")
     if leg_launches["blocked_segment_sum"] < 3 * SWEEPS or leg.iters != SWEEPS:
         raise AssertionError(f"the legacy path did not launch the segment-sum kernel: {legacy_path}")
-    if leg_launches["ordered_fold"] < 3 * SWEEPS or not leg_repeatable:
+    if leg_launches["ordered_fold_fold"] < 3 * SWEEPS or not leg_repeatable:
         raise AssertionError(f"the legacy path's partials were not folded in order, or not "
                              f"repeatably: {legacy_path}")
     if not all(f.is_cuda and torch.isfinite(f).all() for f in leg.factors):
@@ -1943,7 +2119,9 @@ def main(argv=None) -> int:
         },
         {
             "name": "ordered_fold", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ordered_fold.cu",
+            "source": "src/repro_torch/kernels/csrc/ordered_fold.cu (ordered_chain_kernel: the "
+                      "chain route, the exact sparse MTTKRP's main path; ordered_fold_kernel: "
+                      "the fold route, the compiled=False path's partials)",
             "replaces": "src/repro/core/mttkrp.py:112 (jax.ops.segment_sum, the exact "
                         "sparse CP3 scatter; no Pallas kernel)",
             "launches": total("ordered_fold"),
@@ -1951,12 +2129,22 @@ def main(argv=None) -> int:
                                + [c["max_abs_err"] for c in fold_small]),
             "ms": fold_main["ms"], "plain_ms": fold_main["plain_ms"],
             "bound_ms": fold_main["bound_ms"], "bound_by": fold_main["bound_by"],
-            "library_ms": fold_main["library_ms"], "library": fold_main["library"],
-            "tolerance": "bit-equal to the CPU's stream-ordered index_add_ (small cases; "
-                         "mode 0 of the sparse tensor at full size through stream_mttkrp) "
-                         "and repeatable; against the card's atomic index_add_ within "
-                         "2 (L-1) 2^-24 of each row's summed magnitudes",
-            "all_steps_ms": fold_main["all_steps_ms"],
+            "library_ms": None, "library": "none (no one call gathers, chains and folds in "
+                                           "order)",
+            "tolerance": "bit-equal to the CPU's stream-ordered fold (small cases; mode 0 of "
+                         "the sparse tensor at full size through stream_mttkrp) and "
+                         "repeatable; the chain route bit-equal to the stepped route at full "
+                         "size; against the card's atomic index_add_ within 2 (L-1) 2^-24 of "
+                         "each row's summed magnitudes",
+            "routes": {
+                "chain": {"launches": total("ordered_fold_chain"), "ms": fold_main["ms"],
+                          "bound_ms": fold_main["bound_ms"], "split": fold_main["split"],
+                          "head_row_ms": fold_skew["head_row_ms"]},
+                "fold": {"launches": total("ordered_fold_fold"),
+                         **fold_main["stepped"]["fold_launch"]},
+            },
+            "stepped_call_ms": fold_main["stepped"]["ms"],
+            "stepped_split": fold_main["stepped"]["split"],
         },
     ]}
     report["kernels"] = kernels

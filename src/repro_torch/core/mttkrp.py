@@ -25,7 +25,8 @@ import string
 import torch
 
 from repro_torch._device import ieee_f32
-from repro_torch.kernels.ordered_fold import ordered_fold, row_runs
+from repro_torch.kernels.ordered_fold import (chain_coords, ordered_chain_fold, ordered_fold,
+                                              row_runs)
 
 
 def khatri_rao(mats: list[torch.Tensor]) -> torch.Tensor:
@@ -103,35 +104,71 @@ def mttkrp_sparse(
 
     Fold order: the nonzeros are stably sorted by their target row (which
     keeps each row's input order), the chain runs over the sorted stream
-    (pointwise per nonzero, so its bits do not change), and
-    ``kernels.ordered_fold`` adds each row's contributions in that order:
-    the order of one global ``jax.ops.segment_sum`` over the unsorted
-    stream. The result is **bit-identical** to the reference's on the CPU
-    and, on the card, to the CPU's and repeatable from run to run. The sort
-    is made once per mode and kept with ``indices`` (:func:`_sorted_stream`).
+    (pointwise per nonzero, so its bits do not change), and each row's
+    contributions are added in that order: the order of one global
+    ``jax.ops.segment_sum`` over the unsorted stream. The result is
+    **bit-identical** to the reference's on the CPU and, on the card, to the
+    CPU's and repeatable from run to run. On the card CP1–CP3 are one launch
+    of ``kernels.ordered_fold``'s chain route (a CTA per row); on the CPU the
+    chain is formed eagerly and ``index_add_`` folds it. The sort is made once
+    per mode and kept with ``indices`` (:func:`_sorted_stream`).
     """
-    ids, perm, sorted_idx, runs = _sorted_stream(indices, mode, out_rows)
+    factors = tuple(factors)
+    if values.is_cuda:
+        perm, coords, runs, longest, ranges = _sorted_stream(indices, mode, out_rows)
+        for (low, high), d in zip(ranges, (d for d in range(len(factors)) if d != mode)):
+            if low < 0 or high >= factors[d].shape[0]:
+                raise IndexError(f"mode {d}'s coordinates span [{low}, {high}], outside "
+                                 f"factor {d}'s {factors[d].shape[0]} rows")
+        out = torch.zeros((out_rows, factors[0].shape[-1]), dtype=torch.float32,
+                          device=values.device)
+        return ordered_chain_fold(out, coords, values[perm],
+                                  tuple(f.contiguous() for f in factors), mode, runs,
+                                  longest_run=longest)
+    perm, sorted_idx = _sorted_stream(indices, mode, out_rows)
     scaled = cp_chain_exact(sorted_idx, values[perm], factors, mode)
     out = torch.zeros((out_rows, scaled.shape[-1]), dtype=scaled.dtype,
                       device=scaled.device)
-    return ordered_fold(out, scaled, ids, runs=runs)  # CP 3
+    return ordered_fold(out, scaled, sorted_idx[:, mode])  # CP 3
 
 
 def _sorted_stream(indices: torch.Tensor, mode: int, out_rows: int):
-    """``(ids, perm, indices[perm], runs)``: the stable sort of the nonzeros
-    by their ``mode`` coordinate, and on a CUDA device the target rows' runs
-    (``kernels.ordered_fold.row_runs``; None on the CPU). A CP-ALS run asks
-    for every mode once a sweep of the same COO, so the result is kept on
-    ``indices`` per ``(mode, out_rows)`` and made anew only once the tensor
-    has been written in place (its version counter moved)."""
+    """The stable sort ``perm`` of the nonzeros by their ``mode`` coordinate
+    and what each device's path reads of the sorted stream: on the CPU
+    ``(perm, indices[perm])``; on a CUDA device ``(perm, coords, runs,
+    longest, ranges)`` — the non-target coordinates in the chain route's
+    layout (``kernels.ordered_fold.chain_coords``), the target rows' runs
+    (``row_runs``), the most nonzeros a row has, and each non-target mode's
+    coordinate range ``(low, high)``, for the caller to hold against its
+    factors. The target coordinates are checked here, against ``out_rows``
+    (on the card nothing else would: the chain route trusts its runs). A
+    CP-ALS run asks for every mode once a sweep of the same COO, so the
+    result is kept on ``indices`` per ``(mode, out_rows)`` and made anew only
+    once the tensor has been written in place (its version counter moved)."""
     cache = indices.__dict__.setdefault("_sorted_stream", {})
     key = (mode, out_rows)
     hit = cache.get(key)
     if hit is not None and hit[0] == indices._version:
         return hit[1]
     ids, perm = torch.sort(indices[:, mode].long(), stable=True)
-    runs = row_runs(ids, out_rows) if ids.is_cuda else None
-    entry = (ids, perm, indices[perm], runs)
+    if not ids.is_cuda:
+        entry = (perm, indices[perm])
+    else:
+        sorted_idx = indices[perm]
+        runs = row_runs(ids, out_rows)
+        longest, ranges = 0, []
+        if ids.numel():                      # one sync, made with the sort and kept
+            most = runs.diff().max()[None] if out_rows else ids.new_zeros(1)
+            stats = torch.cat([most, ids[[0, -1]],
+                               torch.stack([sorted_idx.amin(0), sorted_idx.amax(0)], 1)
+                               .reshape(-1).long()]).tolist()
+            longest, (low, high) = stats[0], stats[1:3]
+            if low < 0 or high >= out_rows:
+                raise IndexError(f"mode {mode}'s coordinates span [{low}, {high}], outside "
+                                 f"its {out_rows} output rows")
+            ranges = [(stats[3 + 2 * d], stats[4 + 2 * d])
+                      for d in range(indices.shape[1]) if d != mode]
+        entry = (perm, chain_coords(sorted_idx, mode), runs, longest, ranges)
     cache[key] = (indices._version, entry)
     return entry
 

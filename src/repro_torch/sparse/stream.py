@@ -33,12 +33,12 @@ import torch
 from repro_torch.backends.base import resolve_config
 from repro_torch.core.mttkrp import cp_chain_exact
 from repro_torch.core.psram import PsramConfig
-from repro_torch.kernels.ordered_fold import _fold_runs, ordered_fold, ordered_fold_max_rank
+from repro_torch.kernels.ordered_fold import chain_coords, ordered_chain_fold, ordered_fold
 
 from .formats import CSF
 
-_DEFAULT_EXEC_NNZ = 65536  # nonzeros per executor step: bounds the chain's
-                           # temporaries without fragmenting the launches
+_DEFAULT_EXEC_NNZ = 65536  # nonzeros per executor step on the CPU: bounds the
+                           # chain's (step, R) temporaries
 
 
 def _exec_blocks(rows: int, n_blocks: int, exec_blocks: int | None) -> int:
@@ -145,15 +145,19 @@ def stream_mttkrp(
     """Execute the streaming schedule numerically with the exact chain:
     (out_rows, R).
 
-    ``csf``'s root mode is the target mode. The stream is walked in steps of
-    ``exec_blocks`` blocks (default ~64Ki nonzeros): the chain runs inside
-    the step and its per-nonzero updates are added into the output by
-    ``kernels.ordered_fold`` in stream order, each step's fold starting from
-    the rows' current values — the fold order of one global
+    ``csf``'s root mode is the target mode. Each nonzero's chain
+    ``d_p = x_p · ⊙ other-factor rows`` is added into its output row in
+    stream order, one rounded add each — the fold order of one global
     ``jax.ops.segment_sum`` over the sorted stream, so the result is
     **bit-identical** to the reference's eager executor on the CPU and, on
-    the card, to the CPU's and repeatable. ``exec_blocks`` changes the size
-    of the temporaries only (a root fiber split across steps is one fold).
+    the card, to the CPU's and repeatable. On the card the whole stream is
+    one launch of ``kernels.ordered_fold``'s chain route, which forms each
+    ``d_p`` in the kernel (one CTA per root fiber). On the CPU the stream is
+    walked in steps of ``exec_blocks`` blocks (default ~64Ki nonzeros): the
+    chain runs over the step and ``index_add_`` adds it in stream order, each
+    step starting from the rows' current values. ``exec_blocks`` shapes the
+    CPU's temporaries only (a root fiber split across steps is one fold); the
+    card takes no steps.
 
     ``psram=True`` (the quantized chain) and ``compiled=True`` (the blocked
     fold) belong to the ``psram-stream`` slice of the port and raise here.
@@ -166,53 +170,50 @@ def stream_mttkrp(
         )
     cfg = resolve_config(config)
     mode = csf.mode_order[0]
-    out_rows = csf.shape[mode]
+    indices, values = csf.expanded_indices(), csf.values
+    factors = tuple(factors)
+    out = torch.zeros((csf.shape[mode], factors[0].shape[-1]), dtype=torch.float32,
+                      device=values.device)
+    if values.is_cuda:            # one launch: a CTA per root fiber, d formed in the kernel
+        coords, seg_ptr, seg_rows, longest, ranges = _chain_stream(csf)
+        for d, (low, high) in ranges.items():
+            if low < 0 or high >= factors[d].shape[0]:
+                raise IndexError(f"mode {d}'s coordinates span [{low}, {high}], outside "
+                                 f"factor {d}'s {factors[d].shape[0]} rows")
+        return ordered_chain_fold(out, coords, values, tuple(f.contiguous() for f in factors),
+                                  mode, seg_ptr, seg_rows, longest_run=longest)
     rows = cfg.rows
     n_blocks = max(1, -(-max(1, csf.nnz) // rows))
     step = rows * _exec_blocks(rows, n_blocks, exec_blocks)
-    indices, values = csf.expanded_indices(), csf.values
-    factors = tuple(factors)
-    out = torch.zeros((out_rows, factors[0].shape[-1]), dtype=torch.float32,
-                      device=values.device)
-    runs = None
-    if values.is_cuda:          # the runs' checks, made once here and not at each launch
-        runs = _fold_segments(csf, step)
-        if factors[0].shape[-1] > ordered_fold_max_rank():
-            raise ValueError(f"the ordered fold takes up to {ordered_fold_max_rank()} "
-                             f"rank columns, got {factors[0].shape[-1]}")
-    for c, lo in enumerate(range(0, csf.nnz, step)):
+    for lo in range(0, csf.nnz, step):    # the CPU's index_add_, in stream order
         i_b, v_b = indices[lo:lo + step], values[lo:lo + step]
-        d = cp_chain_exact(i_b, v_b, factors, mode)
-        if runs is None:                  # the CPU's index_add_, in stream order
-            ordered_fold(out, d, i_b[:, mode])
-        else:
-            seg_ptr, seg_rows, chunk_seg = runs
-            _fold_runs(out, d.contiguous(), seg_ptr, seg_rows, chunk_seg[c], chunk_seg[c + 1], lo)
+        ordered_fold(out, cp_chain_exact(i_b, v_b, factors, mode), i_b[:, mode])
     return out
 
 
-def _fold_segments(csf: CSF, step: int):
-    """The sorted stream's row runs cut at every step boundary, for the
-    ordered fold of :func:`stream_mttkrp`: ``(seg_ptr, seg_rows, chunk_seg)``
-    with ``seg_ptr (n_seg + 1,)`` contiguous int64 stream offsets and
-    ``seg_rows (n_seg,)`` contiguous int64 rows on the CSF's device (the
-    output's), and ``chunk_seg`` the host list of each step's first segment
-    (and the total last). Host numpy, cached on the CSF per step size, like
-    ``_segment_blocks``."""
-    key = ("_fold_segments", step)
-    cached = csf.__dict__.get(key)
+def _chain_stream(csf: CSF):
+    """What the chain route reads of the sorted stream, cached on the CSF
+    (CP-ALS reuses it every sweep): ``(coords, seg_ptr, seg_rows, longest,
+    ranges)`` — the non-target coordinates in the route's layout
+    (``kernels.ordered_fold.chain_coords``), the root fibers as its runs
+    (``seg_ptr (n_fibers + 1,)`` int64 stream offsets, ``seg_rows
+    (n_fibers,)`` int64 rows), all on the CSF's device; the most nonzeros a
+    fiber has; and each non-target mode's coordinate range ``{mode: (low,
+    high)}`` from the tree's fiber ids, for the caller to hold against its
+    factors."""
+    cached = csf.__dict__.get("_chain_stream")
     if cached is not None:
         return cached
-    rid = csf.row_of_nonzero().astype(np.int64)
-    nnz = len(rid)
-    starts = np.flatnonzero(np.r_[True, rid[1:] != rid[:-1]]) if nnz else np.zeros(0, np.int64)
-    bounds = np.arange(0, nnz, step, dtype=np.int64)
-    cuts = np.union1d(starts, bounds)
-    chunk_seg = np.searchsorted(cuts, np.r_[bounds, nnz]).tolist()
+    mode = csf.mode_order[0]
+    lengths = csf.fiber_lengths()
     dev = csf.device
-    result = (torch.as_tensor(np.r_[cuts, nnz].astype(np.int64), device=dev),
-              torch.as_tensor(rid[cuts], device=dev), chunk_seg)
-    csf.__dict__[key] = result
+    ranges = {m: (int(f.min()), int(f.max()))
+              for m, f in zip(csf.mode_order[1:], csf.fids[1:]) if len(f)}
+    result = (chain_coords(csf.expanded_indices(), mode),
+              torch.as_tensor(np.r_[0, np.cumsum(lengths)].astype(np.int64), device=dev),
+              torch.as_tensor(np.asarray(csf.fids[0], dtype=np.int64), device=dev),
+              int(lengths.max(initial=0)), ranges)
+    csf.__dict__["_chain_stream"] = result
     return result
 
 

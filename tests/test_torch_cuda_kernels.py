@@ -449,10 +449,12 @@ def test_blocked_stream_on_the_card_is_ordered(card, mode):
 
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_exact_sparse_mttkrp_on_the_card_is_ordered(card, mode):
-    """``mttkrp_sparse`` (unsorted COO) and ``stream_mttkrp`` (steps that
-    split the head fiber) on the card: BIT-EQUAL to the same functions on
-    the CPU (stream-ordered index_add_) and the same bits on a second run;
-    every step launches the ordered fold."""
+    """``mttkrp_sparse`` (unsorted COO, int32 and int64 coordinates) and
+    ``stream_mttkrp`` on the card: BIT-EQUAL to the same functions on the CPU
+    (stream-ordered index_add_, in steps that split the head fiber) and the
+    same bits on a second run;
+    each call is exactly one launch of the ordered fold's chain route and no
+    launch of its fold route."""
     from repro_torch.core.mttkrp import mttkrp_sparse
     from repro_torch.sparse.stream import stream_mttkrp
 
@@ -461,22 +463,177 @@ def test_exact_sparse_mttkrp_on_the_card_is_ordered(card, mode):
     fs = tuple(torch.randn((s, 32), generator=gen, device=card) for s in coo.shape)
     perm = torch.randperm(coo.nnz, generator=gen, device=card)
     idx, vals = coo.indices[perm], coo.values[perm]
-    before = of.ordered_fold.launches
+    before = dict(of.ordered_fold.routes)
     got = mttkrp_sparse(idx, vals, fs, mode, coo.shape[mode])
     torch.cuda.synchronize()
-    assert of.ordered_fold.launches == before + 1
+    assert of.ordered_fold.routes == {"fold": before["fold"], "chain": before["chain"] + 1}
     cpu = lambda t: t.cpu()
     want = mttkrp_sparse(cpu(idx), cpu(vals), tuple(map(cpu, fs)), mode, coo.shape[mode])
     assert torch.equal(got.cpu(), want)
     assert torch.equal(mttkrp_sparse(idx, vals, fs, mode, coo.shape[mode]), got)
+    # int64 coordinates: the kept sort hands the kernel int32 ones
+    assert torch.equal(mttkrp_sparse(idx.long(), vals, fs, mode, coo.shape[mode]), got)
     csf = csf_for_mode(coo, mode)
     cfg = PsramConfig(rows=64)
+    before = dict(of.ordered_fold.routes)
     got_s = stream_mttkrp(csf, fs, cfg, exec_blocks=3)
+    torch.cuda.synchronize()
+    assert of.ordered_fold.routes == {"fold": before["fold"], "chain": before["chain"] + 1}
     csf_cpu = csf_for_mode(COO(indices=cpu(coo.indices), values=cpu(coo.values),
                                shape=coo.shape), mode)
     want_s = stream_mttkrp(csf_cpu, tuple(map(cpu, fs)), cfg, exec_blocks=3)
     assert torch.equal(got_s.cpu(), want_s)
     assert torch.equal(stream_mttkrp(csf, fs, cfg, exec_blocks=3), got_s)
+
+
+def test_exact_sparse_mttkrp_on_the_card_checks_coordinates(card):
+    """A coordinate outside its factor (or a target row outside the output)
+    raises IndexError on the card, before any launch, as the CPU's indexing
+    does: the chain route reads what it is given, so its callers check the
+    coordinates once, where they keep the stream."""
+    from repro_torch.core.mttkrp import mttkrp_sparse
+    from repro_torch.sparse.stream import stream_mttkrp
+
+    coo = powerlaw_coo(4, (30, 20, 10), nnz=2000, rank=4, alpha=1.2, device=card)
+    fs = tuple(torch.randn((s, 8), device=card) for s in coo.shape)
+    short = fs[:2] + (fs[2][:5],)                       # mode 2's factor: 5 of 10 rows
+    before = dict(of.ordered_fold.routes)
+    with pytest.raises(IndexError, match="mode 2"):
+        mttkrp_sparse(coo.indices, coo.values, short, 0, 30)
+    with pytest.raises(IndexError, match="mode 1"):
+        mttkrp_sparse(coo.indices.clone(), coo.values, fs, 1, 12)   # rows 12.. have nonzeros
+    with pytest.raises(IndexError, match="mode 2"):
+        stream_mttkrp(csf_for_mode(coo, 0), short)
+    assert of.ordered_fold.routes == before
+    with pytest.raises(IndexError):                     # the CPU refuses the same
+        mttkrp_sparse(coo.indices.cpu(), coo.values.cpu(), tuple(f.cpu() for f in short), 0, 30)
+
+
+CHAIN_CASES = [  # (shape, nnz, rank, mode, factor offset)
+    ((300, 200), 30000, 32, 0, 0),               # 2 modes: one factor, no Hadamard
+    ((300, 200, 100), 60000, 32, 0, 0),
+    ((300, 200, 100), 60000, 16, 1, 0),          # lanes 16..31 of the chain idle
+    ((300, 200, 100), 60000, 64, 2, 0),          # two columns a lane
+    ((300, 200, 100), 60000, 128, 0, 0),         # four columns a lane
+    ((300, 200, 100), 60000, 6, 0, 0),           # R % 4 != 0: 4-byte copies, scalar products
+    ((300, 200, 100), 60000, 40, 1, 0),          # not a template rank: runtime loops
+    ((300, 200, 100), 20000, 200, 2, 0),         # beyond the templates
+    ((300, 200, 100), 60000, 32, 0, 1),          # factors not 16-byte aligned: 4-byte copies
+    ((50, 12, 9, 7), 20000, 32, 3, 0),           # 4 modes
+    ((12, 9, 8, 7, 6, 5), 20000, 32, 2, 0),      # 6 modes
+    ((40, 3000, 200), 400000, 32, 0, 0),         # runs past 32768 nonzeros: 6 producers
+    ((40, 3000, 200), 400000, 64, 0, 0),
+]
+
+
+@pytest.mark.parametrize("shape,nnz,rank,mode,offset", CHAIN_CASES)
+def test_ordered_chain_fold_bit_equal_to_cpu(card, shape, nnz, rank, mode, offset):
+    """The chain route on its own over a CSF's root fibers, from a nonzero
+    ``out`` (rows without nonzeros keep their value): BIT-EQUAL to its plain
+    version on the CPU, the same bits on a second launch, one launch counted
+    on the chain route."""
+    from repro_torch.sparse.stream import _chain_stream
+
+    coo = powerlaw_coo(7, shape, nnz=nnz, rank=4, alpha=1.6, device=card)
+    csf = csf_for_mode(coo, mode)
+    gen = torch.Generator(device=card).manual_seed(rank + mode)
+    fs = tuple(torch.randn((s * rank + offset,), generator=gen, device=card)[offset:]
+               .view(s, rank) for s in shape)
+    start = torch.randn((shape[mode], rank), generator=gen, device=card)
+    coords, seg_ptr, seg_rows, longest, _ = _chain_stream(csf)
+    vals = csf.values
+    before = dict(of.ordered_fold.routes)
+    got = of.ordered_chain_fold(start.clone(), coords, vals, fs, mode, seg_ptr, seg_rows,
+                                longest_run=longest)
+    torch.cuda.synchronize()
+    assert of.ordered_fold.routes == {"fold": before["fold"], "chain": before["chain"] + 1}
+    cpu = lambda t: t.cpu()
+    want = of.ordered_chain_fold_torch(cpu(start), cpu(coords), cpu(vals), tuple(map(cpu, fs)),
+                                       mode, cpu(seg_ptr), cpu(seg_rows))
+    assert torch.equal(got.cpu(), want)
+    again = of.ordered_chain_fold(start.clone(), coords, vals, fs, mode, seg_ptr, seg_rows,
+                                  longest_run=longest)
+    assert torch.equal(again, got)
+
+
+def chain_layout(nmodes, rank, longest_run):
+    """The chain route's layout as ``csrc/ordered_fold.cu`` documents it
+    (``chain_layout``): ``(nonzeros a batch, producer warps, the CTA's
+    dynamic shared memory)``, -1 bytes where one producer does not fit.
+    Per producer 4 row slots of K x nb factor rows and 5 metadata slots of
+    nb x K coordinates and nb values (each 16-byte aligned); before them a
+    full and an empty barrier a row slot; after them R running sums."""
+    a16 = lambda b: (b + 15) // 16 * 16
+    k = nmodes - 1
+    if rank in (16, 32, 64, 128):
+        nb = {16: 32, 32: 32, 64: 16, 128: 8}[rank]
+    else:
+        nb = max(1, min(32, 4096 // (4 * k * rank)))
+
+    def smem(p):
+        warp = 4 * a16(4 * k * nb * rank) + 5 * a16(4 * nb * (k + 1))
+        return a16(16 * p * 4) + p * warp + a16(4 * rank)
+
+    p = 6 if longest_run >= 32768 else 2
+    while p > 1 and smem(p) > 232448:
+        p -= 1
+    return nb, p, smem(p) if smem(p) <= 232448 else -1
+
+
+@pytest.mark.parametrize("nmodes,rank,head,nb,producers", [
+    (3, 32, 1000, 32, 2),           # the short runs' default
+    (3, 32, 40000, 32, 6),          # a run of 32768 nonzeros or more
+    (4, 32, 40000, 32, 4),          # more modes: fewer producers fit
+    (5, 32, 40000, 32, 3),
+    (6, 40, 40000, 5, 6),           # not a template rank: the batch sized by its rows
+    (3, 600, 40000, 1, 6),          # a batch of one nonzero: a slot a nonzero
+    (3, 4000, 6000, 1, 1),          # one producer reuses each slot as soon as it is freed
+    (3, 6, 1000, 32, 2),            # 4-byte copies, scalar products
+])
+def test_ordered_chain_fold_layouts_give_the_same_bits(card, nmodes, rank, head, nb, producers):
+    """Every layout the chain route takes (producer warps and, where R is not
+    a template rank, nonzeros a batch), reached through the stream's shape
+    (modes, rank, its longest run) as the library lays it out, gives the
+    CPU's bits on a head run longer than every ring."""
+    assert chain_layout(nmodes, rank, head)[:2] == (nb, producers)
+    assert of._chain_smem(nmodes, rank, head) == chain_layout(nmodes, rank, head)[2]
+    rng = np.random.default_rng(nmodes * rank + head)
+    shape = (40,) + (300, 200, 90, 80, 70, 60, 50)[:nmodes - 1]
+    rows = np.sort(np.r_[np.zeros(head, np.int64), rng.integers(1, 40, size=2000)],
+                   kind="stable")
+    idx = np.stack([rows] + [rng.integers(0, s, size=rows.size) for s in shape[1:]], 1)
+    coords = of.chain_coords(torch.tensor(idx), 0)
+    vals = torch.tensor(rng.standard_normal(rows.size).astype(np.float32))
+    fs = tuple(torch.tensor(rng.standard_normal((s, rank)).astype(np.float32)) for s in shape)
+    seg_ptr = torch.tensor(np.searchsorted(rows, np.arange(41)).astype(np.int64))
+    start = torch.tensor(rng.standard_normal((40, rank)).astype(np.float32))
+    want = of.ordered_chain_fold_torch(start.clone(), coords, vals, fs, 0, seg_ptr)
+    gpu = lambda t: t.to(card)
+    got = of.ordered_chain_fold(gpu(start), gpu(coords), gpu(vals), tuple(map(gpu, fs)), 0,
+                                gpu(seg_ptr), longest_run=head)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_chain_route_constants_are_the_librarys(card):
+    """The wrapper's mode limit is the library's, and the library lays a
+    chain-route CTA out as its source says (:func:`chain_layout`) for 2 to
+    8 modes, template ranks and others, short and long runs; it refuses
+    fewer than 2 or more than 8 modes and a rank whose stages do not fit."""
+    lib, _ = of._chain_entry()
+    assert lib.ordered_chain_max_modes() == of.CHAIN_MAX_MODES
+    for nmodes in range(2, 9):
+        for rank in (6, 16, 32, 40, 64, 128, 200, 600, 4000, 20000):
+            for longest in (0, 32767, 32768):
+                assert of._chain_smem(nmodes, rank, longest) \
+                    == chain_layout(nmodes, rank, longest)[2], (nmodes, rank, longest)
+    assert of._chain_smem(1, 32) == of._chain_smem(9, 32) == -1
+    assert of._chain_smem(3, 20000) == -1
+    with pytest.raises(ValueError, match="do not fit shared memory"):
+        out = torch.zeros((2, 20000), device=card)
+        of.ordered_chain_fold(out, torch.zeros((1, 2), dtype=torch.int32, device=card),
+                              torch.ones(1, device=card),
+                              tuple(torch.ones((2, 20000), device=card) for _ in range(3)), 0,
+                              torch.tensor([0, 1, 1], device=card), None)
 
 
 @pytest.mark.parametrize("r,offset", [(32, 0), (6, 0), (40, 1), (3000, 0)])

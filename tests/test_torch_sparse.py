@@ -250,25 +250,31 @@ def test_exact_sparse_mttkrp_equals_the_reference_segment_sum(mode):
         np.testing.assert_array_equal(got_s.numpy(), want_s)
 
 
-@pytest.mark.parametrize("step", [8, 24, 4096])
-def test_fold_segments_cut_the_runs_at_every_step(step):
-    """What the card's ordered fold is handed per step of ``stream_mttkrp``:
-    segments that tile each step exactly, each inside one row's run."""
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_chain_stream_runs_are_the_root_fibers(mode):
+    """What the card's chain route is handed by ``stream_mttkrp``: one run
+    per root fiber, tiling the stream, each inside one row's run; the
+    non-target coordinates column by column; the longest fiber and each
+    non-target mode's coordinate range. Kept on the CSF."""
+    from repro_torch.kernels.ordered_fold import chain_coords
+
     _, port = _pair(seed_key=11, shape=(40, 30, 20), nnz=3000, alpha=1.6)
-    csf = tf.csf_for_mode(port, 0)
+    csf = tf.csf_for_mode(port, mode)
     rid = csf.row_of_nonzero()
-    seg_ptr, seg_rows, chunk_seg = tstream._fold_segments(csf, step)
+    idx = csf.expanded_indices()
+    coords, seg_ptr, seg_rows, longest, ranges = tstream._chain_stream(csf)
+    assert seg_ptr.dtype == torch.int64 and seg_rows.dtype == torch.int64
     seg_ptr, seg_rows = seg_ptr.numpy(), seg_rows.numpy()
-    assert seg_ptr.dtype == np.int64 and seg_rows.dtype == np.int64
-    los = list(range(0, csf.nnz, step))
-    assert len(chunk_seg) == len(los) + 1 and chunk_seg[-1] == len(seg_rows)
-    for c, lo in enumerate(los):
-        s0, s1 = chunk_seg[c], chunk_seg[c + 1]
-        assert seg_ptr[s0] == lo and seg_ptr[s1] == min(lo + step, csf.nnz)
-        for s in range(s0, s1):
-            assert seg_ptr[s] < seg_ptr[s + 1]
-            assert (rid[seg_ptr[s]:seg_ptr[s + 1]] == seg_rows[s]).all()
-    assert tstream._fold_segments(csf, step)[2] is chunk_seg          # cached
+    starts = np.flatnonzero(np.r_[True, rid[1:] != rid[:-1]])
+    np.testing.assert_array_equal(seg_ptr, np.r_[starts, csf.nnz])
+    np.testing.assert_array_equal(seg_rows, rid[starts])
+    assert longest == int(np.diff(seg_ptr).max())
+    others = [d for d in range(3) if d != mode]
+    assert coords.dtype == torch.int32 and coords.is_contiguous()
+    assert torch.equal(coords, idx[:, others].int())
+    assert torch.equal(chain_coords(idx.long(), mode), coords)
+    assert ranges == {d: (int(idx[:, d].min()), int(idx[:, d].max())) for d in others}
+    assert tstream._chain_stream(csf)[0] is coords                       # cached
 
 
 def test_ordered_fold_plain_version_and_row_runs():
