@@ -38,7 +38,14 @@ What it does, in order — any failure raises and the run exits non-zero:
    each), both timed and split by kernel; ``stream_mttkrp`` on the skewed
    mode 0 at full size bit-equal to the same on the CPU, and its head row's
    launch alone; the ``exact`` backend's ``mttkrp_sparse`` on every mode,
-   the call beside its chain-route launch (``exact_sparse_split``).
+   the call beside its chain-route launch (``exact_sparse_split``). Kernel 4
+   on each mode of the dense tensor: on its int8 codes (the ring's codes
+   front end, timed beside the partials kernel on the same codes), and
+   reading the f32 tensor in place (``mttkrp_psram_strided``, the dense
+   path's route): its row scales and its converter's codes equal to
+   ``quantize_symmetric``'s over the whole tensor, its output bit-equal to
+   the codes front end and repeatable; the call, its row-max pass and its
+   ring timed alone.
 4. ``main_path`` — three paths, each run with every launch counter set to 0
    just before it and read just after:
    a. ``cp_als(sparse=coo, rank=32, n_iter=3, backend="hopper")`` on the
@@ -46,8 +53,11 @@ What it does, in order — any failure raises and the run exits non-zero:
       (512 x 4096 x 14336, kernel 2's wgmma route) and a 1000-class head
       (512 x 4096 x 1000, the tile route), each against ``backend="exact"``;
    b. the dense entry point: ``api.mttkrp(x, factors, mode,
-      backend="hopper")`` and ``backends.get("hopper", compiled=False)``
-      for every mode of the dense tensor, against ``backend="exact"``;
+      backend="hopper")`` (kernel 4 reading the tensor in place, one
+      launch a mode) and ``backends.get("hopper", compiled=False)`` for
+      every mode of the dense tensor, against ``backend="exact"``; then one
+      ``hopper`` call a mode split by operation under ``torch.profiler``
+      (``hopper_split``) and its own peak device memory;
    c. ``cp_als`` on the sparse tensor with ``backends.get("hopper",
       compiled=False)`` (the blocked segment-sum stream, its partials folded
       in order), against the exact run of (a); then the blocked path on
@@ -284,6 +294,73 @@ def call_split(torch, fn, fold_launches: int, n: int = 3, attempts: int = 3) -> 
                     "fold_launches": fold_n, "other_launches": other_n, "attempts": attempt}
     raise AssertionError(f"the profiler saw {fold_n} of {fold_launches} fold launches a call "
                          f"in each of {attempts} windows")
+
+
+def dense_call_split(torch, fn, n: int = 3, attempts: int = 3) -> dict:
+    """One whole call of ``fn`` (a dense ``hopper`` MTTKRP) split by
+    operation: each kernel's device time under the outermost ``aten::`` op
+    that launched it (``aten::reshape`` the unfolding copy, ``aten::abs``,
+    ``aten::amax``, ``aten::div``, ``aten::round``, ``aten::clamp``,
+    ``aten::to`` the quantization's passes) or, for the kernels launched
+    from ``csrc/mttkrp.cu``, under its own name; the card's busy time, and
+    the rest of the call's CUDA-event time (``idle_ms``), with the launches
+    of each, per call (device time the profiler tied to no op is
+    ``unattributed``). ``n`` calls under ``torch.profiler`` after a warm
+    call; a window in which some kernel's launches are not a multiple of
+    ``n`` lost records and is profiled again; the run fails where every
+    attempt did."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
+    ms = time_ms(torch, fn, warmup=1, iters=3, reps=1)
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # a window's first kernel record can be lost (the eager quantization's
+            # first abs launch went missing in every window): a throwaway
+            # kernel takes that place
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            with record_function("dense_calls"):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        t0 = next(e for e in events if e.name == "dense_calls").time_range.start
+        events = [e for e in events if e.time_range.start >= t0 and e.name != "dense_calls"]
+        device = [e for e in events if e.device_type == cuda]
+        busy_us = sum(e.time_range.end - e.time_range.start for e in device)
+        ops: dict = {}
+
+        def add(label, us):
+            entry = ops.setdefault(label, {"ms": 0.0, "launches": 0.0})
+            entry["ms"] += us / 1e3 / n
+            entry["launches"] += 1 / n
+
+        for e in device:                     # the repository's own kernels
+            own = re.search(r"\b(mttkrp_\w+_kernel)\b", e.name)
+            if own:
+                add(own[1], e.time_range.end - e.time_range.start)
+        for e in events:                     # PyTorch's, under the op that asked
+            if e.device_type == cuda or not e.kernels:
+                continue
+            top = e
+            while top.cpu_parent is not None and top.cpu_parent.name.startswith("aten::"):
+                top = top.cpu_parent
+            for k in e.kernels:
+                if not re.search(r"\bmttkrp_\w+_kernel\b", k.name):
+                    add(top.name, k.duration)
+        counts = {}
+        for e in device:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if all(c % n == 0 for c in counts.values()):
+            busy_ms = busy_us / 1e3 / n
+            rest = busy_ms - sum(v["ms"] for v in ops.values())
+            if abs(rest) > 1e-3 * busy_ms:   # kernels the profiler tied to no op
+                ops["unattributed"] = {"ms": rest, "launches": None}
+            return {"ms": ms, "busy_ms": busy_ms, "idle_ms": ms - busy_ms,
+                    "launches": len(device) / n, "ops": ops, "attempts": attempt}
+    raise AssertionError(f"the profiler lost records of a dense call in each of {attempts} "
+                         f"windows: {ops}, {counts}")
 
 
 def exact_sparse_split(torch, coo, factors) -> list:
@@ -759,6 +836,102 @@ def psram_case(torch, q, adc_bits=16, timed=False):
         case["bound_ms"] = max(bytes_ms, ops_ms)
         case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     return case
+
+
+def strided_case(torch, view, q, adc_bits=16, timed=False):
+    """Kernel 4 reading the f32 tensor in place (``mttkrp_psram_strided`` on
+    the permuted view): its row scales and its converter's codes equal to
+    ``quantize_symmetric``'s on the unfolding (``q``, those operands), its
+    output bit-equal to the codes front end on ``q`` (where both walks cut
+    the same stages), at ``adc_bits`` and at 24 bits, where one code of the
+    ring's own staging shows, and repeatable, and within two ADC codes of each
+    bi-row tile's full scale plus rtol 2e-4 of the plain version. With
+    ``timed``: the call, its row-max pass and its ring (pass 1 + ADC) alone,
+    the codes front end's ring and the partials kernel on ``q``, the plain
+    version; bounds by bytes (the tensor read once) and operations."""
+    from repro_torch.kernels import mttkrp as dm
+
+    qx, sx, qb, sb, qc, sc = q
+    rw, r = qx.shape[0], qb.shape[1]
+    a, _, b = dm._layout_of(view)
+    front = "cols" if b == 1 else "rows"
+    scales = dm.drive_scales(view)
+    codes_equal = bool(torch.equal(dm.drive_codes(view, scales), qx))
+    got = dm.mttkrp_psram_strided(view, qb, sb, qc, sc, adc_bits=adc_bits)
+    torch.cuda.synchronize()
+    same_stages = a == 1 or b == 1 or b % 32 == 0
+    codes_out = dm.mttkrp_psram_fused(*q, adc_bits=adc_bits)
+    want = dm.mttkrp_psram_strided_torch(view, qb, sb, qc, sc, adc_bits=adc_bits)
+    bi = min(128, rw)
+    fs = want.abs().reshape(rw // bi, -1).amax(dim=1).clamp_min(1e-30)
+    lsb = (2.0 * fs / 2 ** adc_bits).repeat_interleave(bi)[:, None]
+    diff = (got - want).abs()
+    case = {
+        "shape": list(view.shape) + [r], "layout": [a, rw, b], "front": front,
+        "adc_bits": adc_bits,
+        "scales_equal": bool(torch.equal(scales, sx)), "codes_equal": codes_equal,
+        "same_stages": same_stages,
+        "bit_equal_to_codes_front": bool(torch.equal(got, codes_out)),
+        # at 24 bits one code of the ring's own staged tile moves the output
+        "bit_equal_to_codes_front_24": bool(torch.equal(
+            dm.mttkrp_psram_strided(view, qb, sb, qc, sc, adc_bits=24),
+            dm.mttkrp_psram_fused(*q, adc_bits=24))),
+        "repeatable": bool(torch.equal(
+            dm.mttkrp_psram_strided(view, qb, sb, qc, sc, adc_bits=adc_bits), got)),
+        "max_abs_err": float(diff.max()),
+        "max_err_in_codes": float((diff / lsb).max()),
+        "finite": bool(torch.isfinite(got).all()),
+    }
+    if not (case["scales_equal"] and codes_equal and case["repeatable"] and case["finite"]
+            and ((case["bit_equal_to_codes_front"] and case["bit_equal_to_codes_front_24"])
+                 or not same_stages)
+            and bool((diff <= 2 * lsb + 2e-4 * want.abs()).all())):
+        raise AssertionError(f"mttkrp_psram_strided disagrees: {case}")
+    if timed:
+        i_jk = qx.numel()
+        case["ms"] = time_ms(torch, lambda: dm.mttkrp_psram_strided(
+            view, qb, sb, qc, sc, adc_bits=adc_bits))
+        case["rowmax_ms"] = time_ms(torch, lambda: dm.drive_scales(view))
+        case["ring_ms"] = time_ms(torch, lambda: dm._ring(
+            front, view, scales, qb, sb, qc, sc, a, rw, b, bi, adc_bits))
+        case["codes_partials_ms"] = time_ms(torch, lambda: dm._launch_codes(
+            *q, bi=bi, adc_bits=adc_bits, route="partials"))
+        case["plain_ms"] = time_ms(torch, lambda: dm.mttkrp_psram_strided_torch(
+            view, qb, sb, qc, sc, adc_bits=adc_bits), iters=3, reps=1)
+        case["library_ms"] = None
+        x_bytes = 4 * i_jk
+        bytes_ms = 1e3 * (x_bytes + nbytes(qb, sb, qc, sc) + 4 * rw * r) / HBM_BYTES_PER_S
+        # per entry of the tensor: 5 for its row max and quantization (max,
+        # divide, round, clamp, the dequantizing multiply) and R
+        # multiply-adds; per KR entry 3 multiplies; per output the ADC (~6)
+        jk = i_jk // rw
+        ops_ms = 1e3 * (2.0 * i_jk * r + 5.0 * i_jk + 3.0 * jk * r + 6.0 * rw * r) \
+            / F32_FLOPS_PER_S
+        case["bound_ms"] = max(bytes_ms, ops_ms)
+        case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        case["ops_bound_ms"] = ops_ms
+        case["rowmax_bound_ms"] = 1e3 * (x_bytes + 4 * rw) / HBM_BYTES_PER_S
+    return case
+
+
+def small_strided_cases(torch):
+    """The strided route at ragged shapes: I = 384 (not a multiple of the
+    ring's 256 rows), mode 1's B = 36 (its stages stop at each a: within
+    the codes, not bit-equal to the codes front end), ADC at 8 bits."""
+    from repro_torch.kernels.mttkrp import quantize_mttkrp_operands
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shape = (384, 20, 36)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    fs = [torch.randn((n, 16), generator=gen, device="cuda") for n in shape]
+    cases = []
+    for mode in range(3):
+        others = [d for d in range(3) if d != mode]
+        view = x.permute([mode] + others)
+        q = quantize_mttkrp_operands(view.reshape(shape[mode], -1).contiguous(),
+                                     fs[others[0]], fs[others[1]])
+        cases += [strided_case(torch, view, q, adc_bits=bits) for bits in (16, 8)]
+    return cases
 
 
 def code_flip_analysis(torch, got, want, fs, bi, lsb) -> dict:
@@ -1466,7 +1639,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mttkrp import (
-        mttkrp_fused, mttkrp_psram_fused, quantize_mttkrp_operands)
+        drive_scales, mttkrp_fused, mttkrp_psram_fused, mttkrp_psram_strided,
+        quantize_mttkrp_operands)
     from repro_torch.kernels.ordered_fold import ordered_fold
     from repro_torch.kernels.psram_matmul import psram_matmul
     from repro_torch.kernels.segment_sum import blocked_segment_sum
@@ -1476,6 +1650,7 @@ def main(argv=None) -> int:
 
     kernel_fns = {"stream_mttkrp_fused": stream_mttkrp_fused, "psram_matmul": psram_matmul,
                   "mttkrp_fused": mttkrp_fused, "mttkrp_psram_fused": mttkrp_psram_fused,
+                  "mttkrp_psram_strided": mttkrp_psram_strided, "drive_scales": drive_scales,
                   "blocked_segment_sum": blocked_segment_sum,
                   "flash_attention": flash_attention, "ordered_fold": ordered_fold}
 
@@ -1483,16 +1658,17 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         for fn in kernel_fns.values():
             fn.launches = 0
-        for fn in (psram_matmul, stream_mttkrp_fused, ordered_fold):
+        for fn in routed:
             fn.routes = {route: 0 for route in fn.routes}
+
+    routed = (psram_matmul, stream_mttkrp_fused, ordered_fold, mttkrp_psram_fused,
+              mttkrp_psram_strided)
 
     def read_counts():
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in kernel_fns.items()}
-        for name, fn in (("psram_matmul", psram_matmul), ("stream_mttkrp_fused",
-                                                          stream_mttkrp_fused),
-                         ("ordered_fold", ordered_fold)):
-            counts.update({f"{name}_{route}": n for route, n in fn.routes.items()})
+        for fn in routed:
+            counts.update({f"{fn.__name__}_{route}": n for route, n in fn.routes.items()})
         return counts
 
     report: dict = {}
@@ -1581,7 +1757,7 @@ def main(argv=None) -> int:
                    (257, 2064, 272, 24),     # ragged M
                ])]
     wgmma_small = [c for c in b_small if c["route"] == "wgmma"]
-    d_main, p_main = [], []
+    d_main, p_main, s_main = [], [], []
     for mode in range(3):
         others = [d for d in range(3) if d != mode]
         x0 = xd.permute([mode] + others).reshape(DENSE_SHAPE[mode], -1).contiguous()
@@ -1590,8 +1766,12 @@ def main(argv=None) -> int:
         q = quantize_mttkrp_operands(x0, b, c)
         del x0
         p_main.append(psram_case(torch, q, timed=True))
+        # the same operands read in place from the tensor, as the dense
+        # hopper call reads them
+        s_main.append(strided_case(torch, xd.permute([mode] + others), q, timed=True))
         del q
     d_small, p_small = small_dense_cases(torch)
+    s_small = small_strided_cases(torch)
     seg_main, seg_host_s = [], []
     for mode in range(3):
         t0 = time.perf_counter()
@@ -1624,6 +1804,7 @@ def main(argv=None) -> int:
         "exact_sparse_split": fold_split,
         "dense_main": d_main, "dense_small": d_small,
         "dense_psram_main": p_main, "dense_psram_small": p_small,
+        "dense_strided_main": s_main, "dense_strided_small": s_small,
         "segment_main": seg_main, "segment_small": seg_small,
         "segment_host_s": seg_host_s,
         "flash_main": f_main, "flash_small": f_small,
@@ -1732,18 +1913,35 @@ def main(argv=None) -> int:
         "exact": [time_ms(torch, lambda m=m: api.mttkrp(xd, fd, m, backend="exact"),
                           warmup=1, iters=3, reps=1) for m in range(3)],
     }
+    # one hopper call per mode split by operation, and the device memory
+    # that call alone takes beyond what was held before it
+    hopper_split, hopper_peak = [], []
+    for m in range(3):
+        def call(m=m):
+            return api.mttkrp(xd, fd, m, backend="hopper", config=cfg)
+        hopper_split.append(dense_call_split(torch, call))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        hopper_peak.append(torch.cuda.max_memory_allocated() - held)
     dense_path = {
         "phase": "main_path_dense", "shape": list(DENSE_SHAPE), "rank": RANK,
         "rel_err_hopper": dense_rel, "rel_err_hopper_legacy": legacy_rel,
         "launches": dense_launches, "seconds": dense_s, "device_bytes_peak": dense_peak,
-        "call_ms": api_ms,
+        "call_ms": api_ms, "hopper_split": hopper_split,
+        "hopper_call_bytes_peak": hopper_peak,
     }
     report["main_path_dense"] = dense_path
     emit(dense_path)
     del xd, want, got, got_legacy
     if not max(dense_rel) < 0.05 or not max(legacy_rel) < 1e-5:
         raise AssertionError(f"dense MTTKRP strays from exact: {dense_path}")
-    if dense_launches["mttkrp_psram_fused"] < 3 or dense_launches["mttkrp_fused"] < 3:
+    # the hopper call reads the tensor in place in every mode: one strided
+    # launch a mode, none of the codes entry
+    if dense_launches["mttkrp_psram_strided"] != 3 or dense_launches["drive_scales"] != 3 \
+            or dense_launches["mttkrp_psram_fused"] != 0 or dense_launches["mttkrp_fused"] < 3:
         raise AssertionError(f"the dense path did not launch the dense kernels: {dense_path}")
 
     # 4c. CP-ALS on the legacy per-op path: the blocked segment-sum stream ---
@@ -2087,13 +2285,52 @@ def main(argv=None) -> int:
             "allclose rtol 2e-4, atol 2e-4 * max|plain|",
             max_rel_err=max(c["max_rel_err"] for c in d_main + d_small),
             max_err_over_max=max(c["max_err_over_max"] for c in d_main + d_small)),
-        row("mttkrp_psram_fused", "src/repro_torch/kernels/csrc/mttkrp.cu",
-            "src/repro/kernels/mttkrp.py:121", p_main, p_small,
-            "per element: 2 ADC codes of its 128-row tile's full scale + rtol 2e-4",
-            elements_a_code_apart=sum(c["elements_a_code_apart"] for c in p_main + p_small),
-            elements=sum(c["elements"] for c in p_main + p_small),
-            max_err_in_codes=max(c["max_err_in_codes"] for c in p_main + p_small),
-            main_max_err_in_codes=[c["max_err_in_codes"] for c in p_main]),
+        {
+            "name": "mttkrp_psram_fused", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mttkrp.cu (mttkrp_psram_ring_kernel: the "
+                      "f32 front ends reading the tensor in place, the main path, and the "
+                      "codes front end; mttkrp_rowmax_*_kernel: the row scales; "
+                      "mttkrp_partials_kernel<true, *>: codes TMA cannot take)",
+            "replaces": "src/repro/kernels/mttkrp.py:121",
+            "launches": total("mttkrp_psram_strided") + total("mttkrp_psram_fused"),
+            "max_abs_err": max(c["max_abs_err"] for c in s_main + s_small + p_main + p_small),
+            "ms": mean("ms", s_main), "plain_ms": mean("plain_ms", s_main),
+            "bound_ms": mean("bound_ms", s_main), "bound_by": s_main[0]["bound_by"],
+            "library_ms": None,
+            "library": "none (no one PyTorch call quantizes and contracts; the codes "
+                       "front end's (qx.float()*sx) @ kr + ADC in fronts.codes)",
+            "tolerance": "per element: 2 ADC codes of its 128-row tile's full scale + rtol "
+                         "2e-4 of the plain version; the f32 front end's codes and scales "
+                         "equal to quantize_symmetric's, its output bit-equal to the codes "
+                         "front end where both cut the same stages (every main-path mode)",
+            "per_mode_ms": [c["ms"] for c in s_main],
+            "fronts": {
+                "f32": {"launches": total("mttkrp_psram_strided"),
+                        "routes": {r: total(f"mttkrp_psram_strided_{r}")
+                                   for r in mttkrp_psram_strided.routes},
+                        "ms": mean("ms", s_main), "bound_ms": mean("bound_ms", s_main),
+                        "ring_ms": [c["ring_ms"] for c in s_main],
+                        "max_err_in_codes": max(c["max_err_in_codes"]
+                                                for c in s_main + s_small)},
+                "rowmax": {"launches": total("drive_scales"), "ms": mean("rowmax_ms", s_main),
+                           "per_mode_ms": [c["rowmax_ms"] for c in s_main],
+                           "bound_ms": mean("rowmax_bound_ms", s_main), "bound_by": "bytes"},
+                "codes": {"launches": total("mttkrp_psram_fused"),
+                          "routes": {r: total(f"mttkrp_psram_fused_{r}")
+                                     for r in mttkrp_psram_fused.routes},
+                          "ms": mean("ms", p_main), "per_mode_ms": [c["ms"] for c in p_main],
+                          "partials_ms": [c["codes_partials_ms"] for c in s_main],
+                          "bound_ms": mean("bound_ms", p_main),
+                          "bound_by": p_main[0]["bound_by"],
+                          "plain_ms": mean("plain_ms", p_main),
+                          "library_ms": mean("library_ms", p_main),
+                          "elements_a_code_apart": sum(c["elements_a_code_apart"]
+                                                       for c in p_main + p_small),
+                          "elements": sum(c["elements"] for c in p_main + p_small),
+                          "max_err_in_codes": max(c["max_err_in_codes"]
+                                                  for c in p_main + p_small)},
+            },
+        },
         row("blocked_segment_sum", "src/repro_torch/kernels/csrc/segment_sum.cu",
             "src/repro/kernels/segment_sum.py:44", seg_main, seg_small,
             "bit-equal to the row-ordered CPU plain version (small cases, mode 0 "

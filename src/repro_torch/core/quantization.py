@@ -62,9 +62,15 @@ def quantize_symmetric(x: torch.Tensor, axis=None) -> tuple[torch.Tensor, torch.
         amax = x.abs().max()
     else:
         amax = x.abs().amax(dim=axis, keepdim=True)
-    scale = amax.clamp_min(1e-12) / _scalar(QMAX, x)
+    scale = symmetric_scale(amax)
     q = torch.round(x / scale).clamp(-QMAX, QMAX).to(torch.int8)
     return q, scale
+
+
+def symmetric_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The scale of :func:`quantize_symmetric` from ``max|x|``: the same ops,
+    so the same bits wherever ``amax`` is the same."""
+    return amax.clamp_min(1e-12) / _scalar(QMAX, amax)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -97,6 +97,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
         : "memory");
 }
 
+// the same under the L2 `policy` (evict-first for data read once)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, uint64_t policy) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+        "[%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+        : "memory");
+}
+
 // wgmma descriptor of a shared-memory operand in the 128-byte swizzle:
 // start address, leading and stride byte offsets (16-byte units), layout 1
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -155,12 +165,15 @@ inline EncodeTiled encoder() {
 }
 
 // A row-major tensor of `rank` (2 or 3) dims, innermost first, as a TMA map
-// with boxes `box` in the 128-byte swizzle (box[0] * element bytes == 128);
+// with boxes `box` in the 128-byte swizzle (box[0] * element bytes == 128)
+// or, where `swizzle` says so, another (CU_TENSOR_MAP_SWIZZLE_NONE: a box
+// lands as a dense row-major array, box[0] * element bytes a multiple of 16);
 // boxes reaching past the tensor fill with zeros. False if the driver
 // refuses it (alignment: the base and every row stride a multiple of 16
 // bytes).
 inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, int rank,
-                       const void* ptr, const cuuint64_t* dims, const cuuint32_t* box) {
+                       const void* ptr, const cuuint64_t* dims, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
     const EncodeTiled encode = encoder();
     if (encode == nullptr || rank < 2 || rank > 3) return false;
     cuuint64_t strides[2];
@@ -168,7 +181,7 @@ inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_byte
     for (int d = 0; d + 1 < rank; ++d) strides[d] = stride *= dims[d];
     const cuuint32_t elem[3] = {1, 1, 1};
     return encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), dims, strides,
-                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -24,9 +24,11 @@ from repro_torch.core.quantization import quantize_symmetric
 
 from . import ref
 from .mttkrp import (
+    _layout_of,
     mttkrp_fused,
     mttkrp_fused_torch,
     mttkrp_psram_fused,
+    mttkrp_psram_strided,
     mttkrp_psram_torch,
 )
 from .flash_attention import flash_attention, flash_attention_torch
@@ -142,10 +144,16 @@ def mttkrp_psram_op(
     matricized-KR variant: int8 operands, KR tiles from quantized factor
     rows, ADC transfer epilogue per output tile. x is (I, J, K). The KR
     factors are the stored operand (quantization cached on identity), the
-    unfolding is drive-quantized per call."""
+    unfolding is drive-quantized per call: on the card, where ``x`` is an
+    unfolding TMA reads in place (every mode of a contiguous tensor, as
+    ``HopperBackend`` permutes it), by the kernel as it stages each tile
+    (``mttkrp_psram_strided``, the same codes and scales); elsewhere
+    eagerly, before the kernel."""
     low = resolve_lowering(lowering, x, b, c)
     require_cuda(low, x)
     qb, sb, qc, sc = _stored((b, c), "mttkrp_bc", _store_mttkrp_factors)
+    if low == "cuda" and _layout_of(x) is not None:
+        return mttkrp_psram_strided(x, qb, sb, qc, sc, bi=bi, bk=bk, adc_bits=adc_bits)
     qx, sx = _quant_drive_rows(_unfold0(x))
     ops = (qx, sx, qb, sb, qc, sc)
     fn = _dispatch("mttkrp_psram", {

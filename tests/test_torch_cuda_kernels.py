@@ -208,6 +208,178 @@ def test_dense_psram_kernel_vs_plain(card, i, j, k, r, adc_bits):
     assert torch.equal(dm.mttkrp_psram_fused(*q, adc_bits=adc_bits), got)
 
 
+# ------------------------------------- kernel 4 reading the tensor in place
+
+# (I, J, K): every mode's unfolding TMA can read; Rw and the KR's K within
+# the reference's bi/bk preconditions. I = 384 and Rw = 64, 36, 20, 8 are
+# not multiples of the ring's 256 rows; mode 1's B = K is 36 and 48 in the
+# last two (B % 32 != 0: its stages stop at each a).
+STRIDED_SHAPES = [(256, 12, 64), (384, 20, 36), (100, 8, 48)]
+
+
+def _perm(mode):
+    return [mode] + [d for d in range(3) if d != mode]
+
+
+def _strided_case(card, shape, mode, seed, r=32):
+    """The permuted view of a seeded tensor with two rows of its mode-m
+    unfolding made hard: row 0 all zero (scale 1e-12/127) and row 1 of
+    half-integer values up to 127 (scale 1, every quotient a tie)."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal(shape).astype(np.float32), device=card)
+    idx = (slice(None),) * mode
+    x[idx + (0,)] = 0.0
+    halves = rng.integers(-127, 127, size=x[idx + (1,)].shape) + 0.5
+    x[idx + (1,)] = torch.tensor(halves.astype(np.float32), device=card)
+    first = [0, 0, 0]
+    first[mode] = 1
+    x[tuple(first)] = 127.0                      # the row's max: its scale is 1
+    others = [d for d in range(3) if d != mode]
+    b = torch.tensor(rng.uniform(size=(shape[others[0]], r)).astype(np.float32), device=card)
+    c = torch.tensor(rng.standard_normal((shape[others[1]], r)).astype(np.float32), device=card)
+    return x.permute(_perm(mode)), b, c
+
+
+@pytest.mark.parametrize("shape", STRIDED_SHAPES)
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_drive_codes_and_scales_equal_quantize_symmetric(card, shape, mode):
+    """The f32 front end's codes (its converter's device function, written
+    out) and the row-max pass's scales are quantize_symmetric's on the
+    unfolding, bit for bit: ties, an all-zero row, every mode's layout."""
+    view, _, _ = _strided_case(card, shape, mode, 3 * mode + shape[0])
+    q, s = quantize_symmetric(view.reshape(shape[mode], -1), axis=-1)
+    sx = dm.drive_scales(view)
+    assert torch.equal(sx, s)
+    assert float(sx[0]) == pytest.approx(1e-12 / 127, rel=1e-6) and float(sx[1]) == 1.0
+    assert torch.equal(dm.drive_codes(view, sx), q)
+
+
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_drive_codes_round_the_ieee_quotient(card, layout):
+    """The converter's quotient (reciprocal + two fma corrections, no
+    division) rounds as torch's IEEE ``x / s`` does: 16.7 M values against
+    row scales over 26 decades, a third of them within two ulps of a
+    half-integer quotient, any sign."""
+    rows, cols = 2048, 8192
+    gen = torch.Generator(device=card).manual_seed(17)
+    s = (10.0 ** (torch.rand((rows, 1), generator=gen, device=card, dtype=torch.float64)
+                  * 26 - 13)).float()
+    t = (torch.rand((rows, cols), generator=gen, device=card) * 2 - 1) * 127
+    ties = torch.randint(-127, 127, (rows, cols), generator=gen, device=card).float() + 0.5
+    pick = torch.rand((rows, cols), generator=gen, device=card) < 1 / 3
+    x = torch.where(pick, ties, t) * s
+    nudge = torch.randint(-2, 3, (rows, cols), generator=gen, device=card)
+    bits = x.view(torch.int32) + torch.where(pick, nudge, torch.zeros_like(nudge)).int()
+    x = bits.view(torch.float32)
+    x = torch.minimum(torch.maximum(x, -127 * s), 127 * s)
+    want = torch.round(x / s).clamp(-127, 127).to(torch.int8)
+    if layout == "rows":
+        view = x.view(rows, 1, cols)                       # (A, Rw, B) = (1, rows, cols)
+    else:
+        view = x.t().contiguous().view(cols, 1, rows).permute(2, 0, 1)   # rows contiguous
+    assert dm._layout_of(view)[2] == (cols if layout == "rows" else 1)
+    assert torch.equal(dm.drive_codes(view, s), want)
+
+
+@pytest.mark.parametrize("shape", STRIDED_SHAPES)
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("adc_bits", [16, 8, 1])
+def test_strided_route_vs_codes_front_end_and_plain(card, shape, mode, adc_bits):
+    """The strided route is bit-equal to the codes front end fed
+    quantize_mttkrp_operands(unfolding) wherever both walks cut the same
+    stages (A = 1, B = 1 or B % 32 = 0), within two ADC codes + rtol 2e-4 of
+    the plain version everywhere, repeatable, and counted by staging."""
+    view, b, c = _strided_case(card, shape, mode, 7 * mode + shape[1])
+    rw = shape[mode]
+    a, _, bb = dm._unfold_layout(tuple(view.shape), view.stride(), view.data_ptr())
+    front = "cols" if bb == 1 else "rows"
+    q = dm.quantize_mttkrp_operands(view.reshape(rw, -1).contiguous(), b, c)
+    launches, routes = dm.mttkrp_psram_strided.launches, dict(dm.mttkrp_psram_strided.routes)
+    passes = dm.drive_scales.launches
+    got = dm.mttkrp_psram_strided(view, *q[2:], adc_bits=adc_bits)
+    torch.cuda.synchronize()
+    assert dm.mttkrp_psram_strided.launches == launches + 1
+    assert dm.drive_scales.launches == passes + 1
+    assert dm.mttkrp_psram_strided.routes[front] == routes[front] + 1
+    assert torch.equal(dm.mttkrp_psram_strided(view, *q[2:], adc_bits=adc_bits), got)
+    ring = dict(dm.mttkrp_psram_fused.routes)
+    codes = dm.mttkrp_psram_fused(*q, adc_bits=adc_bits)
+    assert dm.mttkrp_psram_fused.routes["ring"] == ring["ring"] + 1
+    if a == 1 or bb == 1 or bb % 32 == 0:
+        assert torch.equal(got, codes)
+    want = dm.mttkrp_psram_strided_torch(view, *q[2:], adc_bits=adc_bits)
+    bi = min(128, rw)
+    fs = want.abs().reshape(rw // bi, -1).amax(dim=1).clamp_min(1e-30)
+    lsb = (2.0 * fs / 2 ** adc_bits).repeat_interleave(bi)[:, None]
+    assert ((got - want).abs() <= 2 * lsb + 2e-4 * want.abs()).all()
+    assert ((codes - want).abs() <= 2 * lsb + 2e-4 * want.abs()).all()
+
+
+@pytest.mark.parametrize("shape,mode", [(s, m) for s in STRIDED_SHAPES for m in range(3)
+                                        if m != 1 or s[2] % 32 == 0])
+def test_strided_ring_codes_show_at_24_bits(card, shape, mode):
+    """Where both walks cut the same stages, the strided route is bit-equal
+    to the codes front end at a 24-bit ADC too, where one code of the
+    ring's own staged tile moves the output: the codes the ring computes
+    (swizzled or transposed staging, per-lane scale pairs) are
+    quantize_symmetric's, not only those of the check kernel."""
+    view, b, c = _strided_case(card, shape, mode, 7 * mode + shape[1])
+    q = dm.quantize_mttkrp_operands(view.reshape(shape[mode], -1).contiguous(), b, c)
+    got = dm.mttkrp_psram_strided(view, *q[2:], adc_bits=24)
+    assert torch.equal(got, dm.mttkrp_psram_fused(*q, adc_bits=24))
+    assert torch.isfinite(got).all()
+
+
+def test_psram_op_routes_by_layout(card):
+    """``mttkrp_psram_op`` reads an unfolding in place (every mode, as the
+    hopper backend permutes it) and gives any other view, e.g. the
+    permutation (0, 2, 1), to the codes front end after its eager
+    quantization; both within two codes of the plain version."""
+    from repro_torch.kernels import ops as tops
+
+    gen = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn((128, 24, 64), generator=gen, device=card)
+    b = torch.randn((24, 16), generator=gen, device=card)
+    c = torch.randn((64, 16), generator=gen, device=card)
+    for view, strided in ((x, True), (x.permute(0, 2, 1), False)):
+        bb, cc = (b, c) if strided else (c, b)
+        strided_n = dm.mttkrp_psram_strided.launches
+        ring_n = dm.mttkrp_psram_fused.routes["ring"]
+        got = tops.mttkrp_psram_op(view, bb, cc)
+        assert dm.mttkrp_psram_strided.launches == strided_n + int(strided)
+        assert dm.mttkrp_psram_fused.routes["ring"] == ring_n + int(not strided)
+        q = dm.quantize_mttkrp_operands(view.reshape(128, -1).contiguous(), bb, cc)
+        want = dm.mttkrp_psram_torch(*q)
+        fs = want.abs().amax().clamp_min(1e-30)
+        assert ((got - want).abs() <= 2 * (2.0 * fs / 2 ** 16) + 2e-4 * want.abs()).all()
+
+
+@pytest.mark.parametrize("offset,jk,route", [(0, 200, "partials"), (1, 256, "partials"),
+                                             (16, 256, "ring")])
+def test_psram_codes_route_by_alignment(card, offset, jk, route):
+    """Codes whose rows TMA cannot take (J*K % 16 != 0, or a base off 16
+    bytes) stay on the partials kernel, and a forced ring raises; aligned
+    codes take the ring, and the partials kernel gives them its own bits
+    within two codes."""
+    i, k, r = 128, 8, 24
+    x0, b, c = _dense_operands(card, i, jk // k, k, r, jk + offset)
+    q = dm.quantize_mttkrp_operands(x0, b, c)
+    base = torch.empty(q[0].numel() + offset, dtype=torch.int8, device=card)
+    qx = base[offset:].view(i, jk).copy_(q[0])
+    routes = dict(dm.mttkrp_psram_fused.routes)
+    got = dm.mttkrp_psram_fused(qx, *q[1:])
+    assert dm.mttkrp_psram_fused.routes[route] == routes[route] + 1
+    want = dm.mttkrp_psram_torch(*q)
+    lsb = 2.0 * want.abs().amax() / 2 ** 16
+    assert ((got - want).abs() <= 2 * lsb + 2e-4 * want.abs()).all()
+    if route == "partials":
+        with pytest.raises(ValueError, match="ring route needs"):
+            dm._launch_codes(qx, *q[1:], bi=128, adc_bits=16, route="ring")
+    else:
+        other = dm._launch_codes(qx, *q[1:], bi=128, adc_bits=16, route="partials")
+        assert ((other - want).abs() <= 2 * lsb + 2e-4 * want.abs()).all()
+
+
 @pytest.mark.parametrize("b,bn,r,n_seg,sorted_ids", [
     (64, 256, 32, 40, True), (9, 100, 40, 17, False), (3, 5, 3, 9, False),
     (4, 600, 8, 500, False),    # a 64 KB shared-memory tile
