@@ -45,7 +45,11 @@ What it does, in order — any failure raises and the run exits non-zero:
    path's route): its row scales and its converter's codes equal to
    ``quantize_symmetric``'s over the whole tensor, its output bit-equal to
    the codes front end and repeatable; the call, its row-max pass and its
-   ring timed alone.
+   ring timed alone. Kernel 5 on each mode's stream at full size: its rows
+   route on the padded chain (``padded_chain``), and its chain route (the
+   chain formed in the kernel) bit-equal to that composition, repeatable
+   and, at mode 0, bit-equal to its plain version on the CPU, timed beside
+   the composition.
 4. ``main_path`` — three paths, each run with every launch counter set to 0
    just before it and read just after:
    a. ``cp_als(sparse=coo, rank=32, n_iter=3, backend="hopper")`` on the
@@ -59,9 +63,11 @@ What it does, in order — any failure raises and the run exits non-zero:
       ``hopper`` call a mode split by operation under ``torch.profiler``
       (``hopper_split``) and its own peak device memory;
    c. ``cp_als`` on the sparse tensor with ``backends.get("hopper",
-      compiled=False)`` (the blocked segment-sum stream, its partials folded
-      in order), against the exact run of (a); then the blocked path on
-      every mode twice: the same bits.
+      compiled=False)`` (the blocked segment-sum stream on kernel 5's chain
+      route, one launch a mode, its partials folded in order), against the
+      exact run of (a); then the blocked path on every mode twice: the same
+      bits; and one call a mode split by operation under ``torch.profiler``
+      with its own peak device memory (``legacy_split``).
    d. ``main_path_flash``: ``kernels.ops.flash_attention_op`` at its
       docstring's shape, a 32k-token causal prefill at granite-8b's
       attention widths (B=1, H=32, Hkv=8, D=128, bf16), and on layer 0's
@@ -296,22 +302,20 @@ def call_split(torch, fn, fold_launches: int, n: int = 3, attempts: int = 3) -> 
                          f"in each of {attempts} windows")
 
 
-def dense_call_split(torch, fn, n: int = 3, attempts: int = 3) -> dict:
-    """One whole call of ``fn`` (a dense ``hopper`` MTTKRP) split by
-    operation: each kernel's device time under the outermost ``aten::`` op
-    that launched it (``aten::reshape`` the unfolding copy, ``aten::abs``,
-    ``aten::amax``, ``aten::div``, ``aten::round``, ``aten::clamp``,
-    ``aten::to`` the quantization's passes) or, for the kernels launched
-    from ``csrc/mttkrp.cu``, under its own name; the card's busy time, and
-    the rest of the call's CUDA-event time (``idle_ms``), with the launches
-    of each, per call (device time the profiler tied to no op is
-    ``unattributed``). ``n`` calls under ``torch.profiler`` after a warm
-    call; a window in which some kernel's launches are not a multiple of
-    ``n`` lost records and is profiled again; the run fails where every
-    attempt did."""
+def op_split(torch, fn, own: str, n: int = 3, attempts: int = 3) -> dict:
+    """One whole call of ``fn`` split by operation: the device time of each
+    kernel whose name matches ``own`` (the repository's kernels) under that
+    name, and of every other kernel under the outermost ``aten::`` op that
+    launched it; the card's busy time, and the rest of the call's CUDA-event
+    time (``idle_ms``), with the launches of each, per call (device time the
+    profiler tied to no op is ``unattributed``). ``n`` calls under
+    ``torch.profiler`` after a warm call; a window in which some kernel's
+    launches are not a multiple of ``n`` lost records and is profiled again;
+    the run fails where every attempt did."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = torch.autograd.DeviceType.CUDA
+    mine = re.compile(rf"\b({own})\b")
     ms = time_ms(torch, fn, warmup=1, iters=3, reps=1)
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -320,13 +324,13 @@ def dense_call_split(torch, fn, n: int = 3, attempts: int = 3) -> dict:
             # kernel takes that place
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
-            with record_function("dense_calls"):
+            with record_function("split_calls"):
                 for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
         events = prof.events()
-        t0 = next(e for e in events if e.name == "dense_calls").time_range.start
-        events = [e for e in events if e.time_range.start >= t0 and e.name != "dense_calls"]
+        t0 = next(e for e in events if e.name == "split_calls").time_range.start
+        events = [e for e in events if e.time_range.start >= t0 and e.name != "split_calls"]
         device = [e for e in events if e.device_type == cuda]
         busy_us = sum(e.time_range.end - e.time_range.start for e in device)
         ops: dict = {}
@@ -337,9 +341,9 @@ def dense_call_split(torch, fn, n: int = 3, attempts: int = 3) -> dict:
             entry["launches"] += 1 / n
 
         for e in device:                     # the repository's own kernels
-            own = re.search(r"\b(mttkrp_\w+_kernel)\b", e.name)
-            if own:
-                add(own[1], e.time_range.end - e.time_range.start)
+            hit = mine.search(e.name)
+            if hit:
+                add(hit[1], e.time_range.end - e.time_range.start)
         for e in events:                     # PyTorch's, under the op that asked
             if e.device_type == cuda or not e.kernels:
                 continue
@@ -347,7 +351,7 @@ def dense_call_split(torch, fn, n: int = 3, attempts: int = 3) -> dict:
             while top.cpu_parent is not None and top.cpu_parent.name.startswith("aten::"):
                 top = top.cpu_parent
             for k in e.kernels:
-                if not re.search(r"\bmttkrp_\w+_kernel\b", k.name):
+                if not mine.search(k.name):
                     add(top.name, k.duration)
         counts = {}
         for e in device:
@@ -359,8 +363,45 @@ def dense_call_split(torch, fn, n: int = 3, attempts: int = 3) -> dict:
                 ops["unattributed"] = {"ms": rest, "launches": None}
             return {"ms": ms, "busy_ms": busy_ms, "idle_ms": ms - busy_ms,
                     "launches": len(device) / n, "ops": ops, "attempts": attempt}
-    raise AssertionError(f"the profiler lost records of a dense call in each of {attempts} "
+    raise AssertionError(f"the profiler lost records of a call in each of {attempts} "
                          f"windows: {ops}, {counts}")
+
+
+#: the parts of a blocked (``compiled=False``) sparse MTTKRP, by the kernels
+#: and ``aten::`` ops :func:`op_split` names
+LEGACY_PARTS = {
+    "chain": ("aten::index", "aten::to", "aten::_to_copy", "aten::mul"),  # gathers, casts, products
+    "kernel5": ("segment_sum_kernel", "segment_chain_kernel"),
+    "zeros": ("aten::zeros", "aten::zero_", "aten::fill_"),
+    "index_select": ("aten::index_select",),
+    "fold": ("ordered_fold_kernel",),
+}
+
+
+def legacy_split(torch, fn) -> dict:
+    """One ``stream_mttkrp_blocked`` call by operation (:func:`op_split`),
+    each op also counted in its part of :data:`LEGACY_PARTS` (``other``: the
+    rest), and the device memory the call alone takes beyond what was held
+    before it (:func:`call_bytes_peak`)."""
+    split = op_split(torch, fn, r"segment_\w+_kernel|ordered_\w+_kernel")
+    parts = {name: {"ms": 0.0, "launches": 0.0} for name in (*LEGACY_PARTS, "other")}
+    for op, v in split["ops"].items():
+        name = next((k for k, ops in LEGACY_PARTS.items() if op in ops), "other")
+        parts[name]["ms"] += v["ms"]
+        parts[name]["launches"] += v["launches"] or 0.0
+    return {**split, "parts": parts, "call_bytes_peak": call_bytes_peak(torch, fn)}
+
+
+def call_bytes_peak(torch, fn) -> int:
+    """The device memory one call of ``fn`` takes beyond what was held
+    before it: ``max_memory_allocated`` over the call less what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held
 
 
 def exact_sparse_split(torch, coo, factors) -> list:
@@ -1032,6 +1073,60 @@ def segment_case(torch, data, ids, n_seg, timed=False, cpu_bit_check=False):
     return case
 
 
+def chain_segment_case(torch, csf, factors, cfg, chain, cpu_bit_check=False):
+    """Kernel 5's chain route (the chain formed in the kernel) on one mode's
+    stream at full size: BIT-EQUAL to the rows route over the padded chain
+    ``chain`` (the composition the ``compiled=False`` path ran before it),
+    repeatable, and with ``cpu_bit_check`` bit-equal to its plain version on
+    the CPU; timed by CUDA events beside the composition (the eager chain
+    and the rows route), its plain version on the card and its bound: the
+    coordinates, values and ids read once, the non-target factors once, the
+    partials written once (the factor rows it gathers from L2,
+    ``l2_gather_bytes``, are a count: no L2 rate is sourced)."""
+    from repro_torch.kernels.segment_sum import (
+        blocked_chain_segment_sum, blocked_chain_segment_sum_torch, blocked_segment_sum,
+        padded_chain)
+    from repro_torch.sparse.stream import _chain_stream, _segment_blocks
+
+    mode = csf.mode_order[0]
+    local, n_seg = _segment_blocks(csf, cfg.rows)[:2]
+    coords, vals, fs = _chain_stream(csf)[0], csf.values, tuple(factors)
+    args = (coords, vals, local, fs, mode, n_seg)
+    got = blocked_chain_segment_sum(*args)
+    rows = blocked_segment_sum(chain, local, n_seg)
+    b, _, r = got.shape
+    k = len(fs) - 1
+    case = {
+        "mode": mode, "nnz": csf.nnz, "blocks": b, "rows": cfg.rows, "rank": r,
+        "n_seg": n_seg, "max_abs_err": float((got - rows).abs().max()),
+        "bit_equal_to_rows_route": bool(torch.equal(got, rows)),
+        "repeatable": bool(torch.equal(blocked_chain_segment_sum(*args), got)),
+        "finite": bool(torch.isfinite(got).all()),
+    }
+    del rows
+    if cpu_bit_check:
+        case["bit_equal_to_cpu_plain"] = bool(torch.equal(
+            got.cpu(), blocked_chain_segment_sum_torch(
+                coords.cpu(), vals.cpu(), local.cpu(), tuple(f.cpu() for f in fs), mode, n_seg)))
+    if not (case["bit_equal_to_rows_route"] and case["repeatable"] and case["finite"]
+            and case.get("bit_equal_to_cpu_plain", True)):
+        raise AssertionError(f"the chain route disagrees with the rows route's composition, "
+                             f"the CPU or itself: {case}")
+    case["ms"] = time_ms(torch, lambda: blocked_chain_segment_sum(*args))
+    case["composition_ms"] = time_ms(torch, lambda: blocked_segment_sum(
+        padded_chain(coords, vals, local, fs, mode), local, n_seg), iters=3, reps=1)
+    case["plain_ms"] = time_ms(torch, lambda: blocked_chain_segment_sum_torch(*args),
+                               iters=3, reps=1)
+    others = [f for d, f in enumerate(fs) if d != mode]
+    moved = nbytes(coords, vals, local, *others) + 4 * b * n_seg * r
+    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+    ops_ms = 1e3 * csf.nnz * r * (k + 1) / F32_FLOPS_PER_S
+    case["bound_ms"] = max(bytes_ms, ops_ms)
+    case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    case["l2_gather_bytes"] = csf.nnz * k * r * 4
+    return case
+
+
 def small_segment_cases(torch):
     """Unsorted ids, rank over one column tile, more slots than rows, a
     64 KB shared-memory tile; all bit-equal to the CPU plain version."""
@@ -1635,7 +1730,6 @@ def main(argv=None) -> int:
     from repro_torch import api, backends
     from repro_torch.backends import resolve_config
     from repro_torch.core.cp_als import cp_als, init_factors
-    from repro_torch.core.mttkrp import cp_chain_exact
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mttkrp import (
@@ -1643,10 +1737,10 @@ def main(argv=None) -> int:
         quantize_mttkrp_operands)
     from repro_torch.kernels.ordered_fold import ordered_fold
     from repro_torch.kernels.psram_matmul import psram_matmul
-    from repro_torch.kernels.segment_sum import blocked_segment_sum
+    from repro_torch.kernels.segment_sum import blocked_segment_sum, padded_chain
     from repro_torch.kernels.stream_mttkrp import stream_mttkrp_fused
     from repro_torch.sparse import csf_for_mode, powerlaw_coo
-    from repro_torch.sparse.stream import _segment_blocks
+    from repro_torch.sparse.stream import _chain_stream, _segment_blocks
 
     kernel_fns = {"stream_mttkrp_fused": stream_mttkrp_fused, "psram_matmul": psram_matmul,
                   "mttkrp_fused": mttkrp_fused, "mttkrp_psram_fused": mttkrp_psram_fused,
@@ -1662,7 +1756,7 @@ def main(argv=None) -> int:
             fn.routes = {route: 0 for route in fn.routes}
 
     routed = (psram_matmul, stream_mttkrp_fused, ordered_fold, mttkrp_psram_fused,
-              mttkrp_psram_strided)
+              mttkrp_psram_strided, blocked_segment_sum)
 
     def read_counts():
         torch.cuda.synchronize()
@@ -1772,15 +1866,19 @@ def main(argv=None) -> int:
         del q
     d_small, p_small = small_dense_cases(torch)
     s_small = small_strided_cases(torch)
-    seg_main, seg_host_s = [], []
+    seg_main, chain_main, seg_host_s = [], [], []
     for mode in range(3):
         t0 = time.perf_counter()
-        ip, vp, local, n_seg = _segment_blocks(csfs[mode], cfg.rows)[:4]
+        local, n_seg = _segment_blocks(csfs[mode], cfg.rows)[:2]
+        coords = _chain_stream(csfs[mode])[0]
         seg_host_s.append(time.perf_counter() - t0)
-        chain = cp_chain_exact(ip, vp, tuple(init), mode)         # (B, rows, R)
+        # the rows route's input: the exact chain over the padded stream
+        chain = padded_chain(coords, csfs[mode].values, local, tuple(init), mode)
         # mode 0 (the longest fibers) is also held bit for bit at full size
         seg_main.append(segment_case(torch, chain, local, n_seg, timed=True,
                                      cpu_bit_check=mode == 0))
+        chain_main.append(chain_segment_case(torch, csfs[mode], init, cfg, chain,
+                                             cpu_bit_check=mode == 0))
         del chain
     seg_small = small_segment_cases(torch)
     # the ordered fold: the exact-fit MTTKRP of a hopper sweep (the last
@@ -1805,7 +1903,7 @@ def main(argv=None) -> int:
         "dense_main": d_main, "dense_small": d_small,
         "dense_psram_main": p_main, "dense_psram_small": p_small,
         "dense_strided_main": s_main, "dense_strided_small": s_small,
-        "segment_main": seg_main, "segment_small": seg_small,
+        "segment_main": seg_main, "segment_small": seg_small, "segment_chain_main": chain_main,
         "segment_host_s": seg_host_s,
         "flash_main": f_main, "flash_small": f_small,
     }
@@ -1919,13 +2017,8 @@ def main(argv=None) -> int:
     for m in range(3):
         def call(m=m):
             return api.mttkrp(xd, fd, m, backend="hopper", config=cfg)
-        hopper_split.append(dense_call_split(torch, call))
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        call()
-        torch.cuda.synchronize()
-        hopper_peak.append(torch.cuda.max_memory_allocated() - held)
+        hopper_split.append(op_split(torch, call, r"mttkrp_\w+_kernel"))
+        hopper_peak.append(call_bytes_peak(torch, call))
     dense_path = {
         "phase": "main_path_dense", "shape": list(DENSE_SHAPE), "rank": RANK,
         "rel_err_hopper": dense_rel, "rel_err_hopper_legacy": legacy_rel,
@@ -1954,28 +2047,35 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     leg_s = time.perf_counter() - t0
     leg_launches = read_counts()
+    leg_peak = torch.cuda.max_memory_allocated()
     # the blocked path folds its partials in order: the same bits twice
     from repro_torch.sparse.stream import stream_mttkrp_blocked
 
     leg_repeatable = all(
         torch.equal(stream_mttkrp_blocked(c, leg.factors, cfg),
                     stream_mttkrp_blocked(c, leg.factors, cfg)) for c in csfs)
+    # one call a mode by operation, and its own peak memory
+    leg_split = [legacy_split(torch, lambda c=c: stream_mttkrp_blocked(c, leg.factors, cfg))
+                 for c in csfs]
     blocks = [_segment_blocks(c, cfg.rows) for c in csfs]
     legacy_path = {
         "phase": "main_path_legacy", "sweeps": SWEEPS, "rank": RANK,
         "fit_hopper_legacy": leg.fit, "fit_exact": exact.fit, "iters": leg.iters,
         "cp_als_s": leg_s, "launches": leg_launches, "blocked_repeatable": leg_repeatable,
-        "n_seg": [bl[3] for bl in blocks],
-        "partials_bytes": [bl[2].shape[0] * bl[3] * RANK * 4 for bl in blocks],
-        "chain_bytes": [bl[2].numel() * RANK * 4 for bl in blocks],
-        "device_bytes_peak": torch.cuda.max_memory_allocated(),
+        "n_seg": [bl[1] for bl in blocks],
+        "partials_bytes": [bl[0].shape[0] * bl[1] * RANK * 4 for bl in blocks],
+        "device_bytes_peak": leg_peak,
+        "legacy_split": leg_split,
+        "call_bytes_peak": [sp["call_bytes_peak"] for sp in leg_split],
     }
     report["main_path_legacy"] = legacy_path
     emit(legacy_path)
     if not math.isfinite(leg.fit) or abs(leg.fit - exact.fit) >= 1e-4:
         raise AssertionError(f"legacy CP-ALS strays from exact: {legacy_path}")
-    if leg_launches["blocked_segment_sum"] < 3 * SWEEPS or leg.iters != SWEEPS:
-        raise AssertionError(f"the legacy path did not launch the segment-sum kernel: {legacy_path}")
+    if leg_launches["blocked_segment_sum_chain"] != 3 * SWEEPS \
+            or leg_launches["blocked_segment_sum_rows"] != 0 or leg.iters != SWEEPS:
+        raise AssertionError(f"the legacy path did not launch the segment sum's chain route "
+                             f"once a mode: {legacy_path}")
     if leg_launches["ordered_fold_fold"] < 3 * SWEEPS or not leg_repeatable:
         raise AssertionError(f"the legacy path's partials were not folded in order, or not "
                              f"repeatably: {legacy_path}")
@@ -2167,7 +2267,7 @@ def main(argv=None) -> int:
             torch, lambda: [quantize_stream_factors(fs, mode) for mode in range(3)]),
         "pinv_3_modes": time_ms(
             torch, lambda: [torch.linalg.pinv(gram) for _ in range(3)]),
-        # one mode of a legacy sweep: exact chain + kernel 5 + scatter
+        # one mode of a legacy sweep: kernel 5's chain route + the partials' ordered fold
         "legacy_mttkrp_per_mode": [time_ms(
             torch, lambda m=m: stream_mttkrp_blocked(csfs[m], fs, cfg), iters=3, reps=1)
             for m in range(3)],
@@ -2331,12 +2431,40 @@ def main(argv=None) -> int:
                                                   for c in p_main + p_small)},
             },
         },
-        row("blocked_segment_sum", "src/repro_torch/kernels/csrc/segment_sum.cu",
-            "src/repro/kernels/segment_sum.py:44", seg_main, seg_small,
-            "bit-equal to the row-ordered CPU plain version (small cases, mode 0 "
-            "at full size); against the card's atomic plain version within "
-            "2 (bn-1) 2^-24 of each slot's summed magnitudes",
-            max_err_over_max=max(c["max_err_over_max"] for c in seg_main + seg_small)),
+        {
+            "name": "blocked_segment_sum", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_sum.cu (segment_chain_kernel: the "
+                      "chain route, the compiled=False sparse path; segment_sum_kernel: the "
+                      "rows route, given the chain rows)",
+            "replaces": "src/repro/kernels/segment_sum.py:44",
+            "launches": total("blocked_segment_sum"),
+            "max_abs_err": max(c["max_abs_err"] for c in chain_main + seg_main + seg_small),
+            "ms": mean("ms", chain_main), "plain_ms": mean("plain_ms", chain_main),
+            "bound_ms": mean("bound_ms", chain_main), "bound_by": chain_main[0]["bound_by"],
+            "library_ms": None,
+            "library": "none for the chain route (no one call gathers, chains and sums); "
+                       "the rows route's index_add_ in routes.rows",
+            "tolerance": "chain route: bit-equal to the rows route over the padded chain (every "
+                         "mode at full size) and to the CPU plain version (mode 0), repeatable; "
+                         "rows route: bit-equal to the row-ordered CPU plain version (small "
+                         "cases, mode 0 at full size), against the card's atomic plain version "
+                         "within 2 (bn-1) 2^-24 of each slot's summed magnitudes",
+            "per_mode_ms": [c["ms"] for c in chain_main],
+            "routes": {
+                "chain": {"launches": total("blocked_segment_sum_chain"),
+                          "ms": mean("ms", chain_main), "bound_ms": mean("bound_ms", chain_main),
+                          "per_mode_ms": [c["ms"] for c in chain_main],
+                          "composition_ms": [c["composition_ms"] for c in chain_main]},
+                "rows": {"launches": total("blocked_segment_sum_rows"),
+                         "ms": mean("ms", seg_main), "plain_ms": mean("plain_ms", seg_main),
+                         "bound_ms": mean("bound_ms", seg_main),
+                         "bound_by": seg_main[0]["bound_by"],
+                         "library_ms": mean("library_ms", seg_main),
+                         "library": "index_add_",
+                         "max_err_over_max": max(c["max_err_over_max"]
+                                                 for c in seg_main + seg_small)},
+            },
+        },
         {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
 // mbarriers, TMA loads, the warpgroup MMA (wgmma) descriptor, fences and
-// register pins, and the host-side encoding of TMA tensor maps. Included by
-// flash_attention.cu, mttkrp.cu and psram_matmul.cu; kernels/_build.py
+// register pins, the host-side encoding of TMA tensor maps, cp.async copies,
+// the opt-in to 227 KB of dynamic shared memory, and the factor operand of
+// the kernels that form a sparse stream's chain. Included by
+// every .cu of this directory but stream_mttkrp.cu; kernels/_build.py
 // hashes this header into every library name, so editing it rebuilds them.
 #pragma once
 
@@ -15,8 +17,68 @@
 
 namespace hopper {
 
+// The most modes a sparse stream may have where a kernel forms its exact
+// chain (the ordered fold's chain route, the blocked segment sum's chain
+// route), and those kernels' factor operand: the stream's non-target
+// factors (I_d, R) f32 row-major, in mode order, passed by value in the
+// kernel's parameters.
+constexpr int CHAIN_MAX_MODES = 8;
+
+struct ChainFactors {
+    const float* f[CHAIN_MAX_MODES - 1];
+};
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous copies from device into shared memory (cp.async): 16 bytes
+// through L2 only (cp_async16) or through L1 too (cp_async16_ca, for rows
+// a CTA may gather again), 4 bytes through L1; a thread's copies are grouped
+// by commit_group, and wait_group<N> waits until at most N of its groups are
+// in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void commit_group() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_group() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The opt-in dynamic shared memory of one CTA on sm_90 (227 KB).
+constexpr int MAX_DYNAMIC_SMEM = 232448;
+
+// Lets Kernel launch with up to MAX_DYNAMIC_SMEM bytes of dynamic shared
+// memory: once per kernel instance and device, since the attribute holds for
+// every later launch there.
+template <auto Kernel>
+cudaError_t opt_in_max_smem() {
+    constexpr int MAX_DEVICES = 64;
+    static bool done[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MAX_DYNAMIC_SMEM);
+    if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+    return err;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {

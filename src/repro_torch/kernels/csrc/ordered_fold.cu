@@ -83,9 +83,9 @@ namespace {
 constexpr int THREADS = 128;          // fold route: 4 warps, all copy, warp 0 folds
 constexpr int STAGES = 6;             // fold route: ring depth; STAGES - 1 stages in flight
 constexpr int STAGE_FLOATS = 2048;    // fold route: 8 KB a stage (whole rows: at least one)
-constexpr int MAX_SMEM = 232448;      // opt-in dynamic shared memory of one CTA (227 KB)
+constexpr int MAX_SMEM = hopper::MAX_DYNAMIC_SMEM;   // opt-in dynamic shared memory of a CTA
 
-constexpr int MAX_MODES = 8;          // chain route: modes of the stream (up to 7 non-target)
+constexpr int MAX_MODES = hopper::CHAIN_MAX_MODES;   // chain route: modes of the stream
 constexpr int DEFAULT_PRODUCERS = 2;  // chain route: producer warps a CTA ...
 constexpr int LONG_PRODUCERS = 6;     // ... and where a run is LONG_RUN nonzeros or more
 constexpr long long LONG_RUN = 32768;
@@ -95,26 +95,12 @@ constexpr int META_SLOTS = 2 * AHEAD + 1;
 constexpr int MAX_NB = 32;            // nonzeros a batch (lane = nonzero for the metadata)
 constexpr int SLOT_BUDGET = 4096;     // default bytes of a batch's factor rows
 
+using hopper::commit_group;
+using hopper::cp_async16;
+using hopper::cp_async4;
+using hopper::opt_in_max_smem;
 using hopper::smem_u32;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void commit_group() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wait_group() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
+using hopper::wait_group;
 
 // ------------------------------------------------------------ route `fold`
 
@@ -199,9 +185,7 @@ size_t fold_smem_bytes(int R) {
 
 // ----------------------------------------------------------- route `chain`
 
-struct Factors {
-    const float* f[MAX_MODES - 1];   // the non-target factors (I_d, R) f32, in mode order
-};
+using Factors = hopper::ChainFactors;   // the non-target factors, in mode order
 
 __host__ __device__ constexpr int align16(long long bytes) {
     return static_cast<int>((bytes + 15) / 16 * 16);
@@ -566,22 +550,6 @@ ordered_chain_kernel(float* __restrict__ out, const int* __restrict__ coords,
             for (int v = 0; v < V; ++v) dst[c0 + v] = acc[v];
         }
     }
-}
-
-// Lets Kernel launch with up to MAX_SMEM bytes of dynamic shared memory:
-// once per kernel instance and device, since the attribute holds for every
-// later launch there.
-template <auto Kernel>
-cudaError_t opt_in_max_smem() {
-    constexpr int MAX_DEVICES = 64;
-    static bool done[MAX_DEVICES] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-    return err;
 }
 
 int template_rank(int R) { return (R == 16 || R == 32 || R == 64 || R == 128) ? R : 0; }

@@ -10,7 +10,8 @@ naming the op.
 Ported: :func:`psram_matmul_op`, :func:`mttkrp_op`, :func:`mttkrp_psram_op`,
 :func:`fused_stream_mttkrp_op`, :func:`blocked_segment_sum_op`,
 :func:`flash_attention_op` — every op of the reference's ``kernels/ops.py``
-that reaches a Pallas kernel.
+that reaches a Pallas kernel — and :func:`blocked_chain_segment_sum_op`, the
+blocked segment sum with the exact chain formed in its kernel.
 """
 from __future__ import annotations
 
@@ -33,7 +34,13 @@ from .mttkrp import (
 )
 from .flash_attention import flash_attention, flash_attention_torch
 from .psram_matmul import psram_matmul, psram_matmul_torch
-from .segment_sum import blocked_segment_sum, blocked_segment_sum_torch
+from .segment_sum import (
+    blocked_chain_segment_sum,
+    blocked_chain_segment_sum_torch,
+    blocked_segment_sum,
+    blocked_segment_sum_torch,
+    padded_chain,
+)
 
 
 def _dispatch(op: str, table: dict, lowering: str):
@@ -180,6 +187,34 @@ def blocked_segment_sum_op(
         "ref": ref.blocked_segment_sum_ref,
     }, low)
     return fn(data, seg_ids, n_seg)
+
+
+def blocked_chain_segment_sum_op(
+    coords: torch.Tensor, values: torch.Tensor, seg_ids: torch.Tensor, factors, mode: int,
+    n_seg: int, lowering: str = "auto",
+) -> torch.Tensor:
+    """Per-block segment sums of a sparse stream's exact chain: (B, n_seg, R).
+
+    ``coords (nnz, nmodes - 1)`` are the stream's non-target coordinates
+    (``kernels.ordered_fold.chain_coords``), ``values (nnz,)`` its values,
+    ``seg_ids (B, bn)`` the block-local output-row segment of each position
+    (``nnz <= B·bn``; positions past ``nnz`` add nothing); the chain is
+    ``cp_chain_exact``'s. On the card one launch forms and sums it
+    (kernels/segment_sum.py's chain route); ``"torch"`` and ``"ref"`` form
+    the padded chain and sum it with the plain version or the one-hot
+    oracle.
+    """
+    factors = tuple(factors)
+    low = resolve_lowering(lowering, coords, values, seg_ids, *factors)
+    require_cuda(low, values)
+    fn = _dispatch("blocked_chain_segment_sum", {
+        "cuda": lambda: blocked_chain_segment_sum(coords, values, seg_ids, factors, mode, n_seg),
+        "torch": lambda: blocked_chain_segment_sum_torch(coords, values, seg_ids, factors, mode,
+                                                         n_seg),
+        "ref": lambda: ref.blocked_segment_sum_ref(
+            padded_chain(coords, values, seg_ids, factors, mode), seg_ids, n_seg),
+    }, low)
+    return fn()
 
 
 def fused_stream_mttkrp_op(

@@ -18,8 +18,13 @@ Ported here: the host-side blocking (``_block_segments``,
 equal array-for-array to the reference's, which is what lets a kernel of
 the port be compared with the reference kernel on one layout — the exact
 eager :func:`stream_mttkrp` that CP-ALS's convergence metric needs, and
-:func:`stream_mttkrp_blocked`, the same schedule on the blocked segment-sum
-kernel (the ``compiled=False`` sparse path of the ``"hopper"`` backend).
+:func:`stream_mttkrp_blocked`, the same schedule on the blocked segment sum
+(the ``compiled=False`` sparse path of the ``"hopper"`` backend). Where the
+exact chain ``d_p`` is formed: on the card inside the kernels, never as a
+tensor (``stream_mttkrp``: the ordered fold's chain route;
+``stream_mttkrp_blocked``: the blocked segment sum's chain route); on the
+CPU by ``cp_chain_exact`` (``stream_mttkrp``: in steps of ~64Ki nonzeros;
+``stream_mttkrp_blocked``: over the padded stream, in the plain version).
 Still to come from the reference module: the schedule IR
 (``build_stream_program``), the quantized chain (``psram=True``), the
 compiled blocked-fold executor (``_stream_exec_compiled``,
@@ -176,10 +181,7 @@ def stream_mttkrp(
                       device=values.device)
     if values.is_cuda:            # one launch: a CTA per root fiber, d formed in the kernel
         coords, seg_ptr, seg_rows, longest, ranges = _chain_stream(csf)
-        for d, (low, high) in ranges.items():
-            if low < 0 or high >= factors[d].shape[0]:
-                raise IndexError(f"mode {d}'s coordinates span [{low}, {high}], outside "
-                                 f"factor {d}'s {factors[d].shape[0]} rows")
+        _check_ranges(ranges, factors)
         return ordered_chain_fold(out, coords, values, tuple(f.contiguous() for f in factors),
                                   mode, seg_ptr, seg_rows, longest_run=longest)
     rows = cfg.rows
@@ -217,39 +219,43 @@ def _chain_stream(csf: CSF):
     return result
 
 
+def _check_ranges(ranges: dict, factors: tuple) -> None:
+    """Raise ``IndexError`` where a mode's coordinate range (``_chain_stream``'s
+    ``{mode: (low, high)}``) reaches outside its factor's rows: the kernels
+    that gather factor rows read what they are given."""
+    for d, (low, high) in ranges.items():
+        if low < 0 or high >= factors[d].shape[0]:
+            raise IndexError(f"mode {d}'s coordinates span [{low}, {high}], outside "
+                             f"factor {d}'s {factors[d].shape[0]} rows")
+
+
 def _segment_blocks(csf: CSF, rows: int):
-    """``_block_segments`` with its arrays on the CSF's device, plus the
-    padded stream the exact chain runs over and the order the partials are
-    folded in: ``(ip, vp, local, n_seg, order, fold_rows, fold_runs)`` with
-    ``ip (B, rows, nmodes)`` coordinates (0 in the padding), ``vp (B, rows)``
-    values (0.0 in the padding), ``local (B, rows) int32``; ``order (P,)
-    int64`` the stable sort of the flattened ``(B*n_seg,)`` segment rows by
-    row, the slots of the sacrificial row ``out_rows`` (unused slots,
-    padding) dropped; ``fold_rows (P,) int64`` the rows in that order
+    """``_block_segments`` with its arrays on the CSF's device, plus the order
+    the partials are folded in: ``(local, n_seg, order, fold_rows,
+    fold_runs)`` with ``local (B, rows) int32`` the block-local segment ids
+    (the padding of the last block included); ``order (P,) int64`` the
+    stable sort of the flattened ``(B*n_seg,)`` segment rows by row, the
+    slots of the sacrificial row ``out_rows`` (unused slots, padding)
+    dropped; ``fold_rows (P,) int64`` the rows in that order
     (non-decreasing); ``fold_runs (out_rows + 1,) int64`` their
-    ``row_runs``. Stable: each row still receives its partials in
-    (block, segment) order, the order of the reference's
-    ``out.at[seg_rows].add``. Host numpy, cached on the CSF, like the layout
-    of the fused kernel: CP-ALS reuses it every sweep."""
+    ``row_runs``. Stable: each row still receives its partials in (block,
+    segment) order, the order of the reference's ``out.at[seg_rows].add``.
+    Host numpy, cached on the CSF, like the layout of the fused kernel:
+    CP-ALS reuses it every sweep. The stream itself is not padded here:
+    the blocked segment sum reads ``_chain_stream``'s coordinates and the
+    CSF's values."""
     key = ("_stream_segment_blocks", rows)
     cached = csf.__dict__.get(key)
     if cached is not None:
         return cached
     local, seg_rows, n_seg = _block_segments(csf, rows)
-    n_blocks = local.shape[0]
     out_rows = csf.shape[csf.mode_order[0]]
     flat = seg_rows.reshape(-1)
     order = np.argsort(flat, kind="stable")
     order = order[flat[order] != out_rows]
     fold_rows = flat[order]
-    idx = csf.expanded_indices_np()
-    padn = n_blocks * rows - idx.shape[0]
-    vals = csf.values.detach().cpu().numpy()
     dev = csf.device
     result = (
-        torch.as_tensor(np.pad(idx, ((0, padn), (0, 0))).reshape(n_blocks, rows, -1),
-                        device=dev),
-        torch.as_tensor(np.pad(vals, (0, padn)).reshape(n_blocks, rows), device=dev),
         torch.as_tensor(local, device=dev),
         n_seg,
         torch.as_tensor(order.astype(np.int64), device=dev),
@@ -267,29 +273,36 @@ def stream_mttkrp_blocked(
     config: PsramConfig | None = None,
     lowering: str = "auto",
 ) -> torch.Tensor:
-    """The same streaming schedule on the blocked segment-sum kernel:
-    (out_rows, R).
+    """The same streaming schedule on the blocked segment sum: (out_rows, R).
 
-    The exact chain ``x_p · ⊙ other-factor rows`` over the padded stream
-    (``(B, rows, R)``; padding rows are zero), one blocked segment sum per
-    block of ``rows`` nonzeros (kernels/segment_sum.py), then the
+    Per block of ``rows`` nonzeros of the sorted stream, the partial sums of
+    each output-row segment of the exact chain ``x_p · ⊙ other-factor
+    rows`` (``kernels.ops.blocked_chain_segment_sum_op``); then the
     ``(B, n_seg)`` partials are gathered into the cached stable order of
     their rows and folded into the output by ``kernels.ordered_fold``:
     O(segments) adds, no global scatter matrix, each row's partials added in
-    (block, segment) order. So the result is the same bits on the CPU and
-    on the card, and repeatable there. Combining partials reassociates the
-    float adds, so this path is allclose (~1e-5 relative), not bit-equal, to
-    :func:`stream_mttkrp` (and to the reference, whose blocked segment sum
-    is a matrix product).
+    (block, segment) order. On the card the chain is formed inside the
+    segment-sum kernel (its chain route, one launch a call): no
+    ``(B, rows, R)`` chain exists. On the CPU the plain version forms the
+    chain over the padded stream and sums it with ``index_add_``. Both add
+    each partial in row order from 0.0, so the result is the same bits on
+    the CPU and on the card, and repeatable there. Combining partials
+    reassociates the float adds, so this path is allclose (~1e-5 relative),
+    not bit-equal, to :func:`stream_mttkrp` (and to the reference, whose
+    blocked segment sum is a matrix product). A coordinate outside its
+    factor raises ``IndexError`` before anything runs.
     """
-    from repro_torch.kernels.ops import blocked_segment_sum_op
+    from repro_torch.kernels.ops import blocked_chain_segment_sum_op
 
     cfg = resolve_config(config)
     mode = csf.mode_order[0]
-    ip, vp, local, n_seg, order, fold_rows, fold_runs = _segment_blocks(csf, cfg.rows)
-    d = cp_chain_exact(ip, vp, tuple(factors), mode)        # (B, rows, R)
-    partials = blocked_segment_sum_op(d, local, n_seg, lowering=lowering)
-    rank = d.shape[-1]
-    out = torch.zeros((csf.shape[mode], rank), dtype=torch.float32, device=d.device)
+    factors = tuple(f.contiguous() for f in factors)
+    local, n_seg, order, fold_rows, fold_runs = _segment_blocks(csf, cfg.rows)
+    coords, *_, ranges = _chain_stream(csf)
+    _check_ranges(ranges, factors)
+    partials = blocked_chain_segment_sum_op(coords, csf.values, local, factors, mode, n_seg,
+                                            lowering=lowering)
+    rank = partials.shape[-1]
+    out = torch.zeros((csf.shape[mode], rank), dtype=torch.float32, device=partials.device)
     return ordered_fold(out, partials.reshape(-1, rank).index_select(0, order), fold_rows,
                         runs=fold_runs)

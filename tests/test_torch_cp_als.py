@@ -16,7 +16,8 @@ import importlib
 import jax
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.sparse import powerlaw_coo as j_powerlaw_coo
 from repro_torch import api, backends, convert

@@ -11,7 +11,8 @@ same comparisons at the main path's shapes and adds timings.
 """
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch.core.photonic_layer import program_weights, psram_linear
 from repro_torch.core.psram import PsramConfig
@@ -604,16 +605,116 @@ def test_blocked_stream_on_the_card_is_ordered(card, mode):
     csf = csf_for_mode(coo, mode)
     cfg = PsramConfig(rows=64)
     folds, sums = of.ordered_fold.launches, ss.blocked_segment_sum.launches
+    chains = ss.blocked_segment_sum.routes["chain"]
     got = stream_mttkrp_blocked(csf, fs, cfg)
     torch.cuda.synchronize()
     assert of.ordered_fold.launches == folds + 1
     assert ss.blocked_segment_sum.launches == sums + 1
+    assert ss.blocked_segment_sum.routes["chain"] == chains + 1     # the chain formed inside
     cpu = lambda t: t.cpu()
     csf_cpu = csf_for_mode(COO(indices=cpu(coo.indices), values=cpu(coo.values),
                                shape=coo.shape), mode)
     want = stream_mttkrp_blocked(csf_cpu, tuple(map(cpu, fs)), cfg)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(stream_mttkrp_blocked(csf, fs, cfg), got)
+
+
+# ------------------------------------------- kernel 5's chain route
+
+
+CHAIN_SEGMENT_CASES = [  # (nmodes, rank, nnz, bn, ids, zero values)
+    (3, 32, 10037, 256, "runs", False),      # a ragged tail: nnz % bn != 0
+    (3, 32, 4096, 256, "one", False),        # one segment a block
+    (3, 32, 4101, 64, "each", False),        # every row its own segment
+    (3, 7, 5000, 100, "runs", False),        # lanes 7..31 idle
+    (3, 40, 5000, 128, "runs", False),       # two column tiles, the second ragged
+    (3, 64, 5000, 256, "runs", False),
+    (3, 128, 3000, 256, "runs", False),
+    (4, 32, 6000, 256, "runs", False),
+    (5, 32, 6000, 64, "runs", False),
+    (3, 32, 6000, 256, "runs", True),        # zero values: +-0.0 chain rows
+    (3, 32, 6000, 128, "random", False),     # unsorted ids: slots stored, then reloaded
+]
+
+
+def _chain_segment_operands(card, nmodes, rank, nnz, bn, ids, zeros):
+    """A stream of ``nnz`` nonzeros in blocks of ``bn`` (the last one padded),
+    its non-target coordinates, values and block-local ids by ``ids``:
+    ``runs`` (sorted, random run lengths), ``one`` (one segment a block),
+    ``each`` (a segment a row) or ``random`` (unsorted); two slots beyond
+    the most a block uses."""
+    rng = np.random.default_rng(nnz + rank + nmodes)
+    sizes = (50, 40, 30, 20, 10)[:nmodes]
+    mode = nmodes - 2
+    b = -(-nnz // bn)
+    coords = np.stack([rng.integers(0, sizes[d], nnz) for d in range(nmodes) if d != mode], 1)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    if zeros:
+        vals[rng.random(nnz) < 0.3] = 0.0
+    if ids == "runs":
+        local = np.cumsum(rng.random((b, bn)) < 0.05, axis=1)
+    elif ids == "one":
+        local = np.zeros((b, bn))
+    elif ids == "each":
+        local = np.broadcast_to(np.arange(bn), (b, bn))
+    else:
+        local = rng.integers(0, 9, (b, bn))
+    n_seg = int(local.max()) + 3
+    fs = tuple(torch.tensor(rng.standard_normal((s, rank)).astype(np.float32), device=card)
+               for s in sizes)
+    return (torch.tensor(coords.astype(np.int32), device=card), torch.tensor(vals, device=card),
+            torch.tensor(np.ascontiguousarray(local, dtype=np.int32), device=card), fs, mode,
+            n_seg)
+
+
+@pytest.mark.parametrize("nmodes,rank,nnz,bn,ids,zeros", CHAIN_SEGMENT_CASES)
+def test_chain_segment_sum_bit_equal_to_the_rows_route(card, nmodes, rank, nnz, bn, ids, zeros):
+    """The chain route, which forms the chain rows in the kernel: BIT-EQUAL to
+    the rows route over the padded chain (the composition it replaces) and to
+    its plain version on the CPU, the same bits on a second launch, one
+    launch counted on the chain route."""
+    coords, vals, local, fs, mode, n_seg = _chain_segment_operands(card, nmodes, rank, nnz, bn,
+                                                                   ids, zeros)
+    before = dict(ss.blocked_segment_sum.routes)
+    got = ss.blocked_chain_segment_sum(coords, vals, local, fs, mode, n_seg)
+    torch.cuda.synchronize()
+    assert ss.blocked_segment_sum.routes == {"rows": before["rows"], "chain": before["chain"] + 1}
+    assert got.shape == (local.shape[0], n_seg, rank)
+    rows = ss.blocked_segment_sum(ss.padded_chain(coords, vals, local, fs, mode), local, n_seg)
+    assert torch.equal(got, rows)
+    cpu = lambda t: t.cpu()
+    want = ss.blocked_chain_segment_sum_torch(cpu(coords), cpu(vals), cpu(local),
+                                              tuple(map(cpu, fs)), mode, n_seg)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(ss.blocked_chain_segment_sum(coords, vals, local, fs, mode, n_seg), got)
+
+
+def test_chain_segment_sum_refusals(card):
+    """CPU tensors and int64 coordinates are refused before any launch."""
+    coords, vals, local, fs, mode, n_seg = _chain_segment_operands(card, 3, 32, 1000, 64,
+                                                                   "runs", False)
+    before = dict(ss.blocked_segment_sum.routes)
+    cpu = lambda t: t.cpu()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ss.blocked_chain_segment_sum(cpu(coords), cpu(vals), cpu(local), tuple(map(cpu, fs)),
+                                     mode, n_seg)
+    with pytest.raises(TypeError, match="int32"):
+        ss.blocked_chain_segment_sum(coords.long(), vals, local, fs, mode, n_seg)
+    assert ss.blocked_segment_sum.routes == before
+
+
+def test_blocked_stream_on_the_card_checks_coordinates(card):
+    """A coordinate outside its factor raises IndexError on the card before
+    any launch: the chain route reads what it is given."""
+    from repro_torch.sparse.stream import stream_mttkrp_blocked
+
+    coo = powerlaw_coo(4, (30, 20, 10), nnz=2000, rank=4, alpha=1.2, device=card)
+    fs = tuple(torch.randn((s, 8), device=card) for s in coo.shape)
+    short = fs[:2] + (fs[2][:5],)                       # mode 2's factor: 5 of 10 rows
+    before = dict(ss.blocked_segment_sum.routes)
+    with pytest.raises(IndexError, match="mode 2"):
+        stream_mttkrp_blocked(csf_for_mode(coo, 0), short, PsramConfig(rows=64))
+    assert ss.blocked_segment_sum.routes == before
 
 
 # --------------------------------------------------------- the ordered fold

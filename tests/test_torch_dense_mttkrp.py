@@ -19,7 +19,8 @@ reference ``"pallas"`` backend, fused and ``compiled=False``.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro import backends as jbackends
 from repro.kernels import mttkrp as jk

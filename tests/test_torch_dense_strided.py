@@ -17,7 +17,8 @@ import itertools
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops
 from repro_torch import convert

@@ -13,7 +13,8 @@ the CUDA kernel is held against on the card). Tolerances:
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash

@@ -7,6 +7,8 @@ import sys
 
 import pytest
 
+torch = pytest.importorskip("torch")
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 PROBE = r"""

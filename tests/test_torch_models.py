@@ -22,7 +22,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.core import photonic_layer as jpl
 from repro.models import layers as jlayers

@@ -11,7 +11,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.core.quantization import quantize_symmetric as jq_quantize
 from repro.kernels import ref as jref

@@ -13,7 +13,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.core import quantization as jq
 from repro_torch.core import quantization as tq

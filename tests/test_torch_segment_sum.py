@@ -22,7 +22,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro import backends as jbackends
 from repro.kernels import ref as jref
@@ -164,10 +165,15 @@ def test_blocked_fold_bit_equal_to_the_index_add_order(mode, rows, reference_ten
     tfs = tuple(convert.factors(fs, device="cpu"))
     cfg = PsramConfig(rows=rows)
     from repro_torch.core.mttkrp import cp_chain_exact
-    from repro_torch.sparse.stream import _block_segments, _segment_blocks
+    from repro_torch.sparse.stream import _block_segments
 
-    ip, vp, local, n_seg = _segment_blocks(tcsf, rows)[:4]
-    seg_rows = torch.as_tensor(_block_segments(tcsf, rows)[1].reshape(-1))
+    local, seg_rows, n_seg = _block_segments(tcsf, rows)
+    local, seg_rows = torch.as_tensor(local), torch.as_tensor(seg_rows.reshape(-1))
+    # the padded stream the earlier path formed the chain over
+    idx, vals = tcsf.expanded_indices_np(), tcsf.values.numpy()
+    pad = local.numel() - len(vals)
+    ip = torch.as_tensor(np.pad(idx, ((0, pad), (0, 0))).reshape(*local.shape, -1))
+    vp = torch.as_tensor(np.pad(vals, (0, pad)).reshape(local.shape))
     partials = tk.blocked_segment_sum_torch(cp_chain_exact(ip, vp, tfs, mode), local, n_seg)
     out_rows = coo.shape[mode]
     want = torch.zeros((out_rows + 1, 6)).index_add_(0, seg_rows, partials.reshape(-1, 6))
@@ -186,7 +192,7 @@ def test_blocked_fold_order_is_stable_and_drops_only_sacrificial_slots(rows, ref
 
     cached = _segment_blocks(tcsf, rows)
     assert _segment_blocks(tcsf, rows) is cached                 # cached on the CSF
-    order, fold_rows, fold_runs = (t.numpy() for t in cached[4:])
+    order, fold_rows, fold_runs = (t.numpy() for t in cached[2:])
     flat = _block_segments(tcsf, rows)[1].reshape(-1)
     out_rows = coo.shape[1]
     # exactly the slots of real rows, each once

@@ -16,7 +16,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.models.registry import get_config as jget_config
 from repro.models.registry import get_module as jget_module

@@ -12,7 +12,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.core import mttkrp as jm
 from repro.sparse import formats as jf

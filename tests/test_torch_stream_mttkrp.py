@@ -15,7 +15,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.core.mttkrp import mttkrp_sparse as j_mttkrp_sparse
 from repro.core.psram import PsramConfig as JPsramConfig
