@@ -25,7 +25,8 @@ What it does, in order — any failure raises and the run exits non-zero:
    routes: the wgmma route at the MLP projection and at the served
    prefill's four projection shapes (M = 8192), each timed in turns with
    the tile route, and at one 128-deep stage (its fill and epilogue alone);
-   the tile route at a ragged 1000-column head; the decode route at
+   the tile route at a ragged 1000-column head (its K split over a cluster,
+   every split of 1 to 8 bit-equal and timed); the decode route at
    granite-8b's four decode shapes (8 rows), timed against the tile route in
    turns, plus both at M = 1 and 16 (the ends of the rows ``M_DECODE``
    sends to the decode route; ``--tuning`` sweeps M over 1..64 and times
@@ -64,10 +65,15 @@ What it does, in order — any failure raises and the run exits non-zero:
       (``hopper_split``) and its own peak device memory;
    c. ``cp_als`` on the sparse tensor with ``backends.get("hopper",
       compiled=False)`` (the blocked segment-sum stream on kernel 5's chain
-      route, one launch a mode, its partials folded in order), against the
-      exact run of (a); then the blocked path on every mode twice: the same
-      bits; and one call a mode split by operation under ``torch.profiler``
-      with its own peak device memory (``legacy_split``).
+      route, one launch a mode, its partials read in place by the ordered
+      fold's fold route in their cached order), against the exact run of
+      (a); then the blocked path on every mode twice: the same bits; one
+      call a mode split by operation under ``torch.profiler`` with its own
+      peak device memory (``legacy_split``: one fold launch, no gather of
+      the partials); and the fold launch alone at each mode's shapes, the
+      call's result bit-equal to the plain version on the CPU and to the
+      route without ``order`` on the partials gathered first
+      (``fold_route``).
    d. ``main_path_flash``: ``kernels.ops.flash_attention_op`` at its
       docstring's shape, a 32k-token causal prefill at granite-8b's
       attention widths (B=1, H=32, Hkv=8, D=128, bf16), and on layer 0's
@@ -404,6 +410,63 @@ def call_bytes_peak(torch, fn) -> int:
     return torch.cuda.max_memory_allocated() - held
 
 
+def legacy_fold_case(torch, csf, factors, cfg) -> dict:
+    """The fold route at one mode of the main path, on the partials a
+    ``stream_mttkrp_blocked`` call folds: the call's result bit-equal to its
+    plain version on the CPU (``index_select`` + ``index_add_``, which adds
+    in stream order) and to the route without ``order`` on the partials
+    gathered first (``index_select``); the launch alone (the partials as
+    kernel 5 left them, warm in L2) at the default ``FOLD_LONG_RUN`` and at
+    other thresholds, as device times of calls in a CUDA graph (``graph_ms``;
+    ``eager_ms``: back-to-back eager calls, which the host paces); its byte
+    bound (the P partial rows it reads, the order and the runs read once,
+    ``out`` read and written once); its plain version (on the card
+    ``index_add_`` is atomic) and the library call on the gathered rows
+    (``index_add_``, the gather not counted); and the runs' lengths."""
+    from repro_torch.kernels import ordered_fold as of
+    from repro_torch.kernels.ops import blocked_chain_segment_sum_op
+    from repro_torch.sparse.stream import _chain_stream, _segment_blocks, stream_mttkrp_blocked
+
+    mode = csf.mode_order[0]
+    fs = tuple(f.contiguous() for f in factors)
+    local, n_seg, order, fold_rows, fold_runs, _ = _segment_blocks(csf, cfg.rows)
+    coords = _chain_stream(csf)[0]
+    partials = blocked_chain_segment_sum_op(coords, csf.values, local, fs, mode, n_seg)
+    rows, rank = csf.shape[mode], partials.shape[-1]
+    d = partials.reshape(-1, rank)
+    zeros = lambda: torch.zeros((rows, rank), device="cuda")
+    got = stream_mttkrp_blocked(csf, fs, cfg)
+    gathered = d.index_select(0, order)
+    lengths = fold_runs.diff()
+    case = {
+        "mode": mode, "rows": rows, "partial_slots": d.shape[0], "folded": order.numel(),
+        "nonempty_rows": int((lengths > 0).sum()), "longest_run": int(lengths.max()),
+        "long_runs": int((lengths > of.FOLD_LONG_RUN).sum()),
+        "bit_equal_to_cpu": bool(torch.equal(got.cpu(), of.ordered_fold_torch(
+            zeros().cpu(), d.cpu(), fold_rows.cpu(), order=order.cpu()))),
+        "bit_equal_to_gathered": bool(torch.equal(
+            got, of.ordered_fold(zeros(), gathered, fold_rows, runs=fold_runs))),
+    }
+    buf = zeros()
+    runs_host = fold_runs.cpu()
+    long_at = {t: torch.as_tensor(of.find_long_runs(runs_host, t), device="cuda")
+               for t in (of.FOLD_LONG_RUN, 16, 256, 1024, 1 << 40)}
+    launch = lambda t: (lambda: of._fold_runs(buf, d, fold_runs, None, 0, rows, 0, order=order,
+                                             long_runs=long_at[t], long_run=t))
+    case["ms"] = graph_ms(torch, [launch(of.FOLD_LONG_RUN)], reps=4)
+    case["long_run_ms"] = {t: graph_ms(torch, [launch(t)], reps=4) for t in (16, 256, 1024, 1 << 40)}
+    case["eager_ms"] = time_ms(torch, launch(of.FOLD_LONG_RUN))
+    # the plain version's body, ``index_select`` + ``index_add_`` (its check
+    # of the order's range reads the device, which a graph capture refuses)
+    case["plain_ms"] = graph_ms(torch, [lambda: buf.index_add_(0, fold_rows,
+                                                               d.index_select(0, order))], reps=4)
+    case["library_ms"] = graph_ms(torch, [lambda: buf.index_add_(0, fold_rows, gathered)], reps=4)
+    moved = nbytes(gathered, order, fold_runs) + 2 * 4 * rows * rank
+    case["bound_ms"] = 1e3 * moved / HBM_BYTES_PER_S
+    case["bound_by"] = "bytes"
+    return case
+
+
 def exact_sparse_split(torch, coo, factors) -> list:
     """The ``exact`` backend's sparse MTTKRP (``mttkrp_sparse`` on the COO)
     on every mode: the call's time (CUDA events; the COO's sort is kept
@@ -445,12 +508,17 @@ def nbytes(*tensors) -> int:
 def matmul_case(torch, m, k, n, seed, adc_bits=16, timed=False):
     """Kernel 2 on the route ``psram_matmul`` takes at one shape, against its
     plain version (bit-equal); on the wgmma route also against the tile
-    route and a second launch (bit-equal). With ``timed``: the route's time
-    (the wgmma route in turns with the tile route: wgmma, tile, tile,
-    wgmma), the plain version's, the bound and the library's
-    (``torch._int_mm`` + the ADC epilogue, for more than 16 rows)."""
+    route and a second launch (bit-equal); on the tile route the K split it
+    took (``split``) and every split of 1 to 8 bit-equal. With ``timed``:
+    the route's time (the wgmma route in turns with the tile route: wgmma,
+    tile, tile, wgmma), the plain version's, the bound and the library's
+    (``torch._int_mm`` + the ADC epilogue, for more than 16 rows), all by
+    CUDA events over back-to-back eager calls; on the tile route also the
+    route's and the library's device time in a CUDA graph (``graph_ms``,
+    ``library_graph_ms``) and the route's at every split (``split_ms``)."""
     from repro_torch.core.quantization import QMAX, adc_transfer
-    from repro_torch.kernels.psram_matmul import _launch, psram_matmul, psram_matmul_torch
+    from repro_torch.kernels.psram_matmul import (_launch, _tile_split, psram_matmul,
+                                                  psram_matmul_torch)
 
     qx, qw, sx, sw = matmul_codes(torch, m, k, n, seed)
     before = dict(psram_matmul.routes)
@@ -470,7 +538,14 @@ def matmul_case(torch, m, k, n, seed, adc_bits=16, timed=False):
     del want, diff
     if route == "wgmma":
         case["bit_equal_to_tile"] = bool(torch.equal(call("tile")(), got))
-    if not (case["bit_equal"] and case["deterministic"] and case.get("bit_equal_to_tile", True)):
+    if route == "tile":                   # the K split it took, and every other split's bits
+        case["split"] = _tile_split(m, k, n, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)
+        split_call = lambda c: (lambda: _launch(qx, qw, sx, sw, adc_bits=adc_bits, route="tile",
+                                                cluster=c))
+        case["every_split_equal"] = all(torch.equal(split_call(c)(), got) for c in (1, 2, 4, 8))
+    if not (case["bit_equal"] and case["deterministic"] and case.get("bit_equal_to_tile", True)
+            and case.get("every_split_equal", True)):
         raise AssertionError(f"psram_matmul differs from its plain version: {case}")
     if timed:
         def library():
@@ -485,11 +560,16 @@ def matmul_case(torch, m, k, n, seed, adc_bits=16, timed=False):
                          "tile_ms_runs": [t1, t2]})
         else:
             case["ms"] = time_ms(torch, call(route))
+        if route == "tile":   # also device times: an eager call of this size is host-paced
+            case["graph_ms"] = graph_ms(torch, [call(route)], reps=4)
+            case["split_ms"] = {c: graph_ms(torch, [split_call(c)], reps=4) for c in (1, 2, 4, 8)}
         case["plain_ms"] = time_ms(
             torch, lambda: psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits), iters=3, reps=2)
         if m > 16:                        # torch._int_mm takes more than 16 rows only
             case["library_equal"] = bool(torch.equal(library(), got))
             case["library_ms"] = time_ms(torch, library)
+            if route == "tile":
+                case["library_graph_ms"] = graph_ms(torch, [library], reps=4)
         else:
             case["library_equal"] = case["library_ms"] = None
         bytes_ms = 1e3 * (nbytes(qx, qw, sx, sw) + 4 * m * n) / HBM_BYTES_PER_S
@@ -1204,6 +1284,9 @@ def fold_chunks_case(torch, csf, factors):
     step = _DEFAULT_EXEC_NNZ
     step_ptr, step_rows, chunk_seg = step_cuts(torch, csf, step)
     los = list(range(0, csf.nnz, step))
+    ptr_host = step_ptr.cpu()
+    step_long = [torch.as_tensor(of.find_long_runs(ptr_host[chunk_seg[c]:chunk_seg[c + 1] + 1]),
+                                 device="cuda") for c in range(len(los))]
     zeros = lambda: torch.zeros((rows, rank), device="cuda")
 
     def chain(out):                      # as stream_mttkrp launches it
@@ -1213,7 +1296,8 @@ def fold_chunks_case(torch, csf, factors):
     def stepped(out):                    # as the parent's stream_mttkrp ran it
         for c, lo in enumerate(los):
             d = cp_chain_exact(idx[lo:lo + step], vals[lo:lo + step], fs, mode)
-            of._fold_runs(out, d, step_ptr, step_rows, chunk_seg[c], chunk_seg[c + 1], lo)
+            of._fold_runs(out, d, step_ptr, step_rows, chunk_seg[c], chunk_seg[c + 1], lo,
+                          long_runs=step_long[c])
         return out
 
     before = dict(of.ordered_fold.routes)
@@ -1262,12 +1346,12 @@ def fold_chunks_case(torch, csf, factors):
                        "ms": time_ms(torch, lambda: stepped(buf), warmup=1, iters=3, reps=1),
                        "split": call_split(torch, lambda: stepped(zeros()), len(los))}
     d = cp_chain_exact(idx, vals, fs, mode)
-    parts = [(d[lo:lo + step], ids[lo:lo + step], (chunk_seg[c], chunk_seg[c + 1], lo))
-             for c, lo in enumerate(los)]
+    parts = [(d[lo:lo + step], ids[lo:lo + step],
+              (chunk_seg[c], chunk_seg[c + 1], lo, step_long[c])) for c, lo in enumerate(los)]
 
     def fold_steps(out):
-        for dc, _, (first, last, lo) in parts:
-            of._fold_runs(out, dc, step_ptr, step_rows, first, last, lo)
+        for dc, _, (first, last, lo, long_runs) in parts:
+            of._fold_runs(out, dc, step_ptr, step_rows, first, last, lo, long_runs=long_runs)
         return out
 
     def index_add_steps(out):
@@ -1337,21 +1421,27 @@ def stream_fold_check(torch, csf, factors):
 
 
 def small_fold_cases(torch):
-    """The fold kernel on its own against the CPU's index_add_ (bit-equal):
+    """The fold route on its own against the CPU's index_add_ (bit-equal):
     16-byte and 4-byte copies, a misaligned d, one-row stages (R over
-    2048), a run longer than the ring, empty rows, a nonzero start."""
+    2048), runs longer than FOLD_LONG_RUN (every run of the last case),
+    empty rows, a nonzero start; each with d read in place and through a
+    gather ``order`` over a d with more rows than the stream."""
     from repro_torch.kernels.ordered_fold import ordered_fold, ordered_fold_torch
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     cases = []
-    for n, rows, r, offset in [(5000, 23, 32, 0), (5000, 23, 6, 0), (5000, 23, 40, 1),
-                               (300, 23, 3000, 0), (70000, 4, 32, 0)]:
+    for (n, rows, r, offset), gather in [
+            (c, g) for c in [(5000, 23, 32, 0), (5000, 23, 6, 0), (5000, 23, 40, 1),
+                             (300, 23, 3000, 0), (70000, 4, 32, 0)] for g in (False, True)]:
         ids = torch.randint(0, rows, (n,), generator=gen, device="cuda").sort().values
-        d = torch.randn((n * r + offset,), generator=gen, device="cuda")[offset:].view(n, r)
+        n_d = n + 97 if gather else n
+        d = torch.randn((n_d * r + offset,), generator=gen, device="cuda")[offset:].view(n_d, r)
+        order = (torch.randperm(n_d, generator=gen, device="cuda")[:n] if gather else None)
         start = torch.randn((rows, r), generator=gen, device="cuda")
-        got = ordered_fold(start.clone(), d, ids)
-        want = ordered_fold_torch(start.cpu(), d.cpu(), ids.cpu())
-        case = {"n": n, "rows": rows, "rank": r, "offset": offset,
+        got = ordered_fold(start.clone(), d, ids, order=order)
+        want = ordered_fold_torch(start.cpu(), d.cpu(), ids.cpu(),
+                                  order=None if order is None else order.cpu())
+        case = {"n": n, "rows": rows, "rank": r, "offset": offset, "order": gather,
                 "max_abs_err": float((got.cpu() - want).abs().max()),
                 "bit_equal_to_cpu": bool(torch.equal(got.cpu(), want))}
         cases.append(case)
@@ -2058,6 +2148,10 @@ def main(argv=None) -> int:
     leg_split = [legacy_split(torch, lambda c=c: stream_mttkrp_blocked(c, leg.factors, cfg))
                  for c in csfs]
     blocks = [_segment_blocks(c, cfg.rows) for c in csfs]
+    # the fold route at the main path's shapes: each mode's partials read in
+    # place, bit-equal to its plain version on the CPU and to the route
+    # without order on the partials gathered first
+    fold_route = [legacy_fold_case(torch, c, leg.factors, cfg) for c in csfs]
     legacy_path = {
         "phase": "main_path_legacy", "sweeps": SWEEPS, "rank": RANK,
         "fit_hopper_legacy": leg.fit, "fit_exact": exact.fit, "iters": leg.iters,
@@ -2067,6 +2161,7 @@ def main(argv=None) -> int:
         "device_bytes_peak": leg_peak,
         "legacy_split": leg_split,
         "call_bytes_peak": [sp["call_bytes_peak"] for sp in leg_split],
+        "fold_route": fold_route,
     }
     report["main_path_legacy"] = legacy_path
     emit(legacy_path)
@@ -2076,9 +2171,15 @@ def main(argv=None) -> int:
             or leg_launches["blocked_segment_sum_rows"] != 0 or leg.iters != SWEEPS:
         raise AssertionError(f"the legacy path did not launch the segment sum's chain route "
                              f"once a mode: {legacy_path}")
-    if leg_launches["ordered_fold_fold"] < 3 * SWEEPS or not leg_repeatable:
+    if leg_launches["ordered_fold_fold"] != 3 * SWEEPS or not leg_repeatable \
+            or not all(c["bit_equal_to_cpu"] and c["bit_equal_to_gathered"] for c in fold_route):
         raise AssertionError(f"the legacy path's partials were not folded in order, or not "
                              f"repeatably: {legacy_path}")
+    # one fold launch a call, reading the partials in place: no index_select
+    if any(sp["parts"]["fold"]["launches"] != 1 or sp["parts"]["index_select"]["launches"] != 0
+           for sp in leg_split):
+        raise AssertionError(f"a legacy call gathered its partials or did not fold them in one "
+                             f"launch: {legacy_path}")
     if not all(f.is_cuda and torch.isfinite(f).all() for f in leg.factors):
         raise AssertionError("legacy CP-ALS factors are not finite tensors on the card")
 
@@ -2360,7 +2461,10 @@ def main(argv=None) -> int:
             "library": "torch._int_mm + ADC",
             "tolerance": "bit-equal (seeded shapes; the wgmma route's shapes and served "
                          "operands also against it)",
-            "shape": b_ragged["shape"], "ms_at_mlp_shape": b_main["tile_ms"],
+            "graph_ms": b_ragged["graph_ms"], "library_graph_ms": b_ragged["library_graph_ms"],
+            "shape": b_ragged["shape"], "split": b_ragged["split"],
+            "split_ms": b_ragged["split_ms"], "ms_at_mlp_shape": b_main["tile_ms"],
+            "ms_at_prefill_shapes": [c["tile_ms"] for c in b_prefill],
         },
         {
             "name": "psram_matmul_decode", "route": "cuda",
@@ -2506,7 +2610,14 @@ def main(argv=None) -> int:
                           "bound_ms": fold_main["bound_ms"], "split": fold_main["split"],
                           "head_row_ms": fold_skew["head_row_ms"]},
                 "fold": {"launches": total("ordered_fold_fold"),
-                         **fold_main["stepped"]["fold_launch"]},
+                         **{k: statistics.fmean(c[k] for c in fold_route)
+                            for k in ("ms", "bound_ms", "plain_ms", "library_ms")},
+                         "bound_by": "bytes",
+                         "library": "index_add_ on the gathered rows (the gather not counted)",
+                         "per_mode_ms": [c["ms"] for c in fold_route],
+                         "in_call_ms": [sp["parts"]["fold"]["ms"] for sp in leg_split],
+                         "long_run_ms": [c["long_run_ms"] for c in fold_route],
+                         "step_launch": fold_main["stepped"]["fold_launch"]},
             },
             "stepped_call_ms": fold_main["stepped"]["ms"],
             "stepped_split": fold_main["stepped"]["split"],

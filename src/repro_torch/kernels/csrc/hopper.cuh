@@ -34,9 +34,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // Asynchronous copies from device into shared memory (cp.async): 16 bytes
 // through L2 only (cp_async16) or through L1 too (cp_async16_ca, for rows
-// a CTA may gather again), 4 bytes through L1; a thread's copies are grouped
-// by commit_group, and wait_group<N> waits until at most N of its groups are
-// in flight.
+// a CTA may gather again), 8 and 4 bytes through L1; a thread's copies are
+// grouped by commit_group, and wait_group<N> waits until at most N of its
+// groups are in flight.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                  :: "r"(smem_u32(dst)), "l"(src) : "memory");
@@ -44,6 +44,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async16_ca(void* dst, const void* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
                  :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
@@ -59,6 +64,12 @@ __device__ __forceinline__ void commit_group() {
 template <int N>
 __device__ __forceinline__ void wait_group() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// one arrival on the mbarrier `bar` once every cp.async this thread issued
+// so far has landed (the barrier's expected count already includes it)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // The opt-in dynamic shared memory of one CTA on sm_90 (227 KB).

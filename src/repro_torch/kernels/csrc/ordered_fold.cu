@@ -19,12 +19,43 @@
 // order of the stream, starting from the row's value in `out` — index_add_'s
 // order on the CPU.
 //
-// Route `fold` (ordered_fold_kernel): the contributions d (n, R) are given.
-// One CTA per run of 4 warps; all 128 threads stream the run's rows into a
-// ring of STAGES shared-memory stages with cp.async (16-byte copies when
-// R % 4 == 0 and d is 16-byte aligned, else 4-byte), STAGES - 1 ahead of warp
-// 0, which adds them, lane = rank column. Bound by bytes (d read once, out
-// read and written once). The blocked path's partials fold through it.
+// Route `fold` (ordered_fold_kernel): the contributions are given, as rows
+// of d (n_d, R), the fold's stream row i being d[order[i]] where an order
+// (P,) int64 is given (the blocked path's partials, read in place in their
+// cached fold order) and d[i] where not. The runs longer than long_run come
+// as a list, longest first (found on the host from the runs; the blocked
+// path keeps it with them); each has a CTA of its own, scheduled first.
+// The other CTAs take CTA_RUNS consecutive runs each, RUNS_PER_WARP a warp
+// (an empty run costs no CTA, and no load beyond its bounds):
+// * The runs of at most long_run rows (nearly every run: the blocked path's
+//   rows hold 1 to a few dozen partials) are their warp's, lane = rank
+//   column, folded in one pass over their rows as consecutive positions:
+//   a batch of 32 positions has its 32 rows' loads all in flight before
+//   their chain of adds, whichever runs they belong to, and the next
+//   batch's gather indices load beside this batch's rows. So a warp waits
+//   on memory about twice for 32 rows, not twice a run. No shared memory,
+//   no CTA-wide barrier.
+// * A longer run (the power-law head rows: ~9.8 k partials for mode 0 of
+//   the main path) has a ring of STAGES shared-memory stages, each behind a
+//   full and an empty mbarrier. Warp 0 adds, lane = rank column, loading
+//   the next 16 rows of a stage beside the adds of these (at R = 32 with
+//   immediate offsets). The other warps fill the ring with 16-byte cp.async
+//   copies, each copying thread arriving on the stage's full barrier once
+//   its copies landed; gathered rows' indices are copied STAGES - 1 stages
+//   ahead into index slots of their own. R % 4 != 0 or a d off 16 bytes:
+//   warp 1's own loads and stores. No CTA-wide barrier a stage.
+// What paces it (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py): the short
+// runs' CTAs take ~0.013 ms for modes 1-2 of the main path (75-94 k
+// partials); mode 0's head row, ~0.045 ms, paced by its one chain of adds
+// (~7 cycles a row against the ~4 of a dependent add). Measured on the way
+// (one 9,770-row run): a ring that every thread filled through cp.async
+// behind a CTA barrier a stage, ~15 cycles a row; a bulk copy a gathered
+// row, ~30; the producers loading the indices themselves, even four stages
+// ahead, ~2x the index slots; a CTA that folded its long runs one after
+// another lost 25x on streams of runs of a few hundred rows. Only the long
+// runs' CTAs take the ring's shared memory; a launch without one takes none.
+// Bound by bytes: d's P rows read once, out read and written once, the
+// order and the runs read once.
 //
 // Route `chain` (ordered_chain_kernel): the contributions are formed inside
 // the CTA from the stream itself, so a whole exact sparse MTTKRP is one
@@ -80,9 +111,16 @@
 
 namespace {
 
-constexpr int THREADS = 128;          // fold route: 4 warps, all copy, warp 0 folds
-constexpr int STAGES = 6;             // fold route: ring depth; STAGES - 1 stages in flight
-constexpr int STAGE_FLOATS = 2048;    // fold route: 8 KB a stage (whole rows: at least one)
+constexpr int FOLD_WARPS = 8;         // fold route: warps a CTA ...
+constexpr int RUNS_PER_WARP = 8;      // ... consecutive runs a warp ...
+constexpr int CTA_RUNS = FOLD_WARPS * RUNS_PER_WARP;   // ... and runs a CTA
+constexpr int THREADS = 32 * FOLD_WARPS;
+constexpr int STAGES = 6;             // fold route, a long run: ring depth
+constexpr int STAGE_FLOATS = 4096;    // fold route: 16 KB a stage (whole rows: at least one) ...
+constexpr int STAGE_ROWS = 128;       // ... and at most 128 rows (the adds' unrolled whole stage)
+constexpr int FOLD_BATCH = 16;        // fold route: rows of a stage a long run's adds hold at once
+constexpr int PRODUCERS = THREADS - 32;   // fold route: threads that copy a long run's gathered rows
+constexpr int INDEX_SLOTS = 2 * STAGES;   // fold route: a long run's stages of gather indices
 constexpr int MAX_SMEM = hopper::MAX_DYNAMIC_SMEM;   // opt-in dynamic shared memory of a CTA
 
 constexpr int MAX_MODES = hopper::CHAIN_MAX_MODES;   // chain route: modes of the stream
@@ -98,98 +136,371 @@ constexpr int SLOT_BUDGET = 4096;     // default bytes of a batch's factor rows
 using hopper::commit_group;
 using hopper::cp_async16;
 using hopper::cp_async4;
+using hopper::cp_async8;
 using hopper::opt_in_max_smem;
 using hopper::smem_u32;
 using hopper::wait_group;
 
 // ------------------------------------------------------------ route `fold`
 
-// Copy n contiguous floats from global src into shared dst, asynchronously.
-template <bool VEC>
-__device__ __forceinline__ void start_copy(float* dst, const float* src, int n, int tid) {
-    if constexpr (VEC) {
-        for (int i = tid * 4; i < n; i += THREADS * 4) cp_async16(dst + i, src + i);
+constexpr unsigned FULL = 0xffffffffu;
+
+__host__ __device__ constexpr long long align16(long long bytes) { return (bytes + 15) / 16 * 16; }
+
+// rows a ring stage holds at rank R, and the byte offsets of a long-run CTA's
+// dynamic shared memory: the ring of STAGES stages, R running sums, a full
+// and an empty mbarrier a stage and one an index slot, then INDEX_SLOTS
+// slots of gather indices
+__host__ __device__ constexpr int rows_per_stage(int R) {
+    return R >= STAGE_FLOATS ? 1 : STAGE_FLOATS / R < STAGE_ROWS ? STAGE_FLOATS / R : STAGE_ROWS;
+}
+__host__ __device__ constexpr long long fold_acc_offset(int R) {
+    return align16(4ll * STAGES * rows_per_stage(R) * R);
+}
+__host__ __device__ constexpr long long fold_bar_offset(int R) {
+    return fold_acc_offset(R) + align16(4ll * R);
+}
+__host__ __device__ constexpr long long fold_smem_bytes(int R) {
+    return fold_bar_offset(R) + 8ll * (2 * STAGES + INDEX_SLOTS)
+           + 8ll * INDEX_SLOTS * rows_per_stage(R);
+}
+
+// d's row for the fold's stream row i: order[i] (GATHER) or i
+template <bool GATHER>
+__device__ __forceinline__ long long source_row(const long long* __restrict__ order, long long i) {
+    if constexpr (GATHER) {
+        return order[i];
     } else {
-        for (int i = tid; i < n; i += THREADS) cp_async4(dst + i, src + i);
+        return i;
     }
 }
 
-// One CTA per segment s: d rows [seg_ptr[s] - base, seg_ptr[s+1] - base)
-// folded into out row seg_rows[s] (row s where seg_rows is null).
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-ordered_fold_kernel(float* __restrict__ out, const float* __restrict__ d,
-                    const long long* __restrict__ seg_ptr,
-                    const long long* __restrict__ seg_rows,
-                    long long base, int R, int rows_per_stage) {
-    extern __shared__ __align__(16) float smem[];   // ring, then R running values
-    const long long first = seg_ptr[blockIdx.x] - base;
-    const long long n_rows = seg_ptr[blockIdx.x + 1] - base - first;
-    if (n_rows <= 0) return;
-    const long long row = seg_rows ? seg_rows[blockIdx.x] : static_cast<long long>(blockIdx.x);
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const bool folder = tid < 32;
-    const int stage_floats = rows_per_stage * R;
-    float* ring = smem;
-    float* acc = smem + STAGES * stage_floats;
-    float* dst = out + row * R;
-    const float* src = d + first * R;
-    const int n_stages = static_cast<int>((n_rows + rows_per_stage - 1) / rows_per_stage);
-
-    auto rows_of = [&](int st) {
-        const long long left = n_rows - static_cast<long long>(st) * rows_per_stage;
-        return static_cast<int>(left < rows_per_stage ? left : rows_per_stage);
-    };
-    auto fetch = [&](int st) {
-        start_copy<VEC>(ring + (st % STAGES) * stage_floats,
-                        src + static_cast<long long>(st) * stage_floats, rows_of(st) * R, tid);
-    };
-
-    if (folder) {
-        for (int c = lane; c < R; c += 32) acc[c] = dst[c];
-    }
+// A warp's RUNS_PER_WARP consecutive runs s_first + r, lane r holding run
+// r's first stream row `start` and row count `cnt` (0 for a run the CTA
+// folds, or past the last run) — all the short ones folded in one pass, lane
+// = rank column (32 columns at a time). The runs' rows are consecutive
+// positions of the warp: a batch of 32 positions has lane j load the d row
+// of position j (its gather index loaded a batch ahead), then the 32 rows'
+// loads are all in flight before their chain of adds; a run that begins in
+// the batch starts from its out row (loaded once, before the batches), and
+// one that ends there is stored.
+template <bool GATHER>
+__device__ __forceinline__ void fold_runs_warp(float* __restrict__ out, const float* __restrict__ d,
+                                               const long long* __restrict__ order,
+                                               const long long* __restrict__ seg_rows,
+                                               long long s_first, long long start, int cnt,
+                                               int R, int lane) {
+    constexpr int RPW = RUNS_PER_WARP;
+    int pre = cnt;                                     // inclusive prefix of cnt over lanes < RPW
 #pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-        if (st < n_stages) fetch(st);
-        commit_group();
+    for (int off = 1; off < RPW; off <<= 1) {
+        const int t = __shfl_up_sync(FULL, pre, off);
+        if (lane >= off) pre += t;
     }
-    for (int st = 0; st < n_stages; ++st) {
-        // the slot of stage st - 1, freed by the barrier that ended it
-        if (st + STAGES - 1 < n_stages) fetch(st + STAGES - 1);
-        commit_group();
-        wait_group<STAGES - 1>();          // this thread's copies of stage st landed
-        __syncthreads();                   // ... and everyone's
-        if (folder) {
-            const float* slot = ring + (st % STAGES) * stage_floats;
-            const int nr = rows_of(st);
-            for (int c = lane; c < R; c += 32) {
-                float v = acc[c];
-#pragma unroll 16
-                for (int i = 0; i < nr; ++i) v = __fadd_rn(v, slot[i * R + c]);
-                acc[c] = v;
+    const int total = __shfl_sync(FULL, pre, RPW - 1);
+    if (total == 0) return;
+    pre -= cnt;                                        // exclusive
+    const long long row = lane < RPW && cnt > 0
+                              ? (seg_rows ? seg_rows[s_first + lane] : s_first + lane) : 0;
+    // the position p0 + lane: its run, its d row, and which positions of the
+    // batch begin or end a run (the same in every lane)
+    struct Batch { long long idx; int run; unsigned firsts, lasts; };
+    auto locate = [&](int p0) {
+        const int p = p0 + lane;
+        int run = 0;
+        long long srow = 0;
+        bool first = false, last = false;
+#pragma unroll
+        for (int q = 0; q < RPW; ++q) {
+            const int pq = __shfl_sync(FULL, pre, q);
+            const int cq = __shfl_sync(FULL, cnt, q);
+            const long long sq = __shfl_sync(FULL, start, q);
+            if (p >= pq && p < pq + cq) {
+                run = q;
+                srow = sq + (p - pq);
+                first = p == pq;
+                last = p == pq + cq - 1;
             }
         }
-        __syncthreads();                   // the slot may be refilled
+        const bool in = p < total;
+        Batch bt;
+        bt.idx = in ? source_row<GATHER>(order, srow) : 0ll;
+        bt.run = run;
+        bt.firsts = __ballot_sync(FULL, in && first);
+        bt.lasts = __ballot_sync(FULL, in && last);
+        return bt;
+    };
+    for (int c0 = 0; c0 < R; c0 += 32) {
+        const int c = c0 + lane;
+        const bool has = c < R;
+        float init[RPW];                               // each run's starting value
+#pragma unroll
+        for (int q = 0; q < RPW; ++q) {                // every lane shuffles
+            const long long rq = __shfl_sync(FULL, row, q);
+            const int cq = __shfl_sync(FULL, cnt, q);
+            init[q] = has && cq > 0 ? out[rq * R + c] : 0.0f;
+        }
+        float acc = 0.0f;
+        Batch cur = locate(0);
+        for (int p0 = 0; p0 < total; p0 += 32) {
+            float x[32];
+#pragma unroll
+            for (int u = 0; u < 32; ++u) {
+                const long long r = __shfl_sync(FULL, cur.idx, u);
+                x[u] = has && p0 + u < total ? d[r * R + c] : 0.0f;
+            }
+            const Batch nxt = locate(p0 + 32);        // its gather indices load beside x
+#pragma unroll
+            for (int u = 0; u < 32; ++u) {
+                if (p0 + u < total) {
+                    if ((cur.firsts >> u) & 1u) {
+                        const int q = __shfl_sync(FULL, cur.run, u);
+                        acc = init[0];
+#pragma unroll
+                        for (int k = 1; k < RPW; ++k) acc = q == k ? init[k] : acc;
+                    }
+                    acc = __fadd_rn(acc, x[u]);
+                    if ((cur.lasts >> u) & 1u) {
+                        const long long rq = __shfl_sync(FULL, row, __shfl_sync(FULL, cur.run, u));
+                        if (has) out[rq * R + c] = acc;
+                    }
+                }
+            }
+            cur = nxt;
+        }
     }
-    if (folder) {
+}
+
+// A long run, its CTA's only work: stream rows [first, first + n) folded
+// into dst through the ring by warp 0 (the adds) and the producers (the
+// copies: every other warp where rows are 16-byte pieces, warp 1
+// otherwise). Stage st is in slot st % STAGES, its mbarriers' phase st /
+// STAGES. RT: R where it
+// is 32 (the adds' loads then take immediate offsets instead of a chain of
+// address adds beside the chain of float adds), else 0.
+template <bool VEC, bool GATHER, int RT>
+__device__ __forceinline__ void fold_run_ring(float* __restrict__ dst, const float* __restrict__ d,
+                                              const long long* __restrict__ order, long long first,
+                                              long long n, int R, unsigned char* smem) {
+    const int lane = threadIdx.x & 31;
+    const int rps = rows_per_stage(R);
+    const int stage_floats = rps * R;
+    float* ring = reinterpret_cast<float*>(smem);
+    float* acc = reinterpret_cast<float*>(smem + fold_acc_offset(R));
+    unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + fold_bar_offset(R));
+    long long* ords = reinterpret_cast<long long*>(bars + 2 * STAGES + INDEX_SLOTS);
+    auto full = [&](int st) { return smem_u32(bars + st % STAGES); };
+    auto empty = [&](int st) { return smem_u32(bars + STAGES + st % STAGES); };
+    auto idx_full = [&](int st) { return smem_u32(bars + 2 * STAGES + st % INDEX_SLOTS); };
+    const int n_stages = static_cast<int>((n + rps - 1) / rps);
+    auto rows_of = [&](int st) {
+        const long long left = n - static_cast<long long>(st) * rps;
+        return static_cast<int>(left < rps ? left : rps);
+    };
+
+    if (threadIdx.x >= 32) {
+        // ---- the producers (warps 1 to FOLD_WARPS - 1): 16-byte cp.async
+        // copies, piece p of the stage (row p / (R / 4), its 16 bytes p % (R
+        // / 4), so a row's pieces are neighbouring lanes') producer thread p
+        // % NP's, each thread arriving on the full barrier once its copies
+        // landed (cp.async.mbarrier.arrive); gathered rows' source offsets
+        // are loaded a stage ahead. Elsewhere (R % 4 != 0, d off 16 bytes)
+        // warp 1 copies the rows itself.
+        const int pt = threadIdx.x - 32;               // producer thread
+        const int ppr = R / 4;
+        // gathered rows: stage st's indices in index slot st % INDEX_SLOTS,
+        // copied STAGES - 1 stages ahead by the producers (index j of the
+        // stage by thread j) and counted on the slot's index barrier
+        auto fetch_indices = [&](int st) {
+            if (st >= n_stages) return;
+            long long* to = ords + (st % INDEX_SLOTS) * rps;
+            const long long* from = order + first + static_cast<long long>(st) * rps;
+            for (int j = pt; j < rows_of(st); j += PRODUCERS) cp_async8(to + j, from + j);
+            hopper::cp_async_arrive(idx_full(st));
+        };
+        if constexpr (VEC && GATHER) {
+            for (int st = 0; st < STAGES - 1; ++st) fetch_indices(st);
+        }
+        for (int st = 0; st < n_stages; ++st) {
+            hopper::mbar_wait(empty(st), ((st / STAGES) & 1u) ^ 1u);   // the first pass is free
+            const int nr = rows_of(st);
+            float* to = ring + (st % STAGES) * stage_floats;
+            if constexpr (VEC) {
+                const long long* idx = nullptr;
+                if constexpr (GATHER) {
+                    // the index slot of stage st + STAGES - 1 held stage st
+                    // - STAGES - 1's, whose rows every producer issued before
+                    // the consumer freed stage st - STAGES (this slot's empty
+                    // wait)
+                    fetch_indices(st + STAGES - 1);
+                    hopper::mbar_wait(idx_full(st), (st / INDEX_SLOTS) & 1u);
+                    idx = ords + (st % INDEX_SLOTS) * rps;
+                }
+                const long long row0 = first + static_cast<long long>(st) * rps;
+                for (int p = pt; p < nr * ppr; p += PRODUCERS) {   // row p / ppr's piece
+                    const int j = p / ppr;
+                    const long long r = GATHER ? idx[j] : row0 + j;
+                    cp_async16(to + 4 * p, d + r * R + 4 * (p - j * ppr));
+                }
+                hopper::cp_async_arrive(full(st));
+            } else {
+                for (int e = lane; e < nr * R; e += 32) {
+                    const int j = e / R;
+                    to[e] = d[source_row<GATHER>(order, first + static_cast<long long>(st) * rps + j) * R
+                              + (e - j * R)];
+                }
+                __syncwarp();
+                if (lane == 0) hopper::mbar_arrive(full(st));
+            }
+        }
+    } else {
+        // ---- the adds, warp 0: lane = rank column
+        for (int c = lane; c < R; c += 32) acc[c] = dst[c];
+        for (int st = 0; st < n_stages; ++st) {
+            hopper::mbar_wait(full(st), (st / STAGES) & 1u);
+            const float* slot = ring + (st % STAGES) * stage_floats;
+            const int nr = rows_of(st);
+            if (nr == STAGE_ROWS) {                    // a whole stage (R <= 32): fully unrolled
+                const int stride = RT ? RT : R;
+                for (int c = lane; c < R; c += 32) {
+                    float v = acc[c];
+                    float x[2][FOLD_BATCH];
+                    auto load = [&](float (&y)[FOLD_BATCH], int i) {
+#pragma unroll
+                        for (int u = 0; u < FOLD_BATCH; ++u) y[u] = slot[(i + u) * stride + c];
+                    };
+                    load(x[0], 0);
+#pragma unroll
+                    for (int b = 0; b < STAGE_ROWS / FOLD_BATCH; ++b) {
+                        if (b + 1 < STAGE_ROWS / FOLD_BATCH) load(x[(b + 1) & 1], (b + 1) * FOLD_BATCH);
+#pragma unroll
+                        for (int u = 0; u < FOLD_BATCH; ++u) v = __fadd_rn(v, x[b & 1][u]);
+                    }
+                    acc[c] = v;
+                }
+                __syncwarp();
+                if (lane == 0) hopper::mbar_arrive(empty(st));
+                continue;
+            }
+            const int full_rows = nr & ~(FOLD_BATCH - 1);
+            for (int c = lane; c < R; c += 32) {
+                // rows i .. i + FOLD_BATCH - 1 in xa, the next batch loaded
+                // into xb beside their adds: the chain never waits on a load
+                float v = acc[c];
+                float xa[FOLD_BATCH], xb[FOLD_BATCH];
+                auto load = [&](float (&x)[FOLD_BATCH], int i) {
+#pragma unroll
+                    for (int u = 0; u < FOLD_BATCH; ++u) x[u] = slot[(i + u) * R + c];
+                };
+                auto add = [&](const float (&x)[FOLD_BATCH]) {
+#pragma unroll
+                    for (int u = 0; u < FOLD_BATCH; ++u) v = __fadd_rn(v, x[u]);
+                };
+                int i = 0;
+                if (full_rows > 0) load(xa, 0);
+                for (; i + 2 * FOLD_BATCH <= full_rows; i += 2 * FOLD_BATCH) {
+                    load(xb, i + FOLD_BATCH);
+                    add(xa);
+                    if (i + 2 * FOLD_BATCH < full_rows) load(xa, i + 2 * FOLD_BATCH);
+                    add(xb);
+                }
+                if (i < full_rows) {
+                    add(xa);
+                    i += FOLD_BATCH;
+                }
+                for (; i < nr; ++i) v = __fadd_rn(v, slot[i * R + c]);
+                acc[c] = v;
+            }
+            __syncwarp();                              // every lane's reads of the slot are done
+            if (lane == 0) hopper::mbar_arrive(empty(st));
+        }
         for (int c = lane; c < R; c += 32) dst[c] = acc[c];
     }
 }
 
-// rows per stage and dynamic shared memory of a fold-route launch at rank R
-int rows_per_stage(int R) { return R >= STAGE_FLOATS ? 1 : STAGE_FLOATS / R; }
-size_t fold_smem_bytes(int R) {
-    return sizeof(float) * (static_cast<size_t>(STAGES) * rows_per_stage(R) * R + R);
+// Run s folds stream rows [seg_ptr[s] - base, seg_ptr[s+1] - base) into out
+// row seg_rows[s] (row s where seg_rows is null). The first n_long CTAs
+// take the runs long_runs[0..n_long) (each more than long_run rows), one a
+// CTA through the ring; the others CTA_RUNS consecutive runs each,
+// RUNS_PER_WARP a warp, skipping the long ones.
+template <bool VEC, bool GATHER>
+__global__ void __launch_bounds__(THREADS, 2)
+ordered_fold_kernel(float* __restrict__ out, const float* __restrict__ d,
+                    const long long* __restrict__ order, const long long* __restrict__ seg_ptr,
+                    const long long* __restrict__ seg_rows, long long base, long long n_seg,
+                    const long long* __restrict__ long_runs, int n_long, int R,
+                    long long long_run) {
+    static_assert(CTA_RUNS == 64 && 32 % RUNS_PER_WARP == 0, "two runs a lane, whole warps");
+    extern __shared__ __align__(16) unsigned char fold_smem[];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    if (static_cast<int>(blockIdx.x) < n_long) {
+        const long long s = long_runs[blockIdx.x];
+        const long long lo = seg_ptr[s] - base;
+        if (threadIdx.x == 0) {
+            // full: each producer thread's once its cp.async copies landed,
+            // or warp 1's one arrival; empty: warp 0's
+            unsigned long long* bars =
+                reinterpret_cast<unsigned long long*>(fold_smem + fold_bar_offset(R));
+            for (int i = 0; i < STAGES; ++i) {
+                hopper::mbar_init(smem_u32(bars + i), VEC ? PRODUCERS : 1);
+                hopper::mbar_init(smem_u32(bars + STAGES + i), 1);
+            }
+            for (int i = 0; i < INDEX_SLOTS; ++i) {
+                hopper::mbar_init(smem_u32(bars + 2 * STAGES + i), PRODUCERS);
+            }
+            hopper::mbar_init_fence();
+        }
+        __syncthreads();                               // the one CTA-wide barrier
+        if (warp >= (VEC ? FOLD_WARPS : 2)) return;   // warps with no part in the ring
+        float* dst = out + (seg_rows ? seg_rows[s] : s) * R;
+        const long long n = seg_ptr[s + 1] - base - lo;
+        if (R == 32) {
+            fold_run_ring<VEC, GATHER, 32>(dst, d, order, lo, n, R, fold_smem);
+        } else {
+            fold_run_ring<VEC, GATHER, 0>(dst, d, order, lo, n, R, fold_smem);
+        }
+        return;
+    }
+    const long long s0 = static_cast<long long>(blockIdx.x - n_long) * CTA_RUNS;
+    long long lo[2] = {0, 0}, len[2] = {0, 0};        // lane j: runs s0 + j and s0 + 32 + j
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const long long s = s0 + 32 * h + lane;
+        if (s < n_seg) {
+            lo[h] = seg_ptr[s] - base;
+            len[h] = seg_ptr[s + 1] - base - lo[h];
+        }
+    }
+    // this warp's runs: lanes l0.. of half h; lane r < RUNS_PER_WARP takes run r's
+    const int first = warp * RUNS_PER_WARP;
+    const int h = first >> 5;
+    const int src = (first & 31) + (lane & (RUNS_PER_WARP - 1));
+    const long long start = __shfl_sync(FULL, h ? lo[1] : lo[0], src);
+    const long long n = __shfl_sync(FULL, h ? len[1] : len[0], src);
+    const bool mine = lane < RUNS_PER_WARP && n <= long_run;    // a long run has a CTA of its own
+    fold_runs_warp<GATHER>(out, d, order, seg_rows, s0 + first, start,
+                           mine ? static_cast<int>(n) : 0, R, lane);
+}
+
+template <bool VEC, bool GATHER>
+cudaError_t launch_fold(float* out, const float* d, const long long* order,
+                        const long long* seg_ptr, const long long* seg_rows, long long base,
+                        long long n_seg, const long long* long_runs, int n_long, int R,
+                        long long long_run, cudaStream_t stream) {
+    cudaError_t err = opt_in_max_smem<ordered_fold_kernel<VEC, GATHER>>();
+    if (err != cudaSuccess) return err;
+    const long long ctas = n_long + (n_seg + CTA_RUNS - 1) / CTA_RUNS;
+    // the ring's shared memory only where a long run needs it
+    const size_t smem = n_long > 0 ? static_cast<size_t>(fold_smem_bytes(R)) : 0;
+    ordered_fold_kernel<VEC, GATHER><<<static_cast<unsigned>(ctas), THREADS, smem, stream>>>(
+        out, d, order, seg_ptr, seg_rows, base, n_seg, long_runs, n_long, R, long_run);
+    return cudaGetLastError();
 }
 
 // ----------------------------------------------------------- route `chain`
 
 using Factors = hopper::ChainFactors;   // the non-target factors, in mode order
-
-__host__ __device__ constexpr int align16(long long bytes) {
-    return static_cast<int>((bytes + 15) / 16 * 16);
-}
 
 // Columns a consumer lane owns at a template rank (0: an R that is not one).
 __host__ __device__ constexpr int lane_cols(int RT) { return RT >= 128 ? 4 : RT == 64 ? 2 : 1; }
@@ -596,29 +907,45 @@ cudaError_t launch_chain(float* out, const int* coords, const float* val,
 
 }  // namespace
 
-// The most rank columns a fold-route launch takes (the ring of one-row stages
-// and the running values fit the 227 KB of opt-in shared memory).
+// The most rank columns a fold-route launch takes (a long run's ring of
+// one-row stages, the running sums and the gather indices fit the 227 KB of
+// opt-in shared memory).
 extern "C" int ordered_fold_max_rank() { return 8192; }
 
-// out (rows, R) f32, d (n, R) f32, seg_ptr (n_seg + 1,) int64 stream
-// positions, seg_rows (n_seg,) int64 target rows or null (row = segment),
-// all contiguous device pointers; segment s folds d rows
-// [seg_ptr[s] - base, seg_ptr[s+1] - base) into its row. vec: R % 4 == 0 and
-// d 16-byte aligned. Returns the launch's cudaError_t as an int.
-extern "C" int ordered_fold_launch(void* out, const void* d, const void* seg_ptr,
-                                   const void* seg_rows, long long base, int n_seg, int R,
-                                   int vec, void* stream) {
+// out (rows, R) f32, d (n_d, R) f32, order (P,) int64 or null, seg_ptr
+// (n_seg + 1,) int64 stream positions, seg_rows (n_seg,) int64 target rows
+// or null (row = segment), long_runs (n_long,) int64: the segments of more
+// than long_run rows, each exactly once (longest first runs soonest), all
+// contiguous device pointers; segment s folds the stream rows [seg_ptr[s] -
+// base, seg_ptr[s+1] - base) into its row, stream row i being d row
+// order[i] (i where order is null). Neither the runs, the long runs nor the
+// order are range-checked. vec: R % 4 == 0 and d 16-byte aligned. Returns
+// the launch's cudaError_t as an int.
+extern "C" int ordered_fold_launch(void* out, const void* d, const void* order,
+                                   const void* seg_ptr, const void* seg_rows, long long base,
+                                   long long n_seg, const void* long_runs, int n_long, int R,
+                                   int vec, long long long_run, void* stream) {
     if (n_seg <= 0 || R <= 0) return static_cast<int>(cudaSuccess);
-    if (R > ordered_fold_max_rank()) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = vec ? opt_in_max_smem<ordered_fold_kernel<true>>()
-                          : opt_in_max_smem<ordered_fold_kernel<false>>();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    auto kernel = vec ? ordered_fold_kernel<true> : ordered_fold_kernel<false>;
-    kernel<<<n_seg, THREADS, fold_smem_bytes(R), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<float*>(out), static_cast<const float*>(d),
-        static_cast<const long long*>(seg_ptr), static_cast<const long long*>(seg_rows),
-        base, R, rows_per_stage(R));
-    return static_cast<int>(cudaGetLastError());
+    if (R > ordered_fold_max_rank() || fold_smem_bytes(R) > MAX_SMEM || long_run < 0
+        || n_long < 0 || (vec && R % 4 != 0)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    float* out_ = static_cast<float*>(out);
+    const float* d_ = static_cast<const float*>(d);
+    const long long* order_ = static_cast<const long long*>(order);
+    const long long* ptr_ = static_cast<const long long*>(seg_ptr);
+    const long long* rows_ = static_cast<const long long*>(seg_rows);
+    const long long* long_ = static_cast<const long long*>(long_runs);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    if (order_) {
+        err = vec ? launch_fold<true, true>(out_, d_, order_, ptr_, rows_, base, n_seg, long_, n_long, R, long_run, st)
+                  : launch_fold<false, true>(out_, d_, order_, ptr_, rows_, base, n_seg, long_, n_long, R, long_run, st);
+    } else {
+        err = vec ? launch_fold<true, false>(out_, d_, order_, ptr_, rows_, base, n_seg, long_, n_long, R, long_run, st)
+                  : launch_fold<false, false>(out_, d_, order_, ptr_, rows_, base, n_seg, long_, n_long, R, long_run, st);
+    }
+    return static_cast<int>(err);
 }
 
 // The most modes a chain-route stream may have.

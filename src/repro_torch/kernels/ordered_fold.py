@@ -19,9 +19,14 @@ XLA, which adds in stream order; on the card PyTorch's ``index_add_`` is
 atomic and unordered, so the port needs a kernel to keep the order. Two
 routes, counted in ``ordered_fold.routes``:
 
-* ``"fold"`` — :func:`ordered_fold`: the contributions ``d`` are given. One
-  CTA per run streams the run's rows through a shared-memory ring, and one
-  warp adds them in order. The blocked path's partials fold through it.
+* ``"fold"`` — :func:`ordered_fold`: the contributions are given, as rows
+  of ``d``, read in place through an optional gather index ``order`` (the
+  fold's stream row ``i`` is ``d[order[i]]``). A warp folds eight short
+  runs at a time (lane = rank column, 32 rows in flight before their adds,
+  whichever runs they belong to); a run of more than
+  :data:`FOLD_LONG_RUN` rows has a CTA of its own, which streams it through
+  a shared-memory ring ahead of one warp's adds. The blocked path's
+  partials fold through it in their cached order, in place.
 * ``"chain"`` — :func:`ordered_chain_fold`: the contributions are formed in
   the kernel from the stream's non-target coordinates (:func:`chain_coords`),
   values and factors,
@@ -45,28 +50,50 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import _build
 
 
-def _check(out, d, ids):
+#: rows a run may have and still be folded by one warp of the fold route;
+#: a longer run has a CTA of its own, which streams it through a
+#: shared-memory ring
+FOLD_LONG_RUN = 64
+
+
+def _check(out, d, ids, order=None):
     if out.ndim != 2 or d.ndim != 2 or ids.ndim != 1:
         raise ValueError(f"out must be (rows, R), d (n, R) and ids (n,); got "
                          f"{tuple(out.shape)}, {tuple(d.shape)}, {tuple(ids.shape)}")
-    if d.shape[1] != out.shape[1] or ids.shape[0] != d.shape[0]:
+    if order is not None and (order.dtype != torch.int64 or order.ndim != 1):
+        raise TypeError(f"order must be (P,) int64, got {tuple(order.shape)} {order.dtype}")
+    stream_rows = d.shape[0] if order is None else order.shape[0]
+    if d.shape[1] != out.shape[1] or ids.shape[0] != stream_rows:
         raise ValueError(f"d {tuple(d.shape)} does not match out {tuple(out.shape)} "
                          f"and ids {tuple(ids.shape)}")
     if out.dtype != torch.float32 or d.dtype != torch.float32:
         raise TypeError(f"out and d must be float32, got {out.dtype} / {d.dtype}")
     if len({out.device, d.device, ids.device}) != 1:
         raise ValueError("out, d and ids must live on one device")
+    if order is None:
+        return
+    if order.device != d.device:
+        raise ValueError(f"order must live on d's device {d.device}, got {order.device}")
+    if order.numel():
+        low, high = (int(v) for v in torch.aminmax(order))
+        if low < 0 or high >= d.shape[0]:
+            raise IndexError(f"order spans [{low}, {high}], outside d's {d.shape[0]} rows")
 
 
-def ordered_fold_torch(out: torch.Tensor, d: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: ``out.index_add_(0, ids, d)``, in place. On the
-    CPU ``index_add_`` adds the contributions in stream order."""
-    _check(out, d, ids)
+def ordered_fold_torch(out: torch.Tensor, d: torch.Tensor, ids: torch.Tensor,
+                       order: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version: ``out.index_add_(0, ids, d[order])`` (``d``
+    where ``order`` is None), in place. On the CPU ``index_add_`` adds the
+    contributions in stream order."""
+    _check(out, d, ids, order)
+    if order is not None:
+        d = d.index_select(0, order)
     return out.index_add_(0, ids.long(), d)
 
 
@@ -82,8 +109,8 @@ def _entry():
     fn = lib.ordered_fold_launch
     if not fn.argtypes:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] \
+            + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
         lib.ordered_fold_max_rank.restype = ctypes.c_int
     return lib, fn
 
@@ -96,18 +123,25 @@ def ordered_fold_max_rank() -> int:
 
 
 def ordered_fold(out: torch.Tensor, d: torch.Tensor, ids: torch.Tensor,
-                 runs: torch.Tensor | None = None) -> torch.Tensor:
-    """``out[ids[i]] += d[i]`` for every ``i``, in stream order, in place;
-    returns ``out``. ``ids`` must be sorted non-decreasing (the kernel takes
-    each row's run as one contiguous block; it does not check).
+                 runs: torch.Tensor | None = None,
+                 order: torch.Tensor | None = None) -> torch.Tensor:
+    """``out[ids[i]] += d[order[i]]`` (``d[i]`` where ``order`` is None) for
+    every ``i``, in stream order, in place; returns ``out``. ``ids`` must be
+    sorted non-decreasing (the kernel takes each row's run as one contiguous
+    block; it does not check); ``order (P,)`` int64 on ``d``'s device, one
+    entry an ``ids`` entry, each a row of ``d`` (checked: an ``IndexError``
+    names the range), so ``d`` is read in place instead of gathered first.
 
-    CUDA tensors go through one kernel launch on the current stream, without
-    synchronizing; ``runs`` is :func:`row_runs` of ``ids`` where the caller
-    keeps it (else it is formed here). CPU tensors go through
-    :func:`ordered_fold_torch`."""
-    _check(out, d, ids)
+    CUDA tensors go through one kernel launch on the current stream; ``runs``
+    is :func:`row_runs` of ``ids`` where the caller keeps it (else it is
+    formed here). The checks wait for the device: ``order``'s range, and
+    the long runs (:func:`find_long_runs`) read from ``runs`` on the host.
+    A caller that keeps its runs and its order and made both itself (the
+    blocked path) launches through :func:`_fold_runs` with its long runs
+    instead. CPU tensors go through :func:`ordered_fold_torch`."""
+    _check(out, d, ids, order)
     if not out.is_cuda:
-        return ordered_fold_torch(out, d, ids)
+        return ordered_fold_torch(out, d, ids, order)
     if not out.is_contiguous():
         raise ValueError("out must be contiguous")
     if runs is None:
@@ -116,25 +150,47 @@ def ordered_fold(out: torch.Tensor, d: torch.Tensor, ids: torch.Tensor,
             or runs.shape != (out.shape[0] + 1,)):
         raise ValueError(f"runs must be the ({out.shape[0] + 1},) int64 row_runs of ids "
                          f"on {out.device}")
+    return _fold_runs(out, d.contiguous(), runs, None, 0, out.shape[0], 0,
+                      order=None if order is None else order.contiguous())
+
+
+def find_long_runs(seg_ptr, long_run: int = FOLD_LONG_RUN) -> np.ndarray:
+    """The runs of host offsets ``seg_ptr (n_seg + 1,)`` with more than
+    ``long_run`` rows, longest first (so the longest run's CTA starts
+    soonest), as int64 run indices: the fold route's ``long_runs``. A caller
+    that keeps its runs keeps these with them (``sparse.stream._segment_blocks``)."""
+    lengths = np.diff(np.asarray(seg_ptr, dtype=np.int64))
+    found = np.flatnonzero(lengths > long_run)
+    return found[np.argsort(-lengths[found], kind="stable")]
+
+
+def _fold_runs(out, d, seg_ptr, seg_rows, first: int, last: int, base: int,
+               order=None, long_runs=None, long_run: int = FOLD_LONG_RUN) -> torch.Tensor:
+    """One launch over segments ``[first, last)`` of precomputed runs:
+    segment ``s`` folds the stream rows ``[seg_ptr[s] - base, seg_ptr[s+1] -
+    base)`` into row ``seg_rows[s]`` (row ``s`` where ``seg_rows`` is None),
+    stream row ``i`` being ``d[order[i]]`` (``d[i]`` where ``order`` is
+    None); a run of more than ``long_run`` rows has a CTA of its own.
+    ``long_runs`` lists them (:func:`find_long_runs` of ``seg_ptr[first:last
+    + 1]``, on ``out``'s device); where it is None they are found here,
+    which waits for the device. For callers that checked their operands or
+    made them (:func:`ordered_fold`, the blocked path): contiguous int64
+    runs and order on ``out``'s device, every order entry a row of ``d``,
+    ``out`` and ``d`` contiguous f32 there."""
     if out.shape[1] > ordered_fold_max_rank():
         raise ValueError(f"the ordered fold takes up to {ordered_fold_max_rank()} "
                          f"rank columns, got {out.shape[1]}")
-    return _fold_runs(out, d.contiguous(), runs, None, 0, out.shape[0], 0)
-
-
-def _fold_runs(out, d, seg_ptr, seg_rows, first: int, last: int, base: int) -> torch.Tensor:
-    """One launch over segments ``[first, last)`` of precomputed runs:
-    segment ``s`` folds ``d`` rows ``[seg_ptr[s] - base, seg_ptr[s+1] - base)``
-    into row ``seg_rows[s]`` (row ``s`` where ``seg_rows`` is None). For
-    callers that built the runs themselves, checked once where they were
-    built (:func:`ordered_fold`, ``sparse.stream._segment_blocks``): contiguous
-    int64 on ``out``'s device, ``out`` and ``d`` contiguous f32 there."""
+    if long_runs is None:
+        long_runs = torch.as_tensor(find_long_runs(seg_ptr[first:last + 1].cpu(), long_run),
+                                    device=out.device)
     lib, fn = _entry()
     vec = int(out.shape[1] % 4 == 0 and d.data_ptr() % 16 == 0)
     with torch.cuda.device(out.device):
-        err = fn(out.data_ptr(), d.data_ptr(), seg_ptr.data_ptr() + 8 * first,
+        err = fn(out.data_ptr(), d.data_ptr(), 0 if order is None else order.data_ptr(),
+                 seg_ptr.data_ptr() + 8 * first,
                  0 if seg_rows is None else seg_rows.data_ptr() + 8 * first, int(base),
-                 last - first, out.shape[1], vec, torch.cuda.current_stream().cuda_stream)
+                 last - first, long_runs.data_ptr(), long_runs.numel(), out.shape[1], vec,
+                 int(long_run), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, lib, "ordered_fold")
     ordered_fold.launches += 1
     ordered_fold.routes["fold"] += 1

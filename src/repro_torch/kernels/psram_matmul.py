@@ -30,7 +30,10 @@ Three routes, one contract, chosen by shape and alignment alone
   is made;
 * ``"tile"`` — the other rows above :data:`M_DECODE` (an unaligned base, a
   K or N not a multiple of 16): ``psram_matmul_kernel``, 128 x 128 CTA
-  tiles on ``mma.sync``;
+  tiles on ``mma.sync`` fed by a ``cp.async`` ring, each tile's K loop
+  split over a thread-block cluster where the tiles alone would leave most
+  SMs idle (:func:`_tile_split`), the int32 partials reduced through
+  distributed shared memory in one launch;
 * ``"decode"`` — ``M <= M_DECODE``: ``psram_matmul_decode_kernel``, a
   weight-streaming pass with the roles swapped and K split across the warps
   of a CTA and a thread-block cluster (its size chosen by the library,
@@ -99,6 +102,29 @@ def psram_matmul_torch(
     return analog * (sx * sw)
 
 
+#: output rows and columns of a tile-route CTA, and the most CTAs of its cluster
+TILE = 128
+MAX_TILE_SPLIT = 8
+#: the fewest 64-deep k stages a CTA of a split tile walks
+MIN_TILE_STAGES = 4
+
+
+def _tile_split(m: int, k: int, n: int, sms: int) -> int:
+    """CTAs of a cluster that share one tile's K loop on the tile route (1,
+    2, 4 or 8): doubled while the doubled grid still has at most one CTA an
+    SM and each CTA keeps at least :data:`MIN_TILE_STAGES` stages. So a grid
+    of tiles that already fills the card (M = 8192 at the served
+    projections) is not split, and 512 x 4096 x 1000 (32 tiles) is split 4
+    ways on 132 SMs."""
+    tiles = -(-m // TILE) * -(-n // TILE)
+    stages = -(-k // 64)
+    split = 1
+    while (split < MAX_TILE_SPLIT and 2 * split * tiles <= sms
+           and 2 * split * MIN_TILE_STAGES <= stages):
+        split *= 2
+    return split
+
+
 def _decode_cluster(k: int, n: int, sms: int) -> int:
     """CTAs a cluster of the decode kernel has at ``K x N`` on ``sms`` SMs,
     as the built library chooses them."""
@@ -136,7 +162,7 @@ def _entry(route: str):
     if not fn.argtypes:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 \
-            + ([ctypes.c_int] if route == "decode" else []) + [ctypes.c_void_p]
+            + ([] if route == "wgmma" else [ctypes.c_int]) + [ctypes.c_void_p]
     return lib, fn
 
 
@@ -162,9 +188,10 @@ def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
     """One launch of kernel 2 on CUDA tensors. ``route`` None takes the
     route :func:`psram_matmul` takes; the checks name ``"wgmma"``,
     ``"tile"`` or ``"decode"`` to hold one route against another, and
-    ``cluster`` a decode cluster size (1..8; 0 is the library's choice).
-    Either only chooses how the same result is computed; a route that
-    cannot take the operands raises."""
+    ``cluster`` a decode cluster size or the tile route's K split (1..8; 0
+    is the library's decode cluster, or :func:`_tile_split`). Either only
+    chooses how the same result is computed; a route that cannot take the
+    operands raises."""
     if route not in (None, *ROUTES):
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     m, k, n = _check_operands(qx, qw, sx, sw)
@@ -188,7 +215,12 @@ def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
     levels = 2 ** adc_bits
     # exactly the plain version's LSB: formed in double, rounded once to f32
     lsb = 2.0 * (float(QMAX) * float(QMAX) * k) / levels
-    extra = (int(cluster),) if route == "decode" else ()
+    if not 0 <= cluster <= MAX_TILE_SPLIT:
+        raise ValueError(f"cluster must be in 0..{MAX_TILE_SPLIT}, got {cluster}")
+    if route == "tile" and cluster == 0:
+        cluster = _tile_split(m, k, n, torch.cuda.get_device_properties(qx.device)
+                              .multi_processor_count)
+    extra = () if route == "wgmma" else (int(cluster),)
     out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
     lib, fn = _entry(route)
     with torch.cuda.device(qx.device):

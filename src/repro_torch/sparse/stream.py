@@ -38,7 +38,9 @@ import torch
 from repro_torch.backends.base import resolve_config
 from repro_torch.core.mttkrp import cp_chain_exact
 from repro_torch.core.psram import PsramConfig
-from repro_torch.kernels.ordered_fold import chain_coords, ordered_chain_fold, ordered_fold
+from repro_torch.kernels.ordered_fold import (_fold_runs, chain_coords, find_long_runs,
+                                              ordered_chain_fold, ordered_fold,
+                                              ordered_fold_torch)
 
 from .formats import CSF
 
@@ -232,13 +234,14 @@ def _check_ranges(ranges: dict, factors: tuple) -> None:
 def _segment_blocks(csf: CSF, rows: int):
     """``_block_segments`` with its arrays on the CSF's device, plus the order
     the partials are folded in: ``(local, n_seg, order, fold_rows,
-    fold_runs)`` with ``local (B, rows) int32`` the block-local segment ids
-    (the padding of the last block included); ``order (P,) int64`` the
-    stable sort of the flattened ``(B*n_seg,)`` segment rows by row, the
-    slots of the sacrificial row ``out_rows`` (unused slots, padding)
-    dropped; ``fold_rows (P,) int64`` the rows in that order
-    (non-decreasing); ``fold_runs (out_rows + 1,) int64`` their
-    ``row_runs``. Stable: each row still receives its partials in (block,
+    fold_runs, long_runs)`` with ``local (B, rows) int32`` the block-local
+    segment ids (the padding of the last block included); ``order (P,)
+    int64`` the stable sort of the flattened ``(B*n_seg,)`` segment rows by
+    row, the slots of the sacrificial row ``out_rows`` (unused slots,
+    padding) dropped, so every entry is a partial's row; ``fold_rows (P,)
+    int64`` the rows in that order (non-decreasing); ``fold_runs (out_rows
+    + 1,) int64`` their ``row_runs``; ``long_runs`` the rows whose runs the
+    fold route gives a CTA of their own (``find_long_runs``). Stable: each row still receives its partials in (block,
     segment) order, the order of the reference's ``out.at[seg_rows].add``.
     Host numpy, cached on the CSF, like the layout of the fused kernel:
     CP-ALS reuses it every sweep. The stream itself is not padded here:
@@ -254,14 +257,15 @@ def _segment_blocks(csf: CSF, rows: int):
     order = np.argsort(flat, kind="stable")
     order = order[flat[order] != out_rows]
     fold_rows = flat[order]
+    fold_runs = np.searchsorted(fold_rows, np.arange(out_rows + 1)).astype(np.int64)
     dev = csf.device
     result = (
         torch.as_tensor(local, device=dev),
         n_seg,
         torch.as_tensor(order.astype(np.int64), device=dev),
         torch.as_tensor(fold_rows, device=dev),
-        torch.as_tensor(np.searchsorted(fold_rows, np.arange(out_rows + 1)).astype(np.int64),
-                        device=dev),
+        torch.as_tensor(fold_runs, device=dev),
+        torch.as_tensor(find_long_runs(fold_runs), device=dev),
     )
     csf.__dict__[key] = result
     return result
@@ -278,10 +282,11 @@ def stream_mttkrp_blocked(
     Per block of ``rows`` nonzeros of the sorted stream, the partial sums of
     each output-row segment of the exact chain ``x_p · ⊙ other-factor
     rows`` (``kernels.ops.blocked_chain_segment_sum_op``); then the
-    ``(B, n_seg)`` partials are gathered into the cached stable order of
-    their rows and folded into the output by ``kernels.ordered_fold``:
-    O(segments) adds, no global scatter matrix, each row's partials added in
-    (block, segment) order. On the card the chain is formed inside the
+    ``(B, n_seg)`` partials are folded into the output by
+    ``kernels.ordered_fold``, read in place in the cached stable order of
+    their rows (its ``order``): O(segments) adds, no global scatter matrix
+    and no gathered copy, each row's partials added in (block, segment)
+    order. On the card the chain is formed inside the
     segment-sum kernel (its chain route, one launch a call): no
     ``(B, rows, R)`` chain exists. On the CPU the plain version forms the
     chain over the padded stream and sums it with ``index_add_``. Both add
@@ -297,12 +302,17 @@ def stream_mttkrp_blocked(
     cfg = resolve_config(config)
     mode = csf.mode_order[0]
     factors = tuple(f.contiguous() for f in factors)
-    local, n_seg, order, fold_rows, fold_runs = _segment_blocks(csf, cfg.rows)
+    local, n_seg, order, fold_rows, fold_runs, long_runs = _segment_blocks(csf, cfg.rows)
     coords, *_, ranges = _chain_stream(csf)
     _check_ranges(ranges, factors)
     partials = blocked_chain_segment_sum_op(coords, csf.values, local, factors, mode, n_seg,
                                             lowering=lowering)
     rank = partials.shape[-1]
     out = torch.zeros((csf.shape[mode], rank), dtype=torch.float32, device=partials.device)
-    return ordered_fold(out, partials.reshape(-1, rank).index_select(0, order), fold_rows,
-                        runs=fold_runs)
+    d = partials.reshape(-1, rank).contiguous()
+    if not out.is_cuda:
+        return ordered_fold_torch(out, d, fold_rows, order)
+    # the order, the runs and the long runs are this CSF's own, made on the
+    # host once: nothing to check or wait for
+    return _fold_runs(out, d, fold_runs, None, 0, out.shape[0], 0, order=order,
+                      long_runs=long_runs)

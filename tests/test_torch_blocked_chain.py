@@ -196,7 +196,7 @@ def test_cpu_cache_holds_what_the_route_reads(tensors, rows):
     nmodes - 1)`` int32 (``chain_coords``); no padded stream is kept."""
     csf, fs = _case(tensors, 3, 2, 6)
     cached = _segment_blocks(csf, rows)
-    assert len(cached) == 5
+    assert len(cached) == 6
     stream_mttkrp_blocked(csf, fs, PsramConfig(rows=rows))
     assert _segment_blocks(csf, rows) is cached
     local, n_seg = cached[:2]

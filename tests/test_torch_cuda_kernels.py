@@ -592,6 +592,106 @@ def test_psram_matmul_sliced_operands_route_by_alignment(card, offset, route):
         assert torch.equal(pm._launch(ux, uw, sx, sw, route="tile"), got)
 
 
+# --------------------------------------------------- kernel 2's tile route
+
+TILE_CASES = [  # (m, k, n, qx's and qw's offset in bytes, split; 0: _tile_split's)
+    (200, 1043, 131, 0, 0, 0),          # K % 16 != 0, odd N
+    (200, 1043, 131, 0, 0, 1),
+    (200, 1043, 131, 0, 0, 8),
+    (130, 1, 257, 0, 0, 0),             # K = 1
+    (130, 1, 257, 0, 0, 2),
+    (300, 4096, 1000, 0, 0, 0),         # the head's N % 16 = 8: 8-byte copies of qw
+    (300, 4096, 1000, 1, 3, 4),         # sliced operands: neither base word-aligned
+    (257, 2064, 272, 16, 16, 0),        # M not a multiple of 128; TMA could take it
+    (129, 4100, 36, 4, 8, 3),           # a cluster of 3: the tile's rows split unevenly
+    (512, 4096, 1000, 0, 0, 0),         # the 1000-class head, split 4 on an H100
+]
+
+
+@pytest.mark.parametrize("m,k,n,ox,ow,split", TILE_CASES)
+def test_psram_matmul_tile_route_bit_equal_at_every_split(card, m, k, n, ox, ow, split):
+    """The tile route over ragged K and N, sliced operands (the guarded word
+    path), M off a tile, K = 1, and K split over clusters of 1 to 8 CTAs:
+    bit-equal to the plain version and to the unsplit launch, counted as
+    the ``tile`` route."""
+    qx, qw, sx, sw = _codes(card, m, k, n, m + k + n + ox)
+    bx = torch.empty(qx.numel() + ox, dtype=torch.int8, device=card)
+    bw = torch.empty(qw.numel() + ow, dtype=torch.int8, device=card)
+    ux = bx[ox:].view(m, k).copy_(qx)
+    uw = bw[ow:].view(k, n).copy_(qw)
+    routes = dict(pm.psram_matmul.routes)
+    got = pm._launch(ux, uw, sx, sw, route="tile", cluster=split)
+    torch.cuda.synchronize()
+    assert pm.psram_matmul.routes == {**routes, "tile": routes["tile"] + 1}
+    want = pm.psram_matmul_torch(qx, qw, sx, sw)
+    assert torch.equal(got, want)
+    assert torch.equal(pm._launch(ux, uw, sx, sw, route="tile", cluster=1), want)
+    if split == 0 and (m, k, n) == (512, 4096, 1000) and _sms() >= 128:
+        assert pm._tile_split(m, k, n, _sms()) == 4
+
+
+def test_psram_matmul_tile_route_refuses_a_bad_split(card):
+    qx, qw, sx, sw = _codes(card, 200, 128, 40, 1)
+    with pytest.raises(ValueError, match="cluster must be in"):
+        pm._launch(qx, qw, sx, sw, route="tile", cluster=9)
+
+
+# -------------------------------------------- the ordered fold's fold route
+
+FOLD_ROUTE_CASES = [  # (rank, d's offset in floats, gather through an order)
+    (32, 0, False), (32, 0, True), (6, 0, True), (40, 1, True), (40, 1, False),
+    (3, 1, True), (128, 0, True), (3000, 0, True),
+]
+
+
+@pytest.mark.parametrize("r,offset,gather", FOLD_ROUTE_CASES)
+@pytest.mark.parametrize("long_run", [None, 0, 1 << 40], ids=["default", "ring", "warps"])
+def test_fold_route_with_and_without_order_bit_equal_to_cpu(card, r, offset, gather, long_run):
+    """The fold route, given rows of ``d`` in place or through a gather
+    ``order``: runs longer than ``FOLD_LONG_RUN`` (a third of the stream,
+    and two neighbours in one CTA), empty rows (a whole CTA's worth too),
+    R % 4 != 0, a ``d`` off 16 bytes, a nonzero start; bit-equal to the
+    CPU's fold. ``long_run`` 0 sends every run through its CTA's ring, 2**40
+    every run to its warp: the same bits."""
+    rng = np.random.default_rng(r + offset + 7 * gather)
+    rows = 45
+    counts = rng.integers(0, 12, size=rows)
+    counts[4] = 2000 if r < 1000 else 300                  # a long run
+    counts[8] = counts[9] = 2 * of.FOLD_LONG_RUN + 5        # two in one CTA
+    counts[[5, *range(16, 24)]] = 0                         # empty rows, one CTA all empty
+    ids = np.repeat(np.arange(rows), counts)
+    n = len(ids)
+    n_d = n + 50 if gather else n
+    flat = torch.tensor(rng.standard_normal(n_d * r + offset).astype(np.float32), device=card)
+    d = flat[offset:].view(n_d, r)
+    order = torch.tensor(rng.permutation(n_d)[:n], device=card) if gather else None
+    start = torch.tensor(rng.standard_normal((rows, r)).astype(np.float32), device=card)
+    tid = torch.tensor(ids, device=card)
+    routes = dict(of.ordered_fold.routes)
+    if long_run is None:
+        got = of.ordered_fold(start.clone(), d, tid, order=order)
+    else:
+        got = of._fold_runs(start.clone(), d, of.row_runs(tid, rows), None, 0, rows, 0,
+                            order=order, long_run=long_run)
+    torch.cuda.synchronize()
+    assert of.ordered_fold.routes == {**routes, "fold": routes["fold"] + 1}
+    want = of.ordered_fold_torch(start.cpu(), d.cpu(), tid.cpu(),
+                                 order=None if order is None else order.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fold_route_refuses_an_order_out_of_range(card):
+    """On the card too, an ``order`` reaching past ``d`` raises before any
+    launch."""
+    d = torch.zeros((10, 4), device=card)
+    ids = torch.zeros(3, dtype=torch.int64, device=card)
+    launches = of.ordered_fold.launches
+    with pytest.raises(IndexError, match="outside d's 10 rows"):
+        of.ordered_fold(torch.zeros((2, 4), device=card), d, ids,
+                        order=torch.tensor([0, 10, 2], device=card))
+    assert of.ordered_fold.launches == launches
+
+
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_blocked_stream_on_the_card_is_ordered(card, mode):
     """``stream_mttkrp_blocked`` (the ``compiled=False`` sparse path) on the

@@ -1,5 +1,6 @@
 """The ordered fold's chain route (``kernels.ordered_fold.ordered_chain_fold``)
-held against the JAX reference on the CPU.
+held against the JAX reference on the CPU, and its fold route's gather
+index (``ordered_fold(..., order=)``) against the gathered copy it replaces.
 
 The chain route forms each contribution ``d_p = v_p · ⊙ other-factor rows``
 (``cp_chain_exact``'s rounded multiplies) and adds it into its run's row in
@@ -9,7 +10,11 @@ stream order. Its plain version, ``ordered_chain_fold_torch``, must be
 ``repro.core.mttkrp.mttkrp_sparse`` (one global ``segment_sum`` over an
 unsorted COO; runs = the stable sort's rows). The kernel itself runs only on
 a card (``tests/test_torch_cuda_kernels.py``); here its wrapper is held to
-what it refuses.
+what it refuses. The fold route's plain version with ``order`` must equal
+``index_select`` and then the fold, bit for bit, and the blocked path that
+reads its partials through it must equal the composition it replaces (the
+partials gathered first) and stay within rtol 1e-5 of the reference's
+``stream_mttkrp_blocked``.
 """
 import jax
 import jax.numpy as jnp
@@ -21,10 +26,13 @@ torch = pytest.importorskip("torch")
 from repro.core import mttkrp as jm
 from repro.sparse import formats as jf
 from repro.sparse import stream as jstream
+from repro.core.psram import PsramConfig as JPsramConfig
 from repro.sparse import synth as jsynth
+from repro_torch import convert
 from repro_torch.core.mttkrp import cp_chain_exact
 from repro_torch.core.psram import PsramConfig
 from repro_torch.kernels import ordered_fold as of
+from repro_torch.kernels.ops import blocked_chain_segment_sum_op
 from repro_torch.sparse import formats as tf
 from repro_torch.sparse import stream as tstream
 from repro_torch.sparse import synth as tsynth
@@ -180,3 +188,149 @@ def test_chain_wrapper_refuses_what_the_kernel_does_not_take(change, error, matc
     if match not in ("CUDA", "up to 8 modes"):     # the plain version checks the same
         with pytest.raises(error, match=match):
             of.ordered_chain_fold_torch(**args)
+
+
+# ------------------------------------------------- the fold route's gather index
+
+
+def _fold_operands(n, rows, rank, extra, seed):
+    """Sorted ids with a long run, empty rows and a nonzero start; ``d`` with
+    ``extra`` rows more than the stream and ``order`` a seeded choice of
+    its rows (repeats included)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, rows, size=n)
+    ids[: n // 3] = 2                                   # a long run
+    ids[(ids == 4) | (ids == 5)] = 6                    # rows 4, 5 empty
+    ids = np.sort(ids)
+    d = rng.standard_normal((n + extra, rank)).astype(np.float32)
+    order = rng.integers(0, n + extra, size=n)
+    start = rng.standard_normal((rows, rank)).astype(np.float32)
+    return (torch.tensor(start), torch.tensor(d), torch.tensor(ids), torch.tensor(order))
+
+
+@pytest.mark.parametrize("n,rows,rank,extra,seed", [
+    (500, 11, 6, 0, 1), (500, 11, 6, 37, 2), (2000, 40, 32, 100, 3), (64, 3, 3, 5, 4),
+    (0, 4, 8, 9, 5),
+])
+def test_fold_plain_version_with_order_equals_index_select_then_fold(n, rows, rank, extra, seed):
+    """``ordered_fold_torch(..., order=)`` and the CPU wrapper: EQUAL to
+    ``index_select`` then the fold, and to the serial in-order fold
+    ``out[ids[i]] += d[order[i]]`` from ``out``'s values."""
+    start, d, ids, order = _fold_operands(n, rows, rank, extra, seed)
+    want = of.ordered_fold_torch(start.clone(), d.index_select(0, order), ids)
+    got = of.ordered_fold_torch(start.clone(), d, ids, order=order)
+    assert torch.equal(got, want)
+    assert torch.equal(of.ordered_fold(start.clone(), d, ids, order=order), want)
+    serial = start.clone()
+    for i in range(n):
+        serial[ids[i]] = serial[ids[i]] + d[order[i]]
+    assert torch.equal(got, serial)
+
+
+@pytest.mark.parametrize("change,error,match", [
+    (lambda o: o.int(), TypeError, "int64"),
+    (lambda o: o.view(-1, 2), TypeError, r"\(P,\)"),
+    (lambda o: o.to("meta"), ValueError, "device"),
+    (lambda o: o[:-1], ValueError, "does not match"),
+    (lambda o: torch.cat([o[:-1], torch.tensor([107])]), IndexError, "outside d's 107 rows"),
+    (lambda o: torch.cat([torch.tensor([-1]), o[1:]]), IndexError, r"spans \[-1,"),
+])
+def test_fold_wrappers_refuse_a_bad_order(change, error, match):
+    """The wrapper and its plain version refuse an ``order`` of another
+    dtype, shape or device, one whose length is not the stream's, and one
+    that reaches outside ``d``'s rows; nothing is launched or folded."""
+    start, d, ids, order = _fold_operands(100, 9, 4, 7, 6)
+    bad = change(order)
+    before = (of.ordered_fold.launches, dict(of.ordered_fold.routes))
+    for fold in (of.ordered_fold, of.ordered_fold_torch):
+        out = start.clone()
+        with pytest.raises(error, match=match):
+            fold(out, d, ids, order=bad)
+        assert torch.equal(out, start)
+    assert (of.ordered_fold.launches, of.ordered_fold.routes) == before
+
+
+def test_order_is_checked_again_after_an_in_place_write():
+    """Every call reads ``order``'s range anew: an in-place write that takes
+    it past ``d``'s rows after a fold is refused by the next call, and
+    written back it folds as before."""
+    start, d, ids, order = _fold_operands(100, 9, 4, 7, 7)
+    of.ordered_fold(start.clone(), d, ids, order=order)
+    order[5] = d.shape[0]
+    with pytest.raises(IndexError, match="outside"):
+        of.ordered_fold(start.clone(), d, ids, order=order)
+    order[5] = 0
+    assert torch.equal(of.ordered_fold(start.clone(), d, ids, order=order),
+                       of.ordered_fold_torch(start.clone(), d.index_select(0, order), ids))
+
+
+BLOCKED_CASES = [((40, 30, 20), 11, mode, 16) for mode in range(3)] \
+    + [((14, 11, 9, 8), 12, mode, 7) for mode in range(4)]
+
+
+@pytest.fixture(scope="module")
+def blocked_tensors():
+    """One seeded reference tensor of 3 and one of 4 modes, with numpy
+    factors at rank 32."""
+    out = {}
+    for shape, key in {(40, 30, 20): 11, (14, 11, 9, 8): 12}.items():
+        coo = jsynth.powerlaw_coo(jax.random.PRNGKey(key), shape, nnz=1500, rank=3, alpha=1.1)
+        fs = [np.random.default_rng(60 + d).standard_normal((s, 32)).astype(np.float32)
+              for d, s in enumerate(shape)]
+        out[shape] = (coo, fs)
+    return out
+
+
+@pytest.mark.parametrize("shape,key,mode,rows", BLOCKED_CASES, ids=lambda v: str(v))
+def test_blocked_path_reads_partials_in_place(blocked_tensors, shape, key, mode, rows):
+    """``stream_mttkrp_blocked`` folds its partials through ``order``: EQUAL
+    to the composition it replaces (the partials gathered into fold order
+    by ``index_select``, then the fold), and within rtol 1e-5 of the
+    reference's ``stream_mttkrp_blocked`` (its Pallas kernel interpreted),
+    in every mode."""
+    coo, fs = blocked_tensors[shape]
+    jcsf = jf.csf_for_mode(coo, mode)
+    csf = convert.csf(jcsf.shape, jcsf.mode_order, jcsf.fids, jcsf.fptr,
+                      np.asarray(jcsf.values), device="cpu")
+    tfs = tuple(convert.factors(fs, device="cpu"))
+    cfg = PsramConfig(rows=rows)
+    got = tstream.stream_mttkrp_blocked(csf, tfs, cfg)
+    local, n_seg, order, fold_rows, fold_runs, _ = tstream._segment_blocks(csf, rows)
+    coords = tstream._chain_stream(csf)[0]
+    partials = blocked_chain_segment_sum_op(coords, csf.values, local, tfs, mode, n_seg)
+    want = of.ordered_fold(torch.zeros((shape[mode], 32)),
+                           partials.reshape(-1, 32).index_select(0, order), fold_rows,
+                           runs=fold_runs)
+    assert torch.equal(got, want)
+    ref = np.asarray(jstream.stream_mttkrp_blocked(jcsf, tuple(jnp.asarray(f) for f in fs),
+                                                   JPsramConfig(rows=rows), backend="interpret"))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("ptr,long_run,want", [
+    ([0, 3, 3, 100, 105, 400, 401, 401], 64, [4, 2]),
+    ([100, 105, 400, 401, 401], 4, [1, 0]),
+    ([0, 3, 3, 100, 105, 400, 401, 401], 1000, []),
+    ([0, 70, 140, 140, 210], 64, [0, 1, 3]),              # equal lengths keep their order
+], ids=["default", "from_an_offset", "none", "ties"])
+def test_long_runs_listed_longest_first(ptr, long_run, want):
+    """The fold route's long runs (more than ``long_run`` rows) of host
+    offsets, longest first, ties in run order; the same from a numpy array
+    and from a CPU tensor."""
+    assert of.find_long_runs(np.array(ptr), long_run).tolist() == want
+    assert of.find_long_runs(torch.tensor(ptr), long_run).tolist() == want
+
+
+@pytest.mark.parametrize("rows", [4, 16])
+def test_blocked_long_runs_are_those_of_its_runs(blocked_tensors, rows):
+    """The long runs ``_segment_blocks`` keeps for the blocked path's fold
+    are ``find_long_runs`` of its fold runs: the power-law head row's run
+    at 4-row blocks (73 partials), none at 16-row blocks."""
+    coo, _ = blocked_tensors[(40, 30, 20)]
+    jcsf = jf.csf_for_mode(coo, 0)
+    csf = convert.csf(jcsf.shape, jcsf.mode_order, jcsf.fids, jcsf.fptr,
+                      np.asarray(jcsf.values), device="cpu")
+    *_, fold_runs, long_runs = tstream._segment_blocks(csf, rows)
+    assert long_runs.dtype == torch.int64
+    assert long_runs.tolist() == of.find_long_runs(fold_runs.numpy()).tolist()
+    assert len(long_runs) == (1 if rows == 4 else 0)

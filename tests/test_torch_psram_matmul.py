@@ -214,3 +214,30 @@ def test_launch_raises_on_cpu_tensors(route):
     with pytest.raises(ValueError, match="CUDA tensors only"):
         _launch(*ops, route=route)
     assert pm.routes == before
+
+
+@pytest.mark.parametrize("m,k,n,sms,want", [
+    (8192, 4096, 4096, 132, 1), (8192, 4096, 1024, 132, 1),      # the served prefill's
+    (8192, 4096, 14336, 132, 1), (8192, 14336, 4096, 132, 1),    # four projections
+    (512, 4096, 1000, 132, 4),            # the 1000-class head: 32 tiles, 128 CTAs
+    (512, 4096, 1000, 64, 2),             # fewer SMs, a smaller split
+    (512, 4096, 14336, 132, 1),           # 448 tiles already fill the card
+    (77, 1043, 131, 132, 4),              # 2 tiles, 17 stages: at least 4 stages a CTA
+    (200, 128, 131, 132, 1),              # 2 stages: too few to split
+    (17, 1, 8, 132, 1),                   # K = 1
+])
+def test_tile_split_by_shape_and_sm_count(m, k, n, sms, want):
+    """The tile route's K split, chosen by shape and SM count alone (no
+    library needed): 1 where the tiles already fill the card, more where a
+    grid of tiles would leave most SMs idle; a power of two up to
+    ``MAX_TILE_SPLIT``, at most one CTA an SM once split, and every CTA
+    keeps ``MIN_TILE_STAGES`` stages of K."""
+    from repro_torch.kernels.psram_matmul import (MAX_TILE_SPLIT, MIN_TILE_STAGES, TILE,
+                                                  _tile_split)
+
+    split = _tile_split(m, k, n, sms)
+    assert split == want
+    assert split in (1, 2, 4, 8) and split <= MAX_TILE_SPLIT
+    if split > 1:
+        assert -(-m // TILE) * -(-n // TILE) * split <= sms
+        assert split * MIN_TILE_STAGES <= -(-k // 64)

@@ -192,7 +192,7 @@ def test_blocked_fold_order_is_stable_and_drops_only_sacrificial_slots(rows, ref
 
     cached = _segment_blocks(tcsf, rows)
     assert _segment_blocks(tcsf, rows) is cached                 # cached on the CSF
-    order, fold_rows, fold_runs = (t.numpy() for t in cached[2:])
+    order, fold_rows, fold_runs = (t.numpy() for t in cached[2:5])
     flat = _block_segments(tcsf, rows)[1].reshape(-1)
     out_rows = coo.shape[1]
     # exactly the slots of real rows, each once
