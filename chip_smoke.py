@@ -50,8 +50,14 @@ What it does, in order — any failure raises and the run exits non-zero:
    route on the padded chain (``padded_chain``), and its chain route (the
    chain formed in the kernel) bit-equal to that composition, repeatable
    and, at mode 0, bit-equal to its plain version on the CPU, timed beside
-   the composition.
-4. ``main_path`` — three paths, each run with every launch counter set to 0
+   the composition. Both chain routes' quantized variants (``psram=True``,
+   the ``psram-stream`` backend's) on each mode's stream at full size:
+   bit-equal to the plain chain (``cp_chain_psram`` on the card) folded by
+   the route that adds in order (``psram_main``), repeatable, timed beside
+   the exact chain on the same route, their plain versions and their bounds
+   (bytes, f32 operations and instructions counted from the source); and
+   small cases bit-equal to the CPU (``psram_small``).
+4. ``main_path`` — the paths, each run with every launch counter set to 0
    just before it and read just after:
    a. ``cp_als(sparse=coo, rank=32, n_iter=3, backend="hopper")`` on the
       paper's array config and ``api.matmul`` at an LM MLP projection
@@ -74,6 +80,14 @@ What it does, in order — any failure raises and the run exits non-zero:
       call's result bit-equal to the plain version on the CPU and to the
       route without ``order`` on the partials gathered first
       (``fold_route``).
+   c'. ``main_path_psram_stream``: ``cp_als(sparse=coo, rank=32, n_iter=3,
+      backend="psram-stream")`` on the paper's array (rows 256, ADC 16), then
+      the same with ``compiled=True``: the ordered fold's quantized chain
+      route once a mode, and kernel 5's quantized chain route + the fold
+      route once a mode; the fits finite and within 1e-3 of each other; each
+      mode's ``api.mttkrp`` (default backend: ``psram-stream``) and the
+      compiled backend within ``rel_tol`` of exact, each call's own peak
+      device memory below the (nnz, R) chain it never forms.
    d. ``main_path_flash``: ``kernels.ops.flash_attention_op`` at its
       docstring's shape, a 32k-token causal prefill at granite-8b's
       attention widths (B=1, H=32, Hkv=8, D=128, bf16), and on layer 0's
@@ -91,8 +105,9 @@ What it does, in order — any failure raises and the run exits non-zero:
    projections give it in a prefill (and to the tile route) and a decode
    step, and every decode projection of 16 greedy tokens is held bit-equal
    to the tile route on the same operands.
-5. ``sweep_time`` — one warm sweep of each CP-ALS engine, and the parts of a
-   ``hopper`` sweep timed alone.
+5. ``sweep_time`` — one warm sweep of each CP-ALS engine (``hopper`` fused
+   and ``compiled=False``, ``exact``, ``psram-stream`` eager and compiled),
+   and the parts of a ``hopper`` sweep timed alone.
 
 TF32 is switched off for matmuls and cuDNN before anything runs: the plain
 versions of the dense MTTKRP and flash kernels are f32 matrix products.
@@ -151,6 +166,12 @@ FADD_CYCLES = 4
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
+# one f32 instruction a lane a cycle: the f32 peak counts an FMA as two
+F32_INSTRUCTIONS_PER_S = F32_FLOPS_PER_S / 2
+# instructions of one IEEE f32 division (__fdiv_rn) on its fast path: the
+# reciprocal, its Newton steps and the range check (an assumption: the SASS
+# is not counted)
+FDIV_INSTRUCTIONS = 8
 
 
 _LAST_EMIT = [time.perf_counter()]
@@ -308,16 +329,16 @@ def call_split(torch, fn, fold_launches: int, n: int = 3, attempts: int = 3) -> 
                          f"in each of {attempts} windows")
 
 
-def op_split(torch, fn, own: str, n: int = 3, attempts: int = 3) -> dict:
+def op_split(torch, fn, own: str, n: int = 3, attempts: int = 5) -> dict:
     """One whole call of ``fn`` split by operation: the device time of each
     kernel whose name matches ``own`` (the repository's kernels) under that
     name, and of every other kernel under the outermost ``aten::`` op that
     launched it; the card's busy time, and the rest of the call's CUDA-event
     time (``idle_ms``), with the launches of each, per call (device time the
     profiler tied to no op is ``unattributed``). ``n`` calls under
-    ``torch.profiler`` after a warm call; a window in which some kernel's
-    launches are not a multiple of ``n`` lost records and is profiled again;
-    the run fails where every attempt did."""
+    ``torch.profiler`` after a warm call; a window that recorded no kernel,
+    or in which some kernel's launches are not a multiple of ``n``, lost
+    records and is profiled again; the run fails where every attempt did."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -362,7 +383,7 @@ def op_split(torch, fn, own: str, n: int = 3, attempts: int = 3) -> dict:
         counts = {}
         for e in device:
             counts[e.name] = counts.get(e.name, 0) + 1
-        if all(c % n == 0 for c in counts.values()):
+        if device and all(c % n == 0 for c in counts.values()):
             busy_ms = busy_us / 1e3 / n
             rest = busy_ms - sum(v["ms"] for v in ops.values())
             if abs(rest) > 1e-3 * busy_ms:   # kernels the profiler tied to no op
@@ -1223,6 +1244,155 @@ def small_segment_cases(torch):
 
 
 
+# ------------------------------------------- the quantized chain routes
+
+
+def psram_chain_ops(k: int) -> tuple[int, int]:
+    """The f32 operations the quantized chain (``hopper::psram_chain_row``)
+    and its fold cost a nonzero of ``k`` non-target modes per rank column,
+    counted from the source, and the true divisions among them: the first
+    row quantized (|.| and max, division, rint, two clamps, two
+    conversions, the scale's product: 9, 1 division); each further mode's
+    running Hadamard and row quantized, their integer product through the
+    ADC (division, rint, two clamps, its LSB) and both scales (22, 3
+    divisions); CP2's chain quantized and driven by the value's code through
+    the ADC (15, 2 divisions); the fold's add (1). The per-row scales and
+    maxima are left out."""
+    return 9 + 22 * (k - 1) + 15 + 1, 1 + 3 * (k - 1) + 2
+
+
+def psram_bounds(nnz: int, rank: int, k: int, moved: int) -> dict:
+    """The least time of a quantized chain route: its bytes over HBM's rate
+    against its operations (:func:`psram_chain_ops`) over the f32 peak;
+    beside it the instruction bound, each division at ``FDIV_INSTRUCTIONS``
+    instructions, one f32 instruction a lane a cycle."""
+    ops, divs = psram_chain_ops(k)
+    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nnz * rank * ops / F32_FLOPS_PER_S
+    instr = nnz * rank * (ops - divs + divs * FDIV_INSTRUCTIONS)
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
+            "instruction_bound_ms": 1e3 * instr / F32_INSTRUCTIONS_PER_S,
+            "ops_per_nonzero_column": ops, "divisions_per_nonzero_column": divs}
+
+
+def psram_route_case(torch, csf, factors, cfg, adc_bits):
+    """Both chain routes' quantized variants (``psram=True``) on one mode's
+    stream at full size, as the ``psram-stream`` backend launches them: the
+    ordered fold's chain route (the eager path, one launch a call) and
+    kernel 5's chain route (the compiled path's partials). Each BIT-EQUAL to
+    its plain version's arithmetic on the card — the plain chain
+    (``cp_chain_psram``: elementwise IEEE ops, the CPU's bits) folded by the
+    kernels that add in order (the fold route over the stream; the rows
+    route over the padded chain) — and repeatable; timed by CUDA events
+    beside the exact chain on the same route in the same call, the plain
+    version on the card (its ``index_add_`` atomic) and the bounds of
+    :func:`psram_bounds`."""
+    from repro_torch.core.mttkrp import cp_chain_psram
+    from repro_torch.kernels import ordered_fold as of
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.sparse.stream import _chain_stream, _segment_blocks
+
+    mode = csf.mode_order[0]
+    rows, rank = csf.shape[mode], factors[0].shape[1]
+    coords, seg_ptr, seg_rows, run, _ = _chain_stream(csf)
+    vals, fs = csf.values, tuple(factors)
+    k = len(fs) - 1
+    local, n_seg = _segment_blocks(csf, cfg.rows)[:2]
+    zeros = lambda: torch.zeros((rows, rank), device="cuda")
+
+    def eager(out, psram=True):
+        return of.ordered_chain_fold(out, coords, vals, fs, mode, seg_ptr, seg_rows,
+                                     longest_run=run, psram=psram, adc_bits=adc_bits)
+
+    def blocked(psram=True):
+        return ss.blocked_chain_segment_sum(coords, vals, local, fs, mode, n_seg, psram=psram,
+                                            adc_bits=adc_bits)
+
+    got = eager(zeros())
+    idx = csf.expanded_indices()
+    want = of.ordered_fold(zeros(), cp_chain_psram(idx, vals, fs, mode, adc_bits), idx[:, mode])
+    ec = {"bit_equal_to_plain": bool(torch.equal(got, want)),
+          "repeatable": bool(torch.equal(eager(zeros()), got)),
+          "finite": bool(torch.isfinite(got).all()),
+          "max_abs_err": float((got - want).abs().max())}
+    del got, want
+    parts = blocked()
+    want_parts = ss.blocked_segment_sum(ss.padded_chain(coords, vals, local, fs, mode, True,
+                                                        adc_bits), local, n_seg)
+    bc = {"bit_equal_to_plain": bool(torch.equal(parts, want_parts)),
+          "repeatable": bool(torch.equal(blocked(), parts)),
+          "finite": bool(torch.isfinite(parts).all()),
+          "max_abs_err": float((parts - want_parts).abs().max())}
+    b = parts.shape[0]
+    del parts, want_parts
+    case = {"mode": mode, "nnz": csf.nnz, "rank": rank, "adc_bits": adc_bits,
+            "longest_run": run, "blocks": b, "n_seg": n_seg, "eager": ec, "blocked": bc}
+    if not all(c["bit_equal_to_plain"] and c["repeatable"] and c["finite"] for c in (ec, bc)):
+        raise AssertionError(f"a quantized chain route disagrees with its plain version or "
+                             f"itself: {case}")
+    buf = zeros()
+    ec["ms"] = time_ms(torch, lambda: eager(buf), warmup=1, iters=3, reps=2)
+    ec["exact_ms"] = time_ms(torch, lambda: eager(buf, False), warmup=1, iters=3, reps=2)
+    ec["plain_ms"] = time_ms(torch, lambda: of.ordered_chain_fold_torch(
+        buf, coords, vals, fs, mode, seg_ptr, seg_rows, psram=True, adc_bits=adc_bits),
+        warmup=1, iters=2, reps=1)
+    others = [f for d, f in enumerate(fs) if d != mode]
+    ec.update(psram_bounds(csf.nnz, rank, k, nbytes(coords, vals, seg_ptr, seg_rows, *others)
+                           + 2 * 4 * rows * rank))
+    bc["ms"] = time_ms(torch, lambda: blocked(), warmup=1, iters=3, reps=2)
+    bc["exact_ms"] = time_ms(torch, lambda: blocked(False), warmup=1, iters=3, reps=2)
+    bc["plain_ms"] = time_ms(torch, lambda: ss.blocked_chain_segment_sum_torch(
+        coords, vals, local, fs, mode, n_seg, True, adc_bits), warmup=1, iters=2, reps=1)
+    bc.update(psram_bounds(csf.nnz, rank, k, nbytes(coords, vals, local, *others)
+                           + 4 * b * n_seg * rank))
+    return case
+
+
+def small_psram_cases(torch):
+    """Both quantized chain routes against their plain versions on the CPU
+    (bit-equal): a 4-bit ADC, R % 4 != 0, a rank over one column tile with 4
+    modes, a ragged last block."""
+    from repro_torch.kernels import ordered_fold as of
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.sparse import csf_for_mode, powerlaw_coo
+    from repro_torch.sparse.stream import _chain_stream, _segment_blocks
+
+    cases = []
+    for shape, nnz, rank, mode, bits in [((300, 200, 100), 60000, 32, 0, 16),
+                                         ((300, 200, 100), 60000, 5, 1, 4),
+                                         ((50, 12, 9, 7), 20000, 48, 2, 8)]:
+        coo = powerlaw_coo(15, shape, nnz=nnz, rank=4, alpha=1.6, device="cuda")
+        csf = csf_for_mode(coo, mode)
+        gen = torch.Generator(device="cuda").manual_seed(rank)
+        fs = tuple(torch.randn((s, rank), generator=gen, device="cuda") for s in shape)
+        coords, seg_ptr, seg_rows, run, _ = _chain_stream(csf)
+        local, n_seg = _segment_blocks(csf, 256)[:2]
+        cpu = lambda t: t.cpu()
+        out = torch.zeros((shape[mode], rank), device="cuda")
+        got = of.ordered_chain_fold(out, coords, csf.values, fs, mode, seg_ptr, seg_rows,
+                                    longest_run=run, psram=True, adc_bits=bits)
+        want = of.ordered_chain_fold_torch(cpu(out).zero_(), cpu(coords), cpu(csf.values),
+                                           tuple(map(cpu, fs)), mode, cpu(seg_ptr),
+                                           cpu(seg_rows), psram=True, adc_bits=bits)
+        parts = ss.blocked_chain_segment_sum(coords, csf.values, local, fs, mode, n_seg,
+                                             psram=True, adc_bits=bits)
+        want_parts = ss.blocked_chain_segment_sum_torch(cpu(coords), cpu(csf.values),
+                                                        cpu(local), tuple(map(cpu, fs)), mode,
+                                                        n_seg, True, bits)
+        case = {"shape": list(shape), "nnz": csf.nnz, "rank": rank, "mode": mode,
+                "adc_bits": bits,
+                "max_abs_err": max(float((got.cpu() - want).abs().max()),
+                                   float((parts.cpu() - want_parts).abs().max())),
+                "eager_bit_equal_to_cpu": bool(torch.equal(got.cpu(), want)),
+                "blocked_bit_equal_to_cpu": bool(torch.equal(parts.cpu(), want_parts))}
+        cases.append(case)
+        if not (case["eager_bit_equal_to_cpu"] and case["blocked_bit_equal_to_cpu"]):
+            raise AssertionError(f"a quantized chain route is not bit-equal to the CPU: {case}")
+    return cases
+
+
 # ------------------------------------------------------- the ordered fold
 
 
@@ -1320,7 +1490,7 @@ def fold_chunks_case(torch, csf, factors):
     }
     del plain, mag, diff, want_steps
     if not (case["bit_equal_to_stepped"] and case["repeatable"] and case["finite"]
-            and launched == {"fold": 0, "chain": 1}
+            and launched == {"fold": 0, "chain": 1, "chain_psram": 0}
             and case["max_err_over_magnitude"] <= 2 * (run - 1) * 2.0 ** -24):
         raise AssertionError(f"the chain route disagrees with the stepped route or its plain "
                              f"version: {case}")
@@ -1414,7 +1584,7 @@ def stream_fold_check(torch, csf, factors):
         "max_abs_err": float((got.cpu() - want).abs().max()),
     }
     if not (case["repeatable"] and case["bit_equal_to_cpu"]
-            and launched == {"fold": 0, "chain": 1}):
+            and launched == {"fold": 0, "chain": 1, "chain_psram": 0}):
         raise AssertionError(f"stream_mttkrp on the card is not one in-order chain-route "
                              f"launch: {case}")
     return case
@@ -1981,6 +2151,12 @@ def main(argv=None) -> int:
     # the exact backend's sparse MTTKRP on every mode: the call and its one
     # chain-route launch
     fold_split = exact_sparse_split(torch, coo, init)
+    # both chain routes' quantized variants (the psram-stream backend's):
+    # every mode at full size against their plain versions' arithmetic,
+    # timed beside the exact chain on the same route; small cases against
+    # the CPU
+    psram_main = [psram_route_case(torch, csfs[m], init, cfg, cfg.adc.bits) for m in range(3)]
+    psram_small = small_psram_cases(torch)
     f_main = flash_case(torch, *FLASH_MAIN, torch.bfloat16, causal=True, seed=21, timed=True)
     f_small = small_flash_cases(torch)
     report["kernel_cases"] = {
@@ -1990,6 +2166,7 @@ def main(argv=None) -> int:
         "matmul_decode_small": b_decode_small, "matmul_crossover": b_crossover,
         "fold_main": fold_main, "fold_skew": fold_skew, "fold_small": fold_small,
         "exact_sparse_split": fold_split,
+        "psram_main": psram_main, "psram_small": psram_small,
         "dense_main": d_main, "dense_small": d_small,
         "dense_psram_main": p_main, "dense_psram_small": p_small,
         "dense_strided_main": s_main, "dense_strided_small": s_small,
@@ -2183,6 +2360,90 @@ def main(argv=None) -> int:
     if not all(f.is_cuda and torch.isfinite(f).all() for f in leg.factors):
         raise AssertionError("legacy CP-ALS factors are not finite tensors on the card")
 
+    # 4c'. CP-ALS on the psram-stream backend, eager and compiled -----------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    pst = cp_als(None, RANK, n_iter=SWEEPS, sparse=coo, backend="psram-stream", config=cfg,
+                 csfs=csfs, init=init)
+    torch.cuda.synchronize()
+    pst_s = time.perf_counter() - t0
+    pst_launches = read_counts()
+    zero_counts()
+    t0 = time.perf_counter()
+    psc = cp_als(None, RANK, n_iter=SWEEPS, sparse=coo, backend="psram-stream", compiled=True,
+                 config=cfg, csfs=csfs, init=init)
+    torch.cuda.synchronize()
+    psc_s = time.perf_counter() - t0
+    psc_launches = read_counts()
+    ps_peak = torch.cuda.max_memory_allocated()
+    # each mode's MTTKRP through the api's default backend (psram-stream; the
+    # per-mode CSF, so no host sort) and compiled, against exact; and the
+    # device memory each call takes beside the (nnz, R) chain it never forms
+    compiled_be = backends.get("psram-stream", cfg, compiled=True)
+    fs_ps = tuple(pst.factors)
+    ps_rel, psc_rel, ps_call_peak, psc_call_peak = [], [], [], []
+    for m in range(3):
+        want = api.mttkrp(csfs[m], fs_ps, m, backend="exact")
+        got = api.mttkrp(csfs[m], fs_ps, m, config=cfg)
+        got_c = compiled_be.mttkrp(csfs[m], fs_ps, m)
+        for out in (got, got_c):
+            if tuple(out.shape) != (NELL2_SHAPE[m], RANK) or not out.is_cuda \
+                    or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"psram-stream MTTKRP of mode {m}: shape "
+                                     f"{tuple(out.shape)}, device {out.device}, or non-finite")
+        norm = torch.linalg.norm(want)
+        ps_rel.append(float(torch.linalg.norm(got - want) / norm))
+        psc_rel.append(float(torch.linalg.norm(got_c - want) / norm))
+        del want, got, got_c
+        ps_call_peak.append(call_bytes_peak(
+            torch, lambda m=m: api.mttkrp(csfs[m], fs_ps, m, config=cfg)))
+        psc_call_peak.append(call_bytes_peak(
+            torch, lambda m=m: compiled_be.mttkrp(csfs[m], fs_ps, m)))
+    rel_tol = compiled_be.capabilities().rel_tol
+    psram_path = {
+        "phase": "main_path_psram_stream", "sweeps": SWEEPS, "rank": RANK,
+        "adc_bits": cfg.adc.bits, "rows": cfg.rows,
+        "fit_psram_stream": pst.fit, "fit_psram_stream_compiled": psc.fit,
+        "fit_exact": exact.fit, "iters": [pst.iters, psc.iters],
+        "cp_als_s": pst_s, "cp_als_compiled_s": psc_s,
+        "launches": pst_launches, "launches_compiled": psc_launches,
+        "rel_err": ps_rel, "rel_err_compiled": psc_rel, "rel_tol": rel_tol,
+        "call_bytes_peak": ps_call_peak, "call_bytes_peak_compiled": psc_call_peak,
+        "chain_bytes": coo.nnz * RANK * 4, "device_bytes_peak": ps_peak,
+    }
+    report["main_path_psram_stream"] = psram_path
+    emit(psram_path)
+    if not (math.isfinite(pst.fit) and math.isfinite(psc.fit)) \
+            or abs(pst.fit - psc.fit) > 1e-3:
+        raise AssertionError(f"psram-stream CP-ALS: non-finite fits, or the eager and "
+                             f"compiled fits more than 1e-3 apart: {psram_path}")
+    if not max(ps_rel + psc_rel) < rel_tol:
+        raise AssertionError(f"psram-stream MTTKRP strays from exact beyond its rel_tol: "
+                             f"{psram_path}")
+    # eager: one quantized chain-route launch a mode, the exact fit's chain
+    # route once a sweep; compiled: kernel 5's quantized chain route and one
+    # fold-route launch a mode
+    if pst.iters != SWEEPS or psc.iters != SWEEPS \
+            or pst_launches["ordered_fold_chain_psram"] != 3 * SWEEPS \
+            or pst_launches["ordered_fold_chain"] != SWEEPS \
+            or pst_launches["ordered_fold_fold"] != 0 or pst_launches["blocked_segment_sum"] != 0:
+        raise AssertionError(f"the eager psram-stream path did not launch the ordered fold's "
+                             f"quantized chain route once a mode: {psram_path}")
+    if psc_launches["blocked_segment_sum_chain_psram"] != 3 * SWEEPS \
+            or psc_launches["blocked_segment_sum"] != 3 * SWEEPS \
+            or psc_launches["ordered_fold_fold"] != 3 * SWEEPS \
+            or psc_launches["ordered_fold_chain"] != SWEEPS \
+            or psc_launches["ordered_fold_chain_psram"] != 0:
+        raise AssertionError(f"the compiled psram-stream path did not launch kernel 5's "
+                             f"quantized chain route and the fold route once a mode: "
+                             f"{psram_path}")
+    if not max(ps_call_peak + psc_call_peak) < psram_path["chain_bytes"]:
+        raise AssertionError(f"a psram-stream call took the memory of an (nnz, R) chain: "
+                             f"{psram_path}")
+    del pst, psc, fs_ps
+
 
     # 4d. the flash kernel's own entry point --------------------------------
     from repro_torch.kernels.ops import flash_attention_op
@@ -2353,6 +2614,8 @@ def main(argv=None) -> int:
 
     sweeps = {name: sweep_ms(name) for name in ("hopper", "exact")}
     sweeps["hopper_legacy"] = sweep_ms("hopper", compiled=False)
+    sweeps["psram_stream"] = sweep_ms("psram-stream")
+    sweeps["psram_stream_compiled"] = sweep_ms("psram-stream", compiled=True)
 
     # what a hopper sweep holds besides its three kernel-A launches, each
     # piece timed alone at the sweep's shapes (plain PyTorch, all of it)
@@ -2378,6 +2641,8 @@ def main(argv=None) -> int:
         "per_sweep_ms_hopper": statistics.median(sweeps["hopper"]),
         "per_sweep_ms_exact": statistics.median(sweeps["exact"]),
         "per_sweep_ms_hopper_legacy": statistics.median(sweeps["hopper_legacy"]),
+        "per_sweep_ms_psram_stream": statistics.median(sweeps["psram_stream"]),
+        "per_sweep_ms_psram_stream_compiled": statistics.median(sweeps["psram_stream_compiled"]),
         "sweeps_ms": sweeps,
         "sweep_parts_ms": sweep_parts_ms,
         "before_first_sweep_s": hop_s - 1e-3 * SWEEPS * statistics.median(sweeps["hopper"]),
@@ -2389,8 +2654,8 @@ def main(argv=None) -> int:
         return statistics.fmean(c[key] for c in cases)
 
     f_served = flash_path["served_layer0"]["vs_plain"]
-    main_paths = (launches, dense_launches, leg_launches, flash_launches, exact_launches,
-                  psram_launches)
+    main_paths = (launches, dense_launches, leg_launches, pst_launches, psc_launches,
+                  flash_launches, exact_launches, psram_launches)
 
     def total(name):
         return sum(counts[name] for counts in main_paths)
@@ -2622,6 +2887,32 @@ def main(argv=None) -> int:
             "stepped_call_ms": fold_main["stepped"]["ms"],
             "stepped_split": fold_main["stepped"]["split"],
         },
+        *[{
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": total(name),
+            "max_abs_err": max([c[key]["max_abs_err"] for c in psram_main]
+                               + [c["max_abs_err"] for c in psram_small]),
+            **{k: statistics.fmean(c[key][k] for c in psram_main)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": psram_main[0][key]["bound_by"], "library_ms": None,
+            "library": "none (no one call quantizes the chain and folds it)",
+            "tolerance": "bit-equal to the plain chain (cp_chain_psram, the CPU's bits) "
+                         "folded by the in-order route it replaces (every mode at full "
+                         "size), to the CPU plain version (small cases), repeatable",
+            **{f"per_mode_{k}": [c[key][k] for c in psram_main]
+               for k in ("ms", "exact_ms", "plain_ms", "bound_ms", "instruction_bound_ms")},
+            "adc_bits": cfg.adc.bits,
+        } for name, key, source, replaces in (
+            ("ordered_fold_chain_psram", "eager",
+             "src/repro_torch/kernels/csrc/ordered_fold.cu (ordered_chain_kernel<RT, true>: the "
+             "chain route's quantized variant, the psram-stream eager path; the chain "
+             "hopper::psram_chain_row in csrc/hopper.cuh)",
+             "src/repro/core/mttkrp.py:161 (jax.ops.segment_sum of cp_chain_psram, the "
+             "quantized sparse CP3 scatter; no Pallas kernel)"),
+            ("blocked_segment_sum_chain_psram", "blocked",
+             "src/repro_torch/kernels/csrc/segment_sum.cu (segment_chain_kernel<K, VEC, true>: "
+             "the chain route's quantized variant, the psram-stream compiled path)",
+             "src/repro/kernels/segment_sum.py:44"))],
     ]}
     report["kernels"] = kernels
     if opts.out is not None:

@@ -1,7 +1,7 @@
 """repro_torch.api — the execute facade over the backend registry.
 
 >>> from repro_torch import api
->>> out = api.execute(api.MTTKRPProblem(coo, factors, mode=0), backend="hopper")
+>>> out = api.execute(api.MTTKRPProblem(coo, factors, mode=0))   # "psram-stream"
 >>> y   = api.matmul(x, w, backend="hopper")
 >>> a   = api.mttkrp(x3, factors, mode=1, backend="hopper")   # dense (I, J, K)
 
@@ -14,9 +14,11 @@ triple or a sparse container. Results live on the device of the tensors
 handed in. This module is deliberately thin —
 every behavior lives in ``repro_torch.backends``.
 
-``estimate`` of the reference facade waits for the cost side
-(``core.perf_model``); the default backend here is ``"hopper"`` until the
-reference's defaults (``"psram-stream"`` / ``"psram-scheduled"``) are ported.
+``execute`` and ``mttkrp`` default to ``"psram-stream"``, as the reference's
+do: the streaming schedule with the quantized chain. ``matmul`` defaults to
+``"hopper"`` until the reference's default, ``"psram-scheduled"``, comes with
+the array's tile schedules, and ``estimate`` waits for the cost side
+(``core.perf_model``) — both ROADMAP Queue A item 3.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ __all__ = [
 ]
 
 
-def execute(workload, backend: str = "hopper", config=None, *,
+def execute(workload, backend: str = "psram-stream", config=None, *,
             factors=None, mode: int = 0):
     """Run an MTTKRP workload on ``backend`` and return the ``(I_mode, R)``
     result.
@@ -52,7 +54,7 @@ def execute(workload, backend: str = "hopper", config=None, *,
     return mttkrp(data, factors, mode, backend=backend, config=config)
 
 
-def mttkrp(data, factors, mode: int = 0, backend: str = "hopper",
+def mttkrp(data, factors, mode: int = 0, backend: str = "psram-stream",
            config=None):
     """MTTKRP of ``data`` against ``factors`` along ``mode`` on ``backend``."""
     return backends.get(backend, config).mttkrp(data, tuple(factors), mode)

@@ -3,10 +3,13 @@
 One :class:`Backend` protocol (``mttkrp`` / ``matmul`` / ``cost`` /
 ``capabilities``), one registry (:func:`register` / :func:`get` /
 :func:`list_backends`), and the implementations ported so far: ``"exact"``
-(float baseline) and ``"hopper"`` (the hand-written CUDA kernel family —
-the reference package's ``"pallas"`` backend). Still to come from the
-reference: ``"psram-oracle"``, ``"psram-scheduled"``, ``"psram-stream"``,
-``"psram-mesh"``, ``"analytical"``, and ``describe``.
+(float baseline), ``"psram-oracle"`` (its quantized-chain MTTKRP),
+``"psram-stream"`` (the streaming schedule with the quantized chain, eager
+and compiled) and ``"hopper"`` (the hand-written CUDA kernel family — the
+reference package's ``"pallas"`` backend). Still to come from the
+reference: ``"psram-scheduled"``, ``"analytical"``, ``describe`` and the
+cost side of ``"psram-oracle"`` / ``"psram-stream"`` (ROADMAP Queue A item
+3), and ``"psram-mesh"`` (item 4).
 """
 from .base import (
     Backend,

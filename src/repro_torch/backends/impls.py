@@ -4,6 +4,13 @@
 name               wraps
 =================  =========================================================
 ``exact``          float einsum / COO scatter-add — the parity baseline
+``psram-oracle``   the flat quantized CP chain (sparse MTTKRP,
+                   ``mttkrp_sparse_psram``); its matmul (the per-cycle
+                   array interpreter) waits for ROADMAP Queue A item 3
+``psram-stream``   the nonzero-streaming sparse schedule
+                   (``repro_torch.sparse.stream``): quantized chain, eager
+                   per-nonzero fold or (``compiled=True``) the
+                   blocked-segment fold; its cost model waits for item 3
 ``hopper``         the hand-written CUDA kernel family (plain PyTorch
                    versions for CPU tensors): pSRAM int8 matmul, quantized
                    dense KR MTTKRP, fused streaming sparse MTTKRP; with
@@ -12,8 +19,10 @@ name               wraps
                    package's ``"pallas"`` backend
 =================  =========================================================
 
-Numeric contract the parity suite (tests/test_torch_cp_als.py) enforces:
-the lossy backend lands within its documented ``rel_tol`` of ``exact``.
+Numeric contracts the parity suites (tests/test_torch_cp_als.py,
+tests/test_torch_psram_stream.py) enforce: every lossy backend lands within
+its documented ``rel_tol`` of ``exact``; ``psram-stream`` equals
+``mttkrp_sparse_psram`` on the sorted stream, bit for bit.
 """
 from __future__ import annotations
 
@@ -50,6 +59,86 @@ class ExactBackend(Backend):
             return mttkrp_dense(norm.dense, list(factors), mode)
         idx, vals, shape = to_coo_triple(norm)
         return mttkrp_sparse(idx, vals, tuple(factors), mode, shape[mode])
+
+
+_PRICING = "the array's cost model and tile schedules (ROADMAP Queue A item 3)"
+
+
+@register("psram-oracle")
+class PsramOracleBackend(Backend):
+    """The array numerics op by op: the flat quantized CP chain
+    (``mttkrp_sparse_psram``: every CP1/CP2 product through 8-bit operands
+    and the ADC, CP3 exact adds in stream order) on the COO triple of any
+    data form. The reference's per-cycle ``PsramArray`` matmul and its
+    schedule pricing come with ROADMAP Queue A item 3: until then
+    ``matmul`` and ``cost`` raise :class:`CapabilityError` and the
+    capabilities say ``matmul=False, cost_model=False``."""
+
+    def capabilities(self) -> Capabilities:
+        return Capabilities(
+            executes=True, cost_model=False, matmul=False, lossy=True, rel_tol=0.05,
+            description="quantized chain (flat; the per-cycle array matmul waits for "
+                        "item 3)",
+        )
+
+    def matmul(self, x, w):
+        raise CapabilityError(f"backend 'psram-oracle' runs matmuls on the per-cycle array "
+                              f"interpreter, which comes with {_PRICING}")
+
+    def mttkrp(self, data, factors, mode: int):
+        from repro_torch.core.mttkrp import mttkrp_sparse_psram
+
+        idx, vals, shape = to_coo_triple(normalize_mttkrp_data(data))
+        return mttkrp_sparse_psram(idx, vals, tuple(factors), mode, shape[mode],
+                                   adc_bits=self.config.adc.bits)
+
+    def cost(self, workload):
+        raise CapabilityError(f"backend 'psram-oracle' prices schedules, which come with "
+                              f"{_PRICING}")
+
+
+@register("psram-stream")
+class PsramStreamBackend(Backend):
+    """The nonzero-streaming sparse schedule (``repro_torch.sparse.stream``):
+    blocks of quantized CP2 chain rows stored down the word-lines,
+    per-output-row gather masks driven per WDM channel, electrical
+    cross-block carry. Dense data is accepted by COO-ifying (all entries
+    stream as nonzeros). On the card the quantized chain is formed inside
+    the kernels: the eager fold is one launch of the ordered fold's chain
+    route, bit-for-bit ``mttkrp_sparse_psram`` on the sorted stream.
+
+    ``compiled=True`` opts into the blocked-segment fold (kernel 5's chain
+    route, then the ordered fold's fold route on its partials): a
+    reassociated fold against the eager one — ``bit_exact`` drops, the
+    quantization envelope (``rel_tol``) is unchanged.
+
+    The reference prices fiber-length distributions here; that cost model
+    comes with ROADMAP Queue A item 3, so until then ``cost`` raises
+    :class:`CapabilityError` and the capabilities say ``cost_model=False``."""
+
+    def __init__(self, config=None, compiled: bool = False):
+        super().__init__(config)
+        self.compiled = bool(compiled)
+
+    def capabilities(self) -> Capabilities:
+        return Capabilities(
+            executes=True, cost_model=False, matmul=False, lossy=True,
+            rel_tol=0.05, prefers_csf=True,
+            bit_exact=not self.compiled, compiled=self.compiled,
+            description="nonzero-streaming sparse schedule (quantized chain)"
+                        + (" [compiled]" if self.compiled else ""),
+        )
+
+    def mttkrp(self, data, factors, mode: int):
+        from repro_torch.sparse.stream import stream_mttkrp
+
+        csf = mode_csf(normalize_mttkrp_data(data), mode)
+        return stream_mttkrp(csf, tuple(factors), self.config, psram=True,
+                             adc_bits=self.config.adc.bits, compiled=self.compiled)
+
+    def cost(self, workload):
+        raise CapabilityError(f"backend 'psram-stream' prices fiber-length distributions "
+                              f"with {_PRICING}")
 
 
 @register("hopper")

@@ -18,8 +18,8 @@ store-side quantization caches (``kernels.stream_mttkrp.stream_factor_quants``,
 be served stale int8 codes.
 
 Relative to the reference module: tracing spans are left out until ``obs`` is
-ported, ``init=`` takes the initial factors as arrays, and ``cp_als_psram``
-waits for the ``psram-oracle`` / ``psram-stream`` backends.
+ported, and ``init=`` takes the initial factors as arrays (``cp_als`` and
+``cp_als_psram`` alike).
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from repro_torch._device import as_device, ieee_f32
 
 from .mttkrp import khatri_rao, mttkrp_dense, mttkrp_sparse
 from .psram import PsramConfig
+from .quantization import ADCConfig
 
 
 @dataclasses.dataclass
@@ -316,3 +317,36 @@ def cp_als(
             break
         prev_fit = fit
     return CPState(factors=factors, lambdas=lam, fit=fit, iters=it)
+
+
+def cp_als_psram(
+    coo,
+    rank: int,
+    n_iter: int = 25,
+    seed: "int | torch.Generator" = 0,
+    adc_bits: int = 16,
+    init: list | None = None,
+) -> CPState:
+    """CP-ALS with the MTTKRP kernel running through the pSRAM numerics.
+
+    ``coo`` is either the raw ``(indices, values, shape)`` triple — the flat
+    quantized path, i.e. ``backend="psram-oracle"`` — or a
+    ``repro_torch.sparse`` container (COO/SortedCOO/BlockedCOO/CSF), which
+    runs the *streaming* schedule with the quantized chain
+    (``backend="psram-stream"``), the full §IV array mapping; either on the
+    paper's §V-A array with an ADC of ``adc_bits``. Thin convenience wrapper
+    over ``cp_als(backend=...)``; either way the reported fit is the exact
+    one (``exact_fit``): factor updates see the lossy engine, the
+    convergence metric does not. ``seed`` and ``init`` as in :func:`cp_als`.
+    """
+    from repro_torch.backends import resolve_config
+
+    cfg = dataclasses.replace(resolve_config(None), adc=ADCConfig(bits=adc_bits))
+    if isinstance(coo, tuple):
+        return cp_als(None, rank, n_iter=n_iter, seed=seed, coo=coo,
+                      backend="psram-oracle", config=cfg, init=init)
+    from repro_torch.sparse.formats import CSF
+
+    base = coo.to_coo() if isinstance(coo, CSF) else coo
+    return cp_als(None, rank, n_iter=n_iter, seed=seed, sparse=base,
+                  backend="psram-stream", config=cfg, init=init)

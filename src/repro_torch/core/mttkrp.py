@@ -11,12 +11,16 @@ Paths ported (all N-mode generic):
                               Khatri-Rao product; used as an oracle).
   * ``mttkrp_sparse``       — COO scatter-add; the paper's CP1→CP2→CP3
                               chain vectorized over nonzeros.
+  * ``mttkrp_sparse_psram`` — the same chain through the pSRAM quantized
+                              numerics (``cp_chain_psram``: 8-bit operands
+                              and the ADC on every product, §IV / Fig. 4).
+  * ``mttkrp_sparse_psram_scheduled`` / ``mttkrp_sparse_blocked`` — the COO
+                              front doors of ``repro_torch.sparse.stream``'s
+                              quantized stream and flat blocked fold.
 
 The dense matricized-KR MTTKRP on the array (exact and quantized, the
 Khatri-Rao product formed on the fly) lives with its kernels in
-``repro_torch.kernels.mttkrp``. Still to come from the reference module: the
-quantized chain (``cp_chain_psram``, ``mttkrp_sparse_psram``,
-``…_scheduled``) and the flat blocked fold (``mttkrp_sparse_blocked``).
+``repro_torch.kernels.mttkrp``.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import string
 import torch
 
 from repro_torch._device import ieee_f32
+from repro_torch.core.quantization import ADCConfig, QMAX, adc_requantize, quantize_symmetric
 from repro_torch.kernels.ordered_fold import (chain_coords, ordered_chain_fold, ordered_fold,
                                               row_runs)
 
@@ -89,6 +94,45 @@ def cp_chain_exact(indices, values, factors, mode) -> torch.Tensor:
     return values[..., None] * had                  # CP 2
 
 
+def cp_chain_psram(indices, values, factors, mode, adc_bits: int = 16) -> torch.Tensor:
+    """CP1 + CP2 through the array numerics: each product passes 8-bit
+    operand quantization and the ADC (per-row scale for the stored operand,
+    per-vector intensity scale for the driven one). Shared by the
+    scatter-add path below and the streaming executor. Like
+    :func:`cp_chain_exact`, accepts leading batch dims (every scale is a
+    per-nonzero reduction over the last axis, so blocking cannot change a
+    single bit)."""
+    others = [d for d in range(len(factors)) if d != mode]
+    return psram_chain([factors[d][indices[..., d].long()] for d in others], values, adc_bits)
+
+
+def psram_chain(rows, values: torch.Tensor, adc_bits: int = 16) -> torch.Tensor:
+    """:func:`cp_chain_psram` over the gathered rows ``rows`` (the non-target
+    factors' rows of each nonzero, ``(..., R)`` each, in mode order): CP1
+    folds them pairwise through the ADC (requantize the running Hadamard,
+    quantize the next row, digitize the integer product), CP2 drives the
+    value through it once more. Every division is a true division and every
+    rounding half to even (``quantize_symmetric``, ``adc_requantize``), the
+    ops the chain routes of ``kernels.ordered_fold`` and
+    ``kernels.segment_sum`` repeat bit for bit."""
+    adc = ADCConfig(bits=adc_bits)
+    full_scale = float(QMAX) * float(QMAX)
+
+    def q(v):
+        qv, s = quantize_symmetric(v, axis=-1)
+        return qv.to(torch.int32), s
+
+    q0, s0 = q(rows[0])
+    had = q0.to(torch.float32) * s0
+    for row in rows[1:]:                           # CP 1
+        qa, sa = q(had)
+        qb, sb = q(row)
+        had = adc_requantize(qa * qb, adc, full_scale) * (sa * sb)
+    qv, sv = q(values[..., None])                  # CP 2
+    qh, sh = q(had)
+    return adc_requantize(qv * qh, adc, full_scale) * (sv * sh)
+
+
 def mttkrp_sparse(
     indices: torch.Tensor,     # (nnz, nmodes) int
     values: torch.Tensor,      # (nnz,) float
@@ -113,23 +157,81 @@ def mttkrp_sparse(
     chain is formed eagerly and ``index_add_`` folds it. The sort is made once
     per mode and kept with ``indices`` (:func:`_sorted_stream`).
     """
-    factors = tuple(factors)
+    return _sorted_fold(indices, values, tuple(factors), mode, out_rows, False, 16)
+
+
+def mttkrp_sparse_psram(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    factors: tuple,
+    mode: int,
+    out_rows: int,
+    adc_bits: int = 16,
+) -> torch.Tensor:
+    """COO MTTKRP through the pSRAM array numerics (§IV, Figs. 3-4).
+
+    Each CP1/CP2 product passes through 8-bit operand quantization and the
+    ADC (:func:`cp_chain_psram`); CP3 accumulates post-ADC in the electrical
+    domain (exact adds), in the fold order of :func:`mttkrp_sparse`. The
+    result is **bit-identical** to the reference's run op by op (its jitted
+    form rewrites ``amax / 127`` into a reciprocal multiply and lands within
+    one ADC code of it), and on the card to the CPU's: one launch of the
+    ordered fold's chain route with the quantized chain formed in the
+    kernel, so no ``(nnz, R)`` chain exists there.
+    """
+    return _sorted_fold(indices, values, tuple(factors), mode, out_rows, True, adc_bits)
+
+
+def _sorted_fold(indices, values, factors: tuple, mode: int, out_rows: int, psram: bool,
+                 adc_bits: int) -> torch.Tensor:
+    """The chain (exact or quantized) over the stably sorted stream, folded
+    in stream order: one chain-route launch on the card, the eager chain and
+    ``index_add_`` on the CPU."""
+    out = torch.zeros((out_rows, factors[0].shape[-1]), dtype=torch.float32,
+                      device=values.device)
     if values.is_cuda:
         perm, coords, runs, longest, ranges = _sorted_stream(indices, mode, out_rows)
         for (low, high), d in zip(ranges, (d for d in range(len(factors)) if d != mode)):
             if low < 0 or high >= factors[d].shape[0]:
                 raise IndexError(f"mode {d}'s coordinates span [{low}, {high}], outside "
                                  f"factor {d}'s {factors[d].shape[0]} rows")
-        out = torch.zeros((out_rows, factors[0].shape[-1]), dtype=torch.float32,
-                          device=values.device)
         return ordered_chain_fold(out, coords, values[perm],
                                   tuple(f.contiguous() for f in factors), mode, runs,
-                                  longest_run=longest)
+                                  longest_run=longest, psram=psram, adc_bits=adc_bits)
     perm, sorted_idx = _sorted_stream(indices, mode, out_rows)
-    scaled = cp_chain_exact(sorted_idx, values[perm], factors, mode)
-    out = torch.zeros((out_rows, scaled.shape[-1]), dtype=scaled.dtype,
-                      device=scaled.device)
+    scaled = (cp_chain_psram(sorted_idx, values[perm], factors, mode, adc_bits) if psram
+              else cp_chain_exact(sorted_idx, values[perm], factors, mode))
     return ordered_fold(out, scaled, sorted_idx[:, mode])  # CP 3
+
+
+def mttkrp_sparse_psram_scheduled(indices, values, factors: tuple, mode: int, out_rows: int,
+                                  config=None) -> torch.Tensor:
+    """COO MTTKRP lowered through the streaming schedule (§IV, Figs. 3-4):
+    the nonzeros sorted into a mode-rooted CSF, the quantized chain streamed
+    in blocks of ``config.rows`` and folded electrically into the output
+    rows (``repro_torch.sparse.stream.stream_mttkrp_coo`` with
+    ``psram=True``) — bit-for-bit :func:`mttkrp_sparse_psram` on the sorted
+    stream. The sort is host-side preprocessing."""
+    from repro_torch.sparse.stream import stream_mttkrp_coo
+
+    return stream_mttkrp_coo(indices, values, tuple(factors), mode, out_rows,
+                             config=config, psram=True)
+
+
+def mttkrp_sparse_blocked(indices, values, factors: tuple, mode: int, out_rows: int,
+                          config=None, psram: bool = False, adc_bits: int = 16) -> torch.Tensor:
+    """Sparse MTTKRP under the *blocked-segment fold*: the flat twin of the
+    compiled streaming executor (``repro_torch.sparse.stream.
+    blocked_fold_mttkrp_coo``). The stream is sorted into a mode-rooted CSF,
+    cut into blocks of ``config.rows``, each block's segment sums taken as
+    one gather-mask contraction and the partials scattered into the output
+    rows in block order. Against the per-nonzero fold it is the same
+    arithmetic reassociated (~1e-6 relative on well-conditioned operands).
+    Host-side sort."""
+    from repro_torch.sparse.stream import blocked_fold_mttkrp_coo
+
+    return blocked_fold_mttkrp_coo(indices, values, tuple(factors), mode, out_rows,
+                                   config=config, psram=psram, adc_bits=adc_bits)
 
 
 def _sorted_stream(indices: torch.Tensor, mode: int, out_rows: int):

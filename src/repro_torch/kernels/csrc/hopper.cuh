@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
 // mbarriers, TMA loads, the warpgroup MMA (wgmma) descriptor, fences and
 // register pins, the host-side encoding of TMA tensor maps, cp.async copies,
-// the opt-in to 227 KB of dynamic shared memory, and the factor operand of
-// the kernels that form a sparse stream's chain. Included by
-// every .cu of this directory but stream_mttkrp.cu; kernels/_build.py
-// hashes this header into every library name, so editing it rebuilds them.
+// the opt-in to 227 KB of dynamic shared memory, and the factor operand and
+// the quantized chain of the kernels that form a sparse stream's chain.
+// Included by every .cu of this directory but stream_mttkrp.cu;
+// kernels/_build.py hashes this header into every library name, so editing
+// it rebuilds them.
 #pragma once
 
 #include <cuda.h>
@@ -27,6 +28,93 @@ constexpr int CHAIN_MAX_MODES = 8;
 struct ChainFactors {
     const float* f[CHAIN_MAX_MODES - 1];
 };
+
+// The quantized chain of those kernels (their psram variants): the port's
+// core.mttkrp.psram_chain, bit for bit. Every division is __fdiv_rn (a
+// true division, never a reciprocal multiply), every rounding rintf (half
+// to even, as torch.round), every product __fmul_rn (no FMA). The integer
+// products of two codes are formed in int, so a zero product is +0.0 as
+// the plain version's int32 product is; the ADC's code stays a float, so a
+// product that rounds to code -0 keeps its sign as adc_transfer's does.
+struct PsramAdc {
+    float lsb;        // the products' LSB, 2 * 127^2 / 2^adc_bits rounded once to f32
+    float code_max;   // the largest code, 2^adc_bits / 2 - 1: the clamp fires at a
+                      // full-scale product (127 * 127 is code 2^(adc_bits - 1))
+};
+
+// symmetric_scale: max(amax, 1e-12) / 127
+__device__ __forceinline__ float psram_scale(float amax) {
+    return __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+}
+
+// quantize_symmetric's code of x: round(x / scale) clamped to +-127
+__device__ __forceinline__ int psram_code(float x, float scale) {
+    return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.0f), 127.0f));
+}
+
+// adc_transfer of an integer accumulation: round(acc / lsb) clamped to the
+// codes, times lsb
+__device__ __forceinline__ float psram_adc(int acc, const PsramAdc& a) {
+    const float code = rintf(__fdiv_rn(static_cast<float>(acc), a.lsb));
+    return __fmul_rn(fminf(fmaxf(code, -a.code_max), a.code_max), a.lsb);
+}
+
+// The max of x over an aligned group of G lanes (a power of 2 up to 32);
+// every lane of the warp takes part.
+template <int G>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    return x;
+}
+
+// The quantized chain of one nonzero of value v, formed in place of its
+// first non-target row: its K non-target factors' rows of R columns lie in
+// shared memory at row + k * kstride (mode order). CP1 folds them pairwise
+// through the ADC (the running Hadamard requantized, the next row quantized,
+// the integer product digitized, times both scales); CP2 drives v through
+// it once more. Each quantization's scale reduces |.| over the whole row.
+// A group of G lanes (an aligned sub-warp; every lane of the warp calls
+// this at once, each group on its own row) takes the row: lane l of the
+// group owns the pieces p = l, l + G, ... of PIECE columns each (R a
+// multiple of PIECE), and every value stays with its lane between the
+// steps, so only the row's maxima cross lanes.
+template <int G, int PIECE>
+__device__ __forceinline__ void psram_chain_row(float* row, int kstride, int K, int R, float v,
+                                                const PsramAdc& a) {
+    const int gl = static_cast<int>(threadIdx.x) & (G - 1);
+    auto each = [&](auto&& f) {
+        for (int p = gl; p * PIECE < R; p += G) {
+#pragma unroll
+            for (int e = 0; e < PIECE; ++e) f(p * PIECE + e);
+        }
+    };
+    float m = 0.0f;
+    each([&](int c) { m = fmaxf(m, fabsf(row[c])); });
+    const float s0 = psram_scale(group_max<G>(m));
+    each([&](int c) { row[c] = __fmul_rn(static_cast<float>(psram_code(row[c], s0)), s0); });
+    for (int k = 1; k < K; ++k) {                                      // CP 1
+        const float* f = row + k * kstride;
+        float mh = 0.0f, mf = 0.0f;
+        each([&](int c) {
+            mh = fmaxf(mh, fabsf(row[c]));
+            mf = fmaxf(mf, fabsf(f[c]));
+        });
+        const float sa = psram_scale(group_max<G>(mh));
+        const float sb = psram_scale(group_max<G>(mf));
+        const float sab = __fmul_rn(sa, sb);
+        each([&](int c) {
+            row[c] = __fmul_rn(psram_adc(psram_code(row[c], sa) * psram_code(f[c], sb), a), sab);
+        });
+    }
+    const float sv = psram_scale(fabsf(v));                            // CP 2
+    const int qv = psram_code(v, sv);
+    float mh = 0.0f;
+    each([&](int c) { mh = fmaxf(mh, fabsf(row[c])); });
+    const float sh = psram_scale(group_max<G>(mh));
+    const float svh = __fmul_rn(sv, sh);
+    each([&](int c) { row[c] = __fmul_rn(psram_adc(qv * psram_code(row[c], sh), a), svh); });
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));

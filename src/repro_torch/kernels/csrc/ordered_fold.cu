@@ -103,6 +103,18 @@
 // has LONG_RUN nonzeros or more gets LONG_PRODUCERS producer warps a CTA
 // (chain_layout); the short runs keep DEFAULT_PRODUCERS, whose smaller
 // rings let more CTAs share an SM.
+//
+// The chain route's quantized variant (PSRAM; the psram-stream backend's
+// eager path, the reference's mttkrp_sparse_psram, src/repro/core/
+// mttkrp.py:161, whose CP3 is XLA's segment_sum again): the producers form
+// the quantized chain of core.mttkrp.psram_chain (hopper::psram_chain_row:
+// 8-bit operands and the ADC on every product, every division a true one)
+// in place of the exact d; the hand-off and the consumer's adds do not
+// change, so no (n, R) chain exists. Each quantization's scale reduces over
+// the whole row: at a template rank a row is R / 4 lanes of 4 columns (the
+// exact path's pieces), so its maxima are a sub-warp shuffle; elsewhere the
+// warp takes a row at a time, a column a lane. What bounds it: its
+// producers' operations, ~6 R true divisions a nonzero at 3 modes (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -544,14 +556,15 @@ __host__ __device__ constexpr long long chain_smem(int K, int R, int nb, int pro
 // is R where it is 16, 32, 64 or 128 (batches of template_nb(RT) nonzeros;
 // the consumer's running sums and batches in registers), else 0 (the same
 // kernel with runtime loops over R, batches of nb nonzeros, the running sums
-// in shared memory).
-template <int RT>
+// in shared memory). PSRAM: the producers form the quantized chain
+// (hopper::psram_chain_row, at the ADC `adc`) in place of the exact one.
+template <int RT, bool PSRAM>
 __global__ void __launch_bounds__(32 * (1 + LONG_PRODUCERS))
 ordered_chain_kernel(float* __restrict__ out, const int* __restrict__ coords,
                      const float* __restrict__ val, Factors fac,
                      const long long* __restrict__ seg_ptr,
                      const long long* __restrict__ seg_rows,
-                     int K, int r_runtime, int nb_runtime, int vec_copy) {
+                     int K, int r_runtime, int nb_runtime, int vec_copy, hopper::PsramAdc adc) {
     extern __shared__ __align__(16) unsigned char chain_smem_buf[];
     unsigned char* smem = chain_smem_buf;
     constexpr int NBT = RT ? template_nb(RT) : 0;
@@ -664,6 +677,27 @@ ordered_chain_kernel(float* __restrict__ out, const int* __restrict__ coords,
             const float* mv = meta_val(ms);
             float* st = slot_of(w, rs);
             const int stride = nb * R;
+            if constexpr (PSRAM) {
+                // the quantized chain: at a template rank a row is R / 4
+                // lanes of 4 columns (piece p of the batch is row p / (R /
+                // 4)'s, as below), so a row's maxima are a sub-warp shuffle
+                // and 32 / (R / 4) rows are formed at once (the rows past
+                // cnt hold stale values: formed, never added); else the
+                // whole warp takes one row at a time, a column a lane
+                if constexpr (RT != 0) {
+                    constexpr int PPR = RT / 4;
+#pragma unroll
+                    for (int u = 0; u < NBT * PPR / 32; ++u) {
+                        const int j = (lane + 32 * u) / PPR;
+                        hopper::psram_chain_row<PPR, 4>(st + j * RT, stride, K, RT, mv[j], adc);
+                    }
+                } else {
+                    for (int j = 0; j < cnt; ++j) {
+                        hopper::psram_chain_row<32, 1>(st + j * R, stride, K, R, mv[j], adc);
+                    }
+                }
+                return;
+            }
             auto mul4 = [](float4 a, float4 b) {
                 return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y), __fmul_rn(a.z, b.z),
                                    __fmul_rn(a.w, b.w));
@@ -892,17 +926,29 @@ ChainLayout chain_layout(int K, int R, long long longest_run) {
     return c;
 }
 
+template <int RT, bool PSRAM>
+cudaError_t launch_chain_as(float* out, const int* coords, const float* val,
+                            const Factors& fac, const long long* seg_ptr,
+                            const long long* seg_rows, int n_seg, int K, int R,
+                            const ChainLayout& c, int vec, hopper::PsramAdc adc,
+                            cudaStream_t stream) {
+    cudaError_t err = opt_in_max_smem<ordered_chain_kernel<RT, PSRAM>>();
+    if (err != cudaSuccess) return err;
+    ordered_chain_kernel<RT, PSRAM><<<n_seg, 32 * (1 + c.producers), static_cast<size_t>(c.smem),
+                                      stream>>>(out, coords, val, fac, seg_ptr, seg_rows, K, R,
+                                                c.nb, vec, adc);
+    return cudaGetLastError();
+}
+
 template <int RT>
 cudaError_t launch_chain(float* out, const int* coords, const float* val,
                          const Factors& fac, const long long* seg_ptr, const long long* seg_rows,
-                         int n_seg, int K, int R, const ChainLayout& c, int vec,
-                         cudaStream_t stream) {
-    cudaError_t err = opt_in_max_smem<ordered_chain_kernel<RT>>();
-    if (err != cudaSuccess) return err;
-    ordered_chain_kernel<RT><<<n_seg, 32 * (1 + c.producers), static_cast<size_t>(c.smem),
-                               stream>>>(out, coords, val, fac, seg_ptr, seg_rows, K, R, c.nb,
-                                         vec);
-    return cudaGetLastError();
+                         int n_seg, int K, int R, const ChainLayout& c, int vec, int psram,
+                         hopper::PsramAdc adc, cudaStream_t stream) {
+    return psram ? launch_chain_as<RT, true>(out, coords, val, fac, seg_ptr, seg_rows, n_seg, K,
+                                             R, c, vec, adc, stream)
+                 : launch_chain_as<RT, false>(out, coords, val, fac, seg_ptr, seg_rows, n_seg,
+                                              K, R, c, vec, adc, stream);
 }
 
 }  // namespace
@@ -970,14 +1016,18 @@ extern "C" long long ordered_chain_smem_bytes(int nmodes, int R, long long longe
 // [seg_ptr[s], seg_ptr[s+1]) in order, v_p times the Hadamard of the
 // non-target factors' rows into its row. Coordinates are not range-checked.
 // longest_run: the most nonzeros a run has (0 if the caller does not know).
-// vec: R % 4 == 0 and every factor 16-byte aligned. Returns the launch's
+// vec: R % 4 == 0 and every factor 16-byte aligned. psram: the quantized
+// chain (core.mttkrp.psram_chain) in place of the exact one, its products'
+// ADC LSB lsb and largest code code_max (> 0). Returns the launch's
 // cudaError_t as an int.
 extern "C" int ordered_chain_launch(void* out, const void* coords, const void* val,
                                     const void* const* factors, const void* seg_ptr,
                                     const void* seg_rows, int n_seg, int nmodes, int R,
-                                    long long longest_run, int vec, void* stream) {
+                                    long long longest_run, int vec, int psram, float lsb,
+                                    float code_max, void* stream) {
     if (n_seg <= 0 || R <= 0) return static_cast<int>(cudaSuccess);
-    if (nmodes < 2 || nmodes > MAX_MODES || (vec && R % 4 != 0)) {
+    if (nmodes < 2 || nmodes > MAX_MODES || (vec && R % 4 != 0)
+        || (psram && !(lsb > 0.0f && code_max >= 0.0f))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const int K = nmodes - 1;
@@ -993,18 +1043,19 @@ extern "C" int ordered_chain_launch(void* out, const void* coords, const void* v
     const long long* ptr_ = static_cast<const long long*>(seg_ptr);
     const long long* rows_ = static_cast<const long long*>(seg_rows);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const hopper::PsramAdc adc{lsb, code_max};
     cudaError_t err;
     switch (template_rank(R)) {
         case 16: err = launch_chain<16>(out_, coords_, val_, fac, ptr_, rows_, n_seg, K, R, c,
-                                        vec, st); break;
+                                        vec, psram, adc, st); break;
         case 32: err = launch_chain<32>(out_, coords_, val_, fac, ptr_, rows_, n_seg, K, R, c,
-                                        vec, st); break;
+                                        vec, psram, adc, st); break;
         case 64: err = launch_chain<64>(out_, coords_, val_, fac, ptr_, rows_, n_seg, K, R, c,
-                                        vec, st); break;
+                                        vec, psram, adc, st); break;
         case 128: err = launch_chain<128>(out_, coords_, val_, fac, ptr_, rows_, n_seg, K, R,
-                                          c, vec, st); break;
+                                          c, vec, psram, adc, st); break;
         default: err = launch_chain<0>(out_, coords_, val_, fac, ptr_, rows_, n_seg, K, R, c,
-                                       vec, st); break;
+                                       vec, psram, adc, st); break;
     }
     return static_cast<int>(err);
 }

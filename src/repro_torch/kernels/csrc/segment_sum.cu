@@ -81,6 +81,17 @@
 // but the factor rows it gathers, K * 4R bytes a nonzero (~4.3 GB at that
 // size), from L2, and the warps it keeps in flight to cover their latency.
 // Its time beside that bound is in PERF.md.
+//
+// The quantized variant (PSRAM; the psram-stream backend's compiled path):
+// the chain rows are the quantized chain of core.mttkrp.psram_chain (8-bit
+// operands and the ADC on every product, hopper::psram_chain_row), formed
+// in the warp's slot before its sums, which do not change. Each
+// quantization's scale reduces over the whole row, so a warp gathers the
+// whole row (all R columns, not its tile's) and forms it a nonzero at a
+// time, lane = column (columns lane, lane + 32, ...); a warp of another
+// column tile forms the same rows again (R > 32 only) and sums its own
+// columns. Bound by its operations: ~6 R true divisions a nonzero at 3
+// modes (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -157,8 +168,12 @@ __host__ __device__ constexpr int chain_nb(int K) {
 static_assert(chain_nb(hopper::CHAIN_MAX_MODES - 1) >= 1, "a batch holds a nonzero");
 
 // A warp's row slot: the batch's rows of the K non-target factors, one
-// column tile of each, row (k, j) at [(k * nb + j) * TILE].
+// column tile of each, row (k, j) at [(k * nb + j) * TILE]; the quantized
+// variant's holds whole rows, row (k, j) at [(k * nb + j) * R].
 __host__ __device__ constexpr int chain_row_slot(int K) { return 4 * K * chain_nb(K) * TILE; }
+__host__ __device__ constexpr int chain_row_slot(int K, int R, bool psram) {
+    return psram ? align16(4 * K * chain_nb(K) * R) : chain_row_slot(K);
+}
 
 // A warp's metadata slot: the batch's coordinates [j][k] i32, then its
 // segment ids [j] i32, then its values [j] f32.
@@ -166,19 +181,21 @@ __host__ __device__ constexpr int chain_meta_slot(int K) {
     return align16(4 * chain_nb(K) * (K + 2));
 }
 
-__host__ __device__ constexpr int chain_warp_bytes(int K) {
-    return ROW_SLOTS * chain_row_slot(K) + META_SLOTS * chain_meta_slot(K);
+__host__ __device__ constexpr int chain_warp_bytes(int K, int R = TILE, bool psram = false) {
+    return ROW_SLOTS * chain_row_slot(K, R, psram) + META_SLOTS * chain_meta_slot(K);
 }
 
 // One warp per (block b, column tile): b = blockIdx.x * CHAIN_WARPS + warp,
 // columns [blockIdx.y * TILE, + TILE) of R, lane = column. KT = K, the
 // non-target modes; VEC: R % 4 == 0 and every factor 16-byte aligned
-// (16-byte row copies, else 4-byte).
-template <int KT, bool VEC>
+// (16-byte row copies, else 4-byte); PSRAM: the quantized chain at the ADC
+// `adc` (whole rows gathered and formed in the slot, then this tile summed).
+template <int KT, bool VEC, bool PSRAM>
 __global__ void __launch_bounds__(32 * CHAIN_WARPS)
 segment_chain_kernel(const int* __restrict__ coords, const float* __restrict__ val,
                      const int* __restrict__ seg_ids, hopper::ChainFactors fac,
-                     float* __restrict__ out, long long nnz, int B, int bn, int R, int S) {
+                     float* __restrict__ out, long long nnz, int B, int bn, int R, int S,
+                     hopper::PsramAdc adc) {
     constexpr int NB = chain_nb(KT);
     extern __shared__ __align__(16) unsigned char chain_buf[];
     const int lane = threadIdx.x & 31;
@@ -188,18 +205,24 @@ segment_chain_kernel(const int* __restrict__ coords, const float* __restrict__ v
     const int c0 = blockIdx.y * TILE;               // the tile's first column ...
     const int tw = R - c0 < TILE ? R - c0 : TILE;   // ... and its width
     const bool r_ok = lane < tw;
+    // what a warp gathers of a row: its tile's columns, or the whole row
+    // for the quantized chain; RS the floats of a row in the slot
+    const int gc0 = PSRAM ? 0 : c0;
+    const int gw = PSRAM ? R : tw;
+    const int RS = PSRAM ? R : TILE;
+    const int row_slot = chain_row_slot(KT, R, PSRAM);
     const long long first = static_cast<long long>(b) * bn;
     const long long left = nnz - first;             // the block's nonzeros: positions < nnz
     const int n = left <= 0 ? 0 : left < bn ? static_cast<int>(left) : bn;
     const int L = (n + NB - 1) / NB;                // its batches
     float* __restrict__ dst = out + static_cast<size_t>(b) * S * R + c0;
 
-    unsigned char* mine = chain_buf + warp * chain_warp_bytes(KT);
+    unsigned char* mine = chain_buf + warp * chain_warp_bytes(KT, R, PSRAM);
     auto rows_of = [&](int i) {
-        return reinterpret_cast<float*>(mine + (i % ROW_SLOTS) * chain_row_slot(KT));
+        return reinterpret_cast<float*>(mine + (i % ROW_SLOTS) * row_slot);
     };
     auto meta_of = [&](int i) {
-        return reinterpret_cast<int*>(mine + ROW_SLOTS * chain_row_slot(KT)
+        return reinterpret_cast<int*>(mine + ROW_SLOTS * row_slot
                                       + (i % META_SLOTS) * chain_meta_slot(KT));
     };
     auto count = [&](int i) { return n - i * NB < NB ? n - i * NB : NB; };
@@ -223,10 +246,10 @@ segment_chain_kernel(const int* __restrict__ coords, const float* __restrict__ v
         float* st = rows_of(i);
 #pragma unroll
         for (int k = 0; k < KT; ++k) {
-            const float* F = fac.f[k] + c0;
-            float* to = st + k * NB * TILE;
+            const float* F = fac.f[k] + gc0;
+            float* to = st + k * NB * RS;
             if constexpr (VEC) {
-                if (tw == TILE) {
+                if (!PSRAM && tw == TILE) {
                     for (int p = lane; p < cnt * (TILE / 4); p += 32) {
                         const int j = p / (TILE / 4);
                         const int q = 4 * (p % (TILE / 4));
@@ -234,19 +257,19 @@ segment_chain_kernel(const int* __restrict__ coords, const float* __restrict__ v
                                    F + static_cast<long long>(m[j * KT + k]) * R + q);
                     }
                 } else {
-                    const int ppr = tw / 4;
+                    const int ppr = gw / 4;
                     for (int p = lane; p < cnt * ppr; p += 32) {
                         const int j = p / ppr;
                         const int q = 4 * (p - j * ppr);
-                        cp_async16_ca(to + j * TILE + q,
+                        cp_async16_ca(to + j * RS + q,
                                    F + static_cast<long long>(m[j * KT + k]) * R + q);
                     }
                 }
             } else {
-                for (int e = lane; e < cnt * tw; e += 32) {
-                    const int j = e / tw;
-                    const int c = e - j * tw;
-                    cp_async4(to + j * TILE + c, F + static_cast<long long>(m[j * KT + k]) * R + c);
+                for (int e = lane; e < cnt * gw; e += 32) {
+                    const int j = e / gw;
+                    const int c = e - j * gw;
+                    cp_async4(to + j * RS + c, F + static_cast<long long>(m[j * KT + k]) * R + c);
                 }
             }
         }
@@ -260,20 +283,31 @@ segment_chain_kernel(const int* __restrict__ coords, const float* __restrict__ v
     };
     // batch i's chain rows: first every row's product (independent, so the
     // reads of the slot overlap), then the adds in order (the slot past the
-    // batch's cnt rows holds stale rows, formed and never added)
+    // batch's cnt rows holds stale rows, formed and never added). The
+    // quantized chain is formed in the slot first, a row at a time by the
+    // whole warp, and read from there.
     auto sum = [&](int i) {
         const int cnt = count(i);
-        const float* st = rows_of(i);
+        float* st = rows_of(i);
         const int* m = meta_of(i);
         const int* ids = m + NB * KT;
         const float* v = reinterpret_cast<const float*>(m + NB * (KT + 1));
         float d[NB];
+        if constexpr (PSRAM) {
+            for (int j = 0; j < cnt; ++j) {
+                hopper::psram_chain_row<32, 1>(st + j * R, NB * R, KT, R, v[j], adc);
+            }
+            __syncwarp();
 #pragma unroll
-        for (int j = 0; j < NB; ++j) {
-            float h = st[j * TILE + lane];
+            for (int j = 0; j < NB; ++j) d[j] = r_ok ? st[j * R + c0 + lane] : 0.0f;
+        } else {
 #pragma unroll
-            for (int k = 1; k < KT; ++k) h = __fmul_rn(h, st[(k * NB + j) * TILE + lane]);
-            d[j] = __fmul_rn(v[j], h);
+            for (int j = 0; j < NB; ++j) {
+                float h = st[j * TILE + lane];
+#pragma unroll
+                for (int k = 1; k < KT; ++k) h = __fmul_rn(h, st[(k * NB + j) * TILE + lane]);
+                d[j] = __fmul_rn(v[j], h);
+            }
         }
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
@@ -321,8 +355,11 @@ segment_chain_kernel(const int* __restrict__ coords, const float* __restrict__ v
     for (; next < S; ++next) store(next, 0.0f);
 }
 
-// Dynamic shared memory of a chain-route CTA with K non-target modes.
-constexpr int chain_smem(int K) { return CHAIN_WARPS * chain_warp_bytes(K); }
+// Dynamic shared memory of a chain-route CTA with K non-target modes (at
+// rank R, for the quantized variant's whole rows).
+constexpr long long chain_smem(int K, int R = TILE, bool psram = false) {
+    return static_cast<long long>(CHAIN_WARPS) * chain_warp_bytes(K, R, psram);
+}
 constexpr bool chain_fits() {
     for (int k = 1; k < hopper::CHAIN_MAX_MODES; ++k) {
         if (chain_smem(k) > hopper::MAX_DYNAMIC_SMEM) return false;
@@ -331,25 +368,35 @@ constexpr bool chain_fits() {
 }
 static_assert(chain_fits(), "a chain-route CTA's slots fit the opt-in shared memory");
 
-template <int KT, bool VEC>
+template <int KT, bool VEC, bool PSRAM>
 cudaError_t launch_chain_as(const int* coords, const float* val, const int* seg_ids,
                             const hopper::ChainFactors& fac, float* out, long long nnz, int B,
-                            int bn, int R, int S, cudaStream_t stream) {
-    cudaError_t err = hopper::opt_in_max_smem<segment_chain_kernel<KT, VEC>>();
+                            int bn, int R, int S, hopper::PsramAdc adc, cudaStream_t stream) {
+    cudaError_t err = hopper::opt_in_max_smem<segment_chain_kernel<KT, VEC, PSRAM>>();
     if (err != cudaSuccess) return err;
     const dim3 grid((B + CHAIN_WARPS - 1) / CHAIN_WARPS, (R + TILE - 1) / TILE);
-    segment_chain_kernel<KT, VEC><<<grid, 32 * CHAIN_WARPS, chain_smem(KT), stream>>>(
-        coords, val, seg_ids, fac, out, nnz, B, bn, R, S);
+    segment_chain_kernel<KT, VEC, PSRAM><<<grid, 32 * CHAIN_WARPS,
+                                           static_cast<size_t>(chain_smem(KT, R, PSRAM)),
+                                           stream>>>(coords, val, seg_ids, fac, out, nnz, B, bn,
+                                                     R, S, adc);
     return cudaGetLastError();
 }
 
 template <int KT>
 cudaError_t launch_chain(const int* coords, const float* val, const int* seg_ids,
                          const hopper::ChainFactors& fac, float* out, long long nnz, int B,
-                         int bn, int R, int S, int vec, cudaStream_t stream) {
-    return vec ? launch_chain_as<KT, true>(coords, val, seg_ids, fac, out, nnz, B, bn, R, S, stream)
-               : launch_chain_as<KT, false>(coords, val, seg_ids, fac, out, nnz, B, bn, R, S,
-                                            stream);
+                         int bn, int R, int S, int vec, int psram, hopper::PsramAdc adc,
+                         cudaStream_t stream) {
+    if (psram) {
+        return vec ? launch_chain_as<KT, true, true>(coords, val, seg_ids, fac, out, nnz, B, bn,
+                                                     R, S, adc, stream)
+                   : launch_chain_as<KT, false, true>(coords, val, seg_ids, fac, out, nnz, B,
+                                                      bn, R, S, adc, stream);
+    }
+    return vec ? launch_chain_as<KT, true, false>(coords, val, seg_ids, fac, out, nnz, B, bn, R,
+                                                  S, adc, stream)
+               : launch_chain_as<KT, false, false>(coords, val, seg_ids, fac, out, nnz, B, bn, R,
+                                                   S, adc, stream);
 }
 
 }  // namespace
@@ -384,14 +431,19 @@ extern "C" int segment_sum_launch(const void* data, const void* seg_ids, void* o
 // nmodes - 1 non-target factors' device pointers, in mode order, each
 // (I_d, R) f32 row-major; out (B, S, R) f32; all contiguous. Block b sums
 // the chain rows of positions [b * bn, min((b + 1) * bn, nnz)); nnz <= B * bn.
-// vec: R % 4 == 0 and every factor 16-byte aligned. Coordinates are not
+// vec: R % 4 == 0 and every factor 16-byte aligned. psram: the quantized
+// chain (core.mttkrp.psram_chain) in place of the exact one, its products'
+// ADC LSB lsb and largest code code_max; refused where its whole rows do not
+// fit shared memory (segment_chain_smem_bytes). Coordinates are not
 // range-checked. Returns the launch's cudaError_t as an int.
 extern "C" int segment_chain_launch(const void* coords, const void* val, const void* seg_ids,
                                     const void* const* factors, void* out, long long nnz, int B,
-                                    int bn, int nmodes, int R, int S, int vec,
-                                    void* stream_ptr) {
+                                    int bn, int nmodes, int R, int S, int vec, int psram,
+                                    float lsb, float code_max, void* stream_ptr) {
     if (B < 1 || bn < 1 || R < 1 || S < 1 || nnz < 0 || nnz > static_cast<long long>(B) * bn
-        || nmodes < 2 || nmodes > hopper::CHAIN_MAX_MODES || (vec && R % 4 != 0)) {
+        || nmodes < 2 || nmodes > hopper::CHAIN_MAX_MODES || (vec && R % 4 != 0)
+        || (psram && (!(lsb > 0.0f && code_max >= 0.0f)
+                      || chain_smem(nmodes - 1, R, true) > MAX_SMEM))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     hopper::ChainFactors fac;
@@ -403,17 +455,27 @@ extern "C" int segment_chain_launch(const void* coords, const void* val, const v
     const int* ids = static_cast<const int*>(seg_ids);
     float* o = static_cast<float*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+    const hopper::PsramAdc adc{lsb, code_max};
     cudaError_t err;
     switch (nmodes - 1) {
-        case 1: err = launch_chain<1>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, st); break;
-        case 2: err = launch_chain<2>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, st); break;
-        case 3: err = launch_chain<3>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, st); break;
-        case 4: err = launch_chain<4>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, st); break;
-        case 5: err = launch_chain<5>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, st); break;
-        case 6: err = launch_chain<6>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, st); break;
-        default: err = launch_chain<7>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, st); break;
+        case 1: err = launch_chain<1>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, psram, adc, st); break;
+        case 2: err = launch_chain<2>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, psram, adc, st); break;
+        case 3: err = launch_chain<3>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, psram, adc, st); break;
+        case 4: err = launch_chain<4>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, psram, adc, st); break;
+        case 5: err = launch_chain<5>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, psram, adc, st); break;
+        case 6: err = launch_chain<6>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, psram, adc, st); break;
+        default: err = launch_chain<7>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, psram, adc, st); break;
     }
     return static_cast<int>(err);
+}
+
+// Dynamic shared memory of a chain-route CTA for a stream of nmodes modes at
+// rank R, of the quantized variant where psram (its slots hold whole rows);
+// -1 where it does not fit the opt-in shared memory.
+extern "C" long long segment_chain_smem_bytes(int nmodes, int R, int psram) {
+    if (nmodes < 2 || nmodes > hopper::CHAIN_MAX_MODES || R < 1) return -1;
+    const long long bytes = chain_smem(nmodes - 1, R, psram != 0);
+    return bytes > MAX_SMEM ? -1 : bytes;
 }
 
 // The runtime's text for an error code returned by a launch entry.

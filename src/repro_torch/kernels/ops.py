@@ -191,16 +191,17 @@ def blocked_segment_sum_op(
 
 def blocked_chain_segment_sum_op(
     coords: torch.Tensor, values: torch.Tensor, seg_ids: torch.Tensor, factors, mode: int,
-    n_seg: int, lowering: str = "auto",
+    n_seg: int, lowering: str = "auto", psram: bool = False, adc_bits: int = 16,
 ) -> torch.Tensor:
-    """Per-block segment sums of a sparse stream's exact chain: (B, n_seg, R).
+    """Per-block segment sums of a sparse stream's chain: (B, n_seg, R).
 
     ``coords (nnz, nmodes - 1)`` are the stream's non-target coordinates
     (``kernels.ordered_fold.chain_coords``), ``values (nnz,)`` its values,
     ``seg_ids (B, bn)`` the block-local output-row segment of each position
     (``nnz <= B·bn``; positions past ``nnz`` add nothing); the chain is
-    ``cp_chain_exact``'s. On the card one launch forms and sums it
-    (kernels/segment_sum.py's chain route); ``"torch"`` and ``"ref"`` form
+    ``cp_chain_exact``'s, or with ``psram`` the quantized chain of
+    ``cp_chain_psram`` at ``adc_bits``. On the card one launch forms and sums
+    it (kernels/segment_sum.py's chain route); ``"torch"`` and ``"ref"`` form
     the padded chain and sum it with the plain version or the one-hot
     oracle.
     """
@@ -208,11 +209,13 @@ def blocked_chain_segment_sum_op(
     low = resolve_lowering(lowering, coords, values, seg_ids, *factors)
     require_cuda(low, values)
     fn = _dispatch("blocked_chain_segment_sum", {
-        "cuda": lambda: blocked_chain_segment_sum(coords, values, seg_ids, factors, mode, n_seg),
+        "cuda": lambda: blocked_chain_segment_sum(coords, values, seg_ids, factors, mode, n_seg,
+                                                  psram=psram, adc_bits=adc_bits),
         "torch": lambda: blocked_chain_segment_sum_torch(coords, values, seg_ids, factors, mode,
-                                                         n_seg),
+                                                         n_seg, psram, adc_bits),
         "ref": lambda: ref.blocked_segment_sum_ref(
-            padded_chain(coords, values, seg_ids, factors, mode), seg_ids, n_seg),
+            padded_chain(coords, values, seg_ids, factors, mode, psram, adc_bits), seg_ids,
+            n_seg),
     }, low)
     return fn()
 

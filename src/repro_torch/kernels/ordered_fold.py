@@ -35,7 +35,10 @@ routes, counted in ``ordered_fold.routes``:
   temporary. One CTA per run: producer warps gather and multiply ahead of
   one warp that owns the chain of adds. Bound by the stream's bytes and the
   factor rows' L2 gathers, and for a long run by its chain of dependent adds
-  — see the source note.
+  — see the source note. With ``psram=True`` the producers form the
+  quantized chain instead (``core.mttkrp.cp_chain_psram``: 8-bit operands
+  and the ADC on every product, each division a true one), counted apart as
+  ``"chain_psram"``; the consumer's adds do not change.
 
 :func:`ordered_fold` launches its kernel for CUDA tensors (or raises) and,
 for CPU tensors — only because they lie on the CPU — uses
@@ -52,6 +55,8 @@ import functools
 
 import numpy as np
 import torch
+
+from repro_torch.core.quantization import QMAX
 
 from . import _build
 
@@ -242,13 +247,17 @@ def _check_chain(out, coords, values, factors, mode, seg_ptr, seg_rows):
         raise ValueError("out, the stream, the factors and the runs must live on one device")
 
 
-def ordered_chain_fold_torch(out, coords, values, factors, mode, seg_ptr, seg_rows=None):
+def ordered_chain_fold_torch(out, coords, values, factors, mode, seg_ptr, seg_rows=None,
+                             psram: bool = False, adc_bits: int = 16):
     """Plain PyTorch version of :func:`ordered_chain_fold`: the chain
     ``cp_chain_exact`` forms (the gathered rows' Hadamard in mode order, then
-    the value) over the runs' stream positions, then one ``index_add_`` into
-    the runs' rows, in place; returns ``out``. On the CPU ``index_add_`` adds
-    in stream order (bit-equal to the kernel); the chain's ``(n, R)``
-    temporary is the whole stream's."""
+    the value), or with ``psram`` the quantized chain of ``cp_chain_psram``
+    at ``adc_bits``, over the runs' stream positions, then one ``index_add_``
+    into the runs' rows, in place; returns ``out``. On the CPU
+    ``index_add_`` adds in stream order (bit-equal to the kernel); the
+    chain's ``(n, R)`` temporary is the whole stream's."""
+    from repro_torch.core.mttkrp import psram_chain
+
     factors = tuple(factors)
     _check_chain(out, coords, values, factors, mode, seg_ptr, seg_rows)
     lo, hi = int(seg_ptr[0]), int(seg_ptr[-1])
@@ -256,15 +265,29 @@ def ordered_chain_fold_torch(out, coords, values, factors, mode, seg_ptr, seg_ro
         seg_ptr.shape[0] - 1, device=seg_ptr.device)
     ids = torch.repeat_interleave(rows.long(), seg_ptr.diff())
     others = [f for d, f in enumerate(factors) if d != mode]
-    had = None
-    for k, f in enumerate(others):
-        gathered = f[coords[lo:hi, k].long()]
-        had = gathered if had is None else had * gathered
+    gathered = [f[coords[lo:hi, k].long()] for k, f in enumerate(others)]
+    if psram:
+        return out.index_add_(0, ids, psram_chain(gathered, values[lo:hi], adc_bits))
+    had = gathered[0]
+    for g in gathered[1:]:
+        had = had * g
     return out.index_add_(0, ids, values[lo:hi, None] * had)
 
 
+def adc_operands(adc_bits: int) -> tuple[float, float]:
+    """What a quantized chain route's ADC takes from the host: the LSB of
+    the products' full scale ``QMAX²`` at ``2**adc_bits`` levels, formed in
+    double and rounded once to f32 on the way (``adc_transfer``'s note), and
+    the largest code, ``levels / 2 - 1``. Raises outside the kernels'
+    1..24 bits."""
+    if not 1 <= adc_bits <= 24:
+        raise ValueError(f"adc_bits must be in 1..24 for the kernel, got {adc_bits}")
+    levels = 2 ** adc_bits
+    return 2.0 * (float(QMAX) * float(QMAX)) / levels, float(levels // 2 - 1)
+
+
 def ordered_chain_fold(out, coords, values, factors, mode, seg_ptr, seg_rows=None, *,
-                       longest_run: int = 0):
+                       longest_run: int = 0, psram: bool = False, adc_bits: int = 16):
     """For each run ``s`` and each nonzero ``p`` of stream positions
     ``[seg_ptr[s], seg_ptr[s+1])`` in order, ``out[row] += values[p] *
     ⊙_{d != mode} factors[d][i_pd]`` (the Hadamard in mode order, then the
@@ -283,7 +306,10 @@ def ordered_chain_fold(out, coords, values, factors, mode, seg_ptr, seg_rows=Non
     they keep them. Raises on anything else, CPU tensors included: fold
     those with :func:`ordered_chain_fold_torch`. ``longest_run``, the most
     nonzeros a run has where the caller keeps it (0: unknown), lets the
-    launch give a long run's CTA more producer warps."""
+    launch give a long run's CTA more producer warps. ``psram=True`` adds the
+    quantized chain ``cp_chain_psram`` forms at ``adc_bits`` (1..24) in place
+    of the exact one, the same bits as :func:`ordered_chain_fold_torch` with
+    ``psram=True`` on the CPU; counted under ``routes["chain_psram"]``."""
     factors = tuple(factors)
     _check_chain(out, coords, values, factors, mode, seg_ptr, seg_rows)
     if len(factors) > CHAIN_MAX_MODES:
@@ -299,7 +325,8 @@ def ordered_chain_fold(out, coords, values, factors, mode, seg_ptr, seg_rows=Non
     tensors = (out, coords, values, *factors, seg_ptr) + (() if seg_rows is None else (seg_rows,))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("out, the stream, the factors and the runs must be contiguous")
-    return _launch_chain(out, coords, values, factors, mode, seg_ptr, seg_rows, longest_run)
+    adc = adc_operands(adc_bits) if psram else None
+    return _launch_chain(out, coords, values, factors, mode, seg_ptr, seg_rows, longest_run, adc)
 
 
 def _chain_entry():
@@ -308,7 +335,8 @@ def _chain_entry():
     if not fn.argtypes:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_int, ctypes.c_float, ctypes.c_float] \
+            + [ctypes.c_void_p]
         lib.ordered_chain_smem_bytes.restype = ctypes.c_longlong
         lib.ordered_chain_smem_bytes.argtypes = [ctypes.c_int] * 2 + [ctypes.c_longlong]
         lib.ordered_chain_max_modes.restype = ctypes.c_int
@@ -324,8 +352,11 @@ def _chain_smem(nmodes: int, rank: int, longest_run: int = 0) -> int:
     return int(lib.ordered_chain_smem_bytes(nmodes, rank, longest_run))
 
 
-def _launch_chain(out, coords, values, factors, mode, seg_ptr, seg_rows, longest_run: int):
-    """One chain-route launch over checked operands (:func:`ordered_chain_fold`)."""
+def _launch_chain(out, coords, values, factors, mode, seg_ptr, seg_rows, longest_run: int,
+                  adc=None):
+    """One chain-route launch over checked operands (:func:`ordered_chain_fold`);
+    ``adc`` the quantized chain's :func:`adc_operands`, None for the exact
+    chain."""
     nmodes, rank = len(factors), out.shape[1]
     if seg_ptr.shape[0] < 2:                 # no run: nothing to launch
         return out
@@ -340,15 +371,17 @@ def _launch_chain(out, coords, values, factors, mode, seg_ptr, seg_rows, longest
         err = fn(out.data_ptr(), coords.data_ptr(), values.data_ptr(),
                  ctypes.cast(ptrs, ctypes.c_void_p), seg_ptr.data_ptr(),
                  0 if seg_rows is None else seg_rows.data_ptr(), seg_ptr.shape[0] - 1,
-                 nmodes, rank, int(longest_run), vec, torch.cuda.current_stream().cuda_stream)
+                 nmodes, rank, int(longest_run), vec, int(adc is not None),
+                 *(adc or (0.0, 0.0)), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, lib, "ordered_fold")
     ordered_fold.launches += 1
-    ordered_fold.routes["chain"] += 1
+    ordered_fold.routes["chain" if adc is None else "chain_psram"] += 1
     return out
 
 
 #: kernel launches made by :func:`ordered_fold` and :func:`ordered_chain_fold`
 #: (CUDA path only), both routes
 ordered_fold.launches = 0
-#: the same launches by route: ``"fold"`` (given contributions) and ``"chain"``
-ordered_fold.routes = {"fold": 0, "chain": 0}
+#: the same launches by route: ``"fold"`` (given contributions), ``"chain"``
+#: (the exact chain formed in the kernel) and ``"chain_psram"`` (the quantized one)
+ordered_fold.routes = {"fold": 0, "chain": 0, "chain_psram": 0}

@@ -26,7 +26,11 @@ lane = rank column, the rows added in order. Two routes, counted in
   the ``(B, bn, R)`` chain never exists in device memory; a segment's sum
   is stored when its run of (non-decreasing) ids ends. Bound by the factor
   rows it gathers from L2 — see the source note. The ``compiled=False``
-  sparse path runs it.
+  sparse path runs it. With ``psram=True`` the chain rows are the quantized
+  chain of ``core.mttkrp.cp_chain_psram`` (8-bit operands and the ADC on
+  every product), formed a whole row at a time because each scale reduces
+  over the row; counted apart as ``"chain_psram"``. The ``psram-stream``
+  backend's compiled path runs it.
 
 Both add every ``(b, s, r)`` from 0.0 in row order, one rounded add a row,
 so the chain route gives the bits of the rows route over the padded chain.
@@ -48,7 +52,7 @@ import ctypes
 import torch
 
 from . import _build
-from .ordered_fold import CHAIN_MAX_MODES
+from .ordered_fold import CHAIN_MAX_MODES, adc_operands
 
 #: the most segments per block the kernel's shared-memory tile holds
 #: (227 KB of opt-in shared memory / (32 columns x 4 bytes))
@@ -144,12 +148,14 @@ def _check_chain(coords, values, seg_ids, factors, mode):
     return b, bn, rank
 
 
-def padded_chain(coords, values, seg_ids, factors, mode: int) -> torch.Tensor:
-    """The exact chain ``cp_chain_exact`` forms over the stream padded to
+def padded_chain(coords, values, seg_ids, factors, mode: int, psram: bool = False,
+                 adc_bits: int = 16) -> torch.Tensor:
+    """The exact chain ``cp_chain_exact`` forms (with ``psram``, the quantized
+    chain of ``cp_chain_psram`` at ``adc_bits``) over the stream padded to
     ``seg_ids``' ``(B, bn)`` blocks: ``(B, bn, R)`` f32, the padding
-    positions' rows ``0.0 ·`` the rows of coordinate 0 (zeros). What
+    positions' rows those of value 0.0 at coordinate 0 (zeros). What
     :func:`blocked_segment_sum` takes; the chain route never forms it."""
-    from repro_torch.core.mttkrp import cp_chain_exact
+    from repro_torch.core.mttkrp import cp_chain_exact, cp_chain_psram
 
     factors = tuple(factors)
     _check_chain(coords, values, seg_ids, factors, mode)
@@ -159,17 +165,21 @@ def padded_chain(coords, values, seg_ids, factors, mode: int) -> torch.Tensor:
     idx = torch.zeros((b * bn, nmodes), dtype=coords.dtype, device=coords.device)
     idx[:n, others] = coords                # the target column is never read
     vals = torch.nn.functional.pad(values, (0, b * bn - n))
+    if psram:
+        return cp_chain_psram(idx.view(b, bn, nmodes), vals.view(b, bn), factors, mode,
+                              adc_bits)
     return cp_chain_exact(idx.view(b, bn, nmodes), vals.view(b, bn), factors, mode)
 
 
 def blocked_chain_segment_sum_torch(coords, values, seg_ids, factors, mode: int,
-                                    n_seg: int) -> torch.Tensor:
+                                    n_seg: int, psram: bool = False,
+                                    adc_bits: int = 16) -> torch.Tensor:
     """Plain PyTorch version of :func:`blocked_chain_segment_sum`: the padded
-    chain (:func:`padded_chain`), then :func:`blocked_segment_sum_torch`. On
-    the CPU bit-equal to the kernel; its ``(B, bn, R)`` temporary is the
-    whole padded stream's."""
-    return blocked_segment_sum_torch(padded_chain(coords, values, seg_ids, factors, mode),
-                                     seg_ids, n_seg)
+    chain (:func:`padded_chain`, quantized with ``psram``), then
+    :func:`blocked_segment_sum_torch`. On the CPU bit-equal to the kernel;
+    its ``(B, bn, R)`` temporary is the whole padded stream's."""
+    return blocked_segment_sum_torch(
+        padded_chain(coords, values, seg_ids, factors, mode, psram, adc_bits), seg_ids, n_seg)
 
 
 def _chain_entry():
@@ -177,13 +187,16 @@ def _chain_entry():
     fn = lib.segment_chain_launch
     if not fn.argtypes:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 7 \
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        lib.segment_chain_smem_bytes.restype = ctypes.c_longlong
+        lib.segment_chain_smem_bytes.argtypes = [ctypes.c_int] * 3
     return lib, fn
 
 
 def blocked_chain_segment_sum(coords, values, seg_ids, factors, mode: int,
-                              n_seg: int) -> torch.Tensor:
+                              n_seg: int, *, psram: bool = False,
+                              adc_bits: int = 16) -> torch.Tensor:
     """Per-block partial segment sums ``(B, n_seg, R)`` f32 of a sparse
     stream's exact chain: block ``b`` sums, for each stream position ``p``
     of ``[b·bn, min((b+1)·bn, nnz))`` in order, ``values[p] · ⊙_{d != mode}
@@ -202,7 +215,11 @@ def blocked_chain_segment_sum(coords, values, seg_ids, factors, mode: int,
     range-check the coordinates: its callers check them once where they
     keep the stream (``sparse.stream.stream_mttkrp_blocked``). Raises on
     anything else, CPU tensors included: sum those with
-    :func:`blocked_chain_segment_sum_torch`."""
+    :func:`blocked_chain_segment_sum_torch`. ``psram=True`` sums the
+    quantized chain ``cp_chain_psram`` forms at ``adc_bits`` (1..24) instead,
+    the same bits as the plain version with ``psram=True`` on the CPU; its
+    warps hold whole rows of the factors, so a rank whose rows do not fit
+    shared memory raises; counted under ``routes["chain_psram"]``."""
     factors = tuple(factors)
     b, bn, rank = _check_chain(coords, values, seg_ids, factors, mode)
     if n_seg < 1:
@@ -217,23 +234,29 @@ def blocked_chain_segment_sum(coords, values, seg_ids, factors, mode: int,
         raise TypeError(f"coords must be int32, got {coords.dtype}")
     if not all(t.is_contiguous() for t in (coords, values, seg_ids, *factors)):
         raise ValueError("the stream, its segment ids and the factors must be contiguous")
+    adc = adc_operands(adc_bits) if psram else (0.0, 0.0)
+    lib, fn = _chain_entry()
+    if lib.segment_chain_smem_bytes(len(factors), rank, int(psram)) < 0:
+        raise ValueError(f"the chain route's slots do not fit shared memory at rank {rank} "
+                         f"with {len(factors)} modes")
     others = [f for d, f in enumerate(factors) if d != mode]
     ptrs = (ctypes.c_void_p * len(others))(*[f.data_ptr() for f in others])
     vec = int(rank % 4 == 0 and all(f.data_ptr() % 16 == 0 for f in others))
     with torch.cuda.device(values.device):
         out = torch.empty((b, n_seg, rank), dtype=torch.float32, device=values.device)
-        lib, fn = _chain_entry()
         err = fn(coords.data_ptr(), values.data_ptr(), seg_ids.data_ptr(),
                  ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(), values.shape[0], b, bn,
-                 len(factors), rank, n_seg, vec, torch.cuda.current_stream().cuda_stream)
+                 len(factors), rank, n_seg, vec, int(psram), *adc,
+                 torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, lib, "segment_sum")
     blocked_segment_sum.launches += 1
-    blocked_segment_sum.routes["chain"] += 1
+    blocked_segment_sum.routes["chain_psram" if psram else "chain"] += 1
     return out
 
 
 #: kernel launches made by :func:`blocked_segment_sum` and
 #: :func:`blocked_chain_segment_sum` (CUDA path only), both routes
 blocked_segment_sum.launches = 0
-#: the same launches by route: ``"rows"`` (given chain rows) and ``"chain"``
-blocked_segment_sum.routes = {"rows": 0, "chain": 0}
+#: the same launches by route: ``"rows"`` (given chain rows), ``"chain"`` (the
+#: exact chain formed in the kernel) and ``"chain_psram"`` (the quantized one)
+blocked_segment_sum.routes = {"rows": 0, "chain": 0, "chain_psram": 0}

@@ -16,33 +16,41 @@ no scatter matrix anywhere:
 Ported here: the host-side blocking (``_block_segments``,
 ``_compiled_layout``, :func:`stream_layout`) — numpy, cached on the CSF,
 equal array-for-array to the reference's, which is what lets a kernel of
-the port be compared with the reference kernel on one layout — the exact
-eager :func:`stream_mttkrp` that CP-ALS's convergence metric needs, and
-:func:`stream_mttkrp_blocked`, the same schedule on the blocked segment sum
-(the ``compiled=False`` sparse path of the ``"hopper"`` backend). Where the
-exact chain ``d_p`` is formed: on the card inside the kernels, never as a
-tensor (``stream_mttkrp``: the ordered fold's chain route;
-``stream_mttkrp_blocked``: the blocked segment sum's chain route); on the
-CPU by ``cp_chain_exact`` (``stream_mttkrp``: in steps of ~64Ki nonzeros;
-``stream_mttkrp_blocked``: over the padded stream, in the plain version).
-Still to come from the reference module: the schedule IR
-(``build_stream_program``), the quantized chain (``psram=True``), the
-compiled blocked-fold executor (``_stream_exec_compiled``,
-``_blocked_fold_flat``, ``blocked_fold_reference``) and pricing.
+the port be compared with the reference kernel on one layout — and both
+executors of :func:`stream_mttkrp`, with the exact chain or the quantized
+one (``psram=True``: 8-bit operands and the ADC on every product, the
+``"psram-stream"`` backend): the **eager** per-nonzero fold, and the
+**compiled** blocked-segment fold (``compiled=True``), which is
+:func:`stream_mttkrp_blocked` (the ``compiled=False`` sparse path of the
+``"hopper"`` backend runs it with the exact chain). Where the chain ``d_p``
+is formed: on the card inside the kernels, never as a tensor (the eager
+executor: the ordered fold's chain route; the compiled one: the blocked
+segment sum's chain route, its partials then read in place by the ordered
+fold's fold route); on the CPU by ``cp_chain_exact`` / ``cp_chain_psram``
+(eager: in steps of ~64Ki nonzeros; compiled: over the padded stream, in
+the plain version). Beside them the flat oracle of the compiled fold
+(:func:`blocked_fold_reference`, one gather-mask contraction over every
+block, plain PyTorch) and the COO front doors :func:`stream_mttkrp_coo` and
+:func:`blocked_fold_mttkrp_coo`.
+
+Left out until the array's cost model is ported (ROADMAP Queue A item 3):
+the schedule IR (``build_stream_program``, ``rank_tile_widths``) and
+pricing (``stream_mttkrp_priced``, ``StreamedMTTKRP``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch._device import ieee_f32
 from repro_torch.backends.base import resolve_config
-from repro_torch.core.mttkrp import cp_chain_exact
+from repro_torch.core.mttkrp import cp_chain_exact, cp_chain_psram
 from repro_torch.core.psram import PsramConfig
 from repro_torch.kernels.ordered_fold import (_fold_runs, chain_coords, find_long_runs,
                                               ordered_chain_fold, ordered_fold,
                                               ordered_fold_torch)
 
-from .formats import CSF
+from .formats import COO, CSF, csf_for_mode
 
 _DEFAULT_EXEC_NNZ = 65536  # nonzeros per executor step on the CPU: bounds the
                            # chain's (step, R) temporaries
@@ -149,49 +157,61 @@ def stream_mttkrp(
     compiled: bool = False,
     exec_blocks: int | None = None,
 ) -> torch.Tensor:
-    """Execute the streaming schedule numerically with the exact chain:
-    (out_rows, R).
+    """Execute the streaming schedule numerically: (out_rows, R).
 
-    ``csf``'s root mode is the target mode. Each nonzero's chain
-    ``d_p = x_p · ⊙ other-factor rows`` is added into its output row in
-    stream order, one rounded add each — the fold order of one global
+    ``csf``'s root mode is the target mode. ``psram`` picks the chain: the
+    exact ``d_p = x_p · ⊙ other-factor rows``, or the quantized chain of
+    ``cp_chain_psram`` at ``adc_bits`` (every CP1/CP2 product through 8-bit
+    operands and the ADC). Either way CP3 is streamed electrical
+    accumulation — no scatter matrix.
+
+    The default **eager** executor adds each nonzero's chain into its output
+    row in stream order, one rounded add each — the fold order of one global
     ``jax.ops.segment_sum`` over the sorted stream, so the result is
-    **bit-identical** to the reference's eager executor on the CPU and, on
-    the card, to the CPU's and repeatable. On the card the whole stream is
-    one launch of ``kernels.ordered_fold``'s chain route, which forms each
-    ``d_p`` in the kernel (one CTA per root fiber). On the CPU the stream is
-    walked in steps of ``exec_blocks`` blocks (default ~64Ki nonzeros): the
-    chain runs over the step and ``index_add_`` adds it in stream order, each
-    step starting from the rows' current values. ``exec_blocks`` shapes the
-    CPU's temporaries only (a root fiber split across steps is one fold); the
-    card takes no steps.
+    **bit-identical** to the reference's eager executor run op by op on the
+    CPU (with ``psram=True`` its jitted form lands within one ADC code: XLA
+    rewrites ``amax / 127`` into a reciprocal multiply) and, on the card, to
+    the CPU's and repeatable; ``psram=True`` is bit-for-bit
+    ``core.mttkrp.mttkrp_sparse_psram`` on the sorted stream. On the card
+    the whole stream is one launch of ``kernels.ordered_fold``'s chain
+    route, which forms each ``d_p`` in the kernel (one CTA per root fiber).
+    On the CPU the stream is walked in steps of ``exec_blocks`` blocks
+    (default ~64Ki nonzeros): the chain runs over the step and
+    ``index_add_`` adds it in stream order, each step starting from the
+    rows' current values. ``exec_blocks`` shapes the CPU's temporaries only
+    (a root fiber split across steps is one fold); the card takes no steps.
 
-    ``psram=True`` (the quantized chain) and ``compiled=True`` (the blocked
-    fold) belong to the ``psram-stream`` slice of the port and raise here.
+    ``compiled=True`` opts into the **blocked-segment fold**: the partial
+    sums of each output-row segment of each block of ``config.rows``
+    nonzeros, folded into the output in (block, segment) order —
+    :func:`stream_mttkrp_blocked` with the same chain, two launches on the
+    card. It reassociates the eager fold's adds (~1e-5 relative, the
+    quantization unchanged) and is within 1e-6 relative of its flat oracle
+    :func:`blocked_fold_reference`; it takes no ``exec_blocks`` (the
+    reference's scan chunks change no bit of its result).
     """
-    if psram or compiled:
-        raise NotImplementedError(
-            "stream_mttkrp(psram=True / compiled=True) is not ported yet: "
-            "the quantized chain and the blocked fold come with the "
-            "'psram-stream' backend (ROADMAP Queue A item 1)"
-        )
     cfg = resolve_config(config)
+    factors = tuple(factors)
+    if compiled:
+        return stream_mttkrp_blocked(csf, factors, cfg, psram=psram, adc_bits=adc_bits)
     mode = csf.mode_order[0]
     indices, values = csf.expanded_indices(), csf.values
-    factors = tuple(factors)
     out = torch.zeros((csf.shape[mode], factors[0].shape[-1]), dtype=torch.float32,
                       device=values.device)
     if values.is_cuda:            # one launch: a CTA per root fiber, d formed in the kernel
         coords, seg_ptr, seg_rows, longest, ranges = _chain_stream(csf)
         _check_ranges(ranges, factors)
         return ordered_chain_fold(out, coords, values, tuple(f.contiguous() for f in factors),
-                                  mode, seg_ptr, seg_rows, longest_run=longest)
+                                  mode, seg_ptr, seg_rows, longest_run=longest, psram=psram,
+                                  adc_bits=adc_bits)
     rows = cfg.rows
     n_blocks = max(1, -(-max(1, csf.nnz) // rows))
     step = rows * _exec_blocks(rows, n_blocks, exec_blocks)
     for lo in range(0, csf.nnz, step):    # the CPU's index_add_, in stream order
         i_b, v_b = indices[lo:lo + step], values[lo:lo + step]
-        ordered_fold(out, cp_chain_exact(i_b, v_b, factors, mode), i_b[:, mode])
+        d = (cp_chain_psram(i_b, v_b, factors, mode, adc_bits) if psram
+             else cp_chain_exact(i_b, v_b, factors, mode))
+        ordered_fold(out, d, i_b[:, mode])
     return out
 
 
@@ -276,12 +296,16 @@ def stream_mttkrp_blocked(
     factors: tuple,
     config: PsramConfig | None = None,
     lowering: str = "auto",
+    psram: bool = False,
+    adc_bits: int = 16,
 ) -> torch.Tensor:
     """The same streaming schedule on the blocked segment sum: (out_rows, R).
 
     Per block of ``rows`` nonzeros of the sorted stream, the partial sums of
     each output-row segment of the exact chain ``x_p · ⊙ other-factor
-    rows`` (``kernels.ops.blocked_chain_segment_sum_op``); then the
+    rows`` — with ``psram``, of the quantized chain of ``cp_chain_psram`` at
+    ``adc_bits`` (the ``"psram-stream"`` backend's compiled path) —
+    (``kernels.ops.blocked_chain_segment_sum_op``); then the
     ``(B, n_seg)`` partials are folded into the output by
     ``kernels.ordered_fold``, read in place in the cached stable order of
     their rows (its ``order``): O(segments) adds, no global scatter matrix
@@ -306,7 +330,7 @@ def stream_mttkrp_blocked(
     coords, *_, ranges = _chain_stream(csf)
     _check_ranges(ranges, factors)
     partials = blocked_chain_segment_sum_op(coords, csf.values, local, factors, mode, n_seg,
-                                            lowering=lowering)
+                                            lowering=lowering, psram=psram, adc_bits=adc_bits)
     rank = partials.shape[-1]
     out = torch.zeros((csf.shape[mode], rank), dtype=torch.float32, device=partials.device)
     d = partials.reshape(-1, rank).contiguous()
@@ -316,3 +340,104 @@ def stream_mttkrp_blocked(
     # host once: nothing to check or wait for
     return _fold_runs(out, d, fold_runs, None, 0, out.shape[0], 0, order=order,
                       long_runs=long_runs)
+
+
+def _mask_partials(d: torch.Tensor, l_b: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """All of a block stack's segment sums in one contraction: one-hot gather
+    masks (the per-channel binary word-line drives of §IV) against the
+    stored chain rows — ``(E, S, rows) @ (E, rows, R) -> (E, S, R)``. The
+    plain twin of the reference's TPU blocked segment sum's body (the
+    port's kernel sums the rows in order instead)."""
+    sids = torch.arange(n_seg, device=l_b.device).view(1, n_seg, 1)
+    mask = (sids == l_b[:, None, :].long()).to(torch.float32)
+    return torch.bmm(mask, d)
+
+
+@ieee_f32()
+def _blocked_fold_flat(ip, vp, lp, sp, factors: tuple, mode: int, out_rows: int, n_seg: int,
+                       psram: bool, adc_bits: int) -> torch.Tensor:
+    """The flat blocked-segment fold over padded block stacks ``ip (B, rows,
+    nmodes)``, ``vp (B, rows)``, ``lp (B, rows)``, ``sp (B, n_seg)``: the
+    chain of every block at once, one gather-mask contraction, one scatter
+    of the partials into the output rows in block order (``out_rows`` is
+    the sacrificial row of unused slots and padding). A different lowering
+    of the blocked fold than the compiled executor's (no kernel, no ordered
+    fold; its one-hot is O(B·n_seg·rows)): the oracle it is held to. On the
+    CPU ``index_add_`` adds in order; on the card it is atomic."""
+    d = (cp_chain_psram(ip, vp, factors, mode, adc_bits) if psram
+         else cp_chain_exact(ip, vp, factors, mode))          # (B, rows, R)
+    parts = _mask_partials(d, lp, n_seg)                       # (B, S, R)
+    rank = factors[0].shape[-1]
+    out = torch.zeros((out_rows + 1, rank), dtype=torch.float32, device=d.device)
+    out.index_add_(0, sp.reshape(-1).long(), parts.reshape(-1, rank))
+    return out[:out_rows]
+
+
+def blocked_fold_reference(
+    csf: CSF,
+    factors: tuple,
+    config: PsramConfig | None = None,
+    psram: bool = False,
+    adc_bits: int = 16,
+) -> torch.Tensor:
+    """The flat blocked-segment fold over a CSF — the parity oracle of
+    ``stream_mttkrp(compiled=True)`` (see :func:`_blocked_fold_flat`), on
+    the CSF's device."""
+    cfg = resolve_config(config)
+    mode = csf.mode_order[0]
+    local, seg_rows, n_seg = _block_segments(csf, cfg.rows)
+    n_blocks = local.shape[0]
+    idx = csf.expanded_indices_np()
+    padn = n_blocks * cfg.rows - idx.shape[0]
+    dev = csf.device
+    ip = torch.as_tensor(np.pad(idx, ((0, padn), (0, 0)))
+                         .reshape(n_blocks, cfg.rows, idx.shape[1]), device=dev)
+    vp = torch.nn.functional.pad(csf.values, (0, padn)).view(n_blocks, cfg.rows)
+    return _blocked_fold_flat(ip, vp, torch.as_tensor(local, device=dev),
+                              torch.as_tensor(seg_rows, device=dev), tuple(factors), mode,
+                              csf.shape[mode], n_seg, psram, adc_bits)
+
+
+def _coo_csf(indices, values, factors: tuple, mode: int, out_rows: int) -> CSF:
+    """The mode-rooted CSF of a COO triple; the factors carry the other
+    modes' dims, the target mode takes ``out_rows``. Host-side sort."""
+    shape = [int(f.shape[0]) for f in factors]
+    shape[mode] = out_rows
+    return csf_for_mode(COO(indices=indices, values=values, shape=tuple(shape)), mode)
+
+
+def blocked_fold_mttkrp_coo(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    factors: tuple,
+    mode: int,
+    out_rows: int,
+    config: PsramConfig | None = None,
+    psram: bool = False,
+    adc_bits: int = 16,
+) -> torch.Tensor:
+    """COO front door of the flat blocked fold (sorts into a mode-rooted CSF
+    first) — the delegation target of ``core.mttkrp.mttkrp_sparse_blocked``."""
+    factors = tuple(factors)
+    return blocked_fold_reference(_coo_csf(indices, values, factors, mode, out_rows), factors,
+                                  config, psram=psram, adc_bits=adc_bits)
+
+
+def stream_mttkrp_coo(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    factors: tuple,
+    mode: int,
+    out_rows: int,
+    config: PsramConfig | None = None,
+    psram: bool = False,
+    adc_bits: int = 16,
+) -> torch.Tensor:
+    """COO-triple front door of the eager :func:`stream_mttkrp` (sorts into a
+    mode-rooted CSF first) — the delegation target of
+    ``core.mttkrp.mttkrp_sparse_psram_scheduled``. The sort is host-side
+    preprocessing, made anew each call: a caller that loops over modes keeps
+    the CSFs (``cp_als`` does)."""
+    factors = tuple(factors)
+    return stream_mttkrp(_coo_csf(indices, values, factors, mode, out_rows), factors, config,
+                         psram=psram, adc_bits=adc_bits)

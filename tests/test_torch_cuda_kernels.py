@@ -778,7 +778,7 @@ def test_chain_segment_sum_bit_equal_to_the_rows_route(card, nmodes, rank, nnz, 
     before = dict(ss.blocked_segment_sum.routes)
     got = ss.blocked_chain_segment_sum(coords, vals, local, fs, mode, n_seg)
     torch.cuda.synchronize()
-    assert ss.blocked_segment_sum.routes == {"rows": before["rows"], "chain": before["chain"] + 1}
+    assert ss.blocked_segment_sum.routes == {**before, "chain": before["chain"] + 1}
     assert got.shape == (local.shape[0], n_seg, rank)
     rows = ss.blocked_segment_sum(ss.padded_chain(coords, vals, local, fs, mode), local, n_seg)
     assert torch.equal(got, rows)
@@ -839,7 +839,7 @@ def test_exact_sparse_mttkrp_on_the_card_is_ordered(card, mode):
     before = dict(of.ordered_fold.routes)
     got = mttkrp_sparse(idx, vals, fs, mode, coo.shape[mode])
     torch.cuda.synchronize()
-    assert of.ordered_fold.routes == {"fold": before["fold"], "chain": before["chain"] + 1}
+    assert of.ordered_fold.routes == {**before, "chain": before["chain"] + 1}
     cpu = lambda t: t.cpu()
     want = mttkrp_sparse(cpu(idx), cpu(vals), tuple(map(cpu, fs)), mode, coo.shape[mode])
     assert torch.equal(got.cpu(), want)
@@ -851,7 +851,7 @@ def test_exact_sparse_mttkrp_on_the_card_is_ordered(card, mode):
     before = dict(of.ordered_fold.routes)
     got_s = stream_mttkrp(csf, fs, cfg, exec_blocks=3)
     torch.cuda.synchronize()
-    assert of.ordered_fold.routes == {"fold": before["fold"], "chain": before["chain"] + 1}
+    assert of.ordered_fold.routes == {**before, "chain": before["chain"] + 1}
     csf_cpu = csf_for_mode(COO(indices=cpu(coo.indices), values=cpu(coo.values),
                                shape=coo.shape), mode)
     want_s = stream_mttkrp(csf_cpu, tuple(map(cpu, fs)), cfg, exec_blocks=3)
@@ -919,7 +919,7 @@ def test_ordered_chain_fold_bit_equal_to_cpu(card, shape, nnz, rank, mode, offse
     got = of.ordered_chain_fold(start.clone(), coords, vals, fs, mode, seg_ptr, seg_rows,
                                 longest_run=longest)
     torch.cuda.synchronize()
-    assert of.ordered_fold.routes == {"fold": before["fold"], "chain": before["chain"] + 1}
+    assert of.ordered_fold.routes == {**before, "chain": before["chain"] + 1}
     cpu = lambda t: t.cpu()
     want = of.ordered_chain_fold_torch(cpu(start), cpu(coords), cpu(vals), tuple(map(cpu, fs)),
                                        mode, cpu(seg_ptr), cpu(seg_rows))
@@ -927,6 +927,100 @@ def test_ordered_chain_fold_bit_equal_to_cpu(card, shape, nnz, rank, mode, offse
     again = of.ordered_chain_fold(start.clone(), coords, vals, fs, mode, seg_ptr, seg_rows,
                                   longest_run=longest)
     assert torch.equal(again, got)
+
+
+PSRAM_CHAIN_CASES = [  # (shape, nnz, rank, mode, adc_bits, zero row)
+    ((300, 200, 100), 60000, 32, 0, 16, False),
+    ((300, 200, 100), 60000, 32, 2, 4, False),     # a 4-bit ADC
+    ((300, 200, 100), 60000, 5, 1, 16, False),     # R % 4 != 0, < 32: 4-byte copies
+    ((300, 200, 100), 60000, 20, 0, 8, False),     # not a template rank
+    ((300, 200, 100), 60000, 16, 1, 16, False),    # a row is 4 lanes
+    ((300, 200, 100), 60000, 48, 2, 16, False),    # kernel 5: two column tiles, whole rows
+    ((300, 200, 100), 60000, 64, 0, 16, False),    # a row is 16 lanes; two tiles
+    ((300, 200, 100), 20000, 128, 1, 16, False),   # a row is the warp; four tiles
+    ((50, 12, 9, 7), 20000, 32, 3, 16, False),     # 4 modes: CP1 through the ADC twice
+    ((50, 12, 9, 7), 20000, 48, 0, 4, False),
+    ((300, 200, 100), 60000, 32, 0, 16, True),     # all-zero factor rows and values
+    ((40, 3000, 200), 400000, 32, 0, 16, False),   # runs past 32768 nonzeros: 6 producers
+]
+
+
+@pytest.mark.parametrize("shape,nnz,rank,mode,bits,zero", PSRAM_CHAIN_CASES)
+def test_quantized_chain_routes_bit_equal_to_cpu(card, shape, nnz, rank, mode, bits, zero):
+    """Both chain routes' quantized variants (``psram=True``: the chain of
+    ``cp_chain_psram`` formed in the kernel): BIT-EQUAL to their plain
+    versions on the CPU, the same bits on a second launch, one launch each
+    counted as ``chain_psram``. The ordered fold's over the CSF's root fibers
+    from a nonzero ``out``; kernel 5's over the padded blocks of the
+    compiled layout (the last block's padding adds nothing); and
+    ``stream_mttkrp(psram=True)``, eager and compiled, against the CPU."""
+    from repro_torch.sparse.stream import _chain_stream, _segment_blocks, stream_mttkrp
+
+    coo = powerlaw_coo(9, shape, nnz=nnz, rank=4, alpha=1.6, device=card)
+    csf = csf_for_mode(coo, mode)
+    gen = torch.Generator(device=card).manual_seed(rank + mode + bits)
+    fs = [torch.randn((s, rank), generator=gen, device=card) for s in shape]
+    vals = csf.values.clone()
+    if zero:
+        for f in fs:
+            f[::3] = 0.0
+        vals[::5] = 0.0
+    fs = tuple(fs)
+    cpu = lambda t: t.cpu()
+    fs_cpu = tuple(map(cpu, fs))
+    coords, seg_ptr, seg_rows, longest, _ = _chain_stream(csf)
+    start = torch.randn((shape[mode], rank), generator=gen, device=card)
+    before = dict(of.ordered_fold.routes)
+    got = of.ordered_chain_fold(start.clone(), coords, vals, fs, mode, seg_ptr, seg_rows,
+                                longest_run=longest, psram=True, adc_bits=bits)
+    torch.cuda.synchronize()
+    assert of.ordered_fold.routes == {**before, "chain_psram": before["chain_psram"] + 1}
+    want = of.ordered_chain_fold_torch(cpu(start), cpu(coords), cpu(vals), fs_cpu, mode,
+                                       cpu(seg_ptr), cpu(seg_rows), psram=True, adc_bits=bits)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(of.ordered_chain_fold(start.clone(), coords, vals, fs, mode, seg_ptr,
+                                             seg_rows, longest_run=longest, psram=True,
+                                             adc_bits=bits), got)
+    local, n_seg = _segment_blocks(csf, 256)[:2]
+    before = dict(ss.blocked_segment_sum.routes)
+    parts = ss.blocked_chain_segment_sum(coords, vals, local, fs, mode, n_seg, psram=True,
+                                         adc_bits=bits)
+    torch.cuda.synchronize()
+    assert ss.blocked_segment_sum.routes == {**before, "chain_psram": before["chain_psram"] + 1}
+    want_parts = ss.blocked_chain_segment_sum_torch(cpu(coords), cpu(vals), cpu(local), fs_cpu,
+                                                    mode, n_seg, psram=True, adc_bits=bits)
+    assert torch.equal(parts.cpu(), want_parts)
+    assert torch.equal(ss.blocked_chain_segment_sum(coords, vals, local, fs, mode, n_seg,
+                                                    psram=True, adc_bits=bits), parts)
+    if zero:
+        return
+    csf_cpu = csf_for_mode(COO(indices=cpu(coo.indices), values=cpu(coo.values),
+                               shape=coo.shape), mode)
+    cfg = PsramConfig(rows=64)
+    for compiled in (False, True):
+        got_s = stream_mttkrp(csf, fs, cfg, psram=True, adc_bits=bits, compiled=compiled)
+        want_s = stream_mttkrp(csf_cpu, fs_cpu, cfg, psram=True, adc_bits=bits,
+                               compiled=compiled)
+        assert torch.equal(got_s.cpu(), want_s), compiled
+
+
+def test_quantized_chain_routes_refusals(card):
+    """An ADC outside 1..24 bits, and kernel 5 at a rank whose whole rows do
+    not fit its slots, are refused before any launch."""
+    coords, vals, local, fs, mode, n_seg = _chain_segment_operands(card, 3, 32, 1000, 64,
+                                                                   "runs", False)
+    before = (dict(ss.blocked_segment_sum.routes), dict(of.ordered_fold.routes))
+    with pytest.raises(ValueError, match="1..24"):
+        ss.blocked_chain_segment_sum(coords, vals, local, fs, mode, n_seg, psram=True,
+                                     adc_bits=25)
+    big = tuple(torch.ones((s, 4000), device=card) for s in (50, 40, 30))
+    with pytest.raises(ValueError, match="do not fit shared memory"):
+        ss.blocked_chain_segment_sum(coords, vals, local, big, mode, n_seg, psram=True)
+    seg_ptr = torch.tensor([0, vals.numel()], device=card)
+    with pytest.raises(ValueError, match="1..24"):
+        of.ordered_chain_fold(torch.zeros((1, 32), device=card), coords, vals, fs, mode,
+                              seg_ptr, psram=True, adc_bits=0)
+    assert (dict(ss.blocked_segment_sum.routes), dict(of.ordered_fold.routes)) == before
 
 
 def chain_layout(nmodes, rank, longest_run):

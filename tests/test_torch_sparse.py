@@ -177,10 +177,13 @@ def test_exact_sparse_mttkrp_paths_vs_reference(mode):
     for cfg, eb in ((None, None), (PsramConfig(rows=16), 2)):
         got_s = tstream.stream_mttkrp(tc, tfs, cfg, exec_blocks=eb)
         np.testing.assert_allclose(got_s.numpy(), want_s, rtol=1e-5, atol=1e-5 * scale)
-    with pytest.raises(NotImplementedError, match="psram-stream"):
-        tstream.stream_mttkrp(tc, tfs, psram=True)
-    with pytest.raises(NotImplementedError, match="psram-stream"):
-        tstream.stream_mttkrp(tc, tfs, compiled=True)
+    # the quantized chain (within one ADC code of full scale of the jitted
+    # reference) and the compiled fold (float reassociation) run too
+    want_q = np.asarray(jstream.stream_mttkrp(jc, jfs, psram=True))
+    got_q = tstream.stream_mttkrp(tc, tfs, psram=True)
+    assert np.abs(got_q.numpy() - want_q).max() <= 2.0 ** -15 * np.abs(want_q).max()
+    got_c = tstream.stream_mttkrp(tc, tfs, compiled=True)
+    np.testing.assert_allclose(got_c.numpy(), want_s, rtol=1e-5, atol=1e-5 * scale)
 
 
 def test_dense_paths_vs_reference():
