@@ -55,8 +55,12 @@ What it does, in order — any failure raises and the run exits non-zero:
    bit-equal to the plain chain (``cp_chain_psram`` on the card) folded by
    the route that adds in order (``psram_main``), repeatable, timed beside
    the exact chain on the same route, their plain versions and their bounds
-   (bytes, f32 operations and instructions counted from the source); and
-   small cases bit-equal to the CPU (``psram_small``).
+   (bytes, f32 operations, and instructions counted from the source of
+   today and of the first draft's true divisions); the ordered fold's launch
+   must give every run of ``CHAIN_LONG_RUN`` nonzeros or more a cluster of
+   8 CTAs (``layout``), and its head row's launch is timed alone; the
+   instantiations' registers and spills from ``ptxas -v``; and small cases
+   bit-equal to the CPU (``psram_small``), one with long runs.
 4. ``main_path`` — the paths, each run with every launch counter set to 0
    just before it and read just after:
    a. ``cp_als(sparse=coo, rank=32, n_iter=3, backend="hopper")`` on the
@@ -172,6 +176,9 @@ F32_INSTRUCTIONS_PER_S = F32_FLOPS_PER_S / 2
 # reciprocal, its Newton steps and the range check (an assumption: the SASS
 # is not counted)
 FDIV_INSTRUCTIONS = 8
+# CTAs of the cluster a long run of the quantized chain route takes
+# (csrc/ordered_fold.cu's CLUSTER, the portable size)
+CHAIN_CLUSTER = 8
 
 
 _LAST_EMIT = [time.perf_counter()]
@@ -503,7 +510,7 @@ def exact_sparse_split(torch, coo, factors) -> list:
         rows = coo.shape[m]
         call_ms = time_ms(torch, lambda: mttkrp_sparse(coo.indices, coo.values, fs, m, rows),
                           warmup=1, iters=3, reps=1)
-        perm, coords, runs, longest, _ = _sorted_stream(coo.indices, m, rows)
+        perm, coords, runs, longest, *_ = _sorted_stream(coo.indices, m, rows)
         vals = coo.values[perm]
         out = torch.zeros((rows, fs[0].shape[1]), device="cuda")
         chain_ms = time_ms(torch, lambda: ordered_chain_fold(
@@ -1248,47 +1255,97 @@ def small_segment_cases(torch):
 
 
 def psram_chain_ops(k: int) -> tuple[int, int]:
-    """The f32 operations the quantized chain (``hopper::psram_chain_row``)
-    and its fold cost a nonzero of ``k`` non-target modes per rank column,
-    counted from the source, and the true divisions among them: the first
-    row quantized (|.| and max, division, rint, two clamps, two
-    conversions, the scale's product: 9, 1 division); each further mode's
-    running Hadamard and row quantized, their integer product through the
-    ADC (division, rint, two clamps, its LSB) and both scales (22, 3
-    divisions); CP2's chain quantized and driven by the value's code through
-    the ADC (15, 2 divisions); the fold's add (1). The per-row scales and
-    maxima are left out."""
+    """The f32 operations the quantized chain and its fold cost a nonzero of
+    ``k`` non-target modes per rank column, as the function is written (the
+    port's ``core.mttkrp.psram_chain``, each quotient one operation), and
+    the quotients among them: the first row quantized (|.| and max,
+    division, rint, two clamps, two conversions, the scale's product: 9, 1
+    quotient); each further mode's running Hadamard and row quantized, their
+    integer product through the ADC (quotient, rint, two clamps, its LSB)
+    and both scales (22, 3 quotients); CP2's chain quantized and driven by
+    the value's code through the ADC (15, 2 quotients); the fold's add (1).
+    The per-row scales and maxima are left out. The function's count, not
+    an implementation's: the operation bound."""
     return 9 + 22 * (k - 1) + 15 + 1, 1 + 3 * (k - 1) + 2
+
+
+def psram_chain_instructions(k: int) -> int:
+    """The instructions a lane issues a nonzero of ``k`` non-target modes per
+    rank column in the kernels' quantized chain (``hopper::psram_chain_pieces``
+    and ``psram_div`` in ``csrc/hopper.cuh``), counted from the source, each
+    quotient the reciprocal sequence's 5 (``fma(x, rs, 0)`` and two
+    corrections of two fmas): the first row (its max 1, code 8 — quotient,
+    rint, two clamps — and its value times the scale 1: 10); each further
+    mode (both maxima 2, both codes 16, their product 1, the ADC 9 —
+    quotient, rint, two clamps, its LSB — and both scales 1: 29); CP2 (the
+    max 1, the code 8, the product with the value's code 1, the ADC 9, the
+    scales 1: 20); the fold's add (1). The per-row scales, reciprocals and
+    shuffles are left out."""
+    return 10 + 29 * (k - 1) + 20 + 1
 
 
 def psram_bounds(nnz: int, rank: int, k: int, moved: int) -> dict:
     """The least time of a quantized chain route: its bytes over HBM's rate
     against its operations (:func:`psram_chain_ops`) over the f32 peak;
-    beside it the instruction bound, each division at ``FDIV_INSTRUCTIONS``
-    instructions, one f32 instruction a lane a cycle."""
+    beside it two instruction bounds, one f32 instruction a lane a cycle:
+    the kernels' (:func:`psram_chain_instructions`, the source of today)
+    and the first draft's (each quotient a true division of
+    ``FDIV_INSTRUCTIONS``)."""
     ops, divs = psram_chain_ops(k)
     bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
     ops_ms = 1e3 * nnz * rank * ops / F32_FLOPS_PER_S
-    instr = nnz * rank * (ops - divs + divs * FDIV_INSTRUCTIONS)
+    fdiv = nnz * rank * (ops - divs + divs * FDIV_INSTRUCTIONS)
+    instr = nnz * rank * psram_chain_instructions(k)
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
             "instruction_bound_ms": 1e3 * instr / F32_INSTRUCTIONS_PER_S,
-            "ops_per_nonzero_column": ops, "divisions_per_nonzero_column": divs}
+            "instruction_bound_fdiv_ms": 1e3 * fdiv / F32_INSTRUCTIONS_PER_S,
+            "ops_per_nonzero_column": ops, "divisions_per_nonzero_column": divs,
+            "instructions_per_nonzero_column": psram_chain_instructions(k)}
+
+
+def ptxas_of(name: str, entries: dict) -> dict:
+    """Registers, spills and stack of kernel instantiations, from the
+    ``ptxas -v`` log nvcc left beside library ``name``: ``{label: {...}}``
+    for each ``label: substring of the mangled entry name`` in ``entries``
+    (the first entry that matches)."""
+    from repro_torch.kernels import _build
+
+    log = _build.library_path(name).with_suffix(".log")
+    props, entry = {}, None
+    for line in log.read_text().splitlines() if log.exists() else ():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m[1]
+            props.setdefault(entry, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            props[entry].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            props[entry]["registers"] = int(m[1])
+    return {label: next((v for e, v in props.items() if key in e), None)
+            for label, key in entries.items()}
 
 
 def psram_route_case(torch, csf, factors, cfg, adc_bits):
     """Both chain routes' quantized variants (``psram=True``) on one mode's
     stream at full size, as the ``psram-stream`` backend launches them: the
-    ordered fold's chain route (the eager path, one launch a call) and
-    kernel 5's chain route (the compiled path's partials). Each BIT-EQUAL to
-    its plain version's arithmetic on the card — the plain chain
-    (``cp_chain_psram``: elementwise IEEE ops, the CPU's bits) folded by the
-    kernels that add in order (the fold route over the stream; the rows
-    route over the padded chain) — and repeatable; timed by CUDA events
-    beside the exact chain on the same route in the same call, the plain
-    version on the card (its ``index_add_`` atomic) and the bounds of
-    :func:`psram_bounds`."""
+    ordered fold's chain route (the eager path, one launch a call, its runs
+    of ``CHAIN_LONG_RUN`` nonzeros or more a cluster each) and kernel 5's
+    chain route (the compiled path's partials). Each BIT-EQUAL to its plain
+    version's arithmetic on the card — the plain chain (``cp_chain_psram``:
+    elementwise IEEE ops, the CPU's bits) folded by the kernels that add in
+    order (the fold route over the stream; the rows route over the padded
+    chain) — and repeatable; timed by CUDA events beside the exact chain on
+    the same route in the same call, the plain version on the card (its
+    ``index_add_`` atomic) and the bounds of :func:`psram_bounds`. Where the
+    stream has long runs, the launch must have given each a cluster of
+    ``CLUSTER`` CTAs (``layout``: which launch took which runs) and the head
+    row's launch alone is timed (``head_row_ms``). Registers and spills of
+    the instantiations this rank runs (``ptxas``)."""
     from repro_torch.core.mttkrp import cp_chain_psram
     from repro_torch.kernels import ordered_fold as of
     from repro_torch.kernels import segment_sum as ss
@@ -1296,27 +1353,29 @@ def psram_route_case(torch, csf, factors, cfg, adc_bits):
 
     mode = csf.mode_order[0]
     rows, rank = csf.shape[mode], factors[0].shape[1]
-    coords, seg_ptr, seg_rows, run, _ = _chain_stream(csf)
+    coords, seg_ptr, seg_rows, run, _, long_runs = _chain_stream(csf)
     vals, fs = csf.values, tuple(factors)
     k = len(fs) - 1
     local, n_seg = _segment_blocks(csf, cfg.rows)[:2]
     zeros = lambda: torch.zeros((rows, rank), device="cuda")
 
-    def eager(out, psram=True):
-        return of.ordered_chain_fold(out, coords, vals, fs, mode, seg_ptr, seg_rows,
-                                     longest_run=run, psram=psram, adc_bits=adc_bits)
+    def eager(out, psram=True, ptr=seg_ptr, rws=seg_rows, lng=long_runs):
+        return of.ordered_chain_fold(out, coords, vals, fs, mode, ptr, rws, longest_run=run,
+                                     long_runs=lng, psram=psram, adc_bits=adc_bits)
 
     def blocked(psram=True):
         return ss.blocked_chain_segment_sum(coords, vals, local, fs, mode, n_seg, psram=psram,
                                             adc_bits=adc_bits)
 
     got = eager(zeros())
+    layout = dict(of.ordered_fold.last_psram)
     idx = csf.expanded_indices()
     want = of.ordered_fold(zeros(), cp_chain_psram(idx, vals, fs, mode, adc_bits), idx[:, mode])
     ec = {"bit_equal_to_plain": bool(torch.equal(got, want)),
           "repeatable": bool(torch.equal(eager(zeros()), got)),
           "finite": bool(torch.isfinite(got).all()),
-          "max_abs_err": float((got - want).abs().max())}
+          "max_abs_err": float((got - want).abs().max()),
+          "long_runs": long_runs.numel(), "layout": layout}
     del got, want
     parts = blocked()
     want_parts = ss.blocked_segment_sum(ss.padded_chain(coords, vals, local, fs, mode, True,
@@ -1332,28 +1391,46 @@ def psram_route_case(torch, csf, factors, cfg, adc_bits):
     if not all(c["bit_equal_to_plain"] and c["repeatable"] and c["finite"] for c in (ec, bc)):
         raise AssertionError(f"a quantized chain route disagrees with its plain version or "
                              f"itself: {case}")
+    if layout["clusters"] != long_runs.numel() or (
+            long_runs.numel() and layout["cluster_ctas"] != CHAIN_CLUSTER):
+        raise AssertionError(f"the quantized chain route did not give each long run a cluster "
+                             f"of {CHAIN_CLUSTER} CTAs: {case}")
     buf = zeros()
     ec["ms"] = time_ms(torch, lambda: eager(buf), warmup=1, iters=3, reps=2)
     ec["exact_ms"] = time_ms(torch, lambda: eager(buf, False), warmup=1, iters=3, reps=2)
+    if long_runs.numel():                # the head row's cluster alone
+        h = int(long_runs[0])
+        head = (seg_ptr[h:h + 2].contiguous(), seg_rows[h:h + 1].contiguous(),
+                torch.zeros(1, dtype=torch.int64, device="cuda"))
+        ec["head_row_nnz"] = int(seg_ptr[h + 1] - seg_ptr[h])
+        ec["head_row_ms"] = time_ms(torch, lambda: eager(buf, True, *head), warmup=1, iters=3,
+                                    reps=1)
     ec["plain_ms"] = time_ms(torch, lambda: of.ordered_chain_fold_torch(
         buf, coords, vals, fs, mode, seg_ptr, seg_rows, psram=True, adc_bits=adc_bits),
         warmup=1, iters=2, reps=1)
     others = [f for d, f in enumerate(fs) if d != mode]
     ec.update(psram_bounds(csf.nnz, rank, k, nbytes(coords, vals, seg_ptr, seg_rows, *others)
                            + 2 * 4 * rows * rank))
+    ec["ptxas"] = ptxas_of("ordered_fold", {      # a plain launch's batch, a cluster launch's
+        f"ordered_psram_kernel<{rank}, {batch}>": f"ordered_psram_kernelILi{rank}ELi{batch}E"
+        for batch in (2048, 4096)})
     bc["ms"] = time_ms(torch, lambda: blocked(), warmup=1, iters=3, reps=2)
     bc["exact_ms"] = time_ms(torch, lambda: blocked(False), warmup=1, iters=3, reps=2)
     bc["plain_ms"] = time_ms(torch, lambda: ss.blocked_chain_segment_sum_torch(
         coords, vals, local, fs, mode, n_seg, True, adc_bits), warmup=1, iters=2, reps=1)
     bc.update(psram_bounds(csf.nnz, rank, k, nbytes(coords, vals, local, *others)
                            + 4 * b * n_seg * rank))
+    bc["ptxas"] = ptxas_of("segment_sum", {
+        f"segment_chain_kernel<{k}, {vec}, true>": f"segment_chain_kernelILi{k}ELb{int(vec)}ELb1E"
+        for vec in (True, False)})
     return case
 
 
 def small_psram_cases(torch):
     """Both quantized chain routes against their plain versions on the CPU
     (bit-equal): a 4-bit ADC, R % 4 != 0, a rank over one column tile with 4
-    modes, a ragged last block."""
+    modes, a ragged last block, and runs of ``CHAIN_LONG_RUN`` nonzeros or
+    more (the clusters)."""
     from repro_torch.kernels import ordered_fold as of
     from repro_torch.kernels import segment_sum as ss
     from repro_torch.sparse import csf_for_mode, powerlaw_coo
@@ -1362,17 +1439,20 @@ def small_psram_cases(torch):
     cases = []
     for shape, nnz, rank, mode, bits in [((300, 200, 100), 60000, 32, 0, 16),
                                          ((300, 200, 100), 60000, 5, 1, 4),
-                                         ((50, 12, 9, 7), 20000, 48, 2, 8)]:
+                                         ((50, 12, 9, 7), 20000, 48, 2, 8),
+                                         ((40, 3000, 200), 400000, 32, 0, 16)]:
         coo = powerlaw_coo(15, shape, nnz=nnz, rank=4, alpha=1.6, device="cuda")
         csf = csf_for_mode(coo, mode)
         gen = torch.Generator(device="cuda").manual_seed(rank)
         fs = tuple(torch.randn((s, rank), generator=gen, device="cuda") for s in shape)
-        coords, seg_ptr, seg_rows, run, _ = _chain_stream(csf)
+        coords, seg_ptr, seg_rows, run, _, long_runs = _chain_stream(csf)
         local, n_seg = _segment_blocks(csf, 256)[:2]
         cpu = lambda t: t.cpu()
         out = torch.zeros((shape[mode], rank), device="cuda")
         got = of.ordered_chain_fold(out, coords, csf.values, fs, mode, seg_ptr, seg_rows,
-                                    longest_run=run, psram=True, adc_bits=bits)
+                                    longest_run=run, long_runs=long_runs, psram=True,
+                                    adc_bits=bits)
+        layout = dict(of.ordered_fold.last_psram or {}) if rank in of.TEMPLATE_RANKS else None
         want = of.ordered_chain_fold_torch(cpu(out).zero_(), cpu(coords), cpu(csf.values),
                                            tuple(map(cpu, fs)), mode, cpu(seg_ptr),
                                            cpu(seg_rows), psram=True, adc_bits=bits)
@@ -1382,7 +1462,8 @@ def small_psram_cases(torch):
                                                         cpu(local), tuple(map(cpu, fs)), mode,
                                                         n_seg, True, bits)
         case = {"shape": list(shape), "nnz": csf.nnz, "rank": rank, "mode": mode,
-                "adc_bits": bits,
+                "adc_bits": bits, "longest_run": run, "long_runs": long_runs.numel(),
+                "layout": layout,
                 "max_abs_err": max(float((got.cpu() - want).abs().max()),
                                    float((parts.cpu() - want_parts).abs().max())),
                 "eager_bit_equal_to_cpu": bool(torch.equal(got.cpu(), want)),
@@ -1390,6 +1471,10 @@ def small_psram_cases(torch):
         cases.append(case)
         if not (case["eager_bit_equal_to_cpu"] and case["blocked_bit_equal_to_cpu"]):
             raise AssertionError(f"a quantized chain route is not bit-equal to the CPU: {case}")
+        if layout is not None and layout["clusters"] != long_runs.numel():
+            raise AssertionError(f"the long runs did not take clusters: {case}")
+    if not any(c["long_runs"] for c in cases):
+        raise AssertionError("no small quantized case had a run of CHAIN_LONG_RUN nonzeros")
     return cases
 
 
@@ -1450,7 +1535,7 @@ def fold_chunks_case(torch, csf, factors):
     idx, vals = csf.expanded_indices(), csf.values
     fs = tuple(factors)
     ids = idx[:, mode].long()
-    coords, seg_ptr, seg_rows, run, _ = _chain_stream(csf)
+    coords, seg_ptr, seg_rows, run, *_ = _chain_stream(csf)
     step = _DEFAULT_EXEC_NNZ
     step_ptr, step_rows, chunk_seg = step_cuts(torch, csf, step)
     los = list(range(0, csf.nnz, step))
@@ -1562,7 +1647,7 @@ def stream_fold_check(torch, csf, factors):
     launched = {r: of.ordered_fold.routes[r] - before[r] for r in before}
     again = stream_mttkrp(csf, factors)
     warm_ms = time_ms(torch, lambda: stream_mttkrp(csf, factors), warmup=0, iters=3, reps=1)
-    coords, seg_ptr, seg_rows, _, _ = _chain_stream(csf)
+    coords, seg_ptr, seg_rows, *_ = _chain_stream(csf)
     lengths = csf.fiber_lengths()
     h = int(lengths.argmax())
     head = (coords, csf.values, tuple(factors), csf.mode_order[0],
@@ -2899,19 +2984,23 @@ def main(argv=None) -> int:
             "tolerance": "bit-equal to the plain chain (cp_chain_psram, the CPU's bits) "
                          "folded by the in-order route it replaces (every mode at full "
                          "size), to the CPU plain version (small cases), repeatable",
-            **{f"per_mode_{k}": [c[key][k] for c in psram_main]
-               for k in ("ms", "exact_ms", "plain_ms", "bound_ms", "instruction_bound_ms")},
+            **{f"per_mode_{k}": [c[key].get(k) for c in psram_main]
+               for k in ("ms", "exact_ms", "plain_ms", "bound_ms", "instruction_bound_ms",
+                         "instruction_bound_fdiv_ms", "head_row_ms", "head_row_nnz",
+                         "layout", "ptxas")},
             "adc_bits": cfg.adc.bits,
         } for name, key, source, replaces in (
             ("ordered_fold_chain_psram", "eager",
-             "src/repro_torch/kernels/csrc/ordered_fold.cu (ordered_chain_kernel<RT, true>: the "
-             "chain route's quantized variant, the psram-stream eager path; the chain "
-             "hopper::psram_chain_row in csrc/hopper.cuh)",
+             "src/repro_torch/kernels/csrc/ordered_fold.cu (ordered_psram_kernel<RT>: the "
+             "chain route's quantized variant at a template rank, the psram-stream eager "
+             "path, a long run's producers on a cluster of 8 CTAs; the chain "
+             "hopper::psram_chain_pieces in csrc/hopper.cuh)",
              "src/repro/core/mttkrp.py:161 (jax.ops.segment_sum of cp_chain_psram, the "
              "quantized sparse CP3 scatter; no Pallas kernel)"),
             ("blocked_segment_sum_chain_psram", "blocked",
              "src/repro_torch/kernels/csrc/segment_sum.cu (segment_chain_kernel<K, VEC, true>: "
-             "the chain route's quantized variant, the psram-stream compiled path)",
+             "the chain route's quantized variant, the psram-stream compiled path; the chain "
+             "hopper::psram_chain_pieces)",
              "src/repro/kernels/segment_sum.py:44"))],
     ]}
     report["kernels"] = kernels

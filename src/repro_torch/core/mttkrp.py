@@ -30,8 +30,8 @@ import torch
 
 from repro_torch._device import ieee_f32
 from repro_torch.core.quantization import ADCConfig, QMAX, adc_requantize, quantize_symmetric
-from repro_torch.kernels.ordered_fold import (chain_coords, ordered_chain_fold, ordered_fold,
-                                              row_runs)
+from repro_torch.kernels.ordered_fold import (CHAIN_LONG_RUN, chain_coords, chain_long_runs,
+                                              ordered_chain_fold, ordered_fold, row_runs)
 
 
 def khatri_rao(mats: list[torch.Tensor]) -> torch.Tensor:
@@ -190,14 +190,15 @@ def _sorted_fold(indices, values, factors: tuple, mode: int, out_rows: int, psra
     out = torch.zeros((out_rows, factors[0].shape[-1]), dtype=torch.float32,
                       device=values.device)
     if values.is_cuda:
-        perm, coords, runs, longest, ranges = _sorted_stream(indices, mode, out_rows)
+        perm, coords, runs, longest, ranges, long_runs = _sorted_stream(indices, mode, out_rows)
         for (low, high), d in zip(ranges, (d for d in range(len(factors)) if d != mode)):
             if low < 0 or high >= factors[d].shape[0]:
                 raise IndexError(f"mode {d}'s coordinates span [{low}, {high}], outside "
                                  f"factor {d}'s {factors[d].shape[0]} rows")
         return ordered_chain_fold(out, coords, values[perm],
                                   tuple(f.contiguous() for f in factors), mode, runs,
-                                  longest_run=longest, psram=psram, adc_bits=adc_bits)
+                                  longest_run=longest, long_runs=long_runs, psram=psram,
+                                  adc_bits=adc_bits)
     perm, sorted_idx = _sorted_stream(indices, mode, out_rows)
     scaled = (cp_chain_psram(sorted_idx, values[perm], factors, mode, adc_bits) if psram
               else cp_chain_exact(sorted_idx, values[perm], factors, mode))
@@ -238,12 +239,14 @@ def _sorted_stream(indices: torch.Tensor, mode: int, out_rows: int):
     """The stable sort ``perm`` of the nonzeros by their ``mode`` coordinate
     and what each device's path reads of the sorted stream: on the CPU
     ``(perm, indices[perm])``; on a CUDA device ``(perm, coords, runs,
-    longest, ranges)`` — the non-target coordinates in the chain route's
-    layout (``kernels.ordered_fold.chain_coords``), the target rows' runs
-    (``row_runs``), the most nonzeros a row has, and each non-target mode's
+    longest, ranges, long_runs)`` — the non-target coordinates in the chain
+    route's layout (``kernels.ordered_fold.chain_coords``), the target rows'
+    runs (``row_runs``), the most nonzeros a row has, each non-target mode's
     coordinate range ``(low, high)``, for the caller to hold against its
-    factors. The target coordinates are checked here, against ``out_rows``
-    (on the card nothing else would: the chain route trusts its runs). A
+    factors, and the rows the quantized route gives a cluster
+    (``chain_long_runs``, found once here with the runs on the host). The
+    target coordinates are checked here, against ``out_rows`` (on the card
+    nothing else would: the chain route trusts its runs). A
     CP-ALS run asks for every mode once a sweep of the same COO, so the
     result is kept on ``indices`` per ``(mode, out_rows)`` and made anew only
     once the tensor has been written in place (its version counter moved)."""
@@ -258,7 +261,7 @@ def _sorted_stream(indices: torch.Tensor, mode: int, out_rows: int):
     else:
         sorted_idx = indices[perm]
         runs = row_runs(ids, out_rows)
-        longest, ranges = 0, []
+        longest, ranges, long_runs = 0, [], runs.new_zeros(0)
         if ids.numel():                      # one sync, made with the sort and kept
             most = runs.diff().max()[None] if out_rows else ids.new_zeros(1)
             stats = torch.cat([most, ids[[0, -1]],
@@ -270,7 +273,10 @@ def _sorted_stream(indices: torch.Tensor, mode: int, out_rows: int):
                                  f"its {out_rows} output rows")
             ranges = [(stats[3 + 2 * d], stats[4 + 2 * d])
                       for d in range(indices.shape[1]) if d != mode]
-        entry = (perm, chain_coords(sorted_idx, mode), runs, longest, ranges)
+            if longest >= CHAIN_LONG_RUN:
+                long_runs = torch.as_tensor(chain_long_runs(runs.cpu().numpy()),
+                                            device=runs.device)
+        entry = (perm, chain_coords(sorted_idx, mode), runs, longest, ranges, long_runs)
     cache[key] = (indices._version, entry)
     return entry
 

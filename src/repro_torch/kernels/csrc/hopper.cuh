@@ -30,32 +30,60 @@ struct ChainFactors {
 };
 
 // The quantized chain of those kernels (their psram variants): the port's
-// core.mttkrp.psram_chain, bit for bit. Every division is __fdiv_rn (a
-// true division, never a reciprocal multiply), every rounding rintf (half
-// to even, as torch.round), every product __fmul_rn (no FMA). The integer
-// products of two codes are formed in int, so a zero product is +0.0 as
-// the plain version's int32 product is; the ADC's code stays a float, so a
-// product that rounds to code -0 keeps its sign as adc_transfer's does.
+// core.mttkrp.psram_chain, bit for bit. Every quotient is the IEEE one
+// (RN(x / y), as a true division rounds it), every rounding rintf (half to
+// even, as torch.round), every product __fmul_rn (no FMA). A quotient by a
+// row's scale or by the ADC's LSB is formed without a division (psram_div):
+// the divisor's reciprocal, made once per row or per launch, and two fma
+// corrections. The codes stay floats: the product of two codes is exact in
+// f32 (|.| <= 127^2 < 2^24), and the ADC turns a product of either zero's
+// sign into +0.0, as the plain version's int32 product is; the ADC's code
+// keeps its sign, so a product that rounds to code -0 stays -0.0 as
+// adc_transfer's does.
 struct PsramAdc {
     float lsb;        // the products' LSB, 2 * 127^2 / 2^adc_bits rounded once to f32
     float code_max;   // the largest code, 2^adc_bits / 2 - 1: the clamp fires at a
                       // full-scale product (127 * 127 is code 2^(adc_bits - 1))
+    float rlsb;       // RN(1 / lsb), made once on the host (adc_operands)
 };
 
-// symmetric_scale: max(amax, 1e-12) / 127
+// symmetric_scale: max(amax, 1e-12) / 127, a true division (once a row)
 __device__ __forceinline__ float psram_scale(float amax) {
     return __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
 }
 
-// quantize_symmetric's code of x: round(x / scale) clamped to +-127
-__device__ __forceinline__ int psram_code(float x, float scale) {
-    return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.0f), 127.0f));
+// RN(x / s) from rs = RN(1 / s) (__frcp_rn, or the host's f32 quotient):
+// q0 = RN(x rs), then two corrections q' = RN(q + r rs) by the exact
+// remainder r = x - s q (one fma each), kernel 4's drive_codes sequence
+// (csrc/mttkrp.cu). q1 is within an ulp of x / s, and from a faithful
+// quotient and the correctly rounded reciprocal one correction gives the
+// IEEE quotient (Markstein), wherever nothing overflows or underflows:
+// * a row's code, x / scale: scale = max(amax, 1e-12) / 127 >= 7.8e-15 is
+//   normal and |x / scale| <= 127 (1 + 2^-23); wherever |x / scale| >= 1/4
+//   (the codes that can round either way) x and r are normal too, and below
+//   every quotient rounds to code 0;
+// * the ADC, acc / lsb: acc is an integer, |acc| <= 127^2, and lsb =
+//   2 * 127^2 / 2^bits is normal for bits 1..24, so |acc / lsb| < 2^24.
+// q0 is fma(x, rs, +0): RN(x rs) where the product is not zero, and +0.0
+// for a zero x of either sign (the corrections keep it +0.0).
+// ordered_fold.cu's psram_division_probe holds it to __fdiv_rn: every
+// integer product at every ADC width, every finite f32 value's code, rows.
+__device__ __forceinline__ float psram_div(float x, float s, float rs) {
+    const float q0 = __fmaf_rn(x, rs, 0.0f);
+    const float q1 = __fmaf_rn(__fmaf_rn(-s, q0, x), rs, q0);
+    return __fmaf_rn(__fmaf_rn(-s, q1, x), rs, q1);
 }
 
-// adc_transfer of an integer accumulation: round(acc / lsb) clamped to the
-// codes, times lsb
-__device__ __forceinline__ float psram_adc(int acc, const PsramAdc& a) {
-    const float code = rintf(__fdiv_rn(static_cast<float>(acc), a.lsb));
+// quantize_symmetric's code of x at scale s (rs its reciprocal): round(x /
+// s) clamped to +-127, as a float
+__device__ __forceinline__ float psram_code(float x, float s, float rs) {
+    return fminf(fmaxf(rintf(psram_div(x, s, rs)), -127.0f), 127.0f);
+}
+
+// adc_transfer of an integer accumulation p (a product of two codes):
+// round(p / lsb) clamped to the codes, times lsb
+__device__ __forceinline__ float psram_adc(float p, const PsramAdc& a) {
+    const float code = rintf(psram_div(p, a.lsb, a.rlsb));
     return __fmul_rn(fminf(fmaxf(code, -a.code_max), a.code_max), a.lsb);
 }
 
@@ -68,31 +96,36 @@ __device__ __forceinline__ float group_max(float x) {
     return x;
 }
 
+// The same for U rows at once over groups of g lanes (g a power of 2 up to
+// 32, known at compile time or not), so the rows' shuffles overlap.
+template <int U>
+__device__ __forceinline__ void group_max_rows(float (&x)[U], int g) {
+    for (int o = g / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) x[u] = fmaxf(x[u], __shfl_xor_sync(0xffffffffu, x[u], o));
+    }
+}
+
 // The quantized chain of one nonzero of value v, formed in place of its
 // first non-target row: its K non-target factors' rows of R columns lie in
 // shared memory at row + k * kstride (mode order). CP1 folds them pairwise
 // through the ADC (the running Hadamard requantized, the next row quantized,
 // the integer product digitized, times both scales); CP2 drives v through
 // it once more. Each quantization's scale reduces |.| over the whole row.
-// A group of G lanes (an aligned sub-warp; every lane of the warp calls
-// this at once, each group on its own row) takes the row: lane l of the
-// group owns the pieces p = l, l + G, ... of PIECE columns each (R a
-// multiple of PIECE), and every value stays with its lane between the
-// steps, so only the row's maxima cross lanes.
-template <int G, int PIECE>
+// The whole warp takes the row, lane l the columns l, l + 32, ..., through
+// shared memory: the routes' form at ranks whose rows psram_chain_pieces
+// cannot take.
 __device__ __forceinline__ void psram_chain_row(float* row, int kstride, int K, int R, float v,
                                                 const PsramAdc& a) {
-    const int gl = static_cast<int>(threadIdx.x) & (G - 1);
+    const int lane = static_cast<int>(threadIdx.x) & 31;
     auto each = [&](auto&& f) {
-        for (int p = gl; p * PIECE < R; p += G) {
-#pragma unroll
-            for (int e = 0; e < PIECE; ++e) f(p * PIECE + e);
-        }
+        for (int c = lane; c < R; c += 32) f(c);
     };
     float m = 0.0f;
     each([&](int c) { m = fmaxf(m, fabsf(row[c])); });
-    const float s0 = psram_scale(group_max<G>(m));
-    each([&](int c) { row[c] = __fmul_rn(static_cast<float>(psram_code(row[c], s0)), s0); });
+    const float s0 = psram_scale(group_max<32>(m));
+    const float r0 = __frcp_rn(s0);
+    each([&](int c) { row[c] = __fmaf_rn(psram_code(row[c], s0, r0), s0, 0.0f); });
     for (int k = 1; k < K; ++k) {                                      // CP 1
         const float* f = row + k * kstride;
         float mh = 0.0f, mf = 0.0f;
@@ -100,20 +133,95 @@ __device__ __forceinline__ void psram_chain_row(float* row, int kstride, int K, 
             mh = fmaxf(mh, fabsf(row[c]));
             mf = fmaxf(mf, fabsf(f[c]));
         });
-        const float sa = psram_scale(group_max<G>(mh));
-        const float sb = psram_scale(group_max<G>(mf));
+        const float sa = psram_scale(group_max<32>(mh)), ra = __frcp_rn(sa);
+        const float sb = psram_scale(group_max<32>(mf)), rb = __frcp_rn(sb);
         const float sab = __fmul_rn(sa, sb);
         each([&](int c) {
-            row[c] = __fmul_rn(psram_adc(psram_code(row[c], sa) * psram_code(f[c], sb), a), sab);
+            const float p = __fmul_rn(psram_code(row[c], sa, ra), psram_code(f[c], sb, rb));
+            row[c] = __fmul_rn(psram_adc(p, a), sab);
         });
     }
     const float sv = psram_scale(fabsf(v));                            // CP 2
-    const int qv = psram_code(v, sv);
+    const float qv = psram_code(v, sv, __frcp_rn(sv));
     float mh = 0.0f;
     each([&](int c) { mh = fmaxf(mh, fabsf(row[c])); });
-    const float sh = psram_scale(group_max<G>(mh));
+    const float sh = psram_scale(group_max<32>(mh)), rh = __frcp_rn(sh);
     const float svh = __fmul_rn(sv, sh);
-    each([&](int c) { row[c] = __fmul_rn(psram_adc(qv * psram_code(row[c], sh), a), svh); });
+    each([&](int c) {
+        row[c] = __fmul_rn(psram_adc(__fmul_rn(qv, psram_code(row[c], sh, rh)), a), svh);
+    });
+}
+
+// The same chain for U rows at once, in registers: lane l holds 4
+// neighbouring columns (one 16-byte piece) of each of its U rows, a row
+// being an aligned group of g lanes (R = 4 g, g a power of 2 up to 32).
+// Row u's piece of the first factor lies at at[u] in shared memory (16-byte
+// aligned), factor k's at at[u] + k * kstride; its value is v[u]. The
+// running Hadamard stays in registers through the K + 1 steps: each factor
+// row is read once and only the final chain row is written back, in place
+// of the first factor's piece. The U rows' steps interleave, so their
+// shuffles, reciprocals and quotients overlap. A row with live[u] false
+// (uniform over its group) is neither read nor written.
+template <int U>
+__device__ __forceinline__ void psram_chain_pieces(float* const (&at)[U], const bool (&live)[U],
+                                                   const float (&v)[U], int kstride, int K,
+                                                   int g, const PsramAdc& a) {
+    float h[U][4], m[U];
+    auto load = [&](float (&x)[4], const float* p, bool ok) {
+        const float4 t = ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+        x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+    };
+    auto amax = [](const float (&x)[4]) {
+        return fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
+    };
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        load(h[u], at[u], live[u]);
+        m[u] = amax(h[u]);
+    }
+    group_max_rows<U>(m, g);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        const float s = psram_scale(m[u]), r = __frcp_rn(s);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[u][e] = __fmaf_rn(psram_code(h[u][e], s, r), s, 0.0f);
+    }
+    for (int k = 1; k < K; ++k) {                                      // CP 1
+        float f[U][4], mm[2 * U];                  // the maxima of h, then of f
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            load(f[u], at[u] + k * kstride, live[u]);
+            mm[u] = amax(h[u]);
+            mm[U + u] = amax(f[u]);
+        }
+        group_max_rows<2 * U>(mm, g);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const float sa = psram_scale(mm[u]), ra = __frcp_rn(sa);
+            const float sb = psram_scale(mm[U + u]), rb = __frcp_rn(sb);
+            const float sab = __fmul_rn(sa, sb);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = __fmul_rn(psram_code(h[u][e], sa, ra), psram_code(f[u][e], sb, rb));
+                h[u][e] = __fmul_rn(psram_adc(p, a), sab);
+            }
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) m[u] = amax(h[u]);                     // CP 2
+    group_max_rows<U>(m, g);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        const float sv = psram_scale(fabsf(v[u]));
+        const float qv = psram_code(v[u], sv, __frcp_rn(sv));
+        const float sh = psram_scale(m[u]), rh = __frcp_rn(sh);
+        const float svh = __fmul_rn(sv, sh);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            h[u][e] = __fmul_rn(psram_adc(__fmul_rn(qv, psram_code(h[u][e], sh, rh)), a), svh);
+        }
+        if (live[u]) *reinterpret_cast<float4*>(at[u]) = make_float4(h[u][0], h[u][1], h[u][2], h[u][3]);
+    }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -220,6 +328,75 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
             __trap();
         }
     }
+}
+
+// one try: 1 where the phase of parity `parity` has completed, else 0 (a
+// wait may follow; the try's latency overlaps what comes between)
+__device__ __forceinline__ uint32_t mbar_try(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    return done;
+}
+
+// Thread-block clusters: distributed shared memory and its barriers.
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+// every thread of the cluster meets here (a warp all at once): what any
+// thread wrote before, barrier inits included, is visible to all after
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                 "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the cluster address of what lies at shared-memory address `addr` in the
+// CTA of rank `rank` (every CTA of a launch lays its shared memory out alike)
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+    return r;
+}
+
+// one arrival on a barrier at cluster address `bar` (another CTA's), with
+// mbarrier.arrive's own release semantics, as a pipeline's consumer frees a
+// stage of a producer in another CTA (.release.cluster made the ordered
+// fold's head row ~2x slower on an H100: a fence a batch)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// the same arrival, announcing `bytes` of bulk-copy traffic for the phase
+__device__ __forceinline__ void mbar_expect_tx_cluster(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cluster.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+// copy `bytes` (a multiple of 16, both ends 16-byte aligned) from this
+// CTA's shared memory at `src` to cluster address `dst`, counted on the
+// barrier at cluster address `bar` (the destination CTA's)
+__device__ __forceinline__ void bulk_copy_to_cluster(uint32_t dst, uint32_t src, uint32_t bytes,
+                                                     uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// this thread's shared-memory writes, made visible to the bulk copies
+// issued after it (by any thread of the CTA, after a barrier)
+__device__ __forceinline__ void fence_proxy_async_shared() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // an L2 policy for data read once: evicted first, so what is reused stays

@@ -104,17 +104,38 @@
 // (chain_layout); the short runs keep DEFAULT_PRODUCERS, whose smaller
 // rings let more CTAs share an SM.
 //
-// The chain route's quantized variant (PSRAM; the psram-stream backend's
-// eager path, the reference's mttkrp_sparse_psram, src/repro/core/
-// mttkrp.py:161, whose CP3 is XLA's segment_sum again): the producers form
-// the quantized chain of core.mttkrp.psram_chain (hopper::psram_chain_row:
-// 8-bit operands and the ADC on every product, every division a true one)
-// in place of the exact d; the hand-off and the consumer's adds do not
-// change, so no (n, R) chain exists. Each quantization's scale reduces over
-// the whole row: at a template rank a row is R / 4 lanes of 4 columns (the
-// exact path's pieces), so its maxima are a sub-warp shuffle; elsewhere the
-// warp takes a row at a time, a column a lane. What bounds it: its
-// producers' operations, ~6 R true divisions a nonzero at 3 modes (PERF.md).
+// The chain route's quantized variant (the psram-stream backend's eager
+// path, the reference's mttkrp_sparse_psram, src/repro/core/mttkrp.py:161,
+// whose CP3 is XLA's segment_sum again): the producers form the quantized
+// chain of core.mttkrp.psram_chain (8-bit operands and the ADC on every
+// product) in place of the exact d; the consumer's adds in stream order do
+// not change, so no (n, R) chain exists and the bits are the plain
+// version's. At a template rank it is ordered_psram_kernel:
+// * A producer forms a batch in registers (hopper::psram_chain_pieces): a
+//   row is R / 4 lanes of 4 columns, so a scale's max over the row is a
+//   sub-warp shuffle, and each lane carries 4 rows at once through the K +
+//   1 steps, their shuffles and quotients interleaved; each factor row is
+//   read once from shared memory and only the chain row written back. No
+//   quotient is a division: x / scale and acc / lsb are formed from the
+//   divisor's reciprocal (once a row, and the LSB's once a launch, from the
+//   host) and two fma corrections, the IEEE quotient (hopper::psram_div,
+//   held to __fdiv_rn by psram_division_probe_kernel). Batches of 2 KB of
+//   chain rows (16 nonzeros at R = 32), 4 producer warps a CTA.
+// * A run of LONG_RUN nonzeros or more is not one SM's: forming its chain
+//   costs ~60 instructions a nonzero and column, ~4x its chain of adds. It
+//   takes a thread-block cluster of CLUSTER CTAs: rank 0's one warp adds in
+//   stream order from a ring in its shared memory, and the producer warps
+//   of the other 7 SMs form its batches and push each into rank 0's ring
+//   with one bulk copy (cp.async.bulk shared::cta -> shared::cluster,
+//   complete_tx on the slot's full barrier); rank 0 frees a slot by a
+//   remote arrival on the producer's own empty barrier. Batch g is still
+//   the stream's positions g * nb ..., so the bits do not change. The long
+//   runs' clusters and the short runs' CTAs (8 a cluster, each on its own)
+//   are one launch, the clusters first, so the short runs do not wait
+//   behind the head row; a launch without a long run is a plain launch.
+// At another rank the warp forms a row at a time through shared memory
+// (ordered_chain_kernel<0, true>, hopper::psram_chain_row, the same
+// quotients). What bounds it: its producers' instructions (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -556,8 +577,8 @@ __host__ __device__ constexpr long long chain_smem(int K, int R, int nb, int pro
 // is R where it is 16, 32, 64 or 128 (batches of template_nb(RT) nonzeros;
 // the consumer's running sums and batches in registers), else 0 (the same
 // kernel with runtime loops over R, batches of nb nonzeros, the running sums
-// in shared memory). PSRAM: the producers form the quantized chain
-// (hopper::psram_chain_row, at the ADC `adc`) in place of the exact one.
+// in shared memory). PSRAM (RT = 0 only): the producers form the quantized
+// chain (hopper::psram_chain_row, at the ADC `adc`) in place of the exact one.
 template <int RT, bool PSRAM>
 __global__ void __launch_bounds__(32 * (1 + LONG_PRODUCERS))
 ordered_chain_kernel(float* __restrict__ out, const int* __restrict__ coords,
@@ -678,23 +699,12 @@ ordered_chain_kernel(float* __restrict__ out, const int* __restrict__ coords,
             float* st = slot_of(w, rs);
             const int stride = nb * R;
             if constexpr (PSRAM) {
-                // the quantized chain: at a template rank a row is R / 4
-                // lanes of 4 columns (piece p of the batch is row p / (R /
-                // 4)'s, as below), so a row's maxima are a sub-warp shuffle
-                // and 32 / (R / 4) rows are formed at once (the rows past
-                // cnt hold stale values: formed, never added); else the
-                // whole warp takes one row at a time, a column a lane
-                if constexpr (RT != 0) {
-                    constexpr int PPR = RT / 4;
-#pragma unroll
-                    for (int u = 0; u < NBT * PPR / 32; ++u) {
-                        const int j = (lane + 32 * u) / PPR;
-                        hopper::psram_chain_row<PPR, 4>(st + j * RT, stride, K, RT, mv[j], adc);
-                    }
-                } else {
-                    for (int j = 0; j < cnt; ++j) {
-                        hopper::psram_chain_row<32, 1>(st + j * R, stride, K, R, mv[j], adc);
-                    }
+                // the quantized chain at a rank that is not a template one
+                // (ordered_psram_kernel takes those): the whole warp takes
+                // one row at a time, a column a lane
+                static_assert(RT == 0, "the quantized chain at a template rank is ordered_psram_kernel's");
+                for (int j = 0; j < cnt; ++j) {
+                    hopper::psram_chain_row(st + j * R, stride, K, R, mv[j], adc);
                 }
                 return;
             }
@@ -940,15 +950,556 @@ cudaError_t launch_chain_as(float* out, const int* coords, const float* val,
     return cudaGetLastError();
 }
 
+// ------------------------------------ route `chain`, the quantized chain at a template rank
+
+constexpr int PSRAM_PRODUCERS = 4;    // producer warps a CTA (fewer where their slots do not fit)
+constexpr int CLUSTER = 8;            // CTAs of a long run's cluster: the portable size
+constexpr int RING_DEPTH = ROW_SLOTS - AHEAD;   // a long run's producer's slots in rank 0's ring
+constexpr int PSRAM_BATCH = 2048;     // bytes of a batch's chain rows: 512 / R nonzeros ...
+constexpr int CLUSTER_BATCH = 4096;   // ... and in a launch with clusters, at R >= 32
+
+// Bytes of a batch's chain rows at template rank RT, where the launch gives
+// long runs clusters or not: a cluster's one consumer pays its hand-off
+// (a wait, a release) once a batch, which set the head row's pace on an
+// H100, so its batches are as large as rank 0's ring allows; at R = 16 they
+// stay 2 KB, 32 nonzeros, what the consumer keeps in registers.
+__host__ __device__ constexpr int psram_batch(int RT, bool cluster) {
+    return cluster && RT >= 32 ? CLUSTER_BATCH : PSRAM_BATCH;
+}
+
+// A full barrier (its shared-memory address) and the parity of the phase a
+// consumer waits for.
+struct BarPhase {
+    uint32_t bar, parity;
+};
+
+// Nonzeros a batch of the quantized route at template rank RT.
+__host__ __device__ constexpr int psram_nb(int RT, bool cluster) {
+    return psram_batch(RT, cluster) / (4 * RT);
+}
+
+// The barriers' bytes: a short run's CTA has a full and an empty barrier a
+// producer's row slot; in a long run's cluster rank 0 has a full and a
+// consumed barrier a ring slot ((CLUSTER - 1) * P producers, RING_DEPTH
+// each), the other ranks an empty one a ring slot of their own producers.
+__host__ __device__ constexpr long long psram_bar_bytes(int P, bool cluster) {
+    const int own = 2 * P * ROW_SLOTS;                     // a short run's CTA
+    const int ring = 2 * (CLUSTER - 1) * P * RING_DEPTH;   // rank 0 of a long run's cluster
+    return align16(8ll * (cluster && ring > own ? ring : own));
+}
+
+// The dynamic shared memory of a CTA: the barriers, then either its
+// producers' rings (chain_warp_bytes at psram_nb) or, in rank 0 of a long
+// run's cluster, the ring its producers' batches land in; one launch lays
+// every CTA out alike.
+__host__ __device__ constexpr long long psram_smem(int K, int R, int P, bool cluster) {
+    const long long rings = 1ll * P * chain_warp_bytes(K, R, psram_nb(R, cluster));
+    const long long ring = cluster ? 1ll * (CLUSTER - 1) * P * RING_DEPTH * psram_batch(R, true)
+                                   : 0;
+    return psram_bar_bytes(P, cluster) + (rings > ring ? rings : ring);
+}
+
+// A quantized launch's layout at a template rank: producer warps a CTA and
+// the CTA's dynamic shared memory (-1 where one producer does not fit).
+ChainLayout psram_layout(int K, int R, bool cluster) {
+    ChainLayout c{psram_nb(R, cluster), PSRAM_PRODUCERS, 0};
+    while (c.producers > 1 && psram_smem(K, R, c.producers, cluster) > MAX_SMEM) --c.producers;
+    c.smem = psram_smem(K, R, c.producers, cluster);
+    if (c.smem > MAX_SMEM) c.smem = -1;
+    return c;
+}
+
+// The chain route's quantized variant at a template rank RT (16, 32, 64,
+// 128): run s adds, for each nonzero p of [seg_ptr[s], seg_ptr[s+1]) in
+// order, the quantized chain of core.mttkrp.psram_chain into out row
+// seg_rows[s] (row s where seg_rows is null), one __fadd_rn each, starting
+// from the row's value. A batch is BATCH bytes of chain rows, NB = BATCH /
+// (4 RT) nonzeros (psram_batch); a CTA is a consumer warp and P producer
+// warps (blockDim).
+// * A run of fewer than LONG_RUN nonzeros (or any run, where the launch
+//   lists no long run) is one CTA's: the exact route's pipeline
+//   (ordered_chain_kernel, above) with the producers' form in registers.
+//   Its CTA is blockIdx.x - n_long * CLUSTER.
+// * The n_long runs of long_runs (every run of LONG_RUN nonzeros or more,
+//   longest first) are each a cluster of CLUSTER CTAs, the grid's first:
+//   rank 0's warp 0 adds, in stream order, from a ring in its shared memory;
+//   the W = (CLUSTER - 1) * P producer warps of ranks 1.. form batch g =
+//   q + i W (producer q, its i-th) in their own shared memory and copy it
+//   into rank 0's ring slot (q, i % RING_DEPTH) with one bulk copy counted
+//   on that slot's full barrier. The consumer marks the slot consumed on a
+//   barrier of its own CTA, and rank 0's other warps (batch g is warp 1 +
+//   g % P's) pass that on to the producer, a remote arrival on its own
+//   empty barrier, which the chain of adds then does not wait for. Batch g
+//   is the stream's positions g * nb .. whoever forms it, so the bits do
+//   not change.
+// Each producer forms its batch as NB * (RT / 4) / 32 rows a lane (4 or 8),
+// 4 at once: RT / 4 lanes a row, 4 columns a lane (hopper::psram_chain_pieces).
+template <int RT, int BATCH>
+__global__ void __launch_bounds__(32 * (1 + PSRAM_PRODUCERS))
+ordered_psram_kernel(float* __restrict__ out, const int* __restrict__ coords,
+                     const float* __restrict__ val, Factors fac,
+                     const long long* __restrict__ seg_ptr,
+                     const long long* __restrict__ seg_rows, long long n_seg,
+                     const long long* __restrict__ long_runs, int n_long, int K, int vec_copy,
+                     hopper::PsramAdc adc) {
+    extern __shared__ __align__(16) unsigned char psram_smem_buf[];
+    unsigned char* smem = psram_smem_buf;
+    constexpr int NB = BATCH / (4 * RT);
+    constexpr int PPR = RT / 4;                    // lanes a row, a 16-byte piece each
+    constexpr int UF = NB * PPR / 32;              // rows of a batch a lane forms ...
+    constexpr int UG = 4;                          // ... UG at once
+    static_assert(UF * 32 == NB * PPR && UF % UG == 0, "a batch's pieces fill whole passes of the warp");
+    const int P = static_cast<int>(blockDim.x >> 5) - 1;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const bool clustered = n_long > 0;
+    const bool is_long = blockIdx.x < static_cast<unsigned>(n_long) * CLUSTER;
+    long long s;
+    if (is_long) {
+        s = long_runs[blockIdx.x / CLUSTER];
+    } else {
+        s = static_cast<long long>(blockIdx.x) - static_cast<long long>(n_long) * CLUSTER;
+        if (s >= n_seg) return;                    // a short cluster's padding
+    }
+    const long long lo = seg_ptr[s];
+    const long long n = seg_ptr[s + 1] - lo;
+    // a short CTA leaves whole where its run is empty or a cluster's
+    if (!is_long && (n <= 0 || (clustered && n >= LONG_RUN))) return;
+    const long long row = seg_rows ? seg_rows[s] : s;
+    const int row_slot = chain_row_slot(K, RT, NB);
+    const int meta_slot = chain_meta_slot(K, NB);
+    const int warp_bytes = chain_warp_bytes(K, RT, NB);
+    unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);
+    unsigned char* body = smem + psram_bar_bytes(P, clustered);
+    auto slot_of = [&](int w, int rs) {
+        return reinterpret_cast<float*>(body + static_cast<long long>(w) * warp_bytes
+                                        + rs * row_slot);
+    };
+    const int n_batches = static_cast<int>((n + NB - 1) / NB);
+    auto batch_count = [&](int g) {
+        const long long left = n - static_cast<long long>(g) * NB;
+        return static_cast<int>(left < NB ? left : NB);
+    };
+
+    // ---- a producer: staging warp w of this CTA, its local batches i = 0,
+    // 1, ... the run's batches first + i * step. wait_slot(it) comes before
+    // the gather of it + AHEAD into its row slot; publish(it, slot) hands
+    // batch it's formed chain rows on.
+    auto produce = [&](int w, int first, int step, auto&& wait_slot, auto&& publish) {
+        unsigned char* meta_ring = body + static_cast<long long>(w) * warp_bytes
+                                   + ROW_SLOTS * row_slot;
+        const int L = first < n_batches ? (n_batches - 1 - first) / step + 1 : 0;
+        auto meta_idx = [&](int ms) { return reinterpret_cast<int*>(meta_ring + ms * meta_slot); };
+        auto meta_val = [&](int ms) { return reinterpret_cast<float*>(meta_idx(ms) + NB * K); };
+        auto copy_meta = [&](int i, int ms) {
+            const int cnt = batch_count(first + i * step);
+            const long long p0 = lo + static_cast<long long>(first + i * step) * NB;
+            int* mi = meta_idx(ms);
+            float* mv = meta_val(ms);
+            const int* src = coords + p0 * K;
+            for (int e = lane; e < cnt * K; e += 32) cp_async4(mi + e, src + e);
+            for (int e = lane; e < cnt; e += 32) cp_async4(mv + e, val + p0 + e);
+        };
+        // the batch's rows of every non-target factor, the k-th one's row j
+        // at slot + (k * NB + j) * RT, a row copied by RT / 4 lanes
+        auto gather = [&](int i, int ms, int rs) {
+            const int cnt = batch_count(first + i * step);
+            const int* mi = meta_idx(ms);
+            float* st = slot_of(w, rs);
+            for (int k = 0; k < K; ++k) {
+                const float* F = fac.f[k];
+                const int* rk = mi + k;
+                float* dst = st + k * NB * RT;
+                if (vec_copy && cnt == NB) {               // a full batch: every lane's rows first
+                    int r[UF];
+#pragma unroll
+                    for (int u = 0; u < UF; ++u) r[u] = rk[((lane + 32 * u) / PPR) * K];
+#pragma unroll
+                    for (int u = 0; u < UF; ++u) {
+                        const int j = (lane + 32 * u) / PPR;
+                        const int q = 4 * ((lane + 32 * u) % PPR);
+                        cp_async16(dst + j * RT + q, F + static_cast<long long>(r[u]) * RT + q);
+                    }
+                } else if (vec_copy) {
+                    for (int p = lane; p < cnt * PPR; p += 32) {
+                        const int j = p / PPR;
+                        const int q = 4 * (p - j * PPR);
+                        cp_async16(dst + j * RT + q, F + static_cast<long long>(rk[j * K]) * RT + q);
+                    }
+                } else {
+                    for (int e = lane; e < cnt * RT; e += 32) {
+                        const int j = e / RT;
+                        const int c = e - j * RT;
+                        cp_async4(dst + j * RT + c, F + static_cast<long long>(rk[j * K]) * RT + c);
+                    }
+                }
+            }
+        };
+        // the quantized chain of the batch's NB rows in place of the first
+        // factor's: piece p = lane + 32 u of the batch is row p / PPR's piece
+        // p % PPR, so each lane forms UF rows, UG at once in registers (the
+        // rows past the batch's count hold stale values: formed, never added)
+        auto form = [&](int ms, int rs) {
+            const float* mv = meta_val(ms);
+            float* st = slot_of(w, rs);
+#pragma unroll
+            for (int u0 = 0; u0 < UF; u0 += UG) {
+                float* at[UG];
+                bool live[UG];
+                float v[UG];
+#pragma unroll
+                for (int u = 0; u < UG; ++u) {
+                    const int p = lane + 32 * (u0 + u);
+                    at[u] = st + (p / PPR) * RT + 4 * (p % PPR);
+                    live[u] = true;
+                    v[u] = mv[p / PPR];
+                }
+                hopper::psram_chain_pieces<UG>(at, live, v, NB * RT, K, PPR, adc);
+            }
+        };
+        // iterations it + AHEAD (rows) and it + 2 AHEAD (metadata) ride ahead of it
+        for (int i = 0; i < AHEAD; ++i) {
+            if (i < L) copy_meta(i, i);
+        }
+        commit_group();
+        wait_group<0>();
+        __syncwarp();
+        for (int i = 0; i < AHEAD; ++i) {                  // the first row slots are free
+            if (i < L) gather(i, i, i);
+            if (AHEAD + i < L) copy_meta(AHEAD + i, AHEAD + i);
+            commit_group();
+        }
+        for (int it = 0; it < L; ++it) {
+            wait_group<AHEAD - 1>();                       // the group of it - AHEAD: rows of it,
+            __syncwarp();                                  // metadata of it + AHEAD (every lane's)
+            const int ahead = it + AHEAD;
+            wait_slot(it);
+            if (ahead < L) gather(ahead, ahead % META_SLOTS, ahead % ROW_SLOTS);
+            if (it + 2 * AHEAD < L) copy_meta(it + 2 * AHEAD, (it + 2 * AHEAD) % META_SLOTS);
+            commit_group();
+            const int rs = it % ROW_SLOTS;
+            form(it % META_SLOTS, rs);
+            publish(it, rs);
+        }
+        wait_group<0>();
+    };
+
+    // ---- the consumer, warp 0: batch g is producer w = g % span's local
+    // batch i = g / span. bar(w, i) is its full barrier and parity, slot(w,
+    // i) its chain rows; release(w, i) frees them (after every lane's reads)
+    auto consume = [&](int span, auto&& bar, auto&& slot, auto&& release) {
+        float* dst = out + row * RT;
+        constexpr int V = lane_cols(RT);
+        constexpr int H = NB / 2;                      // adds of a batch before the next one's wait
+        const int c0 = lane * V;
+        const bool has = c0 < RT;                      // R = 16: lanes 16..31 add nothing
+        float acc[V];
+        float buf[2][NB][V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = has ? dst[c0 + v] : 0.0f;
+        auto get = [&](const float* st, int j, float (&x)[NB][V]) {
+            const float* at = st + j * RT + c0;
+            if constexpr (V == 4) {
+                const float4 t = *reinterpret_cast<const float4*>(at);
+                x[j][0] = t.x; x[j][1] = t.y; x[j][2] = t.z; x[j][3] = t.w;
+            } else if constexpr (V == 2) {
+                const float2 t = *reinterpret_cast<const float2*>(at);
+                x[j][0] = t.x; x[j][1] = t.y;
+            } else {
+                x[j][0] = *at;
+            }
+        };
+        auto add = [&](int j, const float (&x)[NB][V]) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], x[j][v]);
+        };
+        auto wait = [&](int w, int i, uint32_t done) {  // spin unless a try found it formed
+            if (!done) {
+                const auto [b, parity] = bar(w, i);
+                hopper::mbar_wait(b, parity);
+            }
+        };
+        int w = 0, i = 0;                              // batch g's producer and local index
+        // batch g's rows are in registers (loaded in step g - 1), so its slot
+        // is freed first; the next batch's barrier is tried before the first
+        // H adds and waited on after them, and its rows load beside the last
+        // NB - H adds, so the chain of adds waits on neither
+        auto step = [&](int g, float (&cur)[NB][V], float (&nxt)[NB][V]) {
+            const int cnt = batch_count(g);
+            release(w, i);
+            int w1 = w + 1, i1 = i;
+            if (w1 == span) {
+                w1 = 0;
+                ++i1;
+            }
+            if (g + 1 < n_batches) {
+                const auto [b, parity] = bar(w1, i1);
+                const uint32_t done = hopper::mbar_try(b, parity);
+                const int cnt1 = batch_count(g + 1);
+                if (has && cnt == NB && cnt1 == NB) {
+#pragma unroll
+                    for (int j = 0; j < H; ++j) add(j, cur);
+                    wait(w1, i1, done);
+                    const float* st = slot(w1, i1);
+#pragma unroll
+                    for (int j = H; j < NB; ++j) {
+                        get(st, 2 * (j - H), nxt);
+                        get(st, 2 * (j - H) + 1, nxt);
+                        add(j, cur);
+                    }
+                } else {
+#pragma unroll
+                    for (int j = 0; j < H; ++j) {
+                        if (j < cnt) add(j, cur);
+                    }
+                    wait(w1, i1, done);
+                    const float* st = slot(w1, i1);
+#pragma unroll
+                    for (int j = H; j < NB; ++j) {
+                        if (has && 2 * (j - H) < cnt1) get(st, 2 * (j - H), nxt);
+                        if (has && 2 * (j - H) + 1 < cnt1) get(st, 2 * (j - H) + 1, nxt);
+                        if (j < cnt) add(j, cur);
+                    }
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < NB; ++j) {
+                    if (j < cnt) add(j, cur);
+                }
+            }
+            w = w1;
+            i = i1;
+        };
+        {
+            wait(0, 0, 0);
+            const float* st = slot(0, 0);
+            const int cnt = batch_count(0);
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+                if (has && j < cnt) get(st, j, buf[0]);
+            }
+        }
+        for (int g = 0; g < n_batches; g += 2) {
+            step(g, buf[0], buf[1]);
+            if (g + 1 < n_batches) step(g + 1, buf[1], buf[0]);
+        }
+        if (has) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) dst[c0 + v] = acc[v];
+        }
+    };
+
+    if (!is_long) {
+        // ---- a short run: the producers' row slots are the consumer's; a
+        // slot's full barrier: its producer formed the batch there; empty:
+        // the consumer is done with it (one arrival a phase each)
+        auto full_bar = [&](int w, int rs) { return smem_u32(bars + w * ROW_SLOTS + rs); };
+        auto empty_bar = [&](int w, int rs) { return smem_u32(bars + (P + w) * ROW_SLOTS + rs); };
+        if (threadIdx.x == 0) {
+            for (int b = 0; b < 2 * P * ROW_SLOTS; ++b) hopper::mbar_init(smem_u32(bars + b), 1);
+        }
+        __syncthreads();                               // the only CTA-wide barrier
+        if (warp > 0) {
+            const int w = warp - 1;
+            produce(w, w, P,
+                    [&](int it) {                      // the consumer is done with the slot's last batch
+                        const int ahead = it + AHEAD;
+                        if (ahead >= ROW_SLOTS) {
+                            hopper::mbar_wait(empty_bar(w, ahead % ROW_SLOTS),
+                                              static_cast<uint32_t>((ahead / ROW_SLOTS - 1) & 1));
+                        }
+                    },
+                    [&](int, int rs) {
+                        __syncwarp();                  // every lane's rows are in the slot
+                        if (lane == 0) hopper::mbar_arrive(full_bar(w, rs));
+                    });
+            return;
+        }
+        consume(P,
+                [&](int w, int i) {
+                    return BarPhase{
+                        full_bar(w, i % ROW_SLOTS), static_cast<uint32_t>((i / ROW_SLOTS) & 1)};
+                },
+                [&](int w, int i) { return static_cast<const float*>(slot_of(w, i % ROW_SLOTS)); },
+                [&](int w, int i) {
+                    __syncwarp();
+                    if (lane == 0) hopper::mbar_arrive(empty_bar(w, i % ROW_SLOTS));
+                });
+        return;
+    }
+
+    // ---- a long run's cluster. No CTA of it leaves before the last
+    // cluster_sync: the others arrive on its barriers and copy into its ring.
+    const uint32_t crank = hopper::cluster_ctarank();
+    const int W = (CLUSTER - 1) * P;
+    auto ring_slot = [&](int q, int i) {               // in rank 0
+        return body + static_cast<long long>(q * RING_DEPTH + i % RING_DEPTH) * BATCH;
+    };
+    // rank 0: a full barrier a ring slot, then a consumed one; the other
+    // ranks: an empty barrier a ring slot of their producers
+    auto consumed_bar = [&](int q, int i) {
+        return smem_u32(bars + W * RING_DEPTH + q * RING_DEPTH + i % RING_DEPTH);
+    };
+    if (threadIdx.x == 0) {
+        const int nbar = crank == 0 ? 2 * W * RING_DEPTH : P * RING_DEPTH;
+        for (int b = 0; b < nbar; ++b) hopper::mbar_init(smem_u32(bars + b), 1);
+        hopper::mbar_init_fence();
+    }
+    hopper::cluster_sync();                            // every rank's barriers are initialised
+    if (crank == 0 && warp == 0) {
+        consume(W,
+                [&](int q, int i) {
+                    return BarPhase{
+                        smem_u32(bars + q * RING_DEPTH + i % RING_DEPTH),
+                        static_cast<uint32_t>((i / RING_DEPTH) & 1)};
+                },
+                [&](int q, int i) { return reinterpret_cast<const float*>(ring_slot(q, i)); },
+                [&](int q, int i) {                    // after every lane's reads of the slot
+                    __syncwarp();
+                    if (lane == 0) hopper::mbar_arrive(consumed_bar(q, i));
+                });
+    } else if (crank == 0) {
+        // warp 1 + h passes batches g = h, h + P, ... on, in order: the slot
+        // is consumed, so producer q = g % W may fill it again
+        for (int g = warp - 1; g < n_batches; g += P) {
+            const int q = g % W, i = g / W;
+            hopper::mbar_wait(consumed_bar(q, i), static_cast<uint32_t>((i / RING_DEPTH) & 1));
+            if (lane == 0) {
+                hopper::mbar_arrive_cluster(hopper::cluster_addr(
+                    smem_u32(bars + (q % P) * RING_DEPTH + i % RING_DEPTH), 1 + q / P));
+            }
+        }
+    } else if (warp > 0) {
+        const int w = warp - 1;
+        const int q = (static_cast<int>(crank) - 1) * P + w;
+        // batch it goes to ring slot (q, it % RING_DEPTH), formed in row slot
+        // it % ROW_SLOTS; the gather of it + AHEAD reuses the row slot of
+        // it - RING_DEPTH (RING_DEPTH = ROW_SLOTS - AHEAD), so one wait for
+        // that batch's consumption frees both the row slot and the ring slot
+        produce(w, q, W,
+                [&](int it) {
+                    if (it >= RING_DEPTH) {
+                        hopper::mbar_wait(smem_u32(bars + w * RING_DEPTH + it % RING_DEPTH),
+                                          static_cast<uint32_t>((it / RING_DEPTH - 1) & 1));
+                    }
+                },
+                [&](int it, int rs) {
+                    hopper::fence_proxy_async_shared();   // the rows, visible to the bulk copy
+                    __syncwarp();
+                    if (lane == 0) {
+                        const uint32_t full = hopper::cluster_addr(
+                            smem_u32(bars + q * RING_DEPTH + it % RING_DEPTH), 0);
+                        hopper::mbar_expect_tx_cluster(full, BATCH);
+                        hopper::bulk_copy_to_cluster(
+                            hopper::cluster_addr(smem_u32(ring_slot(q, it)), 0),
+                            smem_u32(slot_of(w, rs)), BATCH, full);
+                    }
+                });
+    }
+    hopper::cluster_sync();
+}
+
+template <int RT, int BATCH>
+cudaError_t launch_psram_as(float* out, const int* coords, const float* val, const Factors& fac,
+                            const long long* seg_ptr, const long long* seg_rows, int n_seg,
+                            const long long* long_runs, int n_long, int K, int vec,
+                            hopper::PsramAdc adc, cudaStream_t stream) {
+    const ChainLayout c = psram_layout(K, RT, n_long > 0);
+    if (c.smem < 0) return cudaErrorInvalidValue;
+    cudaError_t err = opt_in_max_smem<ordered_psram_kernel<RT, BATCH>>();
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    const long long ctas = n_long > 0
+        ? static_cast<long long>(n_long) * CLUSTER + (n_seg + CLUSTER - 1) / CLUSTER * CLUSTER
+        : n_seg;
+    cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+    cfg.blockDim = dim3(32 * (1 + c.producers));
+    cfg.dynamicSmemBytes = static_cast<size_t>(c.smem);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = n_long > 0 ? 1 : 0;                 // a cluster only where a long run needs one
+    err = cudaLaunchKernelEx(&cfg, ordered_psram_kernel<RT, BATCH>, out, coords, val, fac,
+                             seg_ptr, seg_rows, static_cast<long long>(n_seg), long_runs, n_long,
+                             K, vec, adc);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
 template <int RT>
-cudaError_t launch_chain(float* out, const int* coords, const float* val,
-                         const Factors& fac, const long long* seg_ptr, const long long* seg_rows,
-                         int n_seg, int K, int R, const ChainLayout& c, int vec, int psram,
+cudaError_t launch_psram(float* out, const int* coords, const float* val, const Factors& fac,
+                         const long long* seg_ptr, const long long* seg_rows, int n_seg,
+                         const long long* long_runs, int n_long, int K, int vec,
                          hopper::PsramAdc adc, cudaStream_t stream) {
-    return psram ? launch_chain_as<RT, true>(out, coords, val, fac, seg_ptr, seg_rows, n_seg, K,
-                                             R, c, vec, adc, stream)
-                 : launch_chain_as<RT, false>(out, coords, val, fac, seg_ptr, seg_rows, n_seg,
-                                              K, R, c, vec, adc, stream);
+    constexpr int B = psram_batch(RT, true);
+    return n_long > 0
+        ? launch_psram_as<RT, B>(out, coords, val, fac, seg_ptr, seg_rows, n_seg, long_runs,
+                                 n_long, K, vec, adc, stream)
+        : launch_psram_as<RT, PSRAM_BATCH>(out, coords, val, fac, seg_ptr, seg_rows, n_seg,
+                                           long_runs, n_long, K, vec, adc, stream);
+}
+
+// ------------------------------------------------------ the division probe
+
+// Holds hopper::psram_div (the quantized chains' quotients by a row's scale
+// and by the ADC's LSB) to __fdiv_rn on the card, exhaustively. kind 0, the
+// ADC at LSB lsb (rlsb its reciprocal): every integer product p in [-127^2,
+// 127^2] and -0.0, index p + 127^2 (-0.0 last): the quotient's bits and
+// psram_adc's against __fdiv_rn's and the true-division ADC's (whose
+// product, formed in int, is +0.0 where zero). kind 1, a value's code: every
+// finite f32 v, its bit pattern the index: psram_code(v, sv, RN(1 / sv)),
+// sv = psram_scale(|v|), against rint(__fdiv_rn(v, sv)) clamped to +-127.
+// bad[0] counts the indices that differ, bad[1] keeps the least.
+__global__ void __launch_bounds__(256)
+psram_division_probe_kernel(int kind, hopper::PsramAdc a, unsigned long long* bad) {
+    constexpr long long PMAX = 127 * 127;
+    const unsigned long long n = kind == 0 ? 2ull * PMAX + 2 : 1ull << 32;
+    for (unsigned long long e = static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+         e < n; e += static_cast<unsigned long long>(gridDim.x) * blockDim.x) {
+        bool differs;
+        if (kind == 0) {
+            const float p = e + 1 == n ? -0.0f : static_cast<float>(static_cast<long long>(e) - PMAX);
+            const float want_q = __fdiv_rn(p == 0.0f ? 0.0f : p, a.lsb);
+            const float want = __fmul_rn(fminf(fmaxf(rintf(want_q), -a.code_max), a.code_max), a.lsb);
+            differs = __float_as_uint(hopper::psram_div(p, a.lsb, a.rlsb)) != __float_as_uint(want_q)
+                      || __float_as_uint(hopper::psram_adc(p, a)) != __float_as_uint(want);
+        } else {
+            const unsigned bits = static_cast<unsigned>(e);
+            if ((bits & 0x7f800000u) == 0x7f800000u) continue;   // inf and NaN
+            const float v = __uint_as_float(bits);
+            const float sv = hopper::psram_scale(fabsf(v));
+            const float want = fminf(fmaxf(rintf(__fdiv_rn(v, sv)), -127.0f), 127.0f);
+            differs = static_cast<int>(hopper::psram_code(v, sv, __frcp_rn(sv)))
+                      != static_cast<int>(want);
+        }
+        if (differs) {
+            atomicAdd(bad, 1ull);
+            atomicMin(bad + 1, e);
+        }
+    }
+}
+
+// The row codes: row r of x (n, R) f32 quantized as the chains quantize a
+// row (psram_scale of its max |.|, psram_code through the scale's
+// reciprocal) into codes, and through __fdiv_rn into codes_div, as floats.
+__global__ void __launch_bounds__(256)
+psram_division_rows_kernel(const float* __restrict__ x, long long n, int R,
+                           float* __restrict__ codes, float* __restrict__ codes_div) {
+    const long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (r >= n) return;
+    const float* xr = x + r * R;
+    float m = 0.0f;
+    for (int c = 0; c < R; ++c) m = fmaxf(m, fabsf(xr[c]));
+    const float s = hopper::psram_scale(m);
+    const float rs = __frcp_rn(s);
+    for (int c = 0; c < R; ++c) {
+        codes[r * R + c] = hopper::psram_code(xr[c], s, rs);
+        codes_div[r * R + c] = fminf(fmaxf(rintf(__fdiv_rn(xr[c], s)), -127.0f), 127.0f);
+    }
 }
 
 }  // namespace
@@ -1006,6 +1557,25 @@ extern "C" long long ordered_chain_smem_bytes(int nmodes, int R, long long longe
     return chain_layout(nmodes - 1, R, longest_run).smem;
 }
 
+// Dynamic shared memory of a CTA of the quantized chain route at a template
+// rank R (16, 32, 64, 128) for a stream of nmodes modes, where the launch
+// gives long runs clusters (cluster) or not, and its producer warps
+// (psram_layout); -1 where it cannot launch.
+extern "C" long long ordered_psram_smem_bytes(int nmodes, int R, int cluster) {
+    if (nmodes < 2 || nmodes > MAX_MODES || template_rank(R) == 0) return -1;
+    return psram_layout(nmodes - 1, R, cluster != 0).smem;
+}
+
+extern "C" int ordered_psram_producers(int nmodes, int R, int cluster) {
+    if (nmodes < 2 || nmodes > MAX_MODES || template_rank(R) == 0) return -1;
+    return psram_layout(nmodes - 1, R, cluster != 0).producers;
+}
+
+// The runs a quantized launch at a template rank gives a cluster: those of
+// this many nonzeros or more; and the cluster's CTAs.
+extern "C" long long ordered_psram_long_run() { return LONG_RUN; }
+extern "C" int ordered_psram_cluster() { return CLUSTER; }
+
 // out (rows, R) f32; coords (n, nmodes - 1) int32 row-major: the stream's
 // non-target coordinates, nonzero p's k-th one (mode order) at
 // coords[p * (nmodes - 1) + k]; val (n,) f32
@@ -1018,21 +1588,26 @@ extern "C" long long ordered_chain_smem_bytes(int nmodes, int R, long long longe
 // longest_run: the most nonzeros a run has (0 if the caller does not know).
 // vec: R % 4 == 0 and every factor 16-byte aligned. psram: the quantized
 // chain (core.mttkrp.psram_chain) in place of the exact one, its products'
-// ADC LSB lsb and largest code code_max (> 0). Returns the launch's
-// cudaError_t as an int.
+// ADC LSB lsb, largest code code_max and rlsb = RN(1 / lsb) (> 0); at a
+// template rank ordered_psram_kernel takes it, and the n_long runs of
+// long_runs (int64 run indices, longest first: exactly the runs of LONG_RUN
+// nonzeros or more, or none) each take a cluster of CLUSTER CTAs, in one
+// cluster launch with the short runs (a CTA each); without long runs the
+// launch is a plain one. A refused launch is returned, never replaced.
+// Returns the launch's cudaError_t as an int.
 extern "C" int ordered_chain_launch(void* out, const void* coords, const void* val,
                                     const void* const* factors, const void* seg_ptr,
                                     const void* seg_rows, int n_seg, int nmodes, int R,
                                     long long longest_run, int vec, int psram, float lsb,
-                                    float code_max, void* stream) {
+                                    float code_max, float rlsb, const void* long_runs,
+                                    int n_long, void* stream) {
     if (n_seg <= 0 || R <= 0) return static_cast<int>(cudaSuccess);
-    if (nmodes < 2 || nmodes > MAX_MODES || (vec && R % 4 != 0)
-        || (psram && !(lsb > 0.0f && code_max >= 0.0f))) {
+    if (nmodes < 2 || nmodes > MAX_MODES || (vec && R % 4 != 0) || n_long < 0
+        || (psram && !(lsb > 0.0f && code_max >= 0.0f && rlsb > 0.0f))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const int K = nmodes - 1;
-    const ChainLayout c = chain_layout(K, R, longest_run);
-    if (c.smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int RT = template_rank(R);
     Factors fac;
     for (int k = 0; k < MAX_MODES - 1; ++k) {
         fac.f[k] = k < K ? static_cast<const float*>(factors[k]) : nullptr;
@@ -1043,21 +1618,65 @@ extern "C" int ordered_chain_launch(void* out, const void* coords, const void* v
     const long long* ptr_ = static_cast<const long long*>(seg_ptr);
     const long long* rows_ = static_cast<const long long*>(seg_rows);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const hopper::PsramAdc adc{lsb, code_max};
+    const hopper::PsramAdc adc{lsb, code_max, rlsb};
+    if (psram && RT != 0) {
+        const long long* long_ = static_cast<const long long*>(long_runs);
+        cudaError_t err;
+        switch (RT) {
+            case 16: err = launch_psram<16>(out_, coords_, val_, fac, ptr_, rows_, n_seg, long_,
+                                            n_long, K, vec, adc, st); break;
+            case 32: err = launch_psram<32>(out_, coords_, val_, fac, ptr_, rows_, n_seg, long_,
+                                            n_long, K, vec, adc, st); break;
+            case 64: err = launch_psram<64>(out_, coords_, val_, fac, ptr_, rows_, n_seg, long_,
+                                            n_long, K, vec, adc, st); break;
+            default: err = launch_psram<128>(out_, coords_, val_, fac, ptr_, rows_, n_seg, long_,
+                                             n_long, K, vec, adc, st); break;
+        }
+        return static_cast<int>(err);
+    }
+    const ChainLayout c = chain_layout(K, R, longest_run);
+    if (c.smem < 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err;
-    switch (template_rank(R)) {
-        case 16: err = launch_chain<16>(out_, coords_, val_, fac, ptr_, rows_, n_seg, K, R, c,
-                                        vec, psram, adc, st); break;
-        case 32: err = launch_chain<32>(out_, coords_, val_, fac, ptr_, rows_, n_seg, K, R, c,
-                                        vec, psram, adc, st); break;
-        case 64: err = launch_chain<64>(out_, coords_, val_, fac, ptr_, rows_, n_seg, K, R, c,
-                                        vec, psram, adc, st); break;
-        case 128: err = launch_chain<128>(out_, coords_, val_, fac, ptr_, rows_, n_seg, K, R,
-                                          c, vec, psram, adc, st); break;
-        default: err = launch_chain<0>(out_, coords_, val_, fac, ptr_, rows_, n_seg, K, R, c,
-                                       vec, psram, adc, st); break;
+    switch (RT) {
+        case 16: err = launch_chain_as<16, false>(out_, coords_, val_, fac, ptr_, rows_, n_seg,
+                                                  K, R, c, vec, adc, st); break;
+        case 32: err = launch_chain_as<32, false>(out_, coords_, val_, fac, ptr_, rows_, n_seg,
+                                                  K, R, c, vec, adc, st); break;
+        case 64: err = launch_chain_as<64, false>(out_, coords_, val_, fac, ptr_, rows_, n_seg,
+                                                  K, R, c, vec, adc, st); break;
+        case 128: err = launch_chain_as<128, false>(out_, coords_, val_, fac, ptr_, rows_, n_seg,
+                                                    K, R, c, vec, adc, st); break;
+        default:
+            err = psram ? launch_chain_as<0, true>(out_, coords_, val_, fac, ptr_, rows_, n_seg,
+                                                   K, R, c, vec, adc, st)
+                        : launch_chain_as<0, false>(out_, coords_, val_, fac, ptr_, rows_, n_seg,
+                                                    K, R, c, vec, adc, st);
+            break;
     }
     return static_cast<int>(err);
+}
+
+// The division probe (psram_division_probe_kernel): kind 0 the ADC at lsb,
+// code_max, rlsb, kind 1 every finite f32 value's code; bad (2,) uint64
+// zeroed by the caller: the count of indices that differ and the least.
+extern "C" int psram_division_probe_launch(int kind, float lsb, float code_max, float rlsb,
+                                           void* bad, void* stream) {
+    if (kind < 0 || kind > 1) return static_cast<int>(cudaErrorInvalidValue);
+    psram_division_probe_kernel<<<kind == 0 ? 128 : 2048, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        kind, hopper::PsramAdc{lsb, code_max, rlsb}, static_cast<unsigned long long*>(bad));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The row codes (psram_division_rows_kernel): x (n, R) f32, codes and
+// codes_div (n, R) f32, all contiguous.
+extern "C" int psram_division_rows_launch(const void* x, long long n, int R, void* codes,
+                                          void* codes_div, void* stream) {
+    if (n <= 0 || R <= 0) return static_cast<int>(cudaSuccess);
+    psram_division_rows_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), n, R, static_cast<float*>(codes),
+        static_cast<float*>(codes_div));
+    return static_cast<int>(cudaGetLastError());
 }
 
 // The runtime's text for an error code returned by a launch entry.

@@ -84,14 +84,21 @@
 //
 // The quantized variant (PSRAM; the psram-stream backend's compiled path):
 // the chain rows are the quantized chain of core.mttkrp.psram_chain (8-bit
-// operands and the ADC on every product, hopper::psram_chain_row), formed
-// in the warp's slot before its sums, which do not change. Each
-// quantization's scale reduces over the whole row, so a warp gathers the
-// whole row (all R columns, not its tile's) and forms it a nonzero at a
-// time, lane = column (columns lane, lane + 32, ...); a warp of another
-// column tile forms the same rows again (R > 32 only) and sums its own
-// columns. Bound by its operations: ~6 R true divisions a nonzero at 3
-// modes (PERF.md).
+// operands and the ADC on every product), formed in the warp's slot before
+// its sums, which do not change. Each quantization's scale reduces over the
+// whole row, so a warp gathers the whole row (all R columns, not its
+// tile's); a warp of another column tile forms the same rows again (R > 32
+// only) and sums its own columns. Where R / 4 is a power of 2 up to 32 (R =
+// 4 .. 128, the main path's 32 among them) a row is R / 4 lanes of 4
+// columns, as the ordered fold's producers hold it: a warp forms 32 / (R /
+// 4) rows a pass, each lane PSRAM_U rows at once in registers
+// (hopper::psram_chain_pieces: each factor row read once from the slot, the
+// running Hadamard kept in registers, the rows' shuffles and quotients
+// interleaved, the chain row written back once); elsewhere the warp forms a
+// row at a time, a column a lane, through the slot (psram_chain_row). No
+// quotient is a division: a row's scale and the ADC's LSB are divided by
+// through their reciprocals and two fma corrections, the IEEE quotient
+// (hopper::psram_div). Bound by its operations (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -156,6 +163,7 @@ constexpr int AHEAD = 1;                    // batches a warp's gathers run ahea
 constexpr int ROW_SLOTS = AHEAD + 1;        // + the batch in hand
 constexpr int META_SLOTS = 2 * AHEAD + 1;
 constexpr int SLOT_BUDGET = 2048;           // bytes of a batch's factor rows (one tile)
+constexpr int PSRAM_U = 2;                  // quantized chain: rows a lane forms at once
 
 __host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) / 16 * 16; }
 
@@ -211,6 +219,9 @@ segment_chain_kernel(const int* __restrict__ coords, const float* __restrict__ v
     const int gw = PSRAM ? R : tw;
     const int RS = PSRAM ? R : TILE;
     const int row_slot = chain_row_slot(KT, R, PSRAM);
+    // the quantized chain's row layout: R / 4 lanes a row where that is a
+    // power of 2 up to 32 (psram_chain_pieces), else the warp on a row
+    const bool pieces = PSRAM && R % 4 == 0 && R <= 128 && ((R >> 2) & ((R >> 2) - 1)) == 0;
     const long long first = static_cast<long long>(b) * bn;
     const long long left = nnz - first;             // the block's nonzeros: positions < nnz
     const int n = left <= 0 ? 0 : left < bn ? static_cast<int>(left) : bn;
@@ -294,8 +305,31 @@ segment_chain_kernel(const int* __restrict__ coords, const float* __restrict__ v
         const float* v = reinterpret_cast<const float*>(m + NB * (KT + 1));
         float d[NB];
         if constexpr (PSRAM) {
-            for (int j = 0; j < cnt; ++j) {
-                hopper::psram_chain_row<32, 1>(st + j * R, NB * R, KT, R, v[j], adc);
+            if (pieces) {
+                // R / 4 lanes a row, 4 columns a lane: piece p of the batch's
+                // passes is row p / g's piece p % g, so a warp forms 32 / g
+                // rows a pass and a lane PSRAM_U rows at once (the slot's
+                // rows past cnt hold stale values: formed, never added)
+                const int g = R >> 2;
+                for (int p0 = 0; p0 * (32 / g) < NB; p0 += PSRAM_U) {
+                    float* at[PSRAM_U];
+                    bool live[PSRAM_U];
+                    float vu[PSRAM_U];
+#pragma unroll
+                    for (int u = 0; u < PSRAM_U; ++u) {
+                        const int p = lane + 32 * (p0 + u);
+                        const int j = p / g;
+                        live[u] = j < NB;
+                        const int jj = live[u] ? j : 0;
+                        at[u] = st + jj * R + 4 * (p - j * g);
+                        vu[u] = v[jj];
+                    }
+                    hopper::psram_chain_pieces<PSRAM_U>(at, live, vu, NB * R, KT, g, adc);
+                }
+            } else {
+                for (int j = 0; j < cnt; ++j) {
+                    hopper::psram_chain_row(st + j * R, NB * R, KT, R, v[j], adc);
+                }
             }
             __syncwarp();
 #pragma unroll
@@ -433,16 +467,17 @@ extern "C" int segment_sum_launch(const void* data, const void* seg_ids, void* o
 // the chain rows of positions [b * bn, min((b + 1) * bn, nnz)); nnz <= B * bn.
 // vec: R % 4 == 0 and every factor 16-byte aligned. psram: the quantized
 // chain (core.mttkrp.psram_chain) in place of the exact one, its products'
-// ADC LSB lsb and largest code code_max; refused where its whole rows do not
-// fit shared memory (segment_chain_smem_bytes). Coordinates are not
-// range-checked. Returns the launch's cudaError_t as an int.
+// ADC LSB lsb, largest code code_max and RN(1 / lsb) rlsb; refused where
+// its whole rows do not fit shared memory (segment_chain_smem_bytes).
+// Coordinates are not range-checked. Returns the launch's cudaError_t as an
+// int.
 extern "C" int segment_chain_launch(const void* coords, const void* val, const void* seg_ids,
                                     const void* const* factors, void* out, long long nnz, int B,
                                     int bn, int nmodes, int R, int S, int vec, int psram,
-                                    float lsb, float code_max, void* stream_ptr) {
+                                    float lsb, float code_max, float rlsb, void* stream_ptr) {
     if (B < 1 || bn < 1 || R < 1 || S < 1 || nnz < 0 || nnz > static_cast<long long>(B) * bn
         || nmodes < 2 || nmodes > hopper::CHAIN_MAX_MODES || (vec && R % 4 != 0)
-        || (psram && (!(lsb > 0.0f && code_max >= 0.0f)
+        || (psram && (!(lsb > 0.0f && code_max >= 0.0f && rlsb > 0.0f)
                       || chain_smem(nmodes - 1, R, true) > MAX_SMEM))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -455,7 +490,7 @@ extern "C" int segment_chain_launch(const void* coords, const void* val, const v
     const int* ids = static_cast<const int*>(seg_ids);
     float* o = static_cast<float*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-    const hopper::PsramAdc adc{lsb, code_max};
+    const hopper::PsramAdc adc{lsb, code_max, rlsb};
     cudaError_t err;
     switch (nmodes - 1) {
         case 1: err = launch_chain<1>(c, v, ids, fac, o, nnz, B, bn, R, S, vec, psram, adc, st); break;

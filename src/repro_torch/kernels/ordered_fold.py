@@ -37,8 +37,10 @@ routes, counted in ``ordered_fold.routes``:
   factor rows' L2 gathers, and for a long run by its chain of dependent adds
   — see the source note. With ``psram=True`` the producers form the
   quantized chain instead (``core.mttkrp.cp_chain_psram``: 8-bit operands
-  and the ADC on every product, each division a true one), counted apart as
-  ``"chain_psram"``; the consumer's adds do not change.
+  and the ADC on every product, each quotient the IEEE one), counted apart
+  as ``"chain_psram"``; the consumer's adds do not change. At a rank of
+  :data:`TEMPLATE_RANKS` a run of :data:`CHAIN_LONG_RUN` nonzeros or more
+  takes a thread-block cluster: its producers on 7 SMs, its adds on an 8th.
 
 :func:`ordered_fold` launches its kernel for CUDA tensors (or raises) and,
 for CPU tensors — only because they lie on the CPU — uses
@@ -209,6 +211,25 @@ def _fold_runs(out, d, seg_ptr, seg_rows, first: int, last: int, base: int,
 #: parameters)
 CHAIN_MAX_MODES = 8
 
+#: nonzeros from which a run of the quantized chain route at a template rank
+#: (16, 32, 64, 128) takes a thread-block cluster (the library's
+#: ``ordered_psram_long_run``): its producers on several SMs
+CHAIN_LONG_RUN = 32768
+
+#: ranks whose quantized chain the route forms a row as ``R / 4`` lanes
+#: (``ordered_psram_kernel``); the clusters are theirs
+TEMPLATE_RANKS = (16, 32, 64, 128)
+
+
+def chain_long_runs(seg_ptr) -> np.ndarray:
+    """The runs of host offsets ``seg_ptr (n_seg + 1,)`` that the quantized
+    chain route gives a cluster: every run of ``CHAIN_LONG_RUN`` nonzeros or
+    more, longest first (:func:`find_long_runs` at ``CHAIN_LONG_RUN - 1``).
+    The launch's other CTAs take every other run, so the two cover each run
+    once. Callers that keep their runs keep these with them
+    (``sparse.stream._chain_stream``)."""
+    return find_long_runs(seg_ptr, CHAIN_LONG_RUN - 1)
+
 
 def chain_coords(indices: torch.Tensor, mode: int) -> torch.Tensor:
     """The chain route's coordinates of a stream ``indices (n, nmodes)``: its
@@ -274,20 +295,24 @@ def ordered_chain_fold_torch(out, coords, values, factors, mode, seg_ptr, seg_ro
     return out.index_add_(0, ids, values[lo:hi, None] * had)
 
 
-def adc_operands(adc_bits: int) -> tuple[float, float]:
+def adc_operands(adc_bits: int) -> tuple[float, float, float]:
     """What a quantized chain route's ADC takes from the host: the LSB of
     the products' full scale ``QMAX²`` at ``2**adc_bits`` levels, formed in
-    double and rounded once to f32 on the way (``adc_transfer``'s note), and
-    the largest code, ``levels / 2 - 1``. Raises outside the kernels'
-    1..24 bits."""
+    double and rounded once to f32 on the way (``adc_transfer``'s note); the
+    largest code, ``levels / 2 - 1``; and the LSB's reciprocal, the IEEE f32
+    quotient ``1 / lsb``, through which the kernels divide by the LSB
+    (``hopper::psram_div``: reciprocal and two fma corrections, the IEEE
+    quotient). Raises outside the kernels' 1..24 bits."""
     if not 1 <= adc_bits <= 24:
         raise ValueError(f"adc_bits must be in 1..24 for the kernel, got {adc_bits}")
     levels = 2 ** adc_bits
-    return 2.0 * (float(QMAX) * float(QMAX)) / levels, float(levels // 2 - 1)
+    lsb = 2.0 * (float(QMAX) * float(QMAX)) / levels
+    return lsb, float(levels // 2 - 1), float(np.float32(1.0) / np.float32(lsb))
 
 
 def ordered_chain_fold(out, coords, values, factors, mode, seg_ptr, seg_rows=None, *,
-                       longest_run: int = 0, psram: bool = False, adc_bits: int = 16):
+                       longest_run: int = 0, long_runs=None, psram: bool = False,
+                       adc_bits: int = 16):
     """For each run ``s`` and each nonzero ``p`` of stream positions
     ``[seg_ptr[s], seg_ptr[s+1])`` in order, ``out[row] += values[p] *
     ⊙_{d != mode} factors[d][i_pd]`` (the Hadamard in mode order, then the
@@ -309,7 +334,14 @@ def ordered_chain_fold(out, coords, values, factors, mode, seg_ptr, seg_rows=Non
     launch give a long run's CTA more producer warps. ``psram=True`` adds the
     quantized chain ``cp_chain_psram`` forms at ``adc_bits`` (1..24) in place
     of the exact one, the same bits as :func:`ordered_chain_fold_torch` with
-    ``psram=True`` on the CPU; counted under ``routes["chain_psram"]``."""
+    ``psram=True`` on the CPU; counted under ``routes["chain_psram"]``. At a
+    rank of :data:`TEMPLATE_RANKS` its runs of ``CHAIN_LONG_RUN`` nonzeros or
+    more take a thread-block cluster each, in the same launch as the other
+    runs: ``long_runs`` lists them (:func:`chain_long_runs` of ``seg_ptr``,
+    int64 on ``out``'s device), as callers that keep their runs keep it;
+    where it is None it is found here, which waits for the device. A launch
+    the card refuses raises. ``ordered_fold.last_psram`` says how the last
+    quantized launch was laid out."""
     factors = tuple(factors)
     _check_chain(out, coords, values, factors, mode, seg_ptr, seg_rows)
     if len(factors) > CHAIN_MAX_MODES:
@@ -326,7 +358,17 @@ def ordered_chain_fold(out, coords, values, factors, mode, seg_ptr, seg_rows=Non
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("out, the stream, the factors and the runs must be contiguous")
     adc = adc_operands(adc_bits) if psram else None
-    return _launch_chain(out, coords, values, factors, mode, seg_ptr, seg_rows, longest_run, adc)
+    if psram and out.shape[1] in TEMPLATE_RANKS:
+        if long_runs is None:
+            long_runs = torch.as_tensor(chain_long_runs(seg_ptr.cpu()), device=out.device)
+        if (long_runs.dtype != torch.int64 or long_runs.ndim != 1
+                or long_runs.device != out.device or not long_runs.is_contiguous()):
+            raise ValueError("long_runs must be a contiguous (n_long,) int64 tensor on "
+                             f"{out.device}")
+    else:
+        long_runs = None
+    return _launch_chain(out, coords, values, factors, mode, seg_ptr, seg_rows, longest_run, adc,
+                         long_runs)
 
 
 def _chain_entry():
@@ -335,11 +377,17 @@ def _chain_entry():
     if not fn.argtypes:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-            + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_int, ctypes.c_float, ctypes.c_float] \
-            + [ctypes.c_void_p]
+            + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_int] + [ctypes.c_float] * 3 \
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         lib.ordered_chain_smem_bytes.restype = ctypes.c_longlong
         lib.ordered_chain_smem_bytes.argtypes = [ctypes.c_int] * 2 + [ctypes.c_longlong]
         lib.ordered_chain_max_modes.restype = ctypes.c_int
+        lib.ordered_psram_smem_bytes.restype = ctypes.c_longlong
+        lib.ordered_psram_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.ordered_psram_producers.restype = ctypes.c_int
+        lib.ordered_psram_producers.argtypes = [ctypes.c_int] * 3
+        lib.ordered_psram_long_run.restype = ctypes.c_longlong
+        lib.ordered_psram_cluster.restype = ctypes.c_int
     return lib, fn
 
 
@@ -352,15 +400,32 @@ def _chain_smem(nmodes: int, rank: int, longest_run: int = 0) -> int:
     return int(lib.ordered_chain_smem_bytes(nmodes, rank, longest_run))
 
 
+def _psram_layout(nmodes: int, rank: int, cluster: bool) -> tuple[int, int]:
+    """``(producer warps a CTA, dynamic shared memory)`` of the quantized
+    chain route at a template rank as the library lays it out
+    (``ordered_psram_producers``, ``ordered_psram_smem_bytes``), where the
+    launch gives its long runs clusters or not; -1 bytes where it cannot
+    launch."""
+    lib, _ = _chain_entry()
+    return (int(lib.ordered_psram_producers(nmodes, rank, int(cluster))),
+            int(lib.ordered_psram_smem_bytes(nmodes, rank, int(cluster))))
+
+
 def _launch_chain(out, coords, values, factors, mode, seg_ptr, seg_rows, longest_run: int,
-                  adc=None):
+                  adc=None, long_runs=None):
     """One chain-route launch over checked operands (:func:`ordered_chain_fold`);
     ``adc`` the quantized chain's :func:`adc_operands`, None for the exact
-    chain."""
+    chain; ``long_runs`` the runs the quantized route at a template rank gives
+    a cluster (None elsewhere)."""
     nmodes, rank = len(factors), out.shape[1]
     if seg_ptr.shape[0] < 2:                 # no run: nothing to launch
         return out
-    if _chain_smem(nmodes, rank, longest_run) < 0:
+    n_long = 0 if long_runs is None else long_runs.numel()
+    if long_runs is not None:
+        producers, smem = _psram_layout(nmodes, rank, n_long > 0)
+    else:
+        producers, smem = 0, _chain_smem(nmodes, rank, longest_run)
+    if smem < 0:
         raise ValueError(f"the chain route's stages do not fit shared memory at rank {rank} "
                          f"with {nmodes} modes")
     others = [f for d, f in enumerate(factors) if d != mode]
@@ -372,11 +437,61 @@ def _launch_chain(out, coords, values, factors, mode, seg_ptr, seg_rows, longest
                  ctypes.cast(ptrs, ctypes.c_void_p), seg_ptr.data_ptr(),
                  0 if seg_rows is None else seg_rows.data_ptr(), seg_ptr.shape[0] - 1,
                  nmodes, rank, int(longest_run), vec, int(adc is not None),
-                 *(adc or (0.0, 0.0)), torch.cuda.current_stream().cuda_stream)
+                 *(adc or (0.0, 0.0, 0.0)), 0 if long_runs is None else long_runs.data_ptr(),
+                 n_long, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, lib, "ordered_fold")
     ordered_fold.launches += 1
     ordered_fold.routes["chain" if adc is None else "chain_psram"] += 1
+    if long_runs is not None:
+        ordered_fold.last_psram = {
+            "clusters": n_long, "cluster_ctas": int(lib.ordered_psram_cluster()) if n_long else 1,
+            "short_ctas": seg_ptr.shape[0] - 1 - n_long, "producers": producers,
+            "smem_bytes": smem}
     return out
+
+
+def _probe_entry():
+    lib = _build.load("ordered_fold")
+    fn = lib.psram_division_probe_launch
+    if not fn.argtypes:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
+        rows = lib.psram_division_rows_launch
+        rows.restype = ctypes.c_int
+        rows.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] \
+            + [ctypes.c_void_p] * 3
+    return lib, fn
+
+
+def _division_probe(kind: str, adc_bits: int = 16) -> tuple[int, int]:
+    """The quantized chains' quotients (``hopper::psram_div``) against
+    ``__fdiv_rn`` on the card, exhaustively: ``kind="adc"`` every integer
+    product in ``[-127², 127²]`` and -0.0 at ``adc_bits`` (the quotient's bits
+    and the ADC's value), ``"value"`` every finite f32 value's code at its
+    own scale. Returns ``(values that differ, the least such index)``."""
+    lib, fn = _probe_entry()
+    bad = torch.tensor([0, 2 ** 63 - 1], dtype=torch.int64, device="cuda")
+    with torch.cuda.device(bad.device):
+        err = fn({"adc": 0, "value": 1}[kind], *adc_operands(adc_bits), bad.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, lib, "ordered_fold")
+    count, first = bad.tolist()
+    return count, first
+
+
+def _division_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows ``x (n, R)`` f32 on the card quantized as the chains quantize a
+    row (its scale's reciprocal and ``psram_div``) and through ``__fdiv_rn``:
+    ``(codes, codes_div)``, both ``(n, R)`` f32."""
+    lib, _ = _probe_entry()
+    x = x.contiguous()
+    codes, codes_div = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.psram_division_rows_launch(x.data_ptr(), x.shape[0], x.shape[1],
+                                             codes.data_ptr(), codes_div.data_ptr(),
+                                             torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, lib, "ordered_fold")
+    return codes, codes_div
 
 
 #: kernel launches made by :func:`ordered_fold` and :func:`ordered_chain_fold`
@@ -385,3 +500,8 @@ ordered_fold.launches = 0
 #: the same launches by route: ``"fold"`` (given contributions), ``"chain"``
 #: (the exact chain formed in the kernel) and ``"chain_psram"`` (the quantized one)
 ordered_fold.routes = {"fold": 0, "chain": 0, "chain_psram": 0}
+#: the layout of the last quantized chain-route launch at a template rank:
+#: ``clusters`` (its long runs' clusters), ``cluster_ctas`` (CTAs a cluster,
+#: 1 for a plain launch), ``short_ctas``, ``producers`` (warps a CTA) and
+#: ``smem_bytes``; None before one
+ordered_fold.last_psram = None

@@ -28,9 +28,10 @@ lane = rank column, the rows added in order. Two routes, counted in
   rows it gathers from L2 — see the source note. The ``compiled=False``
   sparse path runs it. With ``psram=True`` the chain rows are the quantized
   chain of ``core.mttkrp.cp_chain_psram`` (8-bit operands and the ADC on
-  every product), formed a whole row at a time because each scale reduces
-  over the row; counted apart as ``"chain_psram"``. The ``psram-stream``
-  backend's compiled path runs it.
+  every product), formed from whole rows because each scale reduces over
+  the row (at ``R = 4 .. 128``, ``R / 4`` a power of 2, a row is ``R / 4``
+  lanes and each lane forms two rows at once in registers); counted apart
+  as ``"chain_psram"``. The ``psram-stream`` backend's compiled path runs it.
 
 Both add every ``(b, s, r)`` from 0.0 in row order, one rounded add a row,
 so the chain route gives the bits of the rows route over the padded chain.
@@ -188,7 +189,7 @@ def _chain_entry():
     if not fn.argtypes:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 7 \
-            + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+            + [ctypes.c_float] * 3 + [ctypes.c_void_p]
         lib.segment_chain_smem_bytes.restype = ctypes.c_longlong
         lib.segment_chain_smem_bytes.argtypes = [ctypes.c_int] * 3
     return lib, fn
@@ -234,7 +235,7 @@ def blocked_chain_segment_sum(coords, values, seg_ids, factors, mode: int,
         raise TypeError(f"coords must be int32, got {coords.dtype}")
     if not all(t.is_contiguous() for t in (coords, values, seg_ids, *factors)):
         raise ValueError("the stream, its segment ids and the factors must be contiguous")
-    adc = adc_operands(adc_bits) if psram else (0.0, 0.0)
+    adc = adc_operands(adc_bits) if psram else (0.0, 0.0, 0.0)
     lib, fn = _chain_entry()
     if lib.segment_chain_smem_bytes(len(factors), rank, int(psram)) < 0:
         raise ValueError(f"the chain route's slots do not fit shared memory at rank {rank} "

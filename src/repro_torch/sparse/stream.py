@@ -46,8 +46,8 @@ from repro_torch._device import ieee_f32
 from repro_torch.backends.base import resolve_config
 from repro_torch.core.mttkrp import cp_chain_exact, cp_chain_psram
 from repro_torch.core.psram import PsramConfig
-from repro_torch.kernels.ordered_fold import (_fold_runs, chain_coords, find_long_runs,
-                                              ordered_chain_fold, ordered_fold,
+from repro_torch.kernels.ordered_fold import (_fold_runs, chain_coords, chain_long_runs,
+                                              find_long_runs, ordered_chain_fold, ordered_fold,
                                               ordered_fold_torch)
 
 from .formats import COO, CSF, csf_for_mode
@@ -199,11 +199,11 @@ def stream_mttkrp(
     out = torch.zeros((csf.shape[mode], factors[0].shape[-1]), dtype=torch.float32,
                       device=values.device)
     if values.is_cuda:            # one launch: a CTA per root fiber, d formed in the kernel
-        coords, seg_ptr, seg_rows, longest, ranges = _chain_stream(csf)
+        coords, seg_ptr, seg_rows, longest, ranges, long_runs = _chain_stream(csf)
         _check_ranges(ranges, factors)
         return ordered_chain_fold(out, coords, values, tuple(f.contiguous() for f in factors),
-                                  mode, seg_ptr, seg_rows, longest_run=longest, psram=psram,
-                                  adc_bits=adc_bits)
+                                  mode, seg_ptr, seg_rows, longest_run=longest,
+                                  long_runs=long_runs, psram=psram, adc_bits=adc_bits)
     rows = cfg.rows
     n_blocks = max(1, -(-max(1, csf.nnz) // rows))
     step = rows * _exec_blocks(rows, n_blocks, exec_blocks)
@@ -218,13 +218,15 @@ def stream_mttkrp(
 def _chain_stream(csf: CSF):
     """What the chain route reads of the sorted stream, cached on the CSF
     (CP-ALS reuses it every sweep): ``(coords, seg_ptr, seg_rows, longest,
-    ranges)`` — the non-target coordinates in the route's layout
+    ranges, long_runs)`` — the non-target coordinates in the route's layout
     (``kernels.ordered_fold.chain_coords``), the root fibers as its runs
     (``seg_ptr (n_fibers + 1,)`` int64 stream offsets, ``seg_rows
     (n_fibers,)`` int64 rows), all on the CSF's device; the most nonzeros a
-    fiber has; and each non-target mode's coordinate range ``{mode: (low,
+    fiber has; each non-target mode's coordinate range ``{mode: (low,
     high)}`` from the tree's fiber ids, for the caller to hold against its
-    factors."""
+    factors; and the fibers the quantized route gives a cluster
+    (``kernels.ordered_fold.chain_long_runs`` of the host offsets, int64 on
+    the CSF's device), so its launch never waits to find them."""
     cached = csf.__dict__.get("_chain_stream")
     if cached is not None:
         return cached
@@ -233,10 +235,12 @@ def _chain_stream(csf: CSF):
     dev = csf.device
     ranges = {m: (int(f.min()), int(f.max()))
               for m, f in zip(csf.mode_order[1:], csf.fids[1:]) if len(f)}
+    seg_ptr = np.r_[0, np.cumsum(lengths)].astype(np.int64)
     result = (chain_coords(csf.expanded_indices(), mode),
-              torch.as_tensor(np.r_[0, np.cumsum(lengths)].astype(np.int64), device=dev),
+              torch.as_tensor(seg_ptr, device=dev),
               torch.as_tensor(np.asarray(csf.fids[0], dtype=np.int64), device=dev),
-              int(lengths.max(initial=0)), ranges)
+              int(lengths.max(initial=0)), ranges,
+              torch.as_tensor(chain_long_runs(seg_ptr), device=dev))
     csf.__dict__["_chain_stream"] = result
     return result
 
@@ -327,7 +331,7 @@ def stream_mttkrp_blocked(
     mode = csf.mode_order[0]
     factors = tuple(f.contiguous() for f in factors)
     local, n_seg, order, fold_rows, fold_runs, long_runs = _segment_blocks(csf, cfg.rows)
-    coords, *_, ranges = _chain_stream(csf)
+    coords, *_, ranges, _ = _chain_stream(csf)
     _check_ranges(ranges, factors)
     partials = blocked_chain_segment_sum_op(coords, csf.values, local, factors, mode, n_seg,
                                             lowering=lowering, psram=psram, adc_bits=adc_bits)

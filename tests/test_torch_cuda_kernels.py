@@ -913,7 +913,7 @@ def test_ordered_chain_fold_bit_equal_to_cpu(card, shape, nnz, rank, mode, offse
     fs = tuple(torch.randn((s * rank + offset,), generator=gen, device=card)[offset:]
                .view(s, rank) for s in shape)
     start = torch.randn((shape[mode], rank), generator=gen, device=card)
-    coords, seg_ptr, seg_rows, longest, _ = _chain_stream(csf)
+    coords, seg_ptr, seg_rows, longest, *_ = _chain_stream(csf)
     vals = csf.values
     before = dict(of.ordered_fold.routes)
     got = of.ordered_chain_fold(start.clone(), coords, vals, fs, mode, seg_ptr, seg_rows,
@@ -941,7 +941,13 @@ PSRAM_CHAIN_CASES = [  # (shape, nnz, rank, mode, adc_bits, zero row)
     ((50, 12, 9, 7), 20000, 32, 3, 16, False),     # 4 modes: CP1 through the ADC twice
     ((50, 12, 9, 7), 20000, 48, 0, 4, False),
     ((300, 200, 100), 60000, 32, 0, 16, True),     # all-zero factor rows and values
-    ((40, 3000, 200), 400000, 32, 0, 16, False),   # runs past 32768 nonzeros: 6 producers
+    ((40, 3000, 200), 400000, 32, 0, 16, False),   # runs past 32768 nonzeros: clusters
+    ((50, 12, 9, 7), 20000, 5, 1, 8, False),       # 4 modes at the other ranks and ADCs
+    ((50, 12, 9, 7), 20000, 16, 2, 4, False),
+    ((50, 12, 9, 7), 20000, 64, 0, 8, False),
+    ((50, 12, 9, 7), 20000, 128, 3, 16, False),
+    ((300, 200, 100), 30000, 128, 2, 8, False),
+    ((300, 200, 100), 60000, 16, 0, 4, False),
 ]
 
 
@@ -968,7 +974,7 @@ def test_quantized_chain_routes_bit_equal_to_cpu(card, shape, nnz, rank, mode, b
     fs = tuple(fs)
     cpu = lambda t: t.cpu()
     fs_cpu = tuple(map(cpu, fs))
-    coords, seg_ptr, seg_rows, longest, _ = _chain_stream(csf)
+    coords, seg_ptr, seg_rows, longest, *_ = _chain_stream(csf)
     start = torch.randn((shape[mode], rank), generator=gen, device=card)
     before = dict(of.ordered_fold.routes)
     got = of.ordered_chain_fold(start.clone(), coords, vals, fs, mode, seg_ptr, seg_rows,
@@ -1021,6 +1027,163 @@ def test_quantized_chain_routes_refusals(card):
         of.ordered_chain_fold(torch.zeros((1, 32), device=card), coords, vals, fs, mode,
                               seg_ptr, psram=True, adc_bits=0)
     assert (dict(ss.blocked_segment_sum.routes), dict(of.ordered_fold.routes)) == before
+
+
+# ------------------------------------------ the quantized chains' quotients
+
+
+@pytest.mark.parametrize("bits", range(1, 25))
+def test_psram_division_adc_equals_fdiv(card, bits):
+    """The ADC's quotient acc / lsb through the LSB's reciprocal and two fma
+    corrections (``hopper::psram_div``) is ``__fdiv_rn``'s, bit for bit, and
+    so is the digitized value, for every integer product in [-127², 127²]
+    and -0.0 (which digitizes to +0.0, as the int32 product does)."""
+    assert of._division_probe("adc", bits) == (0, 2 ** 63 - 1)
+
+
+def test_psram_division_value_code_equals_fdiv(card):
+    """A nonzero's value code through its scale's reciprocal equals the code
+    through ``__fdiv_rn`` for every finite f32 value."""
+    assert of._division_probe("value") == (0, 2 ** 63 - 1)
+
+
+def test_psram_division_row_codes_equal_fdiv(card):
+    """A row's codes through its scale's reciprocal equal those through
+    ``__fdiv_rn`` and ``quantize_symmetric``'s on the CPU: random rows of
+    several magnitudes, ties at code + 1/2 (scales that are powers of 2),
+    the row's max itself, all-zero rows, rows under 1e-12 and subnormals."""
+    rng = np.random.default_rng(24)
+    rows = [rng.standard_normal((2000, 32)) * 10.0 ** rng.integers(-30, 30, (2000, 1))]
+    for e in (-3, 0, 5):                               # scale 2^e: x / s is exactly k + 1/2
+        tie = (rng.integers(-127, 127, (200, 32)) + 0.5) * 2.0 ** e
+        tie[:, 0] = 127 * 2.0 ** e                     # the row's max
+        rows.append(tie)
+    rows += [np.zeros((4, 32)), rng.standard_normal((50, 32)) * 1e-13,
+             rng.standard_normal((50, 32)) * 1e-40]
+    x = torch.tensor(np.concatenate(rows).astype(np.float32))
+    codes, codes_div = of._division_rows(x.to(card))
+    want = quantize_symmetric(x, axis=-1)[0].float()
+    assert torch.equal(codes_div.cpu(), want)
+    assert torch.equal(codes.cpu(), want)
+
+
+def _long_run_stream(card, nmodes, rank, heads, shorts, seed):
+    """A stream of mode 0 whose first runs have ``heads`` nonzeros each and
+    the others ``shorts`` in all (spread over 40 rows), with random
+    coordinates, values and factors, on the card: ``(coords, vals, fs,
+    seg_ptr, start)``."""
+    rng = np.random.default_rng(seed)
+    shape = (40 + len(heads),) + (300, 200, 90)[:nmodes - 1]
+    rows = np.sort(np.r_[np.repeat(np.arange(len(heads)), heads),
+                         rng.integers(len(heads), shape[0], size=shorts)], kind="stable")
+    idx = np.stack([rows] + [rng.integers(0, s, size=rows.size) for s in shape[1:]], 1)
+    gpu = lambda a: torch.tensor(a, device=card)
+    coords = of.chain_coords(gpu(idx), 0)
+    vals = gpu(rng.standard_normal(rows.size).astype(np.float32))
+    fs = tuple(gpu(rng.standard_normal((s, rank)).astype(np.float32)) for s in shape)
+    seg_ptr = gpu(np.searchsorted(rows, np.arange(shape[0] + 1)).astype(np.int64))
+    start = gpu(rng.standard_normal((shape[0], rank)).astype(np.float32))
+    return coords, vals, fs, seg_ptr, start
+
+
+@pytest.mark.parametrize("nmodes,rank,heads", [
+    (3, 32, (100000, 40000, 32768)),    # the main path's rank; a run of exactly LONG_RUN
+    (3, 16, (70000,)),
+    (3, 64, (50000, 33000)),
+    (3, 128, (40000,)),
+    (4, 32, (60000, 35000)),            # 4 modes
+    (2, 32, (45000,)),                  # one non-target factor
+])
+def test_quantized_chain_long_runs_take_clusters(card, nmodes, rank, heads):
+    """The quantized chain route at a template rank gives every run of
+    ``CHAIN_LONG_RUN`` nonzeros or more a cluster of 8 CTAs in the same
+    launch as the short runs' CTAs: BIT-EQUAL to the plain version on the
+    CPU, the same bits again, and the same bits as the plain launch in which
+    every run is one CTA's (``long_runs`` empty). A run one short of the
+    threshold stays a CTA's."""
+    coords, vals, fs, seg_ptr, start = _long_run_stream(card, nmodes, rank,
+                                                        heads + (32767,), 20000, rank + nmodes)
+    long_runs = torch.as_tensor(of.chain_long_runs(seg_ptr.cpu()), device=card)
+    assert long_runs.tolist() == list(np.argsort([-h for h in heads], kind="stable"))
+    got = of.ordered_chain_fold(start.clone(), coords, vals, fs, 0, seg_ptr,
+                                longest_run=max(heads), long_runs=long_runs, psram=True)
+    torch.cuda.synchronize()
+    layout = of.ordered_fold.last_psram
+    assert (layout["clusters"], layout["cluster_ctas"]) == (len(heads), 8)
+    cpu = lambda t: t.cpu()
+    want = of.ordered_chain_fold_torch(cpu(start), cpu(coords), cpu(vals), tuple(map(cpu, fs)),
+                                       0, cpu(seg_ptr), psram=True)
+    assert torch.equal(got.cpu(), want)
+    again = of.ordered_chain_fold(start.clone(), coords, vals, fs, 0, seg_ptr,
+                                  longest_run=max(heads), long_runs=long_runs, psram=True)
+    assert torch.equal(again, got)
+    plain = of.ordered_chain_fold(start.clone(), coords, vals, fs, 0, seg_ptr,
+                                  long_runs=long_runs[:0], psram=True)
+    assert of.ordered_fold.last_psram["clusters"] == 0
+    assert torch.equal(plain, got)
+
+
+def test_mttkrp_sparse_psram_long_rows_take_clusters(card):
+    """``mttkrp_sparse_psram`` on the card (the ``psram-oracle`` backend's
+    path, the COO sorted on the card): its sorted stream keeps the rows of
+    ``CHAIN_LONG_RUN`` nonzeros or more, the launch gives each a cluster,
+    and the result is the CPU's bits."""
+    from repro_torch.core import mttkrp as tm
+
+    rng = np.random.default_rng(31)
+    shape = (30, 300, 200)
+    rows = np.r_[np.zeros(50000, np.int64), np.full(33000, 7), rng.integers(0, 30, 20000)]
+    rng.shuffle(rows)
+    idx = np.stack([rows] + [rng.integers(0, s, rows.size) for s in shape[1:]], 1)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    fs = [rng.standard_normal((s, 32)).astype(np.float32) for s in shape]
+    on = lambda dev: (torch.tensor(idx.astype(np.int32), device=dev),
+                      torch.tensor(vals, device=dev),
+                      tuple(torch.tensor(f, device=dev) for f in fs))
+    got = tm.mttkrp_sparse_psram(*on(card), 0, shape[0])
+    torch.cuda.synchronize()
+    assert of.ordered_fold.last_psram["clusters"] == 2
+    assert torch.equal(got.cpu(), tm.mttkrp_sparse_psram(*on("cpu"), 0, shape[0]))
+
+
+def test_quantized_chain_route_constants_are_the_librarys(card):
+    """The long-run threshold and the cluster are the library's, and so is
+    the quantized route's layout (:func:`psram_layout`)."""
+    lib, _ = of._chain_entry()
+    assert lib.ordered_psram_long_run() == of.CHAIN_LONG_RUN
+    assert lib.ordered_psram_cluster() == 8
+    for nmodes in range(2, 9):
+        for rank in of.TEMPLATE_RANKS:
+            for cluster in (False, True):
+                assert of._psram_layout(nmodes, rank, cluster) \
+                    == psram_layout(nmodes, rank, cluster), (nmodes, rank, cluster)
+    assert of._psram_layout(3, 32, False) == (4, 69632)
+    assert of._psram_layout(3, 32, True) == (4, 230272)
+    assert of._psram_layout(3, 40, False) == (-1, -1)
+
+
+def psram_layout(nmodes, rank, cluster):
+    """The quantized route's layout at a template rank as
+    ``csrc/ordered_fold.cu`` documents it (``psram_layout``): ``(producer
+    warps, dynamic shared memory)``. A batch is 2 KB of chain rows (512 / R
+    nonzeros), 4 KB in a launch with clusters at R >= 32; a producer has 4
+    row slots of K such rows and 5 metadata slots; a cluster's rank 0 holds
+    a ring of 2 batches a producer of the 7 other ranks and a full and a
+    consumed barrier a ring slot; the barriers first."""
+    a16 = lambda b: (b + 15) // 16 * 16
+    batch = 4096 if cluster and rank >= 32 else 2048
+    k, nb = nmodes - 1, batch // (4 * rank)
+
+    def smem(p):
+        own, ring = 2 * p * 4, 2 * 7 * p * 2
+        bars = a16(8 * (ring if cluster and ring > own else own))
+        rings = p * (4 * a16(4 * k * nb * rank) + 5 * a16(4 * nb * (k + 1)))
+        return bars + max(rings, 7 * p * 2 * batch if cluster else 0)
+
+    p = 4
+    while p > 1 and smem(p) > 232448:
+        p -= 1
+    return p, smem(p) if smem(p) <= 232448 else -1
 
 
 def chain_layout(nmodes, rank, longest_run):

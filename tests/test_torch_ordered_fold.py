@@ -73,7 +73,7 @@ def test_chain_plain_version_equals_reference_stream_mttkrp(seed_key, shape, nnz
     jc, tc = jf.csf_for_mode(ref, mode), tf.csf_for_mode(port, mode)
     jfs, tfs = _factors(shape, 6, seed=mode)
     want = np.asarray(jstream.stream_mttkrp(jc, jfs))
-    coords, seg_ptr, seg_rows, _, _ = tstream._chain_stream(tc)
+    coords, seg_ptr, seg_rows, *_ = tstream._chain_stream(tc)
     out = torch.zeros((shape[mode], 6))
     got = of.ordered_chain_fold_torch(out, coords, tc.values, tfs, mode, seg_ptr, seg_rows)
     assert got is out
@@ -142,7 +142,7 @@ def test_stream_mttkrp_on_the_cpu_same_bits_for_every_exec_blocks(exec_blocks):
     csf = tf.csf_for_mode(port, 0)
     assert csf.fiber_lengths().max() > 16 * 8, "no fiber spans many steps"
     _, tfs = _factors(csf.shape, 5, seed=9)
-    coords, seg_ptr, seg_rows, _, _ = tstream._chain_stream(csf)
+    coords, seg_ptr, seg_rows, *_ = tstream._chain_stream(csf)
     want = of.ordered_chain_fold_torch(torch.zeros((40, 5)), coords, csf.values, tfs, 0,
                                        seg_ptr, seg_rows)
     got = tstream.stream_mttkrp(csf, tfs, PsramConfig(rows=8), exec_blocks=exec_blocks)

@@ -106,7 +106,7 @@ def test_adc_clamp_fires_on_every_nonzero(bits, monkeypatch):
     fires on every nonzero row. A chain without it differs on each row whose
     value is not zero."""
     adc = ADCConfig(bits=bits)
-    lsb, code_max = of.adc_operands(bits)
+    lsb, code_max, _ = of.adc_operands(bits)
     rail = adc_requantize(torch.tensor([16129, -16129], dtype=torch.int32), adc, 16129.0)
     assert torch.equal(rail, torch.tensor([code_max, -code_max]) * torch.tensor(lsb))
     assert code_max == adc.levels // 2 - 1 and 16129 / lsb == adc.levels // 2
@@ -221,7 +221,7 @@ def test_chain_routes_plain_versions_equal_the_chain_and_the_folds(rank, stream,
     _, tfs = _factors(shape, rank, rank)
     mode = 0
     csf = tf.csf_for_mode(port, mode)
-    coords, seg_ptr, seg_rows, _, _ = tstream._chain_stream(csf)
+    coords, seg_ptr, seg_rows, *_ = tstream._chain_stream(csf)
     start = torch.tensor(np.random.default_rng(rank).standard_normal(
         (shape[mode], rank)).astype(np.float32))
     got = of.ordered_chain_fold_torch(start.clone(), coords, csf.values, tfs, mode, seg_ptr,
@@ -251,7 +251,7 @@ def test_quantized_chain_wrappers_refuse_cpu_tensors_and_bad_bits():
     _, port = _pair(11, (40, 30, 20), 300, 1.1)
     _, tfs = _factors((40, 30, 20), 8, 0)
     csf = tf.csf_for_mode(port, 1)
-    coords, seg_ptr, seg_rows, _, _ = tstream._chain_stream(csf)
+    coords, seg_ptr, seg_rows, *_ = tstream._chain_stream(csf)
     local, n_seg = tstream._segment_blocks(csf, 64)[:2]
     routes = (dict(of.ordered_fold.routes), dict(ss.blocked_segment_sum.routes))
     out = torch.zeros((30, 8))
@@ -261,7 +261,7 @@ def test_quantized_chain_wrappers_refuse_cpu_tensors_and_bad_bits():
         ss.blocked_chain_segment_sum(coords, csf.values, local, tfs, 1, n_seg, psram=True)
     with pytest.raises(ValueError, match="1..24"):
         of.adc_operands(25)
-    assert of.adc_operands(16) == (2.0 * 16129 / 65536, 32767.0)
+    assert of.adc_operands(16) == (2.0 * 16129 / 65536, 32767.0, float(np.float32(65536 / 32258)))
     assert (dict(of.ordered_fold.routes), dict(ss.blocked_segment_sum.routes)) == routes
     assert set(of.ordered_fold.routes) == {"fold", "chain", "chain_psram"}
     assert set(ss.blocked_segment_sum.routes) == {"rows", "chain", "chain_psram"}

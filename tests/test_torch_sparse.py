@@ -266,7 +266,7 @@ def test_chain_stream_runs_are_the_root_fibers(mode):
     csf = tf.csf_for_mode(port, mode)
     rid = csf.row_of_nonzero()
     idx = csf.expanded_indices()
-    coords, seg_ptr, seg_rows, longest, ranges = tstream._chain_stream(csf)
+    coords, seg_ptr, seg_rows, longest, ranges, _ = tstream._chain_stream(csf)
     assert seg_ptr.dtype == torch.int64 and seg_rows.dtype == torch.int64
     seg_ptr, seg_rows = seg_ptr.numpy(), seg_rows.numpy()
     starts = np.flatnonzero(np.r_[True, rid[1:] != rid[:-1]])
