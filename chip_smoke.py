@@ -92,6 +92,26 @@ What it does, in order — any failure raises and the run exits non-zero:
       mode's ``api.mttkrp`` (default backend: ``psram-stream``) and the
       compiled backend within ``rel_tol`` of exact, each call's own peak
       device memory below the (nnz, R) chain it never forms.
+   c''. ``main_path_schedule``: the array's tile schedule, plain PyTorch on
+      the card (no hand-written kernel; every launch count 0). ``api.matmul``
+      on its default backend, ``psram-scheduled``, at the MLP projection and
+      the ragged head, eager and ``compiled=True`` (a CUDA graph captured
+      on the first call and replayed): the two bit-equal and repeatable,
+      each within ``rel_tol`` of exact, timed beside its bound (the padded
+      f32 contraction at the f32 peak against the bytes) and
+      ``torch._int_mm`` + ADC, each with its own peak memory; the executor
+      on the card bit-equal to the CPU at a mid shape, a ragged one and a
+      float64 one, and ``psram-oracle``'s per-cycle matmul on the card
+      bit-equal to it; the dense ``psram-scheduled`` MTTKRP on every mode
+      of the dense tensor against exact, timed, its own peak memory; the
+      price: ``api.estimate`` of the §V workload (17.04 PetaOps) equal to
+      ``psram-scheduled``'s counted breakdown, each mode of the sparse
+      tensor priced on ``psram-stream`` from the raw COO, equal to
+      ``stream_counts`` and to ``"analytical"``, the array's predicted time
+      beside this card's measured ``psram-stream`` call and the H100
+      roofline (labelled; no gain claimed); ``stream_mttkrp_priced`` at
+      mode 2 bit-equal to that mode's ``psram-stream`` call (one counted
+      launch of the ordered fold's quantized chain route).
    d. ``main_path_flash``: ``kernels.ops.flash_attention_op`` at its
       docstring's shape, a 32k-token causal prefill at granite-8b's
       attention widths (B=1, H=32, Hkv=8, D=128, bf16), and on layer 0's
@@ -162,14 +182,18 @@ PSRAM_DECODE_LAUNCH_CEILING = 6529
 TOKENS_CHECKED = 16                       # greedy tokens compared across kernel 2's routes
 CROSSOVER_KN = ((4096, 14336), (4096, 1024))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense rates).
-HBM_BYTES_PER_S = 3.35e12
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): the
+# port's roofline constants, one source for both
+from repro_torch.core.perf_model import (  # noqa: E402
+    H100_BF16_FLOPS_PER_S as BF16_FLOPS_PER_S,
+    H100_F32_FLOPS_PER_S as F32_FLOPS_PER_S,
+    H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S,
+    H100_INT8_OPS_PER_S as INT8_OPS_PER_S,
+)
+
 # cycles between two dependent f32 adds on an SM, the chain floor's unit (an
 # assumption: Hopper's FADD latency is not published)
 FADD_CYCLES = 4
-INT8_OPS_PER_S = 1979e12
-BF16_FLOPS_PER_S = 989e12
-F32_FLOPS_PER_S = 67e12
 # one f32 instruction a lane a cycle: the f32 peak counts an FMA as two
 F32_INSTRUCTIONS_PER_S = F32_FLOPS_PER_S / 2
 # instructions of one IEEE f32 division (__fdiv_rn) on its fast path: the
@@ -336,6 +360,10 @@ def call_split(torch, fn, fold_launches: int, n: int = 3, attempts: int = 3) -> 
                          f"in each of {attempts} windows")
 
 
+# host seconds between a profile's warm call and its window
+PROFILE_PAUSE_S = 1e-2
+
+
 def op_split(torch, fn, own: str, n: int = 3, attempts: int = 5) -> dict:
     """One whole call of ``fn`` split by operation: the device time of each
     kernel whose name matches ``own`` (the repository's kernels) under that
@@ -353,11 +381,13 @@ def op_split(torch, fn, own: str, n: int = 3, attempts: int = 5) -> dict:
     ms = time_ms(torch, fn, warmup=1, iters=3, reps=1)
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # a window's first kernel record can be lost (the eager quantization's
-            # first abs launch went missing in every window): a throwaway
-            # kernel takes that place
-            torch.ones(1, device="cuda").add_(1)
+            # a profile's first kernel records can be lost (the eager
+            # quantization's first abs launch in every window; late in the
+            # script, the first three launches of each window, ~4.5 ms): a
+            # whole warm call and a pause, outside the window, take their place
+            fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAUSE_S)
             with record_function("split_calls"):
                 for _ in range(n):
                     fn()
@@ -2051,6 +2081,134 @@ def served_matmul_cases(torch, eng, params, prompts):
 # -------------------------------------------------------------------- main
 
 
+# --------------------------------------------------------- the tile schedule
+
+
+def schedule_bound(m, k, n, cfg) -> dict:
+    """The least time of the function the scheduled matmul computes: its
+    products, each of two int8 codes summed in int32 (``QMAX^2 * rows`` <
+    2^24), unpadded at the int8 peak, against ``x`` and ``w`` read once and
+    ``y`` written once (f32) at the memory rate. Beside it,
+    ``f32_contraction_ms``: the padded tile stacks' f32 contraction at the
+    f32 peak, the floor of the form the executor computes it in."""
+    ops_ms = 1e3 * 2.0 * m * k * n / INT8_OPS_PER_S
+    bytes_ms = 1e3 * 4.0 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
+    mp = -(-m // cfg.wavelengths) * cfg.wavelengths
+    kp = -(-k // cfg.rows) * cfg.rows
+    n_p = -(-n // cfg.word_cols) * cfg.word_cols
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "f32_contraction_ms": 1e3 * 2.0 * mp * kp * n_p / F32_FLOPS_PER_S}
+
+
+def same_price(a, b) -> bool:
+    """Two ``Estimate``s of one sparse workload agree field for field (the
+    fiber lengths as arrays)."""
+    import numpy as np
+
+    return (a.backend, a.config, a.breakdown, a.time_s, a.counts, a.energy) \
+        == (b.backend, b.config, b.breakdown, b.time_s, b.counts, b.energy) \
+        and a.workload.rank == b.workload.rank \
+        and np.array_equal(a.workload.fiber_lengths, b.workload.fiber_lengths)
+
+
+def schedule_matmul_case(torch, m, k, n, cfg, seed, split=False) -> dict:
+    """``api.matmul`` on its default backend (``psram-scheduled``) at one
+    shape, eager and compiled (a CUDA graph captured on the first call and
+    replayed): the two bit-equal and each repeatable, within ``rel_tol`` of
+    ``exact``; each timed by CUDA events with its own peak device memory
+    (the compiled one's first call, warm-up and capture, apart), beside its
+    bound and ``torch._int_mm`` + ADC on the same float operands (timed
+    only: it quantizes per row and column, not per tile). With ``split``,
+    an eager call's device time by operation (``op_split``; kernel 2, the
+    repository's kernel for this product, must not appear)."""
+    from repro_torch import api, backends
+    from repro_torch.core.quantization import QMAX, adc_transfer, quantize_symmetric
+    from repro_torch.core.schedule import captured_graphs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+    compiled = backends.get("psram-scheduled", cfg, compiled=True)
+    eager = api.matmul(x, w, config=cfg)
+    capture_peak = call_bytes_peak(torch, lambda: compiled.matmul(x, w))
+    graph = compiled.matmul(x, w)
+    want = api.matmul(x, w, backend="exact")
+    norm = torch.linalg.norm(want)
+
+    def library():
+        qx, sx = quantize_symmetric(x, axis=-1)
+        qw, sw = quantize_symmetric(w, axis=0)
+        acc = torch._int_mm(qx, qw)
+        return adc_transfer(acc, 2 ** cfg.adc.bits, float(QMAX) * float(QMAX) * k) * (sx * sw)
+
+    case = {
+        "shape": [m, k, n], "finite": bool(torch.isfinite(eager).all()),
+        "on_card": eager.is_cuda and graph.is_cuda,
+        "graph_bit_equal_to_eager": bool(torch.equal(graph, eager)),
+        "eager_repeatable": bool(torch.equal(api.matmul(x, w, config=cfg), eager)),
+        "graph_repeatable": bool(torch.equal(compiled.matmul(x, w), graph)),
+        "rel_err": float(torch.linalg.norm(eager - want) / norm),
+        "rel_err_graph": float(torch.linalg.norm(graph - want) / norm),
+        "rel_tol": compiled.capabilities().rel_tol,
+        "ms": time_ms(torch, lambda: api.matmul(x, w, config=cfg)),
+        "graph_ms": time_ms(torch, lambda: compiled.matmul(x, w)),
+        "library_ms": time_ms(torch, library),
+        "library": "quantize_symmetric + torch._int_mm + ADC",
+        "exact_ms": time_ms(torch, lambda: api.matmul(x, w, backend="exact")),
+        **schedule_bound(m, k, n, cfg),
+        "call_bytes_peak": call_bytes_peak(torch, lambda: api.matmul(x, w, config=cfg)),
+        "graph_call_bytes_peak": call_bytes_peak(torch, lambda: compiled.matmul(x, w)),
+        "graph_capture_bytes_peak": capture_peak,
+        "captured_graphs": [[list(shape), nbytes] for shape, _, nbytes in captured_graphs()],
+    }
+    if split:
+        case["split"] = op_split(torch, lambda: api.matmul(x, w, config=cfg),
+                                 r"psram_matmul\w*_kernel")
+    if not (case["finite"] and case["on_card"] and case["graph_bit_equal_to_eager"]
+            and case["eager_repeatable"] and case["graph_repeatable"]
+            and max(case["rel_err"], case["rel_err_graph"]) < case["rel_tol"]):
+        raise AssertionError(f"the scheduled matmul: {case}")
+    return case
+
+
+def schedule_cpu_cases(torch, cfg) -> list:
+    """The eager executor on the card bit-equal to the same on the CPU (and
+    the CUDA graph's replay too) at a mid shape, a ragged one and an array
+    whose ``QMAX^2 * rows`` passes 2^24 (the float64 contraction); and at a
+    small shape ``psram-oracle``'s per-cycle matmul on the card bit-equal to
+    the eager executor."""
+    from repro_torch import backends
+    from repro_torch.core.psram import PsramConfig
+    from repro_torch.core.schedule import build_matmul_program, execute
+
+    cases = []
+    for (m, k, n), c in (((104, 1024, 2048), cfg), ((77, 1043, 131), cfg),
+                         ((5, 1200, 6), PsramConfig(rows=1100, word_cols=4, wavelengths=3))):
+        gen = torch.Generator().manual_seed(m + k + n)
+        x = torch.randn((m, k), generator=gen)
+        w = torch.randn((k, n), generator=gen)
+        prog = build_matmul_program(m, k, n, c)
+        cpu = execute(prog, x, w)
+        card = execute(prog, x.cuda(), w.cuda())
+        graph = execute(prog, x.cuda(), w.cuda(), compiled=True)
+        cases.append({"shape": [m, k, n], "rows": c.rows,
+                      "bit_equal_to_cpu": bool(torch.equal(card.cpu(), cpu)),
+                      "graph_bit_equal_to_cpu": bool(torch.equal(graph.cpu(), cpu))})
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    x = torch.randn((60, 300), generator=gen, device="cuda")
+    w = torch.randn((300, 45), generator=gen, device="cuda")
+    oracle = backends.get("psram-oracle", cfg).matmul(x, w)
+    cases.append({"shape": [60, 300, 45], "rows": cfg.rows, "oracle_on_card": oracle.is_cuda,
+                  "oracle_bit_equal_to_executor": bool(torch.equal(
+                      oracle, backends.get("psram-scheduled", cfg).matmul(x, w)))})
+    if not all(c.get("bit_equal_to_cpu", True) and c.get("graph_bit_equal_to_cpu", True)
+               and c.get("oracle_bit_equal_to_executor", True) for c in cases):
+        raise AssertionError(f"the scheduled matmul on the card differs from the CPU or the "
+                             f"per-cycle oracle: {cases}")
+    return cases
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--nnz", type=int, default=16_777_216,
@@ -2529,6 +2687,126 @@ def main(argv=None) -> int:
                              f"{psram_path}")
     del pst, psc, fs_ps
 
+    # 4c''. the array's tile schedule: api.matmul's default, the dense
+    # psram-scheduled MTTKRP, and the price --------------------------------
+    from repro_torch.core.perf_model import (MTTKRPWorkload, h100_mttkrp_time_s, peak_petaops,
+                                             stream_counts)
+    from repro_torch.core.schedule import clear_program_cache, count_cycles
+    from repro_torch.sparse.stream import stream_mttkrp_priced
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    xd = torch.randn(DENSE_SHAPE, generator=torch.Generator(device="cuda").manual_seed(5),
+                     device="cuda")
+    zero_counts()
+    # where the phase's seconds go: each step's wall time on the host clock
+    sched_s, t0 = {}, time.perf_counter()
+    sched_main = [schedule_matmul_case(torch, *shape, cfg, seed=70 + i, split=i == 0)
+                  for i, shape in enumerate((MLP_SHAPE, RAGGED_SHAPE))]
+    torch.cuda.synchronize()
+    sched_s["matmul"], t0 = time.perf_counter() - t0, time.perf_counter()
+    sched_rel, sched_ms, sched_peak = [], [], []
+    for mode in range(3):
+        want = api.mttkrp(xd, fd, mode, backend="exact")
+        got = api.mttkrp(xd, fd, mode, backend="psram-scheduled", config=cfg)
+        if tuple(got.shape) != (DENSE_SHAPE[mode], RANK) or not got.is_cuda \
+                or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"psram-scheduled dense MTTKRP of mode {mode}: shape "
+                                 f"{tuple(got.shape)}, device {got.device}, or non-finite")
+        sched_rel.append(float(torch.linalg.norm(got - want) / torch.linalg.norm(want)))
+        del want, got
+        call = lambda m=mode: api.mttkrp(xd, fd, m, backend="psram-scheduled", config=cfg)
+        sched_ms.append(time_ms(torch, call, warmup=1, iters=3, reps=1))
+        sched_peak.append(call_bytes_peak(torch, call))
+    sched_launches = read_counts()
+    del xd
+    sched_s["dense_mttkrp"], t0 = time.perf_counter() - t0, time.perf_counter()
+    sched_cpu = schedule_cpu_cases(torch, cfg)
+    clear_program_cache()                   # releases the captured graphs' pools
+    sched_s["card_vs_cpu"], t0 = time.perf_counter() - t0, time.perf_counter()
+    # the price: the §V headline on the analytical model and counted; each
+    # mode of the sparse tensor priced on psram-stream from its CSF, equal
+    # to the closed form and to the analytical model; mode 0 also from the
+    # raw COO (describe builds that mode's CSF again on the host), equal
+    paper = MTTKRPWorkload()
+    headline = api.estimate(paper, config=cfg)
+    counted = api.estimate(paper, backend="psram-scheduled", config=cfg)
+    raw_coo_est = api.estimate(coo, backend="psram-stream", rank=RANK, mode=0, config=cfg)
+    sched_s["price_raw_coo_mode0"], t0 = time.perf_counter() - t0, time.perf_counter()
+    price_modes = []
+    for m in range(3):
+        est = api.estimate(csfs[m], backend="psram-stream", rank=RANK, mode=m, config=cfg)
+        closed = stream_counts(cfg, csfs[m].fiber_lengths(), RANK)
+        an = api.estimate(csfs[m], backend="analytical", rank=RANK, mode=m, config=cfg)
+        others = [NELL2_SHAPE[d] for d in range(3) if d != m]
+        roofline = h100_mttkrp_time_s(MTTKRPWorkload(i=NELL2_SHAPE[m], j=others[0], k=others[1],
+                                                     rank=RANK, nnz=coo.nnz))
+        price_modes.append({
+            "mode": m, "counts": dataclasses.asdict(est.counts),
+            "counts_equal_closed_form": est.counts == closed,
+            "raw_coo_equal": same_price(est, raw_coo_est) if m == 0 else None,
+            "breakdown_equal_analytical": est.breakdown == an.breakdown,
+            "utilization": est.utilization, "sustained_petaops": est.sustained_petaops,
+            "array_predicted_ms": 1e3 * est.time_s,
+            "h100_psram_stream_measured_ms": time_ms(
+                torch, lambda m=m: api.mttkrp(csfs[m], init, m, config=cfg),
+                warmup=1, iters=3, reps=1),
+            "h100_roofline_ms": 1e3 * roofline,
+        })
+    sched_s["price_per_mode"], t0 = time.perf_counter() - t0, time.perf_counter()
+    # stream_mttkrp_priced runs the psram-stream eager path: one quantized
+    # chain-route launch, counted; then held against that mode's call
+    zero_counts()
+    priced = stream_mttkrp_priced(csfs[2], tuple(init), cfg, psram=True,
+                                  adc_bits=cfg.adc.bits)
+    priced_launches = read_counts()
+    priced_equal = bool(torch.equal(priced.result, api.mttkrp(csfs[2], init, 2, config=cfg)))
+    priced_counts_equal = count_cycles(priced.program) \
+        == stream_counts(cfg, csfs[2].fiber_lengths(), RANK)
+    del priced
+    sched_s["priced"] = time.perf_counter() - t0
+    schedule_path = {
+        "phase": "main_path_schedule", "config": dataclasses.asdict(cfg),
+        "matmul": sched_main, "card_vs_cpu": sched_cpu,
+        "hand_written_launches": "none: the scheduled matmul is plain PyTorch "
+                                 "(torch.bmm + elementwise), every kernel count 0",
+        "launches": sched_launches,
+        "dense_mttkrp": {"shape": list(DENSE_SHAPE), "rank": RANK, "rel_err": sched_rel,
+                         "call_ms": sched_ms, "call_bytes_peak": sched_peak},
+        "device_bytes_peak": torch.cuda.max_memory_allocated(),
+        "headline": {"peak_petaops": peak_petaops(cfg),
+                     "analytical": dataclasses.asdict(headline.breakdown),
+                     "psram_scheduled_counted": dataclasses.asdict(counted.breakdown),
+                     "utilization": headline.utilization, "time_s": headline.time_s},
+        "price_per_mode": price_modes,
+        "price_labels": {"array_predicted_ms": "the pSRAM array's counted stream schedule "
+                                               "(psram-stream cost), one array at 20 GHz",
+                         "h100_psram_stream_measured_ms": "api.mttkrp on psram-stream, "
+                                                          "measured on this card",
+                         "h100_roofline_ms": "h100_mttkrp_time_s, int8 data sheet rates"},
+        "priced": {"mode": 2, "result_bit_equal_to_psram_stream": priced_equal,
+                   "program_counts_equal_closed_form": priced_counts_equal,
+                   "launches": priced_launches},
+        "step_s": sched_s,
+    }
+    report["main_path_schedule"] = schedule_path
+    emit(schedule_path)
+    if any(sched_launches.values()):
+        raise AssertionError(f"the scheduled matmul launched a hand-written kernel: "
+                             f"{schedule_path}")
+    if not max(sched_rel) < backends.get("psram-scheduled").capabilities().rel_tol:
+        raise AssertionError(f"psram-scheduled dense MTTKRP strays from exact: {schedule_path}")
+    if round(peak_petaops(cfg), 6) != 17.03936 or headline.breakdown != counted.breakdown:
+        raise AssertionError(f"the §V headline or its counted twin is off: {schedule_path}")
+    if not all(p["counts_equal_closed_form"] and p["breakdown_equal_analytical"]
+               and p["raw_coo_equal"] is not False for p in price_modes):
+        raise AssertionError(f"psram-stream's counted price differs from the closed form or "
+                             f"the analytical model: {schedule_path}")
+    if not (priced_equal and priced_counts_equal) \
+            or priced_launches["ordered_fold_chain_psram"] != 1:
+        raise AssertionError(f"stream_mttkrp_priced is not the psram-stream call or its "
+                             f"program is not the closed form: {schedule_path}")
+
 
     # 4d. the flash kernel's own entry point --------------------------------
     from repro_torch.kernels.ops import flash_attention_op
@@ -2740,7 +3018,8 @@ def main(argv=None) -> int:
 
     f_served = flash_path["served_layer0"]["vs_plain"]
     main_paths = (launches, dense_launches, leg_launches, pst_launches, psc_launches,
-                  flash_launches, exact_launches, psram_launches)
+                  sched_launches, priced_launches, flash_launches, exact_launches,
+                  psram_launches)
 
     def total(name):
         return sum(counts[name] for counts in main_paths)

@@ -8,10 +8,13 @@ box without one raises rather than carrying on on the CPU.
 
 Ported so far: the sparse CP-ALS main path — ``core.quantization``,
 ``core.mttkrp``, ``core.cp_als``, ``sparse.formats`` / ``synth`` /
-``stream`` — the backend registry with the ``"exact"``, ``"hopper"``
-(dense data and ``compiled=False`` included), ``"psram-stream"`` (the
-quantized chain, eager and compiled) and ``"psram-oracle"`` backends,
-``api`` (execute / mttkrp / matmul), the dense decoder family (``models``, ``configs``,
+``stream`` — the array model and its price (``core.psram``,
+``core.schedule``, ``core.perf_model``, ``core.scaling``,
+``core.primitives``, the planners of ``sparse.partition``), the backend
+registry with the ``"exact"``, ``"psram-oracle"``, ``"psram-scheduled"``,
+``"psram-stream"`` (the quantized chain, eager and compiled), ``"hopper"``
+(dense data and ``compiled=False`` included) and ``"analytical"``
+backends, ``api`` (estimate / execute / mttkrp / matmul), the dense decoder family (``models``, ``configs``,
 ``core.photonic_layer``), ``serve.ServeEngine`` and ``launch.serve``, and
 six hand-written CUDA kernels (``kernels/csrc``), one for every Pallas
 kernel of the reference: the fused streaming MTTKRP, the pSRAM int8 matmul,

@@ -2,14 +2,15 @@
 
 One :class:`Backend` protocol (``mttkrp`` / ``matmul`` / ``cost`` /
 ``capabilities``), one registry (:func:`register` / :func:`get` /
-:func:`list_backends`), and the implementations ported so far: ``"exact"``
-(float baseline), ``"psram-oracle"`` (its quantized-chain MTTKRP),
-``"psram-stream"`` (the streaming schedule with the quantized chain, eager
-and compiled) and ``"hopper"`` (the hand-written CUDA kernel family — the
-reference package's ``"pallas"`` backend). Still to come from the
-reference: ``"psram-scheduled"``, ``"analytical"``, ``describe`` and the
-cost side of ``"psram-oracle"`` / ``"psram-stream"`` (ROADMAP Queue A item
-3), and ``"psram-mesh"`` (item 4).
+:func:`list_backends`), and the implementations: ``"exact"`` (float
+baseline), ``"psram-oracle"`` (the per-cycle array matmul and the quantized
+chain), ``"psram-scheduled"`` (the tile-schedule executor and the §IV dense
+mapping), ``"psram-stream"`` (the streaming schedule with the quantized
+chain, eager and compiled), ``"hopper"`` (the hand-written CUDA kernel
+family — the reference package's ``"pallas"`` backend) and the cost-only
+``"analytical"``. :func:`describe` turns raw data into the cost descriptor
+``api.estimate`` prices. Still to come from the reference: ``"psram-mesh"``
+(ROADMAP Queue A item 4).
 """
 from .base import (
     Backend,
@@ -24,7 +25,7 @@ from .base import (
     resolve_config,
 )
 from .lowering import KERNEL_LOWERINGS, RESOLVED_LOWERINGS, resolve_lowering
-from .workload import MatmulWorkload, MTTKRPProblem, normalize_mttkrp_data
+from .workload import MatmulWorkload, MTTKRPProblem, describe, normalize_mttkrp_data
 
 __all__ = [
     "Backend",
@@ -36,6 +37,7 @@ __all__ = [
     "MatmulWorkload",
     "MTTKRPProblem",
     "UnknownBackendError",
+    "describe",
     "get",
     "list_backends",
     "normalize_mttkrp_data",

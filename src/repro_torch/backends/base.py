@@ -4,8 +4,10 @@ plugs into.
 * :class:`Backend` — the protocol: ``mttkrp(data, factors, mode)``,
   ``matmul(x, w)``, ``cost(workload) -> Estimate``, ``capabilities()``.
 * :func:`register` / :func:`get` / :func:`list_backends` — the registry.
-  Substrates register under a stable name (``"exact"``, ``"hopper"``);
-  ``repro_torch.api`` and ``cp_als`` dispatch by that name.
+  Substrates register under a stable name (``"exact"``, ``"psram-oracle"``,
+  ``"psram-scheduled"``, ``"psram-stream"``, ``"hopper"``,
+  ``"analytical"``); ``repro_torch.api`` and ``cp_als`` dispatch by that
+  name.
 * :func:`resolve_config` — the one place a missing ``PsramConfig`` is
   defaulted (to the paper's §V-A operating point,
   ``configs.psram_mttkrp.CONFIG.array``) and *validated*. Backends call it
@@ -89,18 +91,28 @@ class Capabilities:
 
 @dataclasses.dataclass(frozen=True)
 class Estimate:
-    """What ``cost()`` returns: one priced workload. No ported backend prices
-    yet (the cost side comes with ``core.perf_model``, and with it the
-    ``utilization`` / ``sustained_petaops`` views of the breakdown); the
-    container is here so the protocol is whole."""
+    """What ``cost()`` / ``api.estimate`` return: one priced workload.
+
+    ``breakdown`` is always present (the §V utilization terms); ``counts``
+    and ``energy`` are present when the backend prices by walking a schedule
+    (counted cycles), ``None`` for closed-form models.
+    """
 
     backend: str
     config: PsramConfig
     workload: Any
-    breakdown: Any
+    breakdown: Any                 # perf_model.SustainedBreakdown
     time_s: float
-    counts: Any | None = None
-    energy: Any | None = None
+    counts: Any | None = None      # schedule.CycleCounts
+    energy: Any | None = None      # perf_model.EnergyBreakdown
+
+    @property
+    def utilization(self) -> float:
+        return self.breakdown.utilization
+
+    @property
+    def sustained_petaops(self) -> float:
+        return self.breakdown.sustained_petaops
 
 
 class Backend:
@@ -177,7 +189,8 @@ def get(name: "str | Backend", config: PsramConfig | None = None,
     ``name`` may be a registered name or an already-built :class:`Backend`
     instance (returned as-is; ``config`` must then be None — an instance
     already carries its config). Extra keyword arguments go to the backend
-    constructor (e.g. ``lowering=`` on ``"hopper"``); a backend that doesn't
+    constructor (e.g. ``compiled=True`` on the two pSRAM schedule backends,
+    ``lowering=`` on ``"hopper"``); a backend that doesn't
     take them raises ``TypeError`` — the capability simply doesn't exist
     there.
     """

@@ -4,35 +4,106 @@
 name               wraps
 =================  =========================================================
 ``exact``          float einsum / COO scatter-add — the parity baseline
-``psram-oracle``   the flat quantized CP chain (sparse MTTKRP,
-                   ``mttkrp_sparse_psram``); its matmul (the per-cycle
-                   array interpreter) waits for ROADMAP Queue A item 3
+``psram-oracle``   per-cycle :class:`PsramArray` physics (matmul:
+                   ``schedule.execute_reference``) and the flat quantized CP
+                   chain (sparse MTTKRP, ``mttkrp_sparse_psram``) — slow,
+                   faithful; counted-cycle cost model
+``psram-scheduled``the tile-schedule IR: vectorized executor for matmuls
+                   and the §IV dense mapping (matricized MTTKRP as an array
+                   matmul), ``compiled=True`` a CUDA graph replay on the
+                   card; counted-cycle cost model
 ``psram-stream``   the nonzero-streaming sparse schedule
                    (``repro_torch.sparse.stream``): quantized chain, eager
                    per-nonzero fold or (``compiled=True``) the
-                   blocked-segment fold; its cost model waits for item 3
+                   blocked-segment fold; fiber-distribution cost model
 ``hopper``         the hand-written CUDA kernel family (plain PyTorch
                    versions for CPU tensors): pSRAM int8 matmul, quantized
                    dense KR MTTKRP, fused streaming sparse MTTKRP; with
                    ``compiled=False`` the legacy per-op path (exact dense
                    KR MTTKRP, blocked segment-sum stream) — the reference
                    package's ``"pallas"`` backend
+``analytical``     the closed-form §V model (with its mesh price) —
+                   cost-only, never executes
 =================  =========================================================
 
+The reference's ``"psram-mesh"`` backend comes with ROADMAP Queue A item 4.
+
 Numeric contracts the parity suites (tests/test_torch_cp_als.py,
-tests/test_torch_psram_stream.py) enforce: every lossy backend lands within
-its documented ``rel_tol`` of ``exact``; ``psram-stream`` equals
-``mttkrp_sparse_psram`` on the sorted stream, bit for bit.
+tests/test_torch_psram_stream.py, tests/test_torch_perf_model.py) enforce:
+``psram-oracle`` and ``psram-scheduled`` matmuls are *bit-identical*;
+``psram-stream`` equals ``mttkrp_sparse_psram`` on the sorted stream, bit for
+bit; every lossy backend lands within its documented ``rel_tol`` of
+``exact``; ``analytical``'s §V-A dense breakdown equals
+``psram-scheduled``'s counted cycles exactly; every price equals the
+reference's.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch._device import ieee_f32
 
-from .base import Backend, Capabilities, CapabilityError, register
+from .base import Backend, Capabilities, CapabilityError, Estimate, register
 from .lowering import validate_lowering
-from .workload import mode_csf, normalize_mttkrp_data, to_coo_triple
+from .workload import (
+    MatmulWorkload,
+    describe,
+    mode_csf,
+    normalize_mttkrp_data,
+    to_coo_triple,
+)
+
+
+def _program_estimate(name, cfg, program, workload) -> Estimate:
+    """Estimate from a schedule (the counted-cycle pricing every scheduled
+    backend shares)."""
+    from repro_torch.core.perf_model import breakdown_from_counts
+    from repro_torch.core.schedule import count_cycles, program_energy
+
+    counts = count_cycles(program)
+    return Estimate(
+        backend=name,
+        config=cfg,
+        workload=workload,
+        breakdown=breakdown_from_counts(cfg, counts),
+        time_s=counts.duration_s(cfg),
+        counts=counts,
+        energy=program_energy(program),
+    )
+
+
+def _matmul_program(cfg, wl: MatmulWorkload):
+    from repro_torch.core.schedule import build_matmul_program
+
+    prog = build_matmul_program(wl.m, wl.k, wl.n, cfg)
+    if wl.repeats != 1:
+        prog = dataclasses.replace(prog, repeats=wl.repeats)
+    return prog
+
+
+class _SchedulePricing:
+    """cost() shared by the two dense schedule backends: the canonical §IV/§V
+    programs, counted."""
+
+    def cost(self, workload) -> Estimate:
+        from repro_torch.core.perf_model import MTTKRPWorkload
+        from repro_torch.core.schedule import build_mttkrp_program
+
+        workload = describe(workload)
+        if isinstance(workload, MatmulWorkload):
+            return _program_estimate(
+                self.name, self.config, _matmul_program(self.config, workload),
+                workload)
+        if isinstance(workload, MTTKRPWorkload):
+            return _program_estimate(
+                self.name, self.config,
+                build_mttkrp_program(self.config, workload), workload)
+        raise CapabilityError(
+            f"backend {self.name!r} prices dense schedules; use "
+            "'psram-stream' or 'analytical' for sparse workloads"
+        )
 
 
 @register("exact")
@@ -61,29 +132,27 @@ class ExactBackend(Backend):
         return mttkrp_sparse(idx, vals, tuple(factors), mode, shape[mode])
 
 
-_PRICING = "the array's cost model and tile schedules (ROADMAP Queue A item 3)"
-
-
 @register("psram-oracle")
 class PsramOracleBackend(Backend):
-    """The array numerics op by op: the flat quantized CP chain
-    (``mttkrp_sparse_psram``: every CP1/CP2 product through 8-bit operands
-    and the ADC, CP3 exact adds in stream order) on the COO triple of any
-    data form. The reference's per-cycle ``PsramArray`` matmul and its
-    schedule pricing come with ROADMAP Queue A item 3: until then
-    ``matmul`` and ``cost`` raise :class:`CapabilityError` and the
-    capabilities say ``matmul=False, cost_model=False``."""
+    """The array physics, op by op: ``execute_reference`` for matmuls, the
+    flat quantized CP chain (``mttkrp_sparse_psram``: every CP1/CP2 product
+    through 8-bit operands and the ADC, CP3 exact adds in stream order) for
+    MTTKRP on the COO triple of any data form — the slowest and most
+    transparently faithful substrate."""
 
     def capabilities(self) -> Capabilities:
         return Capabilities(
-            executes=True, cost_model=False, matmul=False, lossy=True, rel_tol=0.05,
-            description="quantized chain (flat; the per-cycle array matmul waits for "
-                        "item 3)",
+            executes=True, cost_model=True, matmul=True, lossy=True,
+            rel_tol=0.05, prices=("dense", "matmul"),
+            description="per-cycle PsramArray interpreter / quantized chain",
         )
 
     def matmul(self, x, w):
-        raise CapabilityError(f"backend 'psram-oracle' runs matmuls on the per-cycle array "
-                              f"interpreter, which comes with {_PRICING}")
+        from repro_torch.core.schedule import build_matmul_program, execute_reference
+
+        m, k = x.shape
+        n = w.shape[1]
+        return execute_reference(build_matmul_program(m, k, n, self.config), x, w)
 
     def mttkrp(self, data, factors, mode: int):
         from repro_torch.core.mttkrp import mttkrp_sparse_psram
@@ -92,9 +161,58 @@ class PsramOracleBackend(Backend):
         return mttkrp_sparse_psram(idx, vals, tuple(factors), mode, shape[mode],
                                    adc_bits=self.config.adc.bits)
 
-    def cost(self, workload):
-        raise CapabilityError(f"backend 'psram-oracle' prices schedules, which come with "
-                              f"{_PRICING}")
+    cost = _SchedulePricing.cost
+
+
+@register("psram-scheduled")
+class PsramScheduledBackend(Backend):
+    """The tile-schedule IR's vectorized executor (§IV dense mapping).
+
+    MTTKRP runs as the matricized matmul ``X_(n) @ KhatriRao(others)``
+    through the array — weights stationary, inputs WDM-batched — which is
+    bit-identical to the per-cycle oracle on the same program and lands
+    within the ADC envelope of ``exact``. The executor runs on the tensors'
+    device: batched contractions in plain PyTorch (no hand-written kernel;
+    the reference computes it outside any Pallas kernel too).
+
+    ``compiled=True`` opts into the cached compiled executor
+    (``schedule.compiled_matmul_executor``): on the card the eager executor
+    captured once in a CUDA graph and replayed. ``bit_exact`` drops and the
+    ~1e-7 envelope against the eager oracle is the documented contract, as
+    in the reference.
+    """
+
+    def __init__(self, config=None, compiled: bool = False):
+        super().__init__(config)
+        self.compiled = bool(compiled)
+
+    def capabilities(self) -> Capabilities:
+        return Capabilities(
+            executes=True, cost_model=True, matmul=True, sparse=False,
+            lossy=True, rel_tol=0.05, prices=("dense", "matmul"),
+            bit_exact=not self.compiled, compiled=self.compiled,
+            description="vectorized tile-schedule executor (dense mapping)"
+                        + (" [compiled]" if self.compiled else ""),
+        )
+
+    def matmul(self, x, w):
+        from repro_torch.core.schedule import build_matmul_program, execute
+
+        m, k = x.shape
+        n = w.shape[1]
+        return execute(build_matmul_program(m, k, n, self.config), x, w,
+                       compiled=self.compiled)
+
+    def mttkrp(self, data, factors, mode: int):
+        from repro_torch.core.mttkrp import khatri_rao, matricize
+
+        norm = normalize_mttkrp_data(data)
+        self._require("sparse MTTKRP (use 'psram-stream')",
+                      norm.kind == "dense")
+        others = [factors[d] for d in range(norm.dense.ndim) if d != mode]
+        return self.matmul(matricize(norm.dense, mode), khatri_rao(others))
+
+    cost = _SchedulePricing.cost
 
 
 @register("psram-stream")
@@ -112,9 +230,8 @@ class PsramStreamBackend(Backend):
     reassociated fold against the eager one — ``bit_exact`` drops, the
     quantization envelope (``rel_tol``) is unchanged.
 
-    The reference prices fiber-length distributions here; that cost model
-    comes with ROADMAP Queue A item 3, so until then ``cost`` raises
-    :class:`CapabilityError` and the capabilities say ``cost_model=False``."""
+    ``cost`` prices a fiber-length distribution by counting the streaming
+    schedule (``sparse.stream.build_stream_program``)."""
 
     def __init__(self, config=None, compiled: bool = False):
         super().__init__(config)
@@ -122,8 +239,8 @@ class PsramStreamBackend(Backend):
 
     def capabilities(self) -> Capabilities:
         return Capabilities(
-            executes=True, cost_model=False, matmul=False, lossy=True,
-            rel_tol=0.05, prefers_csf=True,
+            executes=True, cost_model=True, matmul=False, lossy=True,
+            rel_tol=0.05, prices=("sparse",), prefers_csf=True,
             bit_exact=not self.compiled, compiled=self.compiled,
             description="nonzero-streaming sparse schedule (quantized chain)"
                         + (" [compiled]" if self.compiled else ""),
@@ -136,9 +253,20 @@ class PsramStreamBackend(Backend):
         return stream_mttkrp(csf, tuple(factors), self.config, psram=True,
                              adc_bits=self.config.adc.bits, compiled=self.compiled)
 
-    def cost(self, workload):
-        raise CapabilityError(f"backend 'psram-stream' prices fiber-length distributions "
-                              f"with {_PRICING}")
+    def cost(self, workload) -> Estimate:
+        from repro_torch.core.perf_model import SparseMTTKRPWorkload
+        from repro_torch.sparse.stream import build_stream_program
+
+        workload = describe(workload)
+        if not isinstance(workload, SparseMTTKRPWorkload):
+            raise CapabilityError(
+                "backend 'psram-stream' prices fiber-length distributions "
+                "(SparseMTTKRPWorkload); use 'psram-scheduled' or "
+                "'analytical' for dense descriptors"
+            )
+        prog = build_stream_program(
+            workload.fiber_lengths, workload.rank, self.config)
+        return _program_estimate(self.name, self.config, prog, workload)
 
 
 @register("hopper")
@@ -219,3 +347,62 @@ class HopperBackend(Backend):
 
         return stream_mttkrp_blocked(
             csf, tuple(factors), self.config, lowering=self.lowering)
+
+
+@register("analytical")
+class AnalyticalBackend(Backend):
+    """The closed-form §V predictive model — cost-only. Asking it to execute
+    raises :class:`CapabilityError`; its §V-A dense breakdown equals
+    ``psram-scheduled``'s counted cycles exactly, and its mesh price
+    (a :class:`~repro_torch.core.perf_model.MeshSparseMTTKRPWorkload`) is
+    the per-array stream counts' makespan plus the fabric's all-reduce."""
+
+    def capabilities(self) -> Capabilities:
+        return Capabilities(
+            executes=False, cost_model=True, matmul=False,
+            prices=("dense", "sparse", "matmul"),
+            description="closed-form §V sustained-performance model",
+        )
+
+    def cost(self, workload) -> Estimate:
+        from repro_torch.core.perf_model import (
+            MeshSparseMTTKRPWorkload,
+            MTTKRPWorkload,
+            breakdown_from_counts,
+            mesh_sparse_price,
+            mttkrp_energy,
+            sustained_mttkrp,
+        )
+
+        workload = describe(workload)
+        if isinstance(workload, MatmulWorkload):
+            # the analytical model of one matmul IS its canonical schedule
+            return _program_estimate(
+                self.name, self.config, _matmul_program(self.config, workload),
+                workload)
+        if isinstance(workload, MeshSparseMTTKRPWorkload):
+            # the mesh closed form: per-array makespan (the same stream
+            # counts the counted schedule walks) + the fabric all-reduce
+            price = mesh_sparse_price(self.config, workload)
+            counts = price.counts
+            return Estimate(
+                backend=self.name,
+                config=self.config,
+                workload=workload,
+                breakdown=breakdown_from_counts(self.config, counts),
+                time_s=price.duration_s(self.config),
+                counts=counts,
+                energy=None,
+            )
+        sb = sustained_mttkrp(self.config, workload)
+        rate = sb.sustained_petaops * 1e15
+        return Estimate(
+            backend=self.name,
+            config=self.config,
+            workload=workload,
+            breakdown=sb,
+            time_s=2.0 * workload.macs / rate if rate > 0 else float("inf"),
+            counts=None,
+            energy=mttkrp_energy(self.config, workload)
+            if isinstance(workload, MTTKRPWorkload) else None,
+        )

@@ -1,19 +1,26 @@
 """Workload normalization for the backend registry.
 
-* **descriptors**: :class:`MatmulWorkload` (one projection-shaped matmul).
+One ``Workload`` union flows through ``repro_torch.api`` and every backend:
+
+* **descriptors** (shape only, for ``cost``/``estimate``):
+  :class:`~repro_torch.core.perf_model.MTTKRPWorkload` (dense, §V-A),
+  :class:`~repro_torch.core.perf_model.SparseMTTKRPWorkload` (fiber-length
+  distribution), and :class:`MatmulWorkload` (one projection-shaped matmul).
 * **instances** (data + factors, for ``execute``): a dense tensor, a raw COO
   triple ``(indices, values, shape)``, or any ``repro_torch.sparse.formats``
   container — optionally wrapped with its factors/mode in
   :class:`MTTKRPProblem`.
 
 :func:`normalize_mttkrp_data` tags the data union once so every backend
-shares one dispatch. ``describe`` (instance → cost descriptor) of the
-reference module waits for ``core.perf_model``.
+shares one dispatch; :func:`describe` turns an instance into the matching
+cost descriptor so ``api.estimate(workload)`` accepts either form.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,3 +128,40 @@ def mode_csf(norm: NormalizedMTTKRP, mode: int):
         return norm.container
     idx, vals, shape = to_coo_triple(norm)
     return csf_for_mode(COO(indices=idx, values=vals, shape=tuple(shape)), mode)
+
+
+def describe(workload, rank: int | None = None, mode: int = 0):
+    """Turn any member of the Workload union into a *cost descriptor*.
+
+    Descriptors (``MTTKRPWorkload`` / ``SparseMTTKRPWorkload`` /
+    ``MatmulWorkload``) pass through; executable instances are summarized —
+    a 3-mode dense tensor becomes its ``MTTKRPWorkload`` dims, sparse data
+    becomes the ``SparseMTTKRPWorkload`` of its mode-rooted fiber-length
+    distribution (the quantity the sparse model is defined over). ``rank``
+    is required when it cannot be read off the workload itself.
+    """
+    from repro_torch.core.perf_model import MTTKRPWorkload, SparseMTTKRPWorkload
+
+    if isinstance(workload, (MTTKRPWorkload, SparseMTTKRPWorkload,
+                             MatmulWorkload)):
+        return workload
+    if isinstance(workload, MTTKRPProblem):
+        rank = rank or int(workload.factors[0].shape[-1])
+        mode = workload.mode
+        workload = workload.data
+    norm = normalize_mttkrp_data(workload)
+    if rank is None:
+        raise ValueError(
+            "rank is required to describe raw tensor data (pass rank=, or a "
+            "MTTKRPProblem whose factors carry it)"
+        )
+    if norm.kind == "dense":
+        if len(norm.shape) != 3:
+            raise ValueError(
+                f"dense cost descriptor is 3-mode (got shape {norm.shape}); "
+                "pass a SparseMTTKRPWorkload for N-mode data"
+            )
+        i, j, k = norm.shape
+        return MTTKRPWorkload(i=i, j=j, k=k, rank=rank)
+    fibers = mode_csf(norm, mode).fiber_lengths()
+    return SparseMTTKRPWorkload(fiber_lengths=np.asarray(fibers), rank=rank)

@@ -80,6 +80,11 @@ def _stored(arrs: tuple, tag: str, build):
     return val
 
 
+def clear_store_cache() -> None:
+    """Forget every stored operand's cached int8 conversion."""
+    _STORE_CACHE.clear()
+
+
 def _quant_drive_rows(x):
     """Per-row int8 quantization of the driven operand."""
     q, s = quantize_symmetric(x, axis=-1)

@@ -107,6 +107,11 @@ def stream_factor_quants(factors, mode: int):
     return val
 
 
+def clear_factor_quant_cache() -> None:
+    """Forget every stored factor set's cached quantization."""
+    _FACTOR_QUANT_CACHE.clear()
+
+
 # ------------------------------------------------------------ plain version
 
 

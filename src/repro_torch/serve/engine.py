@@ -14,7 +14,7 @@ Ported: ``make_serve_step`` (plain and ``deltas=True``), ``make_prefill``
 from the reference module: ``make_prefill(paged=True)`` (with the paged
 serve loop, ROADMAP Queue A item 8), the ``mesh``/``sharding_rules``
 arguments (no mesh yet, item 4), ``offload_report`` and the engine's method
-of that name (they price through ``api.estimate``, item 3).
+of that name (item 8; they price through ``api.estimate``, which is ported).
 """
 from __future__ import annotations
 

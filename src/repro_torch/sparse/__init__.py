@@ -1,32 +1,49 @@
 """repro_torch.sparse — the sparse-tensor subsystem of the port.
 
-* ``formats`` — COO / SortedCOO / BlockedCOO / CSF containers with
+* ``formats``   — COO / SortedCOO / BlockedCOO / CSF containers with
   conversions, validation, and root-fiber slicing.
-* ``synth``   — FROSTT-style synthetic tensors with power-law fiber lengths.
-* ``stream``  — the block layout of the nonzero-streaming MTTKRP schedule
-  and its executors (eager and compiled, exact or quantized chain), the
-  flat blocked-fold oracle and the COO front doors.
+* ``synth``     — FROSTT-style synthetic tensors with power-law fiber lengths.
+* ``stream``    — the nonzero-streaming MTTKRP schedule: its block layout,
+  its executors (eager and compiled, exact or quantized chain), the flat
+  blocked-fold oracle, the COO front doors, and the schedule as
+  ``core.schedule`` IR (``build_stream_program``) with its price
+  (``stream_mttkrp_priced``).
+* ``partition`` — the multi-array planners (nnz-balanced, makespan-refined)
+  the analytical mesh price plans on.
 
-Still to come from the reference package: ``partition``, ``mesh``, and the
-rest of ``stream`` (the schedule IR and pricing, ROADMAP Queue A item 3).
+Still to come from the reference package: ``mesh`` and the rest of
+``partition`` (ROADMAP Queue A item 4).
 """
 from .formats import COO, CSF, BlockedCOO, SortedCOO, csf_for_mode
-from .stream import (blocked_fold_reference, stream_layout, stream_mttkrp, stream_mttkrp_blocked,
-                     stream_mttkrp_coo)
+from .partition import (PLANNERS, Partition, imbalance, makespan_partitions,
+                        nnz_balanced_partitions, plan_partitions)
+from .stream import (StreamedMTTKRP, blocked_fold_reference, build_stream_program,
+                     rank_tile_widths, stream_layout, stream_mttkrp, stream_mttkrp_blocked,
+                     stream_mttkrp_coo, stream_mttkrp_priced)
 from .synth import FiberStats, powerlaw_coo, powerlaw_fiber_lengths
 
 __all__ = [
     "COO",
     "CSF",
     "BlockedCOO",
+    "PLANNERS",
     "SortedCOO",
     "FiberStats",
+    "Partition",
+    "StreamedMTTKRP",
     "blocked_fold_reference",
+    "build_stream_program",
     "csf_for_mode",
+    "imbalance",
+    "makespan_partitions",
+    "nnz_balanced_partitions",
+    "plan_partitions",
     "powerlaw_coo",
     "powerlaw_fiber_lengths",
+    "rank_tile_widths",
     "stream_layout",
     "stream_mttkrp",
     "stream_mttkrp_blocked",
     "stream_mttkrp_coo",
+    "stream_mttkrp_priced",
 ]

@@ -13,6 +13,11 @@ no scatter matrix anywhere:
 3. Per block, one gather per output-row segment; segments that span a block
    boundary carry their partial sum into the next block's accumulation.
 
+:func:`build_stream_program` emits that schedule as ``StoreTile`` /
+``GatherDrive`` ops of the ``core.schedule`` IR, so ``count_cycles`` /
+``program_energy`` price exactly what runs (equal to the reference's), and
+:func:`stream_mttkrp_priced` returns a run's result beside its program.
+
 Ported here: the host-side blocking (``_block_segments``,
 ``_compiled_layout``, :func:`stream_layout`) — numpy, cached on the CSF,
 equal array-for-array to the reference's, which is what lets a kernel of
@@ -30,14 +35,15 @@ fold's fold route); on the CPU by ``cp_chain_exact`` / ``cp_chain_psram``
 (eager: in steps of ~64Ki nonzeros; compiled: over the padded stream, in
 the plain version). Beside them the flat oracle of the compiled fold
 (:func:`blocked_fold_reference`, one gather-mask contraction over every
-block, plain PyTorch) and the COO front doors :func:`stream_mttkrp_coo` and
-:func:`blocked_fold_mttkrp_coo`.
-
-Left out until the array's cost model is ported (ROADMAP Queue A item 3):
-the schedule IR (``build_stream_program``, ``rank_tile_widths``) and
-pricing (``stream_mttkrp_priced``, ``StreamedMTTKRP``).
+block, plain PyTorch), the COO front doors :func:`stream_mttkrp_coo` and
+:func:`blocked_fold_mttkrp_coo`, and the schedule and its price
+(:func:`rank_tile_widths`, :func:`build_stream_program`,
+:class:`StreamedMTTKRP`, :func:`stream_mttkrp_priced`). The whole reference
+module is ported.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -46,11 +52,51 @@ from repro_torch._device import ieee_f32
 from repro_torch.backends.base import resolve_config
 from repro_torch.core.mttkrp import cp_chain_exact, cp_chain_psram
 from repro_torch.core.psram import PsramConfig
+from repro_torch.core.schedule import GatherDrive, StoreTile, TileProgram, stream_block_layout
 from repro_torch.kernels.ordered_fold import (_fold_runs, chain_coords, chain_long_runs,
                                               find_long_runs, ordered_chain_fold, ordered_fold,
                                               ordered_fold_torch)
 
 from .formats import COO, CSF, csf_for_mode
+
+def rank_tile_widths(rank: int, word_cols: int) -> tuple[int, ...]:
+    """Column widths of the rank-tiles one chain row splits into."""
+    if rank < 1:
+        raise ValueError("rank must be positive")
+    full, rem = divmod(rank, word_cols)
+    return (word_cols,) * full + ((rem,) if rem else ())
+
+
+def build_stream_program(
+    fiber_lengths: np.ndarray,
+    rank: int,
+    config: PsramConfig | None = None,
+) -> TileProgram:
+    """The streaming schedule for a fiber-length distribution, as an IR
+    program (accounting-grade: geometry lives in the ops, ``shape`` stays
+    None — the numeric executor is :func:`stream_mttkrp`).
+
+    ``fiber_lengths`` is nonzeros-per-nonempty-output-row in row order
+    (``CSF.fiber_lengths()`` / ``SortedCOO.fiber_lengths()``), which is all
+    the schedule depends on — paper-scale workloads can be priced from the
+    distribution alone without materializing coordinates.
+    """
+    cfg = resolve_config(config)
+    widths = rank_tile_widths(rank, cfg.word_cols)
+    nnz_b, seg_b = stream_block_layout(fiber_lengths, cfg.rows)
+    ops: list = []
+    for bn, bs in zip(nnz_b.tolist(), seg_b.tolist()):
+        for w in widths:
+            live = bn * w
+            ops.append(StoreTile(rows_written=bn, live_words=live))
+            ops.append(GatherDrive(
+                cycles=-(-bs // cfg.wavelengths),
+                segments=bs,
+                live_words=live,
+                active_words=live,
+            ))
+    return TileProgram(config=cfg, ops=tuple(ops))
+
 
 _DEFAULT_EXEC_NNZ = 65536  # nonzeros per executor step on the CPU: bounds the
                            # chain's (step, R) temporaries
@@ -425,6 +471,33 @@ def blocked_fold_mttkrp_coo(
     factors = tuple(factors)
     return blocked_fold_reference(_coo_csf(indices, values, factors, mode, out_rows), factors,
                                   config, psram=psram, adc_bits=adc_bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamedMTTKRP:
+    """Result + priced schedule of one streamed sparse MTTKRP."""
+
+    result: torch.Tensor
+    program: TileProgram
+
+
+def stream_mttkrp_priced(
+    csf: CSF,
+    factors: tuple,
+    config: PsramConfig | None = None,
+    psram: bool = False,
+    adc_bits: int = 16,
+) -> StreamedMTTKRP:
+    """Run :func:`stream_mttkrp` (the eager executor: on the card one launch
+    of the ordered fold's chain route) and return the executed schedule
+    alongside the result, so ``count_cycles``/``program_energy`` price
+    exactly it."""
+    cfg = resolve_config(config)
+    rank = int(factors[0].shape[-1])
+    return StreamedMTTKRP(
+        result=stream_mttkrp(csf, factors, cfg, psram=psram, adc_bits=adc_bits),
+        program=build_stream_program(csf.fiber_lengths(), rank, cfg),
+    )
 
 
 def stream_mttkrp_coo(

@@ -57,7 +57,8 @@ def _rel(got, want):
 # ------------------------------------------------------------------- parity
 
 def test_registry_lists_the_ported_backends():
-    assert backends.list_backends() == ("exact", "psram-oracle", "psram-stream", "hopper")
+    assert backends.list_backends() == ("exact", "psram-oracle", "psram-scheduled",
+                                        "psram-stream", "hopper", "analytical")
     caps = backends.get("hopper").capabilities()
     assert caps.lossy and caps.prefers_csf and caps.compiled and not caps.bit_exact
     assert caps.rel_tol == 0.05 and not caps.autotune

@@ -287,7 +287,8 @@ def test_backends_within_rel_tol_of_exact(name, kw, sparse_data):
     coo, fs = sparse_data
     be = backends.get(name, **kw)
     caps = be.capabilities()
-    assert caps.lossy and caps.rel_tol == 0.05 and not caps.cost_model and not caps.matmul
+    assert caps.lossy and caps.rel_tol == 0.05 and caps.cost_model
+    assert caps.matmul is (name == "psram-oracle")
     assert caps.bit_exact is not kw.get("compiled", False)
     rng = np.random.default_rng(5)
     x = torch.tensor(rng.standard_normal((7, 6, 5)).astype(np.float32))
@@ -305,11 +306,14 @@ def test_backends_within_rel_tol_of_exact(name, kw, sparse_data):
         dense_got = be.mttkrp(x, xfs, mode)
         assert float(torch.linalg.norm(dense_got - dense_want)
                      / torch.linalg.norm(dense_want)) < caps.rel_tol
-    with pytest.raises(backends.CapabilityError, match="item 3"):
-        be.cost(None)
-    if name == "psram-oracle":
-        with pytest.raises(backends.CapabilityError, match="item 3"):
-            be.matmul(x[0], x[0].T)
+    # each prices its own kind of workload and refuses the other
+    other = (backends.describe(coo, rank=5) if name == "psram-oracle"
+             else backends.describe(x, rank=4))
+    with pytest.raises(backends.CapabilityError):
+        be.cost(other)
+    if name == "psram-oracle":           # the per-cycle array matmul: the scheduled one's bits
+        assert torch.equal(be.matmul(x[0], x[0].T),
+                           backends.get("psram-scheduled").matmul(x[0], x[0].T))
 
 
 @pytest.mark.parametrize("container", [False, True], ids=["triple", "container"])
@@ -339,11 +343,13 @@ def test_cp_als_psram_reaches_the_reference_fit(container):
 
 def test_api_defaults_to_psram_stream(sparse_data):
     """``api.mttkrp`` and ``api.execute`` with no ``backend=`` run
-    ``"psram-stream"``; ``api.matmul`` stays on ``"hopper"``."""
+    ``"psram-stream"``; ``api.matmul`` runs ``"psram-scheduled"``, as the
+    reference's does, and ``"hopper"`` when named."""
     coo, fs = sparse_data
     for mode in range(3):
         want = backends.get("psram-stream").mttkrp(coo, fs, mode)
         assert torch.equal(api.mttkrp(coo, fs, mode), want)
         assert torch.equal(api.execute(api.MTTKRPProblem(coo, fs, mode)), want)
     x, w = fs[0], fs[1].T
-    assert torch.equal(api.matmul(x, w), backends.get("hopper").matmul(x, w))
+    assert torch.equal(api.matmul(x, w), backends.get("psram-scheduled").matmul(x, w))
+    assert torch.equal(api.matmul(x, w, backend="hopper"), backends.get("hopper").matmul(x, w))
