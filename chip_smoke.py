@@ -129,9 +129,27 @@ What it does, in order — any failure raises and the run exits non-zero:
    projections give it in a prefill (and to the tile route) and a decode
    step, and every decode projection of 16 greedy tokens is held bit-equal
    to the tile route on the same operands.
+   f. ``main_path_trace``: ``repro_torch.obs`` on the card. With tracing
+      enabled, ``cp_als`` (rank 32, 3 sweeps) on ``hopper``, ``hopper`` with
+      ``compiled=False`` and ``psram-stream`` eager and compiled: each run's
+      ``obs.summary()`` and each sweep split in place into its three
+      ``backend/<name>/mttkrp`` spans, three ``gram`` spans, the remainder no
+      child span covers and the ``als/fit`` span; each traced run bit-equal
+      to an untraced one. The stopwatch around 5 dense ``hopper`` calls at
+      mode 0 within 10% + 0.1 ms of CUDA events on the same calls (a host
+      clock without the synchronize beside them); a CUDA graph capture of
+      ``api.matmul`` on ``psram-scheduled`` under tracing, bit-equal to the
+      eager call; ``drift_report().max_drift == 0``; the mesh timeline of
+      mode 0's fiber lengths on 4 arrays, each array's slices ending at its
+      planned program's counted cycles and the all-reduce at the largest;
+      the trace written and read back (``cat`` the name's first segment, the
+      ``stream/nonzeros`` counter the sum of the streamed calls' nnz); the
+      median of 5 warm ``hopper`` sweeps untraced and traced. The tracer is
+      left disabled and empty.
 5. ``sweep_time`` — one warm sweep of each CP-ALS engine (``hopper`` fused
    and ``compiled=False``, ``exact``, ``psram-stream`` eager and compiled),
-   and the parts of a ``hopper`` sweep timed alone.
+   beside the traced split of the same backends, and the parts of a
+   ``hopper`` sweep timed alone.
 
 TF32 is switched off for matmuls and cuDNN before anything runs: the plain
 versions of the dense MTTKRP and flash kernels are f32 matrix products.
@@ -151,6 +169,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -181,6 +200,13 @@ CROSSOVER_M_DEFAULT = (1, 16)
 PSRAM_DECODE_LAUNCH_CEILING = 6529
 TOKENS_CHECKED = 16                       # greedy tokens compared across kernel 2's routes
 CROSSOVER_KN = ((4096, 14336), (4096, 1024))
+# main_path_trace: the api.matmul shape captured under tracing (no earlier
+# phase captures it), the dense calls inside one stopwatch, the arrays of the
+# mesh timeline and its event budget, the sweeps of the overhead figure
+TRACE_CAPTURE_SHAPE = (256, 4096, 4096)
+STOPWATCH_CALLS = 5
+MESH_ARRAYS, MESH_EVENTS = 4, 10_000
+OVERHEAD_SWEEPS = 5
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): the
 # port's roofline constants, one source for both
@@ -2084,6 +2110,47 @@ def served_matmul_cases(torch, eng, params, prompts):
 # --------------------------------------------------------- the tile schedule
 
 
+def sweep_splits(events: list, backend: str) -> list:
+    """Per iteration of one traced ``cp_als`` run, from its ``obs`` events:
+    the ``als/sweep`` span split into its ``backend/<backend>/mttkrp`` and
+    ``backend/<backend>/gram`` spans and the remainder that no child span
+    covers (the solve, the normalization, the host), beside the ``als/fit``
+    span and the ``stream/mttkrp/execute`` span inside it (the exact-fit
+    recompute). Shares are of sweep + fit. Fails unless every sweep holds
+    three mttkrp spans and three gram spans."""
+    spans = [e for e in events if e["ph"] == "X"]
+
+    def inside(outer):
+        lo, hi = outer["ts"], outer["ts"] + outer["dur"] + 1e-3
+        return [e for e in spans if e is not outer and e["ts"] >= lo
+                and e["ts"] + e["dur"] <= hi]
+
+    fits = {e["args"]["iteration"]: e for e in spans if e["name"] == "als/fit"}
+    out = []
+    for sweep in (e for e in spans if e["name"] == "als/sweep"):
+        held = inside(sweep)
+        mttkrp = [e["dur"] for e in held if e["name"] == f"backend/{backend}/mttkrp"]
+        gram = [e["dur"] for e in held if e["name"] == f"backend/{backend}/gram"]
+        if len(mttkrp) != 3 or len(gram) != 3:
+            raise AssertionError(f"a traced {backend} sweep holds {len(mttkrp)} mttkrp and "
+                                 f"{len(gram)} gram spans, not 3 each")
+        fit = fits[sweep["args"]["iteration"]]
+        sweep_ms, fit_ms = sweep["dur"] / 1e3, fit["dur"] / 1e3
+        mttkrp_ms, gram_ms = sum(mttkrp) / 1e3, sum(gram) / 1e3
+        remainder_ms = sweep_ms - mttkrp_ms - gram_ms
+        total = sweep_ms + fit_ms
+        out.append({
+            "iteration": sweep["args"]["iteration"], "sweep_ms": sweep_ms, "fit_ms": fit_ms,
+            "mttkrp_ms": mttkrp_ms, "mttkrp_each_ms": [d / 1e3 for d in mttkrp],
+            "gram_ms": gram_ms, "remainder_ms": remainder_ms,
+            "fit_stream_ms": sum(e["dur"] for e in inside(fit)
+                                 if e["name"] == "stream/mttkrp/execute") / 1e3,
+            "mttkrp_share": mttkrp_ms / total, "gram_share": gram_ms / total,
+            "fit_share": fit_ms / total, "remainder_share": remainder_ms / total,
+        })
+    return out
+
+
 def schedule_bound(m, k, n, cfg) -> dict:
     """The least time of the function the scheduled matmul computes: its
     products, each of two int8 codes summed in int32 (``QMAX^2 * rows`` <
@@ -2207,6 +2274,221 @@ def schedule_cpu_cases(torch, cfg) -> list:
         raise AssertionError(f"the scheduled matmul on the card differs from the CPU or the "
                              f"per-cycle oracle: {cases}")
     return cases
+
+
+def main_path_trace(torch, cfg, coo, csfs, init, fd, zero_counts, read_counts,
+                    sweep_ms) -> dict:
+    """The ``main_path_trace`` phase: the port's tracer on the card.
+
+    With tracing enabled, ``cp_als`` (rank 32, 3 sweeps, ``tol=0``) on
+    ``hopper``, ``hopper`` with ``compiled=False``, ``psram-stream`` and
+    ``psram-stream`` with ``compiled=True``, each run's ``obs`` summary and
+    each sweep's split (``sweep_splits``), the factors, lambdas and fit
+    bit-equal to an untraced run of the same call; the stopwatch around
+    ``STOPWATCH_CALLS`` dense ``hopper`` calls at mode 0 against CUDA events
+    on the same calls (and a host clock without the synchronize beside
+    them); a CUDA graph capture of ``api.matmul`` on ``psram-scheduled``
+    under tracing, bit-equal to the eager call; the drift report; the mesh
+    timeline of mode 0's fiber lengths on ``MESH_ARRAYS`` arrays against
+    the planned programs' counted cycles; the trace written by
+    ``obs.write_trace`` and read back; and the median of
+    ``OVERHEAD_SWEEPS`` warm ``hopper`` sweeps untraced (``sweep_ms``:
+    stamped at each sweep's start, after a synchronize) and traced
+    (``als/sweep`` + ``als/fit``). Leaves the tracer disabled and
+    cleared."""
+    from repro_torch import api, backends, obs
+    from repro_torch.core.cp_als import cp_als
+    from repro_torch.core.schedule import captured_graphs, clear_program_cache, count_cycles
+    from repro_torch.sparse import partition_fiber_lengths
+
+    obs.disable()
+    obs.get_tracer().clear()
+    torch.cuda.synchronize()
+    zero_counts()
+    step_s, t0 = {}, time.perf_counter()
+
+    def run(name, kwargs, n_iter=SWEEPS):
+        # the backend is built here, so it comes back wrapped while tracing
+        return cp_als(None, RANK, n_iter=n_iter, sparse=coo, csfs=csfs, init=init, tol=0,
+                      backend=backends.get(name, cfg, **kwargs))
+
+    def same_state(a, b):
+        return (a.fit == b.fit and a.iters == b.iters and torch.equal(a.lambdas, b.lambdas)
+                and all(torch.equal(x, y) for x, y in zip(a.factors, b.factors)))
+
+    runs = {}
+    for key, name, kwargs in (("hopper", "hopper", {}),
+                              ("hopper_legacy", "hopper", {"compiled": False}),
+                              ("psram_stream", "psram-stream", {}),
+                              ("psram_stream_compiled", "psram-stream", {"compiled": True})):
+        plain = run(name, kwargs)
+        start = len(obs.get_tracer().events())
+        obs.enable()
+        traced = run(name, kwargs)
+        obs.disable()
+        events = obs.get_tracer().events()[start:]
+        sub = obs.Tracer()
+        sub.add_events(events)
+        splits = sweep_splits(events, name)
+        runs[key] = {
+            "backend": name, **kwargs, "bit_equal_to_untraced": same_state(plain, traced),
+            "fit": traced.fit, "summary": sub.summary(), "per_sweep": splits,
+            "median": {k: statistics.median(sp[k] for sp in splits)
+                       for k in ("sweep_ms", "fit_ms", "mttkrp_ms", "gram_ms",
+                                 "remainder_ms", "fit_stream_ms", "mttkrp_share",
+                                 "fit_share", "remainder_share")},
+            "stream_calls": sum(e["name"] == "stream/mttkrp/execute" for e in events),
+        }
+        del plain, traced
+    step_s["cp_als_runs"], t0 = time.perf_counter() - t0, time.perf_counter()
+    launches = read_counts()
+
+    # the stopwatch against CUDA events on the same dense calls; the host
+    # clock around the launches alone beside them. Untraced, then once traced
+    xd = torch.randn(DENSE_SHAPE, generator=torch.Generator(device="cuda").manual_seed(5),
+                     device="cuda")
+
+    def dense_call():
+        return api.mttkrp(xd, fd, 0, backend="hopper", config=cfg)
+
+    dense_call()
+    stopwatch_cases = []
+    for recording in (False, False, False, True):
+        if recording:
+            obs.enable()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with obs.stopwatch("smoke/stopwatch/dense_hopper", calls=STOPWATCH_CALLS) as sw:
+            start.record()
+            h0 = time.perf_counter()
+            for _ in range(STOPWATCH_CALLS):
+                dense_call()
+            host_ms = 1e3 * (time.perf_counter() - h0)
+            stop.record()
+        obs.disable()
+        event_ms = start.elapsed_time(stop)
+        stopwatch_cases.append({
+            "traced": recording, "stopwatch_ms": 1e3 * sw.duration_s, "event_ms": event_ms,
+            "host_clock_ms": host_ms,
+            "within": abs(1e3 * sw.duration_s - event_ms) <= 0.1 * event_ms + 0.1})
+    del xd
+    step_s["stopwatch"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    # a CUDA graph capture of api.matmul on psram-scheduled while tracing
+    m, k, n = TRACE_CAPTURE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+    held_before = [tuple(shape) for shape, _, _ in captured_graphs()]
+    eager = api.matmul(x, w, config=cfg)
+    start = len(obs.get_tracer().events())
+    obs.enable()
+    graphed = backends.get("psram-scheduled", cfg, compiled=True)
+    captured = api.matmul(x, w, backend=graphed)
+    replayed = api.matmul(x, w, backend=graphed)
+    obs.disable()
+    capture = {
+        "shape": list(TRACE_CAPTURE_SHAPE),
+        "captured_before": TRACE_CAPTURE_SHAPE in held_before,
+        "captured_under_tracing": TRACE_CAPTURE_SHAPE in
+        [tuple(shape) for shape, _, _ in captured_graphs()],
+        "bit_equal_to_eager": bool(torch.equal(captured, eager)),
+        "replay_bit_equal_to_eager": bool(torch.equal(replayed, eager)),
+        "spans": [e["name"] for e in obs.get_tracer().events()[start:]],
+    }
+    del x, w, eager, captured, replayed, graphed
+    clear_program_cache()
+    step_s["capture"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    # the drift auditor, traced (its obs/drift/report span lands in the trace)
+    obs.enable()
+    drift = obs.drift_report()
+    obs.disable()
+    step_s["drift"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    # the mesh timeline of mode 0's fiber lengths against the planned programs
+    fibers = csfs[0].fiber_lengths()
+    mesh_events = obs.mesh_timeline(fibers, RANK, config=cfg, n_arrays=MESH_ARRAYS,
+                                    max_events=MESH_EVENTS)
+    planned = [count_cycles(p).total_cycles for p in
+               partition_fiber_lengths(fibers, MESH_ARRAYS, RANK, cfg, planner="makespan").programs]
+    arrays = {e["pid"]: int(e["args"]["name"][5:7]) for e in mesh_events
+              if e["name"] == "process_name" and e["args"]["name"].startswith("array")}
+    ends = [0.0] * MESH_ARRAYS
+    for e in mesh_events:
+        if e["ph"] == "X" and e["pid"] in arrays:
+            ends[arrays[e["pid"]]] = max(ends[arrays[e["pid"]]], e["ts"] + e["dur"])
+    (allreduce,) = [e for e in mesh_events if e["name"] == "allreduce"]
+    timeline = {
+        "arrays": MESH_ARRAYS, "max_events": MESH_EVENTS, "events": len(mesh_events),
+        "array_end_cycles": ends, "planned_cycles": planned,
+        "allreduce_ts": allreduce["ts"], "allreduce_cycles": allreduce["args"]["reduce_cycles"],
+    }
+    obs.get_tracer().add_events(mesh_events)
+    step_s["mesh_timeline"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    # the trace file, written and read back
+    counters = obs.get_tracer().counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        n_events = obs.write_trace(str(path))
+        trace_bytes = path.stat().st_size
+        trace = json.loads(path.read_text())
+    xs = [e for e in trace["traceEvents"] if e["ph"] == "X" and e["pid"] == 0]
+    virtual = [e for e in trace["traceEvents"] if e["ph"] == "X" and e["pid"] != 0]
+    samples = {e["name"]: e["args"]["value"] for e in trace["traceEvents"] if e["ph"] == "C"}
+    stream_nnz = sum(e["args"]["nnz"] for e in xs if e["name"] == "stream/mttkrp/execute")
+    trace_file = {
+        "events": n_events, "bytes": trace_bytes, "loaded_events": len(trace["traceEvents"]),
+        "wall_events": len(xs), "virtual_events": len(virtual),
+        "cat_is_first_segment": all(e["cat"] == e["name"].split("/", 1)[0] for e in xs)
+        and all(e["cat"] == "virtual" for e in virtual),
+        "counters": samples, "stream_mttkrp_nnz_sum": stream_nnz,
+        "producer": trace["otherData"]["producer"],
+    }
+    obs.get_tracer().clear()
+    step_s["trace_file"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    # the overhead: warm hopper sweeps untraced (each from its start to the
+    # next one's) and traced (sweep + fit spans)
+    untraced = sweep_ms("hopper", sweeps=OVERHEAD_SWEEPS)
+    obs.enable()
+    run("hopper", {}, n_iter=OVERHEAD_SWEEPS)
+    obs.disable()
+    traced_ms = [sp["sweep_ms"] + sp["fit_ms"]
+                 for sp in sweep_splits(obs.get_tracer().events(), "hopper")]
+    obs.get_tracer().clear()
+    step_s["overhead"] = time.perf_counter() - t0
+    overhead = {"sweeps": OVERHEAD_SWEEPS, "untraced_ms": untraced, "traced_ms": traced_ms,
+                "untraced_median_ms": statistics.median(untraced),
+                "traced_median_ms": statistics.median(traced_ms)}
+
+    phase = {
+        "phase": "main_path_trace", "runs": runs, "launches": launches,
+        "stopwatch": stopwatch_cases, "capture": capture,
+        "drift": {"rows": len(drift.rows), "max_drift": drift.max_drift},
+        "mesh_timeline": timeline, "trace_file": trace_file, "overhead": overhead,
+        "step_s": step_s,
+    }
+    faults = [key for key, r in runs.items() if not r["bit_equal_to_untraced"]]
+    if faults:
+        raise AssertionError(f"traced runs differ from untraced ones: {faults}: {phase}")
+    if not all(c["within"] for c in stopwatch_cases):
+        raise AssertionError(f"the stopwatch strays from the CUDA events: {phase}")
+    if capture["captured_before"] or not (capture["captured_under_tracing"]
+                                          and capture["bit_equal_to_eager"]
+                                          and capture["replay_bit_equal_to_eager"]):
+        raise AssertionError(f"the capture under tracing: {phase}")
+    if drift.max_drift != 0.0:
+        raise AssertionError(f"the drift report is not 0: {phase}")
+    if len(mesh_events) > MESH_EVENTS or ends != [float(c) for c in planned] \
+            or allreduce["ts"] != max(planned):
+        raise AssertionError(f"the mesh timeline: {phase}")
+    if not (trace_file["cat_is_first_segment"] and trace_file["loaded_events"] == n_events
+            and samples.get("stream/nonzeros") == stream_nnz == counters["stream/nonzeros"]):
+        raise AssertionError(f"the trace file: {phase}")
+    if obs.enabled() or obs.get_tracer().events():
+        raise AssertionError("the tracer is left enabled or holding events")
+    return phase
 
 
 def main(argv=None) -> int:
@@ -2960,8 +3242,9 @@ def main(argv=None) -> int:
     # before its first sweep, so a sweep is timed on its own — a backend
     # instance that stamps the clock (after a synchronize) whenever mode 0 is
     # asked for marks each sweep's start; the fit of sweep i ends before the
-    # stamp of sweep i+1
-    def sweep_ms(name, **kwargs):
+    # stamp of sweep i+1. Untraced: type(backends.get(...)) is the backend's
+    # own class only while tracing is off
+    def sweep_ms(name, sweeps=SWEEPS, **kwargs):
         stamps = []
 
         class Stamped(type(backends.get(name, cfg))):
@@ -2971,9 +3254,15 @@ def main(argv=None) -> int:
                     stamps.append(time.perf_counter())
                 return super().mttkrp(data, factors, mode)
 
-        cp_als(None, RANK, n_iter=SWEEPS + 1, sparse=coo, backend=Stamped(cfg, **kwargs),
+        cp_als(None, RANK, n_iter=sweeps + 1, sparse=coo, backend=Stamped(cfg, **kwargs),
                csfs=csfs, init=init, tol=0)
         return [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+
+    # 4f. main_path_trace: repro_torch.obs on the card ----------------------
+    trace_path = main_path_trace(torch, cfg, coo, csfs, init, fd, zero_counts, read_counts,
+                                 sweep_ms)
+    report["main_path_trace"] = trace_path
+    emit(trace_path)
 
     sweeps = {name: sweep_ms(name) for name in ("hopper", "exact")}
     sweeps["hopper_legacy"] = sweep_ms("hopper", compiled=False)
@@ -3007,6 +3296,9 @@ def main(argv=None) -> int:
         "per_sweep_ms_psram_stream": statistics.median(sweeps["psram_stream"]),
         "per_sweep_ms_psram_stream_compiled": statistics.median(sweeps["psram_stream_compiled"]),
         "sweeps_ms": sweeps,
+        # the same backends' sweeps split in place by the tracer (medians of
+        # main_path_trace's traced runs)
+        "traced_split_ms": {key: r["median"] for key, r in trace_path["runs"].items()},
         "sweep_parts_ms": sweep_parts_ms,
         "before_first_sweep_s": hop_s - 1e-3 * SWEEPS * statistics.median(sweeps["hopper"]),
     }

@@ -15,7 +15,9 @@ registry with the ``"exact"``, ``"psram-oracle"``, ``"psram-scheduled"``,
 ``"psram-stream"`` (the quantized chain, eager and compiled), ``"hopper"``
 (dense data and ``compiled=False`` included) and ``"analytical"``
 backends, ``api`` (estimate / execute / mttkrp / matmul), the dense decoder family (``models``, ``configs``,
-``core.photonic_layer``), ``serve.ServeEngine`` and ``launch.serve``, and
+``core.photonic_layer``), ``serve.ServeEngine`` and ``launch.serve``,
+``obs`` (the tracer with device-true spans and stopwatch, the instrumented
+backends, the schedule-IR timelines and the drift auditor), and
 six hand-written CUDA kernels (``kernels/csrc``), one for every Pallas
 kernel of the reference: the fused streaming MTTKRP, the pSRAM int8 matmul,
 the dense MTTKRP pair, the blocked segment sum and flash attention.

@@ -17,9 +17,6 @@ The registry's standing correctness contract is the parity suite
 (tests/test_torch_cp_als.py): every executable backend is compared against
 ``"exact"`` on shared dense + sparse fixtures, within each backend's
 documented numeric envelope (``Capabilities.rel_tol``).
-
-Relative to the reference module: the tracing wrap of constructed backends
-is left out until ``obs`` is ported.
 """
 from __future__ import annotations
 
@@ -193,6 +190,11 @@ def get(name: "str | Backend", config: PsramConfig | None = None,
     ``lowering=`` on ``"hopper"``); a backend that doesn't
     take them raises ``TypeError`` — the capability simply doesn't exist
     there.
+
+    When tracing is enabled (``repro_torch.obs``), constructed backends come
+    back wrapped in an ``InstrumentedBackend`` that spans every protocol
+    call with workload metadata; passed-through instances are never wrapped
+    implicitly (the caller owns an instance's identity).
     """
     _ensure_builtin()
     if isinstance(name, Backend):
@@ -206,7 +208,10 @@ def get(name: "str | Backend", config: PsramConfig | None = None,
         raise UnknownBackendError(
             f"unknown backend {name!r}; registered: {', '.join(_REGISTRY)}"
         )
-    return _REGISTRY[name](config, **kwargs)
+    backend = _REGISTRY[name](config, **kwargs)
+    from repro_torch.obs.instrument import maybe_instrument
+
+    return maybe_instrument(backend)
 
 
 def _ensure_builtin() -> None:

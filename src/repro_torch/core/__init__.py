@@ -5,8 +5,9 @@ projection layer.
 
 Ported: ``quantization``, ``psram`` (``PsramConfig``, ``PsramArray``,
 ``matmul_via_array``), ``schedule`` (the IR, the program cache, the
-accountant, the per-cycle oracle and the vectorized executor; the reference's
-``obs`` spans and ``faults`` hooks come with ROADMAP Queue A items 5 and 6),
+accountant, the per-cycle oracle and the vectorized executor, with the
+reference's ``obs`` spans; its ``faults`` hooks come with ROADMAP Queue A
+item 6),
 ``perf_model`` (the §V closed forms, the mesh price and the energy model;
 an H100 roofline in place of the reference's TPU one), ``scaling``,
 ``primitives``, ``mttkrp`` (exact dense + sparse paths, the quantized sparse

@@ -17,8 +17,10 @@ store-side quantization caches (``kernels.stream_mttkrp.stream_factor_quants``,
 ``kernels.ops._stored``) key on tensor identity, and an in-place update would
 be served stale int8 codes.
 
-Relative to the reference module: tracing spans are left out until ``obs`` is
-ported, and ``init=`` takes the initial factors as arrays (``cp_als`` and
+Each sweep records the reference's ``obs`` spans: ``als/sweep`` around the
+mode loop and ``als/fit`` around the fit (on the card each covers its device
+work, ``repro_torch.obs.tracer``). Relative to the reference module:
+``init=`` takes the initial factors as arrays (``cp_als`` and
 ``cp_als_psram`` alike).
 """
 from __future__ import annotations
@@ -28,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch._device import as_device, ieee_f32
 
 from .mttkrp import khatri_rao, mttkrp_dense, mttkrp_sparse
@@ -293,26 +296,31 @@ def cp_als(
     # backend, whose override all-reduces per-shard partial Grams.
     gram = be.gram if be is not None else (lambda f: f.T @ f)
     grams = [gram(f) for f in factors]
+    backend_name = be.name if be is not None else (
+        "callable" if callable_fn is not None else "default")
     for it in range(1, n_iter + 1):
-        for mode in range(len(shape)):
-            m = fn(x, factors, mode)                      # MTTKRP
-            g = _hadamard_of(grams, mode)                 # (R, R)
-            a = m @ torch.linalg.pinv(g)
-            lam = torch.linalg.norm(a, dim=0).clamp_min(1e-12)
-            factors[mode] = a / lam                       # a NEW tensor
-            grams[mode] = gram(factors[mode])
-        # fit = 1 - ||X - X_hat|| / ||X||, the standard inner-product trick
-        g_all = _hadamard_of(grams, skip=-1) * torch.outer(lam, lam)
-        # <X, X_hat> needs the final-mode MTTKRP against the *current* other
-        # factors — m already is that (they don't change after the last
-        # update). A lossy backend's m would bias the metric, so recompute
-        # it exactly when asked.
-        m_fit = exact_last_mode_fn(x, factors, last) if exact_fit else m
-        inner = torch.sum(m_fit * (factors[-1] * lam))
-        norm_hat_sq = torch.sum(g_all)
-        resid = torch.sqrt(
-            torch.clamp_min(norm_x**2 + norm_hat_sq - 2 * inner, 0.0))
-        fit = float(1.0 - resid / norm_x)
+        with obs.span("als/sweep", iteration=it, backend=backend_name,
+                      rank=rank):
+            for mode in range(len(shape)):
+                m = fn(x, factors, mode)                      # MTTKRP
+                g = _hadamard_of(grams, mode)                 # (R, R)
+                a = m @ torch.linalg.pinv(g)
+                lam = torch.linalg.norm(a, dim=0).clamp_min(1e-12)
+                factors[mode] = a / lam                       # a NEW tensor
+                grams[mode] = gram(factors[mode])
+        with obs.span("als/fit", iteration=it, exact=bool(exact_fit)):
+            # fit = 1 - ||X - X_hat|| / ||X||, the standard inner-product trick
+            g_all = _hadamard_of(grams, skip=-1) * torch.outer(lam, lam)
+            # <X, X_hat> needs the final-mode MTTKRP against the *current*
+            # other factors — m already is that (they don't change after the
+            # last update). A lossy backend's m would bias the metric, so
+            # recompute it exactly when asked.
+            m_fit = exact_last_mode_fn(x, factors, last) if exact_fit else m
+            inner = torch.sum(m_fit * (factors[-1] * lam))
+            norm_hat_sq = torch.sum(g_all)
+            resid = torch.sqrt(
+                torch.clamp_min(norm_x**2 + norm_hat_sq - 2 * inner, 0.0))
+            fit = float(1.0 - resid / norm_x)
         if abs(fit - prev_fit) < tol:
             break
         prev_fit = fit

@@ -38,9 +38,12 @@ counters.
 ``compiled=True`` runs :func:`compiled_matmul_executor`: on a CUDA tensor
 the eager executor captured once in a ``torch.cuda.CUDAGraph`` (its working
 set in the graph's private pool) and replayed; on a CPU tensor the eager
-executor itself. Relative to the reference module, the tracing spans and
-counters (``obs``, ROADMAP Queue A item 5) and the fault hooks (``faults``,
-item 6) are left out; they come with those items.
+executor itself. Both interpreters record the reference's ``obs`` spans
+and counters (``schedule/execute/matmul`` with
+``schedule/programs_executed``, ``schedule/execute/reference`` with
+``schedule/reference_ops``). Relative to the reference module, the fault
+hooks (``faults``, ROADMAP Queue A item 6) are left out; they come with that
+item.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch._device import ieee_f32
 
 from .psram import PsramArray, PsramConfig
@@ -385,21 +389,25 @@ def execute_reference(program: TileProgram, x: torch.Tensor, w: torch.Tensor) ->
     cfg = program.config
     m, k, n = program.shape
     dev = x.device
-    out = torch.zeros((m, n), dtype=torch.float32, device=dev)
-    arr = PsramArray(cfg, device=dev)
-    tile = None
-    cur = None
-    for op in program.ops:
-        if isinstance(op, StoreTile):
-            cur = op
-            tile = arr.store(w[op.k0:op.k1, op.n0:op.n1])
-        else:
-            xt = torch.zeros((op.m1 - op.m0, cfg.rows), dtype=torch.float32, device=dev)
-            xt[:, : cur.k1 - cur.k0] = x[op.m0:op.m1, cur.k0:cur.k1]
-            chan = torch.arange(op.m1 - op.m0, dtype=torch.int64, device=dev)
-            acc = tile.multiply_accumulate(xt, chan)  # (cols, wavelengths)
-            out[op.m0:op.m1, cur.n0:cur.n1] += acc[: cur.n1 - cur.n0, : op.m1 - op.m0].T
-    return out
+    with obs.span("schedule/execute/reference", m=m, k=k, n=n,
+                  ops=len(program.ops)):
+        if obs.enabled():
+            obs.counter("schedule/reference_ops", len(program.ops))
+        out = torch.zeros((m, n), dtype=torch.float32, device=dev)
+        arr = PsramArray(cfg, device=dev)
+        tile = None
+        cur = None
+        for op in program.ops:
+            if isinstance(op, StoreTile):
+                cur = op
+                tile = arr.store(w[op.k0:op.k1, op.n0:op.n1])
+            else:
+                xt = torch.zeros((op.m1 - op.m0, cfg.rows), dtype=torch.float32, device=dev)
+                xt[:, : cur.k1 - cur.k0] = x[op.m0:op.m1, cur.k0:cur.k1]
+                chan = torch.arange(op.m1 - op.m0, dtype=torch.int64, device=dev)
+                acc = tile.multiply_accumulate(xt, chan)  # (cols, wavelengths)
+                out[op.m0:op.m1, cur.n0:cur.n1] += acc[: cur.n1 - cur.n0, : op.m1 - op.m0].T
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -670,6 +678,10 @@ def execute(program: TileProgram, x: torch.Tensor, w: torch.Tensor,
     _validate_matmul_program(program)
     _check_operands(program, x, w)
     m, k, n = program.shape
-    if compiled:
-        return compiled_matmul_executor(m, k, n, program.config)(x, w)
-    return _execute_tiles(x, w, **_tile_geometry(m, k, n, program.config))
+    with obs.span("schedule/execute/matmul", m=m, k=k, n=n,
+                  compiled=compiled):
+        if obs.enabled():
+            obs.counter("schedule/programs_executed")
+        if compiled:
+            return compiled_matmul_executor(m, k, n, program.config)(x, w)
+        return _execute_tiles(x, w, **_tile_geometry(m, k, n, program.config))

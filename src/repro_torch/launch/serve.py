@@ -4,15 +4,15 @@
         [--batch 8] [--prompt-len 16] [--max-new 32] [--device cuda|cpu]
 
 Runs on the card unless ``--device cpu`` is given (and raises without one).
-Weights and prompts are random, from fixed seeds. The time is a host clock
-around ``generate`` that ends in ``torch.cuda.synchronize()`` on the card;
-the reference's ``obs.stopwatch`` comes with ``obs`` (ROADMAP Queue A item
-5), and its ``--model-parallel`` with a mesh (item 4).
+Weights and prompts are random, from fixed seeds. The time is the
+``obs.stopwatch("serve/generate")`` around ``generate``, which waits for the
+card's queued work on both edges; a ``serve/generate`` span lands in the
+trace whenever tracing is on (``REPRO_TORCH_TRACE=1``). The reference's
+``--model-parallel`` comes with a mesh (ROADMAP Queue A item 4).
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 
 def main(argv=None):
@@ -28,6 +28,7 @@ def main(argv=None):
 
     import torch
 
+    from repro_torch import obs
     from repro_torch._device import as_device
     from repro_torch.models.registry import get_config, get_module
     from repro_torch.serve import ServeEngine
@@ -43,17 +44,13 @@ def main(argv=None):
                             generator=torch.Generator(device=dev).manual_seed(1),
                             device=dev, dtype=torch.int32)
     gen = torch.Generator(device=dev).manual_seed(3)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    sync()
-    t0 = time.perf_counter()
-    toks = eng.generate(prompts, args.prompt_len, args.max_new,
-                        temperature=args.temperature, generator=gen)
-    sync()
-    dt = time.perf_counter() - t0
+    # the obs stopwatch owns the measurement: the printed tok/s summary is
+    # sourced from it
+    with obs.stopwatch("serve/generate", batch=args.batch,
+                       max_new=args.max_new, arch=args.arch) as sw:
+        toks = eng.generate(prompts, args.prompt_len, args.max_new,
+                            temperature=args.temperature, generator=gen)
+    dt = sw.duration_s
     total = args.batch * args.max_new
     print(f"generated {tuple(toks.shape)} in {dt:.2f}s  ({total/dt:.1f} tok/s batched) "
           f"on {dev.type}")

@@ -9,14 +9,16 @@
   ``core.schedule`` IR (``build_stream_program``) with its price
   (``stream_mttkrp_priced``).
 * ``partition`` — the multi-array planners (nnz-balanced, makespan-refined)
-  the analytical mesh price plans on.
+  the analytical mesh price plans on, and the planned split with its
+  per-array stream programs (``partition_fiber_lengths``).
 
 Still to come from the reference package: ``mesh`` and the rest of
 ``partition`` (ROADMAP Queue A item 4).
 """
 from .formats import COO, CSF, BlockedCOO, SortedCOO, csf_for_mode
-from .partition import (PLANNERS, Partition, imbalance, makespan_partitions,
-                        nnz_balanced_partitions, plan_partitions)
+from .partition import (PLANNERS, Partition, PartitionedSchedule, imbalance,
+                        makespan_partitions, nnz_balanced_partitions, partition_fiber_lengths,
+                        plan_partitions)
 from .stream import (StreamedMTTKRP, blocked_fold_reference, build_stream_program,
                      rank_tile_widths, stream_layout, stream_mttkrp, stream_mttkrp_blocked,
                      stream_mttkrp_coo, stream_mttkrp_priced)
@@ -30,6 +32,7 @@ __all__ = [
     "SortedCOO",
     "FiberStats",
     "Partition",
+    "PartitionedSchedule",
     "StreamedMTTKRP",
     "blocked_fold_reference",
     "build_stream_program",
@@ -37,6 +40,7 @@ __all__ = [
     "imbalance",
     "makespan_partitions",
     "nnz_balanced_partitions",
+    "partition_fiber_lengths",
     "plan_partitions",
     "powerlaw_coo",
     "powerlaw_fiber_lengths",

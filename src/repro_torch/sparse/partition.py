@@ -9,11 +9,13 @@ cumsum.
 Ported: the planners (:func:`nnz_balanced_partitions`,
 :func:`makespan_partitions`, :func:`plan_partitions`) and :func:`imbalance`
 — pure numpy, the same boundaries as the reference's — which the analytical
-mesh price (``core.perf_model.mesh_sparse_price``) plans on. Still to come
-from the reference module with the mesh (ROADMAP Queue A item 4):
-``arrays_for_mesh`` (the array count from the ``dist.sharding`` rule set),
-``PartitionedSchedule`` / ``partition_fiber_lengths`` and
-``MeshedSparseTensor`` / ``partition_csf``.
+mesh price (``core.perf_model.mesh_sparse_price``) plans on; and
+:class:`PartitionedSchedule` / :func:`partition_fiber_lengths`, the planned
+split with its per-array stream programs from the fiber lengths alone, which
+``obs.mesh_timeline`` renders. Still to come from the reference module with
+the mesh (ROADMAP Queue A item 4): ``arrays_for_mesh`` (the array count from
+the ``dist.sharding`` rule set) and ``MeshedSparseTensor`` /
+``partition_csf``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ import numpy as np
 
 from repro_torch.backends.base import resolve_config
 from repro_torch.core.psram import PsramConfig
+from repro_torch.core.schedule import CycleCounts, TileProgram, count_cycles
+
+from .stream import build_stream_program
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,3 +167,49 @@ def imbalance(parts: list[Partition]) -> float:
     loads = np.asarray([p.nnz for p in parts], dtype=np.float64)
     mean = loads.mean()
     return float(loads.max() / mean) if mean > 0 else 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedSchedule:
+    """An nnz-balanced multi-array split with its per-array stream programs
+    — the one place the multi-array aggregates (summed counts, makespan,
+    load imbalance) are defined."""
+
+    partitions: tuple[Partition, ...]
+    programs: tuple[TileProgram, ...]
+
+    @property
+    def counts(self) -> CycleCounts:
+        """Summed counted cycles of every array's stream program."""
+        per = [count_cycles(p) for p in self.programs]
+        return sum(per[1:], per[0])
+
+    @property
+    def critical_path_cycles(self) -> int:
+        """Arrays run concurrently: makespan is the slowest array."""
+        return max(count_cycles(p).total_cycles for p in self.programs)
+
+    @property
+    def imbalance(self) -> float:
+        return imbalance(list(self.partitions))
+
+
+def partition_fiber_lengths(
+    fiber_lengths,
+    n_arrays: int,
+    rank: int,
+    config: PsramConfig | None = None,
+    planner: str = "nnz",
+) -> PartitionedSchedule:
+    """Planned split + per-array stream programs from the fiber-length
+    distribution alone (no coordinates needed — paper-scale pricing).
+    ``planner`` picks the boundary rule (see :func:`plan_partitions`);
+    the historical default stays the nnz-balanced cut."""
+    cfg = resolve_config(config)
+    f = np.asarray(fiber_lengths, dtype=np.int64)
+    parts = plan_partitions(f, n_arrays, rank, cfg, planner=planner)
+    programs = tuple(
+        build_stream_program(f[p.fiber_start:p.fiber_stop], rank, cfg)
+        for p in parts
+    )
+    return PartitionedSchedule(partitions=tuple(parts), programs=programs)

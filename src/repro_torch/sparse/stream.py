@@ -38,8 +38,10 @@ the plain version). Beside them the flat oracle of the compiled fold
 block, plain PyTorch), the COO front doors :func:`stream_mttkrp_coo` and
 :func:`blocked_fold_mttkrp_coo`, and the schedule and its price
 (:func:`rank_tile_widths`, :func:`build_stream_program`,
-:class:`StreamedMTTKRP`, :func:`stream_mttkrp_priced`). The whole reference
-module is ported.
+:class:`StreamedMTTKRP`, :func:`stream_mttkrp_priced`). :func:`stream_mttkrp`
+records the reference's ``obs`` span ``stream/mttkrp/execute`` and counters
+``stream/nonzeros`` / ``stream/blocks``. The whole reference module is
+ported.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch._device import ieee_f32
 from repro_torch.backends.base import resolve_config
 from repro_torch.core.mttkrp import cp_chain_exact, cp_chain_psram
@@ -235,12 +238,33 @@ def stream_mttkrp(
     quantization unchanged) and is within 1e-6 relative of its flat oracle
     :func:`blocked_fold_reference`; it takes no ``exec_blocks`` (the
     reference's scan chunks change no bit of its result).
+
+    The call records the span ``stream/mttkrp/execute`` (nnz, mode,
+    compiled, psram, exec_blocks — the steps the reference's executor takes,
+    whatever this device takes) and the counters ``stream/nonzeros`` and
+    ``stream/blocks`` while tracing is enabled (``repro_torch.obs``).
     """
     cfg = resolve_config(config)
     factors = tuple(factors)
-    if compiled:
-        return stream_mttkrp_blocked(csf, factors, cfg, psram=psram, adc_bits=adc_bits)
     mode = csf.mode_order[0]
+    nnz = int(csf.nnz)
+    rows = cfg.rows
+    n_blocks = max(1, -(-max(1, nnz) // rows))
+    eb = _exec_blocks(rows, n_blocks, exec_blocks)
+    with obs.span("stream/mttkrp/execute", nnz=nnz, mode=int(mode),
+                  compiled=compiled, psram=psram, exec_blocks=eb):
+        if obs.enabled():
+            obs.counter("stream/nonzeros", nnz)
+            obs.counter("stream/blocks", n_blocks)
+        if compiled:
+            return stream_mttkrp_blocked(csf, factors, cfg, psram=psram, adc_bits=adc_bits)
+        return _stream_eager(csf, factors, mode, rows * eb, psram, adc_bits)
+
+
+def _stream_eager(csf: CSF, factors: tuple, mode: int, step: int, psram: bool,
+                  adc_bits: int) -> torch.Tensor:
+    """The eager executor of :func:`stream_mttkrp`: one chain-route launch
+    on the card, steps of ``step`` nonzeros on the CPU."""
     indices, values = csf.expanded_indices(), csf.values
     out = torch.zeros((csf.shape[mode], factors[0].shape[-1]), dtype=torch.float32,
                       device=values.device)
@@ -250,9 +274,6 @@ def stream_mttkrp(
         return ordered_chain_fold(out, coords, values, tuple(f.contiguous() for f in factors),
                                   mode, seg_ptr, seg_rows, longest_run=longest,
                                   long_runs=long_runs, psram=psram, adc_bits=adc_bits)
-    rows = cfg.rows
-    n_blocks = max(1, -(-max(1, csf.nnz) // rows))
-    step = rows * _exec_blocks(rows, n_blocks, exec_blocks)
     for lo in range(0, csf.nnz, step):    # the CPU's index_add_, in stream order
         i_b, v_b = indices[lo:lo + step], values[lo:lo + step]
         d = (cp_chain_psram(i_b, v_b, factors, mode, adc_bits) if psram
