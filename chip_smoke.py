@@ -92,6 +92,26 @@ What it does, in order — any failure raises and the run exits non-zero:
       mode's ``api.mttkrp`` (default backend: ``psram-stream``) and the
       compiled backend within ``rel_tol`` of exact, each call's own peak
       device memory below the (nnz, R) chain it never forms.
+   c+. ``main_path_autotune``: ``cp_als`` (rank 32, 2 sweeps) on
+      ``backends.get("hopper", autotune=True)`` from an empty winner cache,
+      under tracing: each sweep's trials (``exec_blocks``, kernel 1's route,
+      median ms) and winner (modes 0 and 1 share one key); a second call a
+      mode makes no trial (``autotune/trials``); each tuned MTTKRP within
+      ``rel_tol`` of exact and bit-equal to the untuned op forced to the
+      winner's ``exec_blocks``; ``save_cache`` → ``clear_autotune_cache`` →
+      ``load_cache`` gives the same winners without a sweep.
+      ``main_path_mesh``: the ``psram-mesh`` backend at 4 arrays looped on
+      the card: each lowering once a mode (``eager``: the ordered fold's
+      quantized chain route a shard; ``compiled``: kernel 5's quantized
+      chain route + the fold route a shard; ``fused``: kernel 1 a shard) and
+      ``cp_als`` (3 sweeps, stamped a sweep) with the counts zeroed before
+      and read after; the eager result bit-equal to the single-device
+      ``psram-stream`` call, the others within ``rel_tol`` of exact, each
+      lowering's call ms beside the single-device call's, each shard's nnz
+      and the planner's imbalance, the fit against ``psram-stream``'s, the
+      split Gram, the counted 4-array price equal to ``"analytical"``'s (the
+      array's time beside the card's), the ``mesh4`` drift row and the
+      executed plan's timeline.
    c''. ``main_path_schedule``: the array's tile schedule, plain PyTorch on
       the card (no hand-written kernel; every launch count 0). ``api.matmul``
       on its default backend, ``psram-scheduled``, at the MLP projection and
@@ -207,6 +227,10 @@ TRACE_CAPTURE_SHAPE = (256, 4096, 4096)
 STOPWATCH_CALLS = 5
 MESH_ARRAYS, MESH_EVENTS = 4, 10_000
 OVERHEAD_SWEEPS = 5
+# main_path_autotune: the tuned CP-ALS run's sweeps; main_path_mesh: the
+# arrays looped on the one card
+TUNE_SWEEPS = 2
+MESH_MAIN_ARRAYS = 4
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): the
 # port's roofline constants, one source for both
@@ -2491,6 +2515,251 @@ def main_path_trace(torch, cfg, coo, csfs, init, fd, zero_counts, read_counts,
     return phase
 
 
+def stamped_sweeps(torch, cp_als, backend_cls, cfg, coo, csfs, init, sweeps, **kwargs):
+    """``cp_als`` of ``sweeps`` sweeps on an instance of ``backend_cls``
+    that stamps the clock (after a synchronize) whenever mode 0 is asked
+    for, and once more after the run: ``(state, per_sweep_ms)``, sweep i
+    running from its stamp to the next (its fit included)."""
+    stamps = []
+
+    class Stamped(backend_cls):
+        def mttkrp(self, data, factors, mode):
+            if mode == 0:
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+            return super().mttkrp(data, factors, mode)
+
+    state = cp_als(None, RANK, n_iter=sweeps, sparse=coo, backend=Stamped(cfg, **kwargs),
+                   csfs=csfs, init=init, tol=0)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    return state, [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+
+
+def main_path_autotune(torch, cfg, coo, csfs, init, zero_counts, read_counts) -> tuple:
+    """The ``main_path_autotune`` phase: ``cp_als`` (rank 32, ``TUNE_SWEEPS``
+    sweeps) on ``backends.get("hopper", autotune=True)`` under tracing, from
+    an empty winner cache: every sweep of ``kernels.autotune`` with each
+    trial's ``exec_blocks``, kernel 1 route and median ms, and its winner;
+    then a second call a mode under tracing (no ``autotune/trials``), each
+    tuned MTTKRP against ``exact`` and bit-equal to the untuned op forced to
+    the winner's ``exec_blocks``, and the winner table through
+    ``save_cache`` → ``clear_autotune_cache`` → ``load_cache`` (the same
+    winners, no sweep). The counts are zeroed before the ``cp_als`` run and
+    read after it: ``(phase, launches)``. Ends with an untuned call a mode,
+    so the layouts cached on the CSFs are the heuristic's again."""
+    from repro_torch import api, backends, obs
+    from repro_torch.core.cp_als import cp_als
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ops import fused_stream_mttkrp_op
+
+    autotune.clear_autotune_cache()
+    tuned_be = backends.get("hopper", cfg, autotune=True)
+    obs.get_tracer().clear()
+    obs.enable()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        state = cp_als(None, RANK, n_iter=TUNE_SWEEPS, sparse=coo, backend=tuned_be,
+                       csfs=csfs, init=init, tol=0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counts()
+        first_trials = obs.get_tracer().counters().get("autotune/trials", 0)
+        obs.get_tracer().clear()
+        fs = tuple(state.factors)
+        again = [tuned_be.mttkrp(csfs[m], fs, m) for m in range(3)]
+        second_trials = obs.get_tracer().counters().get("autotune/trials", 0)
+    finally:
+        obs.disable()
+        obs.get_tracer().clear()
+    sweeps = [{"shape": list(s["key"].shape), "profile": list(s["key"].profile),
+               "trials": [{"exec_blocks": t["params"]["exec_blocks"], "route": t["route"],
+                           "median_ms": 1e3 * t["median_s"]} for t in s["trials"]],
+               "winner": s["winner"]["exec_blocks"]} for s in autotune.sweep_log()]
+    winners = [autotune.stream_params(csfs[m], fs, cfg)["exec_blocks"] for m in range(3)]
+    rel, bit_equal = [], []
+    for m in range(3):
+        want = api.mttkrp(csfs[m], fs, m, backend="exact")
+        rel.append(float(torch.linalg.norm(again[m] - want) / torch.linalg.norm(want)))
+        forced = fused_stream_mttkrp_op(csfs[m], fs, cfg, exec_blocks=winners[m])
+        bit_equal.append(bool(torch.equal(again[m], forced)))
+        del want, forced
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "winners.json")
+        saved = autotune.save_cache(path)
+        autotune.clear_autotune_cache()
+        loaded = autotune.load_cache(path)
+    reloaded = [autotune.stream_params(csfs[m], fs, cfg, tune=True)["exec_blocks"]
+                for m in range(3)]
+    reload_sweeps = len(autotune.sweep_log())
+    autotune.clear_autotune_cache()
+    untuned_rel = []
+    for m in range(3):       # the heuristic's layouts back on the CSFs
+        untuned = fused_stream_mttkrp_op(csfs[m], fs, cfg)
+        untuned_rel.append(float(torch.linalg.norm(again[m] - untuned)
+                                 / torch.linalg.norm(untuned)))
+    torch.cuda.synchronize()
+    rel_tol = tuned_be.capabilities().rel_tol
+    phase = {
+        "phase": "main_path_autotune", "sweeps_run": TUNE_SWEEPS, "rank": RANK,
+        "fit": state.fit, "iters": state.iters, "cp_als_s": run_s, "launches": launches,
+        "autotune_sweeps": sweeps, "winners": winners,
+        "trials_first_run": first_trials, "trials_second_call": second_trials,
+        "rel_err": rel, "rel_tol": rel_tol, "bit_equal_to_forced_winner": bit_equal,
+        "rel_to_untuned": untuned_rel,
+        "saved": saved, "loaded": loaded, "reloaded_winners": reloaded,
+        "reload_sweeps": reload_sweeps,
+    }
+    n_trials = sum(len(s["trials"]) for s in sweeps)
+    if not math.isfinite(state.fit) or state.iters != TUNE_SWEEPS:
+        raise AssertionError(f"tuned CP-ALS: {phase}")
+    if not sweeps or first_trials != n_trials or second_trials != 0:
+        raise AssertionError(f"the tuned run swept nothing, or a second call swept again: "
+                             f"{phase}")
+    if not all(bit_equal) or not max(rel) < rel_tol:
+        raise AssertionError(f"a tuned MTTKRP is not the untuned call at its winner, or "
+                             f"strays from exact: {phase}")
+    if reloaded != winners or reload_sweeps != 0 or loaded != saved:
+        raise AssertionError(f"the winner table did not round-trip: {phase}")
+    # each trial: a warm-up call and 3 timed ones; each mode of each sweep one call
+    if launches["stream_mttkrp_fused"] != 4 * n_trials + 3 * TUNE_SWEEPS:
+        raise AssertionError(f"the tuned run's kernel 1 launches: {phase}")
+    return phase, launches
+
+
+def main_path_mesh(torch, cfg, coo, csfs, init, zero_counts, read_counts, psram_fit) -> tuple:
+    """The ``main_path_mesh`` phase: the ``psram-mesh`` backend at
+    ``MESH_MAIN_ARRAYS`` arrays looped on one card. With the counts zeroed
+    before and read after: each lowering of ``mesh_stream_mttkrp`` once a
+    mode, and ``cp_als`` (rank 32, 3 sweeps) on ``psram-mesh`` (eager),
+    stamped a sweep. Then, for each mode: the eager result bit-equal to the
+    single-device ``psram-stream`` eager call, ``"compiled"`` and
+    ``"fused"`` within ``rel_tol`` of exact, each lowering's call ms beside
+    its single-device call's, each shard's nnz and the planner's imbalance,
+    and the counted 4-array price (``"psram-mesh"``'s ``cost``) equal to
+    ``"analytical"``'s field for field, the array's time beside the card's;
+    the split Gram against ``f.T @ f``; the ``mesh4`` drift row; the
+    per-array tracks of mode 0's executed plan. ``(phase, launches)``."""
+    from repro_torch import api, backends, obs
+    from repro_torch.core.cp_als import cp_als
+    from repro_torch.core.perf_model import MeshSparseMTTKRPWorkload, mesh_sparse_price
+    from repro_torch.kernels.ops import fused_stream_mttkrp_op
+    from repro_torch.sparse.mesh import (MESH_LOWERINGS, _mesh_partition, mesh_counted_price,
+                                         mesh_gram, mesh_plan_timeline, mesh_stream_mttkrp)
+    from repro_torch.sparse.stream import stream_mttkrp
+
+    n = MESH_MAIN_ARRAYS
+    fs = tuple(init)
+    kernel_keys = ("stream_mttkrp_fused", "blocked_segment_sum_chain_psram",
+                   "ordered_fold_chain_psram", "ordered_fold_fold")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    outs, by_lowering = {}, {}
+    for low in MESH_LOWERINGS:
+        before = read_counts()
+        outs[low] = [mesh_stream_mttkrp(csfs[m], fs, cfg, n_arrays=n, lowering=low)
+                     for m in range(3)]
+        after = read_counts()
+        by_lowering[low] = {k: after[k] - before[k] for k in kernel_keys}
+    calls_s = time.perf_counter() - t0
+    mesh_cls = type(backends.get("psram-mesh", cfg))
+    state, per_sweep = stamped_sweeps(torch, cp_als, mesh_cls, cfg, coo, csfs, init, SWEEPS,
+                                      n_arrays=n)
+    launches = read_counts()
+    single = {
+        "eager": lambda m: stream_mttkrp(csfs[m], fs, cfg, psram=True),
+        "compiled": lambda m: stream_mttkrp(csfs[m], fs, cfg, psram=True, compiled=True),
+        "fused": lambda m: fused_stream_mttkrp_op(csfs[m], fs, cfg),
+    }
+    stream_cls = type(backends.get("psram-stream", cfg))
+    stream_state, stream_sweep = stamped_sweeps(torch, cp_als, stream_cls, cfg, coo, csfs,
+                                                init, SWEEPS)
+    rel_tol = backends.get("psram-mesh", cfg).capabilities().rel_tol
+    modes = []
+    for m in range(3):
+        want = api.mttkrp(csfs[m], fs, m, backend="exact")
+        norm = torch.linalg.norm(want)
+        meshed = _mesh_partition(csfs[m], n, RANK, cfg, "makespan")
+        row = {
+            "mode": m, "shard_nnz": [s.nnz for s in meshed.shards],
+            "imbalance": meshed.imbalance,
+            "eager_bit_equal_to_single": bool(torch.equal(outs["eager"][m], single["eager"](m))),
+            "rel_err": {low: float(torch.linalg.norm(outs[low][m] - want) / norm)
+                        for low in MESH_LOWERINGS},
+            "ms": {low: time_ms(torch, lambda low=low: mesh_stream_mttkrp(
+                       csfs[m], fs, cfg, n_arrays=n, lowering=low), warmup=1, iters=3, reps=2)
+                   for low in MESH_LOWERINGS},
+            "single_ms": {low: time_ms(torch, lambda low=low: single[low](m), warmup=1,
+                                       iters=3, reps=2) for low in MESH_LOWERINGS},
+        }
+        wl = MeshSparseMTTKRPWorkload(fiber_lengths=csfs[m].fiber_lengths(), rank=RANK,
+                                      n_arrays=n)
+        counted = backends.get("psram-mesh", cfg).cost(wl)
+        ana = backends.get("analytical", cfg).cost(wl)
+        c_price, _ = mesh_counted_price(wl.fiber_lengths, RANK, cfg, n_arrays=n,
+                                        out_rows=wl.reduced_rows)
+        a_price = mesh_sparse_price(cfg, wl)
+        row["price"] = {
+            "counted_time_s": counted.time_s, "analytical_time_s": ana.time_s,
+            "equal": counted.time_s == ana.time_s and counted.counts == ana.counts
+            and dataclasses.asdict(counted.breakdown) == dataclasses.asdict(ana.breakdown)
+            and c_price.per_array == a_price.per_array
+            and c_price.reduce_cycles == a_price.reduce_cycles
+            and c_price.makespan_cycles == a_price.makespan_cycles,
+            "makespan_cycles": c_price.makespan_cycles,
+            "reduce_cycles": c_price.reduce_cycles,
+            "per_array_cycles": [c.total_cycles for c in c_price.per_array],
+            "array_ms": 1e3 * counted.time_s, "card_eager_ms": row["ms"]["eager"],
+        }
+        modes.append(row)
+        del want
+    gram = [float((mesh_gram(f, n_arrays=n) - f.T @ f).abs().max() / (f.T @ f).abs().max())
+            for f in state.factors]
+    drift = [r for r in obs.drift_report().rows if r.workload == "mttkrp/sparse/mesh4"]
+    events = mesh_plan_timeline(csfs[0], RANK, cfg, n_arrays=n, max_events=MESH_EVENTS)
+    (allreduce,) = [e for e in events if e["name"] == "allreduce"]
+    phase = {
+        "phase": "main_path_mesh", "n_arrays": n, "rank": RANK, "sweeps": SWEEPS,
+        "calls_s": calls_s, "launches": launches, "launches_by_lowering": by_lowering,
+        "modes": modes,
+        "fit": state.fit, "fit_psram_stream": stream_state.fit,
+        "fit_psram_stream_main_path": psram_fit, "iters": state.iters,
+        "per_sweep_ms": per_sweep, "per_sweep_ms_psram_stream": stream_sweep,
+        "gram_max_rel_err": gram, "rel_tol": rel_tol,
+        "drift_mesh4": [r.to_dict() for r in drift],
+        "timeline": {"events": len(events), "allreduce_ts": allreduce["ts"],
+                     "makespan_cycles": _mesh_partition(csfs[0], n, RANK, cfg,
+                                                        "makespan").critical_path_cycles},
+    }
+    if not all(r["eager_bit_equal_to_single"] for r in modes):
+        raise AssertionError(f"the eager mesh is not the single-device stream: {phase}")
+    if not max(max(r["rel_err"].values()) for r in modes) < rel_tol:
+        raise AssertionError(f"a mesh lowering strays from exact beyond rel_tol: {phase}")
+    if not all(r["price"]["equal"] for r in modes):
+        raise AssertionError(f"the counted 4-array price is not the analytical one: {phase}")
+    if not (math.isfinite(state.fit) and abs(state.fit - stream_state.fit) < 1e-3
+            and state.iters == SWEEPS) or max(gram) > 1e-5:
+        raise AssertionError(f"psram-mesh CP-ALS or its Gram strays: {phase}")
+    if len(drift) != 1 or drift[0].drift != 0.0 \
+            or allreduce["ts"] != phase["timeline"]["makespan_cycles"]:
+        raise AssertionError(f"the mesh4 drift row or the executed plan's timeline: {phase}")
+    shards = sum(sum(1 for s in r["shard_nnz"] if s) for r in modes)
+    # eager: a quantized ordered-fold chain launch a shard (the calls, then
+    # the CP-ALS modes, each exact fit one exact chain launch); compiled: a
+    # quantized kernel 5 launch and a fold launch a shard; fused: kernel 1
+    # once a shard
+    want = {"eager": (0, 0, shards, 0), "compiled": (0, shards, 0, shards),
+            "fused": (shards, 0, 0, 0)}
+    if any(tuple(by_lowering[low][k] for k in kernel_keys) != want[low] for low in want) \
+            or launches["ordered_fold_chain_psram"] != shards * (1 + SWEEPS) \
+            or launches["ordered_fold_chain"] != SWEEPS:
+        raise AssertionError(f"the mesh lowerings did not launch their kernels once a "
+                             f"shard: {phase}")
+    return phase, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--nnz", type=int, default=16_777_216,
@@ -2969,6 +3238,16 @@ def main(argv=None) -> int:
                              f"{psram_path}")
     del pst, psc, fs_ps
 
+    # 4c+. the autotune sweeps and the array mesh ----------------------------
+    tune_path, tune_launches = main_path_autotune(torch, cfg, coo, csfs, init, zero_counts,
+                                                  read_counts)
+    report["main_path_autotune"] = tune_path
+    emit(tune_path)
+    mesh_path, mesh_launches = main_path_mesh(torch, cfg, coo, csfs, init, zero_counts,
+                                              read_counts, psram_path["fit_psram_stream"])
+    report["main_path_mesh"] = mesh_path
+    emit(mesh_path)
+
     # 4c''. the array's tile schedule: api.matmul's default, the dense
     # psram-scheduled MTTKRP, and the price --------------------------------
     from repro_torch.core.perf_model import (MTTKRPWorkload, h100_mttkrp_time_s, peak_petaops,
@@ -3310,8 +3589,8 @@ def main(argv=None) -> int:
 
     f_served = flash_path["served_layer0"]["vs_plain"]
     main_paths = (launches, dense_launches, leg_launches, pst_launches, psc_launches,
-                  sched_launches, priced_launches, flash_launches, exact_launches,
-                  psram_launches)
+                  tune_launches, mesh_launches, sched_launches, priced_launches,
+                  flash_launches, exact_launches, psram_launches)
 
     def total(name):
         return sum(counts[name] for counts in main_paths)
@@ -3346,6 +3625,11 @@ def main(argv=None) -> int:
                            "per_mode_ms": [c["routes"].get(r, {}).get("ms") for c in a_main]}
                        for r in stream_mttkrp_fused.routes},
             "passes_ms": [c["passes_ms"] for c in a_main],
+            "autotune": {"launches": tune_launches["stream_mttkrp_fused"],
+                         "trials": sum(len(sw["trials"])
+                                       for sw in tune_path["autotune_sweeps"]),
+                         "winners": tune_path["winners"]},
+            "mesh_launches": mesh_launches["stream_mttkrp_fused"],
         },
         {
             "name": "psram_matmul_wgmma", "route": "cuda",
@@ -3542,6 +3826,8 @@ def main(argv=None) -> int:
             },
             "stepped_call_ms": fold_main["stepped"]["ms"],
             "stepped_split": fold_main["stepped"]["split"],
+            "mesh_launches": {r: mesh_launches[f"ordered_fold_{r}"]
+                              for r in ("chain", "chain_psram", "fold")},
         },
         *[{
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3559,7 +3845,7 @@ def main(argv=None) -> int:
                for k in ("ms", "exact_ms", "plain_ms", "bound_ms", "instruction_bound_ms",
                          "instruction_bound_fdiv_ms", "head_row_ms", "head_row_nnz",
                          "layout", "ptxas")},
-            "adc_bits": cfg.adc.bits,
+            "adc_bits": cfg.adc.bits, "mesh_launches": mesh_launches[name],
         } for name, key, source, replaces in (
             ("ordered_fold_chain_psram", "eager",
              "src/repro_torch/kernels/csrc/ordered_fold.cu (ordered_psram_kernel<RT>: the "

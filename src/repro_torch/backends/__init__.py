@@ -7,10 +7,11 @@ baseline), ``"psram-oracle"`` (the per-cycle array matmul and the quantized
 chain), ``"psram-scheduled"`` (the tile-schedule executor and the §IV dense
 mapping), ``"psram-stream"`` (the streaming schedule with the quantized
 chain, eager and compiled), ``"hopper"`` (the hand-written CUDA kernel
-family — the reference package's ``"pallas"`` backend) and the cost-only
+family — the reference package's ``"pallas"`` backend), ``"psram-mesh"``
+(the streaming schedule over many arrays) and the cost-only
 ``"analytical"``. :func:`describe` turns raw data into the cost descriptor
-``api.estimate`` prices. Still to come from the reference: ``"psram-mesh"``
-(ROADMAP Queue A item 4).
+``api.estimate`` prices. Every backend of the reference's registry is
+ported.
 """
 from .base import (
     Backend,

@@ -22,11 +22,12 @@ name               wraps
                    ``compiled=False`` the legacy per-op path (exact dense
                    KR MTTKRP, blocked segment-sum stream) — the reference
                    package's ``"pallas"`` backend
+``psram-mesh``     many arrays: the streaming schedule over an array mesh
+                   (``repro_torch.sparse.mesh``) — planned shards, one
+                   launch each, partials added by the reduction fabric
 ``analytical``     the closed-form §V model (with its mesh price) —
                    cost-only, never executes
 =================  =========================================================
-
-The reference's ``"psram-mesh"`` backend comes with ROADMAP Queue A item 4.
 
 Numeric contracts the parity suites (tests/test_torch_cp_als.py,
 tests/test_torch_psram_stream.py, tests/test_torch_perf_model.py) enforce:
@@ -289,8 +290,12 @@ class HopperBackend(Backend):
     oracle (``bit_exact=False``) and stays within the documented ADC
     envelope (``rel_tol=0.05``) of ``exact``.
 
-    ``autotune=True`` raises :class:`CapabilityError` until the autotune
-    sweeps are ported.
+    ``autotune=True`` takes the fused sparse path's chunk size
+    (``exec_blocks``) from ``kernels.autotune``'s winner cache, sweeping the
+    candidates on the real operands on a miss (``caps.autotune``). The chunk
+    size is numerics (each chunk's ADC range): a tuned run stays within the
+    same envelope of ``exact``, and is bit-equal to an untuned call at the
+    winner's ``exec_blocks``.
     """
 
     def __init__(self, config=None, lowering: str = "auto",
@@ -299,10 +304,6 @@ class HopperBackend(Backend):
         self.compiled = bool(compiled)
         self.autotune = bool(autotune)
         self.lowering = validate_lowering(lowering)
-        if self.autotune:
-            raise CapabilityError(
-                "backend 'hopper' with autotune=True needs the autotune "
-                "sweeps, which are not ported yet (ROADMAP Queue A item 2)")
 
     def capabilities(self) -> Capabilities:
         return Capabilities(
@@ -347,6 +348,110 @@ class HopperBackend(Backend):
 
         return stream_mttkrp_blocked(
             csf, tuple(factors), self.config, lowering=self.lowering)
+
+
+@register("psram-mesh")
+class PsramMeshBackend(Backend):
+    """The streaming sparse schedule scaled past one array: shards from the
+    partition planner land on the arrays of an ``ArrayMesh``, every array
+    drains its shard (in turn on one card; round-robin over several), and
+    the reduction fabric adds the partial factor outputs
+    (``repro_torch.sparse.mesh``). Dense data is accepted by COO-ifying.
+
+    ``n_arrays=None`` makes one array per visible device of the data's type
+    (1 on the CPU, the mesh then degenerating to exactly the single-device
+    schedule). The planner never splits a root fiber, so the default eager
+    lowering is *bit-identical* to ``"psram-stream"`` and independent of the
+    array count and order; ``compiled=True`` runs the blocked-segment fold
+    per shard (reassociated, ``bit_exact`` drops); ``lowering="fused"`` runs
+    the int8 fused chunk kernel per shard. ``gram`` adds the row shards'
+    partial Grams; ``cost()`` prices the planned split — per-array counted
+    makespan plus the fabric all-reduce — with the same closed forms
+    ``"analytical"`` uses, so estimate==measured stays exact at mesh scale.
+    """
+
+    def __init__(self, config=None, n_arrays: int | None = None,
+                 compiled: bool = False, lowering: str | None = None,
+                 planner: str = "makespan", fabric=None):
+        super().__init__(config)
+        from repro_torch.sparse.mesh import MESH_LOWERINGS
+
+        self.n_arrays = None if n_arrays is None else int(n_arrays)
+        self.lowering = lowering or ("compiled" if compiled else "eager")
+        if self.lowering not in MESH_LOWERINGS:
+            raise ValueError(
+                f"unknown mesh lowering {self.lowering!r}; pick one of "
+                f"{MESH_LOWERINGS}")
+        self.compiled = self.lowering != "eager"
+        self.planner = planner
+        self.fabric = fabric
+
+    def capabilities(self) -> Capabilities:
+        return Capabilities(
+            executes=True, cost_model=True, matmul=False, lossy=True,
+            rel_tol=0.05, prices=("sparse",), prefers_csf=True,
+            bit_exact=not self.compiled, compiled=self.compiled,
+            description="mesh-sharded streaming schedule (a launch per "
+                        f"shard + reduction fabric, {self.lowering} fold)",
+        )
+
+    def mttkrp(self, data, factors, mode: int):
+        from repro_torch.sparse.mesh import mesh_stream_mttkrp
+
+        csf = mode_csf(normalize_mttkrp_data(data), mode)
+        return mesh_stream_mttkrp(
+            csf, tuple(factors), self.config, n_arrays=self.n_arrays,
+            psram=True, adc_bits=self.config.adc.bits,
+            lowering=self.lowering, planner=self.planner,
+        )
+
+    def gram(self, f):
+        """The Gram of the row shards' partial ``(R, R)`` Grams added in
+        array order (``sparse.mesh.mesh_gram``; one array: ``f.T @ f``)."""
+        from repro_torch.sparse.mesh import mesh_gram
+
+        return mesh_gram(f, n_arrays=self.n_arrays)
+
+    def cost(self, workload) -> Estimate:
+        from repro_torch.core.perf_model import (
+            MeshSparseMTTKRPWorkload,
+            SparseMTTKRPWorkload,
+            breakdown_from_counts,
+        )
+        from repro_torch.core.schedule import program_energy
+        from repro_torch.sparse.mesh import mesh_counted_price
+
+        workload = describe(workload)
+        if not isinstance(workload, SparseMTTKRPWorkload):
+            raise CapabilityError(
+                "backend 'psram-mesh' prices fiber-length distributions "
+                "(SparseMTTKRPWorkload / MeshSparseMTTKRPWorkload); use "
+                "'psram-scheduled' or 'analytical' for dense descriptors"
+            )
+        if isinstance(workload, MeshSparseMTTKRPWorkload):
+            n = workload.n_arrays
+            fabric = workload.fabric or self.fabric
+            out_rows = workload.reduced_rows
+        else:
+            n = self.n_arrays or 1
+            fabric = self.fabric
+            out_rows = None
+        price, ps = mesh_counted_price(
+            workload.fiber_lengths, workload.rank, self.config,
+            n_arrays=n, fabric=fabric, planner=self.planner,
+            out_rows=out_rows)
+        counts = price.counts
+        energy = sum((program_energy(p) for p in ps.programs[1:]),
+                     program_energy(ps.programs[0]))
+        return Estimate(
+            backend=self.name,
+            config=self.config,
+            workload=workload,
+            breakdown=breakdown_from_counts(self.config, counts),
+            time_s=price.duration_s(self.config),
+            counts=counts,
+            energy=energy,
+        )
 
 
 @register("analytical")

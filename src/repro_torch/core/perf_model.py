@@ -305,10 +305,9 @@ def mesh_sparse_price(
     arrays: per-array closed-form stream counts on the planner's own
     partition boundaries, plus the electrical all-reduce of the partial
     outputs. The planner is ``sparse.partition.plan_partitions``, the one
-    the reference's executing ``"psram-mesh"`` backend counts on (that
-    backend comes with ROADMAP Queue A item 4), and the closed forms are
-    :func:`stream_counts`, equal field for field to the counted stream
-    schedule.
+    the executing ``"psram-mesh"`` backend (``sparse.mesh``) counts on, and
+    the closed forms are :func:`stream_counts`, equal field for field to the
+    counted stream schedule.
     """
     import numpy as np
 

@@ -206,9 +206,10 @@ def clear_program_cache() -> None:
     """Drop cached canonical programs and compiled executors — releasing
     every captured CUDA graph and its private pool — and the kernel family's
     keyed caches beside them (the stored matmul weights of ``kernels.ops``,
-    the stream kernel's quantized factors), so one call resets every keyed
-    cache of the port."""
+    the stream kernel's quantized factors, the autotuned winners), so one
+    call resets every keyed cache of the port."""
     from repro_torch.kernels import ops, stream_mttkrp
+    from repro_torch.kernels.autotune import clear_autotune_cache
 
     _canonical_matmul_program.cache_clear()
     for executor, device in list(_CAPTURED):
@@ -216,6 +217,7 @@ def clear_program_cache() -> None:
     compiled_matmul_executor.cache_clear()
     ops.clear_store_cache()
     stream_mttkrp.clear_factor_quant_cache()
+    clear_autotune_cache()
 
 
 def stream_block_layout(fiber_lengths, rows: int):

@@ -11,5 +11,10 @@ MTTKRP pair, exact and quantized (``mttkrp``), the blocked segment sum
 (``segment_sum``) and flash attention (``flash_attention``) — every Pallas
 kernel of the reference package — plus the port's own ordered fold
 (``ordered_fold``), which keeps the exact sparse MTTKRP's scatter in stream
-order on the card. Still to come: the autotune sweeps.
+order on the card; and ``autotune``, the chunk-size sweeps of the fused
+stream kernel with their winner cache (``save_cache`` / ``load_cache``,
+whose tables the reference package reads and writes alike).
 """
+from .autotune import TuneKey, clear_autotune_cache, load_cache, save_cache
+
+__all__ = ["TuneKey", "clear_autotune_cache", "load_cache", "save_cache"]

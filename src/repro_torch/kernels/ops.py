@@ -12,6 +12,8 @@ Ported: :func:`psram_matmul_op`, :func:`mttkrp_op`, :func:`mttkrp_psram_op`,
 :func:`flash_attention_op` — every op of the reference's ``kernels/ops.py``
 that reaches a Pallas kernel — and :func:`blocked_chain_segment_sum_op`, the
 blocked segment sum with the exact chain formed in its kernel.
+:func:`fused_stream_mttkrp_op` takes ``autotune=True``: the chunk size from
+``kernels.autotune``'s winner cache, swept on a miss.
 """
 from __future__ import annotations
 
@@ -231,7 +233,11 @@ def fused_stream_mttkrp_op(
 ) -> torch.Tensor:
     """Sparse streaming MTTKRP through the fused kernel family (chain +
     per-segment sums + ADC epilogue + cross-block accumulation); see
-    kernels/stream_mttkrp.py."""
+    kernels/stream_mttkrp.py. ``exec_blocks=None`` asks ``kernels.autotune``
+    for the chunk size: its heuristic, or with ``autotune=True`` the cached
+    winner of a sweep over the real operands (run here on a miss). The
+    chunk size is numerics: a tuned call is bit-equal to an untuned call
+    given the winner's ``exec_blocks``."""
     from repro_torch.backends.base import resolve_config
     from .autotune import stream_params
     from .stream_mttkrp import fused_stream_mttkrp
@@ -240,7 +246,8 @@ def fused_stream_mttkrp_op(
     factors = tuple(factors)
     low = resolve_lowering(lowering, csf.values, *factors)
     if exec_blocks is None:
-        exec_blocks = stream_params(csf, factors, cfg, tune=autotune)["exec_blocks"]
+        exec_blocks = stream_params(csf, factors, cfg, tune=autotune, adc_bits=adc_bits,
+                                    lowering=low)["exec_blocks"]
     return fused_stream_mttkrp(
         csf, factors, cfg, adc_bits=adc_bits, lowering=low,
         exec_blocks=exec_blocks,

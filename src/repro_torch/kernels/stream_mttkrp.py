@@ -249,6 +249,16 @@ def _route(rank: int, smem: int, aligned: bool) -> str:
     return "chunk" if _chunk_takes(rank, smem, aligned) else "three_pass"
 
 
+def plan_route(qs, mode: int, plan: SegmentPlan) -> str:
+    """The route a launch over ``plan`` with the codes ``qs`` takes
+    (:func:`_route` of the rank, the chunk CTA's shared memory and the codes'
+    alignment) — what the autotune sweep reports beside each trial."""
+    others = [d for d in range(len(qs)) if d != mode]
+    rank = qs[others[0]].shape[-1]
+    aligned = all(qs[d].data_ptr() % 16 == 0 for d in others)
+    return _route(rank, _chunk_smem(rank, len(qs), plan.chunk_segs), aligned)
+
+
 def _check_layout(ip, vp, lp, sp, qs, ss, mode, n_seg):
     if ip.ndim != 4:
         raise ValueError(f"ip must be (nb, E, rows, nmodes), got {tuple(ip.shape)}")
@@ -425,11 +435,17 @@ def fused_stream_mttkrp(csf, factors, config=None, adc_bits: int = 16,
     require_cuda(lowering, ip)
     if lowering != "cuda":
         return fn(ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits, out_rows)
-    # the plan is index arithmetic on the layout: cache it beside it
-    key = ("_stream_segment_plan", cfg.rows)
+    return fn(ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits, out_rows,
+              plan=segment_plan(csf, cfg.rows, lp, sp, n_seg))
+
+
+def segment_plan(csf, rows: int, lp, sp, n_seg: int) -> SegmentPlan:
+    """The :class:`SegmentPlan` of ``csf``'s layout ``(lp, sp, n_seg)`` at
+    ``rows``: index arithmetic on the layout, so it is cached on the CSF
+    beside it and rebuilt only when the layout is."""
+    key = ("_stream_segment_plan", rows)
     cached = csf.__dict__.get(key)
     if cached is None or cached[0] is not lp:
-        cached = (lp, SegmentPlan.build(lp, sp, n_seg, out_rows))
+        cached = (lp, SegmentPlan.build(lp, sp, n_seg, csf.shape[csf.mode_order[0]]))
         csf.__dict__[key] = cached
-    return fn(ip, vp, lp, sp, qs, ss, mode, n_seg, adc_bits, out_rows,
-              plan=cached[1])
+    return cached[1]

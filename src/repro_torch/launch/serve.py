@@ -8,7 +8,8 @@ Weights and prompts are random, from fixed seeds. The time is the
 ``obs.stopwatch("serve/generate")`` around ``generate``, which waits for the
 card's queued work on both edges; a ``serve/generate`` span lands in the
 trace whenever tracing is on (``REPRO_TORCH_TRACE=1``). The reference's
-``--model-parallel`` comes with a mesh (ROADMAP Queue A item 4).
+``--model-parallel`` comes with the model meshes of ``dist/`` (ROADMAP
+Queue A item 9).
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ Ported: ``param_defs``, ``init``, ``cache_defs``, ``init_cache``,
 ``decode_step_deltas``, ``decode_step``. Still to come from the reference
 module: ``loss_fn``/``cross_entropy`` (with training, ROADMAP Queue A item 9),
 ``prefill_paged`` (with the paged serve loop, item 8), the MoE, hybrid and
-SSM families (item 7), ``param_specs``/``cache_specs`` (sharding, item 4).
+SSM families (item 7), ``param_specs``/``cache_specs`` (sharding, item 9).
 """
 from __future__ import annotations
 

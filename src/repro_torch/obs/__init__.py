@@ -37,9 +37,9 @@ Span-naming convention — ``layer/component/detail``, slash-separated, three
 levels, lowercase:
 
 * **layer** — the subsystem: ``backend``, ``schedule``, ``stream``,
-  ``als``, ``serve``, ``obs`` (the reference's ``mesh``, ``autotune``,
-  ``fault``, ``train`` and ``bench`` layers come with the modules that
-  emit them, below).
+  ``mesh``, ``autotune``, ``fault``, ``als``, ``serve``, ``obs`` (the
+  reference's ``train`` and ``bench`` layers come with the modules that
+  emit them).
 * **component** — the object or phase within it: a backend name
   (``backend/psram-stream/...``), an executor (``schedule/execute``), a
   loop phase (``als/sweep``).
@@ -69,11 +69,20 @@ The spans and counters the port emits today, at the reference's sites:
   ``launch.serve``;
 * ``obs/drift/report`` (workloads) — :func:`drift_report`.
 
-Still to come, with the modules that emit them: ``autotune/*`` (the autotune
-sweeps, ROADMAP Queue A item 2), ``mesh/*`` (the mesh executor, item 4),
-``fault/*`` (the fault stack, item 6), and the serving loop's ``serve/admit``
-/ ``prefill`` / ``decode`` / ``offload`` / ``evict`` spans and counters
-(item 8).
+* ``autotune/sweep`` (kind, shape, candidates), ``autotune/trial/run``
+  (kind and the candidate's params), ``autotune/winner`` (kind, shape,
+  median_s and the params) and the counter ``autotune/trials`` —
+  ``kernels.autotune``;
+* ``mesh/shard{i}/plan`` (nnz) with the counter ``mesh/shard{i}/nnz``, and
+  ``mesh/stream/execute`` (nnz, n_arrays, lowering, planner, mode) —
+  ``sparse.mesh.mesh_stream_mttkrp``; ``fault/mesh/shard_values`` (arrays,
+  dead) with ``fault/arrays_lost`` while a plan is armed, and
+  ``fault/inject/armed`` with ``fault/injected`` — ``faults.plan``.
+
+Still to come, with the modules that emit them: the rest of ``fault/*``
+(ABFT and degraded mode, ROADMAP Queue A item 6), and the serving loop's
+``serve/admit`` / ``prefill`` / ``decode`` / ``offload`` / ``evict`` spans
+and counters (item 8).
 
 The tracer is zero-cost when disabled: ``span()`` returns a shared no-op
 context manager without reading a clock or touching the card (overhead
@@ -134,13 +143,13 @@ def program_timeline(program, pid=None, name="schedule-IR",
 
 def mesh_timeline(fiber_lengths, rank, config=None, n_arrays=1,
                   planner="makespan", fabric=None, out_rows=None,
-                  max_events=100_000):
+                  max_events=100_000, schedule=None):
     """Lazy front door of :func:`repro_torch.obs.timeline.mesh_timeline`."""
     from .timeline import mesh_timeline as impl
 
     return impl(fiber_lengths, rank, config=config, n_arrays=n_arrays,
                 planner=planner, fabric=fabric, out_rows=out_rows,
-                max_events=max_events)
+                max_events=max_events, schedule=schedule)
 
 
 def drift_report(workloads=None, config=None, wall_times=None):

@@ -21,10 +21,9 @@ Three comparison axes per row:
   never part of the gated drift (wall time includes dispatch, host work and
   the card's own speed, which the cycle model deliberately excludes).
 
-The reference's fourth default workload, the sparse stream on a 4-array
-mesh, is counted by the ``"psram-mesh"`` backend, which comes with ROADMAP
-Queue A item 4: until then a mesh workload handed to :func:`drift_report`
-raises ``NotImplementedError``.
+The default set is the reference's four workloads: the dense §V-A
+operating point, a dense matmul, and the sparse stream on one array and on a
+4-array mesh (counted by the ``"psram-mesh"`` backend).
 
 CLI: ``python -m repro_torch.obs.drift [--json out.json] [--fail-on-drift]``
 — runs the default §V-A workload set and, with ``--fail-on-drift``, exits 1
@@ -98,26 +97,37 @@ _DEFAULT_FIBERS = tuple((37 * i) % 613 + 1 for i in range(1, 257))
 
 def default_workloads() -> dict:
     """The §V-A audit set: the paper's dense operating point, a dense
-    matmul, and the streaming sparse schedule on one array (the reference's
-    4-array mesh workload comes with ROADMAP Queue A item 4)."""
+    matmul, and the streaming sparse schedule on one array and on a 4-array
+    mesh — every workload kind the estimate==measured contract covers."""
     from repro_torch.backends.workload import MatmulWorkload
-    from repro_torch.core.perf_model import MTTKRPWorkload, SparseMTTKRPWorkload
+    from repro_torch.core.perf_model import (
+        MeshSparseMTTKRPWorkload,
+        MTTKRPWorkload,
+        SparseMTTKRPWorkload,
+    )
 
     return {
         "mttkrp/dense/sVA": MTTKRPWorkload(),
         "matmul/512x512x128": MatmulWorkload(m=512, k=512, n=128),
         "mttkrp/sparse/stream": SparseMTTKRPWorkload(
             fiber_lengths=_DEFAULT_FIBERS),
+        "mttkrp/sparse/mesh4": MeshSparseMTTKRPWorkload(
+            fiber_lengths=_DEFAULT_FIBERS, n_arrays=4),
     }
 
 
 def _counted_backends(workload) -> tuple[str, ...]:
     """Which scheduled backends count this workload kind's schedule."""
     from repro_torch.backends.workload import MatmulWorkload
-    from repro_torch.core.perf_model import SparseMTTKRPWorkload
+    from repro_torch.core.perf_model import (
+        MeshSparseMTTKRPWorkload,
+        SparseMTTKRPWorkload,
+    )
 
     if isinstance(workload, MatmulWorkload):
         return ("psram-scheduled",)
+    if isinstance(workload, MeshSparseMTTKRPWorkload):
+        return ("psram-mesh",)
     if isinstance(workload, SparseMTTKRPWorkload):
         return ("psram-stream",)
     return ("psram-scheduled", "psram-oracle")
@@ -131,12 +141,9 @@ def drift_report(workloads=None, config=None, wall_times=None) -> DriftReport:
     every scheduled backend that prices that workload kind). ``wall_times``
     optionally maps row name → measured seconds, joined informationally.
     Returns a :class:`DriftReport`; the §V-A default set must report
-    ``max_drift == 0.0`` (tests/test_torch_obs.py). A mesh workload
-    (``MeshSparseMTTKRPWorkload``) raises ``NotImplementedError``: its
-    counted backend, ``"psram-mesh"``, is not ported yet.
+    ``max_drift == 0.0`` (tests/test_torch_obs.py).
     """
     from repro_torch import api
-    from repro_torch.core.perf_model import MeshSparseMTTKRPWorkload
 
     from .tracer import span
 
@@ -151,11 +158,6 @@ def drift_report(workloads=None, config=None, wall_times=None) -> DriftReport:
                 wl, backends = spec
             else:
                 wl, backends = spec, None
-            if isinstance(wl, MeshSparseMTTKRPWorkload):
-                raise NotImplementedError(
-                    f"drift row {name!r}: a mesh workload is counted by the "
-                    "'psram-mesh' backend, which is not ported yet (ROADMAP "
-                    "Queue A item 4)")
             if backends is None:
                 backends = _counted_backends(wl)
             est = api.estimate(wl, backend="analytical", config=config)

@@ -145,6 +145,7 @@ def mesh_timeline(
     fabric=None,
     out_rows: int | None = None,
     max_events: int = 100_000,
+    schedule=None,
 ) -> list[dict]:
     """The mesh-sharded streaming schedule as one virtual process per array
     plus a reduction-fabric process: each planned partition's stream program
@@ -152,7 +153,11 @@ def mesh_timeline(
     all-reduce starting at the makespan (arrays run concurrently; the
     reduction waits for the slowest — exactly how ``MeshPrice`` prices it).
     It needs the fiber lengths alone, so it renders a mesh schedule before
-    the mesh executor exists (ROADMAP Queue A item 4).
+    (or without) a run. ``schedule`` is a plan already made for these fiber
+    lengths (a ``sparse.partition.PartitionedSchedule``, such as the
+    ``MeshedSparseTensor`` a mesh run executed: what
+    ``sparse.mesh.mesh_plan_timeline`` hands in) to render instead of
+    planning anew.
     """
     import numpy as np
 
@@ -163,7 +168,11 @@ def mesh_timeline(
 
     cfg = resolve_config(config)
     f = np.asarray(fiber_lengths, dtype=np.int64)
-    ps = partition_fiber_lengths(f, n_arrays, rank, cfg, planner=planner)
+    ps = schedule
+    if ps is None:
+        ps = partition_fiber_lengths(f, n_arrays, rank, cfg, planner=planner)
+    elif len(ps.programs) != n_arrays:
+        raise ValueError(f"the schedule holds {len(ps.programs)} arrays, not {n_arrays}")
     tr = _tracer.get_tracer()
     per_budget = max(64, max_events // max(1, len(ps.programs) + 1))
     events: list[dict] = []

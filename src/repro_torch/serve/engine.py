@@ -13,8 +13,9 @@ Ported: ``make_serve_step`` (plain and ``deltas=True``), ``make_prefill``
 (the dense form), ``ServeEngine`` (``generate``, ``_sample``). Still to come
 from the reference module: ``make_prefill(paged=True)`` (with the paged
 serve loop, ROADMAP Queue A item 8), the ``mesh``/``sharding_rules``
-arguments (no mesh yet, item 4), ``offload_report`` and the engine's method
-of that name (item 8; they price through ``api.estimate``, which is ported).
+arguments, ``offload_report`` and the engine's method of that name (item 8;
+they price through ``api.estimate`` and, on a mesh, ``sparse.mesh``'s
+``mesh_counted_price``, both ported).
 """
 from __future__ import annotations
 

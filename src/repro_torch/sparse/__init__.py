@@ -9,16 +9,23 @@
   ``core.schedule`` IR (``build_stream_program``) with its price
   (``stream_mttkrp_priced``).
 * ``partition`` — the multi-array planners (nnz-balanced, makespan-refined)
-  the analytical mesh price plans on, and the planned split with its
-  per-array stream programs (``partition_fiber_lengths``).
+  that the mesh executor and the analytical mesh price plan on, the planned
+  split with its per-array stream programs (``partition_fiber_lengths``)
+  and a CSF's split into shards (``partition_csf``).
+* ``mesh``      — the stream across many arrays: a launch per planned shard,
+  the partials added by the reduction fabric (``mesh_stream_mttkrp``), the
+  split Grams for CP-ALS (``mesh_gram``), and the counted mesh price
+  (``mesh_counted_price``) the ``"psram-mesh"`` backend bills against.
 
-Still to come from the reference package: ``mesh`` and the rest of
-``partition`` (ROADMAP Queue A item 4).
+Still to come from the reference package: ``arrays_for_mesh`` and
+``partition_csf(mesh=)``, with ``dist/`` (ROADMAP Queue A item 9).
 """
 from .formats import COO, CSF, BlockedCOO, SortedCOO, csf_for_mode
-from .partition import (PLANNERS, Partition, PartitionedSchedule, imbalance,
-                        makespan_partitions, nnz_balanced_partitions, partition_fiber_lengths,
-                        plan_partitions)
+from .mesh import (MESH_LOWERINGS, mesh_counted_price, mesh_gram, mesh_stream_mttkrp,
+                   resolve_array_mesh)
+from .partition import (PLANNERS, MeshedSparseTensor, Partition, PartitionedSchedule, imbalance,
+                        makespan_partitions, nnz_balanced_partitions, partition_csf,
+                        partition_fiber_lengths, plan_partitions)
 from .stream import (StreamedMTTKRP, blocked_fold_reference, build_stream_program,
                      rank_tile_widths, stream_layout, stream_mttkrp, stream_mttkrp_blocked,
                      stream_mttkrp_coo, stream_mttkrp_priced)
@@ -28,6 +35,8 @@ __all__ = [
     "COO",
     "CSF",
     "BlockedCOO",
+    "MESH_LOWERINGS",
+    "MeshedSparseTensor",
     "PLANNERS",
     "SortedCOO",
     "FiberStats",
@@ -39,12 +48,17 @@ __all__ = [
     "csf_for_mode",
     "imbalance",
     "makespan_partitions",
+    "mesh_counted_price",
+    "mesh_gram",
+    "mesh_stream_mttkrp",
     "nnz_balanced_partitions",
+    "partition_csf",
     "partition_fiber_lengths",
     "plan_partitions",
     "powerlaw_coo",
     "powerlaw_fiber_lengths",
     "rank_tile_widths",
+    "resolve_array_mesh",
     "stream_layout",
     "stream_mttkrp",
     "stream_mttkrp_blocked",

@@ -8,14 +8,16 @@ cumsum.
 
 Ported: the planners (:func:`nnz_balanced_partitions`,
 :func:`makespan_partitions`, :func:`plan_partitions`) and :func:`imbalance`
-— pure numpy, the same boundaries as the reference's — which the analytical
-mesh price (``core.perf_model.mesh_sparse_price``) plans on; and
+— pure numpy, the same boundaries as the reference's — which both the
+executing mesh path (``sparse.mesh``) and the analytical mesh price
+(``core.perf_model.mesh_sparse_price``) plan on;
 :class:`PartitionedSchedule` / :func:`partition_fiber_lengths`, the planned
 split with its per-array stream programs from the fiber lengths alone, which
-``obs.mesh_timeline`` renders. Still to come from the reference module with
-the mesh (ROADMAP Queue A item 4): ``arrays_for_mesh`` (the array count from
-the ``dist.sharding`` rule set) and ``MeshedSparseTensor`` /
-``partition_csf``.
+``obs.mesh_timeline`` renders; and :class:`MeshedSparseTensor` /
+:func:`partition_csf`, the split of a CSF into its shards. Still to come
+with ``dist/`` (ROADMAP Queue A item 9): ``arrays_for_mesh`` (the array
+count from the ``dist.sharding`` rule set) and ``partition_csf(mesh=)``,
+which asks it; until then pass ``n_arrays``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.backends.base import resolve_config
 from repro_torch.core.psram import PsramConfig
 from repro_torch.core.schedule import CycleCounts, TileProgram, count_cycles
 
+from .formats import CSF
 from .stream import build_stream_program
 
 
@@ -213,3 +216,48 @@ def partition_fiber_lengths(
         for p in parts
     )
     return PartitionedSchedule(partitions=tuple(parts), programs=programs)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshedSparseTensor(PartitionedSchedule):
+    """A CSF split over a mesh of arrays, with the per-array schedules."""
+
+    shards: tuple[CSF, ...] = ()
+
+
+def partition_csf(
+    csf: CSF,
+    mesh=None,
+    n_arrays: int | None = None,
+    rank: int | None = None,
+    config: PsramConfig | None = None,
+    logical_axis: str = "batch",
+    rules=None,
+    planner: str = "nnz",
+) -> MeshedSparseTensor:
+    """Span ``csf`` over ``n_arrays`` pSRAM arrays.
+
+    ``rank`` is required to build the per-array programs. Each shard keeps
+    original coordinates (``CSF.slice_roots``), so per-array results add
+    straight into the global output. Shards may be empty when fibers <
+    arrays — their programs are empty and price zero. ``mesh=`` (the array
+    count from the ``dist.sharding`` claim of ``logical_axis`` under
+    ``rules``) raises until ``dist/`` is ported (ROADMAP Queue A item 9).
+    """
+    if (mesh is None) == (n_arrays is None):
+        raise ValueError("pass exactly one of mesh / n_arrays")
+    if mesh is not None:
+        raise NotImplementedError(
+            "partition_csf(mesh=...) takes its array count from the "
+            "dist.sharding rule set (arrays_for_mesh), which comes with dist/ "
+            "(ROADMAP Queue A item 9); pass n_arrays")
+    if rank is None:
+        raise ValueError("rank is required to build the per-array schedules")
+    ps = partition_fiber_lengths(csf.fiber_lengths(), n_arrays, rank, config,
+                                 planner=planner)
+    shards = tuple(
+        csf.slice_roots(p.fiber_start, p.fiber_stop) for p in ps.partitions
+    )
+    return MeshedSparseTensor(
+        partitions=ps.partitions, programs=ps.programs, shards=shards,
+    )

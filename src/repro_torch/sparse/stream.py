@@ -262,10 +262,12 @@ def stream_mttkrp(
 
 
 def _stream_eager(csf: CSF, factors: tuple, mode: int, step: int, psram: bool,
-                  adc_bits: int) -> torch.Tensor:
+                  adc_bits: int, values: torch.Tensor | None = None) -> torch.Tensor:
     """The eager executor of :func:`stream_mttkrp`: one chain-route launch
-    on the card, steps of ``step`` nonzeros on the CPU."""
-    indices, values = csf.expanded_indices(), csf.values
+    on the card, steps of ``step`` nonzeros on the CPU. ``values`` stands in
+    for the CSF's own (the mesh executor's shard faults)."""
+    indices = csf.expanded_indices()
+    values = csf.values if values is None else values
     out = torch.zeros((csf.shape[mode], factors[0].shape[-1]), dtype=torch.float32,
                       device=values.device)
     if values.is_cuda:            # one launch: a CTA per root fiber, d formed in the kernel
@@ -369,6 +371,7 @@ def stream_mttkrp_blocked(
     lowering: str = "auto",
     psram: bool = False,
     adc_bits: int = 16,
+    values: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The same streaming schedule on the blocked segment sum: (out_rows, R).
 
@@ -390,7 +393,8 @@ def stream_mttkrp_blocked(
     reassociates the float adds, so this path is allclose (~1e-5 relative),
     not bit-equal, to :func:`stream_mttkrp` (and to the reference, whose
     blocked segment sum is a matrix product). A coordinate outside its
-    factor raises ``IndexError`` before anything runs.
+    factor raises ``IndexError`` before anything runs. ``values`` (nnz,)
+    stands in for the CSF's own (the mesh executor's shard faults).
     """
     from repro_torch.kernels.ops import blocked_chain_segment_sum_op
 
@@ -400,7 +404,8 @@ def stream_mttkrp_blocked(
     local, n_seg, order, fold_rows, fold_runs, long_runs = _segment_blocks(csf, cfg.rows)
     coords, *_, ranges, _ = _chain_stream(csf)
     _check_ranges(ranges, factors)
-    partials = blocked_chain_segment_sum_op(coords, csf.values, local, factors, mode, n_seg,
+    values = csf.values if values is None else values
+    partials = blocked_chain_segment_sum_op(coords, values, local, factors, mode, n_seg,
                                             lowering=lowering, psram=psram, adc_bits=adc_bits)
     rank = partials.shape[-1]
     out = torch.zeros((csf.shape[mode], rank), dtype=torch.float32, device=partials.device)

@@ -372,11 +372,12 @@ def test_partition_fiber_lengths_equals_the_reference(planner, n_arrays):
 
 
 def test_drift_rows_equal_the_reference():
-    """The port's default set (the reference's less its mesh workload): four
-    rows, each equal field for field to the reference's row of the same
-    workload and backend, and no drift."""
+    """The port's default set, the reference's four workloads: five rows
+    (the dense operating point on two counted backends), each equal field
+    for field to the reference's row of the same workload and backend, and
+    no drift."""
     report = obs.drift_report()
-    assert len(report.rows) == 4
+    assert len(report.rows) == 5
     assert report.max_drift == 0.0
     want = {(r.workload, r.backend): r.to_dict() for r in jobs.drift_report().rows}
     for row in report.rows:
@@ -402,10 +403,22 @@ def test_drift_cli_module_runs():
 
 
 def test_drift_mesh_workload_raises_pointed_error():
+    """A mesh workload no longer raises: it audits on ``"psram-mesh"``, one
+    row equal to the reference's, no drift."""
     fibers = tuple((37 * i) % 613 + 1 for i in range(1, 65))
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        obs.drift_report({"mttkrp/sparse/mesh4":
-                          MeshSparseMTTKRPWorkload(fiber_lengths=fibers, n_arrays=4)})
+    report = obs.drift_report({"mttkrp/sparse/mesh4":
+                               MeshSparseMTTKRPWorkload(fiber_lengths=fibers, n_arrays=4)})
+    want = jobs.drift_report({"mttkrp/sparse/mesh4": _reference_mesh_workload(fibers)})
+    assert [r.backend for r in report.rows] == ["psram-mesh"]
+    assert report.max_drift == 0.0
+    assert report.rows[0].to_dict() == {k: _scalar(v) for k, v in want.rows[0].to_dict().items()}
+
+
+def _reference_mesh_workload(fibers):
+    """The reference's 4-array mesh workload of ``fibers``."""
+    from repro.core.perf_model import MeshSparseMTTKRPWorkload as JMesh
+
+    return JMesh(fiber_lengths=fibers, n_arrays=4)
 
 
 # ---------------------------------------------------------- instrumentation
@@ -431,7 +444,7 @@ def _executable_backends():
 
 
 @pytest.mark.parametrize("name", ["exact", "psram-oracle", "psram-scheduled", "psram-stream",
-                                  "hopper"])
+                                  "hopper", "psram-mesh"])
 def test_instrumented_backend_is_transparent(coo_pair, name):
     """Each executable backend registered: wrapped and unwrapped give the
     same bits on the CPU for every protocol call its capabilities allow,

@@ -240,7 +240,7 @@ def test_capabilities_equal_to_the_reference():
         assert _fields(backends.get(name, **kw).capabilities()) \
             == _fields(jbackends.get(name, **kw).capabilities()), (name, kw)
     assert backends.list_backends() == ("exact", "psram-oracle", "psram-scheduled",
-                                        "psram-stream", "hopper", "analytical")
+                                        "psram-stream", "hopper", "psram-mesh", "analytical")
 
 
 @pytest.mark.parametrize("backend,kind", [

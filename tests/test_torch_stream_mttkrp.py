@@ -147,8 +147,13 @@ def test_quantized_factors_and_heuristic_match_reference():
     key = stream_key(tcsf, 6, PsramConfig())
     assert key == stream_key(tcsf, 6, PsramConfig())          # by value
     assert heuristic(key) == {"exec_blocks": 32}
-    with pytest.raises(NotImplementedError, match="autotune"):
-        stream_params(tcsf, tfs, PsramConfig(), tune=True)
+    from repro_torch.kernels import autotune as at
+
+    at.clear_autotune_cache()                 # tune=True sweeps the candidates
+    won = stream_params(tcsf, tfs, PsramConfig(), tune=True)
+    assert won in at.candidates(key) and at.cache_stats() == (1, (key,))
+    assert stream_params(tcsf, tfs, PsramConfig()) == won       # the winner, cached
+    at.clear_autotune_cache()
 
 
 def test_factor_quant_cache_is_identity_keyed():
