@@ -132,6 +132,20 @@ What it does, in order — any failure raises and the run exits non-zero:
       roofline (labelled; no gain claimed); ``stream_mttkrp_priced`` at
       mode 2 bit-equal to that mode's ``psram-stream`` call (one counted
       launch of the ordered fold's quantized chain route).
+   c'''. ``main_path_faults``: ``repro_torch.faults`` on the card (the
+      scheduled matmul, the mesh stream on the ordered fold's quantized
+      chain route, the group checksums on its fold route). ``abft_matmul``
+      at the MLP projection on ``psram-scheduled``: clean (no site, ``y``
+      bit-equal to ``execute``), then a stuck-MSB plan hitting tens of its
+      448 N-tiles (detected, each recovered or taken by the fallback, within
+      ``rel_tol`` of the clean run, recovery priced; the call's ms and the
+      host seconds of its mask draw); the reference test's plan at 8 x 64 x
+      96 on the card and the CPU (reports equal, ``y`` bit-equal);
+      ``abft_mttkrp`` on mode 1 at 4 arrays, one root fiber a group, clean
+      (``y`` bit-equal to the mesh call) and with transient spikes (what the
+      detector saw, the error against the clean run); and
+      ``degraded_mesh_mttkrp`` with array 1 of 4 lost, bit-equal to the
+      clean mesh (its capacity, recovery cycles and chain launches).
    d. ``main_path_flash``: ``kernels.ops.flash_attention_op`` at its
       docstring's shape, a 32k-token causal prefill at granite-8b's
       attention widths (B=1, H=32, Hkv=8, D=128, bf16), and on layer 0's
@@ -149,6 +163,17 @@ What it does, in order — any failure raises and the run exits non-zero:
    projections give it in a prefill (and to the tile route) and a decode
    step, and every decode projection of 16 greedy tokens is held bit-equal
    to the tile route on the same operands.
+   e'. ``main_path_moe``: granite-moe-1b-a400m at full width and depth (24
+      layers, 32 experts top-8, bf16, 1.385 B random parameters) served the
+      same way, exact and pSRAM (attention projections through kernel 2,
+      the experts through ``psram_einsum``): prefill ms, decode ms a step,
+      tokens/s, launches a step, the share of assignments the capacity
+      drops; the pSRAM prefill against an exact prefill on the dequantized
+      words (< 0.5), the first decode step against ``forward`` on a dropless
+      replica (relative L2 <= 0.05), ``psram_einsum`` bit-equal to kernel 2
+      run on each expert on layer 0's served buffers, and kernel 2 on every
+      attention projection (the wgmma route in the prefill, the decode route
+      in a step). dbrx-132b (131.6 B parameters) does not fit one card.
    f. ``main_path_trace``: ``repro_torch.obs`` on the card. With tracing
       enabled, ``cp_als`` (rank 32, 3 sweeps) on ``hopper``, ``hopper`` with
       ``compiled=False`` and ``psram-stream`` eager and compiled: each run's
@@ -231,6 +256,18 @@ OVERHEAD_SWEEPS = 5
 # arrays looped on the one card
 TUNE_SWEEPS = 2
 MESH_MAIN_ARRAYS = 4
+# main_path_faults: the stuck-MSB rate that puts stuck cells in ~73% of the
+# MLP matmul's 448 N-tiles (131,072 stored words a tile), of which the
+# detector flags tens (a single stuck word at K = 4096 mostly stays under
+# its threshold); the transient spike rate on the sparse stream (~34 of
+# 16.76 M nonzeros) and the root fibers a checksum group (one: a
+# ~1,800-nonzero group of mode 1 sees a spike of twice the largest value; 16
+# groups of ~1 M nonzeros would not)
+FAULT_STUCK_RATE = 1e-5
+FAULT_SPIKE_RATE = 2e-6
+FAULT_GROUP_FIBERS = 1
+# main_path_moe: the MoE family served at full width and depth
+MOE_ARCH = "granite_moe_1b_a400m"
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): the
 # port's roofline constants, one source for both
@@ -2760,6 +2797,382 @@ def main_path_mesh(torch, cfg, coo, csfs, init, zero_counts, read_counts, psram_
     return phase, launches
 
 
+# ------------------------------------------------------ faults and the MoE family
+
+
+def main_path_faults(torch, cfg, csfs, init, zero_counts, read_counts) -> tuple:
+    """The ``main_path_faults`` phase: ``repro_torch.faults`` on the card,
+    with the counts zeroed before and read after.
+
+    (a) ``abft_matmul`` at ``MLP_SHAPE`` on ``psram-scheduled``: clean, no
+    site and ``y`` bit-equal to ``execute``; then a stuck-MSB plan under
+    which the detector flags tens of the 448 N-tiles: each recovered or
+    taken by the fallback, the relative L2 error against the clean run
+    within ``rel_tol`` (the max-abs ratio and the tiles still differing
+    reported beside it: the L1/L2-scaled thresholds let small faults
+    through), recovery priced; the call's ms and the host seconds of its
+    mask draw. (b) The reference test's plan at 8 x 64 x 96 on the card and
+    on the CPU: the reports equal field for field, ``y`` bit-equal. (c)
+    ``abft_mttkrp`` on mode 1 of the sparse tensor, 4 arrays, eager, one
+    root fiber a group: clean, nothing detected and ``y`` bit-equal to the
+    mesh call; then transient spikes: what the detector saw, the relative
+    L2 error against the clean run within ``rel_tol``, and the rows still
+    differing (undetected spikes) beside it. (d) ``degraded_mesh_mttkrp`` at 4 arrays with
+    array 1 lost: ``y`` bit-equal to the clean 4-array mesh, the capacity
+    it keeps, the recovery cycles and the ordered fold's launches.
+    ``(phase, launches)``."""
+    from repro_torch import faults
+    from repro_torch.core.schedule import _FaultSites, build_matmul_program, execute
+    from repro_torch.sparse.mesh import mesh_stream_mttkrp
+
+    n_arrays = MESH_MAIN_ARRAYS
+    m, k, n = MLP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+    prog = build_matmul_program(m, k, n, cfg)
+    plan_a = faults.FaultPlan(seed=7, stuck_bits=(faults.StuckBit(rate=FAULT_STUCK_RATE),))
+    kt, nt, mt = -(-k // cfg.rows), -(-n // cfg.word_cols), -(-m // cfg.wavelengths)
+    torch.cuda.synchronize()
+    zero_counts()
+
+    # (a) the scheduled matmul at full size
+    y_clean, rep_clean = faults.abft_matmul(x, w, cfg)
+    plain = execute(prog, x, w)
+    t0 = time.perf_counter()
+    with faults.inject(plan_a):
+        _FaultSites(plan_a, rows=cfg.rows, cols=cfg.word_cols, wav=cfg.wavelengths, kt=kt,
+                    nt=nt, mt=mt, device=x.device)
+    mask_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with faults.inject(plan_a):
+        y_a, rep_a = faults.abft_matmul(x, w, cfg)
+    torch.cuda.synchronize()
+    call_ms = 1e3 * (time.perf_counter() - t0)
+    err_a = float(torch.linalg.norm(y_a - y_clean) / torch.linalg.norm(y_clean))
+    tiles_differing = int(((y_a - y_clean).abs().amax(dim=0) > 0).reshape(-1, cfg.word_cols)
+                          .any(dim=1).sum())
+    matmul = {
+        "shape": list(MLP_SHAPE), "n_tiles": rep_clean.checked,
+        "clean_detected": rep_clean.detected,
+        "clean_bit_equal_to_execute": bool(torch.equal(y_clean, plain)),
+        "stuck_rate": FAULT_STUCK_RATE, "stored_words": kt * nt * cfg.rows * cfg.word_cols,
+        "detected": len(rep_a.detected), "retries": rep_a.retries,
+        "recovered": rep_a.recovered, "fallbacks": rep_a.fallbacks,
+        "redrive_cycles": rep_a.redrive_cycles, "backoff_cycles": rep_a.backoff_cycles,
+        "checksum_cycles": rep_a.checksum_cycles, "recovery_s": rep_a.recovery_s(cfg),
+        "rel_l2_err_vs_clean": err_a, "rel_tol": rep_a.rel_tol,
+        "max_abs_err_over_max_abs": float((y_a - y_clean).abs().max() / y_clean.abs().max()),
+        "tiles_differing_after": tiles_differing,
+        "call_ms": call_ms, "mask_host_s": mask_s,
+        "clean_call_ms": time_ms(torch, lambda: faults.abft_matmul(x, w, cfg), warmup=0,
+                                 iters=1, reps=1),
+    }
+    del x, w, y_clean, plain, y_a
+
+    # (b) the card against the CPU at the reference test's shape and plan
+    plan_b = faults.FaultPlan(seed=7, stuck_bits=(faults.StuckBit(rate=5e-3),))
+    cpu_gen = torch.Generator().manual_seed(0)
+    xs = torch.randn((8, 64), generator=cpu_gen)
+    ws = torch.randn((64, 96), generator=cpu_gen)
+    with faults.inject(plan_b):
+        y_cpu, rep_cpu = faults.abft_matmul(xs, ws, cfg)
+    with faults.inject(plan_b):
+        y_card, rep_card = faults.abft_matmul(xs.cuda(), ws.cuda(), cfg)
+    card_vs_cpu = {
+        "shape": [8, 64, 96], "detected": rep_card.detected,
+        "fallbacks": rep_card.fallbacks, "recovered": rep_card.recovered,
+        "reports_equal": dataclasses.asdict(rep_card) == dataclasses.asdict(rep_cpu),
+        "y_bit_equal": bool(torch.equal(y_card.cpu(), y_cpu)),
+    }
+
+    # (c) the sparse MTTKRP on the 4-array mesh, mode 1
+    csf, fs = csfs[1], tuple(init)
+    mesh_clean = mesh_stream_mttkrp(csf, fs, cfg, n_arrays=n_arrays)
+    t0 = time.perf_counter()
+    y_c0, rep_c0 = faults.abft_mttkrp(csf, fs, config=cfg, n_arrays=n_arrays,
+                                      group_fibers=FAULT_GROUP_FIBERS)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    plan_c = faults.FaultPlan(seed=7, adc_spikes=(faults.AdcSpike(magnitude=2.0,
+                                                                  rate=FAULT_SPIKE_RATE),))
+    t0 = time.perf_counter()
+    with faults.inject(plan_c):
+        y_c, rep_c = faults.abft_mttkrp(csf, fs, config=cfg, n_arrays=n_arrays,
+                                        group_fibers=FAULT_GROUP_FIBERS)
+    torch.cuda.synchronize()
+    spiked_s = time.perf_counter() - t0
+    err_c = float(torch.linalg.norm(y_c - mesh_clean) / torch.linalg.norm(mesh_clean))
+    differing = torch.nonzero((y_c != mesh_clean).any(dim=1)).flatten().cpu().numpy()
+    detected_rows = set(int(r) for g in rep_c.detected
+                        for r in csf.fids[0][g * FAULT_GROUP_FIBERS:(g + 1) * FAULT_GROUP_FIBERS])
+    mttkrp = {
+        "mode": 1, "nnz": csf.nnz, "n_arrays": n_arrays, "group_fibers": FAULT_GROUP_FIBERS,
+        "groups": rep_c.checked, "clean_detected": rep_c0.detected,
+        "clean_bit_equal_to_mesh": bool(torch.equal(y_c0, mesh_clean)),
+        "spike_rate": FAULT_SPIKE_RATE, "detected": len(rep_c.detected),
+        "retries": rep_c.retries, "recovered": rep_c.recovered, "fallbacks": rep_c.fallbacks,
+        "recovery_cycles": rep_c.recovery_cycles, "rel_l2_err_vs_clean": err_c,
+        "max_abs_err_over_max_abs": float((y_c - mesh_clean).abs().max()
+                                          / mesh_clean.abs().max()),
+        "rows_differing_after": len(differing),
+        "rows_differing_in_detected_groups": sum(int(r) in detected_rows for r in differing),
+        "rel_tol": rep_c.rel_tol, "clean_call_s": clean_s, "spiked_call_s": spiked_s,
+    }
+    del y_c0, y_c
+
+    # (d) degraded mode: array 1 of 4 lost on mode 1
+    before = read_counts()
+    t0 = time.perf_counter()
+    y_d, rep_d = faults.degraded_mesh_mttkrp(csf, fs, config=cfg, n_arrays=n_arrays,
+                                             dead_arrays=(1,))
+    torch.cuda.synchronize()
+    degraded_s = time.perf_counter() - t0
+    after = read_counts()
+    degraded = {
+        "dead": list(rep_d.dead), "bit_equal_to_clean_mesh": bool(torch.equal(y_d, mesh_clean)),
+        "recovered_rows": rep_d.recovered_rows, "recovery_cycles": rep_d.recovery_cycles,
+        "healthy_makespan_cycles": rep_d.healthy_makespan_cycles,
+        "degraded_makespan_cycles": rep_d.degraded_makespan_cycles,
+        "throughput_frac": rep_d.throughput_frac, "call_s": degraded_s,
+        "chain_psram_launches": after["ordered_fold_chain_psram"]
+        - before["ordered_fold_chain_psram"],
+    }
+    del y_d, mesh_clean
+    launches = read_counts()
+    phase = {"phase": "main_path_faults", "matmul": matmul, "card_vs_cpu": card_vs_cpu,
+             "mttkrp": mttkrp, "degraded": degraded, "launches": launches}
+    if rep_clean.detected or not matmul["clean_bit_equal_to_execute"]:
+        raise AssertionError(f"ABFT flagged the clean scheduled matmul: {phase}")
+    if not (0 < matmul["detected"] < rep_clean.checked
+            and rep_a.recovered + rep_a.fallbacks == matmul["detected"]
+            and err_a <= rep_a.rel_tol and rep_a.recovery_cycles > 0):
+        raise AssertionError(f"ABFT on the faulty scheduled matmul: {phase}")
+    if not (card_vs_cpu["reports_equal"] and card_vs_cpu["y_bit_equal"]
+            and rep_card.detected):
+        raise AssertionError(f"ABFT on the card differs from the CPU: {phase}")
+    if rep_c0.detected or not mttkrp["clean_bit_equal_to_mesh"]:
+        raise AssertionError(f"ABFT flagged the clean mesh MTTKRP: {phase}")
+    if not (mttkrp["detected"] and rep_c.recovered + rep_c.fallbacks == mttkrp["detected"]
+            and err_c <= rep_c.rel_tol):
+        raise AssertionError(f"ABFT on the spiked mesh MTTKRP: {phase}")
+    shards = sum(1 for s in range(n_arrays) if s != 1)
+    if not (degraded["bit_equal_to_clean_mesh"] and 0 < rep_d.throughput_frac <= 1
+            and degraded["chain_psram_launches"] == shards + 1):
+        raise AssertionError(f"degraded mode is not the clean mesh: {phase}")
+    # the mesh stream and every re-drive on the quantized chain route; the
+    # group checksums on the fold route, two a checked MTTKRP
+    if launches["ordered_fold_chain_psram"] < 2 * n_arrays + mttkrp["retries"] \
+            or launches["ordered_fold_fold"] != 4:
+        raise AssertionError(f"the fault paths did not launch the ordered fold: {phase}")
+    return phase, launches
+
+
+def moe_drop_share(torch, eng, params, prompts) -> dict:
+    """The share of token-to-expert assignments that the capacity drops, in
+    one prefill and in the decode step after it, over every MoE layer (each
+    call of ``models.moe.route`` recorded)."""
+    import repro_torch.models.moe as moe_mod
+
+    route = moe_mod.route
+    seen = []
+
+    def record(*args, **kwargs):
+        out = route(*args, **kwargs)
+        seen.append(out[3])
+        return out
+
+    moe_mod.route = record
+    try:
+        with torch.inference_mode():
+            logits, cache = eng.prefill_fn(params, prompts)
+            prefill, seen = seen, []
+            eng.step_fn(params, cache, logits.argmax(-1).to(torch.int32), prompts.shape[1])
+            step = seen
+    finally:
+        moe_mod.route = route
+    del logits, cache
+
+    def share(keeps):
+        return 1.0 - float(sum(int(kp.sum()) for kp in keeps)) / sum(kp.numel() for kp in keeps)
+
+    return {"prefill": share(prefill), "decode_step": share(step),
+            "prefill_assignments_per_layer": prefill[0].numel(),
+            "decode_assignments_per_layer": step[0].numel(), "layers": len(prefill)}
+
+
+def served_einsum_cases(torch, eng, params, prompts) -> list:
+    """``psram_einsum`` held BIT-EQUAL to kernel 2 run on each expert, on the
+    operands layer 0's three expert products (wi, wg, wo) take in one served
+    prefill: its dispatch buffer ``(E, C, d)`` and the hidden buffer
+    ``(E, C, ff)``. The module-level ``psram_einsum`` is wrapped for this
+    one prefill; the kernel-2 launches here are not counted on the main
+    path."""
+    import repro_torch.core.photonic_layer as photonic
+    from repro_torch.core.quantization import quantize_symmetric
+    from repro_torch.kernels.psram_matmul import psram_matmul
+
+    einsum = photonic.psram_einsum
+    seen = []
+
+    def record(spec, x, w, adc_bits=16):
+        out = einsum(spec, x, w, adc_bits)
+        if len(seen) < 3:
+            seen.append((spec, x, w, adc_bits, out))
+        return out
+
+    photonic.psram_einsum = record
+    try:
+        with torch.inference_mode():
+            eng.prefill_fn(params, prompts)
+    finally:
+        photonic.psram_einsum = einsum
+    cases = []
+    for spec, x, w, adc_bits, got in seen:
+        qx, sx = quantize_symmetric(x, axis=-1)
+        differ = 0
+        for e in range(x.shape[0]):
+            want = psram_matmul(qx[e], w["q"][e].contiguous(), sx[e].to(torch.float32),
+                                w["scale"][0].contiguous(), adc_bits=adc_bits)
+            differ += int(not torch.equal(got[e], want))
+        cases.append({"spec": spec, "x_shape": list(x.shape), "w_shape": list(w["q"].shape),
+                      "experts": x.shape[0], "experts_differing": differ,
+                      "ms": time_ms(torch, lambda: einsum(spec, x, w, adc_bits), warmup=1,
+                                    iters=3, reps=2),
+                      "kernel2_ms": time_ms(torch, lambda: [psram_matmul(
+                          qx[e], w["q"][e].contiguous(), sx[e].to(torch.float32),
+                          w["scale"][0].contiguous(), adc_bits=adc_bits)
+                          for e in range(x.shape[0])], warmup=1, iters=3, reps=2),
+                      "bound_ms": einsum_bound_ms(x, w)})
+    if len(cases) != 3 or any(c["experts_differing"] for c in cases):
+        raise AssertionError(f"psram_einsum differs from kernel 2 on the served experts: "
+                             f"{cases}")
+    return cases
+
+
+def einsum_bound_ms(x, w) -> float:
+    """The least time for one ``psram_einsum``: its int8 products at the int8
+    peak against its bytes (x in its dtype, the int8 words, the scales, the
+    f32 output, each once)."""
+    e, c, k = x.shape
+    n = w["q"].shape[-1]
+    ops = 2.0 * e * c * k * n
+    moved = x.numel() * x.element_size() + w["q"].numel() + 4 * n + 4 * e * c * n
+    return 1e3 * max(moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S)
+
+
+def main_path_moe(torch, zero_counts, read_counts) -> tuple:
+    """The ``main_path_moe`` phase: granite-moe-1b-a400m at full width and
+    depth (24 layers, 32 experts top-8, bf16, random weights from a seed)
+    served as ``main_path_serve`` serves granite-8b: 8 prompts x 1024
+    tokens, 64 greedy tokens, exact and then with ``psram_projections`` and
+    ``psram_stored_int8`` (attention projections through kernel 2, experts
+    through ``psram_einsum``), each ``generate`` with the counts zeroed
+    before and read after. Reports prefill ms, decode ms a step, tokens/s,
+    launches a decode step, the dropped share of assignments; checks the
+    pSRAM prefill against an exact prefill on the dequantized words (< 0.5),
+    the first decode step against ``forward`` on a dropless replica
+    (relative L2 <= 0.05), and ``psram_einsum`` bit-equal to kernel 2 on
+    layer 0's served buffers. ``(phase, exact launches, pSRAM launches)``."""
+    from repro_torch.models import get_config, transformer
+    from repro_torch.models.layers import is_quantized
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(13, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(2, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
+                            dtype=torch.int32,
+                            generator=torch.Generator(device="cuda").manual_seed(14))
+    exact_run, exact_launches, _, eng, _ = serve_run(
+        torch, cfg, params, prompts, ServeEngine, zero_counts, read_counts)
+    exact_run["drop_share"] = moe_drop_share(torch, eng, params, prompts)
+    exact_run["decode_vs_forward_rel_l2_with_drops"] = exact_run.pop("decode_vs_forward_rel_l2")
+    exact_peak = torch.cuda.max_memory_allocated()
+
+    # the first decode step against forward on a dropless replica (the same
+    # weights, capacity C = T): with drops the two legitimately differ
+    dropless = dataclasses.replace(cfg, moe_capacity_factor=None)
+    with torch.inference_mode():
+        logits, cache = transformer.prefill(params, prompts, dropless, SERVE_PROMPT + 1)
+        tok = logits.argmax(-1).to(torch.int32)
+        first, _ = transformer.decode_step(params, cache, tok, SERVE_PROMPT, dropless)
+        full = transformer.forward(params, torch.cat([prompts, tok[:, None]], dim=1),
+                                   dropless)[:, -1]
+        dropless_rel = float(torch.linalg.norm(first.float() - full)
+                             / torch.linalg.norm(full))
+        del logits, cache, first, full
+    del eng, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    pcfg = dataclasses.replace(cfg, psram_projections=True, psram_stored_int8=True)
+    pparams = transformer.init(15, pcfg, device="cuda")
+    int8_bytes = sum(w["q"].numel() for g in pparams["blocks"] for lay in g.values()
+                     for blk in (lay["mixer"], lay["mlp"]) for w in blk.values()
+                     if is_quantized(w))
+    psram_run, psram_launches, psram_logits, peng, _ = serve_run(
+        torch, pcfg, pparams, prompts, ServeEngine, zero_counts, read_counts)
+    psram_run["drop_share"] = moe_drop_share(torch, peng, pparams, prompts)
+    psram_run["decode_vs_forward_rel_l2_with_drops"] = psram_run.pop("decode_vs_forward_rel_l2")
+    einsum_cases = served_einsum_cases(torch, peng, pparams, prompts)
+    del peng
+    # an exact model whose weights are the array's words dequantized
+    dparams = {**pparams, "blocks": [
+        {key: {**lay, **{blk: {name: ((w["q"].float() * w["scale"]).to(torch.bfloat16)
+                                      if is_quantized(w) else w)
+                               for name, w in lay[blk].items()}
+                         for blk in ("mixer", "mlp")}}
+         for key, lay in g.items()}
+        for g in pparams["blocks"]]}
+    with torch.inference_mode():
+        deq_logits, _ = transformer.prefill(dparams, prompts, cfg, SERVE_PROMPT)
+    psram_vs_deq = float(torch.linalg.norm(psram_logits - deq_logits)
+                         / torch.linalg.norm(deq_logits))
+    psram_peak = torch.cuda.max_memory_allocated()
+    del pparams, dparams, psram_logits, deq_logits
+    torch.cuda.empty_cache()
+    n_attn = 4 * cfg.num_layers                       # kernel 2 a forward: q, k, v, o
+    phase = {
+        "phase": "main_path_moe", "arch": MOE_ARCH, "layers": cfg.num_layers,
+        "experts": cfg.num_experts, "top_k": cfg.top_k, "params": cfg.param_count(),
+        "active_params": cfg.active_param_count(), "dtype": cfg.dtype, "init_s": init_s,
+        "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT, "max_new": SERVE_NEW,
+        "capacity": {"prefill": capacity(SERVE_BATCH * SERVE_PROMPT, cfg),
+                     "decode_step": capacity(SERVE_BATCH, cfg)},
+        "exact": {**exact_run, "launches": exact_launches, "device_bytes_peak": exact_peak,
+                  "decode_vs_forward_rel_l2_dropless": dropless_rel},
+        "psram": {**psram_run, "launches": psram_launches, "int8_weight_bytes": int8_bytes,
+                  "prefill_vs_dequantized_rel_l2": psram_vs_deq,
+                  "layer0_einsum_vs_kernel2": einsum_cases, "device_bytes_peak": psram_peak},
+    }
+    for name, run in (("exact", exact_run), ("psram", psram_run)):
+        if not (run["finite"] and run["tokens_in_vocab"]
+                and run["tokens_shape"] == [SERVE_BATCH, SERVE_NEW]):
+            raise AssertionError(f"serving the MoE model ({name}) gave no finite in-vocab "
+                                 f"tokens: {phase}")
+    if not dropless_rel <= 0.05:
+        raise AssertionError(f"the MoE decode strays from forward (dropless): {phase}")
+    if not (math.isfinite(psram_vs_deq) and psram_vs_deq < 0.5):
+        raise AssertionError(f"pSRAM MoE prefill logits are garbage: {phase}")
+    if psram_launches["psram_matmul"] != n_attn * (1 + SERVE_NEW) \
+            or psram_launches["psram_matmul_wgmma"] != n_attn \
+            or psram_launches["psram_matmul_decode"] != n_attn * SERVE_NEW:
+        raise AssertionError(f"the pSRAM MoE model did not launch kernel 2 on every attention "
+                             f"projection, on the wgmma route in the prefill and the decode "
+                             f"route in a step: {phase}")
+    if exact_launches["psram_matmul"] != 0:
+        raise AssertionError(f"the exact MoE model launched kernel 2: {phase}")
+    return phase, exact_launches, psram_launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--nnz", type=int, default=16_777_216,
@@ -3247,6 +3660,11 @@ def main(argv=None) -> int:
                                               read_counts, psram_path["fit_psram_stream"])
     report["main_path_mesh"] = mesh_path
     emit(mesh_path)
+    # 4c++. fault injection, ABFT and degraded mode on the card -------------
+    faults_path, faults_launches = main_path_faults(torch, cfg, csfs, init, zero_counts,
+                                                    read_counts)
+    report["main_path_faults"] = faults_path
+    emit(faults_path)
 
     # 4c''. the array's tile schedule: api.matmul's default, the dense
     # psram-scheduled MTTKRP, and the price --------------------------------
@@ -3517,6 +3935,12 @@ def main(argv=None) -> int:
         raise AssertionError(f"a pSRAM decode step launches more than "
                              f"{PSRAM_DECODE_LAUNCH_CEILING} kernels: {serve_path}")
 
+    # 4e'. the MoE family served: granite-moe-1b-a400m, exact and pSRAM -----
+    moe_path, moe_exact_launches, moe_psram_launches = main_path_moe(torch, zero_counts,
+                                                                     read_counts)
+    report["main_path_moe"] = moe_path
+    emit(moe_path)
+
     # per-sweep time, warm: cp_als sorts and merges duplicates on the host
     # before its first sweep, so a sweep is timed on its own — a backend
     # instance that stamps the clock (after a synchronize) whenever mode 0 is
@@ -3589,8 +4013,9 @@ def main(argv=None) -> int:
 
     f_served = flash_path["served_layer0"]["vs_plain"]
     main_paths = (launches, dense_launches, leg_launches, pst_launches, psc_launches,
-                  tune_launches, mesh_launches, sched_launches, priced_launches,
-                  flash_launches, exact_launches, psram_launches)
+                  tune_launches, mesh_launches, faults_launches, sched_launches,
+                  priced_launches, flash_launches, exact_launches, psram_launches,
+                  moe_exact_launches, moe_psram_launches)
 
     def total(name):
         return sum(counts[name] for counts in main_paths)

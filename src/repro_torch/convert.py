@@ -14,7 +14,7 @@ caller converts its arrays with ``numpy.asarray`` first.
 * :func:`mttkrp_quants` — the six quantized operands of the dense psram
   MTTKRP ``(qx0, sx, qb, sb, qc, sc)``.
 * :func:`segment_blocks` — ``(data, seg_ids)`` blocks of the segment sum.
-* :func:`model_params` / :func:`model_cache` — a dense LM's parameters /
+* :func:`model_params` / :func:`model_cache` — a decoder LM's parameters /
   KV cache, from the reference's pytrees as nested dicts of numpy arrays.
 """
 from __future__ import annotations
@@ -127,10 +127,13 @@ def _split_groups(tree, n: int, device):
 
 
 def model_params(tree, cfg, device="cuda") -> dict:
-    """The reference's dense-LM parameter pytree (``{"embed", "blocks",
+    """The reference's decoder-LM parameter pytree (``{"embed", "blocks",
     "final_norm"[, "head"]}``, ``blocks`` stacked over ``cfg.num_groups``)
     as the port's params: ``blocks`` becomes a list of per-group dicts;
-    ``{"q", "scale"}`` int8 array words are kept as they are."""
+    ``{"q", "scale"}`` int8 array words are kept as they are. MoE layers
+    carry ``router`` and ``wi`` / ``wg`` / ``wo`` with their expert axis
+    (``(E, d, ff)``; stored words with ``(1, 1, ff)`` scales) across
+    unchanged."""
     out = {k: _tree(v, device) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = _split_groups(tree["blocks"], cfg.num_groups, device)
     return out

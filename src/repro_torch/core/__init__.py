@@ -6,13 +6,12 @@ projection layer.
 Ported: ``quantization``, ``psram`` (``PsramConfig``, ``PsramArray``,
 ``matmul_via_array``), ``schedule`` (the IR, the program cache, the
 accountant, the per-cycle oracle and the vectorized executor, with the
-reference's ``obs`` spans; its ``faults`` hooks come with ROADMAP Queue A
-item 6),
+reference's ``obs`` spans and ``faults`` hooks),
 ``perf_model`` (the §V closed forms, the mesh price and the energy model;
 an H100 roofline in place of the reference's TPU one), ``scaling``,
 ``primitives``, ``mttkrp`` (exact dense + sparse paths, the quantized sparse
-chain), ``cp_als`` (with ``cp_als_psram``) and ``photonic_layer`` (all but
-the MoE-only ``psram_einsum``).
+chain), ``cp_als`` (with ``cp_als_psram``) and ``photonic_layer`` (its MoE-only
+``psram_einsum`` too, not re-exported here, as in the reference).
 
 The reference's exports that exist in the port are re-exported here, but for
 the function ``cp_als``: on this package the name ``cp_als`` stays the

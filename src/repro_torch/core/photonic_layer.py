@@ -1,7 +1,7 @@
 """PsramLinear — photonic-offload projection layer for the LM model zoo.
 
-Simulates offloading a dense projection (attention q/k/v/o, MLP) onto the
-pSRAM engine: weights are held as 8-bit words with per-output-column scales,
+Simulates offloading a dense projection (attention q/k/v/o, MLP, expert)
+onto the pSRAM engine: weights are held as 8-bit words with per-output-column scales,
 activations are intensity-encoded to 8-bit per row on the fly, and the
 accumulation passes the ADC model.
 
@@ -12,14 +12,18 @@ stream). :func:`psram_linear` calls that kernel's wrapper on every
 projection: on a CUDA tensor it launches the hand-written kernel, on a CPU
 tensor its plain version.
 
-Ported: :func:`program_weights`, :func:`psram_linear`,
-:func:`maybe_psram_matmul`. Still to come from the reference module:
-``psram_einsum`` (the MoE experts' batched form, with the MoE family).
+:func:`psram_einsum` is the MoE experts' batched form. The reference
+computes it outside any Pallas kernel (a ``jnp.einsum`` of int32 codes), so
+here it is plain PyTorch on the tensors' device: the integer contraction
+runs as an exact float product, as ``core.schedule``'s executor runs its
+own; on the card ``chip_smoke.py`` holds it bit-equal to kernel 2 run on
+each expert's slice.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch._device import ieee_f32
 from repro_torch.kernels.psram_matmul import psram_matmul
 
 from .quantization import ADCConfig, QMAX, adc_requantize, exact_int_matmul, quantize_symmetric
@@ -72,3 +76,25 @@ def maybe_psram_matmul(x: torch.Tensor, w: torch.Tensor, enabled: bool,
     if not enabled:
         return x @ w
     return psram_linear(x, program_weights(w), adc_bits=adc_bits).to(x.dtype)
+
+
+def psram_einsum(spec: str, x: torch.Tensor, w: dict, adc_bits: int = 16) -> torch.Tensor:
+    """Batched expert einsum through stored-int8 array words, f32.
+
+    ``spec`` contracts x's last dim against ``w["q"]``'s middle dim (e.g.
+    ``"ecd,edf->ecf"``); ``w["scale"]`` broadcasts over the output. ``x`` is
+    quantized per row in its own dtype, as :func:`psram_linear` quantizes
+    it. Every partial sum of the contraction is an integer bounded by
+    ``QMAX^2 * K``: while that fits float32's 2^24 integer range (K <=
+    1040) the product runs in float32 with TF32 off, else in float64 — the
+    reference's int32 integers either way. The ADC then digitizes at full
+    scale ``QMAX^2 * K`` and the codes dequantize by ``sx * scale``.
+    """
+    qx, sx = quantize_symmetric(x, axis=-1)
+    k = x.shape[-1]
+    full_scale = float(QMAX) * float(QMAX) * k
+    ctype = torch.float32 if full_scale < 2 ** 24 else torch.float64
+    with ieee_f32():
+        acc = torch.einsum(spec, qx.to(ctype), w["q"].to(ctype))
+    acc = adc_requantize(acc, ADCConfig(bits=adc_bits), full_scale)
+    return acc * (sx.to(torch.float32) * w["scale"].to(torch.float32))

@@ -41,9 +41,17 @@ set in the graph's private pool) and replayed; on a CPU tensor the eager
 executor itself. Both interpreters record the reference's ``obs`` spans
 and counters (``schedule/execute/matmul`` with
 ``schedule/programs_executed``, ``schedule/execute/reference`` with
-``schedule/reference_ops``). Relative to the reference module, the fault
-hooks (``faults``, ROADMAP Queue A item 6) are left out; they come with that
-item.
+``schedule/reference_ops``).
+
+The vectorized executor carries the reference's fault hooks
+(``repro_torch.faults``): while a :class:`~repro_torch.faults.FaultPlan`
+that touches the array path is armed, stuck cells corrupt the stored words
+and drive-path faults (laser drift, dead WDM channels, transient spikes)
+land on the analog accumulation before the ADC, at the reference's sites
+for the same seed (:class:`_FaultSites`). While any plan is armed the
+compiled executor runs the eager one: no graph is captured with a fault in
+it, and none captured earlier is replayed. Disarmed, the hooks cost one read
+of ``faults.plan._ACTIVE``.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import ieee_f32
+from repro_torch.faults import plan as _faults
 
 from .psram import PsramArray, PsramConfig
 from .quantization import ADCConfig, QMAX, adc_requantize, quantize_symmetric
@@ -467,7 +476,73 @@ def _chunking(rows: int, cols: int, cells: int, kt: int, nt: int) -> tuple[int, 
     return kc, nb
 
 
-def _tile_values(xc, wc, *, rows, cols, wav, mt, kt, nt, adc, ctype):
+class _FaultSites:
+    """The armed plan's fault sites over one call's whole tile stack.
+
+    The reference draws each mask once over the whole stack — stuck cells
+    over the stored words ``(kt, nt, rows, cols)``, spikes over the analog
+    accumulation ``(kt, mt, nt, wav, cols)`` — from ``faults.plan``'s seeded
+    streams. The chunked executor draws them the same way, once a call, on
+    the host, and hands each chunk of K-tiles and block of N-tiles its slice
+    (:meth:`stored`, :meth:`analog`), so every fault lands on the
+    reference's cell whatever the chunking. The masks take one byte a cell
+    on the device; the draw takes eight a cell on the host while it runs.
+    """
+
+    def __init__(self, plan, *, rows, cols, wav, kt, nt, mt, device):
+        self.plan = plan
+        self.full_scale = float(QMAX) * float(QMAX) * rows
+
+        def mask(key, shape, rate):
+            drawn = _faults._rng(plan, *key).random(shape) < rate
+            return torch.from_numpy(drawn).to(device) if drawn.any() else None
+
+        self.stuck = [(f, mask((1, i), (kt, nt, rows, cols), f.rate))
+                      for i, f in enumerate(plan.stuck_bits)]
+        self.spikes = [(f, mask((2, i, _faults._EPOCH if f.transient else 0),
+                                (kt, mt, nt, wav, cols), f.rate))
+                       for i, f in enumerate(plan.adc_spikes)]
+
+    def stored(self, qw: torch.Tensor, t0: int, j0: int) -> torch.Tensor:
+        """``faults.plan.corrupt_stored`` on the chunk's words ``(kc, nb,
+        rows, cols)`` at K-tile ``t0``, N-tile ``j0``: int32."""
+        q = qw.to(torch.int32)
+        if not self.stuck:
+            return q
+        sign = torch.where(q < 0, -1, 1).to(torch.int32)
+        mag = q.abs()
+        for f, m in self.stuck:
+            if m is None:
+                continue
+            m = m[t0:t0 + q.shape[0], j0:j0 + q.shape[1]]
+            bit = 1 << f.bit
+            mag = torch.where(m, mag | bit, mag) if f.value else torch.where(m, mag & ~bit, mag)
+        return sign * mag
+
+    def analog(self, acc: torch.Tensor, t0: int, j0: int) -> torch.Tensor:
+        """``faults.plan.corrupt_analog`` on the chunk's accumulation in the
+        port's layout ``(kc, mt, wav, nb, cols)`` (the reference's is ``(kt,
+        mt, nt, wav, cols)``, its channel axis 3): drift, dead channels,
+        spikes, in float64 as there, returned as float32."""
+        plan = self.plan
+        a = acc.to(torch.float64)
+        if plan.laser_drift is not None:
+            a = a * plan.laser_drift.gain
+        wav = a.shape[2]
+        for dc in plan.dead_channels:
+            live = [c for c in dc.channels if c < wav]
+            if live:
+                a[:, :, live] = 0.0
+        kc, nb = a.shape[0], a.shape[3]
+        for f, m in self.spikes:
+            if m is None:
+                continue
+            m = m[t0:t0 + kc, :, j0:j0 + nb].permute(0, 1, 3, 2, 4)
+            a = a + m.to(torch.float64) * (f.magnitude * self.full_scale)
+        return a.to(torch.float32)
+
+
+def _tile_values(xc, wc, *, rows, cols, wav, mt, kt, nt, adc, ctype, sites=None, at=(0, 0)):
     """Every optical cycle of ``kt`` K-tiles x ``nt`` N-tiles, digitized and
     dequantized: ``(kt, mt, wav, nt, cols)`` float32, the terms the K-tile
     fold adds. ``xc`` is ``(m, <= kt * rows)``, ``wc`` ``(<= kt * rows,
@@ -477,7 +552,10 @@ def _tile_values(xc, wc, *, rows, cols, wav, mt, kt, nt, adc, ctype):
     ``multiply_accumulate`` exactly: per-tile per-column weight scales,
     per-drive-vector intensity scales, the ADC at the array's fixed full
     scale ``QMAX^2 * rows`` (a ragged last K-tile included), the dequant
-    scale formed as ``sx * sw`` before it multiplies the codes.
+    scale formed as ``sx * sw`` before it multiplies the codes. ``sites``
+    (a :class:`_FaultSites`, the chunk at K-tile, N-tile ``at``) corrupts
+    the stored words and the analog accumulation as the reference's hooks
+    do; the ADC then reads the float32 the corruption returns.
     """
     m, kx = xc.shape
     kw, nw = wc.shape
@@ -487,6 +565,8 @@ def _tile_values(xc, wc, *, rows, cols, wav, mt, kt, nt, adc, ctype):
     # as store() does (the bit-plane round trip is the identity on int8)
     wt = wp.reshape(kt, rows, nt, cols).permute(0, 2, 1, 3)      # (kt,nt,rows,cols)
     qw, sw = quantize_symmetric(wt, axis=2)                       # sw (kt,nt,1,cols)
+    if sites is not None:       # stuck cells corrupt the words as stored
+        qw = sites.stored(qw, *at)
     # stacked Drives: quantize each chunk's vectors per row over the K-tile
     xt = xp.reshape(mt, wav, kt, rows).permute(0, 2, 1, 3)       # (mt,kt,wav,rows)
     qx, sx = quantize_symmetric(xt, axis=3)                       # sx (mt,kt,wav,1)
@@ -496,6 +576,8 @@ def _tile_values(xc, wc, *, rows, cols, wav, mt, kt, nt, adc, ctype):
     # one optical cycle per (m-chunk, k-tile, n-tile): exact bit-line sums
     acc = torch.bmm(lhs, rhs).view(kt, mt, wav, nt, cols)
     del lhs, rhs
+    if sites is not None:       # drive-path faults on the analog accumulation, pre-ADC
+        acc = sites.analog(acc, *at)
     acc = adc_requantize(acc, adc, float(QMAX) * float(QMAX) * rows)
     scale = sx.permute(1, 0, 2, 3)[..., None] * sw.permute(0, 2, 1, 3)[:, None]
     return acc.mul_(scale)                                        # (kt,mt,wav,nt,cols)
@@ -513,13 +595,20 @@ def _execute_tiles(x, w, *, rows, cols, wav, kt, nt, mt, adc_bits, saturate):
     (``out = vals[0]; out = out + vals[i]``), the fold carried across
     chunks, so the float adds happen in the sequence of the per-cycle
     reference's ``out +=``; a reordered sum (``vals.sum(0)``) would change
-    bits.
+    bits. While a plan that touches the array path is armed, its sites are
+    drawn once over the whole stack (:class:`_FaultSites`) and each chunk
+    takes its slice.
     """
     m, k = x.shape
     n = w.shape[1]
     cells = mt * wav
     ctype = torch.float32 if float(QMAX) * float(QMAX) * rows < 2 ** 24 else torch.float64
     adc = ADCConfig(bits=adc_bits, saturate=saturate)
+    plan = _faults._ACTIVE
+    sites = None
+    if plan is not None and plan.touches_array_path:
+        sites = _FaultSites(plan, rows=rows, cols=cols, wav=wav, kt=kt, nt=nt, mt=mt,
+                            device=x.device)
     kc, nb = _chunking(rows, cols, cells, kt, nt)
     blocks = []
     for j0 in range(0, nt, nb):
@@ -530,7 +619,7 @@ def _execute_tiles(x, w, *, rows, cols, wav, kt, nt, mt, adc_bits, saturate):
             vals = _tile_values(x[:, t0 * rows:t1 * rows], w[t0 * rows:t1 * rows,
                                                              j0 * cols:j1 * cols],
                                 rows=rows, cols=cols, wav=wav, mt=mt, kt=t1 - t0,
-                                nt=j1 - j0, adc=adc, ctype=ctype)
+                                nt=j1 - j0, adc=adc, ctype=ctype, sites=sites, at=(t0, j0))
             for i in range(t1 - t0):
                 out = vals[i].clone() if out is None else out.add_(vals[i])
             del vals
@@ -585,8 +674,9 @@ class _GraphedExecutor:
     set lives in the graph's private memory pool until the graph is
     released (:meth:`release`, :func:`clear_program_cache`, or the byte
     budget ``_GRAPH_BYTES`` shared by every executor). A call with a CPU
-    tensor runs the eager executor. A capture that fails raises; nothing
-    falls back to eager on the card.
+    tensor, or any call while a fault plan is armed, runs the eager
+    executor: a graph would bake one draw of the faults into its replays. A
+    capture that fails raises; nothing else falls back to eager on the card.
     """
 
     def __init__(self, fn, shape: tuple[int, int, int]):
@@ -595,7 +685,7 @@ class _GraphedExecutor:
         self._graphs: dict = {}
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" or _faults._ACTIVE is not None:
             return self._fn(x, w)
         entry = self._graphs.get(x.device)
         if entry is None:
@@ -674,7 +764,8 @@ def execute(program: TileProgram, x: torch.Tensor, w: torch.Tensor,
 
     ``compiled=True`` runs the cached compiled executor for the program's
     ``(shape, config)`` instead (:func:`compiled_matmul_executor`: a CUDA
-    graph replay on the card, the eager executor on the CPU).
+    graph replay on the card, the eager executor on the CPU and while a
+    fault plan is armed, as the reference falls back to its eager executor).
     """
     _require_executable(program)
     _validate_matmul_program(program)

@@ -21,7 +21,7 @@ is a frozen dataclass here, gathered into one :class:`FaultPlan`:
   photocurrent before the ADC.
 * :class:`ArrayLoss` — a whole array drops off the mesh: its shard
   contributes nothing to the sum of the partial outputs (degraded-mode
-  control, ROADMAP Queue A item 6, re-plans around it).
+  control, ``faults.degraded``, re-plans around it).
 
 Injection follows the obs null-span discipline: the executors read ONE
 module global (:data:`_ACTIVE`) and branch — no allocation, no clock, no
@@ -30,9 +30,9 @@ this module existed. Everything is seeded and wall-clock-free: fault sites come 
 ``np.random.default_rng`` streams keyed on ``(plan.seed, fault kind, fault
 index, epoch)``, so a plan replays bit-identically across runs and hosts.
 
-In the port today the mesh executor (``sparse.mesh``) applies the shard
-faults; the schedule executor's hooks (stuck bits, drive faults) come with
-the rest of ``faults/`` (ROADMAP Queue A item 6).
+The mesh executor (``sparse.mesh``) applies the shard faults; the schedule
+executor (``core.schedule``) applies the stuck bits and the drive-path
+faults, its masks drawn from these streams over the reference's shapes.
 """
 from __future__ import annotations
 

@@ -1,17 +1,18 @@
-"""Decoder blocks: the repeating group pattern of the dense family.
+"""Decoder blocks: the repeating group pattern of the dense and MoE families.
 
 A *group* is the repeating unit of layers (one layer for plain archs, the
 (local, global) pair for gemma2). Each layer in a group is described by a
-layout descriptor and owns norms + attention + MLP. The model keeps one
-param dict (and one cache dict) per group, in a list, where the reference
-stacks them along a leading axis for its layer scan.
+layout descriptor and owns norms + attention + an MLP or a mixture of
+experts. The model keeps one param dict (and one cache dict) per group, in
+a list, where the reference stacks them along a leading axis for its layer
+scan.
 
-Ported: ``LayerDesc``, ``group_layout`` (dense and ``alt_local_global``),
-``group_defs``, ``group_cache_defs``, ``_residual``, ``group_fwd``,
+Ported: ``LayerDesc``, ``group_layout`` (dense, ``alt_local_global`` and
+MoE), ``group_defs``, ``group_cache_defs``, ``_residual``, ``group_fwd``,
 ``group_decode_tokens``, ``apply_decode_deltas``. Still to come from the
-reference module: SSM and MoE layers (their families raise, ROADMAP Queue A
-item 7) and ``group_decode`` (the write-through decode the encoder-decoder
-family uses).
+reference module: SSM layers (the ``ssm`` and ``hybrid`` families raise, as
+does ``encdec``, ROADMAP Queue A item 7) and ``group_decode`` (the
+write-through decode the encoder-decoder family uses).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from .layers import (
     rmsnorm,
     rmsnorm_defs,
 )
+from .moe import moe_defs, moe_fwd
 
 _WAITS = "ROADMAP Queue A item 7"
 
@@ -39,17 +41,17 @@ _WAITS = "ROADMAP Queue A item 7"
 class LayerDesc:
     mixer: str          # "attn" (the reference also has "ssm")
     local: bool = False
-    mlp: str | None = "dense"  # "dense" (the reference also has "moe" and None)
+    mlp: str | None = "dense"  # "dense" | "moe" (the reference also has None)
 
 
 def group_layout(cfg: ArchConfig) -> list[LayerDesc]:
-    if cfg.family != "dense" or cfg.num_experts:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} (experts: {cfg.num_experts}) is not ported to "
-            f"repro_torch yet: SSM and MoE layers wait for {_WAITS}")
+            f"family {cfg.family!r} is not ported to repro_torch yet: SSM layers, the "
+            f"hybrid and encoder-decoder families wait for {_WAITS}")
     if cfg.alt_local_global:
         return [LayerDesc(mixer="attn", local=True), LayerDesc(mixer="attn", local=False)]
-    return [LayerDesc(mixer="attn")]
+    return [LayerDesc(mixer="attn", mlp="moe" if cfg.num_experts else "dense")]
 
 
 def group_defs(cfg: ArchConfig):
@@ -59,7 +61,7 @@ def group_defs(cfg: ArchConfig):
             "pre_norm": rmsnorm_defs(cfg.d_model),
             "mixer": attention_defs(cfg),
             "mlp_norm": rmsnorm_defs(cfg.d_model),
-            "mlp": mlp_defs(cfg),
+            "mlp": moe_defs(cfg) if desc.mlp == "moe" else mlp_defs(cfg),
         }
         if cfg.post_block_norms:
             layer["post_norm"] = rmsnorm_defs(cfg.d_model)
@@ -79,9 +81,10 @@ def _residual(cfg, p, x, branch, post_key):
     return x + branch
 
 
-def _mlp_block(cfg, p, x):
+def _mlp_block(cfg, desc, p, x):
     h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-    return _residual(cfg, p, x, mlp_fwd(p["mlp"], h, cfg), "post_mlp_norm")
+    y = moe_fwd(p["mlp"], h, cfg) if desc.mlp == "moe" else mlp_fwd(p["mlp"], h, cfg)
+    return _residual(cfg, p, x, y, "post_mlp_norm")
 
 
 def group_fwd(p_group, x, cfg: ArchConfig, pos, collect_cache: bool = False):
@@ -94,7 +97,7 @@ def group_fwd(p_group, x, cfg: ArchConfig, pos, collect_cache: bool = False):
         if collect_cache:
             caches[f"layer{i}"] = {"k": k, "v": v}
         x = _residual(cfg, p, x, y, "post_norm")
-        x = _mlp_block(cfg, p, x)
+        x = _mlp_block(cfg, desc, p, x)
     return x, (caches if collect_cache else None)
 
 
@@ -117,7 +120,7 @@ def group_decode_tokens(p_group, x, cfg: ArchConfig, cache_group, cache_pos):
             "v": vn.to(cache["v"].dtype),
         }
         x = _residual(cfg, p, x, y, "post_norm")
-        x = _mlp_block(cfg, p, x)
+        x = _mlp_block(cfg, desc, p, x)
     return x, deltas
 
 

@@ -6,7 +6,7 @@ repeat in. ``reduced()`` produces the tiny same-family config used by CPU
 smoke tests. This is the reference's dataclass whole (fields, properties,
 ``param_count``, ``active_param_count``, ``reduced``), so a config built from
 ``dataclasses.asdict`` of a reference config is the same config; the port
-builds models of the dense family only (``registry`` says what waits).
+builds models of the dense and MoE families (``registry`` says what waits).
 """
 from __future__ import annotations
 

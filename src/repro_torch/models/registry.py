@@ -1,8 +1,8 @@
 """Model registry: family -> module dispatch + arch config lookup.
 
-The port builds the dense family (``models.transformer``). The reference's
-other architectures wait for their families; asking for one raises a
-``NotImplementedError`` that names the ROADMAP item that brings it.
+The port builds the dense and MoE families (``models.transformer``). The
+reference's other architectures wait for their families; asking for one
+raises a ``NotImplementedError`` that names the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ ARCH_IDS = [
     "gemma2_27b",
     "granite_8b",
     "deepseek_7b",
+    "granite_moe_1b_a400m",
+    "dbrx_132b",
 ]
 
 _WAITING = "ROADMAP Queue A item 7"
@@ -23,16 +25,13 @@ _WAITING = "ROADMAP Queue A item 7"
 #: reference architectures not ported yet -> what they wait for
 UNPORTED_ARCHS = {
     "seamless_m4t_large_v2": f"the encoder-decoder family (models/encdec.py, {_WAITING})",
-    "jamba_1p5_large": f"the hybrid family (models/ssm.py + models/moe.py, {_WAITING})",
+    "jamba_1p5_large": f"the hybrid family (models/ssm.py, {_WAITING})",
     "qwen2_vl_7b": f"M-RoPE (models/layers.py apply_rope, with qwen2-vl, {_WAITING})",
-    "granite_moe_1b_a400m": f"the MoE family (models/moe.py + psram_einsum, {_WAITING})",
-    "dbrx_132b": f"the MoE family (models/moe.py + psram_einsum, {_WAITING})",
     "mamba2_370m": f"the SSM family (models/ssm.py, {_WAITING})",
 }
 
 _UNPORTED_FAMILIES = {
-    "moe": "models/moe.py + core/photonic_layer.py psram_einsum",
-    "hybrid": "models/ssm.py + models/moe.py",
+    "hybrid": "models/ssm.py",
     "ssm": "models/ssm.py",
     "encdec": "models/encdec.py",
 }

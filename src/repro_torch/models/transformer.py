@@ -1,4 +1,4 @@
-"""Decoder-only LM assembled from block groups (the dense family).
+"""Decoder-only LM assembled from block groups (the dense and MoE families).
 
 Provides ``param_defs / init / forward / prefill / decode`` — the serve
 steps in ``serve/`` wrap these. The reference scans stacked ``(G, ...)``
@@ -11,8 +11,8 @@ Ported: ``param_defs``, ``init``, ``cache_defs``, ``init_cache``,
 ``_positions``, ``_embed``, ``_unembed``, ``forward``, ``prefill``,
 ``decode_step_deltas``, ``decode_step``. Still to come from the reference
 module: ``loss_fn``/``cross_entropy`` (with training, ROADMAP Queue A item 9),
-``prefill_paged`` (with the paged serve loop, item 8), the MoE, hybrid and
-SSM families (item 7), ``param_specs``/``cache_specs`` (sharding, item 9).
+``prefill_paged`` (with the paged serve loop, item 8), the hybrid and SSM
+families (item 7), ``param_specs``/``cache_specs`` (sharding, item 9).
 """
 from __future__ import annotations
 

@@ -77,12 +77,16 @@ The spans and counters the port emits today, at the reference's sites:
   ``mesh/stream/execute`` (nnz, n_arrays, lowering, planner, mode) —
   ``sparse.mesh.mesh_stream_mttkrp``; ``fault/mesh/shard_values`` (arrays,
   dead) with ``fault/arrays_lost`` while a plan is armed, and
-  ``fault/inject/armed`` with ``fault/injected`` — ``faults.plan``.
+  ``fault/inject/armed`` with ``fault/injected`` — ``faults.plan``;
+  ``fault/abft/{check,redrive,fallback}`` (kind and the site) with the
+  counters ``fault/detected``, ``fault/redrives``, ``fault/recovered`` and
+  ``fault/recovery_cycles`` — ``faults.abft``; ``fault/mesh/degraded``
+  (dead, n_arrays) and ``fault/mesh/redrive`` (array, nnz, rows) with
+  ``fault/arrays_lost`` and ``fault/recovered_rows`` — ``faults.degraded``.
 
-Still to come, with the modules that emit them: the rest of ``fault/*``
-(ABFT and degraded mode, ROADMAP Queue A item 6), and the serving loop's
+Still to come, with the modules that emit them: the serving loop's
 ``serve/admit`` / ``prefill`` / ``decode`` / ``offload`` / ``evict`` spans
-and counters (item 8).
+and counters (ROADMAP Queue A item 8).
 
 The tracer is zero-cost when disabled: ``span()`` returns a shared no-op
 context manager without reading a clock or touching the card (overhead

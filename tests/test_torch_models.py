@@ -1,6 +1,6 @@
-"""The port's dense decoder family held against the JAX reference on the CPU.
+"""The port's dense and MoE decoder families held against the JAX reference on the CPU.
 
-Reduced (f32) forms of the four dense configs; the reference's own params
+Reduced (f32) forms of the four dense and two MoE configs; the reference's own params
 (``init(PRNGKey(0))``) are carried over by ``convert.model_params`` and the
 same numpy-seeded tokens go through both packages. Tolerances, each with its
 reason:
@@ -209,7 +209,7 @@ def test_chunked_attention_matches_einsum():
     torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ["granite_8b", "gemma2_27b"])
+@pytest.mark.parametrize("arch", ["granite_8b", "gemma2_27b", "granite_moe_1b_a400m"])
 @pytest.mark.parametrize("stored", [False, True], ids=["on_the_fly", "stored_int8"])
 def test_psram_projection_forward_matches_reference(arch, stored):
     run = reference_run(arch, psram=True, stored=stored)
