@@ -174,6 +174,36 @@ What it does, in order — any failure raises and the run exits non-zero:
       run on each expert on layer 0's served buffers, and kernel 2 on every
       attention projection (the wgmma route in the prefill, the decode route
       in a step). dbrx-132b (131.6 B parameters) does not fit one card.
+   e''. the other families, each with the counts zeroed before its
+      ``generate`` and read after, as above: ``main_path_ssm`` serves
+      mamba2-370m at full width and depth (48 SSD layers, bf16, random
+      weights) on 8 prompts x 1024 tokens, 64 new, exact and pSRAM
+      (``in_proj`` and ``out_proj`` through kernel 2: the wgmma route in a
+      prefill, the decode route in a step): the SSD scan's share of a
+      prefill (CUDA events around each call), the exact run's first
+      recurrent step against the chunked ``forward`` (relative L2 <= 0.05),
+      kernel 2 bit-equal to its plain version on layer 0's served operands
+      (N = 4384 at M = 8192, 24 and 8), each pSRAM layer's own error against
+      its dequantized words (< 0.06, split by projection, with two wrong-
+      projection controls that must read above it; the end-to-end pSRAM
+      distances are reported, not gated: 48 gated layers amplify int8
+      noise), and ``ssd_chunked`` at one layer's served shape on the card
+      within 1e-5 of max |y| of the CPU, timed beside its bound. ``main_path_encdec`` serves
+      seamless-m4t-large-v2 at full width and depth (24 + 24 layers) through
+      ``generate(frames=)``: stub frames 8 x 1024 x 1024, decoder prompts of
+      256 tokens, 64 new, exact and pSRAM (every projection but the frame
+      projection and the head through kernel 2), the encode timed alone,
+      the first step against ``forward``, the pSRAM prefill against the
+      dequantized words (< 0.5) and kernel 2 bit-equal to its plain version
+      on the first encoder and decoder layers' served operands.
+      ``main_path_mrope`` serves qwen2-vl-7b at full width, its depth cut
+      to 4 layers (the script's time; M-RoPE is an elementwise change of
+      the dense path run at full depth above), 16 new tokens, exact, and
+      holds ``apply_rope`` with three distinct position streams on layer
+      0's served q on the card against the CPU (the angles bit-equal, the
+      output within what one bf16 ulp of cos and sin moves it).
+      jamba-1.5-large does not fit one card (one group of 8 layers is ~44 B
+      parameters): CPU and ``cuda`` tests at ``reduced()`` only.
    f. ``main_path_trace``: ``repro_torch.obs`` on the card. With tracing
       enabled, ``cp_als`` (rank 32, 3 sweeps) on ``hopper``, ``hopper`` with
       ``compiled=False`` and ``psram-stream`` eager and compiled: each run's
@@ -268,6 +298,33 @@ FAULT_SPIKE_RATE = 2e-6
 FAULT_GROUP_FIBERS = 1
 # main_path_moe: the MoE family served at full width and depth
 MOE_ARCH = "granite_moe_1b_a400m"
+# main_path_ssm / main_path_encdec / main_path_mrope: the SSM family at full
+# width and depth; the encoder-decoder at full width and depth, its decoder
+# prompt a quarter of the frames (the reference's ENC_DEC_FRAC,
+# src/repro/launch/shapes.py:36); M-RoPE at full width, its depth cut to 4
+# layers for the script's time (M-RoPE is an elementwise change of the dense
+# path that main_path_serve runs at full depth), 16 new tokens
+SSM_ARCH = "mamba2_370m"
+ENCDEC_ARCH = "seamless_m4t_large_v2"
+ENC_DEC_FRAC = 0.25
+MROPE_ARCH = "qwen2_vl_7b"
+MROPE_LAYERS = 4
+MROPE_NEW = 16
+# ssd_chunked on the card against the same inputs on the CPU, of max |y|
+SSD_TOL = 1e-5
+# a pSRAM mamba2 layer's own error against its dequantized words (relative
+# L2 of its residual branch from the same input). At full width on a CPU
+# (one layer, 2 x 256 tokens) it is 0.044: out_proj 0.040 of it (0.034 its
+# int8 activations alone, the rest its 16-bit ADC over K = 2048), in_proj
+# 0.018. out_proj's input, the gated y * silu(z) after its norm, has a crest
+# factor (max |row| / RMS) of ~14 against in_proj's ~3.4, so an int8 row's
+# step is ~14 / 127 of its RMS: ~3% noise, not the ~0.7% of a Gaussian row.
+# Controls (ssm_error_split): in_proj's dt columns zeroed read 0.31, out_proj
+# off by 10% reads 0.11; a sound layer read at most 0.047 on an H100
+MAMBA_LAYER_OWN_TOL = 0.06
+# decode steps profiled in each of those three phases (8 in the others): with
+# 8, the profiler's windows took 102 s of the three phases' 135 s on an H100
+NEW_FAMILY_PROFILED_STEPS = 4
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): the
 # port's roofline constants, one source for both
@@ -1945,30 +2002,36 @@ def small_flash_cases(torch):
 # ------------------------------------------------------------ serving
 
 
-def serve_run(torch, cfg, params, prompts, eng_cls, zero_counts, read_counts):
-    """One ``ServeEngine.generate`` (after a short warm-up) with the launch
-    counters set to 0 just before it and read just after, then its prefill
-    and a decode step timed alone, and the first decode step's logits held
-    against ``forward`` on prompt + token. Returns (report, launches,
-    prefill logits, engine, generated tokens)."""
-    from repro_torch.models import transformer
+def serve_run(torch, cfg, params, prompts, eng_cls, zero_counts, read_counts, frames=None,
+              new=SERVE_NEW, profiled_steps=8):
+    """One ``ServeEngine.generate`` of ``new`` tokens (after a short warm-up)
+    with the launch counters set to 0 just before it and read just after,
+    then its prefill and a decode step timed alone, ``profiled_steps`` decode
+    steps and a prefill under the profiler, and the first decode step's
+    logits held against ``forward`` on prompt + token. ``frames``: the
+    encoder-decoder's input. Returns (report, launches, prefill logits,
+    engine, generated tokens)."""
+    from repro_torch.models.registry import get_module
 
+    mod = get_module(cfg)
+    lead = () if frames is None else (frames,)
+    gen_kw = {} if frames is None else {"frames": frames}
     b, p = prompts.shape
-    eng = eng_cls(cfg, params, max_len=p + SERVE_NEW, device="cuda")
-    eng.generate(prompts, p, 2)                                   # warm-up
+    eng = eng_cls(cfg, params, max_len=p + new, device="cuda")
+    eng.generate(prompts, p, 2, **gen_kw)                         # warm-up
     zero_counts()
     t0 = time.perf_counter()
-    toks = eng.generate(prompts, p, SERVE_NEW)
+    toks = eng.generate(prompts, p, new, **gen_kw)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = read_counts()
-    out = {"generate_s": total_s, "tokens_per_s": b * SERVE_NEW / total_s,
+    out = {"generate_s": total_s, "tokens_per_s": b * new / total_s,
            "tokens_shape": list(toks.shape),
            "tokens_in_vocab": bool(((toks >= 0) & (toks < cfg.vocab_size)).all())}
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = eng.prefill_fn(params, prompts)
+        logits, cache = eng.prefill_fn(params, *lead, prompts)
         torch.cuda.synchronize()
         out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
         tok = logits.argmax(-1).to(torch.int32)
@@ -1982,9 +2045,12 @@ def serve_run(torch, cfg, params, prompts, eng_cls, zero_counts, read_counts):
             step_ms.append(1e3 * (time.perf_counter() - t0))
         out["decode_ms_per_step"] = statistics.median(step_ms)
         out["decode_tokens_per_s"] = b / (1e-3 * out["decode_ms_per_step"])
-        out["decode_profile"] = profile_decode(torch, eng, params, cache, tok, p + 9, 8)
-        out["prefill_profile"] = profile_prefill(torch, eng, params, prompts)
-        full = transformer.forward(params, torch.cat([prompts, tok[:, None]], dim=1), cfg)[:, -1]
+        t0 = time.perf_counter()
+        out["decode_profile"] = profile_decode(torch, eng, params, cache, tok, p + 9,
+                                               profiled_steps)
+        out["prefill_profile"] = profile_prefill(torch, eng, params, prompts, frames=frames)
+        out["profiles_s"] = time.perf_counter() - t0
+        full = mod.forward(params, *lead, torch.cat([prompts, tok[:, None]], dim=1), cfg)[:, -1]
         out["decode_vs_forward_rel_l2"] = float(torch.linalg.norm(first - full)
                                                 / torch.linalg.norm(full))
         out["finite"] = bool(torch.isfinite(logits).all() and torch.isfinite(first).all())
@@ -2037,7 +2103,7 @@ def profile_decode(torch, eng, params, cache, tok, pos: int, n: int) -> dict:
     return {"steps": n, **device_profile(torch, prof, wall_ms, n, "_per_step")}
 
 
-def profile_prefill(torch, eng, params, prompts, attempts: int = 3) -> dict:
+def profile_prefill(torch, eng, params, prompts, attempts: int = 3, frames=None) -> dict:
     """One prefill of ``prompts`` under ``torch.profiler``
     (:func:`device_profile`): kernel 2's share of its device time. A window
     whose kernel-2 records fall short of the launches kernel 2's wrapper
@@ -2054,7 +2120,7 @@ def profile_prefill(torch, eng, params, prompts, attempts: int = 3) -> dict:
         with torch.inference_mode(), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            eng.prefill_fn(params, prompts)
+            eng.prefill_fn(params, *(() if frames is None else (frames,)), prompts)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         counted = psram_matmul.launches - before
@@ -2100,61 +2166,81 @@ def routes_agree(torch, eng, prompts, toks):
     return counts
 
 
-def served_matmul_cases(torch, eng, params, prompts):
+def word_ptrs(trees) -> set:
+    """Addresses of the stored int8 array words in ``trees`` (param
+    subtrees): the weights a kernel-2 call can be traced back to."""
+    from repro_torch.models.layers import is_quantized
+
+    def walk(t):
+        if is_quantized(t):
+            return {t["q"].data_ptr()}
+        if isinstance(t, dict):
+            return set().union(*map(walk, t.values()))
+        if isinstance(t, list):
+            return set().union(*map(walk, t))
+        return set()
+
+    return walk(trees)
+
+
+def served_matmul_cases(torch, eng, params, prompts, layer0, want_calls, n_proj, lead=()):
     """Kernel 2 held BIT-EQUAL to its plain version on the served model's own
-    operands: the codes and scales that layer 0's seven projections (wq, wk,
-    wv, wo, wi, wg, wo) hand the kernel in one prefill (M = B*S rows, the
-    wgmma route, also held against the tile route) and in one decode step
-    (M = B rows, the decode route). The model's module-level
-    ``psram_matmul`` is wrapped for these two calls only; its launches here
-    are not counted on the main path."""
+    operands, for any served model: every call that hands the kernel a
+    stored word of ``layer0`` (the first layer's param subtrees: one, or the
+    encoder's and the decoder's) in one prefill (the wgmma route, also held
+    against the tile route) and in one decode step (the decode route) —
+    ``want_calls`` = (prefill calls, step calls) — while the whole model
+    makes ``n_proj`` = (prefill, step) calls, all on those routes. So every
+    shape the main path gives the kernel is checked on the card: each
+    projection's K and N (partial last tiles included) at the prefill's M
+    and at a step's. The model's module-level ``psram_matmul`` is wrapped
+    for these two calls only; its launches here are not counted on the main
+    path."""
     import repro_torch.core.photonic_layer as photonic
     from repro_torch.kernels.psram_matmul import _launch, psram_matmul_torch
 
     launch = photonic.psram_matmul
+    ptrs = word_ptrs(layer0)
     seen = []
 
     def record(qx, qw, sx, sw, adc_bits=16):
         out = launch(qx, qw, sx, sw, adc_bits=adc_bits)
-        if len(seen) < 7:
+        if qw.data_ptr() in ptrs:
             seen.append((qx, qw, sx, sw, adc_bits, out))
         return out
 
-    cases = []
     routes = launch.routes
     photonic.psram_matmul = record
     try:
         with torch.inference_mode():
             r0 = dict(routes)
-            logits, cache = eng.prefill_fn(params, prompts)
+            logits, cache = eng.prefill_fn(params, *lead, prompts)
             torch.cuda.synchronize()
             r1 = dict(routes)
             calls, seen = seen, []
             eng.step_fn(params, cache, logits.argmax(-1).to(torch.int32), prompts.shape[1])
             torch.cuda.synchronize()
             r2 = dict(routes)
-            calls += seen
+            calls = [(c, "wgmma") for c in calls] + [(c, "decode") for c in seen]
     finally:
         photonic.psram_matmul = launch
     del logits, cache
-    if len(calls) != 14:
-        raise AssertionError(f"layer 0 made {len(calls)} kernel-2 calls in a prefill and a "
-                             f"decode step, not 2 x 7")
-    # every projection of the prefill took the wgmma route, every one of the
-    # decode step the decode route
+    got_calls = (sum(r == "wgmma" for _, r in calls), sum(r == "decode" for _, r in calls))
+    if got_calls != tuple(want_calls):
+        raise AssertionError(f"layer 0 made {got_calls} kernel-2 calls in a prefill and a "
+                             f"decode step, not {tuple(want_calls)}")
     took = [{r: r1[r] - r0[r] for r in routes}, {r: r2[r] - r1[r] for r in routes}]
-    n_proj = 7 * eng.cfg.num_layers
-    if took != [{"wgmma": n_proj, "tile": 0, "decode": 0},
-                {"wgmma": 0, "tile": 0, "decode": n_proj}]:
+    if took != [{"wgmma": n_proj[0], "tile": 0, "decode": 0},
+                {"wgmma": 0, "tile": 0, "decode": n_proj[1]}]:
         raise AssertionError(f"the served projections did not take the expected routes "
-                             f"(prefill, decode step): {took}")
-    for i, (qx, qw, sx, sw, adc_bits, got) in enumerate(calls):
+                             f"(prefill, decode step; {n_proj} asked): {took}")
+    cases = []
+    for (qx, qw, sx, sw, adc_bits, got), route in calls:
         want = psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits)
         case = {"shape": [qx.shape[0], qx.shape[1], qw.shape[1]], "adc_bits": adc_bits,
-                "route": "wgmma" if i < 7 else "decode",
-                "max_abs_err": float((got - want).abs().max()),
+                "route": route, "max_abs_err": float((got - want).abs().max()),
                 "bit_equal": bool(torch.equal(got, want))}
-        if i < 7:
+        if route == "wgmma":
             case["bit_equal_to_tile"] = bool(torch.equal(
                 _launch(qx, qw, sx, sw, adc_bits=adc_bits, route="tile"), got))
         cases.append(case)
@@ -3076,7 +3162,6 @@ def main_path_moe(torch, zero_counts, read_counts) -> tuple:
     (relative L2 <= 0.05), and ``psram_einsum`` bit-equal to kernel 2 on
     layer 0's served buffers. ``(phase, exact launches, pSRAM launches)``."""
     from repro_torch.models import get_config, transformer
-    from repro_torch.models.layers import is_quantized
     from repro_torch.models.moe import capacity
     from repro_torch.serve import ServeEngine
 
@@ -3088,9 +3173,7 @@ def main_path_moe(torch, zero_counts, read_counts) -> tuple:
     params = transformer.init(13, cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts = torch.randint(2, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
-                            dtype=torch.int32,
-                            generator=torch.Generator(device="cuda").manual_seed(14))
+    prompts = seeded_prompts(torch, cfg, SERVE_BATCH, SERVE_PROMPT, 14)
     exact_run, exact_launches, _, eng, _ = serve_run(
         torch, cfg, params, prompts, ServeEngine, zero_counts, read_counts)
     exact_run["drop_share"] = moe_drop_share(torch, eng, params, prompts)
@@ -3115,9 +3198,7 @@ def main_path_moe(torch, zero_counts, read_counts) -> tuple:
 
     pcfg = dataclasses.replace(cfg, psram_projections=True, psram_stored_int8=True)
     pparams = transformer.init(15, pcfg, device="cuda")
-    int8_bytes = sum(w["q"].numel() for g in pparams["blocks"] for lay in g.values()
-                     for blk in (lay["mixer"], lay["mlp"]) for w in blk.values()
-                     if is_quantized(w))
+    int8_bytes = int8_word_bytes(pparams)
     psram_run, psram_launches, psram_logits, peng, _ = serve_run(
         torch, pcfg, pparams, prompts, ServeEngine, zero_counts, read_counts)
     psram_run["drop_share"] = moe_drop_share(torch, peng, pparams, prompts)
@@ -3125,19 +3206,10 @@ def main_path_moe(torch, zero_counts, read_counts) -> tuple:
     einsum_cases = served_einsum_cases(torch, peng, pparams, prompts)
     del peng
     # an exact model whose weights are the array's words dequantized
-    dparams = {**pparams, "blocks": [
-        {key: {**lay, **{blk: {name: ((w["q"].float() * w["scale"]).to(torch.bfloat16)
-                                      if is_quantized(w) else w)
-                               for name, w in lay[blk].items()}
-                         for blk in ("mixer", "mlp")}}
-         for key, lay in g.items()}
-        for g in pparams["blocks"]]}
-    with torch.inference_mode():
-        deq_logits, _ = transformer.prefill(dparams, prompts, cfg, SERVE_PROMPT)
-    psram_vs_deq = float(torch.linalg.norm(psram_logits - deq_logits)
-                         / torch.linalg.norm(deq_logits))
+    psram_vs_deq = psram_vs_dequantized(torch, transformer, pparams, (), prompts, cfg,
+                                        psram_logits)
     psram_peak = torch.cuda.max_memory_allocated()
-    del pparams, dparams, psram_logits, deq_logits
+    del pparams, psram_logits
     torch.cuda.empty_cache()
     n_attn = 4 * cfg.num_layers                       # kernel 2 a forward: q, k, v, o
     phase = {
@@ -3153,24 +3225,560 @@ def main_path_moe(torch, zero_counts, read_counts) -> tuple:
                   "prefill_vs_dequantized_rel_l2": psram_vs_deq,
                   "layer0_einsum_vs_kernel2": einsum_cases, "device_bytes_peak": psram_peak},
     }
-    for name, run in (("exact", exact_run), ("psram", psram_run)):
-        if not (run["finite"] and run["tokens_in_vocab"]
-                and run["tokens_shape"] == [SERVE_BATCH, SERVE_NEW]):
-            raise AssertionError(f"serving the MoE model ({name}) gave no finite in-vocab "
-                                 f"tokens: {phase}")
+    # kernel 2 on every attention projection: the wgmma route in the
+    # prefill, the decode route in a step. With drops a step and forward
+    # legitimately differ: the dropless replica's is gated instead
+    check_served("the MoE model", phase,
+                 {"wgmma": n_attn, "tile": 0, "decode": n_attn * SERVE_NEW}, decode_gated=())
     if not dropless_rel <= 0.05:
         raise AssertionError(f"the MoE decode strays from forward (dropless): {phase}")
-    if not (math.isfinite(psram_vs_deq) and psram_vs_deq < 0.5):
-        raise AssertionError(f"pSRAM MoE prefill logits are garbage: {phase}")
-    if psram_launches["psram_matmul"] != n_attn * (1 + SERVE_NEW) \
-            or psram_launches["psram_matmul_wgmma"] != n_attn \
-            or psram_launches["psram_matmul_decode"] != n_attn * SERVE_NEW:
-        raise AssertionError(f"the pSRAM MoE model did not launch kernel 2 on every attention "
-                             f"projection, on the wgmma route in the prefill and the decode "
-                             f"route in a step: {phase}")
-    if exact_launches["psram_matmul"] != 0:
-        raise AssertionError(f"the exact MoE model launched kernel 2: {phase}")
     return phase, exact_launches, psram_launches
+
+
+def dequantized(tree, dtype):
+    """``tree`` with every ``{"q", "scale"}`` of stored array words replaced by
+    the words dequantized (``q * scale``, rounded to ``dtype``): the exact
+    model the pSRAM one approximates."""
+    from repro_torch.models.layers import is_quantized
+
+    if is_quantized(tree):
+        return (tree["q"].float() * tree["scale"]).to(dtype)
+    if isinstance(tree, dict):
+        return {k: dequantized(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [dequantized(v, dtype) for v in tree]
+    return tree
+
+
+def int8_word_bytes(tree) -> int:
+    """Bytes of the stored int8 array words in a param tree."""
+    from repro_torch.models.layers import is_quantized
+
+    if is_quantized(tree):
+        return tree["q"].numel()
+    if isinstance(tree, dict):
+        return sum(int8_word_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(int8_word_bytes(v) for v in tree)
+    return 0
+
+
+def seeded_prompts(torch, cfg, batch, length, seed):
+    return torch.randint(2, cfg.vocab_size, (batch, length), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def psram_vs_dequantized(torch, mod, pparams, lead, prompts, cfg, psram_logits) -> float:
+    """Relative L2 of the pSRAM prefill's logits against an exact prefill
+    of the same prompts on the dequantized words (catches garbage)."""
+    from repro_torch.models.layers import as_dtype
+
+    dparams = dequantized(pparams, as_dtype(cfg.dtype))
+    with torch.inference_mode():
+        deq_logits, _ = mod.prefill(dparams, *lead, prompts, cfg, prompts.shape[1])
+    rel = float(torch.linalg.norm(psram_logits - deq_logits) / torch.linalg.norm(deq_logits))
+    del dparams, deq_logits
+    return rel
+
+
+def check_served(name, phase, want_psram=None, decode_gated=("exact", "psram"),
+                 dequantized_gated=True):
+    """What "served correctly" means, for every served model's phase: each
+    run's tokens finite, in the vocabulary and ``batch`` x ``max_new``; no
+    kernel-2 launch in the exact run, and in the pSRAM one (if the phase
+    has one) exactly ``want_psram`` (route -> launches); the first decode
+    step within 0.05 of ``forward`` (relative L2) for the runs named in
+    ``decode_gated``; and, if ``dequantized_gated``, the pSRAM prefill
+    within 0.5 of an exact prefill on the dequantized words."""
+    runs = {label: phase[label] for label in ("exact", "psram") if label in phase}
+    for label, run in runs.items():
+        if not (run["finite"] and run["tokens_in_vocab"]
+                and run["tokens_shape"] == [phase["batch"], phase["max_new"]]):
+            raise AssertionError(f"serving {name} ({label}) gave no finite in-vocab tokens: "
+                                 f"{phase}")
+        if label in decode_gated and not run["decode_vs_forward_rel_l2"] <= 0.05:
+            raise AssertionError(f"{name}'s decode strays from forward ({label}): {phase}")
+    if runs["exact"]["launches"]["psram_matmul"] != 0:
+        raise AssertionError(f"the exact {name} launched kernel 2: {phase}")
+    if "psram" not in runs:
+        return
+    rel = runs["psram"]["prefill_vs_dequantized_rel_l2"]
+    if dequantized_gated and not (math.isfinite(rel) and rel < 0.5):
+        raise AssertionError(f"{name}'s pSRAM prefill logits are garbage: {phase}")
+    launches = runs["psram"]["launches"]
+    got = {route: launches[f"psram_matmul_{route}"] for route in want_psram}
+    if got != want_psram or launches["psram_matmul"] != sum(want_psram.values()):
+        raise AssertionError(f"the pSRAM {name} did not launch kernel 2 as its projections "
+                             f"ask ({want_psram}, got {got}): {phase}")
+
+
+def ssd_ops(b, s, h, p, n, q) -> float:
+    """f32 operations of one ``ssd_chunked``: its four contractions (C·B,
+    the diagonal blocks, the chunk states, the state outputs; 2 a
+    multiply-add), the (B, nc, H, q, q) weights (exp and two products) and
+    the chunk recurrence."""
+    nc = -(-s // q)
+    sp = nc * q
+    return (2.0 * b * sp * q * n + 3.0 * b * nc * h * q * q + 2.0 * b * nc * h * q * q * p
+            + 2.0 * b * sp * h * p * n * 2 + 2.0 * b * nc * h * p * n)
+
+
+def ssd_case(torch, cfg, seed=31) -> dict:
+    """``ssd_chunked`` at one layer's served shape (B 8, S 1024, H 32, P 64,
+    N 128, chunks of 128) on the card against the same inputs on the CPU,
+    within ``SSD_TOL`` of max |y| (a TF32 product or a misplaced reduction
+    would show), timed beside its bound (f32 operations at the f32 peak
+    against the bytes: the inputs, y and the final state once)."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    b, s, h, p, n = SERVE_BATCH, SERVE_PROMPT, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device="cuda"))
+    a = -torch.exp(0.3 * torch.randn((h,), generator=g, device="cuda"))
+    bm = torch.randn((b, s, n), generator=g, device="cuda")
+    cm = torch.randn((b, s, n), generator=g, device="cuda")
+    y, st = ssd_chunked(x, dt, a, bm, cm, cfg.ssm_chunk)
+    t0 = time.perf_counter()
+    yc, stc = ssd_chunked(*(t.cpu() for t in (x, dt, a, bm, cm)), cfg.ssm_chunk)
+    cpu_s = time.perf_counter() - t0
+    err_y = float((y.cpu() - yc).abs().max()) / float(yc.abs().max())
+    err_s = float((st.cpu() - stc).abs().max()) / float(stc.abs().max())
+    ms = time_ms(torch, lambda: ssd_chunked(x, dt, a, bm, cm, cfg.ssm_chunk))
+    ops = ssd_ops(b, s, h, p, n, cfg.ssm_chunk)
+    moved = nbytes(x, dt, a, bm, cm, y, st)
+    bound = {"operations": 1e3 * ops / F32_FLOPS_PER_S, "bytes": 1e3 * moved / HBM_BYTES_PER_S}
+    case = {"shape": {"B": b, "S": s, "H": h, "P": p, "N": n, "chunk": cfg.ssm_chunk},
+            "rel_err_y": err_y, "rel_err_state": err_s, "tolerance": SSD_TOL,
+            "ms": ms, "cpu_s": cpu_s, "f32_operations": ops, "bytes": moved,
+            "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
+            "bound_ms_by": bound}
+    del x, dt, a, bm, cm, y, st
+    if not (err_y <= SSD_TOL and err_s <= SSD_TOL):
+        raise AssertionError(f"ssd_chunked on the card strays from the CPU: {case}")
+    return case
+
+
+def ssd_share(torch, eng, params, prompts) -> dict:
+    """The SSD scan's share of one exact prefill: every ``ssd_chunked`` call
+    of ``models.ssm`` bracketed by CUDA events (its device-timeline span,
+    host gaps inside it included), against the prefill's wall time."""
+    import repro_torch.models.ssm as ssm_mod
+
+    inner = ssm_mod.ssd_chunked
+    spans = []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    ssm_mod.ssd_chunked = timed
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.prefill_fn(params, prompts)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        ssm_mod.ssd_chunked = inner
+    ssd_ms = sum(start.elapsed_time(end) for start, end in spans)
+    return {"calls": len(spans), "ssd_ms": ssd_ms, "ms_per_call": ssd_ms / len(spans),
+            "prefill_ms": wall_ms, "share_of_prefill": ssd_ms / wall_ms}
+
+
+def ssm_error_split(torch, pg, dg, x, y_d, pcfg, cfg, pos) -> dict:
+    """Where one pSRAM mamba2 layer's own error comes from: the layer run
+    from the exact stream's input ``x`` with each projection in turn exact
+    (the dequantized words), its activation quantized alone (int8 codes
+    per row times their scales against the dequantized words, f32 with
+    TF32 off: no ADC) or through kernel 2, each against the exact layer's
+    residual branch ``y_d - x`` (relative L2); the crest factor (max |row|
+    over its RMS, median over rows) of each projection's input, which sets
+    an int8 row's step; and two controls that a sound layer must not come
+    near: the dt outputs (the last ``ssm_heads`` columns of ``in_proj``,
+    its partial last 128-column tile) zeroed, and ``out_proj`` off by 10%."""
+    import repro_torch.models.ssm as ssm_mod
+    from repro_torch._device import ieee_f32
+    from repro_torch.core.quantization import quantize_symmetric
+    from repro_torch.models.blocks import group_fwd
+
+    proj = ssm_mod._proj
+    mp, md = pg["layer0"]["mixer"], dg["layer0"]["mixer"]
+    names = {id(mp["in_proj"]): "in_proj", id(mp["out_proj"]): "out_proj"}
+    crest = {}
+
+    def run(modes):
+        def patched(xx, w, c):
+            name = names.get(id(w))
+            mode = modes.get(name, "psram")
+            if name is None or mode == "psram":
+                return proj(xx, w, c)
+            if mode == "crest":
+                xf = xx.float().reshape(-1, xx.shape[-1])
+                crest.setdefault(name, float(
+                    (xf.abs().amax(-1) / xf.pow(2).mean(-1).sqrt()).median()))
+                return proj(xx, w, c)
+            if mode == "exact":
+                return xx @ md[name]
+            if mode == "activation":
+                q, sx = quantize_symmetric(xx.reshape(-1, xx.shape[-1]), axis=-1)
+                with ieee_f32():
+                    y = (q.float() * sx.float()) @ (w["q"].float() * w["scale"])
+                return y.reshape(*xx.shape[:-1], -1).to(xx.dtype)
+            if mode == "dt_zeroed":
+                y = proj(xx, w, c)
+                y[..., -cfg.ssm_heads:] = 0
+                return y
+            if mode == "scale_1.1":
+                return proj(xx, w, c) * 1.1
+            raise ValueError(mode)
+
+        ssm_mod._proj = patched
+        try:
+            y, _ = group_fwd(pg, x, pcfg, pos)
+        finally:
+            ssm_mod._proj = proj
+        return float(torch.linalg.norm((y - x).float() - (y_d - x).float())
+                     / torch.linalg.norm((y_d - x).float()))
+
+    out = {"both": run({}),
+           "in_proj_activation": run({"in_proj": "activation", "out_proj": "exact"}),
+           "in_proj": run({"out_proj": "exact"}),
+           "out_proj_activation": run({"in_proj": "exact", "out_proj": "activation"}),
+           "out_proj": run({"in_proj": "exact"}),
+           "controls": {"dt_zeroed": run({"in_proj": "dt_zeroed"}),
+                        "out_proj_scale_1.1": run({"out_proj": "scale_1.1"})}}
+    run({"in_proj": "crest", "out_proj": "crest"})
+    out["input_crest_median"] = crest
+    return out
+
+
+def layer_drift(torch, pparams, pcfg, cfg, prompts, at=(1, 2, 4, 8, 16, 32, 48),
+                split_at=(1, 24, 48)) -> dict:
+    """The pSRAM model against the exact model on its dequantized words,
+    layer by layer, on one prefill's tokens: each layer's own error (its
+    residual branch run on pSRAM and exactly from the exact stream's input,
+    relative L2), its split by projection (:func:`ssm_error_split`) at the
+    layers ``split_at``, and the drift of the two streams (relative L2 of
+    the hidden states after ``at`` layers, each stream run on its own). A
+    layer that computes garbage shows in its own error; an error that grows
+    through the stack while each layer's stays small is the model
+    amplifying the quantization, not a fault of one projection."""
+    from repro_torch.models.blocks import group_fwd
+    from repro_torch.models.layers import as_dtype
+    from repro_torch.models.transformer import _embed, _positions
+
+    dparams = dequantized(pparams, as_dtype(cfg.dtype))
+
+    def rel(a, b):
+        return float(torch.linalg.norm((a - b).float()) / torch.linalg.norm(b.float()))
+
+    with torch.inference_mode():
+        x_d = _embed(dparams, prompts, cfg)
+        x_p = x_d
+        pos = _positions(cfg, *prompts.shape, x_d.device)
+        own, drift, split = [], {}, {}
+        for i, (pg, dg) in enumerate(zip(pparams["blocks"], dparams["blocks"]), start=1):
+            y_d, _ = group_fwd(dg, x_d, cfg, pos)
+            y_own, _ = group_fwd(pg, x_d, pcfg, pos)
+            own.append(rel(y_own - x_d, y_d - x_d))
+            if i in split_at:
+                split[i] = ssm_error_split(torch, pg, dg, x_d, y_d, pcfg, cfg, pos)
+            x_p, _ = group_fwd(pg, x_p, pcfg, pos)
+            x_d = y_d
+            if i in at:
+                drift[i] = rel(x_p, x_d)
+    del dparams
+    return {"layer_own_rel_l2_max": max(own), "layer_own_rel_l2_median": statistics.median(own),
+            "layer_own_rel_l2": own, "own_split": split, "stream_drift_rel_l2": drift}
+
+
+def main_path_ssm(torch, zero_counts, read_counts) -> tuple:
+    """The ``main_path_ssm`` phase: mamba2-370m at full width and depth (48
+    SSD layers, d 1024, d_inner 2048, state 128, 32 heads of 64, vocab
+    50280, tied embeddings, bf16, random weights from a seed) served as
+    ``main_path_serve`` serves granite-8b: 8 prompts x 1024 tokens, 64
+    greedy tokens, exact and then with ``psram_projections`` and
+    ``psram_stored_int8`` (``in_proj`` and ``out_proj`` through kernel 2:
+    the wgmma route in a prefill, three a layer with the conv tail's
+    ``in_proj``; the decode route in a step, two a layer). Reports prefill
+    ms, decode ms a step, tokens/s, launches a step, the SSD's share of a
+    prefill, and the pSRAM run's end-to-end distances (its prefill against
+    the dequantized words, its first step against ``forward``), which the
+    48 gated layers amplify and so are not gated. Checks the exact run's
+    first (recurrent) decode step against the chunked ``forward``
+    (relative L2 <= 0.05); kernel 2 bit-equal to its plain version on layer
+    0's served operands (:func:`served_matmul_cases`: ``in_proj``'s N =
+    4384 with its partial last tile, at M = 8192, 24 and 8); each pSRAM
+    layer's own error against its dequantized words below
+    ``MAMBA_LAYER_OWN_TOL``, with both controls of :func:`ssm_error_split`
+    above it; and ``ssd_chunked`` at the served shape card against CPU.
+    ``(phase, exact launches, pSRAM launches)``."""
+    from repro_torch.models import get_config, transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(SSM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(17, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = seeded_prompts(torch, cfg, SERVE_BATCH, SERVE_PROMPT, 18)
+    step_s, t0 = {}, time.perf_counter()
+    exact_run, exact_launches, _, eng, _ = serve_run(
+        torch, cfg, params, prompts, ServeEngine, zero_counts, read_counts,
+        profiled_steps=NEW_FAMILY_PROFILED_STEPS)
+    exact_run["ssd"] = ssd_share(torch, eng, params, prompts)
+    exact_peak = torch.cuda.max_memory_allocated()
+    del eng, params
+    step_s["exact"], t0 = time.perf_counter() - t0, time.perf_counter()
+    case = ssd_case(torch, cfg)
+    step_s["ssd_case"], t0 = time.perf_counter() - t0, time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    pcfg = dataclasses.replace(cfg, psram_projections=True, psram_stored_int8=True)
+    pparams = transformer.init(19, pcfg, device="cuda")
+    psram_run, psram_launches, psram_logits, peng, _ = serve_run(
+        torch, pcfg, pparams, prompts, ServeEngine, zero_counts, read_counts,
+        profiled_steps=NEW_FAMILY_PROFILED_STEPS)
+    n = cfg.num_layers
+    psram_run["layer0_matmul_vs_plain"] = served_matmul_cases(
+        torch, peng, pparams, prompts, [pparams["blocks"][0]], (3, 2), (3 * n, 2 * n))
+    del peng
+    psram_run["prefill_vs_dequantized_rel_l2"] = psram_vs_dequantized(
+        torch, transformer, pparams, (), prompts, cfg, psram_logits)
+    psram_run["vs_dequantized_by_layer"] = layer_drift(torch, pparams, pcfg, cfg, prompts)
+    psram_run["int8_weight_bytes"] = int8_word_bytes(pparams)
+    psram_run["device_bytes_peak"] = torch.cuda.max_memory_allocated()
+    del pparams, psram_logits
+    torch.cuda.empty_cache()
+    step_s["psram"] = time.perf_counter() - t0
+    phase = {
+        "phase": "main_path_ssm", "arch": SSM_ARCH, "layers": n, "d_model": cfg.d_model,
+        "d_inner": cfg.d_inner_resolved, "ssm_state": cfg.ssm_state,
+        "ssm_heads": cfg.ssm_heads, "ssm_headdim": cfg.ssm_headdim, "vocab": cfg.vocab_size,
+        "params": cfg.param_count(), "dtype": cfg.dtype, "init_s": init_s,
+        "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT, "max_new": SERVE_NEW,
+        "exact": {**exact_run, "launches": exact_launches, "device_bytes_peak": exact_peak},
+        "psram": {**psram_run, "launches": psram_launches},
+        "psram_launches_per_decode_step": psram_launches["psram_matmul_decode"] / SERVE_NEW,
+        "layer_own_tolerance": MAMBA_LAYER_OWN_TOL, "ssd_served_shape": case, "step_s": step_s,
+    }
+    # kernel 2: in_proj, out_proj and the conv tail's in_proj a layer in the
+    # prefill (M = 8192 and 24: the wgmma route); in_proj, out_proj a step.
+    # The 48 gated recurrent layers amplify a perturbation through the stack
+    # (on an H100 the exact run's recurrent step, a few bf16 roundings away
+    # from the chunked forward, lands 0.033 from it, and the pSRAM prefill
+    # 0.58 from the dequantized words while each layer's own error is ~0.05):
+    # the pSRAM run's end-to-end distances are reported, and its garbage
+    # check is each layer's own error, a limit its controls must exceed
+    check_served("mamba2", phase, {"wgmma": 3 * n, "tile": 0, "decode": 2 * n * SERVE_NEW},
+                 decode_gated=("exact",), dequantized_gated=False)
+    by_layer = psram_run["vs_dequantized_by_layer"]
+    if not by_layer["layer_own_rel_l2_max"] < MAMBA_LAYER_OWN_TOL:
+        raise AssertionError(f"a pSRAM mamba2 layer strays from its dequantized words by "
+                             f"more than {MAMBA_LAYER_OWN_TOL}: {phase}")
+    controls = [v for split in by_layer["own_split"].values()
+                for v in split["controls"].values()]
+    if not min(controls) > MAMBA_LAYER_OWN_TOL:
+        raise AssertionError(f"a wrong projection passes the pSRAM mamba2 layer gate "
+                             f"({MAMBA_LAYER_OWN_TOL}): {phase}")
+    if exact_run["ssd"]["calls"] != n:
+        raise AssertionError(f"a mamba2 prefill made {exact_run['ssd']['calls']} SSD scans, "
+                             f"not {n}: {phase}")
+    return phase, exact_launches, psram_launches
+
+
+def main_path_encdec(torch, zero_counts, read_counts) -> tuple:
+    """The ``main_path_encdec`` phase: seamless-m4t-large-v2 at full width
+    and depth (24 encoder + 24 decoder layers, d 1024, 16 heads of 64, d_ff
+    8192 gelu, vocab 256206, bf16, random weights from a seed): stub frames
+    8 x 1024 x 1024 from a seeded generator, decoder prompts 8 x 256 tokens
+    (``ENC_DEC_FRAC``), 64 greedy tokens through ``ServeEngine.generate(
+    frames=)``, exact and then pSRAM (every projection but ``frame_proj``
+    and the head through kernel 2: 6 an encoder layer and 10 a decoder
+    layer in the prefill on the wgmma route, 8 a decoder layer a step on the
+    decode route). Reports encode ms, prefill ms, decode ms a step,
+    tokens/s, launches a step; checks the first decode step against
+    ``forward`` (relative L2 <= 0.05), the pSRAM prefill against the
+    dequantized words (< 0.5), and kernel 2 bit-equal to its plain version
+    on the first encoder and decoder layers' served operands
+    (:func:`served_matmul_cases`: K = 8192 in ``wo``, the decoder's M =
+    2048, the cross K/V on the encoder's M = 8192, a step's M = 8).
+    ``(phase, exact launches, pSRAM launches)``."""
+    from repro_torch.models import encdec, get_config
+    from repro_torch.models.layers import as_dtype
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(ENCDEC_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = encdec.init(21, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frames = torch.randn((SERVE_BATCH, SERVE_PROMPT, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(22)) \
+        .to(as_dtype(cfg.dtype))
+    dec_len = int(SERVE_PROMPT * ENC_DEC_FRAC)
+    prompts = seeded_prompts(torch, cfg, SERVE_BATCH, dec_len, 23)
+    step_s, t0 = {}, time.perf_counter()
+    exact_run, exact_launches, _, eng, _ = serve_run(
+        torch, cfg, params, prompts, ServeEngine, zero_counts, read_counts, frames=frames,
+        profiled_steps=NEW_FAMILY_PROFILED_STEPS)
+    with torch.inference_mode():
+        exact_run["encode_ms"] = time_ms(torch, lambda: encdec.encode(params, frames, cfg),
+                                         warmup=1, iters=3, reps=2)
+    exact_peak = torch.cuda.max_memory_allocated()
+    del eng, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_s["exact"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    pcfg = dataclasses.replace(cfg, psram_projections=True, psram_stored_int8=True)
+    pparams = encdec.init(24, pcfg, device="cuda")
+    psram_run, psram_launches, psram_logits, peng, _ = serve_run(
+        torch, pcfg, pparams, prompts, ServeEngine, zero_counts, read_counts, frames=frames,
+        profiled_steps=NEW_FAMILY_PROFILED_STEPS)
+    enc, dec = cfg.enc_layers, cfg.dec_layers
+    # the prefill: q, k, v, o, wi, wo an encoder layer; self q, k, v, o, the
+    # cross k, v on the encoder's states, the cross q, o, wi, wo a decoder
+    # layer. A step: self q, k, v, o, cross q, o, wi, wo a decoder layer
+    n_proj = (6 * enc + 10 * dec, 8 * dec)
+    psram_run["layer0_matmul_vs_plain"] = served_matmul_cases(
+        torch, peng, pparams, prompts, [pparams["encoder"][0], pparams["decoder"][0]],
+        (16, 8), n_proj, lead=(frames,))
+    del peng
+    with torch.inference_mode():
+        psram_run["encode_ms"] = time_ms(torch, lambda: encdec.encode(pparams, frames, pcfg),
+                                         warmup=1, iters=3, reps=2)
+    psram_run["prefill_vs_dequantized_rel_l2"] = psram_vs_dequantized(
+        torch, encdec, pparams, (frames,), prompts, cfg, psram_logits)
+    psram_run["int8_weight_bytes"] = int8_word_bytes(pparams)
+    psram_run["device_bytes_peak"] = torch.cuda.max_memory_allocated()
+    del pparams, psram_logits, frames
+    torch.cuda.empty_cache()
+    step_s["psram"] = time.perf_counter() - t0
+    phase = {
+        "phase": "main_path_encdec", "arch": ENCDEC_ARCH, "enc_layers": enc, "dec_layers": dec,
+        "d_model": cfg.d_model, "heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "params": cfg.param_count(), "dtype": cfg.dtype, "init_s": init_s,
+        "batch": SERVE_BATCH, "frames": SERVE_PROMPT, "prompt_len": dec_len,
+        "max_new": SERVE_NEW,
+        "exact": {**exact_run, "launches": exact_launches, "device_bytes_peak": exact_peak},
+        "psram": {**psram_run, "launches": psram_launches},
+        "psram_launches_per_decode_step": psram_launches["psram_matmul_decode"] / SERVE_NEW,
+        "step_s": step_s,
+    }
+    check_served("seamless", phase, {"wgmma": n_proj[0], "tile": 0,
+                                     "decode": n_proj[1] * SERVE_NEW})
+    return phase, exact_launches, psram_launches
+
+
+def rope_case(torch, cfg, params, prompts) -> dict:
+    """``apply_rope`` with three distinct position streams (t the token
+    index, h and w a 32 x 32 grid of patches) on layer 0's served q (bf16)
+    on the card against the same on the CPU. The angles must be bit-equal
+    (the inverse frequencies are the CPU's on both). What may differ is
+    cos/sin (the card's libm against the CPU's): their bf16 tables must lie
+    within one bf16 ulp of the CPU's, and the output within what one such
+    ulp in each table can move it through the bf16 products and their sum,
+    ``5 * 2^-8 * (|x_rot| + |rot_half(x_rot)|)``; its bit-equal share and
+    its largest difference in bf16 ulps of the larger term are reported. In
+    f32 the output must lie within ``2^-20 * (|x_rot| + |rot_half(x_rot)|)``."""
+    from repro_torch.models.layers import _proj, _rope_angles, _rot_half, apply_rope, rmsnorm
+
+    b, s = prompts.shape
+    with torch.inference_mode():
+        p0 = params["blocks"][0]["layer0"]
+        x0 = rmsnorm(p0["pre_norm"], params["embed"][prompts], cfg.norm_eps)
+        q = _proj(x0, p0["mixer"]["wq"], cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        idx = torch.arange(s, device="cuda")
+        pos = torch.stack([idx, idx // 32, idx % 32])[:, None].expand(3, b, s).to(torch.int32)
+        ang = _rope_angles(pos, cfg.head_dim, cfg)
+        ang_cpu = _rope_angles(pos.cpu(), cfg.head_dim, cfg)
+        tables = {}
+        for name, fn in (("cos", torch.cos), ("sin", torch.sin)):
+            got_t, want_t = fn(ang).to(q.dtype).float().cpu(), fn(ang_cpu).to(q.dtype).float()
+            tables[name] = {"equal_share": float((got_t == want_t).float().mean()),
+                            "within_one_bf16_ulp": bool(((got_t - want_t).abs() <= bf16_ulp(
+                                torch, torch.maximum(got_t.abs(), want_t.abs()))).all())}
+        qc = q.cpu()
+        terms = qc.float().abs() + _rot_half(qc.float()).abs()
+        larger = torch.maximum(qc.float().abs(), _rot_half(qc.float()).abs())
+        diff = (apply_rope(q, pos, cfg).float().cpu() - apply_rope(qc, pos.cpu(), cfg).float()).abs()
+        diff32 = (apply_rope(q.float(), pos, cfg).cpu()
+                  - apply_rope(qc.float(), pos.cpu(), cfg)).abs()
+        case = {"shape": list(q.shape), "dtype": str(q.dtype).replace("torch.", ""),
+                "streams": "t = index, h = index // 32, w = index % 32",
+                "angles_bit_equal": bool(torch.equal(ang.cpu(), ang_cpu)), "tables": tables,
+                "bit_equal_share": float((diff == 0).float().mean()),
+                "max_abs_err": float(diff.max()),
+                "max_err_bf16_ulps_of_larger_term": float(
+                    (diff / (2.0 ** -7 * larger).clamp_min(1e-30)).max()),
+                "f32_bit_equal_share": float((diff32 == 0).float().mean()),
+                "f32_max_err_over_terms": float((diff32 / terms.clamp_min(1e-30)).max()),
+                "tolerance": "angles bit-equal; bf16 cos/sin tables within one bf16 ulp; "
+                             "bf16 output within 5 * 2^-8 (|x_rot| + |rot_half(x_rot)|); "
+                             "f32 output within 2^-20 of the same"}
+        ok = (case["angles_bit_equal"] and all(t["within_one_bf16_ulp"] for t in tables.values())
+              and bool((diff <= 5 * 2.0 ** -8 * terms).all())
+              and bool((diff32 <= 2.0 ** -20 * terms).all()))
+        del x0, q, qc, ang, terms, larger, diff, diff32
+    if not ok:
+        raise AssertionError(f"M-RoPE on the card strays from the CPU: {case}")
+    return case
+
+
+def main_path_mrope(torch, zero_counts, read_counts) -> tuple:
+    """The ``main_path_mrope`` phase: qwen2-vl-7b at full width (d 3584, 28
+    heads, 4 kv heads, head dim 128, d_ff 18944, vocab 152064, bf16, random
+    weights), its depth cut to ``MROPE_LAYERS``: 8 prompts x 1024 tokens
+    with M-RoPE's text streams, ``MROPE_NEW`` greedy tokens, exact. Checks
+    the first decode step against ``forward`` (relative L2 <= 0.05) and
+    ``apply_rope`` with three distinct streams card against CPU
+    (:func:`rope_case`). ``(phase, launches)``."""
+    from repro_torch.models import get_config, transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(MROPE_ARCH), num_layers=MROPE_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(25, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = seeded_prompts(torch, cfg, SERVE_BATCH, SERVE_PROMPT, 26)
+    run, launches, _, eng, _ = serve_run(torch, cfg, params, prompts, ServeEngine,
+                                         zero_counts, read_counts, new=MROPE_NEW,
+                                         profiled_steps=NEW_FAMILY_PROFILED_STEPS)
+    del eng
+    case = rope_case(torch, cfg, params, prompts)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    phase = {
+        "phase": "main_path_mrope", "arch": MROPE_ARCH, "layers": cfg.num_layers,
+        "layers_published": get_config(MROPE_ARCH).num_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+        "vocab": cfg.vocab_size, "mrope_sections": list(cfg.mrope_sections),
+        "params": cfg.param_count(), "dtype": cfg.dtype, "init_s": init_s,
+        "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT, "max_new": MROPE_NEW,
+        "exact": {**run, "launches": launches, "device_bytes_peak": peak},
+        "rope_card_vs_cpu": case,
+    }
+    check_served("qwen2-vl", phase)
+    return phase, launches
 
 
 def main(argv=None) -> int:
@@ -3823,9 +4431,7 @@ def main(argv=None) -> int:
     sparams = transformer.init(7, scfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts = torch.randint(2, scfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
-                            dtype=torch.int32,
-                            generator=torch.Generator(device="cuda").manual_seed(8))
+    prompts = seeded_prompts(torch, scfg, SERVE_BATCH, SERVE_PROMPT, 8)
     exact_run, exact_launches, exact_logits, _, _ = serve_run(
         torch, scfg, sparams, prompts, ServeEngine, zero_counts, read_counts)
 
@@ -3870,8 +4476,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     pcfg = dataclasses.replace(scfg, psram_projections=True, psram_stored_int8=True)
     pparams = transformer.init(9, pcfg, device="cuda")
-    int8_bytes = sum(w["q"].numel() for g in pparams["blocks"] for lay in g.values()
-                     for blk in (lay["mixer"], lay["mlp"]) for w in blk.values())
+    int8_bytes = int8_word_bytes(pparams)
     psram_run, psram_launches, psram_logits, peng, ptoks = serve_run(
         torch, pcfg, pparams, prompts, ServeEngine, zero_counts, read_counts)
     # the first TOKENS_CHECKED greedy tokens again, every decode projection
@@ -3879,21 +4484,14 @@ def main(argv=None) -> int:
     # route would have served, and the same tokens
     psram_run["decode_route_vs_tile_route"] = routes_agree(torch, peng, prompts, ptoks)
     del peng, ptoks
+    n_proj = 7 * scfg.num_layers                      # wq, wk, wv, wo, wi, wg, wo
     served_matmul = served_matmul_cases(
         torch, ServeEngine(pcfg, pparams, max_len=SERVE_PROMPT + SERVE_NEW, device="cuda"),
-        pparams, prompts)
+        pparams, prompts, [pparams["blocks"][0]], (7, 7), (n_proj, n_proj))
     # the same prompts through an exact model whose weights are the array's
     # words dequantized (q * scale, rounded to bf16)
-    dparams = {**pparams, "blocks": [
-        {key: {**lay, **{blk: {name: (w["q"].float() * w["scale"]).to(torch.bfloat16)
-                               for name, w in lay[blk].items()}
-                         for blk in ("mixer", "mlp")}}
-         for key, lay in g.items()}
-        for g in pparams["blocks"]]}
-    with torch.inference_mode():
-        deq_logits, _ = transformer.prefill(dparams, prompts, scfg, SERVE_PROMPT)
-    psram_vs_deq = float(torch.linalg.norm(psram_logits - deq_logits)
-                         / torch.linalg.norm(deq_logits))
+    psram_vs_deq = psram_vs_dequantized(torch, transformer, pparams, (), prompts, scfg,
+                                        psram_logits)
     serve_path = {
         "phase": "main_path_serve", "arch": SERVE_ARCH, "layers": scfg.num_layers,
         "params": scfg.param_count(), "dtype": scfg.dtype, "init_s": init_s,
@@ -3907,26 +4505,12 @@ def main(argv=None) -> int:
     }
     report["main_path_serve"] = serve_path
     emit(serve_path)
-    del pparams, dparams, psram_logits, deq_logits, exact_logits
+    del pparams, psram_logits, exact_logits
     torch.cuda.empty_cache()
-    for name, run in (("exact", exact_run), ("psram", psram_run)):
-        if not (run["finite"] and run["tokens_in_vocab"]
-                and run["tokens_shape"] == [SERVE_BATCH, SERVE_NEW]):
-            raise AssertionError(f"serving ({name}) gave no finite in-vocab tokens: {serve_path}")
-        if not run["decode_vs_forward_rel_l2"] <= 0.05:
-            raise AssertionError(f"decode strays from forward ({name}): {serve_path}")
-    if not (math.isfinite(psram_vs_deq) and psram_vs_deq < 0.5):
-        raise AssertionError(f"pSRAM prefill logits are garbage: {serve_path}")
-    if psram_launches["psram_matmul"] < 7 * scfg.num_layers * (1 + SERVE_NEW):
-        raise AssertionError(f"the pSRAM serve path did not launch kernel 2 on every "
-                             f"projection: {serve_path}")
-    if psram_launches["psram_matmul_decode"] < 7 * scfg.num_layers * (SERVE_NEW - 1):
-        raise AssertionError(f"the pSRAM decode steps did not take kernel 2's decode "
-                             f"route: {serve_path}")
-    if psram_launches["psram_matmul_wgmma"] < 7 * scfg.num_layers \
-            or psram_launches["psram_matmul_tile"] != 0:
-        raise AssertionError(f"the pSRAM prefill did not take kernel 2's wgmma route on "
-                             f"every projection: {serve_path}")
+    # kernel 2 on every projection: the wgmma route in the prefill, the
+    # decode route in a step
+    check_served("granite-8b", serve_path,
+                 {"wgmma": n_proj, "tile": 0, "decode": n_proj * SERVE_NEW})
     prefill_k2 = psram_run["prefill_profile"]["kernel2_launches"]
     if prefill_k2 != 7 * scfg.num_layers:
         raise AssertionError(f"the profiled pSRAM prefill launched kernel 2 {prefill_k2} "
@@ -3940,6 +4524,19 @@ def main(argv=None) -> int:
                                                                      read_counts)
     report["main_path_moe"] = moe_path
     emit(moe_path)
+
+    # 4e''. the SSM, encoder-decoder and M-RoPE families served -------------
+    ssm_path, ssm_exact_launches, ssm_psram_launches = main_path_ssm(torch, zero_counts,
+                                                                     read_counts)
+    report["main_path_ssm"] = ssm_path
+    emit(ssm_path)
+    encdec_path, encdec_exact_launches, encdec_psram_launches = main_path_encdec(
+        torch, zero_counts, read_counts)
+    report["main_path_encdec"] = encdec_path
+    emit(encdec_path)
+    mrope_path, mrope_launches = main_path_mrope(torch, zero_counts, read_counts)
+    report["main_path_mrope"] = mrope_path
+    emit(mrope_path)
 
     # per-sweep time, warm: cp_als sorts and merges duplicates on the host
     # before its first sweep, so a sweep is timed on its own — a backend
@@ -4015,7 +4612,9 @@ def main(argv=None) -> int:
     main_paths = (launches, dense_launches, leg_launches, pst_launches, psc_launches,
                   tune_launches, mesh_launches, faults_launches, sched_launches,
                   priced_launches, flash_launches, exact_launches, psram_launches,
-                  moe_exact_launches, moe_psram_launches)
+                  moe_exact_launches, moe_psram_launches, ssm_exact_launches,
+                  ssm_psram_launches, encdec_exact_launches, encdec_psram_launches,
+                  mrope_launches)
 
     def total(name):
         return sum(counts[name] for counts in main_paths)

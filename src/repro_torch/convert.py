@@ -14,8 +14,9 @@ caller converts its arrays with ``numpy.asarray`` first.
 * :func:`mttkrp_quants` — the six quantized operands of the dense psram
   MTTKRP ``(qx0, sx, qb, sb, qc, sc)``.
 * :func:`segment_blocks` — ``(data, seg_ids)`` blocks of the segment sum.
-* :func:`model_params` / :func:`model_cache` — a decoder LM's parameters /
-  KV cache, from the reference's pytrees as nested dicts of numpy arrays.
+* :func:`model_params` / :func:`model_cache` — a model's parameters / cache
+  (every family), from the reference's pytrees as nested dicts of numpy
+  arrays.
 """
 from __future__ import annotations
 
@@ -127,20 +128,31 @@ def _split_groups(tree, n: int, device):
 
 
 def model_params(tree, cfg, device="cuda") -> dict:
-    """The reference's decoder-LM parameter pytree (``{"embed", "blocks",
-    "final_norm"[, "head"]}``, ``blocks`` stacked over ``cfg.num_groups``)
-    as the port's params: ``blocks`` becomes a list of per-group dicts;
-    ``{"q", "scale"}`` int8 array words are kept as they are. MoE layers
-    carry ``router`` and ``wi`` / ``wg`` / ``wo`` with their expert axis
-    (``(E, d, ff)``; stored words with ``(1, 1, ff)`` scales) across
-    unchanged."""
-    out = {k: _tree(v, device) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = _split_groups(tree["blocks"], cfg.num_groups, device)
+    """The reference's parameter pytree as the port's params. A decoder LM
+    (``{"embed", "blocks", "final_norm"[, "head"]}``, ``blocks`` stacked over
+    ``cfg.num_groups``): ``blocks`` becomes a list of per-group dicts. An
+    encoder-decoder (``{"frame_proj", "embed", "encoder", "enc_norm",
+    "decoder", "final_norm", "head"}``): ``encoder`` / ``decoder``, stacked
+    over ``cfg.enc_layers`` / ``cfg.dec_layers``, become lists of per-layer
+    dicts. ``{"q", "scale"}`` int8 array words are kept as they are. MoE
+    layers carry ``router`` and ``wi`` / ``wg`` / ``wo`` with their expert
+    axis (``(E, d, ff)``; stored words with ``(1, 1, ff)`` scales) across
+    unchanged; SSM layers their ``in_proj``, ``conv_w``, ``conv_b``,
+    ``a_log``, ``d_skip``, ``dt_bias``, ``norm`` and ``out_proj``."""
+    stacked = ({"encoder": cfg.enc_layers, "decoder": cfg.dec_layers}
+               if cfg.family == "encdec" else {"blocks": cfg.num_groups})
+    out = {k: _tree(v, device) for k, v in tree.items() if k not in stacked}
+    for k, n in stacked.items():
+        out[k] = _split_groups(tree[k], n, device)
     return out
 
 
 def model_cache(tree, device="cuda") -> list:
-    """The reference's stacked KV cache ``{"layer<i>": {"k", "v"}}`` with
-    ``(G, B, S, Hkv, hd)`` leaves as the port's list of per-group caches."""
+    """The reference's stacked cache as the port's list of per-group (or, for
+    an encoder-decoder, per-decoder-layer) caches: a decoder LM's
+    ``{"layer<i>": {"k", "v"}}`` with ``(G, B, S, Hkv, hd)`` leaves, or
+    ``{"state", "conv"}`` for SSM layers; an encoder-decoder's
+    ``{"self": {"k", "v"}, "cross": {"k", "v"}}``. Leaves keep their dtypes
+    (an SSM state after a prefill is f32)."""
     n = np.asarray(next(iter(next(iter(tree.values())).values()))).shape[0]
     return _split_groups(tree, n, device)

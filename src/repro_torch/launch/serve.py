@@ -1,10 +1,12 @@
-"""Serving launcher: batched request demo against a dense arch.
+"""Serving launcher: batched request demo against any arch.
 
     python -m repro_torch.launch.serve --arch granite_8b [--reduced] \\
         [--batch 8] [--prompt-len 16] [--max-new 32] [--device cuda|cpu]
 
 Runs on the card unless ``--device cpu`` is given (and raises without one).
-Weights and prompts are random, from fixed seeds. The time is the
+Weights and prompts are random, from fixed seeds; for the encoder-decoder
+family the encoder's stub frames too, ``(batch, 4 * prompt_len, d_model)``
+from a seeded ``torch.Generator`` (not JAX's bits). The time is the
 ``obs.stopwatch("serve/generate")`` around ``generate``, which waits for the
 card's queued work on both edges; a ``serve/generate`` span lands in the
 trace whenever tracing is on (``REPRO_TORCH_TRACE=1``). The reference's
@@ -31,6 +33,7 @@ def main(argv=None):
 
     from repro_torch import obs
     from repro_torch._device import as_device
+    from repro_torch.models.layers import as_dtype
     from repro_torch.models.registry import get_config, get_module
     from repro_torch.serve import ServeEngine
 
@@ -44,13 +47,19 @@ def main(argv=None):
     prompts = torch.randint(2, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=torch.Generator(device=dev).manual_seed(1),
                             device=dev, dtype=torch.int32)
+    kwargs = {}
+    if cfg.family == "encdec":
+        kwargs["frames"] = torch.randn(
+            (args.batch, args.prompt_len * 4, cfg.d_model),
+            generator=torch.Generator(device=dev).manual_seed(2), device=dev,
+        ).to(as_dtype(cfg.dtype))
     gen = torch.Generator(device=dev).manual_seed(3)
     # the obs stopwatch owns the measurement: the printed tok/s summary is
     # sourced from it
     with obs.stopwatch("serve/generate", batch=args.batch,
                        max_new=args.max_new, arch=args.arch) as sw:
         toks = eng.generate(prompts, args.prompt_len, args.max_new,
-                            temperature=args.temperature, generator=gen)
+                            temperature=args.temperature, generator=gen, **kwargs)
     dt = sw.duration_s
     total = args.batch * args.max_new
     print(f"generated {tuple(toks.shape)} in {dt:.2f}s  ({total/dt:.1f} tok/s batched) "

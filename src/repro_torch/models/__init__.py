@@ -1,16 +1,17 @@
-"""repro_torch.models — the model zoo's dense and MoE decoder families.
+"""repro_torch.models — the model zoo: every family of the reference.
 
-Ported: ``config`` (``ArchConfig`` whole), ``layers``, ``blocks``, ``moe``
-and ``transformer`` for the dense and MoE families (GQA/MHA, full and
-partial RoPE, softcaps, sliding windows, sandwich norms, tied and scaled
-embeddings, token-choice top-k experts with position-priority capacity, the
-pSRAM projection and expert paths), and ``registry``. Still to come from the
-reference package: ``ssm``, ``encdec``, M-RoPE and the hybrid family
-(ROADMAP Queue A item 7).
+Ported: ``config`` (``ArchConfig`` whole), ``layers``, ``blocks``, ``moe``,
+``ssm``, ``transformer`` (the dense, MoE, SSM and hybrid families: GQA/MHA,
+full, partial and M-RoPE, softcaps, sliding windows, sandwich norms, tied
+and scaled embeddings, token-choice top-k experts with position-priority
+capacity, the chunked SSD scan and its recurrent decode, the pSRAM
+projection and expert paths), ``encdec`` (the encoder-decoder family) and
+``registry``. Still to come from the reference package: the paged prefill
+(ROADMAP Queue A item 8), the training loss and the sharding specs (item 9).
 """
-from . import transformer
+from . import encdec, transformer
 from .config import ArchConfig
 from .registry import ARCH_IDS, get_config, get_module, list_configs
 
-__all__ = ["ARCH_IDS", "ArchConfig", "get_config", "get_module", "list_configs",
+__all__ = ["ARCH_IDS", "ArchConfig", "encdec", "get_config", "get_module", "list_configs",
            "transformer"]

@@ -14,17 +14,21 @@ q/k/v ``(B, S, H, hd)``; logits are formed in the input dtype and cast to
 f32, softmax weights are cast to ``v``'s dtype before the PV product.
 
 Ported: ``ddef``/``wdef``/``is_quantized``/``init_params``, ``rmsnorm``,
-``apply_rope`` (full, partial, none), ``_mask_bias``, ``_sdpa``,
-``_sdpa_chunked``, ``attention_fwd``, ``_new_kv``,
-``attention_decode_append``, ``attention_cache_defs``, ``mlp_defs``,
-``mlp_fwd``. Still to come from the reference module: M-RoPE (with
-qwen2-vl), ``attention_decode`` (the write-through decode the encoder-decoder
-family uses), ``stack_defs``/``specs_of``/``shapes_of`` (the scanned,
-sharded layout) and the ``dist.sharding.hint`` annotations, which have no
-counterpart until the port has a mesh (ROADMAP Queue A items 4 and 9).
+``apply_rope`` (full, partial, none and M-RoPE over three position streams),
+``_mask_bias``, ``_sdpa``, ``_sdpa_chunked``, ``attention_fwd``, ``_new_kv``,
+``attention_decode_append``, ``attention_decode`` (the write-through decode:
+the encoder-decoder family's cross attention, and the self branch, which
+writes the cache in place), ``attention_cache_defs``, ``mlp_defs``,
+``mlp_fwd``. The reference's ``attention_decode`` options
+``precomputed_q`` and ``skip_kv_write`` have no caller there or here and
+are left out until one needs them. Still to come from the reference module:
+``stack_defs``/``specs_of``/``shapes_of`` (the scanned, sharded layout) and
+the ``dist.sharding.hint`` annotations, which have no counterpart until the
+port has a mesh (ROADMAP Queue A item 9).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -102,13 +106,15 @@ def _init_leaf(gen, d, dtype, device):
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dt)
 
 
-def init_params(gen: torch.Generator, defs, dtype=torch.float32, device="cuda"):
+def init_params(gen, defs, dtype=torch.float32, device="cuda"):
     """Tensors for ``defs`` (nested dicts and lists of defs), drawn from
-    ``gen`` (a generator on ``device``, the card unless the caller asks for
-    the CPU) one leaf after another in tree order. The values are not the
-    reference's (a torch generator is not a JAX key);
+    ``gen`` (a seed, or a generator on ``device``, the card unless the
+    caller asks for the CPU) one leaf after another in tree order. The
+    values are not the reference's (a torch generator is not a JAX key);
     ``convert.model_params`` carries the reference's own over."""
     device = as_device(device)
+    if gen is not None and not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=device).manual_seed(int(gen))
     if _is_def(defs):
         return _init_leaf(gen, defs, dtype, device)
     if isinstance(defs, dict):
@@ -142,22 +148,50 @@ def _rot_half(x):
     return torch.cat([-x2, x1], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_streams(sections: tuple, half: int, device: torch.device) -> torch.Tensor:
+    """(half,) int64: the position stream (0 = t, 1 = h, 2 = w) each
+    frequency takes, the sections splitting the frequency axis in order
+    (the reference's ``searchsorted(cumsum(sections)[1:], i, side="right")``).
+    Kept per device: a decode step would otherwise copy it to the card at
+    every layer."""
+    sec = torch.cumsum(torch.tensor((0,) + sections), 0)
+    return torch.searchsorted(sec[1:], torch.arange(half), right=True).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq(theta: float, rot: int, device: torch.device) -> torch.Tensor:
+    """(rot/2,) f32 inverse frequencies ``theta ** (-2i / rot)``, computed on
+    the CPU (the reference's bits there) and kept per device, so the card's
+    angles are the CPU's bits too."""
+    return (theta ** (-torch.arange(0, rot, 2, dtype=torch.float32) / rot)).to(device)
+
+
+def _rope_angles(pos, rot: int, cfg: ArchConfig) -> torch.Tensor:
+    """(B, S, rot/2) f32 rotation angles. An M-RoPE angle (``pos`` of shape
+    (3, B, S)) is the one product ``pos[stream[i]] * inv[i]``, which is what
+    the reference's one-hot contraction sums to (its other two terms are
+    exact zeros), so the angles are the same bits."""
+    inv = _inv_freq(float(cfg.rope_theta), rot, pos.device)
+    if cfg.rope == "mrope":
+        # sections split the frequency axis across the t/h/w position streams
+        stream = _mrope_streams(tuple(cfg.mrope_sections), rot // 2, pos.device)
+        return pos.to(torch.float32)[stream].permute(1, 2, 0) * inv
+    return pos.to(torch.float32)[..., None] * inv
+
+
 def apply_rope(x, pos, cfg: ArchConfig):
-    """x: (B, S, H, hd); pos: (B, S) int32. cos/sin are formed in f32 and
-    cast to ``x``'s dtype before the products, as in the reference."""
+    """x: (B, S, H, hd); pos: (B, S) int32, or (3, B, S) for M-RoPE. cos/sin
+    are formed in f32 and cast to ``x``'s dtype before the products, as in
+    the reference (whose CPU cos/sin differ from PyTorch's by up to one f32
+    ulp; the angles are the reference's bits, on the card too)."""
     if cfg.rope == "none":
         return x
-    if cfg.rope == "mrope":
-        raise NotImplementedError(
-            "M-RoPE is not ported to repro_torch yet: it waits for qwen2-vl "
-            "(ROADMAP Queue A item 7)")
     hd = x.shape[-1]
     rot = int(hd * cfg.rope_partial_frac) if cfg.rope == "partial" else hd
     rot -= rot % 2
     x_rot, x_pass = x[..., :rot], x[..., rot:]
-    inv = cfg.rope_theta ** (-torch.arange(0, rot, 2, dtype=torch.float32,
-                                           device=x.device) / rot)   # (rot/2,)
-    angles = pos.to(torch.float32)[..., None] * inv                   # (B, S, rot/2)
+    angles = _rope_angles(pos, rot, cfg)                              # (B, S, rot/2)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     cos = torch.cat([cos, cos], dim=-1).to(x.dtype)                   # (B, S, 1, rot)
@@ -290,6 +324,8 @@ def _new_kv(p, x, cfg: ArchConfig, cache_pos):
     b = x.shape[0]
     q = _proj(x, p["wq"], cfg).reshape(b, 1, cfg.n_heads, cfg.head_dim)
     pos = _decode_pos(cache_pos, b, x.device)
+    if cfg.rope == "mrope":
+        pos = pos[None].expand(3, b, 1)
     q = apply_rope(q, pos, cfg)
     kn = _proj(x, p["wk"], cfg).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
     kn = apply_rope(kn, pos, cfg)
@@ -342,6 +378,39 @@ def attention_decode_append(
     dw = denom.permute(0, 3, 1, 2, 4)
     out = (o_h * aw + bw * vn[:, :, :, None, :].to(o_h.dtype)) / dw
     return _proj(out.reshape(b, 1, cfg.q_dim).to(x.dtype), p["wo"], cfg)
+
+
+def attention_decode(p, x, cfg: ArchConfig, cache, cache_pos, *, layer_local: bool = False,
+                     cross: bool = False):
+    """One-token decode against a (B, S, Hkv, hd) KV cache.
+
+    cache: {"k": ..., "v": ...}; cache_pos: an int (or a 0-d tensor), the
+    write position. For cross attention the cache is the (static) encoder
+    KV: non-rotary, every position valid, nothing written. Otherwise the new
+    token's k/v are written into the cache IN PLACE at ``cache_pos`` (the
+    reference returns an updated copy). Returns (y, cache).
+    """
+    b = x.shape[0]
+    if cross:
+        q = _proj(x, p["wq"], cfg).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    else:
+        kn, vn, q = _new_kv(p, x, cfg, cache_pos)
+        p0 = int(cache_pos)
+        cache["k"][:, p0:p0 + 1] = kn.to(cache["k"].dtype)
+        cache["v"][:, p0:p0 + 1] = vn.to(cache["v"].dtype)
+    k, v = cache["k"], cache["v"]
+    k_pos = torch.arange(k.shape[1], device=x.device)[None, :]
+    if cross:
+        valid = torch.ones_like(k_pos, dtype=torch.bool)
+    else:
+        cp = _cache_pos(cache_pos, x.device)
+        valid = k_pos <= cp
+        if layer_local and cfg.sliding_window:
+            valid &= (cp - k_pos) < cfg.sliding_window
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    bias = torch.where(valid, zero, torch.full_like(zero, NEG_INF))    # (1, Sk)
+    out = _sdpa(q, k, v, bias, cfg)
+    return _proj(out.reshape(b, 1, cfg.q_dim), p["wo"], cfg), cache
 
 
 def attention_cache_defs(cfg: ArchConfig, batch: int, seq: int):

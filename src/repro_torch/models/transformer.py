@@ -1,18 +1,25 @@
-"""Decoder-only LM assembled from block groups (the dense and MoE families).
+"""Decoder-only LM assembled from block groups.
 
-Provides ``param_defs / init / forward / prefill / decode`` — the serve
-steps in ``serve/`` wrap these. The reference scans stacked ``(G, ...)``
-group params with ``lax.scan``; the port keeps one param dict per group in
+Covers the families dense, moe, hybrid (jamba) and ssm (mamba2). Provides
+``param_defs / init / forward / prefill / decode`` — the serve steps in
+``serve/`` wrap these. The reference scans stacked ``(G, ...)`` group
+params with ``lax.scan``; the port keeps one param dict per group in
 ``params["blocks"]`` (a list) and loops over it, and likewise one cache dict
 per group. ``cfg.scan_layers``/``remat``/``remat_policy`` therefore have no
 effect here.
 
 Ported: ``param_defs``, ``init``, ``cache_defs``, ``init_cache``,
-``_positions``, ``_embed``, ``_unembed``, ``forward``, ``prefill``,
-``decode_step_deltas``, ``decode_step``. Still to come from the reference
-module: ``loss_fn``/``cross_entropy`` (with training, ROADMAP Queue A item 9),
-``prefill_paged`` (with the paged serve loop, item 8), the hybrid and SSM
-families (item 7), ``param_specs``/``cache_specs`` (sharding, item 9).
+``_positions`` (M-RoPE's three streams included), ``_embed``, ``_unembed``,
+``forward``, ``prefill``, ``decode_step_deltas``, ``decode_step``. Still to
+come from the reference module: ``prefill_paged`` (with the paged serve
+loop, ROADMAP Queue A item 8), ``loss_fn``/``cross_entropy`` (with training,
+item 9) and ``param_specs``/``cache_specs`` (sharding, item 9).
+
+``prefill`` pads the attention ``k``/``v`` leaves out to ``cache_len``,
+chosen by their keys. The reference chooses them by shape (``ndim == 5``
+and axis 2 the prompt length), which also pads an SSM ``state`` leaf
+``(G, B, H, P, N)`` whenever the prompt length equals ``ssm_heads``, and
+its next decode step then fails; the port leaves SSM leaves as they are.
 """
 from __future__ import annotations
 
@@ -41,11 +48,7 @@ def param_defs(cfg: ArchConfig):
 def init(seed_or_gen, cfg: ArchConfig, device="cuda"):
     """Random parameters in ``cfg.dtype`` on ``device``, from a seed or a
     ``torch.Generator`` (on ``device``)."""
-    dev = as_device(device)
-    gen = seed_or_gen
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator(device=dev).manual_seed(int(seed_or_gen))
-    return init_params(gen, param_defs(cfg), dtype=as_dtype(cfg.dtype), device=dev)
+    return init_params(seed_or_gen, param_defs(cfg), dtype=as_dtype(cfg.dtype), device=device)
 
 
 def cache_defs(cfg: ArchConfig, batch: int, seq: int):
@@ -53,16 +56,20 @@ def cache_defs(cfg: ArchConfig, batch: int, seq: int):
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, dtype=None, device="cuda"):
-    """An all-zero KV cache: a list over groups of ``{"layer<i>": {"k", "v"}}``
-    with ``(B, seq, Hkv, hd)`` leaves."""
+    """An all-zero cache: a list over groups of ``{"layer<i>": {"k", "v"}}``
+    with ``(B, seq, Hkv, hd)`` leaves for attention layers and
+    ``{"layer<i>": {"state", "conv"}}`` for SSM layers, all in ``dtype``."""
     return init_params(None, cache_defs(cfg, batch, seq),
                        dtype=as_dtype(dtype or cfg.dtype), device=as_device(device))
 
 
 def _positions(cfg: ArchConfig, batch: int, seq: int, device):
+    pos = torch.arange(seq, dtype=torch.int32, device=device).expand(batch, seq)
     if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE waits for qwen2-vl (ROADMAP Queue A item 7)")
-    return torch.arange(seq, dtype=torch.int32, device=device).expand(batch, seq)
+        # text stream stub: t/h/w all follow the token index (apply_rope takes
+        # arbitrary per-stream ids from a vision frontend)
+        pos = pos[None].expand(3, batch, seq)
+    return pos
 
 
 def _embed(params, tokens, cfg: ArchConfig):
@@ -104,10 +111,14 @@ def _pad_seq(a, cache_len):
     return out
 
 
+_KV = ("k", "v")
+
+
 def prefill(params, tokens, cfg: ArchConfig, cache_len: int):
-    """Forward + populate a KV cache of length cache_len. Returns
-    (last-token logits (B, V), cache) — a list of per-group caches whose
-    ``(B, S, Hkv, hd)`` k/v are zero-padded to ``cache_len``."""
+    """Forward + populate a cache of length cache_len. Returns (last-token
+    logits (B, V), cache) — a list of per-group caches whose attention
+    ``(B, S, Hkv, hd)`` k/v are zero-padded to ``cache_len``; SSM layers'
+    ``state`` (f32) and ``conv`` are kept as they are."""
     b, s = tokens.shape
     if cache_len < s:
         raise ValueError(f"cache_len {cache_len} < prompt length {s}")
@@ -116,7 +127,8 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int):
     caches = []
     for p_group in params["blocks"]:
         x, group_cache = group_fwd(p_group, x, cfg, pos, collect_cache=True)
-        caches.append({key: {name: _pad_seq(t, cache_len) for name, t in layer.items()}
+        caches.append({key: {name: _pad_seq(t, cache_len) if name in _KV else t
+                             for name, t in layer.items()}
                        for key, layer in group_cache.items()})
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _unembed(params, x[:, -1:, :], cfg)
@@ -130,7 +142,8 @@ def decode_step_deltas(params, cache, token, cache_pos, cfg: ArchConfig):
     token: (B,) int; cache_pos: an int (whole batch at one position) or a
     (B,) tensor (continuous batching). Returns (logits (B, V), deltas) with
     deltas a list over groups of ``{"layer<i>": {"k", "v"}}``, each
-    ``(B, 1, Hkv, hd)``.
+    ``(B, 1, Hkv, hd)``, for attention layers and ``{"layer<i>": {"state",
+    "conv"}}`` (the whole new state) for SSM layers.
     """
     x = _embed(params, token[:, None], cfg)
     deltas = []

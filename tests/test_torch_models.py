@@ -1,12 +1,14 @@
-"""The port's dense and MoE decoder families held against the JAX reference on the CPU.
+"""The port's model families held against the JAX reference on the CPU.
 
-Reduced (f32) forms of the four dense and two MoE configs; the reference's own params
+Reduced (f32) forms of every config of ``ARCH_IDS``: dense (M-RoPE's qwen2-vl
+among them), MoE, SSM, hybrid and encoder-decoder; the reference's own params
 (``init(PRNGKey(0))``) are carried over by ``convert.model_params`` and the
-same numpy-seeded tokens go through both packages. Tolerances, each with its
-reason:
+same numpy-seeded tokens (and, for the encoder-decoder, frames) go through
+both packages. Tolerances, each with its reason:
 
 * exact projections: logits within 1e-5 of max |logit| (f32 matmuls, sums in
-  another order); caches within 1e-5 of max |k|, |v|;
+  another order); caches within 1e-5 of each leaf's max (|k|, |v|, an SSM
+  layer's state and conv window);
 * pSRAM projections (``psram_projections``: weights quantized on the fly;
   ``psram_stored_int8``: the reference's own int8 words): the ADC transfer
   and the integer sums are exact, but the jitted reference's per-row
@@ -36,8 +38,7 @@ from repro_torch.core.quantization import quantize_symmetric
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.registry import (ARCH_IDS, UNPORTED_ARCHS, get_config,
-                                         get_module)
+from repro_torch.models.registry import ARCH_IDS, get_config, get_module
 
 B, PROMPT, STEPS = 2, 12, 3
 
@@ -55,6 +56,23 @@ def _tokens(cfg, seed=1):
                                                 dtype=np.int32)
 
 
+ENC_FRAMES = 20   # the encoder-decoder's stub frames a row (not a multiple of anything)
+
+
+def _frames(cfg, seed=2):
+    """The encoder's input for the encoder-decoder family, else None."""
+    if cfg.family != "encdec":
+        return None
+    return np.random.default_rng(seed).standard_normal((B, ENC_FRAMES, cfg.d_model)) \
+        .astype(np.float32)
+
+
+def _lead(frames, as_tensor):
+    """The leading arguments of forward / prefill: ``(frames,)`` for the
+    encoder-decoder family, else ``()``."""
+    return () if frames is None else (as_tensor(frames),)
+
+
 @functools.lru_cache(maxsize=None)
 def reference_run(arch, psram=False, stored=False):
     """The reference's forward, prefill and three decode steps on one set of
@@ -63,12 +81,13 @@ def reference_run(arch, psram=False, stored=False):
                                psram_stored_int8=stored)
     mod = jget_module(jcfg)
     params = mod.init(jax.random.PRNGKey(0), jcfg)
-    toks = _tokens(jcfg)
-    out = {"cfg": jcfg, "params": _np_tree(params), "tokens": toks}
-    out["forward"] = np.asarray(mod.forward(params, jnp.asarray(toks), jcfg))
+    toks, frames = _tokens(jcfg), _frames(jcfg)
+    lead = _lead(frames, jnp.asarray)
+    out = {"cfg": jcfg, "params": _np_tree(params), "tokens": toks, "frames": frames}
+    out["forward"] = np.asarray(mod.forward(params, *lead, jnp.asarray(toks), jcfg))
     if psram:
         return out
-    logits, cache = mod.prefill(params, jnp.asarray(toks[:, :PROMPT]), jcfg,
+    logits, cache = mod.prefill(params, *lead, jnp.asarray(toks[:, :PROMPT]), jcfg,
                                 cache_len=PROMPT + STEPS + 1)
     out["prefill"] = (np.asarray(logits), _np_tree(cache))
     steps = []
@@ -81,8 +100,10 @@ def reference_run(arch, psram=False, stored=False):
 
 
 def _port(run):
+    """(cfg, params, tokens, leading args, module) of the port for a run."""
     cfg = _port_cfg(run["cfg"])
-    return cfg, convert.model_params(run["params"], cfg, device="cpu"), torch.tensor(run["tokens"])
+    return (cfg, convert.model_params(run["params"], cfg, device="cpu"),
+            torch.tensor(run["tokens"]), _lead(run["frames"], torch.tensor), get_module(cfg))
 
 
 def _close(got, want, rel=1e-5):
@@ -96,10 +117,20 @@ def _caches_close(port_cache, ref_tree):
     want = convert.model_cache(ref_tree, device="cpu")
     assert len(port_cache) == len(want)
     for g_got, g_want in zip(port_cache, want):
+        assert set(g_got) == set(g_want)
         for key in g_want:
-            for name in ("k", "v"):
-                assert g_got[key][name].shape == g_want[key][name].shape
-                _close(g_got[key][name], g_want[key][name].numpy())
+            assert set(g_got[key]) == set(g_want[key])
+            for name, leaf in g_want[key].items():
+                assert g_got[key][name].shape == leaf.shape
+                assert g_got[key][name].dtype == leaf.dtype
+                _close(g_got[key][name], leaf.numpy())
+
+
+def _first_kv(cache):
+    """The first attention layer's k cache of a model's cache."""
+    if "self" in cache[0]:
+        return cache[0]["self"]["k"]
+    return next(layer["k"] for layer in cache[0].values() if "k" in layer)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -115,8 +146,8 @@ def test_config_is_the_reference_config(arch):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_matches_reference(arch):
     run = reference_run(arch)
-    cfg, params, toks = _port(run)
-    got = transformer.forward(params, toks, cfg)
+    cfg, params, toks, lead, mod = _port(run)
+    got = mod.forward(params, *lead, toks, cfg)
     assert got.dtype == torch.float32 and tuple(got.shape) == run["forward"].shape
     _close(got, run["forward"])
 
@@ -124,9 +155,9 @@ def test_forward_matches_reference(arch):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_matches_reference(arch):
     run = reference_run(arch)
-    cfg, params, toks = _port(run)
-    logits, cache = transformer.prefill(params, toks[:, :PROMPT], cfg,
-                                        cache_len=PROMPT + STEPS + 1)
+    cfg, params, toks, lead, mod = _port(run)
+    logits, cache = mod.prefill(params, *lead, toks[:, :PROMPT], cfg,
+                                cache_len=PROMPT + STEPS + 1)
     _close(logits, run["prefill"][0])
     _caches_close(cache, run["prefill"][1])
 
@@ -135,34 +166,40 @@ def test_prefill_matches_reference(arch):
 def test_decode_steps_match_reference(arch):
     """Three decode steps from the reference's own prefill cache: logits of
     every step and the cache they wrote (gemma2's local layers run past their
-    window of 8)."""
+    window of 8; SSM layers replace their state and conv window; the
+    encoder-decoder's cross cache is left as it was)."""
     run = reference_run(arch)
-    cfg, params, toks = _port(run)
+    cfg, params, toks, _, mod = _port(run)
     cache = convert.model_cache(run["prefill"][1], device="cpu")
     for i in range(STEPS):
-        logits, cache = transformer.decode_step(params, cache, toks[:, PROMPT + i],
-                                                PROMPT + i, cfg)
+        logits, cache = mod.decode_step(params, cache, toks[:, PROMPT + i], PROMPT + i, cfg)
         _close(logits, run["decode"][0][i])
     _caches_close(cache, run["decode"][1])
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_decode_matches_forward(arch):
-    """The port's twin of the reference's test_decode_matches_forward, on the
-    port's own random params: prefill + decode == forward, and a per-row
-    ``(B,)`` cache position decodes like the scalar one."""
+    """The port's twin of the reference's test_decode_matches_forward (and
+    test_encdec_decode_matches_forward), on the port's own random params:
+    prefill + decode == forward (the SSM layers' recurrent step against
+    their chunked scan), and a per-row ``(B,)`` cache position decodes like
+    the scalar one (the encoder-decoder's step, like the reference's, takes
+    a scalar only)."""
     cfg = get_config(arch).reduced()
     mod = get_module(cfg)
     params = mod.init(0, cfg, device="cpu")
     toks = torch.tensor(_tokens(cfg, seed=2)[:, :10])
-    full = mod.forward(params, toks, cfg)
-    logits_p, cache = mod.prefill(params, toks[:, :8], cfg, cache_len=12)
+    lead = _lead(_frames(cfg, seed=3), torch.tensor)
+    full = mod.forward(params, *lead, toks, cfg)
+    logits_p, cache = mod.prefill(params, *lead, toks[:, :8], cfg, cache_len=12)
     torch.testing.assert_close(logits_p, full[:, 7], rtol=2e-2, atol=2e-2)
     lg1, cache = mod.decode_step(params, cache, toks[:, 8], 8, cfg)
     torch.testing.assert_close(lg1, full[:, 8], rtol=2e-2, atol=2e-2)
-    lg2, cache = mod.decode_step(params, cache, toks[:, 9], torch.tensor([9, 9]), cfg)
+    pos = 9 if cfg.family == "encdec" else torch.tensor([9, 9])
+    lg2, cache = mod.decode_step(params, cache, toks[:, 9], pos, cfg)
     torch.testing.assert_close(lg2, full[:, 9], rtol=2e-2, atol=2e-2)
-    assert float(cache[0]["layer0"]["k"][:, 9].abs().max()) > 0
+    if cfg.family != "ssm":
+        assert float(_first_kv(cache)[:, 9].abs().max()) > 0
 
 
 def test_sliding_window_masks_past():
@@ -209,20 +246,25 @@ def test_chunked_attention_matches_einsum():
     torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ["granite_8b", "gemma2_27b", "granite_moe_1b_a400m"])
+@pytest.mark.parametrize("arch", ["granite_8b", "gemma2_27b", "granite_moe_1b_a400m",
+                                  "mamba2_370m"])
 @pytest.mark.parametrize("stored", [False, True], ids=["on_the_fly", "stored_int8"])
 def test_psram_projection_forward_matches_reference(arch, stored):
+    """pSRAM projections through kernel 2's plain version on the CPU: every
+    attention and MLP projection, or mamba2's ``in_proj`` and ``out_proj``."""
     run = reference_run(arch, psram=True, stored=stored)
-    cfg, params, toks = _port(run)
+    cfg, params, toks, _, _ = _port(run)
+    mixer = params["blocks"][0]["layer0"]["mixer"]
+    first = mixer["wq"] if "wq" in mixer else mixer["in_proj"]
     if stored:
-        wq = params["blocks"][0]["layer0"]["mixer"]["wq"]
-        assert wq["q"].dtype == torch.int8 and wq["scale"].dtype == torch.float32
+        assert first["q"].dtype == torch.int8 and first["scale"].dtype == torch.float32
+        assert cfg.family != "ssm" or mixer["out_proj"]["q"].dtype == torch.int8
     got = transformer.forward(params, toks, cfg)
     assert bool(torch.isfinite(got).all())
     _close(got, run["forward"], rel=1e-3)
-    # the activation codes of layer 0's projections (wq/wk/wv): the port's
-    # eager quantization against the reference's jitted one (measured: none
-    # of 1920 codes apart)
+    # the activation codes of layer 0's first projections (wq/wk/wv, or
+    # in_proj): the port's eager quantization against the reference's jitted
+    # one (measured: none of 1920 codes apart)
     jcfg, jp = run["cfg"], run["params"]
 
     @jax.jit
@@ -275,13 +317,64 @@ def test_psram_linear_bf16_codes_and_output():
         tpl.psram_linear(x, prog, adc_bits=4, saturate=False).numpy(), wrap)
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED_ARCHS))
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        get_config(arch)
-    jcfg = jget_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        get_module(_port_cfg(jcfg))
+def test_mrope_angles_are_the_reference_bits():
+    """M-RoPE's angles (``pos`` of shape (3, B, S), the h stream diverging
+    from t and w) equal, bit for bit, the reference's one-hot contraction
+    ``einsum("tbs,ti->bsi", pos, one_hot(stream).T * inv)`` run by JAX."""
+    jcfg = jget_config("qwen2_vl_7b").reduced()
+    rot = jcfg.head_dim
+    pos = np.broadcast_to(np.arange(7, dtype=np.int32), (3, 2, 7)).copy()
+    pos[1] *= 3
+    pos[2] += 5
+    sec = jnp.cumsum(jnp.array((0,) + tuple(jcfg.mrope_sections)))
+    stream = jnp.searchsorted(sec[1:], jnp.arange(rot // 2), side="right")
+    inv = jcfg.rope_theta ** (-jnp.arange(0, rot, 2, dtype=jnp.float32) / rot)
+    want = np.asarray(jnp.einsum("tbs,t i->bsi", jnp.asarray(pos).astype(jnp.float32),
+                                 jax.nn.one_hot(stream, 3, dtype=jnp.float32).T * inv[None, :]))
+    got = tlayers._rope_angles(torch.tensor(pos), rot, _port_cfg(jcfg))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert tlayers._mrope_streams(tuple(jcfg.mrope_sections), rot // 2,
+                                  torch.device("cpu")).tolist() == np.asarray(stream).tolist()
+
+
+@pytest.mark.parametrize("streams", ["text", "h_diverges"])
+def test_mrope_matches_reference(streams):
+    """``apply_rope`` with M-RoPE (the reference's test_mrope_position_streams_differ
+    inputs): text positions (t = h = w) and an h stream that diverges.
+    Equal to the reference's within 1e-6: the angles are its bits, but
+    PyTorch's CPU cos/sin and XLA's differ by up to one f32 ulp (so does
+    plain RoPE's); a diverging h stream changes the output."""
+    jcfg = jget_config("qwen2_vl_7b").reduced()
+    x = np.random.default_rng(8).standard_normal((1, 6, 2, 16)).astype(np.float32)
+    text = np.broadcast_to(np.arange(6, dtype=np.int32), (3, 1, 6)).copy()
+    pos = text.copy()
+    if streams == "h_diverges":
+        pos[1] *= 3
+    cfg = _port_cfg(jcfg)
+    got = tlayers.apply_rope(torch.tensor(x), torch.tensor(pos), cfg).numpy()
+    want = np.asarray(jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), jcfg))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    base = tlayers.apply_rope(torch.tensor(x), torch.tensor(text), cfg).numpy()
+    assert (np.abs(got - base).max() > 1e-4) == (streams == "h_diverges")
+
+
+def test_mrope_positions_and_decode_broadcast():
+    """``_positions`` gives M-RoPE its (3, B, S) text streams, each the token
+    index; a decode token's position is the same on all three streams, so
+    ``_new_kv`` equals the reference's."""
+    jcfg = jget_config("qwen2_vl_7b").reduced()
+    cfg = _port_cfg(jcfg)
+    pos = transformer._positions(cfg, 2, 5, torch.device("cpu"))
+    assert tuple(pos.shape) == (3, 2, 5) and pos.dtype == torch.int32
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jtransformer._positions(jcfg, 2, 5)))
+    jp = jlayers.init_params(jax.random.PRNGKey(4), jlayers.attention_defs(jcfg))
+    p = jax.tree.map(lambda a: torch.tensor(np.asarray(a)), jp)
+    x = np.random.default_rng(9).standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    got = tlayers._new_kv(p, torch.tensor(x), cfg, 7)
+    want = jlayers._new_kv(jp, jnp.asarray(x), jcfg, jnp.int32(7))
+    for g, w in zip(got, want):
+        _close(g, np.asarray(w))
 
 
 def test_attn_probs_bf16_matches_reference():

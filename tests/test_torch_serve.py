@@ -1,8 +1,10 @@
 """The port's serving engine held against the JAX reference on the CPU.
 
-Reduced (f32) granite-8b with the reference's own params carried over by
-``convert.model_params``; the same numpy-seeded prompts go through the
-reference's ``ServeEngine`` and the port's. Greedy tokens must be equal; the
+Reduced (f32) granite-8b (and mamba2, jamba: the SSM and hybrid families;
+the encoder-decoder's engine is in ``test_torch_encdec.py``) with the
+reference's own params carried over by ``convert.model_params``; the same
+numpy-seeded prompts go through the reference's ``ServeEngine`` and the
+port's. Greedy tokens must be equal; the
 prefill logits within 1e-5 of max |logit| (f32 matmuls, sums in another
 order). Temperature sampling cannot give JAX's bits and is not compared.
 """
@@ -76,6 +78,22 @@ def test_serve_step_deltas_leave_the_cache(served):
         make_prefill(cfg, paged=True)
 
 
+@pytest.mark.parametrize("arch", ["mamba2_370m", "jamba_1p5_large"])
+def test_greedy_tokens_equal_reference_ssm_families(arch):
+    """SSM decode steps (the recurrent state replaced each step) and the
+    hybrid's one attention layer a group, through both engines."""
+    jcfg = jget_config(arch).reduced()
+    params = jget_module(jcfg).init(jax.random.PRNGKey(0), jcfg)
+    prompts = np.random.default_rng(12).integers(2, jcfg.vocab_size, (B, PROMPT), dtype=np.int32)
+    want = np.asarray(JServeEngine(jcfg, params, max_len=PROMPT + NEW)
+                      .generate(jnp.asarray(prompts), PROMPT, NEW))
+    cfg = ArchConfig(**dataclasses.asdict(jcfg))
+    port_params = convert.model_params(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    got = ServeEngine(cfg, port_params, max_len=PROMPT + NEW, device="cpu").generate(
+        torch.tensor(prompts), PROMPT, NEW)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_temperature_sampling_is_seeded(served):
     cfg, params, prompts, _, _ = served
     eng = ServeEngine(cfg, params, max_len=PROMPT + NEW, device="cpu")
@@ -85,11 +103,21 @@ def test_temperature_sampling_is_seeded(served):
     assert int(runs[0].min()) >= 0 and int(runs[0].max()) < cfg.vocab_size
 
 
-def test_serve_cli_on_the_cpu():
+def _serve_cli(arch):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "granite_8b", "--reduced",
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--reduced",
          "--device", "cpu", "--batch", "2", "--prompt-len", "8", "--max-new", "4"],
         capture_output=True, text=True, timeout=300, cwd=str(ROOT), env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "generated (2, 4)" in proc.stdout and "on cpu" in proc.stdout
+
+
+def test_serve_cli_on_the_cpu():
+    _serve_cli("granite_8b")
+
+
+def test_serve_cli_encdec_draws_frames():
+    """The encoder-decoder through the CLI: it draws the encoder's stub
+    frames, (batch, 4 * prompt_len, d_model), from a seeded generator."""
+    _serve_cli("seamless_m4t_large_v2")
