@@ -204,6 +204,24 @@ What it does, in order — any failure raises and the run exits non-zero:
       output within what one bf16 ulp of cos and sin moves it).
       jamba-1.5-large does not fit one card (one group of 8 layers is ~44 B
       parameters): CPU and ``cuda`` tests at ``reduced()`` only.
+   e+. ``main_path_paged``: granite-8b at full width and depth through the
+      paged serve loop (``ServeLoop``: 4096 pages of 16 slots, 8 decode
+      rows) on a live bursty stream of 32 requests (prompts 32..1024,
+      decodes 8..64), exact and then with every projection through kernel 2,
+      each after one ``warmup``, the counts zeroed before the stream and
+      read after: each run's summary (latency and TTFT percentiles, tokens/s,
+      measured beside modeled step seconds), a few profiled decode steps of
+      8 rows at mixed lengths (idle, launches, the gather's and scatter's
+      device ms, the step's own peak memory), a prefill's ms by bucket;
+      gated on no leaked page, every request accounted for, no failure
+      without a limit, each row of the paged step within 0.05 of the dense
+      step on the same rows (and a planted fault's row above it: the
+      check's control), the mask hiding every stale slot bit for bit,
+      kernel 2's launches by route and its bits on layer 0's calls in paged
+      prefills and a paged step. The share of greedy tokens equal to
+      ``generate`` at batch 1 is reported. Then 12 requests (decodes
+      cut to 16 tokens) at once on just more pages than the largest needs:
+      preemptions, no leak.
    f. ``main_path_trace``: ``repro_torch.obs`` on the card. With tracing
       enabled, ``cp_als`` (rank 32, 3 sweeps) on ``hopper``, ``hopper`` with
       ``compiled=False`` and ``psram-stream`` eager and compiled: each run's
@@ -325,6 +343,27 @@ MAMBA_LAYER_OWN_TOL = 0.06
 # decode steps profiled in each of those three phases (8 in the others): with
 # 8, the profiler's windows took 102 s of the three phases' 135 s on an H100
 NEW_FAMILY_PROFILED_STEPS = 4
+# main_path_paged: granite-8b at full width and depth through the paged serve
+# loop (ServeLoop): 4096 pages of 16 token slots (65,536 slots, 9.66 GB of
+# bf16 KV beside the 16.5 GB of weights), 8 decode rows, one bursty stream
+# of 32 requests (prompts 32..1024, Pareto tail 1.8; decodes 8..64, tail
+# 1.5) released live (speedup 1), exact and with every projection through
+# kernel 2; then the same stream's first 12 requests, their decodes cut to
+# 16 tokens for the script's time (under pressure the rows run mostly one
+# at a time), all at once, exact, on just more pages than the largest
+# request needs (page pressure: preemptions)
+PAGED_LOOP = {"max_batch": 8, "page_size": 16, "num_pages": 4096}
+PAGED_TRAFFIC = {"n_requests": 32, "seed": 0, "arrival": "bursty", "rate_rps": 8.0,
+                 "burst_factor": 8.0, "prompt_min": 32, "prompt_max": 1024,
+                 "prompt_tail": 1.8, "decode_min": 8, "decode_max": 64,
+                 "decode_tail": 1.5, "vocab_size": 49152}
+PAGED_PRESSURE = {"n_requests": 12, "decode_max": 16}
+PAGED_PROFILED_STEPS = 4
+PAGED_TOKENS_CHECKED = 8                  # completed requests held against generate at batch 1
+# a paged step vs the dense step, relative L2 of each row: over the whole
+# step, one row's one-slot fault reads 0.0497 on an H100 (paged_vs_dense)
+PAGED_STEP_TOL = 0.05
+PAGED_POISON = 64.0                       # what fills the slots a step must not read
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): the
 # port's roofline constants, one source for both
@@ -2183,59 +2222,77 @@ def word_ptrs(trees) -> set:
     return walk(trees)
 
 
-def served_matmul_cases(torch, eng, params, prompts, layer0, want_calls, n_proj, lead=()):
+def engine_stages(torch, eng, params, prompts, lead=()):
+    """A served engine's two stages for :func:`served_matmul_cases`: one
+    prefill of ``prompts`` (after the ``lead`` inputs, e.g. frames), then
+    one decode step on its greedy tokens."""
+    def prefill():
+        return eng.prefill_fn(params, *lead, prompts)
+
+    def step(state):
+        logits, cache = state
+        eng.step_fn(params, cache, logits.argmax(-1).to(torch.int32), prompts.shape[1])
+
+    return prefill, step
+
+
+def served_matmul_cases(torch, stages, layer0, want_calls, n_proj):
     """Kernel 2 held BIT-EQUAL to its plain version on the served model's own
-    operands, for any served model: every call that hands the kernel a
-    stored word of ``layer0`` (the first layer's param subtrees: one, or the
-    encoder's and the decoder's) in one prefill (the wgmma route, also held
-    against the tile route) and in one decode step (the decode route) —
-    ``want_calls`` = (prefill calls, step calls) — while the whole model
-    makes ``n_proj`` = (prefill, step) calls, all on those routes. So every
-    shape the main path gives the kernel is checked on the card: each
-    projection's K and N (partial last tiles included) at the prefill's M
-    and at a step's. The model's module-level ``psram_matmul`` is wrapped
-    for these two calls only; its launches here are not counted on the main
-    path."""
+    operands, for any served model and loop: every call that hands the
+    kernel a stored word of ``layer0`` (the first layer's param subtrees:
+    one, or the encoder's and the decoder's) in the two ``stages`` =
+    ``(prefill, step)`` (:func:`engine_stages`, or the paged loop's prefills
+    and step; ``step`` takes what ``prefill`` returns), each call on the
+    route it took, and a ``wgmma`` call also held against the tile route.
+    ``want_calls`` = (prefill, step) layer 0's calls by route, ``n_proj`` =
+    (prefill, step) the whole model's launches by route; a route left out
+    is 0. So every shape the main path gives the kernel is checked on the
+    card: each projection's K and N (partial last tiles included) at the
+    prefill's M and at a step's. The model's module-level ``psram_matmul``
+    is wrapped for these two stages only; its launches here are not counted
+    on the main path."""
     import repro_torch.core.photonic_layer as photonic
     from repro_torch.kernels.psram_matmul import _launch, psram_matmul_torch
 
     launch = photonic.psram_matmul
+    routes = launch.routes
     ptrs = word_ptrs(layer0)
     seen = []
 
     def record(qx, qw, sx, sw, adc_bits=16):
+        before = dict(routes)
         out = launch(qx, qw, sx, sw, adc_bits=adc_bits)
         if qw.data_ptr() in ptrs:
-            seen.append((qx, qw, sx, sw, adc_bits, out))
+            route = next(r for r in routes if routes[r] != before[r])
+            seen.append((qx, qw, sx, sw, adc_bits, out, route))
         return out
 
-    routes = launch.routes
+    prefill, step = stages
+    calls, took = [], []
     photonic.psram_matmul = record
     try:
         with torch.inference_mode():
-            r0 = dict(routes)
-            logits, cache = eng.prefill_fn(params, *lead, prompts)
-            torch.cuda.synchronize()
-            r1 = dict(routes)
-            calls, seen = seen, []
-            eng.step_fn(params, cache, logits.argmax(-1).to(torch.int32), prompts.shape[1])
-            torch.cuda.synchronize()
-            r2 = dict(routes)
-            calls = [(c, "wgmma") for c in calls] + [(c, "decode") for c in seen]
+            state = None
+            for stage in (prefill, lambda: step(state)):
+                r0 = dict(routes)
+                state = stage()
+                torch.cuda.synchronize()
+                took.append({r: routes[r] - r0[r] for r in routes})
+                calls.append(seen)
+                seen = []
     finally:
         photonic.psram_matmul = launch
-    del logits, cache
-    got_calls = (sum(r == "wgmma" for _, r in calls), sum(r == "decode" for _, r in calls))
-    if got_calls != tuple(want_calls):
-        raise AssertionError(f"layer 0 made {got_calls} kernel-2 calls in a prefill and a "
-                             f"decode step, not {tuple(want_calls)}")
-    took = [{r: r1[r] - r0[r] for r in routes}, {r: r2[r] - r1[r] for r in routes}]
-    if took != [{"wgmma": n_proj[0], "tile": 0, "decode": 0},
-                {"wgmma": 0, "tile": 0, "decode": n_proj[1]}]:
+    del state
+    fill = [{r: want.get(r, 0) for r in routes} for want in n_proj]
+    if took != fill:
         raise AssertionError(f"the served projections did not take the expected routes "
-                             f"(prefill, decode step; {n_proj} asked): {took}")
+                             f"(prefill, decode step; {fill} asked): {took}")
+    got_calls = [{r: sum(c[-1] == r for c in stage) for r in routes} for stage in calls]
+    if got_calls != [{r: want.get(r, 0) for r in routes} for want in want_calls]:
+        raise AssertionError(f"layer 0 made {got_calls} kernel-2 calls in a prefill and a "
+                             f"decode step, not {want_calls}")
     cases = []
-    for (qx, qw, sx, sw, adc_bits, got), route in calls:
+    for qx, qw, sx, sw, adc_bits, got, route in calls[0] + calls[1]:
         want = psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits)
         case = {"shape": [qx.shape[0], qx.shape[1], qw.shape[1]], "adc_bits": adc_bits,
                 "route": route, "max_abs_err": float((got - want).abs().max()),
@@ -3551,7 +3608,8 @@ def main_path_ssm(torch, zero_counts, read_counts) -> tuple:
         profiled_steps=NEW_FAMILY_PROFILED_STEPS)
     n = cfg.num_layers
     psram_run["layer0_matmul_vs_plain"] = served_matmul_cases(
-        torch, peng, pparams, prompts, [pparams["blocks"][0]], (3, 2), (3 * n, 2 * n))
+        torch, engine_stages(torch, peng, pparams, prompts), [pparams["blocks"][0]],
+        ({"wgmma": 3}, {"decode": 2}), ({"wgmma": 3 * n}, {"decode": 2 * n}))
     del peng
     psram_run["prefill_vs_dequantized_rel_l2"] = psram_vs_dequantized(
         torch, transformer, pparams, (), prompts, cfg, psram_logits)
@@ -3655,8 +3713,9 @@ def main_path_encdec(torch, zero_counts, read_counts) -> tuple:
     # layer. A step: self q, k, v, o, cross q, o, wi, wo a decoder layer
     n_proj = (6 * enc + 10 * dec, 8 * dec)
     psram_run["layer0_matmul_vs_plain"] = served_matmul_cases(
-        torch, peng, pparams, prompts, [pparams["encoder"][0], pparams["decoder"][0]],
-        (16, 8), n_proj, lead=(frames,))
+        torch, engine_stages(torch, peng, pparams, prompts, lead=(frames,)),
+        [pparams["encoder"][0], pparams["decoder"][0]], ({"wgmma": 16}, {"decode": 8}),
+        ({"wgmma": n_proj[0]}, {"decode": n_proj[1]}))
     del peng
     with torch.inference_mode():
         psram_run["encode_ms"] = time_ms(torch, lambda: encdec.encode(pparams, frames, pcfg),
@@ -3779,6 +3838,370 @@ def main_path_mrope(torch, zero_counts, read_counts) -> tuple:
     }
     check_served("qwen2-vl", phase)
     return phase, launches
+
+
+# ------------------------------------------------------- the paged serve loop
+
+
+def loop_rows(torch, loop, reqs):
+    """Admit ``reqs`` into ``loop``'s pages, prefill each through the loop
+    and extend it by the slot its next token takes: the loop's own rows
+    (``_Active``) of one decode step at mixed lengths. Returns the rows."""
+    from repro_torch.serve.loop import _Active
+
+    rows = []
+    for row, req in enumerate(reqs):
+        if not loop.kv.admit(req.rid, req.prompt_len):
+            raise AssertionError(f"request {req.rid} does not fit the paged cache")
+        tok = loop._prefill_one(req)
+        loop.kv.extend(req.rid, 1)
+        rows.append(_Active(req=req, row=row, admit_seq=row, next_token=tok,
+                            pos=req.prompt_len, generated=[tok]))
+    return rows
+
+
+def paged_summary(rep) -> dict:
+    """A run's ``summary()`` plus the counts the phase checks."""
+    out = rep.summary()
+    out.update(n_prefills=rep.n_prefills, n_steps=rep.n_steps,
+               batch_sizes=[o["batch"] for o in rep.offload],
+               step_s=[o["measured_s"] for o in rep.offload])
+    return out
+
+
+def check_paged(name, rep, n_requests, max_preemptions):
+    """Every request accounted for, no page leaked, and no request failed
+    that did not hit a limit (the streams set no deadline, so only the
+    preemption cap)."""
+    s = rep.summary()
+    if s["leaked_pages"] != 0 or s["completed"] + s["rejected"] + s["failed"] != n_requests:
+        raise AssertionError(f"the paged loop ({name}) leaked pages or lost requests: {s}")
+    for r in rep.failed:
+        if not (r.failure == "preempt-limit" and r.preemptions > max_preemptions):
+            raise AssertionError(f"the paged loop ({name}) failed request {r.rid} that hit "
+                                 f"no limit: {r}")
+
+
+def paged_profile(torch, loop, rows, n: int) -> dict:
+    """One decode step of ``rows`` through the loop: ``n`` steps under
+    ``torch.profiler`` (:func:`device_profile`), the gather (one
+    ``index_select``) and the scatter (the deltas' stack + one
+    ``index_copy_``) timed alone by CUDA events at the step's view and at
+    a 2048-slot view (all rows at the sacrificial slot), and the step's
+    own peak memory at both."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs = loop._step_inputs(rows)
+    out = {"rows": len(rows), "lengths": [a.pos for a in rows]}
+    b, pad = loop.loop_cfg.max_batch, loop._pad_slot
+    with torch.inference_mode():
+        loop._decode(*inputs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                loop._decode(*inputs)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        out.update(steps=n, **device_profile(torch, prof, wall_ms, n, "_per_step"))
+        wide = (inputs[0] * 0, inputs[1] * 0, np.full((b, 2048), pad, np.int32),
+                np.full(b, pad, np.int32))
+        for label, host in (("step", inputs), ("view_2048", wide)):
+            tok_d, pos_d, idx_d, new_d = loop._to_device(*host)
+            _, deltas = loop._step_fn(loop.params, loop._view(idx_d), tok_d, pos_d)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loop._decode(*host)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            view_bytes = loop.slab[:, :, :1].nbytes * b * host[2].shape[1]
+            out[label] = {
+                "view": int(host[2].shape[1]), "view_bytes": view_bytes,
+                "step_bytes_peak": peak,
+                # the gather reads each slot it copies and writes the view
+                "gather_ms": time_ms(torch, lambda: loop._view(idx_d)),
+                "gather_bound_ms": 1e3 * 2 * view_bytes / HBM_BYTES_PER_S,
+                "scatter_ms": time_ms(torch, lambda: loop._scatter(deltas, new_d)),
+            }
+            del deltas
+    return out
+
+
+def paged_prefill_ms(torch, loop, buckets) -> dict:
+    """One paged prefill's ms at each prompt bucket: the padded tokens
+    through ``prefill_paged`` and their slots scattered to the sacrificial
+    one (host clock around a synchronize, median of 3)."""
+    import numpy as np
+
+    out = {}
+    with torch.inference_mode():
+        for b in buckets:
+            toks, slots = loop._to_device(np.zeros((1, b), np.int32),
+                                          np.full(b, loop._pad_slot, np.int64))
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, caches = loop._prefill_fn(loop.params, toks, b - 1)
+                loop._scatter(caches, slots)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                del caches
+            out[str(b)] = statistics.median(times)
+    return out
+
+
+def paged_vs_dense(torch, loop, rows, cfg) -> dict:
+    """One paged decode step on ``rows`` (mixed lengths) against
+    ``decode_step`` on a dense cache holding the same tokens for the same
+    rows (prompts right-padded, a ``(B,)`` cache position): relative L2 of
+    the logits, the whole step's and each row's own (the gate, in
+    :func:`main_path_paged`, holds every row), and the rows whose greedy
+    token agrees. Then what that check sees of a fault in the gather or the
+    mask, on the shortest row: planted faults (its pages swapped with the
+    longest row's, its gather one slot on, its ``cache_pos`` one on, which
+    unmasks a stale slot), each read as the step's relative L2 and the
+    row's own, first on the slab as it is, then with every slot outside the
+    rows' live prefixes poisoned with ``PAGED_POISON``. Poisoned, the sound
+    step must stay bit-equal (the mask hides every stale slot exactly);
+    clean and poisoned, every planted fault's row must read above
+    ``PAGED_STEP_TOL``. The planted steps write their deltas to the
+    sacrificial slot."""
+    import numpy as np
+    from repro_torch.models import transformer
+
+    lens = [a.pos for a in rows]
+    inputs = loop._step_inputs(rows)
+    paged = torch.from_numpy(loop._decode(*inputs)[:len(rows)])
+    dense = torch.zeros((len(rows), max(lens)), dtype=torch.int32)
+    for i, a in enumerate(rows):
+        dense[i, :a.pos] = torch.from_numpy(a.req.prompt)
+    with torch.inference_mode():
+        _, cache = transformer.prefill(loop.params, dense.cuda(), cfg, max(lens) + 1)
+        want, _ = transformer.decode_step(
+            loop.params, cache,
+            torch.tensor([a.next_token for a in rows], dtype=torch.int32, device="cuda"),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"), cfg)
+        want = want.cpu()
+        del cache
+
+    def rel(got, row=slice(None)):
+        return float(torch.linalg.norm(got[row] - want[row]) / torch.linalg.norm(want[row]))
+
+    token, cache_pos, gather_idx, _ = inputs
+    f = min(range(len(rows)), key=lambda i: lens[i])
+    g = max(range(len(rows)), key=lambda i: lens[i])
+    fr, gr = rows[f].row, rows[g].row
+    swap = gather_idx.copy()
+    swap[[fr, gr]] = gather_idx[[gr, fr]]
+    shift = gather_idx.copy()
+    shift[fr, :lens[f]] = loop.kv.physical_slots(rows[f].req.rid)[1:lens[f] + 1]
+    pos_on = cache_pos.copy()
+    pos_on[fr] += 1
+    faults = {"pages_swapped": (cache_pos, swap), "gather_one_slot_on": (cache_pos, shift),
+              "cache_pos_one_on": (pos_on, gather_idx)}
+    pad = np.full(loop.loop_cfg.max_batch, loop._pad_slot, np.int32)
+
+    def planted(cp, idx):
+        got = torch.from_numpy(loop._decode(token, cp, idx, pad)[:len(rows)])
+        return {"rel_l2": rel(got), "row_rel_l2": rel(got, f)}
+
+    live = torch.from_numpy(np.concatenate(
+        [loop.kv.physical_slots(a.req.rid)[:a.pos] for a in rows]).astype(np.int64)).cuda()
+
+    def poison():
+        with torch.inference_mode():
+            keep = loop.slab.index_select(2, live)
+            loop.slab.fill_(PAGED_POISON)
+            loop.slab.index_copy_(2, live, keep)
+            del keep
+
+    out = {"lengths": lens, "rel_l2": rel(paged),
+           "row_rel_l2": [rel(paged, i) for i in range(len(rows))],
+           "greedy_equal_rows": int((paged.argmax(-1) == want.argmax(-1)).sum()),
+           "faulted_row": {"length": lens[f], "swapped_with_length": lens[g]},
+           "clean": {name: planted(*fault) for name, fault in faults.items()}}
+    poison()
+    out["poisoned_bit_equal"] = bool(torch.equal(
+        torch.from_numpy(loop._decode(token, cache_pos, gather_idx, pad)[:len(rows)]), paged))
+    poisoned = {}
+    for name, fault in faults.items():
+        poison()
+        poisoned[name] = planted(*fault)
+    out["poisoned"] = poisoned
+
+    def seen(r):
+        return not (math.isfinite(r["row_rel_l2"]) and r["row_rel_l2"] <= PAGED_STEP_TOL)
+
+    if not (out["poisoned_bit_equal"] and all(map(seen, out["clean"].values()))
+            and all(map(seen, poisoned.values()))):
+        raise AssertionError(f"the paged step's check does not separate a sound step from a "
+                             f"planted fault: {out}")
+    return out
+
+
+def paged_tokens_vs_engine(torch, rep, reqs, cfg, params) -> dict:
+    """The share of greedy tokens equal to ``ServeEngine.generate`` at batch
+    1, over the first ``PAGED_TOKENS_CHECKED`` requests to complete without
+    a preemption (reported, not gated: bf16 on the card can flip a
+    near-tie, and a flipped token changes the rest of its request)."""
+    from repro_torch.serve import ServeEngine
+
+    checked = []
+    done = sorted((r for r in rep.completed if not r.preemptions), key=lambda r: r.finished_s)
+    for rec in done[:PAGED_TOKENS_CHECKED]:
+        r = reqs[rec.rid]
+        eng = ServeEngine(cfg, params, max_len=r.prompt_len + rec.n_generated, device="cuda")
+        toks = eng.generate(torch.tensor(r.prompt[None], device="cuda"), r.prompt_len,
+                            rec.n_generated)[0].tolist()
+        agree = [a == b for a, b in zip(toks, rec.tokens)]
+        checked.append({"rid": rec.rid, "tokens": len(toks), "equal": sum(agree),
+                        "first_differs_at": agree.index(False) if not all(agree) else None})
+    total = sum(c["tokens"] for c in checked)
+    return {"share": sum(c["equal"] for c in checked) / max(total, 1), "tokens": total,
+            "requests": checked}
+
+
+def paged_stream(torch, loop, tc, zero_counts, read_counts) -> tuple:
+    """``loop.warmup`` over the stream's buckets, then the stream with the
+    counts zeroed before it and read after. ``(report, launches, summary,
+    requests)``."""
+    from repro_torch.serve import traffic
+
+    reqs = traffic.generate(tc)
+    t0 = time.perf_counter()
+    calls = loop.warmup(max(r.prompt_len for r in reqs), max(r.decode_len for r in reqs))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    zero_counts()
+    rep = loop.run_sync(reqs)
+    launches = read_counts()
+    return rep, launches, {**paged_summary(rep), "warmup_calls": calls, "warmup_s": warm_s}, reqs
+
+
+def main_path_paged(torch, zero_counts, read_counts) -> tuple:
+    """The ``main_path_paged`` phase: granite-8b at full width and depth (36
+    layers, bf16, 8.25 B random parameters) served by the paged loop
+    (``ServeLoop``, ``PAGED_LOOP``) on the live bursty stream
+    ``PAGED_TRAFFIC`` — exact, then with every projection through kernel 2
+    — each after one ``warmup`` and with the counts zeroed before the
+    stream and read after. Reports each run's summary (completed, rejected,
+    failed, preemptions, leaked pages, latency and TTFT percentiles,
+    tokens/s, measured beside modeled step seconds, offload fraction,
+    utilization, fragmentation), a few profiled decode steps of 8 rows at
+    mixed lengths (host and device ms, idle, launches a step, the gather's
+    and the scatter's device ms, the step's own peak memory, also at a
+    2048-slot view) and a prefill's ms by bucket. Checks: no page leaked,
+    every request completed, rejected or failed, none failed without
+    hitting a limit; every row of the paged step within ``PAGED_STEP_TOL``
+    of the dense step on the same rows, and planted faults above it
+    (:func:`paged_vs_dense`); kernel 2 launched exactly 7 a layer in each
+    prefill (``wgmma``) and step (``decode``) and bit-equal to its plain
+    version on layer 0's calls in paged prefills at buckets 8 and 128 and
+    in a paged step (:func:`served_matmul_cases`). Reports the share of
+    greedy tokens equal to ``generate`` at batch 1. Then
+    ``PAGED_PRESSURE``'s requests at once on just more pages than the
+    largest needs, exact: preemptions, no leak. ``(phase, exact, pSRAM and
+    pressure launches, kernel-2 cases)``."""
+    from repro_torch.kernels.psram_matmul import M_DECODE
+    from repro_torch.models import get_config, transformer
+    from repro_torch.serve import ServeLoop, ServeLoopConfig, TrafficConfig, traffic
+
+    cfg = get_config(SERVE_ARCH)
+    n_proj = 7 * cfg.num_layers                       # wq, wk, wv, wo, wi, wg, wo
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(31, cfg, device="cuda")
+    loop = ServeLoop(cfg, params, ServeLoopConfig(**PAGED_LOOP), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tc = TrafficConfig(**PAGED_TRAFFIC)
+    rep, exact_launches, exact, reqs = paged_stream(torch, loop, tc, zero_counts, read_counts)
+    check_paged("exact", rep, tc.n_requests, loop.loop_cfg.max_preemptions)
+    exact["launches"] = exact_launches
+    exact["slab_bytes"] = loop.slab.nbytes
+    exact["prefill_ms_by_bucket"] = paged_prefill_ms(
+        torch, loop, sorted({loop._bucket(r.prompt_len) for r in reqs}))
+    rows = loop_rows(torch, loop, reqs[:loop.loop_cfg.max_batch])
+    exact["decode_profile"] = paged_profile(torch, loop, rows, PAGED_PROFILED_STEPS)
+    exact["paged_vs_dense"] = paged_vs_dense(torch, loop, rows, cfg)
+    for a in rows:
+        loop.kv.free_request(a.req.rid)
+    exact["tokens_vs_generate"] = paged_tokens_vs_engine(
+        torch, rep, {r.rid: r for r in reqs}, cfg, params)
+    exact["device_bytes_peak"] = torch.cuda.max_memory_allocated()
+    del loop
+    torch.cuda.empty_cache()
+
+    # page pressure: every request at once on just more pages than the
+    # largest one needs
+    ptc = dataclasses.replace(tc, **PAGED_PRESSURE)
+    page = PAGED_LOOP["page_size"]
+    pages = max(-(-(r.prompt_len + r.decode_len) // page) for r in traffic.generate(ptc)) + 1
+    ploop = ServeLoop(cfg, params, ServeLoopConfig(**{**PAGED_LOOP, "num_pages": pages},
+                                                   speedup=1e9), device="cuda")
+    prep, pressure_launches, pressure, _ = paged_stream(torch, ploop, ptc, zero_counts,
+                                                        read_counts)
+    check_paged("pressure", prep, ptc.n_requests, ploop.loop_cfg.max_preemptions)
+    pressure["num_pages"] = pages
+    if prep.preemptions < 1:
+        raise AssertionError(f"the page-pressure run preempted nothing: {pressure}")
+    del ploop, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    pcfg = dataclasses.replace(cfg, psram_projections=True, psram_stored_int8=True)
+    pparams = transformer.init(33, pcfg, device="cuda")
+    ploop = ServeLoop(pcfg, pparams, ServeLoopConfig(**PAGED_LOOP), device="cuda")
+    prep, psram_launches, psram, _ = paged_stream(torch, ploop, tc, zero_counts, read_counts)
+    check_paged("pSRAM", prep, tc.n_requests, ploop.loop_cfg.max_preemptions)
+    psram["launches"] = psram_launches
+    # a prefill's bucket of at most M_DECODE rows takes the decode route, a
+    # larger one the wgmma route (the stream's prompts are 32 tokens or more)
+    admitted = [(r, 0 if r.rejected else r.preemptions + (r.failure != "preempt-limit"))
+                for r in prep.records]
+    small = sum(n for r, n in admitted if ploop._bucket(r.prompt_len) <= M_DECODE)
+    if sum(n for _, n in admitted) != prep.n_prefills:
+        raise AssertionError(f"the pSRAM run's prefills do not add up: {psram}")
+    want = {"wgmma": n_proj * (prep.n_prefills - small), "tile": 0,
+            "decode": n_proj * (prep.n_steps + small)}
+    got = {r: psram_launches[f"psram_matmul_{r}"] for r in want}
+    if got != want or exact_launches["psram_matmul"] != 0:
+        raise AssertionError(f"the paged loop did not launch kernel 2 as its projections ask "
+                             f"({want}; got {got}, exact {exact_launches['psram_matmul']})")
+    # layer 0's calls in the loop's own prefills at buckets 8 (the decode
+    # route) and 128 (wgmma), then in one paged step of those two rows
+    longest = max(reqs, key=lambda r: r.prompt_len).prompt
+    probe = [traffic.Request(rid=-1 - i, arrival_s=0.0, decode_len=2, prompt=longest[:n])
+             for i, n in enumerate((8, 100))]
+    try:
+        cases = served_matmul_cases(
+            torch, (lambda: loop_rows(torch, ploop, probe),
+                    lambda rows: ploop._decode(*ploop._step_inputs(rows))),
+            [pparams["blocks"][0]], ({"decode": 7, "wgmma": 7}, {"decode": 7}),
+            ({"decode": n_proj, "wgmma": n_proj}, {"decode": n_proj}))
+    finally:
+        for r in probe:
+            ploop.kv.free_request(r.rid)
+    psram["device_bytes_peak"] = torch.cuda.max_memory_allocated()
+    del ploop, pparams
+    torch.cuda.empty_cache()
+    phase = {
+        "phase": "main_path_paged", "arch": SERVE_ARCH, "layers": cfg.num_layers,
+        "params": cfg.param_count(), "dtype": cfg.dtype, "init_s": init_s,
+        "loop": PAGED_LOOP, "traffic": tc.asdict(),
+        "requests": [[r.prompt_len, r.decode_len] for r in reqs],
+        "exact": exact, "pressure": {**pressure, "launches": pressure_launches},
+        "psram": psram, "layer0_matmul_vs_plain": cases,
+    }
+    rel = max(exact["paged_vs_dense"]["row_rel_l2"])
+    if not (math.isfinite(rel) and rel <= PAGED_STEP_TOL):
+        raise AssertionError(f"the paged step drifts from the dense step: {phase}")
+    return phase, exact_launches, psram_launches, pressure_launches, cases
 
 
 def main(argv=None) -> int:
@@ -4486,8 +4909,10 @@ def main(argv=None) -> int:
     del peng, ptoks
     n_proj = 7 * scfg.num_layers                      # wq, wk, wv, wo, wi, wg, wo
     served_matmul = served_matmul_cases(
-        torch, ServeEngine(pcfg, pparams, max_len=SERVE_PROMPT + SERVE_NEW, device="cuda"),
-        pparams, prompts, [pparams["blocks"][0]], (7, 7), (n_proj, n_proj))
+        torch, engine_stages(torch, ServeEngine(pcfg, pparams, max_len=SERVE_PROMPT + SERVE_NEW,
+                                                device="cuda"), pparams, prompts),
+        [pparams["blocks"][0]], ({"wgmma": 7}, {"decode": 7}),
+        ({"wgmma": n_proj}, {"decode": n_proj}))
     # the same prompts through an exact model whose weights are the array's
     # words dequantized (q * scale, rounded to bf16)
     psram_vs_deq = psram_vs_dequantized(torch, transformer, pparams, (), prompts, scfg,
@@ -4537,6 +4962,12 @@ def main(argv=None) -> int:
     mrope_path, mrope_launches = main_path_mrope(torch, zero_counts, read_counts)
     report["main_path_mrope"] = mrope_path
     emit(mrope_path)
+
+    # 4e+. the paged serve loop: granite-8b on a live stream ----------------
+    paged_path, paged_exact_launches, paged_psram_launches, paged_pressure_launches, \
+        paged_matmul = main_path_paged(torch, zero_counts, read_counts)
+    report["main_path_paged"] = paged_path
+    emit(paged_path)
 
     # per-sweep time, warm: cp_als sorts and merges duplicates on the host
     # before its first sweep, so a sweep is timed on its own — a backend
@@ -4614,7 +5045,8 @@ def main(argv=None) -> int:
                   priced_launches, flash_launches, exact_launches, psram_launches,
                   moe_exact_launches, moe_psram_launches, ssm_exact_launches,
                   ssm_psram_launches, encdec_exact_launches, encdec_psram_launches,
-                  mrope_launches)
+                  mrope_launches, paged_exact_launches, paged_psram_launches,
+                  paged_pressure_launches)
 
     def total(name):
         return sum(counts[name] for counts in main_paths)
@@ -4662,14 +5094,16 @@ def main(argv=None) -> int:
             "replaces": "src/repro/kernels/psram_matmul.py:80",
             "launches": total("psram_matmul_wgmma"),
             "max_abs_err": max(c["max_abs_err"] for c in [b_main] + b_prefill + wgmma_small
-                               + [c for c in served_matmul if c["route"] == "wgmma"]),
+                               + [c for c in served_matmul + paged_matmul
+                                  if c["route"] == "wgmma"]),
             "ms": b_main["ms"], "plain_ms": b_main["plain_ms"],
             "bound_ms": b_main["bound_ms"], "bound_by": b_main["bound_by"],
             "library_ms": b_main["library_ms"],
             "library": "torch._int_mm + ADC",
             "tolerance": "bit-equal to the plain version and to the tile route (seeded "
                          "shapes, the prefill's four shapes at M = 8192, and the served "
-                         "model's layer-0 operands in a prefill)",
+                         "model's layer-0 operands in a prefill); bit-equal to the plain "
+                         "version on the paged loop's layer-0 prefill at bucket 128",
             "shape": b_main["shape"], "tile_ms": b_main["tile_ms"],
             "per_shape": [{k: c[k] for k in ("shape", "ms", "tile_ms", "bound_ms", "plain_ms",
                                              "library_ms", "tops")}
@@ -4702,13 +5136,15 @@ def main(argv=None) -> int:
             "replaces": "src/repro/kernels/psram_matmul.py:80",
             "launches": total("psram_matmul_decode"),
             "max_abs_err": max(c["max_abs_err"] for c in b_decode + b_decode_small
-                               + [c for c in served_matmul if c["route"] == "decode"]),
+                               + [c for c in served_matmul + paged_matmul
+                                  if c["route"] == "decode"]),
             "ms": b_decode[2]["ms"], "plain_ms": b_decode[2]["plain_ms"],
             "bound_ms": b_decode[2]["bound_ms"], "bound_by": b_decode[2]["bound_by"],
             "library_ms": b_decode[2]["library_ms"], "library": b_decode[2]["library"],
             "tolerance": "bit-equal to the plain version and to the tile route (seeded "
                          "shapes, every cluster size, and the served model's layer-0 "
-                         "operands in a decode step)",
+                         "operands in a decode step); bit-equal to the plain version on the "
+                         "paged loop's layer-0 prefill at bucket 8 and decode step",
             "shape": b_decode[2]["shape"], "tile_ms": b_decode[2]["tile_ms"],
             "per_shape": [{k: c[k] for k in ("shape", "cluster", "ms", "tile_ms", "bound_ms",
                                              "library_ms")} for c in b_decode],

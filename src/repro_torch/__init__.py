@@ -15,7 +15,8 @@ registry with the ``"exact"``, ``"psram-oracle"``, ``"psram-scheduled"``,
 ``"psram-stream"`` (the quantized chain, eager and compiled), ``"hopper"``
 (dense data and ``compiled=False`` included) and ``"analytical"``
 backends, ``api`` (estimate / execute / mttkrp / matmul), the dense decoder family (``models``, ``configs``,
-``core.photonic_layer``), ``serve.ServeEngine`` and ``launch.serve``,
+``core.photonic_layer``), ``serve`` (``ServeEngine``, the offload reports
+and the paged serve loop) and ``launch.serve``,
 ``obs`` (the tracer with device-true spans and stopwatch, the instrumented
 backends, the schedule-IR timelines and the drift auditor), and
 six hand-written CUDA kernels (``kernels/csrc``), one for every Pallas

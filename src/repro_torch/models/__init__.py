@@ -6,8 +6,8 @@ full, partial and M-RoPE, softcaps, sliding windows, sandwich norms, tied
 and scaled embeddings, token-choice top-k experts with position-priority
 capacity, the chunked SSD scan and its recurrent decode, the pSRAM
 projection and expert paths), ``encdec`` (the encoder-decoder family) and
-``registry``. Still to come from the reference package: the paged prefill
-(ROADMAP Queue A item 8), the training loss and the sharding specs (item 9).
+``registry``. Still to come from the reference package: the training loss
+and the sharding specs (ROADMAP Queue A item 9).
 """
 from . import encdec, transformer
 from .config import ArchConfig

@@ -10,10 +10,10 @@ effect here.
 
 Ported: ``param_defs``, ``init``, ``cache_defs``, ``init_cache``,
 ``_positions`` (M-RoPE's three streams included), ``_embed``, ``_unembed``,
-``forward``, ``prefill``, ``decode_step_deltas``, ``decode_step``. Still to
-come from the reference module: ``prefill_paged`` (with the paged serve
-loop, ROADMAP Queue A item 8), ``loss_fn``/``cross_entropy`` (with training,
-item 9) and ``param_specs``/``cache_specs`` (sharding, item 9).
+``forward``, ``prefill``, ``prefill_paged`` (the paged serve loop's),
+``decode_step_deltas``, ``decode_step``. Still to come from the reference
+module, with ROADMAP Queue A item 9: ``loss_fn``/``cross_entropy``
+(training) and ``param_specs``/``cache_specs`` (sharding).
 
 ``prefill`` pads the attention ``k``/``v`` leaves out to ``cache_len``,
 chosen by their keys. The reference chooses them by shape (``ndim == 5``
@@ -133,6 +133,35 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int):
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _unembed(params, x[:, -1:, :], cfg)
     return logits[:, 0], caches
+
+
+def prefill_paged(params, tokens, cfg: ArchConfig, last):
+    """Prefill for the paged serve loop: returns (logits (B, V) at position
+    ``last``, UNPADDED caches).
+
+    Prompts arrive right-padded to a bucket, so the next-token logits live
+    at ``last = prompt_len - 1`` (an int or a 0-d tensor), not at ``-1``
+    like :func:`prefill`; causality makes the pad tail invisible to position
+    ``last``. The caches keep the bucket length ``S_pad`` — a list over
+    groups of ``{"layer<i>": {"k", "v"}}``, each ``(B, S_pad, Hkv, hd)``, as
+    the model wrote them — and the caller scatters the first ``prompt_len``
+    token slots into its page slab, so there is no ``cache_len`` padding.
+    The final norm and the head run on row ``last`` alone (both act row by
+    row, so the values are those of the whole sequence's row ``last``).
+    """
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg)
+    pos = _positions(cfg, b, s, x.device)
+    caches = []
+    for p_group in params["blocks"]:
+        x, group_cache = group_fwd(p_group, x, cfg, pos, collect_cache=True)
+        caches.append(group_cache)
+    if isinstance(last, torch.Tensor):      # no host sync for a device index
+        x = x.index_select(1, last.to(device=x.device, dtype=torch.long).reshape(1))
+    else:
+        x = x[:, int(last):int(last) + 1]
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _unembed(params, x, cfg)[:, 0], caches
 
 
 def decode_step_deltas(params, cache, token, cache_pos, cfg: ArchConfig):

@@ -84,9 +84,12 @@ The spans and counters the port emits today, at the reference's sites:
   (dead, n_arrays) and ``fault/mesh/redrive`` (array, nnz, rows) with
   ``fault/arrays_lost`` and ``fault/recovered_rows`` — ``faults.degraded``.
 
-Still to come, with the modules that emit them: the serving loop's
-``serve/admit`` / ``prefill`` / ``decode`` / ``offload`` / ``evict`` spans
-and counters (ROADMAP Queue A item 8).
+The paged serve loop: ``serve/admit`` (queued), ``serve/offload``
+(batch), ``serve/evict`` (rid), ``serve/fail`` (rid, reason) and the
+stopwatches ``serve/prefill`` (rid, prompt) and ``serve/decode`` (batch,
+view), with the counters ``serve/admitted``, ``serve/rejected``,
+``serve/preempted``, ``serve/prefills``, ``serve/decode_steps``,
+``serve/tokens`` and ``serve/failed`` — ``serve.loop``.
 
 The tracer is zero-cost when disabled: ``span()`` returns a shared no-op
 context manager without reading a clock or touching the card (overhead

@@ -1,11 +1,28 @@
-"""repro_torch.serve — batched serving of the dense decoder family.
+"""repro_torch.serve — serving every decoder family, batched and live.
 
-Ported: ``engine`` (``ServeEngine``, ``make_prefill``, ``make_serve_step``).
-Still to come from the reference package, all with ROADMAP Queue A item 8:
-``engine.offload_report`` (it prices through ``api.estimate``, which is
-ported) and the paged serve loop (``kv_cache``, ``loop``, ``scheduler``,
-``traffic``).
+A port of ``repro.serve``: ``engine`` (``ServeEngine``, ``make_prefill`` —
+dense and ``paged=True`` — ``make_serve_step``, ``offload_report``), the
+paged serve loop (``loop``, ``kv_cache``, ``scheduler``, ``traffic``) and
+the package's forwarding of the removed adapters' names to ``engine``'s
+pointed ``AttributeError``. Still to come: ``ServeEngine``'s ``mesh`` /
+``sharding_rules`` arguments, with ``dist`` (ROADMAP Queue A item 9).
 """
-from .engine import ServeEngine, make_prefill, make_serve_step
+from .engine import ServeEngine, make_prefill, make_serve_step, offload_report
+from .kv_cache import PagedCacheConfig, PagedKVManager, gather_cache
+from .loop import RequestRecord, ServeLoop, ServeLoopConfig, ServeReport
+from .scheduler import BatchPrice, OffloadDecision, OffloadScheduler
+from .traffic import Request, TrafficConfig, generate
 
-__all__ = ["ServeEngine", "make_prefill", "make_serve_step"]
+__all__ = [
+    "BatchPrice", "OffloadDecision", "OffloadScheduler", "PagedCacheConfig",
+    "PagedKVManager", "Request", "RequestRecord", "ServeEngine", "ServeLoop",
+    "ServeLoopConfig", "ServeReport", "TrafficConfig", "gather_cache", "generate",
+    "make_prefill", "make_serve_step", "offload_report",
+]
+
+
+def __getattr__(name):
+    # forward removed-adapter lookups to engine's pointed AttributeError
+    from . import engine
+
+    return getattr(engine, name)

@@ -74,8 +74,11 @@ def test_serve_step_deltas_leave_the_cache(served):
     lg, cache = make_serve_step(cfg)(params, cache, tok, PROMPT)
     assert torch.equal(lg, lg_d)
     assert torch.equal(cache[0]["layer0"]["k"][:, PROMPT:PROMPT + 1], deltas[0]["layer0"]["k"])
-    with pytest.raises(NotImplementedError, match="paged"):
-        make_prefill(cfg, paged=True)
+    # the paged prefill (the serve loop's) runs; its parity tests are in
+    # test_torch_serve_loop.py
+    lg_p, caches = make_prefill(cfg, paged=True)(params, torch.tensor(prompts), PROMPT - 1)
+    torch.testing.assert_close(lg_p, logits, rtol=1e-6, atol=1e-6 * float(logits.abs().max()))
+    assert torch.equal(caches[0]["layer0"]["k"], cache[0]["layer0"]["k"][:, :PROMPT])
 
 
 @pytest.mark.parametrize("arch", ["mamba2_370m", "jamba_1p5_large"])
