@@ -243,6 +243,19 @@ What it does, in order — any failure raises and the run exits non-zero:
    and ``compiled=False``, ``exact``, ``psram-stream`` eager and compiled),
    beside the traced split of the same backends, and the parts of a
    ``hopper`` sweep timed alone.
+6. ``main_path_train`` — training on the card: granite-8b at full width
+   (bf16, d 4096, ff 14336, vocab 49152), its depth cut to 8 of 36 layers
+   (AdamW's state is 16 B a parameter: the whole model's ~132 GB does not
+   fit 80 GB), chunked attention and remat (``"dots"``), as the reference
+   trains; ``Trainer`` on the port's data stream, batch 4 x 1024 tokens, 24
+   steps of AdamW, the counts zeroed before and read after (no hand-written
+   kernel is on this path; every count must read 0): the losses (finite,
+   the last 5 steps' mean under the first 5's by 1.0), ms a step, tokens/s,
+   ``6 N T / t`` beside the bf16 peak (labelled, no gain claimed),
+   stragglers, peak memory beside the reckoned state, one step under
+   ``torch.profiler``; then 3 steps with error feedback at the same size;
+   then at ``reduced()`` (f32) a train step on the card against the CPU and
+   a checkpoint resume on the card, bit-equal.
 
 TF32 is switched off for matmuls and cuDNN before anything runs: the plain
 versions of the dense MTTKRP and flash kernels are f32 matrix products.
@@ -364,6 +377,18 @@ PAGED_TOKENS_CHECKED = 8                  # completed requests held against gene
 # step, one row's one-slot fault reads 0.0497 on an H100 (paged_vs_dense)
 PAGED_STEP_TOL = 0.05
 PAGED_POISON = 64.0                       # what fills the slots a step must not read
+# main_path_train: granite-8b at full width trained by Trainer, its depth cut
+# so AdamW's state (16 B a parameter: bf16 weights and grads, f32 master, m
+# and v) fits the card: 8 layers are ~2.15 B parameters, ~34 GB of state
+TRAIN_ARCH = "granite_8b"
+TRAIN_LAYERS = 8
+TRAIN_DATA = {"seq_len": 1024, "global_batch": 4, "seed": 0}
+TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 5, "total_steps": 100}
+TRAIN_STEPS = 24
+TRAIN_LOSS_DROP = 1.0                     # the last 5 steps' mean loss under the first 5's by this
+TRAIN_EF_STEPS = 3
+TRAIN_SMALL_DATA = {"seq_len": 64, "global_batch": 4, "seed": 1}
+TRAIN_RESUME_STEPS = 10
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): the
 # port's roofline constants, one source for both
@@ -4204,6 +4229,252 @@ def main_path_paged(torch, zero_counts, read_counts) -> tuple:
     return phase, exact_launches, psram_launches, pressure_launches, cases
 
 
+def tree_pairs(got, want):
+    """``(path, got, want)`` for every per-group tensor of two trees of one
+    layout (``_tree.leaf_sets``)."""
+    from repro_torch._tree import leaf_sets
+
+    ref = dict(leaf_sets(want))
+    for path, leaf in leaf_sets(got):
+        ws = ref[path]
+        for a, b in zip(leaf, ws) if isinstance(leaf, list) else [(leaf, ws)]:
+            yield path, a, b
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, on the host."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def train_card_vs_cpu(torch, cfg) -> dict:
+    """One train step of the reduced ``cfg`` (f32, TF32 off) on the card
+    against the same step on the CPU, from the same params and batch: the
+    loss (<= 1e-5 relative) and every gradient leaf (<= 1e-4 of its max |g|),
+    the CPU tests' tolerances against the reference; the update alone on the
+    CPU's own gradients, master, m and v each <= 1e-6 of its leaf's max; the
+    whole step's loss, grad norm and lr <= 1e-5 relative and its master, the
+    elements beyond 1e-6 of their leaf's max counted (Adam's first update is
+    about lr * sign(g): a gradient under its tolerance may flip it; the
+    embedding's backward adds with atomics on the card) — at most 1e-3 of
+    them, each within 2 lr."""
+    from repro_torch._tree import tree_map
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+    from repro_torch.train import init_train_state, make_loss_fn, make_train_step
+    from repro_torch.train.step import _value_and_grad
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, **TRAIN_SMALL_DATA)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=50)
+    tokens, labels = batch_at_step(dc, 0, device="cpu")
+    batch = {"tokens": tokens, "labels": labels}
+
+    def card(tree):
+        return tree_map(lambda t: t.to("cuda"), tree)
+
+    params = init_train_state(0, cfg, device="cpu")[0]
+    loss_c, grads_c = _value_and_grad(make_loss_fn(cfg), params, batch)
+    loss_g, grads_g = _value_and_grad(make_loss_fn(cfg), card(params), card(batch))
+    out = {"arch": cfg.name, "params": cfg.param_count(), "data": TRAIN_SMALL_DATA,
+           "remat": cfg.remat_policy if cfg.remat else None,
+           "loss_rel_err": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
+           "grad_rel_err_max": max(rel_err(g, c) for _, g, c in tree_pairs(grads_g, grads_c))}
+    _, want, _ = apply_updates(init_state(params), grads_c, oc, param_dtype=torch.float32)
+    _, got, _ = apply_updates(card(init_state(params)), card(grads_c), oc,
+                              param_dtype=torch.float32)
+    out["update_rel_err_max"] = max(rel_err(a, b) for part in ("master", "m", "v")
+                                    for _, a, b in tree_pairs(got[part], want[part]))
+    step = make_train_step(cfg, oc)
+    _, s_c, m_c = step(params, init_state(params), batch)
+    _, s_g, m_g = step(card(params), card(init_state(params)), card(batch))
+    out["metric_rel_err"] = {k: abs(float(m_g[k]) - float(m_c[k])) / abs(float(m_c[k]))
+                             for k in ("loss", "grad_norm", "lr")}
+    far = n = 0
+    worst = 0.0
+    for _, a, b in tree_pairs(s_g["master"], s_c["master"]):
+        d = (a.cpu() - b).abs()
+        far += int((d > 1e-6 * float(b.abs().max())).sum())
+        n += b.numel()
+        worst = max(worst, float(d.max()) / oc.lr)
+    out.update(step_master_elements=n, step_master_beyond_1e6=far, step_master_worst_in_lr=worst)
+    if not (out["loss_rel_err"] <= 1e-5 and out["grad_rel_err_max"] <= 1e-4
+            and out["update_rel_err_max"] <= 1e-6
+            and max(out["metric_rel_err"].values()) <= 1e-5 and worst <= 2.0 and far <= 1e-3 * n):
+        raise AssertionError(f"the reduced train step on the card is not the CPU's: {out}")
+    return out
+
+
+def train_resume_on_card(torch, cfg) -> dict:
+    """``Trainer`` on the reduced ``cfg`` on the card with a checkpoint
+    directory (a temporary one): ``TRAIN_RESUME_STEPS`` steps, saved every 5
+    and at the end, then a second ``Trainer`` on the same directory, which
+    must resume at that step with the params and optimizer state bit-equal
+    to the first one's."""
+    from repro_torch._tree import leaves
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, **TRAIN_SMALL_DATA)
+    oc = AdamWConfig(lr=1e-3)
+    with tempfile.TemporaryDirectory() as td:
+        first = Trainer(cfg, dc, opt_cfg=oc, ckpt_dir=td, ckpt_every=5, device="cuda")
+        losses = first.run(TRAIN_RESUME_STEPS, log_every=10 ** 9, log_fn=lambda *_: None)
+        second = Trainer(cfg, dc, opt_cfg=oc, ckpt_dir=td, device="cuda")
+        out = {"steps": TRAIN_RESUME_STEPS, "losses": losses,
+               "committed_steps": first.ckpt.committed_steps(),
+               "resumed_at": second.start_step,
+               "params_bit_equal": all(torch.equal(a, b) for a, b in
+                                       zip(leaves(first.params), leaves(second.params))),
+               "opt_state_bit_equal": all(torch.equal(a, b) for a, b in
+                                          zip(leaves(first.opt_state), leaves(second.opt_state))),
+               "on_device": {str(t.device) for t in leaves(second.params)} == {"cuda:0"}}
+    if not (out["resumed_at"] == TRAIN_RESUME_STEPS and out["params_bit_equal"]
+            and out["opt_state_bit_equal"] and out["on_device"]):
+        raise AssertionError(f"the trainer did not resume its checkpoint on the card: {out}")
+    return out
+
+
+_MATMUL_KERNELS = ("nvjet", "gemm", "cutlass", "xmma")
+
+
+def train_profile(torch, trainer, step: int) -> dict:
+    """One train step (the batch of ``step``) under ``torch.profiler``
+    (:func:`device_profile`), its busy time split into the matrix products
+    (cuBLAS's kernels) and the rest; then AdamW's update alone
+    (``optim.apply_updates`` on zero bf16 grads, CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch._tree import tree_map
+    from repro_torch.data import batch_at_step
+    from repro_torch.optim import apply_updates
+
+    tokens, labels = batch_at_step(trainer.data_cfg, step, device="cuda")
+    batch = {"tokens": tokens, "labels": labels}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.params, trainer.opt_state, _ = trainer.step_fn(trainer.params,
+                                                              trainer.opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    out = {"steps": 1, **device_profile(torch, prof, wall_ms, 1, "_per_step")}
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(k in e.key for k in _MATMUL_KERNELS)]
+    out["matmul_ms_per_step"] = sum(getattr(e, "self_device_time_total", None)
+                                    or e.self_cuda_time_total for e in kernels) / 1e3
+    out["matmul_launches_per_step"] = sum(e.count for e in kernels)
+    zeros = tree_map(torch.zeros_like, trainer.params)
+    out["optimizer_ms"] = time_ms(torch, lambda: apply_updates(
+        trainer.opt_state, zeros, trainer.opt_cfg), warmup=1, iters=3, reps=1)
+    return out
+
+
+def main_path_train(torch, zero_counts, read_counts) -> tuple:
+    """The ``main_path_train`` phase: granite-8b at full width (d 4096, ff
+    14336, 32 / 8 heads, vocab 49152, bf16), its depth cut to
+    ``TRAIN_LAYERS`` of 36, with the reference's training settings (chunked
+    attention, remat with the ``"dots"`` policy), trained by ``Trainer`` on
+    the port's data stream (``TRAIN_DATA``) for ``TRAIN_STEPS`` steps of
+    AdamW (``TRAIN_OPT``), the counts zeroed before and read after (no
+    hand-written kernel is on this path: every count must read 0). Reports
+    the losses, ms a step (the ``train/step`` stopwatch; median after the
+    first two), tokens/s, ``6 N T / t`` beside the bf16 peak (labelled, no
+    gain claimed), stragglers, the phase's own peak device memory (what
+    earlier phases left on the card subtracted) beside the state reckoned
+    at 16 B a parameter, and one step under ``torch.profiler``. Then, the
+    first trainer freed, ``TRAIN_EF_STEPS`` steps with error feedback at
+    the same size. Then at ``reduced()``: a step on the card against the
+    CPU (:func:`train_card_vs_cpu`) and a checkpoint resume on the card
+    (:func:`train_resume_on_card`). Gates: every loss finite, the mean of
+    the last 5 steps under the first 5's by ``TRAIN_LOSS_DROP``.
+    ``(phase, launches of the run, of the profiled step, of the EF run)``."""
+    import gc
+
+    from repro_torch.data import DataConfig
+    from repro_torch.models import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS,
+                              attention_impl="chunked", remat=True, remat_policy="dots")
+    n_params = cfg.param_count()
+    tokens = TRAIN_DATA["global_batch"] * TRAIN_DATA["seq_len"]
+    dc = DataConfig(vocab_size=cfg.vocab_size, **TRAIN_DATA)
+    oc = AdamWConfig(**TRAIN_OPT)
+    quiet = {"log_every": 10 ** 9, "log_fn": lambda *_: None}
+
+    def release():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def run_summary(trainer, losses, skip):
+        ms = [1e3 * t for t in trainer.step_times]
+        med = statistics.median(ms[skip:])
+        return {"losses": losses, "step_ms": ms, "step_ms_median": med,
+                "tokens_per_s": tokens / (med / 1e3),
+                "stragglers": trainer.stragglers,
+                "device_bytes_peak": torch.cuda.max_memory_allocated() - base}
+
+    release()
+    base = torch.cuda.memory_allocated()      # what earlier phases left on the card
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, dc, opt_cfg=oc, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() - base
+    zero_counts()
+    losses = trainer.run(TRAIN_STEPS, **quiet)
+    launches = read_counts()
+    plain = run_summary(trainer, losses, 2)
+    flops = 6 * n_params * tokens / (plain["step_ms_median"] / 1e3)
+    plain.update(first5_mean=statistics.fmean(losses[:5]), last5_mean=statistics.fmean(losses[-5:]),
+                 model_flops_per_s=flops, model_flops_share_of_bf16_peak=flops / BF16_FLOPS_PER_S,
+                 resident_bytes_after_init=resident, launches=launches)
+    zero_counts()
+    plain["profile"] = train_profile(torch, trainer, TRAIN_STEPS)
+    profile_launches = read_counts()
+    # the profiler's own cost inflates its window's host time: the card's
+    # idle share of an unprofiled step, from the same busy time
+    plain["idle_share_of_step"] = 1 - (plain["profile"]["device_busy_ms_per_step"]
+                                       / plain["step_ms_median"])
+    del trainer
+    release()
+
+    trainer = Trainer(cfg, dc, opt_cfg=oc, error_feedback=True, device="cuda")
+    zero_counts()
+    ef_losses = trainer.run(TRAIN_EF_STEPS, **quiet)
+    ef_launches = read_counts()
+    ef = run_summary(trainer, ef_losses, 1)
+    ef["step_ms_over_plain"] = ef["step_ms_median"] / plain["step_ms_median"]
+    del trainer
+    release()
+
+    small = dataclasses.replace(get_config(TRAIN_ARCH).reduced(), attention_impl="chunked",
+                                remat=True, remat_policy="dots")
+    phase = {
+        "phase": "main_path_train", "arch": TRAIN_ARCH, "layers": cfg.num_layers,
+        "params": n_params, "dtype": cfg.dtype, "remat": cfg.remat_policy,
+        "attention_impl": cfg.attention_impl, "data": TRAIN_DATA, "opt": TRAIN_OPT,
+        "state_bytes_reckoned": 16 * n_params, "init_s": init_s, "tokens_per_step": tokens,
+        "device_bytes_before": base,
+        "bf16_peak_flops_per_s": BF16_FLOPS_PER_S, "loss_drop_gate": TRAIN_LOSS_DROP,
+        "plain": plain, "error_feedback": ef,
+        "reduced_card_vs_cpu": train_card_vs_cpu(torch, small),
+        "reduced_resume": train_resume_on_card(torch, small),
+    }
+    if not all(math.isfinite(x) for x in losses + ef_losses):
+        raise AssertionError(f"a training loss is not finite: {phase}")
+    if not plain["last5_mean"] < plain["first5_mean"] - TRAIN_LOSS_DROP:
+        raise AssertionError(f"the loss did not fall by {TRAIN_LOSS_DROP}: {phase}")
+    if any(n for counts in (launches, profile_launches, ef_launches) for n in counts.values()):
+        raise AssertionError(f"the training path launched a hand-written kernel: {phase}")
+    return phase, launches, profile_launches, ef_launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--nnz", type=int, default=16_777_216,
@@ -5035,6 +5306,12 @@ def main(argv=None) -> int:
     }
     emit(report["sweep_time"])
 
+    # 6. main_path_train: granite-8b at full width trained on the card -----
+    train_path, train_launches, train_profile_launches, train_ef_launches = main_path_train(
+        torch, zero_counts, read_counts)
+    report["main_path_train"] = train_path
+    emit(train_path)
+
     # the contract's kernel table -------------------------------------------
     def mean(key, cases=a_main):
         return statistics.fmean(c[key] for c in cases)
@@ -5046,7 +5323,7 @@ def main(argv=None) -> int:
                   moe_exact_launches, moe_psram_launches, ssm_exact_launches,
                   ssm_psram_launches, encdec_exact_launches, encdec_psram_launches,
                   mrope_launches, paged_exact_launches, paged_psram_launches,
-                  paged_pressure_launches)
+                  paged_pressure_launches, train_launches, train_ef_launches)
 
     def total(name):
         return sum(counts[name] for counts in main_paths)

@@ -17,6 +17,7 @@ caller converts its arrays with ``numpy.asarray`` first.
 * :func:`model_params` / :func:`model_cache` — a model's parameters / cache
   (every family), from the reference's pytrees as nested dicts of numpy
   arrays.
+* :func:`train_state` — an AdamW state (``optim.init_state``'s layout).
 """
 from __future__ import annotations
 
@@ -156,3 +157,12 @@ def model_cache(tree, device="cuda") -> list:
     (an SSM state after a prefill is f32)."""
     n = np.asarray(next(iter(next(iter(tree.values())).values()))).shape[0]
     return _split_groups(tree, n, device)
+
+
+def train_state(tree, device="cuda") -> dict:
+    """The reference's AdamW state ``{"master", "m", "v", "step"}`` as the
+    port's. The port keeps the reference's layout (per-group leaves stacked
+    ``(G, ...)``, a factored second moment as ``{"row", "col"}``), so every
+    leaf carries over as it is, dtype included (a bf16 ``m`` bit for bit;
+    ``step`` a 0-d int32)."""
+    return _tree(tree, device)

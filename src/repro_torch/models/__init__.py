@@ -5,9 +5,9 @@ Ported: ``config`` (``ArchConfig`` whole), ``layers``, ``blocks``, ``moe``,
 full, partial and M-RoPE, softcaps, sliding windows, sandwich norms, tied
 and scaled embeddings, token-choice top-k experts with position-priority
 capacity, the chunked SSD scan and its recurrent decode, the pSRAM
-projection and expert paths), ``encdec`` (the encoder-decoder family) and
-``registry``. Still to come from the reference package: the training loss
-and the sharding specs (ROADMAP Queue A item 9).
+projection and expert paths; the training loss and remat), ``encdec`` (the
+encoder-decoder family) and ``registry``. Still to come from the reference
+package: the sharding specs (ROADMAP Queue A item 9b).
 """
 from . import encdec, transformer
 from .config import ArchConfig

@@ -13,11 +13,13 @@ and loops over them, and the cache as a list over decoder layers of
 
 Ported: ``param_defs``, ``init``, ``_cross_attention``, ``_cross_kv``,
 ``encode``, ``_decoder_fwd``, ``_head``, ``forward``, ``prefill``,
-``cache_defs``, ``init_cache``, ``decode_step``. ``frame_proj`` and the
-head are plain matrix products (never pSRAM), as in the reference; every
-other projection goes through ``layers._proj``. Still to come from the
-reference module: ``loss_fn`` (with training, ROADMAP Queue A item 9) and
-``param_specs``/``cache_specs`` (sharding, item 9).
+``cache_defs``, ``init_cache``, ``decode_step``, ``loss_fn``. ``frame_proj``
+and the head are plain matrix products (never pSRAM), as in the reference;
+every other projection goes through ``layers._proj``. ``cfg.remat`` has no
+effect here, as in the reference (its encoder-decoder scans without
+``jax.checkpoint``). Still to come from the reference module, with
+``dist.sharding`` (ROADMAP Queue A item 9b): ``param_specs`` and
+``cache_specs``.
 """
 from __future__ import annotations
 
@@ -146,6 +148,13 @@ def forward(params, frames, tokens, cfg: ArchConfig):
     enc_out = encode(params, frames, cfg)
     x, _ = _decoder_fwd(params, tokens, enc_out, cfg)
     return _head(params, x, cfg)
+
+
+def loss_fn(params, frames, tokens, labels, cfg: ArchConfig):
+    """Cross-entropy of the decoder's next-token logits (negative labels are
+    padding), ``transformer.cross_entropy``."""
+    from .transformer import cross_entropy
+    return cross_entropy(forward(params, frames, tokens, cfg), labels)
 
 
 def prefill(params, frames, tokens, cfg: ArchConfig, cache_len: int):

@@ -16,11 +16,14 @@ Port of the reference module whole: ``ssm_defs``, ``_split_in``,
 ``ssm_cache_defs``, ``ssm_decode``. The reference's inter-chunk
 ``lax.scan`` is a loop over the chunks; its ``dist.sharding.hint``
 annotations have no counterpart until the port has a mesh (ROADMAP Queue A
-item 9). Every SSD contraction is f32 with TF32 off (``_device.ieee_f32``),
+item 9b). Every SSD contraction is f32 with TF32 off (``_device.ieee_f32``),
 so the card keeps the reference's ~1e-5. The reference's four-operand
-einsums are taken two operands at a time, and the ``(B, chunks, H, q, q)``
-weights are built in place: at most two such tensors live at once (in
-``_segsum``, the differences and their masked copy).
+einsums are taken two operands at a time, and where autograd is not
+recording (serving runs under ``torch.inference_mode``) the ``(B, chunks,
+H, q, q)`` weights are built in place: at most two such tensors live at
+once (in ``_segsum``, the differences and their masked copy). While
+autograd records, they are built out of place, since ``exp``'s backward
+reads its output.
 """
 from __future__ import annotations
 
@@ -111,9 +114,13 @@ def ssd_chunked(x, dt, a, b, c, chunk: int):
     # 1. intra-chunk (diagonal blocks): quadratic attention-like term,
     #    "bcqk,bchqk,bckh,bckhp->bcqhp" as one (B,nc,H,q,q) weight tensor
     #    and a batched product over k
-    wts = _segsum(da.permute(0, 1, 3, 2)).exp_()                  # (B,nc,H,q,q)
-    cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)                  # (B,nc,q,q)
-    wts.mul_(cb[:, :, None]).mul_(dtc.permute(0, 1, 3, 2)[:, :, :, None, :])
+    wts = _segsum(da.permute(0, 1, 3, 2))                         # (B,nc,H,q,q)
+    cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)[:, :, None]      # (B,nc,1,q,q)
+    dtk = dtc.permute(0, 1, 3, 2)[:, :, :, None, :]               # (B,nc,H,1,q)
+    if torch.is_grad_enabled():  # autograd saves exp's output: no writes into it
+        wts = wts.exp() * cb * dtk
+    else:
+        wts.exp_().mul_(cb).mul_(dtk)
     y_diag = torch.einsum("bchqk,bckhp->bcqhp", wts, xc)
     del wts
 

@@ -1,19 +1,28 @@
 """Decoder-only LM assembled from block groups.
 
 Covers the families dense, moe, hybrid (jamba) and ssm (mamba2). Provides
-``param_defs / init / forward / prefill / decode`` — the serve steps in
-``serve/`` wrap these. The reference scans stacked ``(G, ...)`` group
-params with ``lax.scan``; the port keeps one param dict per group in
-``params["blocks"]`` (a list) and loops over it, and likewise one cache dict
-per group. ``cfg.scan_layers``/``remat``/``remat_policy`` therefore have no
-effect here.
+``param_defs / init / forward / loss_fn / prefill / decode`` — the train
+step in ``train/`` and the serve steps in ``serve/`` wrap these. The
+reference scans stacked ``(G, ...)`` group params with ``lax.scan``; the
+port keeps one param dict per group in ``params["blocks"]`` (a list) and
+loops over it, and likewise one cache dict per group
+(``cfg.scan_layers`` therefore has no effect here).
+
+``cfg.remat`` checkpoints each group of ``forward`` while autograd records,
+as the reference wraps its scanned body in ``jax.checkpoint``:
+``remat_policy="nothing"`` recomputes the whole group in the backward pass
+(``nothing_saveable``); ``"dots"`` saves the outputs of the unbatched
+matrix products — ``aten.mm`` / ``addmm``, the projections, which is what
+``dots_with_no_batch_dims_saveable`` keeps — and recomputes the rest, the
+batched attention products (``bmm``) included.
 
 Ported: ``param_defs``, ``init``, ``cache_defs``, ``init_cache``,
 ``_positions`` (M-RoPE's three streams included), ``_embed``, ``_unembed``,
-``forward``, ``prefill``, ``prefill_paged`` (the paged serve loop's),
-``decode_step_deltas``, ``decode_step``. Still to come from the reference
-module, with ROADMAP Queue A item 9: ``loss_fn``/``cross_entropy``
-(training) and ``param_specs``/``cache_specs`` (sharding).
+``forward`` (remat included), ``loss_fn``, ``cross_entropy``, ``prefill``,
+``prefill_paged`` (the paged serve loop's), ``decode_step_deltas``,
+``decode_step``. Still to come from the reference module, with
+``dist.sharding`` (ROADMAP Queue A item 9b): ``param_specs`` and
+``cache_specs``.
 
 ``prefill`` pads the attention ``k``/``v`` leaves out to ``cache_len``,
 chosen by their keys. The reference chooses them by shape (``ndim == 5``
@@ -23,9 +32,12 @@ its next decode step then fails; the port leaves SSM leaves as they are.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch._device import as_device
 
@@ -93,15 +105,55 @@ def _unembed(params, x, cfg: ArchConfig):
     return logits
 
 
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep unbatched products, recompute the rest."""
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _group_out(p_group, x, cfg: ArchConfig, pos):
+    return group_fwd(p_group, x, cfg, pos)[0]
+
+
+def _run_group(p_group, x, cfg: ArchConfig, pos):
+    """One group of ``forward``, checkpointed as ``cfg.remat`` asks while
+    autograd records."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return _group_out(p_group, x, cfg, pos)
+    if cfg.remat_policy == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts, _save_products)
+        return checkpoint(_group_out, p_group, x, cfg, pos, use_reentrant=False,
+                          context_fn=context)
+    return checkpoint(_group_out, p_group, x, cfg, pos, use_reentrant=False)
+
+
 def forward(params, tokens, cfg: ArchConfig):
     """tokens: (B, S) int -> logits (B, S, V) f32."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     pos = _positions(cfg, b, s, x.device)
     for p_group in params["blocks"]:
-        x, _ = group_fwd(p_group, x, cfg, pos)
+        x = _run_group(p_group, x, cfg, pos)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _unembed(params, x, cfg)
+
+
+def loss_fn(params, tokens, labels, cfg: ArchConfig):
+    """Causal LM cross-entropy (labels = next tokens, negative = pad)."""
+    return cross_entropy(forward(params, tokens, cfg), labels)
+
+
+def cross_entropy(logits, labels):
+    """Mean of ``logsumexp(logits) - logits[label]`` over the positions
+    whose label is >= 0 (a 0-d f32 tensor; 0 where none is)."""
+    valid = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    return ((lse - picked) * valid).sum() / valid.sum().clamp_min(1)
 
 
 def _pad_seq(a, cache_len):

@@ -37,9 +37,8 @@ Span-naming convention — ``layer/component/detail``, slash-separated, three
 levels, lowercase:
 
 * **layer** — the subsystem: ``backend``, ``schedule``, ``stream``,
-  ``mesh``, ``autotune``, ``fault``, ``als``, ``serve``, ``obs`` (the
-  reference's ``train`` and ``bench`` layers come with the modules that
-  emit them).
+  ``mesh``, ``autotune``, ``fault``, ``als``, ``serve``, ``train``, ``obs``
+  (the reference's ``bench`` layer comes with the module that emits it).
 * **component** — the object or phase within it: a backend name
   (``backend/psram-stream/...``), an executor (``schedule/execute``), a
   loop phase (``als/sweep``).
@@ -67,6 +66,7 @@ The spans and counters the port emits today, at the reference's sites:
   n, ops) with ``schedule/reference_ops`` — ``core.schedule``;
 * ``serve/generate`` (batch, max_new, arch) — the stopwatch of
   ``launch.serve``;
+* ``train/step`` (step) — the stopwatch of ``train.Trainer``;
 * ``obs/drift/report`` (workloads) — :func:`drift_report`.
 
 * ``autotune/sweep`` (kind, shape, candidates), ``autotune/trial/run``

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` (every module of it) and
 ``chip_smoke`` pulls in neither ``jax`` nor the reference package ``repro``,
-and needs neither ``triton`` nor a CUDA compiler."""
+nor ``ml_dtypes`` (the card's machine has none), and needs neither
+``triton`` nor a CUDA compiler."""
 import pathlib
 import subprocess
 import sys
@@ -20,7 +21,7 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 {extra}
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton", "ml_dtypes"))
 print("LEAKED", bad)
 sys.exit(1 if bad else 0)
 """
