@@ -22,11 +22,12 @@ package loads the other's checkpoints. A bf16 leaf is written as the
 Async: ``save()`` copies the tree to host memory synchronously — the
 train loop is blocked only for the copy, not the I/O — then a daemon thread
 writes it. ``restore()`` reads the newest committed step onto the devices of
-the tree it is handed.
+the tree it is handed, or, given ``shardings=`` (a tree of
+``dist.sharding.NamedSharding``), onto each sharding's mesh device: the
+elastic restore onto a mesh. Shards live on one device (a mesh over several
+cards raises: ROADMAP Queue A item 9c).
 
-Port of the reference module but for ``restore(shardings=)``, the elastic
-re-shard onto a mesh, which comes with ``dist.sharding`` (ROADMAP Queue A
-item 9b).
+Port of the reference module whole.
 """
 from __future__ import annotations
 
@@ -173,11 +174,17 @@ class CheckpointManager:
     def restore(self, like_tree, step: int | None = None, shardings=None):
         """Load into the structure of ``like_tree`` (the newest committed
         step unless ``step`` is given): each leaf in the dtype it was saved
-        in, on the device of the leaf it replaces. Returns ``(tree, step)``."""
+        in, on the device of the leaf it replaces — or, with ``shardings``
+        (a tree of ``NamedSharding`` mirroring ``like_tree``), on the device
+        of its sharding's mesh. Returns ``(tree, step)``."""
+        placed = None
         if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=) re-shards onto a mesh, which comes with dist.sharding "
-                "(ROADMAP Queue A item 9b)")
+            placed = {path: ([s.device for s in sh] if isinstance(sh, list) else sh.device)
+                      for path, sh in leaf_sets(shardings)}
+            if any(d.type == "meta" for v in placed.values()
+                   for d in (v if isinstance(v, list) else [v])):
+                raise ValueError("restore(shardings=) onto a logical (meta) mesh: a "
+                                 "production mesh prices shards, it holds none")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
@@ -207,8 +214,12 @@ class CheckpointManager:
                 raise CheckpointError(
                     f"checkpoint step {step} leaf {name!r} has shape "
                     f"{tuple(arr.shape)}, expected {want}")
-            if isinstance(like, list):
-                values[path] = [_tensor(a, dtype, t.device) for a, t in zip(arr, like)]
+            if placed is None:
+                devices = [t.device for t in like] if isinstance(like, list) else like.device
             else:
-                values[path] = _tensor(arr, dtype, like.device)
+                devices = placed[path]
+            if isinstance(like, list):
+                values[path] = [_tensor(a, dtype, d) for a, d in zip(arr, devices)]
+            else:
+                values[path] = _tensor(arr, dtype, devices)
         return fill(like_tree, values), step

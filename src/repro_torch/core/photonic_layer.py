@@ -10,7 +10,11 @@ Numerically this is the transfer function of ``kernels/psram_matmul.py``
 "programming" time (weights are stationary in the array; only inputs
 stream). :func:`psram_linear` calls that kernel's wrapper on every
 projection: on a CUDA tensor it launches the hand-written kernel, on a CPU
-tensor its plain version.
+tensor its plain version. Where autograd records, the wrapper carries the
+reference's gradient (``psram_matmul_trained``): through the scales only,
+so it reaches ``x`` and the weight through each row's and each column's
+``max|.|`` (split evenly at ties, as ``jnp.max`` splits it), never through
+the int8 codes.
 
 :func:`psram_einsum` is the MoE experts' batched form. The reference
 computes it outside any Pallas kernel (a ``jnp.einsum`` of int32 codes), so
@@ -24,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import ieee_f32
-from repro_torch.kernels.psram_matmul import psram_matmul
+from repro_torch.kernels.psram_matmul import psram_matmul, psram_matmul_trained
 
 from .quantization import ADCConfig, QMAX, adc_requantize, exact_int_matmul, quantize_symmetric
 
@@ -58,7 +62,9 @@ def psram_linear(
     sx = sx.to(torch.float32)
     sw = sw.reshape(1, -1)
     if saturate:
-        y = psram_matmul(qx, qw.contiguous(), sx, sw.contiguous(), adc_bits=adc_bits)
+        recording = torch.is_grad_enabled() and (sx.requires_grad or sw.requires_grad)
+        y = (psram_matmul_trained if recording else psram_matmul)(
+            qx, qw.contiguous(), sx, sw.contiguous(), adc_bits=adc_bits)
     elif x.is_cuda:
         raise ValueError(
             "psram_linear(saturate=False): the psram_matmul kernel's ADC epilogue "

@@ -183,6 +183,50 @@ def psram_matmul(
     return _launch(qx, qw, sx, sw, adc_bits)
 
 
+class _ScalesGrad(torch.autograd.Function):
+    """Kernel 2 with the reference's training gradient: its forward is
+    :func:`psram_matmul`, unchanged; its backward reaches only the scales,
+    as ``jax.grad`` of ``ADC(qx @ qw) * (sx * sw)`` does (the int8 codes
+    come from ``round`` and carry no gradient). With ``a`` the ADC code
+    matrix and ``g`` the output's gradient, ``grad_sx = Σ_n g·a·sw`` and
+    ``grad_sw = Σ_m g·a·sx``, formed as autograd forms them through the
+    plain version (``g·a``, then each scale's product summed to its shape),
+    so on one device the two give the same bits.
+
+    ``a`` is recomputed by kernel 2 with unit scales (``a · (1 · 1)`` is
+    ``a`` exactly), not saved: the recompute is one more launch at the
+    forward's shape, where saving ``a`` would hold an f32 ``M x N`` tensor a
+    projection from the forward to the backward (with a separate launch to
+    form it, since the kernel's one output is the scaled product); the
+    codes ``qx``, ``qw`` it needs are saved anyway (1 byte an element)."""
+
+    @staticmethod
+    def forward(ctx, qx, qw, sx, sw, adc_bits):
+        ctx.save_for_backward(qx, qw, sx, sw)
+        ctx.adc_bits = adc_bits
+        return psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        qx, qw, sx, sw = ctx.saved_tensors
+        need_sx, need_sw = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
+        if not (need_sx or need_sw):
+            return None, None, None, None, None
+        a = psram_matmul(qx, qw, torch.ones_like(sx), torch.ones_like(sw),
+                         adc_bits=ctx.adc_bits)
+        ga = g * a
+        grad_sx = (ga * sw).sum(dim=1, keepdim=True) if need_sx else None
+        grad_sw = (ga * sx).sum(dim=0, keepdim=True) if need_sw else None
+        return None, None, grad_sx, grad_sw, None
+
+
+def psram_matmul_trained(qx, qw, sx, sw, adc_bits: int = 16) -> torch.Tensor:
+    """:func:`psram_matmul` for autograd: the same forward (the kernel on
+    CUDA tensors, the plain version on the CPU), with the reference's
+    scales-only gradient (:class:`_ScalesGrad`); the codes get none."""
+    return _ScalesGrad.apply(qx, qw, sx, sw, adc_bits)
+
+
 def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
             cluster: int = 0) -> torch.Tensor:
     """One launch of kernel 2 on CUDA tensors. ``route`` None takes the

@@ -9,9 +9,10 @@ family the encoder's stub frames too, ``(batch, 4 * prompt_len, d_model)``
 from a seeded ``torch.Generator`` (not JAX's bits). The time is the
 ``obs.stopwatch("serve/generate")`` around ``generate``, which waits for the
 card's queued work on both edges; a ``serve/generate`` span lands in the
-trace whenever tracing is on (``REPRO_TORCH_TRACE=1``). The reference's
-``--model-parallel`` comes with the model meshes of ``dist/`` (ROADMAP
-Queue A item 9).
+trace whenever tracing is on (``REPRO_TORCH_TRACE=1``).
+``--model-parallel N`` serves under ``dist.sharding`` on a ``(n // N, N)``
+host mesh over the visible devices of ``--device``'s type (one device; a
+mesh over several cards raises: ROADMAP Queue A item 9c).
 """
 from __future__ import annotations
 
@@ -26,6 +27,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--model-parallel", type=int, default=0,
+                    help="build a (data, model) host mesh with this model-"
+                         "axis size and serve under use_sharding")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -43,7 +47,12 @@ def main(argv=None):
         cfg = cfg.reduced()
     mod = get_module(cfg)
     params = mod.init(0, cfg, device=dev)
-    eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.max_new, device=dev)
+    mesh = None
+    if args.model_parallel:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(model=args.model_parallel, device=dev)
+    eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.max_new, mesh=mesh,
+                      device=None if mesh is not None else dev)
     prompts = torch.randint(2, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=torch.Generator(device=dev).manual_seed(1),
                             device=dev, dtype=torch.int32)

@@ -5,9 +5,11 @@
 
 Runs on the card unless ``--device cpu`` is given (and raises without
 one). Weights are random from a seed; the data is the synthetic Zipf stream
-of ``data.pipeline``. The reference's ``--model-parallel``, ``--seq-shard``
-and ``--distributed`` train under ``dist.sharding`` on a mesh and come with
-ROADMAP Queue A item 9b; here they raise.
+of ``data.pipeline``. ``--model-parallel N`` trains under ``dist.sharding``
+on a ``(n // N, N)`` host mesh over the visible devices of ``--device``'s
+type, and ``--seq-shard`` lets the leftover model axis land on the sequence
+dim; the mesh must be one device. ``--distributed`` (several processes,
+``torchrun``) raises: it comes with ROADMAP Queue A item 9c.
 """
 from __future__ import annotations
 
@@ -30,19 +32,18 @@ def main(argv=None):
                     help="carry the int8 compression residual across steps "
                          "(EF-SGD; implies --compress-grads semantics)")
     ap.add_argument("--model-parallel", type=int, default=0,
-                    help="a (data, model) mesh with this model-axis size (item 9b)")
+                    help="build a (data, model) host mesh with this model-"
+                         "axis size and train under use_sharding")
     ap.add_argument("--seq-shard", action="store_true",
-                    help="let leftover model axis land on the sequence dim (item 9b)")
+                    help="let leftover model axis land on the sequence dim")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host initialization (item 9b)")
+                    help="several processes, one a card (ROADMAP Queue A item 9c)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    for flag, on in (("--model-parallel", args.model_parallel), ("--seq-shard", args.seq_shard),
-                     ("--distributed", args.distributed)):
-        if on:
-            raise NotImplementedError(f"{flag} trains on a mesh under dist.sharding, which "
-                                      "comes with ROADMAP Queue A item 9b")
+    if args.distributed:
+        raise NotImplementedError("--distributed trains across several processes and cards "
+                                  "(torchrun), which comes with ROADMAP Queue A item 9c")
 
     from repro_torch.data import DataConfig
     from repro_torch.models.registry import get_config
@@ -53,6 +54,10 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch)
+    mesh = None
+    if args.model_parallel:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(model=args.model_parallel, device=args.device)
     trainer = Trainer(
         cfg,
         data_cfg,
@@ -62,7 +67,9 @@ def main(argv=None):
         microbatches=args.microbatches,
         compress_grads=args.compress_grads or args.error_feedback,
         error_feedback=args.error_feedback,
-        device=args.device,
+        mesh=mesh,
+        sharding_rules={"seq": (("model",), ())} if args.seq_shard else None,
+        device=None if mesh is not None else args.device,
     )
     history = trainer.run(args.steps)
     print(f"final loss {history[-1]:.4f} (start {history[0]:.4f}); "

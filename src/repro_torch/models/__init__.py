@@ -6,8 +6,9 @@ full, partial and M-RoPE, softcaps, sliding windows, sandwich norms, tied
 and scaled embeddings, token-choice top-k experts with position-priority
 capacity, the chunked SSD scan and its recurrent decode, the pSRAM
 projection and expert paths; the training loss and remat), ``encdec`` (the
-encoder-decoder family) and ``registry``. Still to come from the reference
-package: the sharding specs (ROADMAP Queue A item 9b).
+encoder-decoder family) and ``registry``; the logical-axis specs of the
+params and caches (``param_specs``, ``cache_specs``, ``layers.specs_of``)
+and the ``dist.sharding.hint`` annotations.
 """
 from . import encdec, transformer
 from .config import ArchConfig

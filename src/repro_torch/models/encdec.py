@@ -17,13 +17,14 @@ Ported: ``param_defs``, ``init``, ``_cross_attention``, ``_cross_kv``,
 and the head are plain matrix products (never pSRAM), as in the reference;
 every other projection goes through ``layers._proj``. ``cfg.remat`` has no
 effect here, as in the reference (its encoder-decoder scans without
-``jax.checkpoint``). Still to come from the reference module, with
-``dist.sharding`` (ROADMAP Queue A item 9b): ``param_specs`` and
-``cache_specs``.
+``jax.checkpoint``). ``param_specs`` and ``cache_specs`` give the
+logical-axis trees in the port's per-layer layout.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.dist.sharding import hint
 
 from .config import ArchConfig
 from .layers import (
@@ -43,6 +44,7 @@ from .layers import (
     mlp_fwd,
     rmsnorm,
     rmsnorm_defs,
+    specs_of,
 )
 from .transformer import _pad_seq, _positions
 
@@ -85,6 +87,10 @@ def init(seed_or_gen, cfg: ArchConfig, device="cuda"):
     return init_params(seed_or_gen, param_defs(cfg), dtype=as_dtype(cfg.dtype), device=device)
 
 
+def param_specs(cfg: ArchConfig):
+    return specs_of(param_defs(cfg))
+
+
 def _cross_attention(p, x, kv, cfg: ArchConfig):
     """Non-causal, non-rotary attention of decoder states into encoder KV."""
     b, s, _ = x.shape
@@ -105,7 +111,7 @@ def _cross_kv(p, enc_out, cfg: ArchConfig):
 def encode(params, frames, cfg: ArchConfig):
     """frames: (B, S, d_model) stub embeddings -> encoder states."""
     b, s, _ = frames.shape
-    x = frames @ params["frame_proj"].to(frames.dtype)
+    x = hint(frames @ params["frame_proj"].to(frames.dtype), ("batch", "seq", None))
     pos = _positions(cfg, b, s, x.device)
     for p in params["encoder"]:
         a, _ = attention_fwd(p["attn"], rmsnorm(p["pre_norm"], x, cfg.norm_eps), cfg, pos,
@@ -174,6 +180,10 @@ def cache_defs(cfg: ArchConfig, batch: int, dec_len: int, enc_len: int):
     return [{"self": attention_cache_defs(cfg, batch, dec_len),
              "cross": attention_cache_defs(cfg, batch, enc_len)}
             for _ in range(cfg.dec_layers)]
+
+
+def cache_specs(cfg: ArchConfig, batch: int, dec_len: int, enc_len: int):
+    return specs_of(cache_defs(cfg, batch, dec_len, enc_len))
 
 
 def init_cache(cfg: ArchConfig, batch: int, dec_len: int, enc_len: int, dtype=None,

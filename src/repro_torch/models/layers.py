@@ -21,10 +21,12 @@ the encoder-decoder family's cross attention, and the self branch, which
 writes the cache in place), ``attention_cache_defs``, ``mlp_defs``,
 ``mlp_fwd``. The reference's ``attention_decode`` options
 ``precomputed_q`` and ``skip_kv_write`` have no caller there or here and
-are left out until one needs them. Still to come from the reference module:
-``stack_defs``/``specs_of``/``shapes_of`` (the scanned, sharded layout) and
-the ``dist.sharding.hint`` annotations, which have no counterpart until the
-port has a mesh (ROADMAP Queue A item 9).
+are left out until one needs them. ``specs_of`` gives a def tree's
+logical-axis tree in the port's layout (lists kept), ``shapes_of`` its
+tensors on the ``meta`` device (the counterpart of ``ShapeDtypeStruct``).
+The reference's ``stack_defs`` (its scanned layout, a leading ``"layers"``
+axis) has no counterpart: the port keeps a list of groups. The
+``dist.sharding.hint`` annotations sit where the reference's do.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch._device import as_device
 from repro_torch.core.photonic_layer import maybe_psram_matmul, psram_linear
 from repro_torch.core.quantization import quantize_symmetric
+from repro_torch.dist.sharding import hint
 
 from .config import ArchConfig
 
@@ -82,6 +85,33 @@ def wdef(cfg, shape, axes):
 
 def is_quantized(w) -> bool:
     return isinstance(w, dict) and set(w) == {"q", "scale"} and not _is_def(w)
+
+
+def _map_defs(fn, defs):
+    if _is_def(defs):
+        return fn(defs)
+    if isinstance(defs, dict):
+        return {name: _map_defs(fn, d) for name, d in defs.items()}
+    if isinstance(defs, (list, tuple)):
+        return [_map_defs(fn, d) for d in defs]
+    raise TypeError(f"not a param def tree: {type(defs).__name__}")
+
+
+def specs_of(defs):
+    """The logical-axis tree of ``defs`` (a tuple of names a leaf)."""
+    return _map_defs(lambda d: d["axes"], defs)
+
+
+def dtypes_of(defs):
+    """Each leaf's own dtype name (None: the model's dtype)."""
+    return _map_defs(lambda d: d["dtype"], defs)
+
+
+def shapes_of(defs, dtype, device="meta"):
+    """The tensors ``defs`` describe, empty on ``device`` (``meta``: shapes
+    and dtypes, no memory), each in its def's dtype or ``dtype``."""
+    return _map_defs(lambda d: torch.empty(d["shape"], dtype=as_dtype(d["dtype"] or dtype),
+                                           device=device), defs)
 
 
 def _init_leaf(gen, d, dtype, device):
@@ -288,6 +318,9 @@ def attention_fwd(
     else:  # cross attention: kv precomputed from the encoder
         k, v = kv_override
     q = apply_rope(q, pos, cfg)
+    q = hint(q, ("batch", "seq", "heads", None))
+    k = hint(k, ("batch", "seq", "kv_heads", None))
+    v = hint(v, ("batch", "seq", "kv_heads", None))
     window = cfg.sliding_window if layer_local else 0
     if cfg.attention_impl == "chunked" and s > cfg.attn_chunk:
         out = _sdpa_chunked(q, k, v, cfg, causal, window)
@@ -295,6 +328,7 @@ def attention_fwd(
         qp = torch.arange(s, device=x.device)[:, None]
         kp = torch.arange(k.shape[1], device=x.device)[None, :]
         out = _sdpa(q, k, v, _mask_bias(qp, kp, causal, window), cfg)
+    out = hint(out, ("batch", "seq", "heads", None))
     y = _proj(out.reshape(b, s, cfg.q_dim), p["wo"], cfg)
     return y, (k, v)
 
@@ -409,6 +443,8 @@ def attention_decode(p, x, cfg: ArchConfig, cache, cache_pos, *, layer_local: bo
             valid &= (cp - k_pos) < cfg.sliding_window
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     bias = torch.where(valid, zero, torch.full_like(zero, NEG_INF))    # (1, Sk)
+    k = hint(k, ("batch", "seq_kv", "kv_heads", None))
+    v = hint(v, ("batch", "seq_kv", "kv_heads", None))
     out = _sdpa(q, k, v, bias, cfg)
     return _proj(out.reshape(b, 1, cfg.q_dim), p["wo"], cfg), cache
 
@@ -444,4 +480,5 @@ def mlp_fwd(p, x, cfg: ArchConfig):
         h = F.gelu(_proj(x, p["wg"], cfg), approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
+    h = hint(h, ("batch", "seq", "ff"))
     return _proj(h, p["wo"], cfg)

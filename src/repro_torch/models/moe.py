@@ -9,11 +9,14 @@ prefill and decode agree whenever no drop occurs (and drops only ever
 remove, never change, earlier tokens' compute).
 
 Static shapes throughout: dispatch/combine are scatter/gather into an
-(E, C, d) buffer, so FLOPs are honest (top_k·capacity_factor per token).
-The reference's ``dist.sharding.hint`` annotations (the expert axis on the
-"model" mesh axis) have no counterpart until the port has a mesh of devices
-(ROADMAP Queue A item 9). With ``psram_stored_int8`` the experts' products
-run through :func:`~repro_torch.core.photonic_layer.psram_einsum`.
+(E, C, d) buffer, so FLOPs are honest (top_k·capacity_factor per token),
+and no tensor's shape depends on the routing (the dispatch sends dropped
+assignments to a sacrificial slot C of an (E, C + 1, d) buffer and slices
+it off), so the block traces on the ``meta`` device. The
+``dist.sharding.hint`` annotations (the expert axis on the "model" mesh
+axis) sit where the reference's do. With ``psram_stored_int8`` the
+experts' products run through
+:func:`~repro_torch.core.photonic_layer.psram_einsum`.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.sharding import hint
 
 from .config import ArchConfig
 from .layers import ddef, is_quantized, wdef
@@ -87,11 +92,14 @@ def moe_fwd(p, x, cfg: ArchConfig, capacity_factor: float | None = "cfg"):
     gates, flat_e, rank, keep = route(p["router"], xt, cfg, c)
 
     # dispatch: each kept assignment's (expert, rank) slot is unique, so the
-    # reference's drop-mode scatter-add into zeros is a plain index_put_ of
-    # the kept rows; dropped assignments never reach the buffer
+    # reference's drop-mode scatter-add into zeros is a plain index_put_;
+    # dropped assignments all land in the sacrificial slot c, sliced off
+    # (which of them lands there last does not matter)
     xa = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
-    xe = xt.new_zeros((e, c, d))
-    xe.index_put_((flat_e[keep], rank[keep]), xa[keep])
+    slot = torch.where(keep, rank, torch.full_like(rank, c))
+    xe = xt.new_zeros((e, c + 1, d))
+    xe.index_put_((flat_e, slot), xa)
+    xe = hint(xe[:, :c], ("experts", None, "embed"))
 
     def expert_mm(spec, a, w):
         if is_quantized(w):
@@ -106,7 +114,8 @@ def moe_fwd(p, x, cfg: ArchConfig, capacity_factor: float | None = "cfg"):
         h = F.gelu(expert_mm("ecd,edf->ecf", xe, p["wg"]), approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
-    ye = expert_mm("ecf,efd->ecd", h, p["wo"])          # (E, C, D)
+    h = hint(h, ("experts", None, "ff"))
+    ye = hint(expert_mm("ecf,efd->ecd", h, p["wo"]), ("experts", None, "embed"))   # (E, C, D)
 
     # combine: each assignment reads its expert row (the reference's
     # fill-mode gather at min(rank, C-1)), weighted by its gate times keep;
@@ -114,4 +123,4 @@ def moe_fwd(p, x, cfg: ArchConfig, capacity_factor: float | None = "cfg"):
     per_assign = ye[flat_e, rank.clamp(max=c - 1)] * (
         gates.reshape(-1, 1).to(ye.dtype) * keep[:, None])
     out = per_assign.reshape(t, k, d).sum(dim=1)
-    return out.reshape(b, s, d)
+    return hint(out.reshape(b, s, d), ("batch", "seq", None))

@@ -14,9 +14,8 @@ O(1) recurrent update with a (conv window, state) cache.
 Port of the reference module whole: ``ssm_defs``, ``_split_in``,
 ``_conv_full``, ``_segsum``, ``ssd_chunked``, ``ssm_fwd``, ``xbc_tail``,
 ``ssm_cache_defs``, ``ssm_decode``. The reference's inter-chunk
-``lax.scan`` is a loop over the chunks; its ``dist.sharding.hint``
-annotations have no counterpart until the port has a mesh (ROADMAP Queue A
-item 9b). Every SSD contraction is f32 with TF32 off (``_device.ieee_f32``),
+``lax.scan`` is a loop over the chunks; its ``dist.sharding.hint`` sits
+where the reference's does. Every SSD contraction is f32 with TF32 off (``_device.ieee_f32``),
 so the card keeps the reference's ~1e-5. The reference's four-operand
 einsums are taken two operands at a time, and where autograd is not
 recording (serving runs under ``torch.inference_mode``) the ``(B, chunks,
@@ -28,6 +27,8 @@ reads its output.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.dist.sharding import hint
 import torch.nn.functional as F
 
 from repro_torch._device import ieee_f32
@@ -153,7 +154,7 @@ def ssm_fwd(p, x, cfg: ArchConfig):
     z, xbc, dt = _split_in(p, x, cfg)
     xbc = _conv_full(p, xbc, cfg)
     xin, b, c = torch.split(xbc, [di, n, n], dim=-1)
-    xin = xin.reshape(bsz, s, hds, hp)
+    xin = hint(xin.reshape(bsz, s, hds, hp), ("batch", "seq", "heads", None))
     dt = _softplus(dt + p["dt_bias"])                             # (B,S,H)
     a = -torch.exp(p["a_log"].to(torch.float32))                  # (H,)
     f32 = torch.float32

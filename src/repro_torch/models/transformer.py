@@ -20,9 +20,8 @@ Ported: ``param_defs``, ``init``, ``cache_defs``, ``init_cache``,
 ``_positions`` (M-RoPE's three streams included), ``_embed``, ``_unembed``,
 ``forward`` (remat included), ``loss_fn``, ``cross_entropy``, ``prefill``,
 ``prefill_paged`` (the paged serve loop's), ``decode_step_deltas``,
-``decode_step``. Still to come from the reference module, with
-``dist.sharding`` (ROADMAP Queue A item 9b): ``param_specs`` and
-``cache_specs``.
+``decode_step``, ``param_specs`` and ``cache_specs`` (the logical-axis
+trees of the params and the cache, in the port's per-group layout).
 
 ``prefill`` pads the attention ``k``/``v`` leaves out to ``cache_len``,
 chosen by their keys. The reference chooses them by shape (``ndim == 5``
@@ -40,10 +39,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
 from repro_torch._device import as_device
+from repro_torch.dist.sharding import hint
 
 from .blocks import apply_decode_deltas, group_cache_defs, group_decode_tokens, group_defs, group_fwd
 from .config import ArchConfig
-from .layers import NEG_INF, as_dtype, ddef, init_params, rmsnorm, rmsnorm_defs
+from .layers import NEG_INF, as_dtype, ddef, init_params, rmsnorm, rmsnorm_defs, specs_of
 
 
 def param_defs(cfg: ArchConfig):
@@ -63,8 +63,16 @@ def init(seed_or_gen, cfg: ArchConfig, device="cuda"):
     return init_params(seed_or_gen, param_defs(cfg), dtype=as_dtype(cfg.dtype), device=device)
 
 
+def param_specs(cfg: ArchConfig):
+    return specs_of(param_defs(cfg))
+
+
 def cache_defs(cfg: ArchConfig, batch: int, seq: int):
     return [group_cache_defs(cfg, batch, seq) for _ in range(cfg.num_groups)]
+
+
+def cache_specs(cfg: ArchConfig, batch: int, seq: int):
+    return specs_of(cache_defs(cfg, batch, seq))
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, dtype=None, device="cuda"):
@@ -90,7 +98,7 @@ def _embed(params, tokens, cfg: ArchConfig):
         # the reference's Python-float factor takes x's dtype first (weak type)
         # (filled on the device: no blocking host-to-device copy a step)
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
-    return x
+    return hint(x, ("batch", "seq", None))
 
 
 def _unembed(params, x, cfg: ArchConfig):
@@ -102,7 +110,7 @@ def _unembed(params, x, cfg: ArchConfig):
         iota = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = torch.where(iota < cfg.vocab_size, logits,
                              torch.full_like(logits, NEG_INF))
-    return logits
+    return hint(logits, ("batch", "seq", "vocab"))
 
 
 _SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)

@@ -20,10 +20,10 @@ reciprocal multiply). Unlike the reference, which returns a new state,
 state is 16 B a parameter; a second copy would not fit the card).
 
 Ported: ``AdamWConfig``, ``schedule``, ``init_state``, ``state_structs``
-(as tensors on the ``meta`` device), ``clip_by_global_norm``,
-``apply_updates``. Still to come from the reference module, with
-``dist.sharding`` (ROADMAP Queue A item 9b): ``state_specs`` and
-``state_spec_tree``, the logical-axis specs of the state.
+(as tensors on the ``meta`` device), ``state_specs`` and
+``state_spec_tree`` (the state's logical axes: a stacked leaf's specs gain
+the reference's leading ``"layers"`` axis, and a factored ``v`` drops an
+axis), ``clip_by_global_norm``, ``apply_updates``.
 """
 from __future__ import annotations
 
@@ -108,6 +108,43 @@ def state_structs(params, cfg: "AdamWConfig | None" = None) -> dict:
     their ``meta`` twins), as tensors on the ``meta`` device: shapes and
     dtypes, no memory (the dry run's twin of ``init_state``)."""
     return init_state(tree_map(lambda p: torch.empty_like(p, device="meta"), params), cfg)
+
+
+def _stacked_specs(param_specs) -> dict:
+    """``{path: (spec, stacked)}``: each leaf set's logical axes in the
+    state's stacked layout (a per-group list gains ``"layers"`` in front)."""
+    out = {}
+    for path, leaf in leaf_sets(param_specs):
+        if isinstance(leaf, list):
+            out[path] = (("layers", *leaf[0]), True)
+        else:
+            out[path] = (tuple(leaf), False)
+    return out
+
+
+def state_specs(param_specs) -> dict:
+    """Logical-axis specs for the optimizer state (mirrors the params, each
+    per-group list stacked)."""
+    specs = nest({path: spec for path, (spec, _) in _stacked_specs(param_specs).items()})
+    return {"master": specs, "m": specs, "v": specs, "step": ()}
+
+
+def state_spec_tree(param_specs, p_structs, cfg: "AdamWConfig | None" = None) -> dict:
+    """Logical-axis specs matching :func:`state_structs` of ``p_structs``
+    (the params or their ``meta`` twins): a factored ``v`` drops an axis."""
+    shapes = {path: ((len(leaf), *leaf[0].shape) if isinstance(leaf, list) else tuple(leaf.shape))
+              for path, leaf in leaf_sets(p_structs)}
+    specs = {path: spec for path, (spec, _) in _stacked_specs(param_specs).items()}
+
+    def v_spec(path):
+        spec, shape = specs[path], shapes[path]
+        if cfg is not None and cfg.factored_v and len(shape) >= 2 \
+                and shape[-1] > 1 and shape[-2] > 1:
+            return {"row": spec[:-1], "col": spec[:-2] + spec[-1:]}
+        return spec
+
+    return {"master": nest(specs), "m": nest(specs),
+            "v": nest({path: v_spec(path) for path in specs}), "step": ()}
 
 
 def _global_norm(grads) -> torch.Tensor:

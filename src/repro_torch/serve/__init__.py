@@ -4,8 +4,9 @@ A port of ``repro.serve``: ``engine`` (``ServeEngine``, ``make_prefill`` —
 dense and ``paged=True`` — ``make_serve_step``, ``offload_report``), the
 paged serve loop (``loop``, ``kv_cache``, ``scheduler``, ``traffic``) and
 the package's forwarding of the removed adapters' names to ``engine``'s
-pointed ``AttributeError``. Still to come: ``ServeEngine``'s ``mesh`` /
-``sharding_rules`` arguments, with ``dist`` (ROADMAP Queue A item 9).
+pointed ``AttributeError``. ``ServeEngine(mesh=, sharding_rules=)`` serves
+under ``dist.sharding`` on a mesh of one device (several cards: ROADMAP
+Queue A item 9c).
 """
 from .engine import ServeEngine, make_prefill, make_serve_step, offload_report
 from .kv_cache import PagedCacheConfig, PagedKVManager, gather_cache

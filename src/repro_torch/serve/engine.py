@@ -22,18 +22,21 @@ under ``torch.inference_mode``. The KV cache is written in place. The live
 request loop lives in `repro_torch.serve.loop`; it builds on
 `make_prefill(cfg, paged=True)` / `make_serve_step(cfg, deltas=True)`.
 
-A port of ``repro.serve.engine`` but for ``ServeEngine``'s ``mesh`` /
-``sharding_rules`` arguments, which wait for ``dist.sharding`` (ROADMAP
-Queue A item 9; on one card they change nothing).
+``ServeEngine(mesh=, sharding_rules=)`` runs its prefill and decode under
+``dist.sharding.use_sharding``, so the models' hints compute their specs;
+on a mesh of one device that changes no bit, and a mesh over several cards
+raises (ROADMAP Queue A item 9c). A port of ``repro.serve.engine`` whole.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
 
 import numpy as np
 import torch
 
 from repro_torch._device import as_device, ieee_f32
+from repro_torch.dist.sharding import mesh_device, use_sharding
 from repro_torch.models.registry import get_module
 
 
@@ -328,14 +331,27 @@ def make_prefill(cfg, cache_len: int | None = None, *, paged: bool = False):
 
 
 class ServeEngine:
-    def __init__(self, cfg, params, max_len: int = 256, device="cuda"):
+    def __init__(self, cfg, params, max_len: int = 256, mesh=None, sharding_rules=None,
+                 device=None):
+        """``device``: where the engine runs — the mesh's one device when a
+        ``mesh`` is given (which ``device`` may name again), else the card
+        unless the caller asks for the CPU."""
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
-        self.device = as_device(device)
+        self.device = mesh_device(mesh, device, "ServeEngine")
         self.mod = get_module(cfg)
+        # mesh: prefill and decode run under use_sharding so the models'
+        # dist.sharding hints compute their specs; None = hints are no-ops
+        self.mesh = mesh
+        self.sharding_rules = sharding_rules
         self.prefill_fn = make_prefill(cfg, max_len)
         self.step_fn = make_serve_step(cfg)
+
+    def _sharding_ctx(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_sharding(self.mesh, rules=self.sharding_rules)
 
     @torch.inference_mode()
     def generate(
@@ -355,21 +371,22 @@ class ServeEngine:
                 f"prompt_len {prompt_len} + max_new_tokens {max_new_tokens} "
                 f"exceeds the cache length {self.max_len}")
         prompts = prompts.to(self.device)
-        if self.cfg.family == "encdec":
-            if frames is None:
-                raise ValueError("the encoder-decoder family needs frames= (B, S, d_model), "
-                                 "the encoder's input")
-            logits, cache = self.prefill_fn(self.params, frames.to(self.device), prompts)
-        else:
-            logits, cache = self.prefill_fn(self.params, prompts)
-        out = []
-        tok = self._sample(logits, temperature, generator)
-        pos = prompt_len
-        for _ in range(max_new_tokens):
-            out.append(tok)
-            logits, cache = self.step_fn(self.params, cache, tok, pos)
+        if self.cfg.family == "encdec" and frames is None:
+            raise ValueError("the encoder-decoder family needs frames= (B, S, d_model), "
+                             "the encoder's input")
+        with self._sharding_ctx():
+            if self.cfg.family == "encdec":
+                logits, cache = self.prefill_fn(self.params, frames.to(self.device), prompts)
+            else:
+                logits, cache = self.prefill_fn(self.params, prompts)
+            out = []
             tok = self._sample(logits, temperature, generator)
-            pos += 1
+            pos = prompt_len
+            for _ in range(max_new_tokens):
+                out.append(tok)
+                logits, cache = self.step_fn(self.params, cache, tok, pos)
+                tok = self._sample(logits, temperature, generator)
+                pos += 1
         return torch.stack(out, dim=1)
 
     def offload_report(self, backend=None, config=None, batch: int | None = None,

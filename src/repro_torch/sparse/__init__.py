@@ -10,22 +10,20 @@
   (``stream_mttkrp_priced``).
 * ``partition`` — the multi-array planners (nnz-balanced, makespan-refined)
   that the mesh executor and the analytical mesh price plan on, the planned
-  split with its per-array stream programs (``partition_fiber_lengths``)
-  and a CSF's split into shards (``partition_csf``).
+  split with its per-array stream programs (``partition_fiber_lengths``),
+  a CSF's split into shards (``partition_csf``, with ``n_arrays`` or a
+  ``mesh``) and the array count a mesh gives (``arrays_for_mesh``).
 * ``mesh``      — the stream across many arrays: a launch per planned shard,
   the partials added by the reduction fabric (``mesh_stream_mttkrp``), the
   split Grams for CP-ALS (``mesh_gram``), and the counted mesh price
   (``mesh_counted_price``) the ``"psram-mesh"`` backend bills against.
-
-Still to come from the reference package: ``arrays_for_mesh`` and
-``partition_csf(mesh=)``, with ``dist/`` (ROADMAP Queue A item 9).
 """
 from .formats import COO, CSF, BlockedCOO, SortedCOO, csf_for_mode
 from .mesh import (MESH_LOWERINGS, mesh_counted_price, mesh_gram, mesh_stream_mttkrp,
                    resolve_array_mesh)
-from .partition import (PLANNERS, MeshedSparseTensor, Partition, PartitionedSchedule, imbalance,
-                        makespan_partitions, nnz_balanced_partitions, partition_csf,
-                        partition_fiber_lengths, plan_partitions)
+from .partition import (PLANNERS, MeshedSparseTensor, Partition, PartitionedSchedule,
+                        arrays_for_mesh, imbalance, makespan_partitions, nnz_balanced_partitions,
+                        partition_csf, partition_fiber_lengths, plan_partitions)
 from .stream import (StreamedMTTKRP, blocked_fold_reference, build_stream_program,
                      rank_tile_widths, stream_layout, stream_mttkrp, stream_mttkrp_blocked,
                      stream_mttkrp_coo, stream_mttkrp_priced)
@@ -42,6 +40,7 @@ __all__ = [
     "FiberStats",
     "Partition",
     "PartitionedSchedule",
+    "arrays_for_mesh",
     "StreamedMTTKRP",
     "blocked_fold_reference",
     "build_stream_program",

@@ -13,20 +13,21 @@ executing mesh path (``sparse.mesh``) and the analytical mesh price
 (``core.perf_model.mesh_sparse_price``) plan on;
 :class:`PartitionedSchedule` / :func:`partition_fiber_lengths`, the planned
 split with its per-array stream programs from the fiber lengths alone, which
-``obs.mesh_timeline`` renders; and :class:`MeshedSparseTensor` /
-:func:`partition_csf`, the split of a CSF into its shards. Still to come
-with ``dist/`` (ROADMAP Queue A item 9): ``arrays_for_mesh`` (the array
-count from the ``dist.sharding`` rule set) and ``partition_csf(mesh=)``,
-which asks it; until then pass ``n_arrays``.
+``obs.mesh_timeline`` renders; :class:`MeshedSparseTensor` /
+:func:`partition_csf`, the split of a CSF into its shards; and
+:func:`arrays_for_mesh`, the array count a mesh gives under the
+``dist.sharding`` rule set, which ``partition_csf(mesh=)`` asks.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
 from repro_torch.backends.base import resolve_config
 from repro_torch.core.psram import PsramConfig
+from repro_torch.dist.sharding import _axis_sizes, logical_to_spec
 from repro_torch.core.schedule import CycleCounts, TileProgram, count_cycles
 
 from .formats import CSF
@@ -172,6 +173,23 @@ def imbalance(parts: list[Partition]) -> float:
     return float(loads.max() / mean) if mean > 0 else 1.0
 
 
+def arrays_for_mesh(mesh, logical_axis: str = "batch", rules=None) -> int:
+    """How many ways the output mode shards on ``mesh`` — the product of the
+    mesh axes that ``logical_axis`` claims under the dist.sharding rules.
+
+    Uses a claim-friendly dummy dimension (the product of all axis sizes) so
+    the answer reflects the rule set, not a divisibility accident; the
+    nnz-balanced cut itself never needs divisibility.
+    """
+    sizes = _axis_sizes(mesh)
+    total = math.prod(sizes.values())
+    entry = logical_to_spec((logical_axis,), (total,), mesh, rules=rules)[0]
+    if entry is None:
+        return 1
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    return math.prod(sizes[a] for a in axes)
+
+
 @dataclasses.dataclass(frozen=True)
 class PartitionedSchedule:
     """An nnz-balanced multi-array split with its per-array stream programs
@@ -240,17 +258,15 @@ def partition_csf(
     ``rank`` is required to build the per-array programs. Each shard keeps
     original coordinates (``CSF.slice_roots``), so per-array results add
     straight into the global output. Shards may be empty when fibers <
-    arrays — their programs are empty and price zero. ``mesh=`` (the array
-    count from the ``dist.sharding`` claim of ``logical_axis`` under
-    ``rules``) raises until ``dist/`` is ported (ROADMAP Queue A item 9).
+    arrays — their programs are empty and price zero. ``mesh`` (a model
+    mesh or an array mesh) gives the array count instead: the
+    ``dist.sharding`` claim of ``logical_axis`` under ``rules``
+    (:func:`arrays_for_mesh`).
     """
     if (mesh is None) == (n_arrays is None):
         raise ValueError("pass exactly one of mesh / n_arrays")
     if mesh is not None:
-        raise NotImplementedError(
-            "partition_csf(mesh=...) takes its array count from the "
-            "dist.sharding rule set (arrays_for_mesh), which comes with dist/ "
-            "(ROADMAP Queue A item 9); pass n_arrays")
+        n_arrays = arrays_for_mesh(mesh, logical_axis, rules)
     if rank is None:
         raise ValueError("rank is required to build the per-array schedules")
     ps = partition_fiber_lengths(csf.fiber_lengths(), n_arrays, rank, config,

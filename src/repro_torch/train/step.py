@@ -9,12 +9,12 @@ that accumulates the gradients in f32 — the counterpart of the reference's
 optionally with int8 gradient compression (plain, or error feedback with
 the residual threaded through the step).
 
-pSRAM projections (``cfg.psram_projections`` / ``psram_stored_int8``) are
-not trained: kernel 2 has no backward pass, and in the reference the
-gradient through ``psram_linear`` flows only through the scales (its codes
-come from ``round``). The one reference caller that builds such a step is
-the dry run's ``--psram`` train cells, which only lower it; those gradients
-are settled with it (ROADMAP Queue A item 9b).
+pSRAM projections (``cfg.psram_projections``) train with the reference's
+gradient: through the scales only (its codes come from ``round``), so a
+projection's weight gets a gradient at each column's ``max|w|`` and its
+input at each row's ``max|x|`` (kernel 2's ``psram_matmul_trained``). With
+``psram_stored_int8`` the params hold int8 words, which the reference's
+``jax.grad`` refuses with a ``TypeError``; so does this step.
 
 Port of the reference module whole.
 """
@@ -22,9 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch._tree import leaves, tree_map
+from repro_torch._tree import leaf_sets, leaves, path_str, tree_map
 from repro_torch.dist.compression import compress_tree, make_grad_transform
-from repro_torch.models.layers import as_dtype
+from repro_torch.models.layers import as_dtype, dtypes_of
 from repro_torch.models.registry import get_module
 from repro_torch.optim import AdamWConfig, apply_updates, init_state
 
@@ -40,6 +40,14 @@ def make_loss_fn(cfg):
         def loss(params, batch):
             return mod.loss_fn(params, batch["tokens"], batch["labels"], cfg)
     return loss
+
+
+def int8_leaves(cfg) -> list[str]:
+    """The paths of the int8 leaves of ``cfg``'s params, in the reference's
+    leaf order (a per-group list is one leaf, as the reference stacks it)."""
+    defs = get_module(cfg).param_defs(cfg)
+    return [path_str(path) for path, d in leaf_sets(dtypes_of(defs))
+            if (d[0] if isinstance(d, list) else d) == "int8"]
 
 
 def _value_and_grad(loss_fn, params, batch):
@@ -69,11 +77,12 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, microbatches: int = 1,
     (0-d f32 tensors). The optimizer state is updated in place
     (``optim.apply_updates``).
     """
-    if cfg.psram_projections or cfg.psram_stored_int8:
-        raise NotImplementedError(
-            "training through pSRAM projections: kernel 2 has no backward pass, and the "
-            "reference's gradient through psram_linear flows only through its scales; "
-            "settled with the dry run's --psram train cells (ROADMAP Queue A item 9b)")
+    int8 = int8_leaves(cfg)
+    if int8:
+        raise TypeError(
+            f"grad requires real- or complex-valued inputs; the params hold int8 leaves "
+            f"(psram_stored_int8): {', '.join(int8[:4])}{' ...' if len(int8) > 4 else ''} "
+            f"({len(int8)} in all), as the reference's jax.grad refuses them")
     loss_fn = make_loss_fn(cfg)
     transform = make_grad_transform(compress_grads and not error_feedback)
     pdtype = as_dtype(cfg.dtype)

@@ -15,12 +15,14 @@ card's queued work at both edges, so its ``duration_s`` holds the step's
 device work (the reference's ``block_until_ready``) and a ``train/step``
 span lands in the trace whenever tracing is on.
 
-Port of the reference module but for its mesh: ``mesh=`` and
-``sharding_rules=`` (training under ``dist.sharding``, and the elastic
-restore onto another mesh) come with ROADMAP Queue A item 9b.
+``mesh=`` (a ``launch.mesh.ModelMesh``) and ``sharding_rules=`` run every
+step under ``dist.sharding.use_sharding``, so the models' hints compute
+their specs; the state lives on the mesh's one device. A mesh over several
+cards raises (ROADMAP Queue A item 9c). Port of the reference module whole.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -29,10 +31,10 @@ import time
 import torch
 
 from repro_torch import obs
-from repro_torch._device import as_device
 from repro_torch._tree import tree_map
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, batch_at_step
+from repro_torch.dist.sharding import mesh_device, use_sharding
 from repro_torch.optim import AdamWConfig
 
 from .step import init_train_state, make_train_step
@@ -53,13 +55,13 @@ class Trainer:
         sharding_rules=None,
         straggler_factor: float = 2.0,
         seed: int = 0,
-        device="cuda",
+        device=None,
     ):
-        if mesh is not None or sharding_rules is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=, sharding_rules=) trains under dist.sharding, which comes "
-                "with the model meshes (ROADMAP Queue A item 9b)")
-        self.device = as_device(device)
+        self.device = mesh_device(mesh, device, "Trainer")
+        # mesh: every step runs under use_sharding, so the models' hints
+        # compute their specs; None keeps single-process behavior
+        self.mesh = mesh
+        self.sharding_rules = sharding_rules
         self.cfg = cfg
         self.data_cfg = data_cfg
         self.opt_cfg = opt_cfg or AdamWConfig()
@@ -112,6 +114,12 @@ class Trainer:
 
     def run(self, num_steps: int, log_every: int = 10, log_fn=print) -> list[float]:
         """Train ``num_steps`` steps from ``start_step``; returns the losses."""
+        ctx = (use_sharding(self.mesh, rules=self.sharding_rules)
+               if self.mesh is not None else contextlib.nullcontext())
+        with ctx:
+            return self._run(num_steps, log_every, log_fn)
+
+    def _run(self, num_steps, log_every, log_fn):
         history = []
         for step in range(self.start_step, self.start_step + num_steps):
             tokens, labels = batch_at_step(self.data_cfg, step, device=self.device)

@@ -136,10 +136,26 @@ def test_same_tree_same_bytes(reference_state, tmp_path, dtype):
 
 
 def test_restore_onto_a_mesh_raises(tmp_path):
+    """``restore(shardings=)`` on a one-device mesh equals ``restore()``; a
+    mesh over several cards, or a logical one, raises."""
+    from repro_torch.dist.sharding import tree_shardings
+    from repro_torch.launch.mesh import ModelMesh, make_host_mesh, make_production_mesh
     cm = CheckpointManager(str(tmp_path))
-    cm.save(1, {"w": torch.ones(2)}, blocking=True)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        cm.restore({"w": torch.zeros(2)}, shardings={"w": None})
+    tree = {"w": torch.arange(8, dtype=torch.float32).reshape(2, 4),
+            "g": [torch.ones(4, dtype=torch.bfloat16), torch.zeros(4, dtype=torch.bfloat16)]}
+    cm.save(1, tree, blocking=True)
+    like = {"w": torch.zeros(2, 4), "g": [torch.zeros(4, dtype=torch.bfloat16)] * 2}
+    specs = {"w": ("batch", "ff"), "g": [("embed",), ("embed",)]}
+    got, step = cm.restore(like, shardings=tree_shardings(like, specs, make_host_mesh(
+        device="cpu")))
+    want, _ = cm.restore(like)
+    assert step == 1
+    _equal_trees(got, want)
+    two = ModelMesh(("data", "model"), (2, 1), ("cuda:0", "cuda:1"))
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        cm.restore(like, shardings=tree_shardings(like, specs, two))
+    with pytest.raises(ValueError, match="logical"):
+        cm.restore(like, shardings=tree_shardings(like, specs, make_production_mesh()))
 
 
 def test_async_save_snapshots_before_returning(tmp_path):

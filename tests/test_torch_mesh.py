@@ -355,8 +355,8 @@ def test_make_array_mesh_validates():
 
 def test_partition_csf_equals_the_reference(pair, cfg):
     """The shards of the CSF (fiber ranges, coordinates, values) and their
-    programs, equal to the reference's at 1–8 arrays; ``mesh=`` names the
-    item that brings it."""
+    programs, equal to the reference's at 1–8 arrays; ``mesh=`` gives the
+    split ``n_arrays=`` gives at its array count."""
     jcfg = jbackends.resolve_config(None)
     for n in (1, 3, 8):
         for planner in PLANNERS:
@@ -371,8 +371,13 @@ def test_partition_csf_equals_the_reference(pair, cfg):
                 np.testing.assert_array_equal(a.expanded_indices_np(),
                                               np.asarray(b.expanded_indices()))
                 np.testing.assert_array_equal(a.values.numpy(), np.asarray(b.values))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        partition_csf(pair["tcsf"], mesh=make_array_mesh(device="cpu"), rank=RANK)
+    for n in (1, 4):
+        got = partition_csf(pair["tcsf"], mesh=make_array_mesh(n, device="cpu"), rank=RANK,
+                            config=cfg)
+        want = partition_csf(pair["tcsf"], n_arrays=n, rank=RANK, config=cfg)
+        assert got.partitions == want.partitions and len(got.shards) == n
+        for a, b in zip(got.shards, want.shards):
+            assert torch.equal(a.values, b.values)
     with pytest.raises(ValueError, match="exactly one"):
         partition_csf(pair["tcsf"], rank=RANK)
     with pytest.raises(ValueError, match="rank"):

@@ -116,6 +116,44 @@ def test_moe_fwd_matches_reference(arch, capacity_factor):
         assert int(rank[keep].max()) == c - 1
 
 
+def _moe_fwd_masked_dispatch(p, x, cfg, capacity_factor):
+    """``moe_fwd`` as it dispatched before the static-shape form: the kept
+    assignments picked by a boolean mask (a data-dependent shape) and put
+    into an ``(E, C, d)`` buffer."""
+    b, s, d = x.shape
+    t, e, k = b * s, cfg.num_experts, cfg.top_k
+    c = moe.capacity(t, cfg, capacity_factor)
+    xt = x.reshape(t, d)
+    gates, flat_e, rank, keep = moe.route(p["router"], xt, cfg, c)
+    xa = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
+    xe = xt.new_zeros((e, c, d))
+    xe.index_put_((flat_e[keep], rank[keep]), xa[keep])
+    h = torch.einsum("ecd,edf->ecf", xe, p["wi"])
+    h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", xe, p["wg"])) * h \
+        if cfg.act == "swiglu" else torch.nn.functional.gelu(h, approximate="tanh")
+    ye = torch.einsum("ecf,efd->ecd", h, p["wo"])
+    per_assign = ye[flat_e, rank.clamp(max=c - 1)] * (
+        gates.reshape(-1, 1).to(ye.dtype) * keep[:, None])
+    return per_assign.reshape(t, k, d).sum(dim=1).reshape(b, s, d)
+
+
+@pytest.mark.parametrize("capacity_factor", [None, 1.0, 0.5], ids=["dropless", "cf1", "cf0.5"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_static_dispatch_bit_equal_to_the_masked_dispatch(arch, capacity_factor):
+    """The sacrificial-slot dispatch gives the masked dispatch's bits,
+    dropless and with drops, and traces on the ``meta`` device (no shape
+    depends on the routing)."""
+    cfg = get_config(arch).reduced()
+    assert cfg.act == "swiglu"
+    _, p = _params(cfg)
+    x = torch.tensor(_x(cfg, 2, 12))
+    got = moe.moe_fwd(p, x, cfg, capacity_factor=capacity_factor)
+    assert torch.equal(got, _moe_fwd_masked_dispatch(p, x, cfg, capacity_factor))
+    meta = moe.moe_fwd({k: v.to("meta") for k, v in p.items()}, x.to("meta"), cfg,
+                       capacity_factor=capacity_factor)
+    assert meta.device.type == "meta" and meta.shape == x.shape
+
+
 def test_route_is_the_reference_routing():
     """The experts, slots and drops of every assignment equal the
     reference's (its top_k, its float32 exclusive count)."""

@@ -97,6 +97,38 @@ def test_greedy_tokens_equal_reference_ssm_families(arch):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("arch", ["granite_8b", "granite_moe_1b_a400m"])
+def test_serve_engine_on_a_host_mesh(arch, capsys):
+    """``ServeEngine(mesh=make_host_mesh(device="cpu"), sharding_rules=)``:
+    every model hint computes its spec on the one-device mesh and changes
+    no bit — greedy tokens equal to ``mesh=None`` and to the reference's
+    engine on its host mesh; the serve CLI's ``--model-parallel 1`` runs."""
+    from repro.launch.mesh import make_host_mesh as jmake_host_mesh
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    rules = {"seq": (("model",), ())}
+    jcfg = jget_config(arch).reduced()
+    params = jget_module(jcfg).init(jax.random.PRNGKey(0), jcfg)
+    prompts = np.random.default_rng(13).integers(2, jcfg.vocab_size, (B, PROMPT), dtype=np.int32)
+    want = np.asarray(JServeEngine(jcfg, params, max_len=PROMPT + NEW, mesh=jmake_host_mesh(),
+                                   sharding_rules=rules).generate(jnp.asarray(prompts), PROMPT,
+                                                                  NEW))
+    cfg = ArchConfig(**dataclasses.asdict(jcfg))
+    port_params = convert.model_params(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    eng = ServeEngine(cfg, port_params, max_len=PROMPT + NEW,
+                      mesh=make_host_mesh(device="cpu"), sharding_rules=rules)
+    assert eng.device == torch.device("cpu")
+    got = eng.generate(torch.tensor(prompts), PROMPT, NEW)
+    plain = ServeEngine(cfg, port_params, max_len=PROMPT + NEW, device="cpu").generate(
+        torch.tensor(prompts), PROMPT, NEW)
+    assert torch.equal(got, plain)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if arch == "granite_8b":
+        serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                    "--prompt-len", "8", "--max-new", "4", "--model-parallel", "1"])
+        assert "generated (2, 4)" in capsys.readouterr().out
+
+
 def test_temperature_sampling_is_seeded(served):
     cfg, params, prompts, _, _ = served
     eng = ServeEngine(cfg, params, max_len=PROMPT + NEW, device="cpu")
