@@ -67,6 +67,14 @@ What it does, in order — any failure raises and the run exits non-zero:
       paper's array config and ``api.matmul`` at an LM MLP projection
       (512 x 4096 x 14336, kernel 2's wgmma route) and a 1000-class head
       (512 x 4096 x 1000, the tile route), each against ``backend="exact"``;
+   a'. ``main_path_fit``: the same two engines on a tensor whose fit CP-ALS
+      reaches (the power-law tensor's fits are ~0.002, so (a)'s gate cannot
+      fail): a noiseless ``data.lowrank_dense`` tensor 240 x 160 x 100 of
+      rank 16 through ``dense_to_coo``, 80 sweeps from one initial point;
+      gated ``fit_exact >= 0.99`` and ``|fit_hopper - fit_exact| <= 0.02``,
+      each fit equal to its factors' (``reconstruct``), and two planted
+      controls that must read outside the gate: the hopper factors' mode-0
+      rows rolled by one, and a hopper run missing 5% of the nonzeros;
    b. the dense entry point: ``api.mttkrp(x, factors, mode,
       backend="hopper")`` (kernel 4 reading the tensor in place, one
       launch a mode) and ``backends.get("hopper", compiled=False)`` for
@@ -279,6 +287,19 @@ What it does, in order — any failure raises and the run exits non-zero:
    and prefill logits bit-equal to ``mesh=None``); ``partition_csf`` on a
    4-array card mesh equal to ``n_arrays=4``.
 
+8. ``main_path_examples`` — every example of ``repro_torch.examples`` run
+   in this process on the card through its ``main`` (at the reference CI's
+   ``--smoke`` size where the script has one, ``decompose_weights`` on 8
+   arrays, ``train_lm`` 50 steps), the counts zeroed before each and read
+   after: its seconds, the device of a tensor it computed, its figures, its
+   printed lines, its hand-written launches, and the whole script's seconds
+   so far. Fails when an example raises (each asserts its own contract: a
+   row over its ``rel_tol``, a leaked page, a missed restart step, an
+   inexact degraded recovery) or leaves the card, photonic_offload's kernel
+   2 is not bit-exact against the oracle or was not launched, backend_tour's
+   ``hopper`` row launched no kernel, ABFT's corrected error is not 0, or
+   the phase takes over 120 s.
+
 TF32 is switched off for matmuls and cuDNN before anything runs: the plain
 versions of the dense MTTKRP and flash kernels are f32 matrix products.
 
@@ -431,6 +452,31 @@ DIST_SERVE_LAYERS = 4
 DIST_SERVE = {"batch": 2, "prompt_len": 16, "max_new": 8}
 DIST_MESH_ARRAYS = 4
 
+# main_path_fit: CP-ALS on a tensor whose fit it can reach (the NELL-2-shaped
+# power-law tensor's fits are ~0.002, so its gate cannot fail): a noiseless
+# lowrank_dense tensor of 3.84 M entries, non-cubic, rank 16 (kernel 1's
+# chunk route), through dense_to_coo; the gate wants fit_exact >= 0.99 and
+# hopper within 0.02 of it, and two planted controls must read outside it:
+# the hopper factors' mode-0 rows rolled by one (on an H100: exact 0.998620,
+# hopper 0.995890, the control 0.746176) and a hopper run that never sees
+# FIT_DROP of the nonzeros
+FIT_SHAPE = (240, 160, 100)
+FIT_RANK = 16
+FIT_SWEEPS = 80
+FIT_MIN = 0.99
+FIT_GAP = 0.02
+FIT_DROP = 0.05    # the share of nonzeros the second planted control never sees
+# main_path_examples: every example of repro_torch.examples on the card, at
+# the reference CI's --smoke size where the script has one (decompose_weights
+# also at its 8 arrays), else its default; train_lm at 50 steps (its default
+# 300 would take most of the phase's 120 s)
+EXAMPLE_ARGS = (("quickstart", ()), ("backend_tour", ()), ("sparse_decompose", ()),
+                ("decompose_weights", ("--smoke", "--arrays", "8")),
+                ("photonic_offload", ()), ("fault_tolerance", ("--smoke",)),
+                ("serve_requests", ("--smoke",)), ("continuous_batching", ()),
+                ("train_lm", ("--steps", "50")))
+EXAMPLES_BUDGET_S = 120.0
+
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): the
 # port's roofline constants, one source for both
 from repro_torch.core.perf_model import (  # noqa: E402
@@ -455,6 +501,7 @@ CHAIN_CLUSTER = 8
 
 
 _LAST_EMIT = [time.perf_counter()]
+_START = [time.perf_counter()]
 
 
 def emit(obj: dict) -> None:
@@ -4596,6 +4643,159 @@ def dist_grad_cases(torch, cfg, params, batch) -> list:
     return cases
 
 
+def fit_gate(fit_exact: float, fit_other: float) -> bool:
+    """The second fit gate: exact CP-ALS reached ``FIT_MIN`` and the other
+    run is within ``FIT_GAP`` of it."""
+    return fit_exact >= FIT_MIN and abs(fit_other - fit_exact) <= FIT_GAP
+
+
+def main_path_fit(torch, cfg, zero_counts, read_counts) -> tuple:
+    """The ``main_path_fit`` phase: ``hopper`` and ``exact`` CP-ALS on a
+    noiseless ``lowrank_dense`` tensor (``FIT_SHAPE``, rank ``FIT_RANK``)
+    through ``dense_to_coo``, ``FIT_SWEEPS`` sweeps from the same initial
+    factors; each fit recomputed from its factors through ``reconstruct``;
+    gated by :func:`fit_gate`, with two planted controls that must read
+    outside it: the hopper factors' mode-0 rows rolled by one (the gate's
+    arithmetic can fail), and a second hopper run that never sees
+    ``FIT_DROP`` of the nonzeros, drawn at random, its fit taken against the
+    whole tensor (a path a few percent off fails, after ALS has pulled it
+    back as far as it can). ``(phase, launches of the hopper run)``."""
+    from repro_torch.core.cp_als import cp_als, init_factors, reconstruct
+    from repro_torch.core.mttkrp import dense_to_coo
+    from repro_torch.data import lowrank_dense
+    from repro_torch.sparse import COO, csf_for_mode
+
+    t0 = time.perf_counter()
+    x, _ = lowrank_dense(0, FIT_SHAPE, FIT_RANK, device="cuda")
+    idx, vals = dense_to_coo(x)
+    coo = COO(indices=idx, values=vals, shape=FIT_SHAPE)
+    float(vals.sum())                    # the draws done on the device
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csfs = [csf_for_mode(coo, m) for m in range(3)]
+    csf_s = time.perf_counter() - t0
+    init = init_factors(1, FIT_SHAPE, FIT_RANK, device="cuda")
+    norm_x = float(torch.linalg.norm(x))
+
+    def fit_of(factors, lambdas):
+        return 1.0 - float(torch.linalg.norm(x - reconstruct(factors, lambdas))) / norm_x
+
+    zero_counts()
+    t0 = time.perf_counter()
+    hop = cp_als(None, FIT_RANK, n_iter=FIT_SWEEPS, sparse=coo, backend="hopper",
+                 config=cfg, csfs=csfs, init=init, tol=0)
+    hop_s = time.perf_counter() - t0
+    launches = read_counts()
+    t0 = time.perf_counter()
+    exact = cp_als(None, FIT_RANK, n_iter=FIT_SWEEPS, sparse=coo, backend="exact",
+                   csfs=csfs, init=init, tol=0)
+    exact_s = time.perf_counter() - t0
+    planted = [torch.roll(hop.factors[0], 1, dims=0)] + list(hop.factors[1:])
+    keep = torch.rand(vals.numel(), generator=torch.Generator(device="cuda").manual_seed(2),
+                      device="cuda") >= FIT_DROP
+    dropped = COO(indices=idx[keep], values=vals[keep], shape=FIT_SHAPE)
+    t0 = time.perf_counter()
+    hop_dropped = cp_als(None, FIT_RANK, n_iter=FIT_SWEEPS, sparse=dropped, backend="hopper",
+                         config=cfg, csfs=[csf_for_mode(dropped, m) for m in range(3)],
+                         init=init, tol=0)
+    dropped_s = time.perf_counter() - t0
+    fits = {"hopper": hop.fit, "exact": exact.fit,
+            "hopper_recomputed": fit_of(hop.factors, hop.lambdas),
+            "exact_recomputed": fit_of(exact.factors, exact.lambdas),
+            "control": fit_of(planted, hop.lambdas),
+            "control_dropped": fit_of(hop_dropped.factors, hop_dropped.lambdas)}
+    phase = {
+        "phase": "main_path_fit", "shape": list(FIT_SHAPE), "nnz": int(vals.numel()),
+        "rank": FIT_RANK, "sweeps": FIT_SWEEPS, "fits": fits,
+        "gap": hop.fit - exact.fit, "gate": {"fit_exact_min": FIT_MIN, "gap_max": FIT_GAP},
+        "gate_passes": fit_gate(exact.fit, hop.fit),
+        "control_passes": fit_gate(exact.fit, fits["control"]),
+        "control_dropped_passes": fit_gate(exact.fit, fits["control_dropped"]),
+        "dropped_share": FIT_DROP, "dropped_nnz": int(vals.numel() - dropped.nnz),
+        "iters": {"hopper": hop.iters, "exact": exact.iters},
+        "host_preprocessing_s": synth_s + csf_s, "synth_s": synth_s, "csf_build_s": csf_s,
+        "cp_als_hopper_s": hop_s, "cp_als_exact_s": exact_s,
+        "control_dropped_s": dropped_s, "launches": launches,
+        "factors_on": sorted({str(f.device) for f in hop.factors + exact.factors}),
+    }
+    if not all(math.isfinite(v) for v in fits.values()):
+        raise AssertionError(f"non-finite fit: {phase}")
+    if not phase["gate_passes"]:
+        raise AssertionError(f"the fit gate failed (fit_exact >= {FIT_MIN}, hopper within "
+                             f"{FIT_GAP}): {phase}")
+    if phase["control_passes"] or phase["control_dropped_passes"]:
+        raise AssertionError(f"a planted control passed the fit gate: {phase}")
+    for name in ("hopper", "exact"):
+        if abs(fits[name] - fits[f"{name}_recomputed"]) > 1e-3:
+            raise AssertionError(f"{name}'s reported fit is not its factors' fit: {phase}")
+    if launches["stream_mttkrp_fused_chunk"] < 3 * FIT_SWEEPS \
+            or launches["stream_mttkrp_fused"] != launches["stream_mttkrp_fused_chunk"]:
+        raise AssertionError(f"the hopper run did not launch kernel 1's chunk route a "
+                             f"mode a sweep: {phase}")
+    if not all(d.startswith("cuda") for d in phase["factors_on"]):
+        raise AssertionError(f"the factors left the card: {phase}")
+    return phase, launches
+
+
+def main_path_examples(torch, zero_counts, read_counts) -> tuple:
+    """The ``main_path_examples`` phase: every example of
+    ``repro_torch.examples`` run in this process on the card through its
+    ``main`` (``EXAMPLE_ARGS``), the counts zeroed before each and read
+    after; its seconds, the device of a tensor it computed, its returned
+    figures, its printed lines and its hand-written launches. An example
+    that raises fails the phase: each asserts its own contract (backend_tour
+    every row within its ``rel_tol``, the serve examples no leaked page,
+    train_lm the restart's step, fault_tolerance its recoveries). The phase
+    adds what the examples do not check: every result on the card,
+    photonic_offload's kernel 2 bit-exact against the oracle and launched,
+    backend_tour's ``hopper`` row through kernel 4, ABFT's corrected rel err
+    exactly 0, and ``EXAMPLES_BUDGET_S``. ``(phase, [launches of each
+    example])``."""
+    import contextlib
+    import importlib
+    import io
+
+    runs, all_launches, t_phase = {}, [], time.perf_counter()
+    for name, args in EXAMPLE_ARGS:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        out = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            figures = mod.main([*args, "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        all_launches.append(launches)
+        runs[name] = {"args": list(args), "s": seconds, "device": figures["device"],
+                      "launches": {k: v for k, v in launches.items() if v},
+                      "figures": figures, "lines": out.getvalue().splitlines()}
+    phase = {"phase": "main_path_examples", "examples": runs,
+             "examples_s": time.perf_counter() - t_phase,
+             "script_s": time.perf_counter() - _START[0]}
+
+    def fail(why):
+        raise AssertionError(f"{why}: {json.dumps(phase, default=str)}")
+
+    for name, run in runs.items():
+        if not run["device"].startswith("cuda"):
+            fail(f"{name}'s results are not on the card")
+    photonic = runs["photonic_offload"]
+    if photonic["figures"]["kernel_max_abs_diff"] != 0.0 \
+            or photonic["figures"]["kernel_lowering"] != "cuda" \
+            or not photonic["launches"].get("psram_matmul"):
+        fail("photonic_offload's kernel 2 is not bit-exact against the oracle or was "
+             "not launched")
+    if not runs["backend_tour"]["launches"].get("mttkrp_psram_strided"):
+        fail("backend_tour's hopper row launched no hand-written kernel")
+    faults = runs["fault_tolerance"]["figures"]
+    if faults["matmul_corrected_rel_err"] != 0.0 or faults["mttkrp_corrected_rel_err"] != 0.0:
+        fail("fault_tolerance's ABFT recovery is not exact")
+    if phase["examples_s"] > EXAMPLES_BUDGET_S:
+        fail(f"the examples took more than {EXAMPLES_BUDGET_S} s")
+    return phase, all_launches
+
+
 def main_path_dist(torch, cfg, csf, zero_counts, read_counts) -> tuple:
     """The ``main_path_dist`` phase (see the module docstring, 7): the meta
     dry run, card cells A (exact decode) and B (pSRAM training), the
@@ -4780,7 +4980,7 @@ def main(argv=None) -> int:
                         help="also time kernel 2's decode route at every cluster size "
                              "and both routes over every M of the crossover sweep")
     opts = parser.parse_args(argv)
-    _LAST_EMIT[0] = time.perf_counter()
+    _LAST_EMIT[0] = _START[0] = time.perf_counter()
 
     import torch
 
@@ -5048,6 +5248,11 @@ def main(argv=None) -> int:
         raise AssertionError(f"api.matmul strays from exact: rel {matmul_rel}")
     if tuple(y_head.shape) != (m, RAGGED_SHAPE[2]) or not head_rel < 0.05:
         raise AssertionError(f"api.matmul (ragged head) strays from exact: rel {head_rel}")
+
+    # 4a'. main_path_fit: a tensor whose fit CP-ALS reaches, a gate that binds -
+    fit_path, fit_launches = main_path_fit(torch, cfg, zero_counts, read_counts)
+    report["main_path_fit"] = fit_path
+    emit(fit_path)
 
     # 4b. the dense entry point, fused (int8 + ADC) and legacy (exact) --------
     del x, w, y, y_exact, w_head, y_head, y_head_exact
@@ -5613,6 +5818,11 @@ def main(argv=None) -> int:
     report["main_path_dist"] = dist_path
     emit(dist_path)
 
+    # 8. main_path_examples: every example of repro_torch.examples ----------
+    examples_path, examples_launches = main_path_examples(torch, zero_counts, read_counts)
+    report["main_path_examples"] = examples_path
+    emit(examples_path)
+
     # the contract's kernel table -------------------------------------------
     def mean(key, cases=a_main):
         return statistics.fmean(c[key] for c in cases)
@@ -5625,7 +5835,8 @@ def main(argv=None) -> int:
                   ssm_psram_launches, encdec_exact_launches, encdec_psram_launches,
                   mrope_launches, paged_exact_launches, paged_psram_launches,
                   paged_pressure_launches, train_launches, train_ef_launches,
-                  dist_a_launches, dist_b_launches, dist_serve_launches)
+                  dist_a_launches, dist_b_launches, dist_serve_launches, fit_launches,
+                  *examples_launches)
 
     def total(name):
         return sum(counts[name] for counts in main_paths)

@@ -88,8 +88,8 @@ class MeshSparseMTTKRPWorkload(SparseMTTKRPWorkload):
 
     Subclasses :class:`SparseMTTKRPWorkload`, so single-array consumers see
     the whole-tensor view unchanged; mesh-aware backends (``"analytical"``
-    here; the reference's ``"psram-mesh"`` comes with ROADMAP Queue A item
-    4) price the split: per-array makespan (arrays run
+    and ``"psram-mesh"``, :mod:`repro_torch.sparse.mesh`) price the split:
+    per-array makespan (arrays run
     concurrently) plus the fabric's all-reduce of the ``(out_rows, rank)``
     partial outputs. ``out_rows`` defaults to the nonempty-row count
     (``n_fibers``) — override it with the full output-mode dimension to bill

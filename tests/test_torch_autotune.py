@@ -226,22 +226,46 @@ def test_clear_program_cache_clears_autotune():
     assert cache_stats()[0] == 0 and at.sweep_log() == ()
 
 
-def _sleeper(params):
-    """A runner whose time grows with the candidate's chunk (the smallest
-    wins), for both packages."""
-    def run():
-        time.sleep(2e-4 * params["exec_blocks"] / 16)
-        return 0
-    return run
+class _FakeClock:
+    """The ``time`` module both tracers read, with ``perf_counter`` a clock
+    that moves only when a fake runner advances it: the trials' medians
+    then order by the candidates alone, whatever else loads the host."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
 
 
-def test_spans_and_counters_equal_the_reference():
+def _ticker(clock):
+    """A ``measure`` whose runner takes ``2e-4 * exec_blocks / 16`` s on
+    ``clock`` (the smallest chunk wins), for both packages."""
+    def measure(params):
+        def run():
+            clock.now += 2e-4 * params["exec_blocks"] / 16
+            return 0
+        return run
+    return measure
+
+
+def test_spans_and_counters_equal_the_reference(monkeypatch):
     """One sweep in each package under tracing: the ``autotune/*`` spans'
     names and args in order, ``median_s`` aside, and the trial counter."""
+    import repro.obs.tracer as jtracer
+    import repro_torch.obs.tracer as ttracer
+
+    clock = _FakeClock()
+    for mod in (jtracer, ttracer):
+        monkeypatch.setattr(mod, "time", clock)
+    measure = _ticker(clock)
     for o in (obs, jobs):
         o.enable()
-    won = get_params(_key(), measure=_sleeper, tune=True)
-    jwon = jat.get_params(_jkey(), measure=_sleeper, tune=True)
+    won = get_params(_key(), measure=measure, tune=True)
+    jwon = jat.get_params(_jkey(), measure=measure, tune=True)
     assert won == jwon == {"exec_blocks": 16}
 
     def spans(o):
@@ -258,7 +282,7 @@ def test_spans_and_counters_equal_the_reference():
         == {"autotune/trials": len(at.candidates(_key()))}
     # a cache hit sweeps nothing and records nothing
     obs.get_tracer().clear()
-    assert get_params(_key(), measure=_sleeper, tune=True) == won
+    assert get_params(_key(), measure=measure, tune=True) == won
     assert obs.get_tracer().counters() == {} and not obs.get_tracer().events()
 
 
