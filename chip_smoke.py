@@ -314,6 +314,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -451,6 +452,27 @@ DIST_TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 0, "total_steps": 100}
 DIST_SERVE_LAYERS = 4
 DIST_SERVE = {"batch": 2, "prompt_len": 16, "max_new": 8}
 DIST_MESH_ARRAYS = 4
+
+# main_path_multicard: placement across ranks. On one card (the default
+# run) a world-size-1 NCCL group: granite-8b at full width, its depth cut to
+# MULTI_LAYERS, as DTensors on a 1 x 1 DeviceMesh, exact and pSRAM, against
+# mesh=None; kernel 2's int32-out routes + the epilogue launch over a
+# SPLIT_WAYS-way K split at o's and down's K, decode and prefill rows
+MULTI_ARCH = "granite_8b"
+MULTI_LAYERS = 4
+MULTI_SERVE = {"batch": 8, "prompt_len": 256, "max_new": 8}
+SPLIT_WAYS = 4
+SPLIT_SHAPES = ((8, 4096, 4096), (8, 14336, 4096), (2048, 4096, 4096), (2048, 14336, 4096))
+# --cards 4: four ranks, one a card, NCCL over NVLink
+CARDS = 4
+FOUR_DBRX = {"batch": 4, "prompt_len": 128, "max_new": 16}
+FOUR_DBRX_SHORT_LAYERS = 2                # the depth held against one card
+FOUR_GRANITE = {"batch": 4, "prompt_len": 128, "max_new": 8}
+FOUR_TRAIN = {"seq_len": 1024, "global_batch": 8, "seed": 0}
+FOUR_TRAIN_STEPS = 12
+FOUR_CKPT_LAYERS = 2                      # f32, FOUR_CMP_STEPS steps against one card
+FOUR_CMP_STEPS = 2
+FOUR_STEP_TOL = 0.05                      # dbrx depth 2, first step, relative L2 vs one card
 
 # main_path_fit: CP-ALS on a tensor whose fit it can reach (the NELL-2-shaped
 # power-law tensor's fits are ~0.002, so its gate cannot fail): a noiseless
@@ -4348,6 +4370,21 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
+def master_drift(got, want, lr: float) -> dict:
+    """Two f32 masters after the same train steps: the elements beyond 1e-6
+    of their leaf's max |want|, of how many, and the worst difference in
+    units of ``lr``."""
+    far = n = 0
+    worst = 0.0
+    for _, a, b in tree_pairs(got, want):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        d = (a - b).abs()
+        far += int((d > 1e-6 * float(b.abs().max())).sum())
+        n += b.numel()
+        worst = max(worst, float(d.max()) / lr)
+    return {"master_elements": n, "master_beyond_1e6": far, "master_worst_in_lr": worst}
+
+
 def train_card_vs_cpu(torch, cfg) -> dict:
     """One train step of the reduced ``cfg`` (f32, TF32 off) on the card
     against the same step on the CPU, from the same params and batch: the
@@ -4391,14 +4428,10 @@ def train_card_vs_cpu(torch, cfg) -> dict:
     _, s_g, m_g = step(card(params), card(init_state(params)), card(batch))
     out["metric_rel_err"] = {k: abs(float(m_g[k]) - float(m_c[k])) / abs(float(m_c[k]))
                              for k in ("loss", "grad_norm", "lr")}
-    far = n = 0
-    worst = 0.0
-    for _, a, b in tree_pairs(s_g["master"], s_c["master"]):
-        d = (a.cpu() - b).abs()
-        far += int((d > 1e-6 * float(b.abs().max())).sum())
-        n += b.numel()
-        worst = max(worst, float(d.max()) / oc.lr)
-    out.update(step_master_elements=n, step_master_beyond_1e6=far, step_master_worst_in_lr=worst)
+    drift = master_drift(s_g["master"], s_c["master"], oc.lr)
+    out.update({f"step_{key}": v for key, v in drift.items()})
+    far, n, worst = (drift["master_beyond_1e6"], drift["master_elements"],
+                     drift["master_worst_in_lr"])
     if not (out["loss_rel_err"] <= 1e-5 and out["grad_rel_err_max"] <= 1e-4
             and out["update_rel_err_max"] <= 1e-6
             and max(out["metric_rel_err"].values()) <= 1e-5 and worst <= 2.0 and far <= 1e-3 * n):
@@ -4970,6 +5003,495 @@ def main_path_dist(torch, cfg, csf, zero_counts, read_counts) -> tuple:
     return phase, a_launches, b_launches, serve_launches
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def split_k_case(torch, m, k, n, route, seed, timed=False):
+    """Kernel 2 with K split ``SPLIT_WAYS`` ways: each slice through the
+    int32-out variant of ``route`` (the epilogue compiled out), the sums
+    added on the card, then the epilogue launch with the whole K's full
+    scale; bit-equal to the fused kernel on the whole K and to its plain
+    version (:func:`psram_matmul_torch`), each slice's sums equal to the
+    plain integer product, the epilogue launch equal to its plain arithmetic
+    on the same summed ``acc``. With ``timed``: one slice's launch
+    (device time of cold calls in a CUDA graph on the decode route, CUDA
+    events over eager calls elsewhere) beside its plain version, bound and
+    ``torch._int_mm``; the epilogue launch beside its plain arithmetic and
+    its bound."""
+    from repro_torch.core.quantization import QMAX, adc_transfer, exact_int_matmul
+    from repro_torch.kernels.psram_matmul import (psram_adc_epilogue, psram_matmul,
+                                                  psram_matmul_int32, psram_matmul_torch)
+
+    qx, qw, sx, sw = matmul_codes(torch, m, k, n, seed)
+    want = psram_matmul(qx, qw, sx, sw)
+    ks = k // SPLIT_WAYS
+    slices = [(qx[:, i * ks:(i + 1) * ks].contiguous(), qw[i * ks:(i + 1) * ks].contiguous())
+              for i in range(SPLIT_WAYS)]
+    parts = [psram_matmul_int32(a, b, route=route) for a, b in slices]
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    got = psram_adc_epilogue(acc, sx, sw, k)
+    fs = float(QMAX) * float(QMAX) * k
+    plain = psram_matmul_torch(qx, qw, sx, sw)
+    case = {"shape": [m, k, n], "route": route, "ways": SPLIT_WAYS,
+            "slices_equal_plain": all(torch.equal(p, exact_int_matmul(a, b).to(torch.int32))
+                                      for p, (a, b) in zip(parts, slices)),
+            "epilogue_equal_plain": bool(torch.equal(
+                got, adc_transfer(acc, 2 ** 16, fs) * (sx * sw))),
+            "bit_equal": bool(torch.equal(got, want)),
+            "bit_equal_plain": bool(torch.equal(got, plain)),
+            "max_abs_err": float((got - plain).abs().max())}
+    if not (case["bit_equal"] and case["bit_equal_plain"] and case["slices_equal_plain"]
+            and case["epilogue_equal_plain"]):
+        raise AssertionError(f"kernel 2's K split differs from the fused kernel or the plain "
+                             f"version: {case}")
+    if timed:
+        a, b = slices[0]
+        launch = lambda: psram_matmul_int32(a, b, route=route)  # noqa: E731
+        case["ms"] = (graph_ms(torch, [launch], reps=4) if route == "decode"
+                      else time_ms(torch, launch))
+        case["plain_ms"] = time_ms(torch, lambda: exact_int_matmul(a, b).to(torch.int32),
+                                   iters=3, reps=2)
+        a32 = a if m > 16 else torch.nn.functional.pad(a, (0, 0, 0, 32 - m))
+        case["library_ms"] = time_ms(torch, lambda: torch._int_mm(a32, b))
+        case["library"] = "torch._int_mm" + ("" if m > 16 else f" on {m} rows padded to 32")
+        bytes_ms = 1e3 * (nbytes(a, b) + 4 * m * n) / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 2.0 * m * ks * n / INT8_OPS_PER_S
+        case["bound_ms"] = max(bytes_ms, ops_ms)
+        case["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        epi = lambda: psram_adc_epilogue(acc, sx, sw, k)  # noqa: E731
+        case["epilogue"] = {
+            "ms": time_ms(torch, epi),
+            "plain_ms": time_ms(torch, lambda: adc_transfer(acc, 2 ** 16, fs) * (sx * sw)),
+            "bound_ms": 1e3 * (8.0 * m * n + nbytes(sx, sw)) / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "library_ms": None}
+    return case
+
+
+def served_pair(torch, cfg, params, mesh, prompts, zero_counts, read_counts):
+    """One configuration served twice, on ``mesh`` (DTensors) and with
+    ``mesh=None``: the prefill's logits and the greedy tokens bit-equal, the
+    launches of the mesh run, each run's wall ms."""
+    from repro_torch.dist.placement import distribute, distribute_tree, full
+    from repro_torch.dist.sharding import logical_to_spec, use_sharding
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine, make_prefill
+
+    p_len, new = MULTI_SERVE["prompt_len"], MULTI_SERVE["max_new"]
+    with torch.inference_mode():
+        want_logits, _ = make_prefill(cfg, p_len + new)(params, prompts)
+        placed = distribute_tree(params, transformer.param_specs(cfg), mesh)
+        tok = distribute(prompts, mesh, logical_to_spec(("batch", "seq"), prompts.shape, mesh))
+        with use_sharding(mesh):
+            got_logits = full(make_prefill(cfg, p_len + new)(placed, tok)[0])
+    out = {"logits_bit_equal": bool(torch.equal(got_logits, want_logits))}
+    del want_logits, got_logits, placed
+    plain = ServeEngine(cfg, params, max_len=p_len + new, device="cuda")
+    placed_eng = ServeEngine(cfg, params, max_len=p_len + new, mesh=mesh)
+    placed_eng.generate(prompts, p_len, 2)            # warm
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    got = placed_eng.generate(prompts, p_len, new)
+    torch.cuda.synchronize()
+    out["mesh_ms"] = 1e3 * (time.perf_counter() - t0)
+    launches = read_counts()
+    t0 = time.perf_counter()
+    want = plain.generate(prompts, p_len, new)
+    torch.cuda.synchronize()
+    out["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["tokens_equal"] = bool(torch.equal(got, want))
+    return out, launches
+
+
+def main_path_multicard(torch, zero_counts, read_counts) -> tuple:
+    """The ``main_path_multicard`` phase on one card: a world-size-1 NCCL
+    group (``launch.mesh.init_distributed``), granite-8b at full width and
+    ``MULTI_LAYERS`` layers placed as DTensors on the 1 x 1 ``DeviceMesh``,
+    exact and pSRAM, served against ``mesh=None`` (prefill logits and
+    greedy tokens bit-equal; the counts zeroed before and read after each
+    mesh run: the pSRAM run's o and down projections take kernel 2's
+    int32-out route and the epilogue launch, K split over the one-rank
+    model axis); kernel 2's int32-out routes + the epilogue over a
+    ``SPLIT_WAYS``-way K split at o's and down's shapes, decode rows on
+    ``decode`` and ``tile``, prefill rows on ``wgmma`` and ``tile``,
+    bit-equal to the fused kernel. ``(phase, launches)``."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models import get_config, transformer
+
+    t_phase = time.perf_counter()
+    init_distributed("cuda", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                     world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, device="cuda")
+        cfg = dataclasses.replace(get_config(MULTI_ARCH), num_layers=MULTI_LAYERS)
+        params = transformer.init(0, cfg, device="cuda")
+        prompts = seeded_prompts(torch, cfg, MULTI_SERVE["batch"], MULTI_SERVE["prompt_len"], 61)
+        exact, exact_launches = served_pair(torch, cfg, params, mesh, prompts, zero_counts,
+                                            read_counts)
+        psram, psram_launches = served_pair(
+            torch, dataclasses.replace(cfg, psram_projections=True), params, mesh, prompts,
+            zero_counts, read_counts)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        cases = []
+        for i, (m, k, n) in enumerate(SPLIT_SHAPES):
+            for route in (("decode", "tile") if m <= 16 else ("wgmma", "tile")):
+                cases.append(split_k_case(torch, m, k, n, route, seed=70 + i, timed=True))
+    finally:
+        dist.destroy_process_group()
+    phase = {"phase": "main_path_multicard", "cards": 1, "world": 1,
+             "arch": MULTI_ARCH, "layers": MULTI_LAYERS, "serve": MULTI_SERVE,
+             "exact": exact, "psram": psram,
+             "launches": {"exact": exact_launches, "psram": psram_launches},
+             "split_k": cases, "wall_s": time.perf_counter() - t_phase}
+    ok = (exact["logits_bit_equal"] and exact["tokens_equal"] and psram["logits_bit_equal"]
+          and psram["tokens_equal"]
+          and psram_launches["psram_matmul_int32"] > 0 and psram_launches["psram_adc_epilogue"] > 0
+          and psram_launches["psram_matmul"] > 0)
+    if not ok:
+        raise AssertionError(f"main_path_multicard: {phase}")
+    launches = {k: exact_launches[k] + psram_launches[k] for k in exact_launches}
+    return phase, launches
+
+
+FOUR_PARTS = ("dbrx", "granite", "train", "ckpt", "mesh")
+
+
+def _four_card_rank(rank, port, out_path, parts=FOUR_PARTS):
+    """One rank of the ``--cards 4`` run (see :func:`main_path_four_cards`)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig
+    from repro_torch.dist.placement import distribute, full, init_placed
+    from repro_torch.dist.sharding import logical_to_spec, use_sharding
+    from repro_torch.kernels.psram_matmul import (psram_adc_epilogue, psram_matmul,
+                                                  psram_matmul_int32)
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.launch.roofline import count_collectives
+    from repro_torch.models import get_config, transformer
+    from repro_torch.models.layers import _proj
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serve import ServeEngine, make_prefill
+    from repro_torch.train import Trainer
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(CARDS), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    init_distributed("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+
+    def release():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return {"psram_matmul": dict(psram_matmul.routes),
+                "psram_matmul_int32": dict(psram_matmul_int32.routes),
+                "psram_adc_epilogue": psram_adc_epilogue.launches}
+
+    def zero():
+        psram_matmul.launches = psram_matmul_int32.launches = psram_adc_epilogue.launches = 0
+        psram_matmul.routes = {r: 0 for r in psram_matmul.routes}
+        psram_matmul_int32.routes = {r: 0 for r in psram_matmul_int32.routes}
+
+    def timed(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, 1e3 * (time.perf_counter() - t0)
+
+    def save():
+        """Rank 0 writes what it has after each part (a later failure keeps it)."""
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(out, f)
+
+    def prompts_for(cfg, spec):
+        return torch.randint(2, cfg.vocab_size, (spec["batch"], spec["prompt_len"]),
+                             device="cuda", dtype=torch.int32,
+                             generator=torch.Generator(device="cuda").manual_seed(5))
+
+    mesh = make_host_mesh(model=CARDS, device="cuda")
+    # (a) dbrx-132b, exact, full width and depth, on (1, 4)
+    if "dbrx" in parts:
+        cfg = get_config("dbrx_132b")
+        spec = FOUR_DBRX
+        release()
+        params, init_ms = timed(lambda: init_placed(cfg, 0, mesh))
+        resident = torch.cuda.memory_allocated()
+        eng = ServeEngine(cfg, params, max_len=spec["prompt_len"] + spec["max_new"], mesh=mesh)
+        prompts = prompts_for(cfg, spec)
+        eng.generate(prompts, spec["prompt_len"], 2)                    # warm
+        _, one_ms = timed(lambda: eng.generate(prompts, spec["prompt_len"], 1))
+        toks, all_ms = timed(lambda: eng.generate(prompts, spec["prompt_len"], spec["max_new"]))
+        _, rec1 = count_collectives(lambda: eng.generate(prompts, spec["prompt_len"], 1))
+        _, rec3 = count_collectives(lambda: eng.generate(prompts, spec["prompt_len"], 3))
+        per_step = {}
+        for op, nb, g in rec3:
+            per_step.setdefault(op, [0, 0])
+            per_step[op][0] += 1
+            per_step[op][1] += nb
+        for op, nb, g in rec1:
+            per_step[op][0] -= 1
+            per_step[op][1] -= nb
+        out["dbrx"] = {"layers": cfg.num_layers, "mesh": list(mesh.shape),
+                       "params_per_card_bytes": resident, "init_ms": init_ms,
+                       "generate_1_ms": one_ms, "generate_ms": all_ms,
+                       "decode_ms_per_step": (all_ms - one_ms) / (spec["max_new"] - 1),
+                       "device_bytes_peak": torch.cuda.max_memory_allocated(),
+                       "collectives_per_step": {op: {"count": c / 2, "bytes": b / 2}
+                                                for op, (c, b) in per_step.items()},
+                       "tokens": toks[0].tolist()}
+        save()
+        del eng, params
+        release()
+
+        # the same model at depth 2 on (1, 4) against one card (rank 0)
+        cfg2 = dataclasses.replace(cfg, num_layers=FOUR_DBRX_SHORT_LAYERS)
+        params = init_placed(cfg2, 0, mesh)
+        eng = ServeEngine(cfg2, params, max_len=spec["prompt_len"] + spec["max_new"], mesh=mesh)
+        toks_mesh = eng.generate(prompts, spec["prompt_len"], spec["max_new"])
+        with torch.inference_mode(), use_sharding(mesh):
+            tok = distribute(prompts, mesh, logical_to_spec(("batch", "seq"), prompts.shape, mesh))
+            lg_mesh = full(make_prefill(cfg2, spec["prompt_len"] + 1)(params, tok)[0])
+        del eng, params
+        release()
+        if rank == 0:
+            one = transformer.init(0, cfg2, device="cuda")
+            with torch.inference_mode():
+                lg_one = make_prefill(cfg2, spec["prompt_len"] + 1)(one, prompts)[0]
+            toks_one = ServeEngine(cfg2, one, max_len=spec["prompt_len"] + spec["max_new"],
+                                   device="cuda").generate(prompts, spec["prompt_len"],
+                                                           spec["max_new"])
+            rel = float((lg_mesh.float() - lg_one.float()).norm() / lg_one.float().norm())
+            out["dbrx_short"] = {"layers": cfg2.num_layers, "first_step_rel_l2": rel,
+                                 "greedy_agreement": float((toks_mesh == toks_one).float().mean()),
+                                 "first_token_equal": bool(torch.equal(toks_mesh[:, 0],
+                                                                       toks_one[:, 0]))}
+            del one
+        save()
+        dist.barrier()
+        release()
+
+    # (b) granite-8b on (1, 4), 36 layers: layer 0's sharded kernel 2 vs one card
+    if "granite" in parts:
+        cfg = get_config("granite_8b")
+        pcfg = dataclasses.replace(cfg, psram_projections=True)
+        params = init_placed(cfg, 0, mesh)
+        l0 = params["blocks"][0]["layer0"]
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        xs = {"wq": torch.randn((4, 128, cfg.d_model), generator=gen, device="cuda"),
+              "wo": torch.randn((4, 128, cfg.q_dim), generator=gen, device="cuda"),
+              "mlp_wo": torch.randn((4, 128, cfg.d_ff), generator=gen, device="cuda")}
+        ws = {"wq": l0["mixer"]["wq"], "wo": l0["mixer"]["wo"], "mlp_wo": l0["mlp"]["wo"]}
+        got, full_w = {}, {}
+        zero()
+        with torch.inference_mode(), use_sharding(mesh):
+            for name, x in xs.items():
+                x = x.to(torch.bfloat16)
+                xp = distribute(x, mesh, logical_to_spec(("batch", "seq", None), x.shape, mesh))
+                got[name] = full(_proj(xp, ws[name], pcfg))
+                full_w[name] = full(ws[name])
+        layer0_counts = counts()
+        if rank == 0:
+            with torch.inference_mode():
+                out["granite_layer0"] = {
+                    name: bool(torch.equal(got[name], _proj(xs[name].to(torch.bfloat16),
+                                                            full_w[name], pcfg)))
+                    for name in xs}
+            out["granite_layer0_launches"] = layer0_counts
+        del got, full_w
+        gspec = FOUR_GRANITE
+        gprompts = prompts_for(cfg, gspec)
+        served = {}
+        for name, c in (("exact", cfg), ("psram", pcfg)):
+            eng = ServeEngine(c, params, max_len=gspec["prompt_len"] + gspec["max_new"], mesh=mesh)
+            eng.generate(gprompts, gspec["prompt_len"], 2)
+            zero()
+            toks, ms = timed(lambda: eng.generate(gprompts, gspec["prompt_len"], gspec["max_new"]))
+            served[name] = {"generate_ms": ms, "launches": counts(), "tokens": toks[0].tolist()}
+            del eng
+        out["granite_serve"] = served
+        save()
+        del params, l0, ws
+        release()
+
+    # (c) granite-8b training, 36 layers, (4, 1), FSDP
+    tmesh = make_host_mesh(model=1, device="cuda")
+    tcfg = dataclasses.replace(get_config("granite_8b"), attention_impl="chunked", remat=True,
+                               remat_policy="dots")
+    dc = DataConfig(vocab_size=tcfg.vocab_size, **FOUR_TRAIN)
+    oc = AdamWConfig(**TRAIN_OPT)
+    if "train" in parts:
+        tr, init_ms = timed(lambda: Trainer(tcfg, dc, opt_cfg=oc, mesh=tmesh, fsdp=True))
+        resident = torch.cuda.memory_allocated()
+        losses = tr.run(FOUR_TRAIN_STEPS, log_every=10 ** 9, log_fn=lambda *_: None)
+        ms = [1e3 * t for t in tr.step_times]
+        med = statistics.median(ms[2:])
+        tokens = FOUR_TRAIN["global_batch"] * FOUR_TRAIN["seq_len"]
+        out["train"] = {"layers": tcfg.num_layers, "mesh": list(tmesh.shape), "fsdp": tr.fsdp,
+                        "losses": losses, "step_ms": ms, "step_ms_median": med,
+                        "tokens_per_s": tokens / (med / 1e3), "init_ms": init_ms,
+                        "state_per_card_bytes": resident,
+                        "device_bytes_peak": torch.cuda.max_memory_allocated(),
+                        "placement": str(tr.params["blocks"][0]["layer0"]["mixer"]["wq"]
+                                         .placements)}
+        save()
+        del tr
+        release()
+
+    # (d) FOUR_CKPT_LAYERS layers in f32 on (4, 1) FSDP against one card,
+    # then its 4-rank checkpoint restored on one card
+    if "ckpt" in parts:
+        ccfg = dataclasses.replace(tcfg, num_layers=FOUR_CKPT_LAYERS, dtype="float32")
+        coc = AdamWConfig(**DIST_TRAIN_OPT)
+        tr = Trainer(ccfg, dc, opt_cfg=coc, mesh=tmesh, fsdp=True)
+        losses = tr.run(FOUR_CMP_STEPS, log_every=10 ** 9, log_fn=lambda *_: None)
+        ckdir = tempfile.mkdtemp(prefix="four_card_ckpt_")
+        CheckpointManager(ckdir).save(FOUR_CMP_STEPS, {"params": tr.params}, blocking=True)
+        whole = tree_map(full, tr.params)
+        master = tree_map(full, tr.opt_state["master"])
+        if rank == 0:
+            one = Trainer(ccfg, dc, opt_cfg=coc, device="cuda")
+            want = one.run(FOUR_CMP_STEPS, log_every=10 ** 9, log_fn=lambda *_: None)
+            out["train_short"] = {
+                "layers": ccfg.num_layers, "dtype": ccfg.dtype, "opt": DIST_TRAIN_OPT,
+                "losses": losses, "one_card_losses": want,
+                "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses, want)),
+                **master_drift(master, one.opt_state["master"], coc.lr * FOUR_CMP_STEPS)}
+            del one
+            like = {"params": tree_map(lambda t: torch.empty_like(t), whole)}
+            got_ck, step = CheckpointManager(ckdir).restore(like)
+            out["checkpoint"] = {"step": step, "layers": ccfg.num_layers,
+                                 "bit_equal": all(torch.equal(a, b) for a, b in
+                                                  zip(leaves(got_ck["params"]), leaves(whole))),
+                                 "leaves": len(leaves(whole))}
+        del tr, whole, master
+        release()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def main_path_four_cards(torch, cfg, nnz: int, parts=FOUR_PARTS) -> dict:
+    """The ``--cards 4`` run: four ranks, one a card (NCCL), spawned from
+    here, record (a) dbrx-132b exact at full width and depth on (1, 4) —
+    prefill and decode ms, params and peak bytes a card, the collectives of
+    a decode step — and at depth 2 against one card (the first step's
+    relative L2, greedy agreement); (b) granite-8b on (1, 4), 36 layers:
+    layer 0's q (column-parallel), o and down (row-parallel: the int32-out
+    route, the all-reduce, the epilogue launch) bit-equal to one card,
+    served exact and pSRAM; (c) granite-8b trained at 36 layers on (4, 1)
+    with FSDP; (d) granite-8b at depth 2 in f32 trained 2 steps on (4, 1)
+    with FSDP against one card (the losses and the masters), and its 4-rank
+    checkpoint restored on one card. Then in this
+    process ``psram-mesh`` with 4 arrays on the 4 cards: bit-equal to
+    ``psram-stream``, a sweep's ms, and whether a mesh call makes a host
+    synchronize (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import torch.multiprocessing as tmp
+
+    out_dir = Path("chiprun_out") / "four_cards"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out_path = out_dir / "ranks.json"
+    t0 = time.perf_counter()
+    tmp.spawn(_four_card_rank, args=(free_port(), str(out_path), parts), nprocs=CARDS,
+              join=True)
+    phase = {"phase": "main_path_multicard", "cards": CARDS, "ranks_wall_s":
+             time.perf_counter() - t0, **json.loads(out_path.read_text())}
+
+    if "mesh" in parts:
+        phase["psram_mesh"] = _four_card_mesh(torch, cfg, nnz)
+    four_card_gates(phase)
+    return phase
+
+
+def _four_card_mesh(torch, cfg, nnz: int) -> dict:
+    """``psram-mesh`` with 4 arrays over the 4 cards of this process."""
+    from repro_torch import backends
+    from repro_torch.core.cp_als import cp_als, init_factors
+    from repro_torch.sparse import csf_for_mode, powerlaw_coo
+    from repro_torch.sparse.mesh import mesh_stream_mttkrp
+    from repro_torch.sparse.stream import stream_mttkrp
+
+    coo = powerlaw_coo(0, NELL2_SHAPE, nnz=nnz, rank=8, alpha=1.1, device="cuda")
+    csfs = [csf_for_mode(coo, m) for m in range(3)]
+    init = init_factors(0, NELL2_SHAPE, RANK, device="cuda")
+    fs = tuple(init)
+    equal, call_ms = [], []
+    for m in range(3):
+        want = stream_mttkrp(csfs[m], fs, cfg, psram=True)
+        got = mesh_stream_mttkrp(csfs[m], fs, cfg, n_arrays=CARDS, lowering="eager")
+        equal.append(bool(torch.equal(got.to(want.device), want)))
+        call_ms.append(time_ms(torch, lambda: mesh_stream_mttkrp(csfs[m], fs, cfg,
+                                                                  n_arrays=CARDS,
+                                                                  lowering="eager")))
+    sync = "none"
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mesh_stream_mttkrp(csfs[0], fs, cfg, n_arrays=CARDS, lowering="eager")
+    except RuntimeError as e:
+        sync = str(e).splitlines()[0][:200]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    mesh_cls = type(backends.get("psram-mesh", cfg))
+    state, per_sweep = stamped_sweeps(torch, cp_als, mesh_cls, cfg, coo, csfs, init, SWEEPS,
+                                      n_arrays=CARDS)
+    out = {"arrays": CARDS, "cards": torch.cuda.device_count(),
+           "bit_equal_to_psram_stream": equal, "call_ms": call_ms,
+           "per_sweep_ms": per_sweep, "host_sync": sync}
+    if not all(equal):
+        raise AssertionError(f"psram-mesh on {CARDS} cards differs from psram-stream: {equal}")
+    return out
+
+
+def four_card_gates(phase: dict) -> None:
+    """The four-card run's gates, on the parts it ran."""
+    if "dbrx_short" in phase and phase["dbrx_short"]["first_step_rel_l2"] > FOUR_STEP_TOL:
+        raise AssertionError(f"dbrx on (1, 4) vs one card: {phase['dbrx_short']}")
+    if "granite_layer0" in phase and not all(phase["granite_layer0"].values()):
+        raise AssertionError(f"granite-8b layer 0 on (1, 4) vs one card: {phase}")
+    if "train" in phase:
+        # main_path_train's gate, and below the untrained step-0 loss
+        losses = phase["train"]["losses"]
+        last5 = statistics.fmean(losses[-5:])
+        if not (all(math.isfinite(x) for x in losses)
+                and last5 < statistics.fmean(losses[:5]) - TRAIN_LOSS_DROP
+                and last5 < losses[0]):
+            raise AssertionError(f"the four-card training's losses: {losses}")
+    if "train_short" in phase:
+        # train_card_vs_cpu's tolerances: the loss 1e-5 relative; at most
+        # 1e-3 of the master's elements beyond 1e-6 of their leaf's max, each
+        # within 2 lr a step (Adam's first updates are about lr * sign(g))
+        short = phase["train_short"]
+        if not (short["loss_rel_err"] <= 1e-5 and short["master_worst_in_lr"] <= 2.0
+                and short["master_beyond_1e6"] <= 1e-3 * short["master_elements"]):
+            raise AssertionError(f"FSDP (4, 1) at depth {FOUR_CKPT_LAYERS} vs one card: {short}")
+    if "checkpoint" in phase and not phase["checkpoint"]["bit_equal"]:
+        raise AssertionError(f"the 4-rank checkpoint on one card: {phase['checkpoint']}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--nnz", type=int, default=16_777_216,
@@ -4979,6 +5501,11 @@ def main(argv=None) -> int:
     parser.add_argument("--tuning", action="store_true",
                         help="also time kernel 2's decode route at every cluster size "
                              "and both routes over every M of the crossover sweep")
+    parser.add_argument("--cards", type=int, default=1, choices=(1, CARDS),
+                        help=f"{CARDS}: the four-card run alone (main_path_multicard over "
+                             f"{CARDS} ranks, one a card); exits non-zero with fewer cards")
+    parser.add_argument("--parts", default=",".join(FOUR_PARTS),
+                        help=f"with --cards {CARDS}: which of {','.join(FOUR_PARTS)} to run")
     opts = parser.parse_args(argv)
     _LAST_EMIT[0] = _START[0] = time.perf_counter()
 
@@ -5000,7 +5527,8 @@ def main(argv=None) -> int:
         drive_scales, mttkrp_fused, mttkrp_psram_fused, mttkrp_psram_strided,
         quantize_mttkrp_operands)
     from repro_torch.kernels.ordered_fold import ordered_fold
-    from repro_torch.kernels.psram_matmul import psram_matmul
+    from repro_torch.kernels.psram_matmul import (psram_adc_epilogue, psram_matmul,
+                                                  psram_matmul_int32)
     from repro_torch.kernels.segment_sum import blocked_segment_sum, padded_chain
     from repro_torch.kernels.stream_mttkrp import stream_mttkrp_fused
     from repro_torch.sparse import csf_for_mode, powerlaw_coo
@@ -5010,7 +5538,9 @@ def main(argv=None) -> int:
                   "mttkrp_fused": mttkrp_fused, "mttkrp_psram_fused": mttkrp_psram_fused,
                   "mttkrp_psram_strided": mttkrp_psram_strided, "drive_scales": drive_scales,
                   "blocked_segment_sum": blocked_segment_sum,
-                  "flash_attention": flash_attention, "ordered_fold": ordered_fold}
+                  "flash_attention": flash_attention, "ordered_fold": ordered_fold,
+                  "psram_matmul_int32": psram_matmul_int32,
+                  "psram_adc_epilogue": psram_adc_epilogue}
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -5020,7 +5550,7 @@ def main(argv=None) -> int:
             fn.routes = {route: 0 for route in fn.routes}
 
     routed = (psram_matmul, stream_mttkrp_fused, ordered_fold, mttkrp_psram_fused,
-              mttkrp_psram_strided, blocked_segment_sum)
+              mttkrp_psram_strided, blocked_segment_sum, psram_matmul_int32)
 
     def read_counts():
         torch.cuda.synchronize()
@@ -5059,6 +5589,25 @@ def main(argv=None) -> int:
         if not (k2_sass["IGMMA"] > 0 and k2_sass["UTMALDG"] > 0):
             raise AssertionError(f"psram_matmul's SASS holds no integer wgmma or no TMA load: "
                                  f"{k2_sass}")
+
+    if opts.cards == CARDS:
+        # the four-card run: main_path_multicard over CARDS ranks, nothing else
+        if torch.cuda.device_count() < CARDS:
+            print(f"chip_smoke --cards {CARDS}: {torch.cuda.device_count()} CUDA device(s) "
+                  f"visible, {CARDS} needed", file=sys.stderr)
+            return 1
+        four = main_path_four_cards(torch, resolve_config(None), opts.nnz,
+                                    tuple(opts.parts.split(",")))
+        report["main_path_multicard"] = four
+        if opts.out is not None:
+            opts.out.parent.mkdir(parents=True, exist_ok=True)
+            opts.out.write_text(json.dumps(report, indent=1))
+        emit(four)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # 2. data: host-side preprocessing --------------------------------------
     cfg = resolve_config(None)
@@ -5823,6 +6372,11 @@ def main(argv=None) -> int:
     report["main_path_examples"] = examples_path
     emit(examples_path)
 
+    # 9. main_path_multicard: DTensors on a world-size-1 NCCL group ---------
+    multi_path, multi_launches = main_path_multicard(torch, zero_counts, read_counts)
+    report["main_path_multicard"] = multi_path
+    emit(multi_path)
+
     # the contract's kernel table -------------------------------------------
     def mean(key, cases=a_main):
         return statistics.fmean(c[key] for c in cases)
@@ -5836,10 +6390,35 @@ def main(argv=None) -> int:
                   mrope_launches, paged_exact_launches, paged_psram_launches,
                   paged_pressure_launches, train_launches, train_ef_launches,
                   dist_a_launches, dist_b_launches, dist_serve_launches, fit_launches,
-                  *examples_launches)
+                  *examples_launches, multi_launches)
 
     def total(name):
-        return sum(counts[name] for counts in main_paths)
+        return sum(counts.get(name, 0) for counts in main_paths)
+
+    split_cases = multi_path["split_k"]
+
+    def split_row(route):
+        cs = [c for c in split_cases if c["route"] == route]
+        main = cs[-1]                             # down's K at this route's rows
+        return {
+            "name": f"psram_matmul_int32_{route}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/psram_matmul.cu (the "
+                      + {"wgmma": "psram_matmul_wgmma_kernel", "tile": "psram_matmul_kernel",
+                         "decode": "psram_matmul_decode_kernel"}[route]
+                      + "<..., RAW = true>: the route's int32 sums of one K slice, its "
+                        "epilogue compiled out; a row-parallel pSRAM projection on a mesh)",
+            "replaces": "src/repro/kernels/psram_matmul.py:80",
+            "launches": total(f"psram_matmul_int32_{route}"),
+            "max_abs_err": max(c["max_abs_err"] for c in cs),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library": main["library"], "shape": main["shape"], "ways": SPLIT_WAYS,
+            "tolerance": f"{SPLIT_WAYS} K slices' int32 sums added + the epilogue launch "
+                         "bit-equal to the fused kernel on the whole K; each slice's sums "
+                         "equal to the plain integer product",
+            "per_shape": [{k: c[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                             "library_ms")} for c in cs],
+        }
 
     def row(name, source, replaces, main, small, tolerance, **extra):
         return {
@@ -6109,6 +6688,23 @@ def main(argv=None) -> int:
              "the chain route's quantized variant, the psram-stream compiled path; the chain "
              "hopper::psram_chain_pieces)",
              "src/repro/kernels/segment_sum.py:44"))],
+        *[split_row(route) for route in ("wgmma", "tile", "decode")],
+        {
+            "name": "psram_adc_epilogue", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/psram_matmul.cu (psram_adc_epilogue_kernel: "
+                      "the ADC + dequant on all-reduced int32 sums, the fused kernels' "
+                      "epilogue arithmetic)",
+            "replaces": "src/repro/kernels/psram_matmul.py:80 (its epilogue)",
+            "launches": total("psram_adc_epilogue"),
+            "max_abs_err": max(c["max_abs_err"] for c in split_cases),
+            **{k: split_cases[-1]["epilogue"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "library": "none (no one PyTorch call digitizes and scales)",
+            "shape": split_cases[-1]["shape"][::2],
+            "tolerance": "bit-equal to the fused kernel's epilogue (the K split above)",
+            "per_shape": [{"shape": c["shape"][::2], **c["epilogue"]} for c in split_cases
+                          if c["route"] != "tile"],
+        },
     ]}
     report["kernels"] = kernels
     if opts.out is not None:

@@ -16,9 +16,10 @@ registry with the ``"exact"``, ``"psram-oracle"``, ``"psram-scheduled"``,
 (dense data and ``compiled=False`` included) and ``"analytical"``
 backends, ``api`` (estimate / execute / mttkrp / matmul), the dense decoder family (``models``, ``configs``,
 ``core.photonic_layer``), ``serve`` (``ServeEngine``, the offload reports
-and the paged serve loop) and ``launch.serve``, training on one device
-(``optim``, ``dist.compression``, ``train``, ``checkpoint``, ``data`` and
-``launch.train``),
+and the paged serve loop) and ``launch.serve``, training (``optim``,
+``dist.compression``, ``train``, ``checkpoint``, ``data`` and
+``launch.train``), on one device or one process a card over a model mesh
+(``dist.placement``: DTensors over a ``DeviceMesh``),
 ``obs`` (the tracer with device-true spans and stopwatch, the instrumented
 backends, the schedule-IR timelines and the drift auditor), and
 six hand-written CUDA kernels (``kernels/csrc``), one for every Pallas

@@ -23,9 +23,16 @@ Async: ``save()`` copies the tree to host memory synchronously — the
 train loop is blocked only for the copy, not the I/O — then a daemon thread
 writes it. ``restore()`` reads the newest committed step onto the devices of
 the tree it is handed, or, given ``shardings=`` (a tree of
-``dist.sharding.NamedSharding``), onto each sharding's mesh device: the
-elastic restore onto a mesh. Shards live on one device (a mesh over several
-cards raises: ROADMAP Queue A item 9c).
+``dist.sharding.NamedSharding``), onto each sharding's mesh: the elastic
+restore onto a mesh.
+
+Across several ranks (DTensor leaves, ``dist.placement``) ``save`` gathers
+each leaf (``full_tensor``, on every rank) and rank 0 alone writes the same
+npz bytes and ``tree.json`` as one process; a blocking save ends on a
+barrier. ``restore`` reads the whole leaf on every rank and keeps its
+block, placed as the leaf it replaces (a DTensor of ``like_tree``) or by
+its sharding. So a checkpoint written on 4 ranks restores on 1, and back,
+bit for bit: the reference's resume on a different topology.
 
 Port of the reference module whole.
 """
@@ -39,8 +46,22 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._tree import fill, leaf_sets, path_str
+
+
+def _is_dtensor(t) -> bool:
+    if type(t) is torch.Tensor:
+        return False
+    from repro_torch.dist.placement import is_dtensor
+    return is_dtensor(t)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the one
+    process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class CheckpointError(RuntimeError):
@@ -55,7 +76,10 @@ _BF16 = "bfloat16"
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t`` (never an alias: the trainer updates its state
-    in place while a save is being written); bf16 as its 16-bit patterns."""
+    in place while a save is being written); bf16 as its 16-bit patterns. A
+    DTensor is gathered whole first (a collective: every rank calls it)."""
+    if _is_dtensor(t):
+        t = t.detach().full_tensor()
     t = t.detach().to("cpu", copy=True)
     return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
 
@@ -95,6 +119,15 @@ def _tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
+def _placed_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` (the whole leaf) where ``like`` lives: its device, or its block
+    on ``like``'s mesh."""
+    if _is_dtensor(like):
+        from repro_torch.dist.placement import distribute_as
+        return distribute_as(t, like)
+    return t.to(like.device)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, host_index: int = 0):
         self.dir = directory
@@ -107,12 +140,18 @@ class CheckpointManager:
     def save(self, step: int, tree, blocking: bool = False):
         """Snapshot now, write in the background (or now, ``blocking``)."""
         self.wait()  # one in-flight save at a time
+        placed = any(_is_dtensor(t) for _, leaf in leaf_sets(tree)
+                     for t in (leaf if isinstance(leaf, list) else [leaf]))
         items = _snapshot(tree)
-        if blocking:
-            self._write(step, items)
-        else:
-            self._thread = threading.Thread(target=self._write, args=(step, items), daemon=True)
-            self._thread.start()
+        if _writer():
+            if blocking:
+                self._write(step, items)
+            else:
+                self._thread = threading.Thread(target=self._write, args=(step, items),
+                                                daemon=True)
+                self._thread.start()
+        if blocking and placed:
+            dist.barrier()
 
     def wait(self):
         if self._thread is not None:
@@ -179,10 +218,9 @@ class CheckpointManager:
         of its sharding's mesh. Returns ``(tree, step)``."""
         placed = None
         if shardings is not None:
-            placed = {path: ([s.device for s in sh] if isinstance(sh, list) else sh.device)
-                      for path, sh in leaf_sets(shardings)}
-            if any(d.type == "meta" for v in placed.values()
-                   for d in (v if isinstance(v, list) else [v])):
+            placed = dict(leaf_sets(shardings))
+            if any(s.device.type == "meta" for v in placed.values()
+                   for s in (v if isinstance(v, list) else [v])):
                 raise ValueError("restore(shardings=) onto a logical (meta) mesh: a "
                                  "production mesh prices shards, it holds none")
         step = step if step is not None else self.latest_step()
@@ -214,12 +252,12 @@ class CheckpointManager:
                 raise CheckpointError(
                     f"checkpoint step {step} leaf {name!r} has shape "
                     f"{tuple(arr.shape)}, expected {want}")
+            likes = like if isinstance(like, list) else [like]
+            arrs = list(arr) if isinstance(like, list) else [arr]
             if placed is None:
-                devices = [t.device for t in like] if isinstance(like, list) else like.device
+                got = [_placed_as(_tensor(a, dtype, "cpu"), t) for a, t in zip(arrs, likes)]
             else:
-                devices = placed[path]
-            if isinstance(like, list):
-                values[path] = [_tensor(a, dtype, d) for a, d in zip(arr, devices)]
-            else:
-                values[path] = _tensor(arr, dtype, devices)
+                shs = placed[path] if isinstance(like, list) else [placed[path]]
+                got = [s.distribute(_tensor(a, dtype, "cpu")) for a, s in zip(arrs, shs)]
+            values[path] = got if isinstance(like, list) else got[0]
         return fill(like_tree, values), step

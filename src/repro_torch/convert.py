@@ -128,7 +128,7 @@ def _split_groups(tree, n: int, device):
     return [_array_tensor(a[g], device) for g in range(n)]
 
 
-def model_params(tree, cfg, device="cuda") -> dict:
+def model_params(tree, cfg, device="cuda", mesh=None, fsdp: bool = False, rules=None) -> dict:
     """The reference's parameter pytree as the port's params. A decoder LM
     (``{"embed", "blocks", "final_norm"[, "head"]}``, ``blocks`` stacked over
     ``cfg.num_groups``): ``blocks`` becomes a list of per-group dicts. An
@@ -139,7 +139,22 @@ def model_params(tree, cfg, device="cuda") -> dict:
     layers carry ``router`` and ``wi`` / ``wg`` / ``wo`` with their expert
     axis (``(E, d, ff)``; stored words with ``(1, 1, ff)`` scales) across
     unchanged; SSM layers their ``in_proj``, ``conv_w``, ``conv_b``,
-    ``a_log``, ``d_skip``, ``dt_bias``, ``norm`` and ``out_proj``."""
+    ``a_log``, ``d_skip``, ``dt_bias``, ``norm`` and ``out_proj``.
+
+    ``mesh`` (a ``launch.mesh.ModelMesh`` under a process group): the
+    leaves are built on the host and each placed by ``cfg``'s param specs
+    as a DTensor (``dist.placement``), one leaf on this rank's device at a
+    time; ``device`` is then ignored."""
+    if mesh is not None and mesh.placed:
+        from repro_torch._tree import tree_map
+        from repro_torch.dist.placement import distribute
+        from repro_torch.dist.sharding import logical_to_spec
+        from repro_torch.models.layers import specs_of
+        from repro_torch.models.registry import get_module
+        here = mesh.local_device()
+        return tree_map(lambda t, ax: distribute(t.to(here), mesh, logical_to_spec(
+            tuple(ax), t.shape, mesh, fsdp, rules)), model_params(tree, cfg, device="cpu"),
+            specs_of(get_module(cfg).param_defs(cfg)))
     stacked = ({"encoder": cfg.enc_layers, "decoder": cfg.dec_layers}
                if cfg.family == "encdec" else {"blocks": cfg.num_groups})
     out = {k: _tree(v, device) for k, v in tree.items() if k not in stacked}

@@ -16,6 +16,17 @@ so it reaches ``x`` and the weight through each row's and each column's
 ``max|.|`` (split evenly at ties, as ``jnp.max`` splits it), never through
 the int8 codes.
 
+On a model mesh (DTensor operands, ``dist.placement``) a projection runs
+kernel 2 on each card's blocks. Column-parallel (N on ``"model"``: q, k,
+v, gate, up) needs nothing more: each row's scale and each column's see the
+whole K. Row-parallel (K on ``"model"``: o, down) takes each row's
+``max|x|`` over the whole K (a MAX all-reduce) before it quantizes, runs
+kernel 2's int32-out route on its K slice, all-reduces the int32 sums
+(exact, so in any order) and runs the ADC + dequant as a launch of its own
+with the full scale of the whole K. Either is bit-equal to kernel 2 on one
+card with the whole operands. Both carry the reference's scales-only
+gradient (a row's or a column's maximum split over every rank's ties).
+
 :func:`psram_einsum` is the MoE experts' batched form. The reference
 computes it outside any Pallas kernel (a ``jnp.einsum`` of int32 codes), so
 here it is plain PyTorch on the tensors' device: the integer contraction
@@ -28,9 +39,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import ieee_f32
-from repro_torch.kernels.psram_matmul import psram_matmul, psram_matmul_trained
+from repro_torch.kernels.psram_matmul import (psram_adc_epilogue, psram_matmul,
+                                              psram_matmul_int32, psram_matmul_trained)
 
-from .quantization import ADCConfig, QMAX, adc_requantize, exact_int_matmul, quantize_symmetric
+from .quantization import (ADCConfig, QMAX, adc_requantize, exact_int_matmul, quantize_symmetric,
+                           symmetric_scale)
 
 
 def program_weights(w: torch.Tensor) -> dict:
@@ -53,6 +66,10 @@ def psram_linear(
     ADC rails, so ``saturate=False`` raises on a CUDA tensor; on the CPU it
     takes the plain arithmetic with a wrapping curve.
     """
+    if type(x) is not torch.Tensor or type(programmed["q"]) is not torch.Tensor:
+        from repro_torch.dist.placement import is_dtensor
+        if is_dtensor(programmed["q"]):
+            return _psram_linear_placed(x, programmed, adc_bits, saturate)
     qw, sw = programmed["q"], programmed["scale"]
     k = qw.shape[0]
     if x.shape[-1] != k:
@@ -74,6 +91,118 @@ def psram_linear(
         adc = ADCConfig(bits=adc_bits, saturate=False)
         y = adc_requantize(acc, adc, float(QMAX) * float(QMAX) * k) * (sx * sw)
     return y.reshape(*lead, y.shape[-1])
+
+
+def _model_split(w) -> str:
+    """How a placed weight ``(K, N)`` lies on the ``"model"`` axis:
+    ``"k"`` (row-parallel), ``"n"`` (column-parallel) or ``"none"``."""
+    from repro_torch.dist.placement import Shard, axis_placement
+    p = axis_placement(w, "model")
+    if not isinstance(p, Shard):
+        return "none"
+    return "k" if p.dim % w.ndim == w.ndim - 2 else "n"
+
+
+class _GlobalAbsMax(torch.autograd.Function):
+    """``max|t|`` over ``dim`` (kept) and over the ranks of ``group``, whose
+    blocks of ``dim`` together make the whole: the gradient goes to the
+    elements at the maximum, split evenly over every rank's ties, as
+    ``amax`` splits it on one card."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        import torch.distributed as dist
+
+        from repro_torch.dist.placement import all_reduce_
+        m = t.abs().amax(dim=dim, keepdim=True)
+        m = all_reduce_(m.to(torch.float32), group, dist.ReduceOp.MAX).to(t.dtype)
+        ctx.save_for_backward(t, m)
+        ctx.dim, ctx.group = dim, group
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.dist.placement import all_reduce_
+        t, m = ctx.saved_tensors
+        at_max = t.abs() == m
+        ties = all_reduce_(at_max.sum(dim=ctx.dim, keepdim=True, dtype=torch.float32), ctx.group)
+        return g * torch.sign(t) * at_max / ties.to(g.dtype), None, None
+
+
+class _SplitScalesGrad(torch.autograd.Function):
+    """Kernel 2 over a K split across ``group``: each rank's int32 sums
+    (:func:`psram_matmul_int32`) all-reduced, then the epilogue launch with
+    the whole K's full scale. The gradient is :class:`_ScalesGrad`'s,
+    through the scales only, from the saved sums."""
+
+    @staticmethod
+    def forward(ctx, qx, qw, sx, sw, k, adc_bits, group):
+        from repro_torch.dist.placement import all_reduce_
+        acc = all_reduce_(psram_matmul_int32(qx, qw), group)
+        ctx.save_for_backward(acc, sx, sw)
+        ctx.k, ctx.adc_bits = k, adc_bits
+        return psram_adc_epilogue(acc, sx, sw, k, adc_bits=adc_bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc, sx, sw = ctx.saved_tensors
+        a = psram_adc_epilogue(acc, torch.ones_like(sx), torch.ones_like(sw), ctx.k,
+                               adc_bits=ctx.adc_bits)
+        ga = g * a
+        grad_sx = (ga * sw).sum(dim=1, keepdim=True) if ctx.needs_input_grad[2] else None
+        grad_sw = (ga * sx).sum(dim=0, keepdim=True) if ctx.needs_input_grad[3] else None
+        return None, None, grad_sx, grad_sw, None, None, None
+
+
+def _psram_linear_placed(x, programmed=None, adc_bits: int = 16, saturate: bool = True,
+                         w=None):
+    """:func:`psram_linear` on a model mesh (see the module note): the
+    stored words ``programmed``, or a weight ``w`` programmed here (each
+    column's scale over the whole K)."""
+    from repro_torch.dist.placement import (DTensor, Replicate, Shard, axis_group, gathered,
+                                            settled, to_local_partial)
+    if not saturate:
+        raise ValueError("psram_linear(saturate=False) has no placed form")
+    ref = gathered(w) if w is not None else settled(gathered(programmed["q"]))
+    mesh = ref.device_mesh
+    names = mesh.mesh_dim_names
+    split = _model_split(ref)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim)
+    want = list(x.placements)
+    if "model" in names:
+        want[names.index("model")] = Shard(x.ndim - 1) if split == "k" else Replicate()
+    if tuple(want) != tuple(x.placements):
+        x = x.redistribute(mesh, want)
+    x_l = to_local_partial(x)
+    if w is not None:
+        w_l = to_local_partial(ref)
+    else:
+        qw_l = to_local_partial(ref)
+        sw_l = to_local_partial(settled(gathered(programmed["scale"]))).reshape(1, -1)
+    out = list(x.placements)
+    if split != "k":
+        y = psram_linear(x_l, program_weights(w_l) if w is not None
+                         else {"q": qw_l, "scale": sw_l}, adc_bits=adc_bits)
+        if "model" in names:
+            out[names.index("model")] = Shard(y.ndim - 1) if split == "n" else Replicate()
+        return DTensor.from_local(y, mesh, out)
+    group = axis_group(ref, "model")
+    k = ref.shape[-2]
+    lead = x_l.shape[:-1]
+    xr = x_l.reshape(-1, x_l.shape[-1])
+    # each row's max|x| and each column's max|w| over the whole K, then
+    # quantize_symmetric's own ops on them
+    sx = symmetric_scale(_GlobalAbsMax.apply(xr, -1, group))
+    qx = torch.round(xr / sx).clamp(-QMAX, QMAX).to(torch.int8)
+    if w is not None:
+        scale = symmetric_scale(_GlobalAbsMax.apply(w_l, 0, group))
+        qw_l = torch.round(w_l / scale).clamp(-QMAX, QMAX).to(torch.int8)
+        sw_l = scale.to(torch.float32).reshape(1, -1)
+    y = _SplitScalesGrad.apply(qx, qw_l.contiguous(), sx.to(torch.float32), sw_l.contiguous(),
+                               k, adc_bits, group)
+    out[names.index("model")] = Replicate()
+    return DTensor.from_local(y.reshape(*lead, y.shape[-1]), mesh, out)
 
 
 def maybe_psram_matmul(x: torch.Tensor, w: torch.Tensor, enabled: bool,

@@ -1,10 +1,13 @@
-"""Distributed execution: logical-axis sharding and gradient compression.
+"""Distributed execution: logical-axis sharding, placement and gradient compression.
 
 ``dist.sharding`` maps logical tensor axes ("batch", "ff", "kv_heads", ...)
 onto mesh axes ("pod", "data", "model") with priority-ordered assignment and
 divisibility fallback; models annotate activations with :func:`hint`, and
 the dry run builds its per-device shardings with :func:`tree_shardings`
-under a :func:`use_sharding` context. ``dist.compression`` provides int8
+under a :func:`use_sharding` context. ``dist.placement`` turns those specs
+into DTensor placements over a ``DeviceMesh`` (one process a card): it
+places parameters, state, caches and batches, and a hint redistributes an
+activation. ``dist.compression`` provides int8
 gradient compression (optionally with an error-feedback residual) for the
 train step.
 """

@@ -29,15 +29,15 @@ an axis name or a tuple of axis names, as the reference's; a
 :class:`NamedSharding` pairs it with its mesh and answers the shard shape
 and bytes of a global shape.
 
-Placement is on one device. Under :func:`use_sharding` a :func:`hint`
-computes its spec (so an axes / shape mismatch raises, as the reference's
-assert does) and returns the tensor itself: on a mesh whose devices are one
-device, or ``meta``, the constraint is the identity, as
-``with_sharding_constraint`` is on a one-device mesh. So on one device a
-hint only checks its axes against the tensor's rank: no code reads the
-activation specs it computes until placement across several cards (ROADMAP
-Queue A item 9c), where a mesh over several distinct cards raises
-``NotImplementedError`` today.
+Placement: on a mesh of one device without a process group tensors stay
+plain and a :func:`hint` only computes its spec (an axes / rank mismatch
+raises, as the reference's assert does), the identity, as
+``with_sharding_constraint`` is on a one-device mesh. On a mesh under a
+process group (``launch.mesh.init_distributed``; one rank included) tensors
+are DTensors over the mesh's ``DeviceMesh`` (``dist.placement``): a
+:class:`NamedSharding` gives a spec's placements and places a tensor, and
+inside :func:`use_sharding` a hint redistributes a DTensor to its spec. A
+mesh over several positions without a group raises: one process a card.
 """
 from __future__ import annotations
 
@@ -80,9 +80,6 @@ FSDP_CLAIMS = {"embed": _DATA}
 # opts in via the --seq-shard rule, e.g. rules={"seq": (("model",), ())}.
 DEFAULT_RULES = {"seq_kv": (("model",), ())}
 
-#: the ROADMAP item that places a mesh over several cards
-MULTI_CARD_ITEM = "ROADMAP Queue A item 9c"
-
 
 class PartitionSpec(tuple):
     """Per-dimension mesh axes: ``None`` (replicated), an axis name, or a
@@ -111,21 +108,26 @@ def _entry_axes(entry) -> tuple:
 
 
 def placement_device(mesh, what: str = "this mesh") -> torch.device:
-    """The one device that a mesh's shards live on: its only real device, or
-    ``meta`` for a logical mesh. A mesh over several distinct real devices
-    raises (:data:`MULTI_CARD_ITEM`)."""
-    real = {d for d in mesh.devices if d.type != "meta"}
-    if len(real) > 1:
-        raise NotImplementedError(
-            f"{what} spans {len(real)} distinct devices ({sorted(map(str, real))}); placement "
-            f"across several cards comes with {MULTI_CARD_ITEM} (DTensor over a DeviceMesh)")
-    return real.pop() if real else torch.device("meta")
+    """This process's device on ``mesh``: ``meta`` for a logical mesh, the
+    one device of a one-device mesh, this rank's device on a mesh under a
+    process group. A model mesh over several positions without a group
+    raises (one process a card); an array mesh over several cards places its
+    shards itself (``sparse.mesh``) and raises here."""
+    if hasattr(mesh, "n_arrays"):
+        real = {d for d in mesh.devices if d.type != "meta"}
+        if len(real) > 1:
+            raise ValueError(f"{what} is an array mesh over {len(real)} devices: "
+                             "sparse.mesh places its shards array by array")
+        return real.pop() if real else torch.device("meta")
+    if not mesh.logical:
+        mesh.placed  # the pointed error of several positions without a group
+    return mesh.local_device()
 
 
 def mesh_device(mesh, device, what: str) -> torch.device:
-    """The device an engine on ``mesh`` runs on: the mesh's one real device
-    (several cards raise), which ``device`` may name again; ``device`` alone
-    without a mesh; the card when neither is given."""
+    """The device an engine on ``mesh`` runs on: this process's device on
+    the mesh, which ``device`` may name again; ``device`` alone without a
+    mesh; the card when neither is given."""
     if mesh is None:
         return as_device("cuda" if device is None else device)
     where = placement_device(mesh, f"{what}'s mesh")
@@ -156,8 +158,24 @@ class NamedSharding:
 
     @property
     def device(self) -> torch.device:
-        """Where a tensor with this sharding lives (:func:`placement_device`)."""
+        """Where this process's block of a tensor with this sharding lives
+        (:func:`placement_device`)."""
         return placement_device(self.mesh, "this sharding's mesh")
+
+    @property
+    def placements(self) -> tuple:
+        """The DTensor placements of the spec on the mesh's axes."""
+        from .placement import placements
+        return placements(self.spec, self.mesh.axis_names)
+
+    def distribute(self, t: torch.Tensor):
+        """``t`` (the whole tensor, the same on every rank) placed with this
+        sharding: a DTensor on a mesh under a process group, else ``t`` on
+        the mesh's device."""
+        if getattr(self.mesh, "placed", False):
+            from .placement import distribute
+            return distribute(t.to(self.device), self.mesh, self.spec)
+        return t.to(self.device)
 
     def shard_shape(self, global_shape) -> tuple[int, ...]:
         """Each device's block of a tensor of ``global_shape``."""
@@ -312,14 +330,21 @@ _ctx = _Ctx()
 @contextlib.contextmanager
 def use_sharding(mesh, fsdp: bool = False, rules=None):
     """Activate logical-axis constraints: inside this context :func:`hint`
-    computes the spec :func:`logical_to_spec` gives; outside it, hints are
-    no-ops. A mesh over several distinct cards raises
-    (:data:`MULTI_CARD_ITEM`)."""
+    computes the spec :func:`logical_to_spec` gives (and moves a DTensor
+    there); outside it, hints are no-ops. A mesh over several positions
+    without a process group raises (one process a card)."""
     placement_device(mesh, "use_sharding's mesh")
     # specs by (axes, shape): a hint costs one dict lookup after its first call
     _ctx.stack.append((mesh, fsdp, rules, {}))
     try:
-        yield
+        if getattr(mesh, "placed", False):
+            # plain tensors the models make (masks, positions) meet DTensors
+            # as replicated ones
+            from torch.distributed.tensor.experimental import implicit_replication
+            with implicit_replication():
+                yield
+        else:
+            yield
     finally:
         _ctx.stack.pop()
 
@@ -343,10 +368,14 @@ def hint(x, *axes):
     """Annotate ``x`` with logical axis names (a tuple or varargs).
 
     ``x`` itself outside a :func:`use_sharding` context. Inside, the spec is
-    computed (an axes / shape mismatch raises) and ``x`` is returned: the
-    context's mesh lives on one device, where the constraint is the
-    identity, so the hint is a rank check until ROADMAP item 9c places
-    activations by their specs."""
+    computed (an axes / shape mismatch raises); a DTensor is redistributed
+    to it (a no-op where it is there), the counterpart of
+    ``with_sharding_constraint``; a plain tensor — one device, or a local
+    block inside a kernel's region — is returned as it is."""
     if _ctx.stack:
-        active_spec(x.shape, *axes)
+        spec = active_spec(x.shape, *axes)
+        if type(x) is not torch.Tensor:
+            from .placement import is_dtensor, redistribute
+            if is_dtensor(x):
+                return redistribute(x, _ctx.stack[-1][0], spec)
     return x

@@ -41,7 +41,18 @@ Three routes, one contract, chosen by shape and alignment alone
   shared memory in one launch.
 
 Integer sums are exact under any split, so every route is bit-equal to the
-plain version. The int32 sums need ``128²·K < 2³¹`` (K ≤ :data:`MAX_K`): the
+plain version.
+
+K split across cards (a row-parallel projection on a model mesh): the ADC
+is nonlinear, so partial sums cannot pass through it card by card.
+:func:`psram_matmul_int32` is each route with its epilogue compiled out (a
+template flag): the ``(M, N)`` int32 sums of one K slice, counted in
+``psram_matmul_int32.launches`` / ``.routes``; the slices' sums are
+all-reduced (exact integers, so in any order), and
+:func:`psram_adc_epilogue` runs the ADC + dequant on them as a launch of
+its own, with the LSB of the whole K (``psram_adc_epilogue.launches``).
+Both have plain versions on CPU tensors; the pair is bit-equal to
+:func:`psram_matmul` on the whole K. The int32 sums need ``128²·K < 2³¹`` (K ≤ :data:`MAX_K`): the
 CUDA wrapper raises above it, on every route. A route that fails to build or
 to launch raises; nothing gives way to another route or to the plain
 version. ``psram_matmul.launches`` counts every launch;
@@ -158,12 +169,73 @@ def _route(m: int, k: int, n: int, aligned: bool) -> str:
 def _entry(route: str):
     lib = _build.load("psram_matmul")
     fn = {"decode": lib.psram_matmul_decode_launch, "wgmma": lib.psram_matmul_wgmma_launch,
-          "tile": lib.psram_matmul_launch}[route]
+          "tile": lib.psram_matmul_launch, "epilogue": lib.psram_adc_epilogue_launch}[route]
     if not fn.argtypes:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 \
-            + ([] if route == "wgmma" else [ctypes.c_int]) + [ctypes.c_void_p]
+        if route == "epilogue":
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 \
+                + [ctypes.c_void_p]
+        else:
+            # ..., cluster / split (not on wgmma), raw, stream
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 \
+                + ([] if route == "wgmma" else [ctypes.c_int]) + [ctypes.c_int, ctypes.c_void_p]
     return lib, fn
+
+
+def _lsb(k: int, adc_bits: int) -> float:
+    """The ADC's LSB at full scale ``QMAX² · k``: the plain version's, formed
+    in double and rounded once to f32 by the launch."""
+    return 2.0 * (float(QMAX) * float(QMAX) * k) / (2 ** adc_bits)
+
+
+def psram_matmul_int32(qx: torch.Tensor, qw: torch.Tensor, route: str | None = None,
+                       cluster: int = 0) -> torch.Tensor:
+    """``qx @ qw`` as ``(M, N)`` int32 (one K slice's exact sums): kernel 2
+    with its epilogue compiled out on CUDA tensors, on the route
+    :func:`_route` names (``route`` / ``cluster`` force one, as in
+    :func:`_launch`); on CPU tensors the plain integer product."""
+    if qx.ndim != 2 or qw.ndim != 2 or qx.shape[1] != qw.shape[0]:
+        raise ValueError(f"qx (M, K) and qw (K, N) differ: {tuple(qx.shape)} / {tuple(qw.shape)}")
+    if not qx.is_cuda:
+        if qx.dtype != torch.int8 or qw.dtype != torch.int8:
+            raise TypeError(f"qx/qw must be int8, got {qx.dtype} / {qw.dtype}")
+        return exact_int_matmul(qx, qw).to(torch.int32)
+    m, n = qx.shape[0], qw.shape[1]
+    unit_x = torch.empty((m, 1), dtype=torch.float32, device=qx.device)
+    unit_w = torch.empty((1, n), dtype=torch.float32, device=qx.device)
+    return _launch(qx, qw, unit_x, unit_w, route=route, cluster=cluster, raw=True)
+
+
+def psram_adc_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor, k: int,
+                       adc_bits: int = 16) -> torch.Tensor:
+    """``ADC(acc) * (sx * sw)`` as ``(M, N)`` f32 from int32 sums ``acc``
+    over a K of ``k`` (the full scale ``QMAX² · k``): one launch of
+    ``psram_adc_epilogue_kernel`` on CUDA tensors, the plain version's
+    arithmetic on CPU tensors; bit-equal to :func:`psram_matmul`'s own
+    epilogue."""
+    if acc.ndim != 2 or acc.dtype != torch.int32:
+        raise TypeError(f"acc must be a 2-D int32 tensor, got {acc.dtype} {tuple(acc.shape)}")
+    m, n = acc.shape
+    if tuple(sx.shape) != (m, 1) or tuple(sw.shape) != (1, n):
+        raise ValueError(f"scales must be sx ({m}, 1) and sw (1, {n}); got "
+                         f"{tuple(sx.shape)} / {tuple(sw.shape)}")
+    if sx.dtype != torch.float32 or sw.dtype != torch.float32:
+        raise TypeError(f"sx/sw must be float32, got {sx.dtype} / {sw.dtype}")
+    if not acc.is_cuda:
+        full_scale = float(QMAX) * float(QMAX) * k
+        return adc_transfer(acc, 2 ** adc_bits, full_scale) * (sx * sw)
+    if not 1 <= adc_bits <= 24:
+        raise ValueError(f"adc_bits must be in 1..24 for the kernel, got {adc_bits}")
+    acc, sx, sw = acc.contiguous(), sx.contiguous(), sw.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=acc.device)
+    lib, fn = _entry("epilogue")
+    with torch.cuda.device(acc.device):
+        err = fn(acc.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(), m, n,
+                 _lsb(k, adc_bits), float(2 ** adc_bits // 2 - 1),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, lib, "psram_adc_epilogue")
+    psram_adc_epilogue.launches += 1
+    return out
 
 
 def psram_matmul(
@@ -228,14 +300,15 @@ def psram_matmul_trained(qx, qw, sx, sw, adc_bits: int = 16) -> torch.Tensor:
 
 
 def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
-            cluster: int = 0) -> torch.Tensor:
+            cluster: int = 0, raw: bool = False) -> torch.Tensor:
     """One launch of kernel 2 on CUDA tensors. ``route`` None takes the
     route :func:`psram_matmul` takes; the checks name ``"wgmma"``,
     ``"tile"`` or ``"decode"`` to hold one route against another, and
     ``cluster`` a decode cluster size or the tile route's K split (1..8; 0
     is the library's decode cluster, or :func:`_tile_split`). Either only
     chooses how the same result is computed; a route that cannot take the
-    operands raises."""
+    operands raises. ``raw`` writes the int32 sums instead
+    (:func:`psram_matmul_int32`)."""
     if route not in (None, *ROUTES):
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     m, k, n = _check_operands(qx, qw, sx, sw)
@@ -258,22 +331,23 @@ def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
                          f"of 16; got K={k}, N={n}, aligned={aligned}")
     levels = 2 ** adc_bits
     # exactly the plain version's LSB: formed in double, rounded once to f32
-    lsb = 2.0 * (float(QMAX) * float(QMAX) * k) / levels
+    lsb = _lsb(k, adc_bits)
     if not 0 <= cluster <= MAX_TILE_SPLIT:
         raise ValueError(f"cluster must be in 0..{MAX_TILE_SPLIT}, got {cluster}")
     if route == "tile" and cluster == 0:
         cluster = _tile_split(m, k, n, torch.cuda.get_device_properties(qx.device)
                               .multi_processor_count)
     extra = () if route == "wgmma" else (int(cluster),)
-    out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
+    out = torch.empty((m, n), dtype=torch.int32 if raw else torch.float32, device=qx.device)
     lib, fn = _entry(route)
     with torch.cuda.device(qx.device):
         err = fn(qx.data_ptr(), qw.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                 out.data_ptr(), m, k, n, lsb, float(levels // 2 - 1), *extra,
+                 out.data_ptr(), m, k, n, lsb, float(levels // 2 - 1), *extra, int(raw),
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, lib, "psram_matmul")
-    psram_matmul.launches += 1
-    psram_matmul.routes[route] += 1
+    counter = psram_matmul_int32 if raw else psram_matmul
+    counter.launches += 1
+    counter.routes[route] += 1
     return out
 
 
@@ -281,3 +355,8 @@ def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
 psram_matmul.launches = 0
 #: the same launches by route
 psram_matmul.routes = {route: 0 for route in ROUTES}
+#: launches of the int32-out routes (the K split across cards), all routes and by route
+psram_matmul_int32.launches = 0
+psram_matmul_int32.routes = {route: 0 for route in ROUTES}
+#: launches of the epilogue alone
+psram_adc_epilogue.launches = 0

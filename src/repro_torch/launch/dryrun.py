@@ -13,8 +13,15 @@ depends on the cell, not the mesh), and prices it (``launch.roofline``): per-dev
 bytes from the ``dist.sharding`` spec trees, the counted FLOPs per chip.
 A train cell traces one microbatch's forward and backward and multiplies
 by ``microbatches``, as the reference multiplies a ``while`` body by its
-trip count. What XLA alone can say — temporaries, compile seconds,
-collectives — is ``None``, each with a ``why``.
+trip count. On a mesh of several devices the cell is traced a second time
+as rank 0 of torch's ``fake`` process group at the mesh's size, its
+arguments DTensors on ``meta`` placed by their specs
+(``launch.roofline.fake_world``): every collective that trace issues is
+priced by the reference's ring model over NVLink (``collective_s``,
+``collective_bytes``, ``collective_wire_bytes``, ``by_collective``). The
+optimizer update is not in the traced step (as the FLOPs count leaves it
+out). What XLA alone can say — temporaries, compile seconds — is ``None``,
+each with a ``why``.
 
 ``device="cuda"`` (on ``launch.mesh.make_host_mesh(device="cuda")``) runs
 the cell's step on the card from seeded tensors and adds ``measured``: the
@@ -24,9 +31,8 @@ cell's own: what was allocated before its arguments is subtracted), and
 default (and raises without one); ``--device meta`` asks for the dry run.
 
 On one device a model's ``hint`` only checks its axes against the
-tensor's rank; nothing here reads the activation specs it computes. They
-place activations once a mesh spans several cards (ROADMAP Queue A item
-9c).
+tensor's rank; in the collective trace it redistributes the DTensor it is
+given, as it does across cards.
 
 ``--psram-int8`` train cells are recorded as ``SKIP``: the params hold int8
 words, which the reference's ``jax.grad`` refuses with a ``TypeError``, as
@@ -59,7 +65,6 @@ WHY_NULL = {
     "temp_bytes": "no compiler: temporaries are not planned ahead of a run "
                   "(a card run reports its peak_bytes instead)",
     "compile_s": "no compile step: PyTorch runs eagerly",
-    "collective_s": "one device: no collectives (ROADMAP Queue A item 9c)",
 }
 
 
@@ -138,7 +143,8 @@ def _cell_inputs(cfg, shape, mesh, use_fsdp, rules, microbatches, opt_cfg, devic
             return out
 
         cell.update(opt=opt, trace=lambda: _value_and_grad(loss_fn, params, mb),
-                    repeat=microbatches, run=run)
+                    repeat=microbatches, run=run, mb=mb,
+                    call_with=lambda p, b, c: _value_and_grad(loss_fn, p, b))
         return cell, args_b, out_b, alias
 
     if shape.kind == "prefill":
@@ -149,7 +155,10 @@ def _cell_inputs(cfg, shape, mesh, use_fsdp, rules, microbatches, opt_cfg, devic
         c_specs = (mod.cache_specs(cfg, shape.global_batch, cache_len, shape.seq_len)
                    if cfg.family == "encdec"
                    else mod.cache_specs(cfg, shape.global_batch, cache_len))
-        cell.update(trace=call, repeat=1, run=call, out_specs=c_specs)
+        cell.update(trace=call, repeat=1, run=call, out_specs=c_specs,
+                    call_with=((lambda p, b, c: fn(p, b["frames"], b["tokens"]))
+                               if cfg.family == "encdec" else
+                               (lambda p, b, c: fn(p, b["tokens"]))))
         return cell, args_b, None, 0
 
     # decode: one new token against a seq_len cache, at its last position
@@ -168,7 +177,8 @@ def _cell_inputs(cfg, shape, mesh, use_fsdp, rules, microbatches, opt_cfg, devic
     step = make_serve_step(cfg)
     call = lambda: step(params, cache, batch["token"], pos)  # noqa: E731
     cell.update(cache=cache, pos=pos_t, trace=call, repeat=1, run=call,
-                out_specs=specs_of(cdefs))
+                out_specs=specs_of(cdefs),
+                call_with=lambda p, b, c: step(p, c, b["token"], pos))
     return cell, args_b, None, args_b["cache"]
 
 
@@ -213,6 +223,25 @@ def _measure(run, repeats: int, base: int, loss=None) -> dict:
     return out
 
 
+def _collective_trace(cfg, shape, mesh, use_fsdp, rules, cell) -> list:
+    """The collectives one traced pass of the cell issues on rank 0 of a
+    ``fake`` group at ``mesh``'s size, its arguments DTensors on ``meta``
+    (``launch.roofline``): ``[(op, operand bytes, group size), ...]``."""
+    from repro_torch.dist.placement import distribute_tree
+    from repro_torch.launch.roofline import count_collectives, fake_world
+    p_specs = specs_of(get_module(cfg).param_defs(cfg))
+    batch = cell.get("mb", cell["batch"])
+    with fake_world(mesh) as fake:
+        params = distribute_tree(cell["params"], p_specs, fake, use_fsdp, rules)
+        batch = distribute_tree(batch, token_logical_axes(cfg, shape), fake, use_fsdp, rules)
+        cache = cell.get("cache")
+        if cache is not None:
+            cache = distribute_tree(cache, cell["out_specs"], fake, False, rules)
+        with use_sharding(fake, fsdp=use_fsdp, rules=rules):
+            _, records = count_collectives(cell["call_with"], params, batch, cache)
+    return records
+
+
 def lower_cell(cfg, shape, mesh, *, microbatches=8, fsdp="auto", rules=None, opt_cfg=None,
                verbose=True, device="meta", seed=0, repeats=5):
     """``(result, cell)``: the cell's priced trace (see the module
@@ -248,17 +277,20 @@ def lower_cell(cfg, shape, mesh, *, microbatches=8, fsdp="auto", rules=None, opt
             torch.cuda.synchronize()
             measured = _measure(cell["run"], repeats, base,
                                 (lambda out: float(out[2]["loss"])) if training else None)
+    collectives = []
+    if meta and n_chips > 1:
+        collectives = _collective_trace(cfg, shape, mesh, use_fsdp, rules, cell)
     t1 = time.time()
 
     arg_bytes = sum(args_b.values())
     roof = analyze_step(flops, by_op, chips=n_chips, repeat=cell["repeat"],
-                        bytes_per_chip=arg_bytes + out_b - alias)
+                        bytes_per_chip=arg_bytes + out_b - alias, collectives=collectives)
     mf_global = model_flops(cfg, shape.kind, shape.seq_len, shape.global_batch)
     mf_per_chip = mf_global / n_chips
     sizes = dict(zip(mesh.axis_names, mesh.shape))
     ideal = ideal_seconds(cfg, shape.kind, shape.seq_len, shape.global_batch, n_chips,
                           sizes.get("model", 16))
-    worst = max(roof.compute_s, roof.memory_s)
+    worst = max(roof.compute_s, roof.memory_s, roof.collective_s)
     result = {
         "arch": cfg.name,
         "shape": shape.name,
@@ -306,7 +338,8 @@ def _row(res) -> str:
     line = (f"OK    {res['arch']:24s} {res['shape']:12s} {res['mesh']:9s} "
             f"mem {res['memory']['per_device_total_gb']:7.2f}GB  "
             f"compute {r['compute_s']*1e3:9.3f}ms memory {r['memory_s']*1e3:9.3f}ms "
-            f"coll n/a -> {r['dominant']:8s} roofline_frac {frac and round(frac, 3)}")
+            f"coll {r['collective_s']*1e3:9.3f}ms -> {r['dominant']:10s} "
+            f"roofline_frac {frac and round(frac, 3)}")
     if "measured" in res:
         m = res["measured"]
         line += (f"  measured {m['step_ms']:.3f}ms peak {m['peak_bytes']/1e9:.2f}GB "

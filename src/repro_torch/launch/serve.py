@@ -11,8 +11,13 @@ from a seeded ``torch.Generator`` (not JAX's bits). The time is the
 card's queued work on both edges; a ``serve/generate`` span lands in the
 trace whenever tracing is on (``REPRO_TORCH_TRACE=1``).
 ``--model-parallel N`` serves under ``dist.sharding`` on a ``(n // N, N)``
-host mesh over the visible devices of ``--device``'s type (one device; a
-mesh over several cards raises: ROADMAP Queue A item 9c).
+host mesh: with ``--distributed`` (one process a card, under torchrun:
+``launch.mesh.init_distributed``) over the world's ranks, the params and
+cache placed as DTensors and the tokens replicated; without it over this
+process's one device.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --distributed \\
+        --arch dbrx_132b --model-parallel 4 --batch 4
 """
 from __future__ import annotations
 
@@ -30,8 +35,14 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=0,
                     help="build a (data, model) host mesh with this model-"
                          "axis size and serve under use_sharding")
+    ap.add_argument("--distributed", action="store_true",
+                    help="one process a card: join torchrun's process group")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+
+    if args.distributed:
+        from repro_torch.launch.mesh import init_distributed
+        init_distributed(args.device)
 
     import torch
 
@@ -46,11 +57,16 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     mod = get_module(cfg)
-    params = mod.init(0, cfg, device=dev)
     mesh = None
-    if args.model_parallel:
+    if args.model_parallel or args.distributed:
         from repro_torch.launch.mesh import make_host_mesh
-        mesh = make_host_mesh(model=args.model_parallel, device=dev)
+        mesh = make_host_mesh(model=args.model_parallel or 1, device=dev)
+        dev = mesh.local_device()
+    if mesh is not None and mesh.placed:
+        from repro_torch.dist.placement import init_placed
+        params = init_placed(cfg, 0, mesh)    # the one-card draw, each rank its blocks
+    else:
+        params = mod.init(0, cfg, device=dev)
     eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.max_new, mesh=mesh,
                       device=None if mesh is not None else dev)
     prompts = torch.randint(2, cfg.vocab_size, (args.batch, args.prompt_len),

@@ -162,6 +162,14 @@ def apply_decode_deltas(cache, deltas, cfg: ArchConfig, cache_pos):
                 continue
             for name in ("k", "v"):
                 leaf, delta = cache_g[key][name], delta_g[key][name]
+                if type(leaf) is not torch.Tensor:
+                    from repro_torch.dist.placement import is_dtensor, write_position
+                    if is_dtensor(leaf):
+                        if per_row:
+                            raise NotImplementedError("per-row decode positions on a model "
+                                                      "mesh (the paged loop is one card)")
+                        write_position(leaf, delta, p0)
+                        continue
                 if per_row:
                     rows = torch.arange(leaf.shape[0], device=leaf.device)
                     leaf[rows, cache_pos.to(leaf.device).long()] = delta[:, 0]

@@ -27,6 +27,14 @@ tensors on the ``meta`` device (the counterpart of ``ShapeDtypeStruct``).
 The reference's ``stack_defs`` (its scanned layout, a leading ``"layers"``
 axis) has no counterpart: the port keeps a list of groups. The
 ``dist.sharding.hint`` annotations sit where the reference's do.
+
+On a model mesh the parameters are DTensors (``dist.placement``) and the
+activations follow them through DTensor's own rules; three places reach
+the local blocks: :func:`_proj` (kernel 2 on each card's block, and the
+tensor-parallel layout of every exact projection fixed, so DTensor never
+gathers a weight), the head splits (:func:`_split`: where the heads do not
+divide over the model axis the activation is replicated first) and the
+FSDP gather of a weight sharded over the data axes (``placement.gathered``).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch.nn.functional as F
 from repro_torch._device import as_device
 from repro_torch.core.photonic_layer import maybe_psram_matmul, psram_linear
 from repro_torch.core.quantization import quantize_symmetric
+from repro_torch.dist import placement
 from repro_torch.dist.sharding import hint
 
 from .config import ArchConfig
@@ -136,21 +145,26 @@ def _init_leaf(gen, d, dtype, device):
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dt)
 
 
-def init_params(gen, defs, dtype=torch.float32, device="cuda"):
+def init_params(gen, defs, dtype=torch.float32, device="cuda", place=None):
     """Tensors for ``defs`` (nested dicts and lists of defs), drawn from
     ``gen`` (a seed, or a generator on ``device``, the card unless the
     caller asks for the CPU) one leaf after another in tree order. The
     values are not the reference's (a torch generator is not a JAX key);
-    ``convert.model_params`` carries the reference's own over."""
+    ``convert.model_params`` carries the reference's own over.
+
+    ``place(leaf, axes)``, where given, takes each full leaf as it is drawn
+    (a DTensor's block on a mesh: ``dist.placement``), so every rank draws
+    the same stream and the peak is one leaf."""
     device = as_device(device)
     if gen is not None and not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=device).manual_seed(int(gen))
     if _is_def(defs):
-        return _init_leaf(gen, defs, dtype, device)
+        leaf = _init_leaf(gen, defs, dtype, device)
+        return leaf if place is None else place(leaf, defs["axes"])
     if isinstance(defs, dict):
-        return {name: init_params(gen, d, dtype, device) for name, d in defs.items()}
+        return {name: init_params(gen, d, dtype, device, place) for name, d in defs.items()}
     if isinstance(defs, (list, tuple)):
-        return [init_params(gen, d, dtype, device) for d in defs]
+        return [init_params(gen, d, dtype, device, place) for d in defs]
     raise TypeError(f"not a param def tree: {type(defs).__name__}")
 
 
@@ -166,7 +180,15 @@ def rmsnorm(p, x, eps):
     xf = x.to(torch.float32)
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * p["w"].to(torch.float32)).to(x.dtype)
+    return (y * placement.gathered(p["w"], keep=()).to(torch.float32)).to(x.dtype)
+
+
+def _split(x, *shape):
+    """``x.reshape(shape)``; on a mesh through ``placement.reshape`` (heads
+    that do not divide over the model axis replicate the activation)."""
+    if type(x) is torch.Tensor:
+        return x.reshape(*shape)
+    return placement.reshape(x, *shape)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +269,30 @@ def attention_defs(cfg: ArchConfig):
 def _proj(x, w, cfg: ArchConfig):
     if is_quantized(w):  # stored-int8 array words (weights stationary)
         return psram_linear(x, w, adc_bits=cfg.adc_bits).to(x.dtype)
+    if type(w) is not torch.Tensor and placement.is_dtensor(w):
+        return _proj_placed(x, w, cfg)
     return maybe_psram_matmul(x, w, cfg.psram_projections, cfg.adc_bits)
+
+
+def _proj_placed(x, w, cfg: ArchConfig):
+    """A projection on a model mesh. The weight is gathered over the data
+    axes (FSDP) and keeps its model-axis block; the input is laid out for it
+    (replicated on ``"model"`` for a column-parallel weight, its last dim
+    sharded there for a row-parallel one), and a row-parallel product's
+    partial sums are all-reduced."""
+    from repro_torch.core.photonic_layer import _model_split, _psram_linear_placed
+    if cfg.psram_projections:
+        return _psram_linear_placed(x, adc_bits=cfg.adc_bits, w=w).to(x.dtype)
+    w = placement.gathered(w)
+    split = _model_split(w)
+    names = w.device_mesh.mesh_dim_names
+    if "model" in names and placement.is_dtensor(x):
+        want = list(x.placements)
+        want[names.index("model")] = (placement.Shard(x.ndim - 1) if split == "k"
+                                      else placement.Replicate())
+        if tuple(want) != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, want)
+    return placement.settled(x @ w)
 
 
 def _mask_bias(q_pos, k_pos, causal, window):
@@ -266,13 +311,36 @@ def _scale(cfg: ArchConfig, hd: int) -> float:
     return cfg.query_scale if cfg.query_scale is not None else hd ** -0.5
 
 
+def _sdpa_placed(q, k, v, bias, cfg: ArchConfig):
+    """:func:`_sdpa` on each rank's block where q, k and v lie alike, split
+    over the batch and the heads only: each (row, kv-head group) is
+    independent, and a block of q's heads uses exactly the same block of
+    kv heads (kv-major groups). None where they lie otherwise (a cache
+    split over its sequence): DTensor's own rules take it."""
+    from torch.distributed.tensor import DTensor
+    pls = tuple(q.placements)
+    if not (isinstance(k, DTensor) and isinstance(v, DTensor) and tuple(k.placements) == pls
+            and tuple(v.placements) == pls
+            and all(not isinstance(p, placement.Shard) or p.dim % 4 in (0, 2) for p in pls)
+            and not any(isinstance(p, placement.Partial) for p in pls)):
+        return None
+    if isinstance(bias, DTensor):
+        bias = bias.full_tensor()
+    out = _sdpa(q.to_local(), k.to_local(), v.to_local(), bias, cfg)
+    return DTensor.from_local(out, q.device_mesh, pls)
+
+
 def _sdpa(q, k, v, bias, cfg: ArchConfig):
     """Grouped-query attention core. q:(B,Sq,H,hd) k/v:(B,Sk,Hkv,hd); heads
     are grouped kv-major (``q.reshape(b, sq, hkv, rep, hd)``)."""
+    if type(q) is not torch.Tensor and placement.is_dtensor(q):
+        out = _sdpa_placed(q, k, v, bias, cfg)
+        if out is not None:
+            return out
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     rep = h // hkv
-    qg = q.reshape(b, sq, hkv, rep, hd)
+    qg = _split(q, b, sq, hkv, rep, hd)
     logits = torch.einsum("bqkrd,bskd->bkrqs", qg, k).to(torch.float32) * _scale(cfg, hd)
     if cfg.attn_softcap > 0:
         logits = torch.tanh(logits / cfg.attn_softcap) * cfg.attn_softcap
@@ -286,7 +354,7 @@ def _sdpa(q, k, v, bias, cfg: ArchConfig):
     else:
         p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkrqs,bskd->bqkrd", p.to(v.dtype), v)
-    return out.reshape(b, sq, h, hd)
+    return _split(out, b, sq, h, hd)
 
 
 def _sdpa_chunked(q, k, v, cfg: ArchConfig, causal, window, q0: int = 0):
@@ -310,10 +378,10 @@ def attention_fwd(
 ):
     """Full-sequence attention (train / prefill). Returns (y, (k, v))."""
     b, s, d = x.shape
-    q = _proj(x, p["wq"], cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = _split(_proj(x, p["wq"], cfg), b, s, cfg.n_heads, cfg.head_dim)
     if kv_override is None:
-        k = _proj(x, p["wk"], cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = _proj(x, p["wv"], cfg).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        k = _split(_proj(x, p["wk"], cfg), b, s, cfg.n_kv_heads, cfg.head_dim)
+        v = _split(_proj(x, p["wv"], cfg), b, s, cfg.n_kv_heads, cfg.head_dim)
         k = apply_rope(k, pos, cfg)
     else:  # cross attention: kv precomputed from the encoder
         k, v = kv_override
@@ -329,7 +397,7 @@ def attention_fwd(
         kp = torch.arange(k.shape[1], device=x.device)[None, :]
         out = _sdpa(q, k, v, _mask_bias(qp, kp, causal, window), cfg)
     out = hint(out, ("batch", "seq", "heads", None))
-    y = _proj(out.reshape(b, s, cfg.q_dim), p["wo"], cfg)
+    y = _proj(_split(out, b, s, cfg.q_dim), p["wo"], cfg)
     return y, (k, v)
 
 
@@ -356,14 +424,14 @@ def _new_kv(p, x, cfg: ArchConfig, cache_pos):
     vector (continuous batching: every row decodes at its own length).
     """
     b = x.shape[0]
-    q = _proj(x, p["wq"], cfg).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    q = _split(_proj(x, p["wq"], cfg), b, 1, cfg.n_heads, cfg.head_dim)
     pos = _decode_pos(cache_pos, b, x.device)
     if cfg.rope == "mrope":
         pos = pos[None].expand(3, b, 1)
     q = apply_rope(q, pos, cfg)
-    kn = _proj(x, p["wk"], cfg).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    kn = _split(_proj(x, p["wk"], cfg), b, 1, cfg.n_kv_heads, cfg.head_dim)
     kn = apply_rope(kn, pos, cfg)
-    vn = _proj(x, p["wv"], cfg).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    vn = _split(_proj(x, p["wv"], cfg), b, 1, cfg.n_kv_heads, cfg.head_dim)
     return kn, vn, q
 
 
@@ -380,29 +448,89 @@ def attention_decode_append(
     """
     b = x.shape[0]
     kn, vn, q = precomputed if precomputed is not None else _new_kv(p, x, cfg, cache_pos)
+    if type(k_old) is not torch.Tensor and placement.is_dtensor(k_old):
+        out = _decode_placed(q, kn, vn, k_old, v_old, cache_pos, cfg, layer_local)
+    else:
+        out = _decode_core(_split(q, b, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                                  cfg.head_dim), kn, vn, k_old, v_old, cache_pos, cfg,
+                           layer_local)
+    return _proj(_split(out, b, 1, cfg.q_dim).to(x.dtype), p["wo"], cfg)
+
+
+def _decode_placed(q, kn, vn, k_old, v_old, cache_pos, cfg: ArchConfig, layer_local):
+    """:func:`_decode_core` on each rank's block of a placed cache (split
+    over its batch, its kv heads and, ``seq_kv``, its sequence): q and the
+    new token's k / v are laid out as the cache with the sequence whole;
+    where the sequence is split, each rank's block of the history is
+    combined across its axis (the max, then the rescaled sums: the
+    two-block softmax combine over the blocks). The result is q-shaped,
+    laid out as q's heads."""
+    from torch.distributed.tensor import DTensor
+    mesh = k_old.device_mesh
+    pls = tuple(k_old.placements)
+    if (tuple(v_old.placements) != pls
+            or any(isinstance(p, placement.Partial) for p in pls)
+            or any(isinstance(p, placement.Shard) and p.dim % 4 == 3 for p in pls)):
+        raise ValueError(f"a placed KV cache lies as {pls}: its head dim is never split")
+    want = tuple(placement.Replicate() if isinstance(p, placement.Shard) and p.dim == 1 else p
+                 for p in pls)
+    q, kn, vn = (t.redistribute(mesh, want) if tuple(t.placements) != want else t
+                 for t in (q, kn, vn))
+    ql = q.to_local()
+    b, _, h, hd = ql.shape
+    hkv_l = kn.to_local().shape[2]
+    seq_axes = [i for i, p in enumerate(pls) if isinstance(p, placement.Shard) and p.dim == 1]
+    if len(seq_axes) > 1:
+        raise ValueError(f"a cache's sequence split over several mesh axes: {pls}")
+    k0, group = 0, None
+    if seq_axes:
+        i = seq_axes[0]
+        k0 = mesh.get_coordinate()[i] * k_old.to_local().shape[1]
+        group = mesh.get_group(i)
+    out = _decode_core(ql.reshape(b, 1, hkv_l, h // hkv_l, hd), kn.to_local(), vn.to_local(),
+                       k_old.to_local(), v_old.to_local(), cache_pos, cfg, layer_local,
+                       k0=k0, group=group)
+    return DTensor.from_local(out.reshape(b, 1, h, hd), mesh, want)
+
+
+def _decode_core(qg, kn, vn, k_old, v_old, cache_pos, cfg: ArchConfig, layer_local,
+                 k0: int = 0, group=None):
+    """The two-block softmax combine of :func:`attention_decode_append` on
+    plain tensors: ``(b, 1, kv, rep, hd)`` in ``v``'s dtype. ``k_old`` /
+    ``v_old`` may be the block of the cache's positions ``k0 ..`` whose
+    other blocks lie on the ranks of ``group``."""
+    b = qg.shape[0]
     s_k = k_old.shape[1]
-    hkv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    hd = cfg.head_dim
-    scale = _scale(cfg, hd)
-    qg = q.reshape(b, 1, hkv, rep, hd)
+    hd = qg.shape[-1]
+    scale = _scale(cfg, cfg.head_dim)
     lg_h = torch.einsum("bqkrd,bskd->bkrqs", qg, k_old).to(torch.float32) * scale
     lg_n = torch.einsum("bqkrd,bskd->bkrqs", qg, kn).to(torch.float32) * scale
     if cfg.attn_softcap > 0:
         lg_h = torch.tanh(lg_h / cfg.attn_softcap) * cfg.attn_softcap
         lg_n = torch.tanh(lg_n / cfg.attn_softcap) * cfg.attn_softcap
-    k_pos = torch.arange(s_k, device=x.device)[None, :]
+    dev = qg.device
+    k_pos = (k0 + torch.arange(s_k, device=dev))[None, :]
     # cache_pos: scalar -> (1, 1); per-row -> (b, 1). Strict: slot
     # cache_pos is stale in k_old either way.
-    cp = _cache_pos(cache_pos, x.device)
+    cp = _cache_pos(cache_pos, dev)
     valid = k_pos < cp
     if layer_local and cfg.sliding_window:
         valid &= (cp - k_pos) < cfg.sliding_window
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     lg_h = lg_h + torch.where(valid[:, None, None, None, :], zero, torch.full_like(zero, NEG_INF))
     m_h = lg_h.amax(dim=-1, keepdim=True)
     e_h = torch.exp(lg_h - m_h)
     s_h = e_h.sum(dim=-1, keepdim=True)
     o_h = torch.einsum("bkrqs,bskd->bqkrd", e_h.to(v_old.dtype), v_old)
+    if group is not None:          # the history's blocks on the other ranks
+        import torch.distributed as dist
+        m_all = m_h.clone()
+        dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+        w = torch.exp(m_h - m_all)                          # (b,kv,rep,1,1)
+        s_h = placement.all_reduce_(s_h * w, group)
+        o_h = placement.all_reduce_((o_h.to(torch.float32) * w.permute(0, 3, 1, 2, 4)),
+                                    group).to(o_h.dtype)
+        m_h = m_all
     m = torch.maximum(m_h, lg_n)
     alpha = torch.exp(m_h - m)                              # (b,kv,rep,1,1)
     beta = torch.exp(lg_n - m)
@@ -410,8 +538,7 @@ def attention_decode_append(
     bw = beta.permute(0, 3, 1, 2, 4)
     denom = s_h * alpha + beta
     dw = denom.permute(0, 3, 1, 2, 4)
-    out = (o_h * aw + bw * vn[:, :, :, None, :].to(o_h.dtype)) / dw
-    return _proj(out.reshape(b, 1, cfg.q_dim).to(x.dtype), p["wo"], cfg)
+    return (o_h * aw + bw * vn[:, :, :, None, :].to(o_h.dtype)) / dw
 
 
 def attention_decode(p, x, cfg: ArchConfig, cache, cache_pos, *, layer_local: bool = False,
@@ -426,7 +553,7 @@ def attention_decode(p, x, cfg: ArchConfig, cache, cache_pos, *, layer_local: bo
     """
     b = x.shape[0]
     if cross:
-        q = _proj(x, p["wq"], cfg).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        q = _split(_proj(x, p["wq"], cfg), b, 1, cfg.n_heads, cfg.head_dim)
     else:
         kn, vn, q = _new_kv(p, x, cfg, cache_pos)
         p0 = int(cache_pos)
@@ -446,7 +573,7 @@ def attention_decode(p, x, cfg: ArchConfig, cache, cache_pos, *, layer_local: bo
     k = hint(k, ("batch", "seq_kv", "kv_heads", None))
     v = hint(v, ("batch", "seq_kv", "kv_heads", None))
     out = _sdpa(q, k, v, bias, cfg)
-    return _proj(out.reshape(b, 1, cfg.q_dim), p["wo"], cfg), cache
+    return _proj(_split(out, b, 1, cfg.q_dim), p["wo"], cfg), cache
 
 
 def attention_cache_defs(cfg: ArchConfig, batch: int, seq: int):

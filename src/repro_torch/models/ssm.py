@@ -147,6 +147,39 @@ def ssd_chunked(x, dt, a, b, c, chunk: int):
     return y, carry
 
 
+def _ssd_placed(x, dt, a, b, c, chunk: int):
+    """:func:`ssd_chunked` on each rank's block: the scan is independent
+    for each (row, head), so x (B, S, H, P) and dt (B, S, H) keep their
+    split over the batch and the heads, b and c (B, S, N) their batch
+    split (whole on a head axis, their gradients summed over it), a (H,)
+    the heads'. Where x lies otherwise (its sequence split) DTensor's own
+    rules run :func:`ssd_chunked`."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.placement import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    pls = tuple(x.placements)
+    if any(isinstance(p, Partial) or (isinstance(p, Shard) and p.dim % 4 not in (0, 2))
+           for p in pls):
+        return ssd_chunked(x, dt, a, b, c, chunk)
+
+    def moved(t, want):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+        return t.redistribute(mesh, want) if tuple(t.placements) != tuple(want) else t
+
+    heads = [isinstance(p, Shard) and p.dim % 4 == 2 for p in pls]
+    bc_pls = tuple(p if isinstance(p, Shard) and p.dim % 4 == 0 else Replicate() for p in pls)
+    bc_grad = tuple(Partial() if h else p for h, p in zip(heads, bc_pls))
+    a_pls = tuple(Shard(0) if h else Replicate() for h in heads)
+    dt, b, c, a = moved(dt, pls), moved(b, bc_pls), moved(c, bc_pls), moved(a, a_pls)
+    y, final = ssd_chunked(x.to_local(), dt.to_local(), a.to_local(),
+                           b.to_local(grad_placements=bc_grad),
+                           c.to_local(grad_placements=bc_grad), chunk)
+    f_pls = tuple(Shard(1) if h else p for h, p in zip(heads, pls))
+    return DTensor.from_local(y, mesh, pls), DTensor.from_local(final, mesh, f_pls)
+
+
 def ssm_fwd(p, x, cfg: ArchConfig):
     """Full-sequence SSD block. x: (B, S, D) -> (B, S, D), plus final cache."""
     bsz, s, d = x.shape
@@ -158,7 +191,12 @@ def ssm_fwd(p, x, cfg: ArchConfig):
     dt = _softplus(dt + p["dt_bias"])                             # (B,S,H)
     a = -torch.exp(p["a_log"].to(torch.float32))                  # (H,)
     f32 = torch.float32
-    y, final = ssd_chunked(xin.to(f32), dt.to(f32), a, b.to(f32), c.to(f32), cfg.ssm_chunk)
+    scan = ssd_chunked
+    if type(xin) is not torch.Tensor:
+        from repro_torch.dist.placement import is_dtensor
+        if is_dtensor(xin):
+            scan = _ssd_placed
+    y, final = scan(xin.to(f32), dt.to(f32), a, b.to(f32), c.to(f32), cfg.ssm_chunk)
     y = y + xin.to(f32) * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, s, di).to(x.dtype)
     y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)

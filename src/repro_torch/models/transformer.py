@@ -28,6 +28,13 @@ chosen by their keys. The reference chooses them by shape (``ndim == 5``
 and axis 2 the prompt length), which also pads an SSM ``state`` leaf
 ``(G, B, H, P, N)`` whenever the prompt length equals ``ssm_heads``, and
 its next decode step then fails; the port leaves SSM leaves as they are.
+
+On a model mesh (DTensor parameters, ``dist.placement``) the embedding is a
+lookup in each card's vocabulary block, the other rows zero, summed over
+the model axis (exact: one card holds each row); the logits stay sharded
+over the vocabulary into :func:`cross_entropy`, which takes the max, the
+sum of exponentials and the label's logit across the blocks, as the
+reference's ``loss_fn`` notes.
 """
 from __future__ import annotations
 
@@ -38,7 +45,10 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
+import torch.nn.functional as F
+
 from repro_torch._device import as_device
+from repro_torch.dist import placement
 from repro_torch.dist.sharding import hint
 
 from .blocks import apply_decode_deltas, group_cache_defs, group_decode_tokens, group_defs, group_fwd
@@ -92,8 +102,36 @@ def _positions(cfg: ArchConfig, batch: int, seq: int, device):
     return pos
 
 
+def _embed_placed(w, tokens):
+    """The lookup on a model mesh: each card's vocabulary block, the rows of
+    other blocks zero, summed over ``"model"``."""
+    from torch.distributed.tensor import DTensor
+    w = placement.gathered(w)
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [placement.Replicate()] * mesh.ndim)
+    tok_pl = placement.placed_like(tokens, model=placement.Replicate())
+    tokens = tokens.redistribute(mesh, tok_pl) if tok_pl != tuple(tokens.placements) else tokens
+    vp = placement.axis_placement(w, "model")
+    out_pl = tuple(tokens.placements)
+    if not isinstance(vp, placement.Shard) or vp.dim != 0:
+        rows = F.embedding(tokens.to_local(), placement.to_local_partial(w))
+        return DTensor.from_local(rows, mesh, out_pl)
+    blk = placement.to_local_partial(w)
+    lo = mesh.get_local_rank("model") * blk.shape[0]
+    t = tokens.to_local().long() - lo
+    mine = (t >= 0) & (t < blk.shape[0])
+    rows = F.embedding(t.clamp(0, blk.shape[0] - 1), blk) * mine[..., None].to(blk.dtype)
+    part = tuple(placement.Partial() if n == "model" else p for n, p in zip(names, out_pl))
+    return DTensor.from_local(rows, mesh, part).redistribute(mesh, out_pl)
+
+
 def _embed(params, tokens, cfg: ArchConfig):
-    x = params["embed"][tokens]
+    if type(params["embed"]) is not torch.Tensor and placement.is_dtensor(params["embed"]):
+        x = _embed_placed(params["embed"], tokens)
+    else:
+        x = params["embed"][tokens]
     if cfg.scale_embeddings:
         # the reference's Python-float factor takes x's dtype first (weak type)
         # (filled on the device: no blocking host-to-device copy a step)
@@ -103,6 +141,11 @@ def _embed(params, tokens, cfg: ArchConfig):
 
 def _unembed(params, x, cfg: ArchConfig):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    if placement.is_dtensor(w):
+        w = placement.gathered(w)
+        if placement.is_dtensor(x):
+            want = placement.placed_like(x, model=placement.Replicate())
+            x = x.redistribute(x.device_mesh, want) if want != tuple(x.placements) else x
     logits = (x @ w.to(x.dtype)).to(torch.float32)
     if cfg.final_softcap > 0:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
@@ -158,14 +201,72 @@ def loss_fn(params, tokens, labels, cfg: ArchConfig):
 def cross_entropy(logits, labels):
     """Mean of ``logsumexp(logits) - logits[label]`` over the positions
     whose label is >= 0 (a 0-d f32 tensor; 0 where none is)."""
+    if type(logits) is not torch.Tensor and placement.is_dtensor(logits):
+        return _cross_entropy_placed(logits, labels)
     valid = labels >= 0
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
     return ((lse - picked) * valid).sum() / valid.sum().clamp_min(1)
 
 
+def _cross_entropy_placed(logits, labels):
+    """:func:`cross_entropy` of logits sharded over the vocabulary on
+    ``"model"`` (and over the batch on the data axes): each card's block
+    gives its max, its sum of exponentials and, where it holds the label,
+    the label's logit; the sums are all-reduced with their gradients."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [placement.Replicate()] * mesh.ndim)
+    lab_pl = placement.placed_like(logits, model=placement.Replicate())
+    labels = labels.redistribute(mesh, lab_pl) if lab_pl != tuple(labels.placements) else labels
+    vp = placement.axis_placement(logits, "model")
+    if not (isinstance(vp, placement.Shard) and vp.dim % logits.ndim == logits.ndim - 1):
+        logits = logits.redistribute(mesh, lab_pl)
+    lg, lab = logits.to_local(), labels.to_local()
+    width = lg.shape[-1]
+    sharded = "model" in names and logits.shape[-1] != width
+    lo = mesh.get_local_rank("model") * width if sharded else 0
+    part = tuple(placement.Partial() if n == "model" else p for n, p in zip(names, lab_pl))
+
+    def over_vocab(t):  # the sum over the vocabulary blocks, with its gradient
+        if not sharded:
+            return t
+        return DTensor.from_local(t, mesh, part).redistribute(mesh, lab_pl).to_local()
+
+    m = lg.detach().amax(dim=-1, keepdim=True)
+    if sharded:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group("model"))
+    se = over_vocab(torch.exp(lg - m).sum(dim=-1))
+    t = lab.long() - lo
+    mine = (t >= 0) & (t < width)
+    picked = over_vocab(lg.gather(-1, t.clamp(0, width - 1)[..., None])[..., 0] * mine)
+    lse = m[..., 0] + torch.log(se)
+    valid = lab >= 0
+    num = ((lse - picked) * valid).sum()
+    den = valid.sum().to(torch.float32)
+    # the sums over the batch blocks
+    tot = tuple(placement.Partial() if isinstance(p, placement.Shard) else placement.Replicate()
+                for p in lab_pl)
+    num = DTensor.from_local(num, mesh, tot).full_tensor()
+    if any(isinstance(p, placement.Shard) for p in lab_pl):
+        den = den.clone()
+        for i, p in enumerate(lab_pl):
+            if isinstance(p, placement.Shard):
+                dist.all_reduce(den, group=mesh.get_group(i))
+    return num / den.clamp_min(1)
+
+
 def _pad_seq(a, cache_len):
     """(B, S, Hkv, hd) -> (B, cache_len, Hkv, hd), zeros after S."""
+    if type(a) is not torch.Tensor and placement.is_dtensor(a):
+        from torch.distributed.tensor import DTensor
+        pls = tuple(placement.Replicate() if isinstance(p, placement.Shard) and p.dim == 1 else p
+                    for p in a.placements)
+        a = a.redistribute(a.device_mesh, pls) if pls != tuple(a.placements) else a
+        return DTensor.from_local(_pad_seq(a.to_local(), cache_len), a.device_mesh, pls)
     out = a.new_zeros((a.shape[0], cache_len, *a.shape[2:]))
     out[:, :a.shape[1]] = a
     return out

@@ -77,13 +77,12 @@ def _factorable(p: torch.Tensor) -> bool:
 
 
 def _init_v(p: torch.Tensor, cfg: "AdamWConfig | None"):
-    f32 = dict(dtype=torch.float32, device=p.device)
     if cfg is not None and cfg.factored_v and _factorable(p):
         return {
-            "row": torch.zeros(p.shape[:-1], **f32),                 # mean over cols
-            "col": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32),
+            "row": torch.zeros_like(p[..., 0], dtype=torch.float32),     # mean over cols
+            "col": torch.zeros_like(p[..., 0, :], dtype=torch.float32),
         }
-    return torch.zeros(p.shape, **f32)
+    return torch.zeros_like(p, dtype=torch.float32)
 
 
 def init_state(params, cfg: "AdamWConfig | None" = None) -> dict:
@@ -97,7 +96,7 @@ def init_state(params, cfg: "AdamWConfig | None" = None) -> dict:
         p = stack([t.to(torch.float32) for t in leaf]) if isinstance(leaf, list) \
             else leaf.to(torch.float32, copy=True)
         master[path] = p
-        m[path] = torch.zeros(p.shape, dtype=m_dtype, device=p.device)
+        m[path] = torch.zeros_like(p, dtype=m_dtype)
         v[path] = _init_v(p, cfg)
     return {"master": nest(master), "m": nest(m), "v": nest(v),
             "step": torch.zeros((), dtype=torch.int32, device=p.device)}

@@ -5,8 +5,8 @@ dense and ``paged=True`` — ``make_serve_step``, ``offload_report``), the
 paged serve loop (``loop``, ``kv_cache``, ``scheduler``, ``traffic``) and
 the package's forwarding of the removed adapters' names to ``engine``'s
 pointed ``AttributeError``. ``ServeEngine(mesh=, sharding_rules=)`` serves
-under ``dist.sharding`` on a mesh of one device (several cards: ROADMAP
-Queue A item 9c).
+under ``dist.sharding``: on a mesh of one device, or across the ranks of a
+process group (one process a card) with its params and cache as DTensors.
 """
 from .engine import ServeEngine, make_prefill, make_serve_step, offload_report
 from .kv_cache import PagedCacheConfig, PagedKVManager, gather_cache

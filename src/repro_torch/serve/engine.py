@@ -24,8 +24,12 @@ request loop lives in `repro_torch.serve.loop`; it builds on
 
 ``ServeEngine(mesh=, sharding_rules=)`` runs its prefill and decode under
 ``dist.sharding.use_sharding``, so the models' hints compute their specs;
-on a mesh of one device that changes no bit, and a mesh over several cards
-raises (ROADMAP Queue A item 9c). A port of ``repro.serve.engine`` whole.
+on a mesh of one device without a process group that changes no bit. On a
+mesh under a process group (one process a card; one rank included) the
+engine places the params by ``param_specs`` and the cache by
+``cache_specs`` as DTensors, the prompts by their batch spec, and hands
+back tokens replicated on every rank. A port of ``repro.serve.engine``
+whole.
 """
 from __future__ import annotations
 
@@ -337,10 +341,15 @@ class ServeEngine:
         ``mesh`` is given (which ``device`` may name again), else the card
         unless the caller asks for the CPU."""
         self.cfg = cfg
-        self.params = params
         self.max_len = max_len
         self.device = mesh_device(mesh, device, "ServeEngine")
         self.mod = get_module(cfg)
+        self.placed = mesh is not None and mesh.placed
+        if self.placed:
+            from repro_torch.dist.placement import distribute_tree
+            params = distribute_tree(params, self.mod.param_specs(cfg), mesh,
+                                     rules=sharding_rules)
+        self.params = params
         # mesh: prefill and decode run under use_sharding so the models'
         # dist.sharding hints compute their specs; None = hints are no-ops
         self.mesh = mesh
@@ -375,19 +384,37 @@ class ServeEngine:
             raise ValueError("the encoder-decoder family needs frames= (B, S, d_model), "
                              "the encoder's input")
         with self._sharding_ctx():
+            if self.placed:
+                prompts = self._place(prompts, ("batch", "seq"))
+                if frames is not None:
+                    frames = self._place(frames.to(self.device), ("batch", "seq", None))
             if self.cfg.family == "encdec":
                 logits, cache = self.prefill_fn(self.params, frames.to(self.device), prompts)
             else:
                 logits, cache = self.prefill_fn(self.params, prompts)
+            if self.placed and hasattr(self.mod, "cache_specs"):
+                from repro_torch.dist.placement import distribute_tree
+                cache = distribute_tree(cache, self.mod.cache_specs(
+                    self.cfg, prompts.shape[0], self.max_len), self.mesh,
+                    rules=self.sharding_rules)
             out = []
             tok = self._sample(logits, temperature, generator)
             pos = prompt_len
             for _ in range(max_new_tokens):
                 out.append(tok)
+                if self.placed:
+                    tok = self._place(tok, ("batch",))
                 logits, cache = self.step_fn(self.params, cache, tok, pos)
                 tok = self._sample(logits, temperature, generator)
                 pos += 1
         return torch.stack(out, dim=1)
+
+    def _place(self, t, axes):
+        """``t`` (the same on every rank) placed by its logical axes."""
+        from repro_torch.dist.placement import distribute
+        from repro_torch.dist.sharding import logical_to_spec
+        return distribute(t, self.mesh, logical_to_spec(axes, t.shape, self.mesh,
+                                                        rules=self.sharding_rules))
 
     def offload_report(self, backend=None, config=None, batch: int | None = None,
                        fidelity: bool = True):
@@ -404,7 +431,10 @@ class ServeEngine:
     def _sample(logits, temperature, generator):
         """Greedy ``argmax``; with a temperature and a generator, a draw from
         ``softmax(logits / temperature)`` (not JAX's bits: a torch generator
-        is not a JAX key)."""
+        is not a JAX key). Placed logits are gathered first: every rank
+        draws the same tokens."""
+        from repro_torch.dist.placement import full
+        logits = full(logits)
         if temperature <= 0.0 or generator is None:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits / temperature, dim=-1)

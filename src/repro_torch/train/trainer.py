@@ -17,8 +17,13 @@ span lands in the trace whenever tracing is on.
 
 ``mesh=`` (a ``launch.mesh.ModelMesh``) and ``sharding_rules=`` run every
 step under ``dist.sharding.use_sharding``, so the models' hints compute
-their specs; the state lives on the mesh's one device. A mesh over several
-cards raises (ROADMAP Queue A item 9c). Port of the reference module whole.
+their specs. On a mesh of one device without a process group the state
+lives on that device. On a mesh under a process group the params are
+drawn shard-invariantly onto it (``dist.placement.init_placed``: the
+one-card draw), FSDP where ``estimate_fsdp`` says so (or ``fsdp=``), the
+optimizer state placed as its params, and each step's batch sharded over
+the data axes; the checkpoint gathers each leaf and restores onto the
+mesh. Port of the reference module whole.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from repro_torch import obs
 from repro_torch._tree import tree_map
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, batch_at_step
-from repro_torch.dist.sharding import mesh_device, use_sharding
+from repro_torch.dist.sharding import estimate_fsdp, logical_to_spec, mesh_device, use_sharding
 from repro_torch.optim import AdamWConfig
 
 from .step import init_train_state, make_train_step
@@ -56,6 +61,7 @@ class Trainer:
         straggler_factor: float = 2.0,
         seed: int = 0,
         device=None,
+        fsdp: bool | None = None,
     ):
         self.device = mesh_device(mesh, device, "Trainer")
         # mesh: every step runs under use_sharding, so the models' hints
@@ -77,9 +83,21 @@ class Trainer:
         # the state is built without opt_cfg, as the reference's Trainer
         # builds it: f32 m and unfactored v (apply_updates casts m to
         # opt_cfg.m_dtype from the first step on)
-        self.params, self.opt_state = init_train_state(seed, cfg, device=self.device)
-        self.residual = (tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                        device=p.device), self.params)
+        self.placed = mesh is not None and mesh.placed
+        if self.placed:
+            from repro_torch.dist.placement import init_placed
+            from repro_torch.optim import init_state
+            n_params = cfg.param_count()
+            # FSDP: the params, and with them the optimizer state, shard over
+            # the data axes too where estimate_fsdp says so (or as asked)
+            self.fsdp = estimate_fsdp(n_params, mesh, training=True) if fsdp is None else fsdp
+            self.params = init_placed(cfg, seed, mesh, fsdp=self.fsdp, rules=sharding_rules)
+            self.opt_state = init_state(self.params)
+        else:
+            self.fsdp = False
+            self.params, self.opt_state = init_train_state(seed, cfg, device=self.device)
+        self.residual = (tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                                  self.params)
                          if self.error_feedback else None)
         self.start_step = 0
         if self.ckpt is not None:
@@ -124,6 +142,11 @@ class Trainer:
         for step in range(self.start_step, self.start_step + num_steps):
             tokens, labels = batch_at_step(self.data_cfg, step, device=self.device)
             batch = {"tokens": tokens, "labels": labels}
+            if self.placed:
+                from repro_torch.dist.placement import distribute
+                batch = {k: distribute(v, self.mesh, logical_to_spec(
+                    ("batch", "seq"), v.shape, self.mesh, rules=self.sharding_rules))
+                    for k, v in batch.items()}
             # the obs stopwatch owns the step measurement: it always times
             # (the watchdog and heartbeat need dt regardless) and records a
             # "train/step" span whenever tracing is on

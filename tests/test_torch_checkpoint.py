@@ -152,7 +152,7 @@ def test_restore_onto_a_mesh_raises(tmp_path):
     assert step == 1
     _equal_trees(got, want)
     two = ModelMesh(("data", "model"), (2, 1), ("cuda:0", "cuda:1"))
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(RuntimeError, match="one process a card"):
         cm.restore(like, shardings=tree_shardings(like, specs, two))
     with pytest.raises(ValueError, match="logical"):
         cm.restore(like, shardings=tree_shardings(like, specs, make_production_mesh()))

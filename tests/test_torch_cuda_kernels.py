@@ -57,6 +57,39 @@ def test_psram_matmul_kernel_bit_equal_to_plain(card, m, k, n, adc_bits):
     assert torch.equal(got.cpu(), cpu)
 
 
+@pytest.mark.parametrize("route", ["decode", "tile", "wgmma"])
+@pytest.mark.parametrize("m,k,n,adc_bits", [
+    (8, 1024, 256, 16), (16, 4096, 96, 12), (64, 2048, 128, 16), (300, 1024, 48, 24),
+])
+def test_psram_matmul_int32_split_k_bit_equal_to_fused(card, route, m, k, n, adc_bits):
+    """Each route with its epilogue compiled out over 4 K slices, the int32
+    sums added, then the epilogue launch: the fused kernel's bits, each
+    slice's sums the plain integer product."""
+    if route == "decode" and m > pm.M_DECODE:
+        pytest.skip("the decode route takes up to 16 rows")
+    rng = np.random.default_rng(m * 7 + k + n)
+    x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32), device=card)
+    w = torch.tensor(rng.standard_normal((k, n)).astype(np.float32), device=card)
+    qx, sx = quantize_symmetric(x, axis=-1)
+    qw, sw = quantize_symmetric(w, axis=0)
+    ks = k // 4
+    before = (dict(pm.psram_matmul_int32.routes), pm.psram_adc_epilogue.launches)
+    acc = None
+    for i in range(4):
+        a, b = qx[:, i * ks:(i + 1) * ks].contiguous(), qw[i * ks:(i + 1) * ks].contiguous()
+        part = pm.psram_matmul_int32(a, b, route=route)
+        assert part.dtype == torch.int32
+        assert torch.equal(part.cpu(), pm.psram_matmul_int32(a.cpu(), b.cpu()))
+        acc = part if acc is None else acc + part
+    got = pm.psram_adc_epilogue(acc, sx, sw, k, adc_bits=adc_bits)
+    torch.cuda.synchronize()
+    assert pm.psram_matmul_int32.routes[route] == before[0][route] + 4
+    assert pm.psram_adc_epilogue.launches == before[1] + 1
+    assert torch.equal(got, pm.psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits))
+    cpu = pm.psram_adc_epilogue(acc.cpu(), sx.cpu(), sw.cpu(), k, adc_bits=adc_bits)
+    assert torch.equal(got.cpu(), cpu)
+
+
 @pytest.mark.parametrize("shape,nnz,rank,rows,eb,mode,adc_bits,alpha,route", [
     ((40, 24, 18), 900, 6, 16, 4, 0, 16, 1.6, "three_pass"),  # ragged last block, empty rows,
                                                               # long head fiber

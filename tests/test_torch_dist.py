@@ -58,8 +58,10 @@ def test_hint_applies_spec_inside_context():
     [eqn] = [e for e in jaxpr.eqns if e.primitive.name == "sharding_constraint"]
     assert tuple(eqn.params["sharding"].spec) == tuple(spec)
     assert tuple(jlogical_to_spec(("batch", "ff"), (8, 4), jmesh)) == tuple(spec)
+    # a mesh over two cards in one process without a process group: one
+    # process a card
     two = ModelMesh(("data", "model"), (2, 1), ("cuda:0", "cuda:1"))
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(RuntimeError, match="one process a card"):
         with use_sharding(two):
             pass
 

@@ -142,8 +142,11 @@ def test_smoke_cells_lower_on_meta(arch, kind):
     assert res["chips"] == 8 and res["mesh"] == "2x4" and not res["fsdp"]
     assert res["memory"]["argument_bytes"] == _reference_argument_bytes(arch, shape)
     assert res["memory"]["temp_bytes"] is None and res["compile_s"] is None
-    assert r["collective_s"] is None and set(res["why"]) == {"temp_bytes", "compile_s",
-                                                           "collective_s"}
+    # the 2x4 mesh's collectives, traced under the fake group of 8 and priced
+    # by the ring model over NVLink
+    assert r["collective_s"] > 0 and set(res["why"]) == {"temp_bytes", "compile_s"}
+    assert r["by_collective"]["all-reduce"]["count"] > 0
+    assert r["collective_s"] == r["collective_wire_bytes"] / 450e9
     assert {t.device.type for t in torch.utils._pytree.tree_leaves(cell["params"])} == {"meta"}
     if kind == "train":
         one, _ = dryrun.lower_cell(cfg, dataclasses.replace(shape, global_batch=4), MESH,

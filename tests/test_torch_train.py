@@ -27,6 +27,7 @@
   to without.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -349,7 +350,7 @@ def test_mesh_and_psram_training_raise():
     cfg = get_config("granite_8b").reduced()
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4)
     two = ModelMesh(("data", "model"), (1, 2), ("cuda:0", "cuda:1"))
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(RuntimeError, match="one process a card"):
         Trainer(cfg, dc, mesh=two)
     with pytest.raises(ValueError, match="logical"):
         Trainer(cfg, dc, mesh=make_production_mesh())
@@ -379,5 +380,27 @@ def test_launch_train_runs_reduced_on_cpu(tmp_path, capsys):
     plain = train.main(["--arch", "granite_8b", "--reduced", "--device", "cpu", "--steps", "2",
                         "--batch", "2", "--seq", "16"])
     assert mp == plain
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        train.main(["--arch", "granite_8b", "--reduced", "--device", "cpu", "--distributed"])
+    # --distributed joins the group torchrun's variables describe: here a
+    # world of one gloo rank, whose 1 x 1 mesh holds DTensors
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        dd = train.main(["--arch", "granite_8b", "--reduced", "--device", "cpu", "--steps", "2",
+                         "--batch", "2", "--seq", "16", "--distributed"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    np.testing.assert_allclose(dd, plain, rtol=1e-6)
