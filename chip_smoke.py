@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--nnz N] [--out report.json] [--tuning]
+    python3 chip_smoke.py [--nnz N] [--out report.json] [--tuning] [--split-only]
 
 What it does, in order — any failure raises and the run exits non-zero:
 
@@ -300,6 +300,20 @@ What it does, in order — any failure raises and the run exits non-zero:
    ``hopper`` row launched no kernel, ABFT's corrected error is not 0, or
    the phase takes over 120 s.
 
+9. ``main_path_multicard`` — granite-8b (4 layers) as DTensors on a
+   world-1 NCCL group, exact and pSRAM, bit-equal to ``mesh=None``; the
+   pSRAM run's row-parallel projections must launch the int32 ``wgmma``
+   slice in a prefill and the slice that quantizes its own rows in each
+   decode step (the int32 decode route never). Then ``split_cases``: the
+   bf16 rows' quotient held to ``__fdiv_rn`` for every bf16 value and scale,
+   kernel 2 with K split 4 ways at o's and down's K (every route and the
+   rows slice, bit-equal to the fused kernel and its plain version; the
+   epilogue in f32 and bf16), the projection split by operation (each
+   launch's device and eager ms, the parent's composition beside this
+   one's) and the ``wgmma`` route at the paged loop's prefill rows.
+   ``--split-only`` runs the build and ``split_cases`` alone;
+   ``--cards 4`` the four-card run alone.
+
 TF32 is switched off for matmuls and cuDNN before anything runs: the plain
 versions of the dense MTTKRP and flash kernels are f32 matrix products.
 
@@ -311,6 +325,7 @@ power limit as nvidia-smi prints them, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -463,6 +478,11 @@ MULTI_LAYERS = 4
 MULTI_SERVE = {"batch": 8, "prompt_len": 256, "max_new": 8}
 SPLIT_WAYS = 4
 SPLIT_SHAPES = ((8, 4096, 4096), (8, 14336, 4096), (2048, 4096, 4096), (2048, 14336, 4096))
+# the rows slice's layouts timed by --tuning / --split-only: (M, K slice, N)
+# at granite-8b's o and down and dbrx-132b's o over 4 cards
+ROWS_TUNE_SHAPES = ((8, 1024, 4096), (8, 3584, 4096), (8, 1536, 6144), (16, 1024, 4096))
+# kernel 2's wgmma route at the paged loop's prefill rows, q/o and gate/up
+PAGED_PREFILL_SHAPES = tuple((m, 4096, n) for m in (64, 128, 256) for n in (4096, 14336))
 # --cards 4: four ranks, one a card, NCCL over NVLink
 CARDS = 4
 FOUR_DBRX = {"batch": 4, "prompt_len": 128, "max_new": 16}
@@ -680,6 +700,9 @@ def call_split(torch, fn, fold_launches: int, n: int = 3, attempts: int = 3) -> 
 
 # host seconds between a profile's warm call and its window
 PROFILE_PAUSE_S = 1e-2
+#: the CUDA runtime and driver calls that launch or enqueue device work; the
+#: profiler gives each the correlation id of the kernel, memset or copy it made
+RUNTIME_CALL = re.compile(r"cu(da)?[A-Z]\w*$")
 
 
 def op_split(torch, fn, own: str, n: int = 3, attempts: int = 5) -> dict:
@@ -689,9 +712,12 @@ def op_split(torch, fn, own: str, n: int = 3, attempts: int = 5) -> dict:
     launched it; the card's busy time, and the rest of the call's CUDA-event
     time (``idle_ms``), with the launches of each, per call (device time the
     profiler tied to no op is ``unattributed``). ``n`` calls under
-    ``torch.profiler`` after a warm call; a window that recorded no kernel,
-    or in which some kernel's launches are not a multiple of ``n``, lost
-    records and is profiled again; the run fails where every attempt did."""
+    ``torch.profiler`` after a warm call; the window's kernels are those
+    whose runtime call was made in it (``early_records``: how many of them
+    the device clock put before its start). A window that recorded no
+    kernel, or in which some kernel's launches are not a multiple of ``n``,
+    lost records and is profiled again; the run fails where every attempt
+    did."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -711,9 +737,20 @@ def op_split(torch, fn, own: str, n: int = 3, attempts: int = 5) -> dict:
                     fn()
                 torch.cuda.synchronize()
         events = prof.events()
-        t0 = next(e for e in events if e.name == "split_calls").time_range.start
-        events = [e for e in events if e.time_range.start >= t0 and e.name != "split_calls"]
-        device = [e for e in events if e.device_type == cuda]
+        t0 = next(e for e in events
+                  if e.name == "split_calls" and e.device_type != cuda).time_range.start
+        # a kernel belongs to the window where the runtime call that launched
+        # it does (the same correlation id, on the host's clock): the device
+        # clock the profiler maps kernels onto can lag the host's, and a
+        # window's first kernel, launched microseconds after t0, then read as
+        # before it (each mode's first window in 4c, and all 5 of one run)
+        launch_us = {e.id: e.time_range.start for e in events
+                     if e.device_type != cuda and RUNTIME_CALL.match(e.name)}
+        device = [e for e in events if e.device_type == cuda and e.name != "split_calls"
+                  and launch_us.get(e.id, e.time_range.start) >= t0]
+        early = sum(e.time_range.start < t0 for e in device)
+        events = [e for e in events if e.device_type != cuda
+                  and e.time_range.start >= t0 and e.name != "split_calls"] + device
         busy_us = sum(e.time_range.end - e.time_range.start for e in device)
         ops: dict = {}
 
@@ -744,7 +781,8 @@ def op_split(torch, fn, own: str, n: int = 3, attempts: int = 5) -> dict:
             if abs(rest) > 1e-3 * busy_ms:   # kernels the profiler tied to no op
                 ops["unattributed"] = {"ms": rest, "launches": None}
             return {"ms": ms, "busy_ms": busy_ms, "idle_ms": ms - busy_ms,
-                    "launches": len(device) / n, "ops": ops, "attempts": attempt}
+                    "launches": len(device) / n, "ops": ops, "attempts": attempt,
+                    "early_records": early}
     raise AssertionError(f"the profiler lost records of a call in each of {attempts} "
                          f"windows: {ops}, {counts}")
 
@@ -4784,7 +4822,6 @@ def main_path_examples(torch, zero_counts, read_counts) -> tuple:
     backend_tour's ``hopper`` row through kernel 4, ABFT's corrected rel err
     exactly 0, and ``EXAMPLES_BUDGET_S``. ``(phase, [launches of each
     example])``."""
-    import contextlib
     import importlib
     import io
 
@@ -5010,6 +5047,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def world_of_one():
+    """A world-size-1 NCCL group (``launch.mesh.init_distributed``) and its
+    1 x 1 host mesh on the card; the group destroyed on leaving."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+    init_distributed("cuda", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                     world_size=1)
+    try:
+        yield make_host_mesh(model=1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
 def split_k_case(torch, m, k, n, route, seed, timed=False):
     """Kernel 2 with K split ``SPLIT_WAYS`` ways: each slice through the
     int32-out variant of ``route`` (the epilogue compiled out), the sums
@@ -5017,14 +5070,22 @@ def split_k_case(torch, m, k, n, route, seed, timed=False):
     scale; bit-equal to the fused kernel on the whole K and to its plain
     version (:func:`psram_matmul_torch`), each slice's sums equal to the
     plain integer product, the epilogue launch equal to its plain arithmetic
-    on the same summed ``acc``. With ``timed``: one slice's launch
-    (device time of cold calls in a CUDA graph on the decode route, CUDA
-    events over eager calls elsewhere) beside its plain version, bound and
-    ``torch._int_mm``; the epilogue launch beside its plain arithmetic and
-    its bound."""
-    from repro_torch.core.quantization import QMAX, adc_transfer, exact_int_matmul
+    on the same summed ``acc``. Decode rows also go through the slice that
+    quantizes its own rows (``rows``: f32 and bf16 rows, each with its
+    whole K's scale and its own codes), each slice's sums equal to its plain version, the
+    whole bit-equal to the fused kernel and to the plain version; the
+    epilogue in bf16 equal to the f32 result rounded. With ``timed``: one
+    slice's launch (device time of cold calls in a CUDA graph on the decode
+    route, CUDA events over eager calls elsewhere) beside its plain version,
+    bound and ``torch._int_mm``; the epilogue launch beside its plain
+    arithmetic and its bound, by CUDA events and as device time in a graph;
+    the rows slice's device time (cold, in a graph) and eager time."""
+    from repro_torch.core.quantization import (QMAX, adc_transfer, exact_int_matmul,
+                                               symmetric_scale)
     from repro_torch.kernels.psram_matmul import (psram_adc_epilogue, psram_matmul,
-                                                  psram_matmul_int32, psram_matmul_torch)
+                                                  psram_matmul_int32, psram_matmul_int32_rows,
+                                                  psram_matmul_int32_rows_torch,
+                                                  psram_matmul_torch)
 
     qx, qw, sx, sw = matmul_codes(torch, m, k, n, seed)
     want = psram_matmul(qx, qw, sx, sw)
@@ -5043,11 +5104,43 @@ def split_k_case(torch, m, k, n, route, seed, timed=False):
                                       for p, (a, b) in zip(parts, slices)),
             "epilogue_equal_plain": bool(torch.equal(
                 got, adc_transfer(acc, 2 ** 16, fs) * (sx * sw))),
+            "epilogue_bf16_equal": bool(torch.equal(
+                psram_adc_epilogue(acc, sx, sw, k, out_dtype=torch.bfloat16),
+                got.to(torch.bfloat16))),
             "bit_equal": bool(torch.equal(got, want)),
             "bit_equal_plain": bool(torch.equal(got, plain)),
             "max_abs_err": float((got - plain).abs().max())}
-    if not (case["bit_equal"] and case["bit_equal_plain"] and case["slices_equal_plain"]
-            and case["epilogue_equal_plain"]):
+    ok = (case["bit_equal"] and case["bit_equal_plain"] and case["slices_equal_plain"]
+          and case["epilogue_equal_plain"] and case["epilogue_bf16_equal"])
+    if m <= 16:
+        # f32 and bf16 rows (the codes, moved off the integers, times their
+        # scales), each with its scale taken over the whole K and its own codes
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        xf = (qx.float() + torch.rand(qx.shape, generator=gen, device="cuda") - 0.5) * sx
+        xb = xf.to(torch.bfloat16)
+        rows = {}
+        for name, x in (("f32", xf), ("bf16", xb)):
+            s = symmetric_scale(x.abs().amax(dim=-1, keepdim=True))
+            codes = torch.round(x / s).clamp(-QMAX, QMAX).to(torch.int8)
+            scale = s.float()
+            xs = [x[:, i * ks:(i + 1) * ks].contiguous() for i in range(SPLIT_WAYS)]
+            rparts = [psram_matmul_int32_rows(a, s, b) for a, (_, b) in zip(xs, slices)]
+            racc = rparts[0]
+            for p in rparts[1:]:
+                racc = racc + p
+            rgot = psram_adc_epilogue(racc, scale, sw, k)
+            rows[name] = {
+                "slices_equal_plain": all(
+                    torch.equal(p, psram_matmul_int32_rows_torch(a, s, b))
+                    for p, a, (_, b) in zip(rparts, xs, slices)),
+                "bit_equal": bool(torch.equal(rgot, psram_matmul(codes, qw, scale, sw))),
+                "bit_equal_plain": bool(torch.equal(rgot, psram_matmul_torch(codes, qw, scale,
+                                                                             sw))),
+                "max_abs_err": float((rgot - psram_matmul_torch(codes, qw, scale, sw))
+                                     .abs().max())}
+            ok = ok and all(v for key, v in rows[name].items() if key != "max_abs_err")
+        case["rows"] = rows
+    if not ok:
         raise AssertionError(f"kernel 2's K split differs from the fused kernel or the plain "
                              f"version: {case}")
     if timed:
@@ -5064,13 +5157,185 @@ def split_k_case(torch, m, k, n, route, seed, timed=False):
         ops_ms = 1e3 * 2.0 * m * ks * n / INT8_OPS_PER_S
         case["bound_ms"] = max(bytes_ms, ops_ms)
         case["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
-        epi = lambda: psram_adc_epilogue(acc, sx, sw, k)  # noqa: E731
+        def epi(out_dtype=torch.float32):
+            return psram_adc_epilogue(acc, sx, sw, k, out_dtype=out_dtype)
+
+        epi_bf16 = lambda: epi(torch.bfloat16)  # noqa: E731
         case["epilogue"] = {
-            "ms": time_ms(torch, epi),
+            "ms": time_ms(torch, epi), "device_ms": graph_ms(torch, [epi], reps=8),
+            "bf16_ms": time_ms(torch, epi_bf16),
+            "bf16_device_ms": graph_ms(torch, [epi_bf16], reps=8),
             "plain_ms": time_ms(torch, lambda: adc_transfer(acc, 2 ** 16, fs) * (sx * sw)),
             "bound_ms": 1e3 * (8.0 * m * n + nbytes(sx, sw)) / HBM_BYTES_PER_S,
+            "bf16_bound_ms": 1e3 * (6.0 * m * n + nbytes(sx, sw)) / HBM_BYTES_PER_S,
             "bound_by": "bytes", "library_ms": None}
+        if m <= 16 and route == "decode":
+            xb0 = xb[:, :ks].contiguous()
+            sxb = symmetric_scale(xb.abs().amax(dim=-1, keepdim=True))
+            ws = cold_copies(torch, b)
+            case["rows"]["ms"] = graph_ms(torch, [
+                lambda w=w: psram_matmul_int32_rows(xb0, sxb, w) for w in ws])
+            case["rows"]["eager_ms"] = time_ms(torch, lambda: psram_matmul_int32_rows(xb0, sxb, b))
+            case["rows"]["plain_ms"] = time_ms(
+                torch, lambda: psram_matmul_int32_rows_torch(xb0, sxb, b))
+            case["rows"]["plain_device_ms"] = graph_ms(torch, [
+                lambda w=w: psram_matmul_int32_rows_torch(xb0, sxb, w) for w in ws])
+            rbytes = 1e3 * (nbytes(xb0, sxb, b) + 4 * m * n) / HBM_BYTES_PER_S
+            case["rows"]["bound_ms"] = max(rbytes, ops_ms)
+            case["rows"]["bound_by"] = "operations" if ops_ms >= rbytes else "bytes"
     return case
+
+
+def row_parallel_ops(torch, m, k, n, seed):
+    """The breakdown of :func:`projection_calls` by operation: one rank's
+    row-parallel pSRAM projection's pieces at bf16 rows ``(m, k)`` (its K
+    slice) and ``(k, n)`` int8 words, each launch's device time (its calls
+    captured in a CUDA graph; the K slice's over weight copies past the L2,
+    as the decode step finds them) beside its eager time (CUDA events over
+    back-to-back calls: the host's share shows). ``parent`` is the
+    composition before the rows slice (the quantization ops,
+    ``psram_matmul_int32``, the epilogue in f32 and the cast), ``after`` is
+    the present one (decode rows: ``psram_matmul_int32_rows``; the epilogue
+    in bf16), both on this tree's kernels. Neither holds the all-reduces or
+    the weight's own quantization (``w=``): the whole call is
+    :func:`projection_calls`'s."""
+    from repro_torch.core.quantization import QMAX, symmetric_scale
+    from repro_torch.kernels import psram_matmul as pm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    qw = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    sw = torch.rand((1, n), generator=gen, device="cuda") + 1e-3
+    ws = cold_copies(torch, qw)
+    ax = x.abs()
+    amax = ax.amax(dim=-1, keepdim=True)
+    amax32 = amax.to(torch.float32)
+    cm = amax.clamp_min(1e-12)
+    qmax = torch.full((), float(QMAX), device="cuda")
+    sx = symmetric_scale(amax)
+    d = x / sx
+    r = torch.round(d)
+    c = r.clamp(-QMAX, QMAX)
+    q = c.to(torch.int8)
+    acc = pm.psram_matmul_int32(q, qw)
+    sx32 = sx.to(torch.float32)
+    y = pm.psram_adc_epilogue(acc, sx32, sw, SPLIT_WAYS * k)
+    ops = {"abs": lambda: x.abs(), "amax": lambda: ax.amax(dim=-1, keepdim=True),
+           "to_f32": lambda: amax.to(torch.float32), "to_bf16": lambda: amax32.to(torch.bfloat16),
+           "clamp_min": lambda: amax.clamp_min(1e-12), "div_qmax": lambda: cm / qmax,
+           "div": lambda: x / sx, "round": lambda: torch.round(d),
+           "clamp": lambda: r.clamp(-QMAX, QMAX), "to_int8": lambda: c.to(torch.int8),
+           "slice_int32": [lambda w=w: pm.psram_matmul_int32(q, w) for w in ws],
+           "sx_f32": lambda: sx.to(torch.float32),
+           "epilogue_f32": lambda: pm.psram_adc_epilogue(acc, sx32, sw, SPLIT_WAYS * k),
+           "to_out": lambda: y.to(torch.bfloat16),
+           "epilogue_bf16": lambda: pm.psram_adc_epilogue(acc, sx32, sw, SPLIT_WAYS * k,
+                                                          out_dtype=torch.bfloat16)}
+    if m <= pm.M_DECODE:
+        if not torch.equal(pm.psram_matmul_int32_rows(x, sx, qw), acc):
+            raise AssertionError(f"the rows slice differs from the parent's composition "
+                                 f"at {(m, k, n)}")
+        ops["rows"] = [lambda w=w: pm.psram_matmul_int32_rows(x, sx, w) for w in ws]
+    out = {}
+    for name, fn in ops.items():
+        fns = fn if isinstance(fn, list) else [fn]
+        out[name] = {"device_ms": graph_ms(torch, fns, reps=1 if len(fns) > 1 else 8),
+                     "eager_ms": time_ms(torch, fns[0])}
+    scale = ("abs", "amax", "to_f32", "to_bf16", "clamp_min", "div_qmax")
+    quantized = ("div", "round", "clamp", "to_int8", "slice_int32")
+    parts = {"parent": scale + quantized + ("sx_f32", "epilogue_f32", "to_out"),
+             "after": scale + (("rows",) if "rows" in ops else quantized)
+             + ("sx_f32", "epilogue_bf16")}
+    return {"shape": [m, k, n], "ways": SPLIT_WAYS, "x": "bfloat16",
+            "weight_copies": len(ws), "ops": out,
+            **{side: {"launches": len(names),
+                      "device_ms": sum(out[o]["device_ms"] for o in names),
+                      "eager_ms": sum(out[o]["eager_ms"] for o in names)}
+               for side, names in parts.items()}}
+
+
+#: a rank's row-parallel decode projections of granite-8b over four cards,
+#: (name, rows, K slice, N): o and down
+PROJECTION_SHAPES = (("o", 8, 1024, 4096), ("down", 8, 3584, 4096))
+
+
+def projection_calls(torch, mesh) -> list:
+    """One rank's row-parallel pSRAM decode projection as a served model
+    calls it (``layers._proj`` on a weight placed row-parallel on the world-1
+    ``mesh``, bf16 rows, under ``inference_mode``), at
+    :data:`PROJECTION_SHAPES`, split by :func:`op_split` under
+    ``torch.profiler``: its launches, its device time (``busy_ms``) and its
+    CUDA-event time (``ms``), per op. It uses only names the port has had
+    since its placement across cards, so ``profile_projection.py --src``
+    runs it against an earlier tree. Run it in a fresh process
+    (:func:`projection_run`)."""
+    from repro_torch.dist.placement import distribute
+    from repro_torch.dist.sharding import logical_to_spec, use_sharding
+    from repro_torch.models import get_config
+    from repro_torch.models.layers import _proj
+
+    cfg = dataclasses.replace(get_config(MULTI_ARCH), psram_projections=True)
+    cases = []
+    for i, (name, m, k, n) in enumerate(PROJECTION_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(95 + i)
+        x = torch.randn((m, 1, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        with torch.inference_mode(), use_sharding(mesh):
+            xp = distribute(x, mesh, logical_to_spec(("batch", "seq", None), x.shape, mesh))
+            wp = distribute(w, mesh, logical_to_spec(("ff", "embed"), w.shape, mesh))
+            split = op_split(torch, lambda: _proj(xp, wp, cfg), r"psram_\w+_kernel")
+        cases.append({"name": name, "shape": [m, k, n], **split})
+    return cases
+
+
+def rows_layouts(torch) -> list:
+    """The rows slice at every layout (64-column blocks a warp, warps a CTA,
+    cluster), bf16 rows, device time of cold calls in a CUDA graph, at
+    ``ROWS_TUNE_SHAPES``: the evidence for the library's choice."""
+    from repro_torch.core.quantization import symmetric_scale
+    from repro_torch.kernels import psram_matmul as pm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = []
+    for i, (m, k, n) in enumerate(ROWS_TUNE_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(90 + i)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        sx = symmetric_scale(x.abs().amax(dim=-1, keepdim=True))
+        qw = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        ws = cold_copies(torch, qw)
+        want = pm.psram_matmul_int32_rows(x, sx, qw)
+        times = {}
+        for nb in (1, 2):
+            for warps in (4, 8):
+                for cluster in (1, 2, 4, 8):
+                    lay = pm.rows_layout(nb, warps, cluster)
+                    if not torch.equal(pm.psram_matmul_int32_rows(x, sx, qw, layout=lay), want):
+                        raise AssertionError(f"rows layout {nb, warps, cluster} differs")
+                    times[f"{nb}x64/{warps}w/c{cluster}"] = graph_ms(torch, [
+                        lambda w=w, lay=lay: pm.psram_matmul_int32_rows(x, sx, w, layout=lay)
+                        for w in ws])
+        lay = pm._rows_layout(k, n, sms)
+        cases.append({"shape": [m, k, n], "ms": times,
+                      "library": f"{lay >> 16}x64/{(lay >> 8) & 0xFF}w/c{lay & 0xFF}",
+                      "best": min(times, key=times.get)})
+    return cases
+
+
+def paged_prefill_rows_ms(torch) -> list:
+    """Kernel 2 (its route, ``wgmma``) at the paged loop's prefill rows:
+    one ``time_ms`` a shape, beside its bound."""
+    from repro_torch.kernels.psram_matmul import _route, psram_matmul
+
+    cases = []
+    for i, (m, k, n) in enumerate(PAGED_PREFILL_SHAPES):
+        qx, qw, sx, sw = matmul_codes(torch, m, k, n, 80 + i)
+        bytes_ms = 1e3 * (nbytes(qx, qw, sx, sw) + 4 * m * n) / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 2.0 * m * k * n / INT8_OPS_PER_S
+        cases.append({"shape": [m, k, n], "route": _route(m, k, n, True),
+                      "ms": time_ms(torch, lambda: psram_matmul(qx, qw, sx, sw)),
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+    return cases
 
 
 def served_pair(torch, cfg, params, mesh, prompts, zero_counts, read_counts):
@@ -5109,30 +5374,68 @@ def served_pair(torch, cfg, params, mesh, prompts, zero_counts, read_counts):
     return out, launches
 
 
-def main_path_multicard(torch, zero_counts, read_counts) -> tuple:
+def projection_run() -> list:
+    """:func:`projection_calls` on this tree in a process of its own
+    (``profile_projection.py``, its own world-1 group, the kernels already
+    built): late in a long process the profiler places some of the card's
+    records before the window that holds them, and :func:`op_split` then
+    finds a call's launches short in every window."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "projection.json"
+        proc = subprocess.run([sys.executable, str(ROOT / "profile_projection.py"), "--out",
+                               str(out)], capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"profile_projection.py exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        return json.loads(out.read_text())["projection"]
+
+
+def split_cases(torch, tuning=False) -> dict:
+    """Kernel 2's K split at ``SPLIT_SHAPES``: the bf16 rows' quotient held
+    to ``__fdiv_rn`` exhaustively (``_rows_division_probe``), every route
+    case (:func:`split_k_case`, timed), the row-parallel decode projection
+    as a whole (:func:`projection_run`) and by operation at each shape's K
+    slice (:func:`row_parallel_ops`), and the
+    ``wgmma`` route at the paged loop's prefill rows; with ``tuning`` the
+    rows slice's layouts (:func:`rows_layouts`)."""
+    from repro_torch.kernels.psram_matmul import _rows_division_probe
+
+    count, first, checked = _rows_division_probe()
+    out = {"rows_division_probe": {"pairs_checked": checked, "pairs_differing": count}}
+    if count:
+        raise AssertionError(f"the bf16 rows' quotient differs from __fdiv_rn's on {count} of "
+                             f"{checked} (value, scale) pairs, the first {first:#x}")
+    out.update({"split_k": [], "projection": projection_run(), "split_ops": []})
+    for i, (m, k, n) in enumerate(SPLIT_SHAPES):
+        for route in (("decode", "tile") if m <= 16 else ("wgmma", "tile")):
+            out["split_k"].append(split_k_case(torch, m, k, n, route, seed=70 + i, timed=True))
+        out["split_ops"].append(row_parallel_ops(torch, m, k // SPLIT_WAYS, n, seed=75 + i))
+    out["paged_prefill"] = paged_prefill_rows_ms(torch)
+    if tuning:
+        out["rows_layouts"] = rows_layouts(torch)
+    return out
+
+
+def main_path_multicard(torch, zero_counts, read_counts, tuning=False) -> tuple:
     """The ``main_path_multicard`` phase on one card: a world-size-1 NCCL
     group (``launch.mesh.init_distributed``), granite-8b at full width and
     ``MULTI_LAYERS`` layers placed as DTensors on the 1 x 1 ``DeviceMesh``,
     exact and pSRAM, served against ``mesh=None`` (prefill logits and
     greedy tokens bit-equal; the counts zeroed before and read after each
-    mesh run: the pSRAM run's o and down projections take kernel 2's
-    int32-out route and the epilogue launch, K split over the one-rank
-    model axis); kernel 2's int32-out routes + the epilogue over a
-    ``SPLIT_WAYS``-way K split at o's and down's shapes, decode rows on
-    ``decode`` and ``tile``, prefill rows on ``wgmma`` and ``tile``,
-    bit-equal to the fused kernel. ``(phase, launches)``."""
+    mesh run: the pSRAM run's o and down projections take, K split over the
+    one-rank model axis, the int32 ``wgmma`` route in a prefill and the
+    slice that quantizes its own rows in a decode step (the int32 decode
+    route never), each followed by the epilogue launch); kernel 2's
+    int32-out routes + the epilogue over a ``SPLIT_WAYS``-way K split at o's
+    and down's shapes, decode rows on ``decode``, ``tile`` and the rows
+    slice, prefill rows on ``wgmma`` and ``tile``, bit-equal to the fused
+    kernel, and the rest of :func:`split_cases`. ``(phase, launches)``."""
     import gc
 
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import init_distributed, make_host_mesh
     from repro_torch.models import get_config, transformer
 
     t_phase = time.perf_counter()
-    init_distributed("cuda", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
-                     world_size=1)
-    try:
-        mesh = make_host_mesh(model=1, device="cuda")
+    with world_of_one() as mesh:
         cfg = dataclasses.replace(get_config(MULTI_ARCH), num_layers=MULTI_LAYERS)
         params = transformer.init(0, cfg, device="cuda")
         prompts = seeded_prompts(torch, cfg, MULTI_SERVE["batch"], MULTI_SERVE["prompt_len"], 61)
@@ -5144,20 +5447,20 @@ def main_path_multicard(torch, zero_counts, read_counts) -> tuple:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        cases = []
-        for i, (m, k, n) in enumerate(SPLIT_SHAPES):
-            for route in (("decode", "tile") if m <= 16 else ("wgmma", "tile")):
-                cases.append(split_k_case(torch, m, k, n, route, seed=70 + i, timed=True))
-    finally:
-        dist.destroy_process_group()
+        split = split_cases(torch, tuning)
     phase = {"phase": "main_path_multicard", "cards": 1, "world": 1,
              "arch": MULTI_ARCH, "layers": MULTI_LAYERS, "serve": MULTI_SERVE,
              "exact": exact, "psram": psram,
              "launches": {"exact": exact_launches, "psram": psram_launches},
-             "split_k": cases, "wall_s": time.perf_counter() - t_phase}
+             **split, "wall_s": time.perf_counter() - t_phase}
+    # the pSRAM run's o and down: prefill rows on the int32 wgmma route,
+    # decode rows on the slice that quantizes its own rows; every epilogue
+    # in bf16
     ok = (exact["logits_bit_equal"] and exact["tokens_equal"] and psram["logits_bit_equal"]
           and psram["tokens_equal"]
           and psram_launches["psram_matmul_int32"] > 0 and psram_launches["psram_adc_epilogue"] > 0
+          and psram_launches["psram_matmul_int32_rows"] > 0
+          and psram_launches["psram_matmul_int32_decode"] == 0
           and psram_launches["psram_matmul"] > 0)
     if not ok:
         raise AssertionError(f"main_path_multicard: {phase}")
@@ -5181,7 +5484,7 @@ def _four_card_rank(rank, port, out_path, parts=FOUR_PARTS):
     from repro_torch.dist.placement import distribute, full, init_placed
     from repro_torch.dist.sharding import logical_to_spec, use_sharding
     from repro_torch.kernels.psram_matmul import (psram_adc_epilogue, psram_matmul,
-                                                  psram_matmul_int32)
+                                                  psram_matmul_int32, psram_matmul_int32_rows)
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
     from repro_torch.launch.roofline import count_collectives
     from repro_torch.models import get_config, transformer
@@ -5205,10 +5508,12 @@ def _four_card_rank(rank, port, out_path, parts=FOUR_PARTS):
     def counts():
         return {"psram_matmul": dict(psram_matmul.routes),
                 "psram_matmul_int32": dict(psram_matmul_int32.routes),
+                "psram_matmul_int32_rows": psram_matmul_int32_rows.launches,
                 "psram_adc_epilogue": psram_adc_epilogue.launches}
 
     def zero():
         psram_matmul.launches = psram_matmul_int32.launches = psram_adc_epilogue.launches = 0
+        psram_matmul_int32_rows.launches = 0
         psram_matmul.routes = {r: 0 for r in psram_matmul.routes}
         psram_matmul_int32.routes = {r: 0 for r in psram_matmul_int32.routes}
 
@@ -5302,8 +5607,12 @@ def _four_card_rank(rank, port, out_path, parts=FOUR_PARTS):
         gen = torch.Generator(device="cuda").manual_seed(9)
         xs = {"wq": torch.randn((4, 128, cfg.d_model), generator=gen, device="cuda"),
               "wo": torch.randn((4, 128, cfg.q_dim), generator=gen, device="cuda"),
-              "mlp_wo": torch.randn((4, 128, cfg.d_ff), generator=gen, device="cuda")}
-        ws = {"wq": l0["mixer"]["wq"], "wo": l0["mixer"]["wo"], "mlp_wo": l0["mlp"]["wo"]}
+              "mlp_wo": torch.randn((4, 128, cfg.d_ff), generator=gen, device="cuda"),
+              # decode rows: the slice that quantizes its own rows
+              "wo_decode": torch.randn((4, 1, cfg.q_dim), generator=gen, device="cuda"),
+              "mlp_wo_decode": torch.randn((4, 1, cfg.d_ff), generator=gen, device="cuda")}
+        ws = {"wq": l0["mixer"]["wq"], "wo": l0["mixer"]["wo"], "mlp_wo": l0["mlp"]["wo"],
+              "wo_decode": l0["mixer"]["wo"], "mlp_wo_decode": l0["mlp"]["wo"]}
         got, full_w = {}, {}
         zero()
         with torch.inference_mode(), use_sharding(mesh):
@@ -5329,7 +5638,11 @@ def _four_card_rank(rank, port, out_path, parts=FOUR_PARTS):
             eng.generate(gprompts, gspec["prompt_len"], 2)
             zero()
             toks, ms = timed(lambda: eng.generate(gprompts, gspec["prompt_len"], gspec["max_new"]))
-            served[name] = {"generate_ms": ms, "launches": counts(), "tokens": toks[0].tolist()}
+            launches = counts()
+            _, one_ms = timed(lambda: eng.generate(gprompts, gspec["prompt_len"], 1))
+            served[name] = {"generate_ms": ms, "launches": launches, "tokens": toks[0].tolist(),
+                            "prefill_ms": one_ms,
+                            "decode_step_ms": (ms - one_ms) / (gspec["max_new"] - 1)}
             del eng
         out["granite_serve"] = served
         save()
@@ -5506,6 +5819,9 @@ def main(argv=None) -> int:
                              f"{CARDS} ranks, one a card); exits non-zero with fewer cards")
     parser.add_argument("--parts", default=",".join(FOUR_PARTS),
                         help=f"with --cards {CARDS}: which of {','.join(FOUR_PARTS)} to run")
+    parser.add_argument("--split-only", action="store_true",
+                        help="only kernel 2's K split after the build (split_cases with the "
+                             "rows slice's layouts)")
     opts = parser.parse_args(argv)
     _LAST_EMIT[0] = _START[0] = time.perf_counter()
 
@@ -5528,7 +5844,7 @@ def main(argv=None) -> int:
         quantize_mttkrp_operands)
     from repro_torch.kernels.ordered_fold import ordered_fold
     from repro_torch.kernels.psram_matmul import (psram_adc_epilogue, psram_matmul,
-                                                  psram_matmul_int32)
+                                                  psram_matmul_int32, psram_matmul_int32_rows)
     from repro_torch.kernels.segment_sum import blocked_segment_sum, padded_chain
     from repro_torch.kernels.stream_mttkrp import stream_mttkrp_fused
     from repro_torch.sparse import csf_for_mode, powerlaw_coo
@@ -5540,6 +5856,7 @@ def main(argv=None) -> int:
                   "blocked_segment_sum": blocked_segment_sum,
                   "flash_attention": flash_attention, "ordered_fold": ordered_fold,
                   "psram_matmul_int32": psram_matmul_int32,
+                  "psram_matmul_int32_rows": psram_matmul_int32_rows,
                   "psram_adc_epilogue": psram_adc_epilogue}
 
     def zero_counts():
@@ -5589,6 +5906,14 @@ def main(argv=None) -> int:
         if not (k2_sass["IGMMA"] > 0 and k2_sass["UTMALDG"] > 0):
             raise AssertionError(f"psram_matmul's SASS holds no integer wgmma or no TMA load: "
                                  f"{k2_sass}")
+
+    if opts.split_only:
+        split = split_cases(torch, tuning=True)
+        emit({"phase": "split_only", **split})
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     if opts.cards == CARDS:
         # the four-card run: main_path_multicard over CARDS ranks, nothing else
@@ -6373,7 +6698,8 @@ def main(argv=None) -> int:
     emit(examples_path)
 
     # 9. main_path_multicard: DTensors on a world-size-1 NCCL group ---------
-    multi_path, multi_launches = main_path_multicard(torch, zero_counts, read_counts)
+    multi_path, multi_launches = main_path_multicard(torch, zero_counts, read_counts,
+                                                     opts.tuning)
     report["main_path_multicard"] = multi_path
     emit(multi_path)
 
@@ -6395,10 +6721,10 @@ def main(argv=None) -> int:
     def total(name):
         return sum(counts.get(name, 0) for counts in main_paths)
 
-    split_cases = multi_path["split_k"]
+    split_list = multi_path["split_k"]
 
     def split_row(route):
-        cs = [c for c in split_cases if c["route"] == route]
+        cs = [c for c in split_list if c["route"] == route]
         main = cs[-1]                             # down's K at this route's rows
         return {
             "name": f"psram_matmul_int32_{route}", "route": "cuda",
@@ -6418,6 +6744,33 @@ def main(argv=None) -> int:
                          "equal to the plain integer product",
             "per_shape": [{k: c[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                              "library_ms")} for c in cs],
+        }
+
+    def rows_row():
+        cs = [c for c in split_list if c["route"] == "decode"]
+        main = cs[-1]["rows"]                     # down's K slice
+        return {
+            "name": "psram_matmul_int32_rows", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/psram_matmul.cu (psram_matmul_rows_kernel: "
+                      "the decode kernel's int32 sums of one K slice, its B words quantized "
+                      "in registers from the f32 / bf16 rows; a row-parallel projection's "
+                      "decode rows)",
+            "replaces": "src/repro/kernels/psram_matmul.py:80 (with quantize_symmetric's "
+                        "codes, src/repro/core/quantization.py:55)",
+            "launches": total("psram_matmul_int32_rows"),
+            "max_abs_err": max(c["rows"][d]["max_abs_err"] for c in cs for d in ("f32", "bf16")),
+            # ms: device time in a CUDA graph, plain_ms: CUDA events over
+            # eager calls; each with its other timing beside it
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "eager_ms",
+                                    "plain_device_ms")},
+            "library_ms": None,
+            "library": "none (no one PyTorch call quantizes rows and multiplies in int8)",
+            "shape": [cs[-1]["shape"][0], cs[-1]["shape"][1] // SPLIT_WAYS, cs[-1]["shape"][2]],
+            "tolerance": "each slice's int32 sums equal to its plain version (the quantization "
+                         "ops + the int32 decode route); the K split + the epilogue bit-equal "
+                         "to the fused kernel on the whole K",
+            "per_shape": [{"shape": c["shape"], **{k: c["rows"][k] for k in (
+                "ms", "eager_ms", "plain_ms", "plain_device_ms", "bound_ms")}} for c in cs],
         }
 
     def row(name, source, replaces, main, small, tolerance, **extra):
@@ -6696,15 +7049,21 @@ def main(argv=None) -> int:
                       "epilogue arithmetic)",
             "replaces": "src/repro/kernels/psram_matmul.py:80 (its epilogue)",
             "launches": total("psram_adc_epilogue"),
-            "max_abs_err": max(c["max_abs_err"] for c in split_cases),
-            **{k: split_cases[-1]["epilogue"][k]
-               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err": max(c["max_abs_err"] for c in split_list),
+            # ms, plain_ms and bound_ms: f32 out, CUDA events over eager
+            # calls; the device time in a CUDA graph and the bf16 store
+            # (the served dtype) beside them under names of their own
+            **{k: split_list[-1]["epilogue"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+                         "bf16_ms", "bf16_device_ms", "bf16_bound_ms")},
             "library": "none (no one PyTorch call digitizes and scales)",
-            "shape": split_cases[-1]["shape"][::2],
-            "tolerance": "bit-equal to the fused kernel's epilogue (the K split above)",
-            "per_shape": [{"shape": c["shape"][::2], **c["epilogue"]} for c in split_cases
+            "shape": split_list[-1]["shape"][::2],
+            "tolerance": "bit-equal to the fused kernel's epilogue (the K split above); bf16 "
+                         "the f32 result rounded once",
+            "per_shape": [{"shape": c["shape"][::2], **c["epilogue"]} for c in split_list
                           if c["route"] != "tile"],
         },
+        rows_row(),
     ]}
     report["kernels"] = kernels
     if opts.out is not None:

@@ -21,9 +21,11 @@ kernel 2 on each card's blocks. Column-parallel (N on ``"model"``: q, k,
 v, gate, up) needs nothing more: each row's scale and each column's see the
 whole K. Row-parallel (K on ``"model"``: o, down) takes each row's
 ``max|x|`` over the whole K (a MAX all-reduce) before it quantizes, runs
-kernel 2's int32-out route on its K slice, all-reduces the int32 sums
-(exact, so in any order) and runs the ADC + dequant as a launch of its own
-with the full scale of the whole K. Either is bit-equal to kernel 2 on one
+kernel 2's int32-out route on its K slice (decode rows: the slice that
+quantizes its own rows, one launch), all-reduces the int32 sums (exact, so
+in any order) and runs the ADC + dequant as a launch of its own with the
+full scale of the whole K, in the projection's dtype where autograd does
+not record. Either is bit-equal to kernel 2 on one
 card with the whole operands. Both carry the reference's scales-only
 gradient (a row's or a column's maximum split over every rank's ties).
 
@@ -39,8 +41,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import ieee_f32
-from repro_torch.kernels.psram_matmul import (psram_adc_epilogue, psram_matmul,
-                                              psram_matmul_int32, psram_matmul_trained)
+from repro_torch.kernels.psram_matmul import (ACT_DTYPES, M_DECODE, psram_adc_epilogue,
+                                              psram_matmul, psram_matmul_int32,
+                                              psram_matmul_int32_rows, psram_matmul_trained)
 
 from .quantization import (ADCConfig, QMAX, adc_requantize, exact_int_matmul, quantize_symmetric,
                            symmetric_scale)
@@ -129,19 +132,35 @@ class _GlobalAbsMax(torch.autograd.Function):
         return g * torch.sign(t) * at_max / ties.to(g.dtype), None, None
 
 
+def _split_sums(x, sx, qw, group):
+    """The int32 sums over the whole K of rows ``x`` (this rank's K slice)
+    scaled by ``sx`` (x's dtype), all-reduced over ``group``: decode rows
+    through :func:`psram_matmul_int32_rows` (one launch that quantizes its
+    own rows), other rows quantized by ``quantize_symmetric``'s ops then
+    :func:`psram_matmul_int32`. Both give the same bits."""
+    from repro_torch.dist.placement import all_reduce_
+    if x.shape[0] <= M_DECODE and x.dtype in ACT_DTYPES:
+        acc = psram_matmul_int32_rows(x, sx, qw)
+    else:
+        acc = psram_matmul_int32(torch.round(x / sx).clamp(-QMAX, QMAX).to(torch.int8), qw)
+    return all_reduce_(acc, group)
+
+
 class _SplitScalesGrad(torch.autograd.Function):
     """Kernel 2 over a K split across ``group``: each rank's int32 sums
-    (:func:`psram_matmul_int32`) all-reduced, then the epilogue launch with
-    the whole K's full scale. The gradient is :class:`_ScalesGrad`'s,
-    through the scales only, from the saved sums."""
+    (:func:`_split_sums`) all-reduced, then the epilogue launch with the
+    whole K's full scale, written in ``out_dtype`` (f32 where autograd
+    records). The gradient is :class:`_ScalesGrad`'s, through the scales
+    only, from the saved sums; ``x`` gets none (its codes come from
+    ``round``), ``sx`` its own dtype's."""
 
     @staticmethod
-    def forward(ctx, qx, qw, sx, sw, k, adc_bits, group):
-        from repro_torch.dist.placement import all_reduce_
-        acc = all_reduce_(psram_matmul_int32(qx, qw), group)
-        ctx.save_for_backward(acc, sx, sw)
-        ctx.k, ctx.adc_bits = k, adc_bits
-        return psram_adc_epilogue(acc, sx, sw, k, adc_bits=adc_bits)
+    def forward(ctx, x, sx, qw, sw, k, adc_bits, group, out_dtype):
+        acc = _split_sums(x, sx, qw, group)
+        sx32 = sx.to(torch.float32)
+        ctx.save_for_backward(acc, sx32, sw)
+        ctx.k, ctx.adc_bits, ctx.sx_dtype = k, adc_bits, sx.dtype
+        return psram_adc_epilogue(acc, sx32, sw, k, adc_bits=adc_bits, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -149,16 +168,19 @@ class _SplitScalesGrad(torch.autograd.Function):
         a = psram_adc_epilogue(acc, torch.ones_like(sx), torch.ones_like(sw), ctx.k,
                                adc_bits=ctx.adc_bits)
         ga = g * a
-        grad_sx = (ga * sw).sum(dim=1, keepdim=True) if ctx.needs_input_grad[2] else None
+        grad_sx = ((ga * sw).sum(dim=1, keepdim=True).to(ctx.sx_dtype)
+                   if ctx.needs_input_grad[1] else None)
         grad_sw = (ga * sx).sum(dim=0, keepdim=True) if ctx.needs_input_grad[3] else None
-        return None, None, grad_sx, grad_sw, None, None, None
+        return None, grad_sx, None, grad_sw, None, None, None, None
 
 
 def _psram_linear_placed(x, programmed=None, adc_bits: int = 16, saturate: bool = True,
-                         w=None):
+                         w=None, out_dtype: torch.dtype = torch.float32):
     """:func:`psram_linear` on a model mesh (see the module note): the
     stored words ``programmed``, or a weight ``w`` programmed here (each
-    column's scale over the whole K)."""
+    column's scale over the whole K). A row-parallel product that autograd
+    does not record is written in ``out_dtype`` (f32 or bf16) by its
+    epilogue launch; the others are f32."""
     from repro_torch.dist.placement import (DTensor, Replicate, Shard, axis_group, gathered,
                                             settled, to_local_partial)
     if not saturate:
@@ -194,13 +216,14 @@ def _psram_linear_placed(x, programmed=None, adc_bits: int = 16, saturate: bool 
     # each row's max|x| and each column's max|w| over the whole K, then
     # quantize_symmetric's own ops on them
     sx = symmetric_scale(_GlobalAbsMax.apply(xr, -1, group))
-    qx = torch.round(xr / sx).clamp(-QMAX, QMAX).to(torch.int8)
     if w is not None:
         scale = symmetric_scale(_GlobalAbsMax.apply(w_l, 0, group))
         qw_l = torch.round(w_l / scale).clamp(-QMAX, QMAX).to(torch.int8)
         sw_l = scale.to(torch.float32).reshape(1, -1)
-    y = _SplitScalesGrad.apply(qx, qw_l.contiguous(), sx.to(torch.float32), sw_l.contiguous(),
-                               k, adc_bits, group)
+    recorded = torch.is_grad_enabled() and (sx.requires_grad or sw_l.requires_grad)
+    y = _SplitScalesGrad.apply(xr, sx, qw_l.contiguous(), sw_l.contiguous(), k, adc_bits, group,
+                               out_dtype if out_dtype in ACT_DTYPES and not recorded
+                               else torch.float32)
     out[names.index("model")] = Replicate()
     return DTensor.from_local(y.reshape(*lead, y.shape[-1]), mesh, out)
 

@@ -50,9 +50,14 @@ template flag): the ``(M, N)`` int32 sums of one K slice, counted in
 ``psram_matmul_int32.launches`` / ``.routes``; the slices' sums are
 all-reduced (exact integers, so in any order), and
 :func:`psram_adc_epilogue` runs the ADC + dequant on them as a launch of
-its own, with the LSB of the whole K (``psram_adc_epilogue.launches``).
-Both have plain versions on CPU tensors; the pair is bit-equal to
-:func:`psram_matmul` on the whole K. The int32 sums need ``128²·K < 2³¹`` (K ≤ :data:`MAX_K`): the
+its own, with the LSB of the whole K (``psram_adc_epilogue.launches``),
+writing f32 or, for a bf16 projection, bf16 directly. Decode rows (M <=
+:data:`M_DECODE`) take :func:`psram_matmul_int32_rows` instead of the
+quantization ops and the int32 decode route: one launch that reads the f32
+or bf16 rows and their scales and forms the int8 codes in registers
+(``psram_matmul_int32_rows.launches``). Each has a plain version on CPU
+tensors; together they are bit-equal to :func:`psram_matmul` on the whole
+K. The int32 sums need ``128²·K < 2³¹`` (K ≤ :data:`MAX_K`): the
 CUDA wrapper raises above it, on every route. A route that fails to build or
 to launch raises; nothing gives way to another route or to the plain
 version. ``psram_matmul.launches`` counts every launch;
@@ -64,7 +69,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.quantization import QMAX, adc_transfer, exact_int_matmul
+from repro_torch.core.quantization import QMAX, adc_transfer, exact_int_matmul, symmetric_scale
 
 from . import _build
 
@@ -74,6 +79,10 @@ M_DECODE = 16
 MAX_K = (2 ** 31 - 1) // (128 * 128)
 #: the routes of kernel 2, as ``psram_matmul.routes`` counts them
 ROUTES = ("wgmma", "tile", "decode")
+#: the activation dtypes the K split's launches take: the rows
+#: :func:`psram_matmul_int32_rows` quantizes, the output
+#: :func:`psram_adc_epilogue` writes
+ACT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_operands(qx, qw, sx, sw):
@@ -145,6 +154,15 @@ def _decode_cluster(k: int, n: int, sms: int) -> int:
     return fn(k, n, sms)
 
 
+def _rows_layout(k: int, n: int, sms: int) -> int:
+    """The rows slice's layout word (:func:`rows_layout`) at ``K x N`` on
+    ``sms`` SMs, as the built library chooses it."""
+    fn = _build.load("psram_matmul").psram_matmul_rows_layout
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn(k, n, sms)
+
+
 def _tma_takes(k: int, n: int, aligned: bool) -> bool:
     """Whether TMA can copy the operands: ``aligned`` (both bases on 16
     bytes) and row strides of ``k`` and ``n`` bytes that are multiples of 16
@@ -166,20 +184,46 @@ def _route(m: int, k: int, n: int, aligned: bool) -> str:
     return "wgmma" if _tma_takes(k, n, aligned) else "tile"
 
 
+#: the launch entry of each route and of the split's two launches, and the
+#: ctypes argument types of each
+_ENTRIES = {"decode": "psram_matmul_decode_launch", "wgmma": "psram_matmul_wgmma_launch",
+            "tile": "psram_matmul_launch", "epilogue": "psram_adc_epilogue_launch",
+            "rows": "psram_matmul_rows_launch"}
+_PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # qx, qw, sx, sw, out, M, K, N, lsb, code_max, [cluster / split,] raw, stream
+    "decode": [_PTR] * 5 + [_INT] * 3 + [_F32] * 2 + [_INT, _INT, _PTR],
+    "tile": [_PTR] * 5 + [_INT] * 3 + [_F32] * 2 + [_INT, _INT, _PTR],
+    "wgmma": [_PTR] * 5 + [_INT] * 3 + [_F32] * 2 + [_INT, _PTR],
+    # acc, sx, sw, out, M, N, lsb, code_max, bf16, stream
+    "epilogue": [_PTR] * 4 + [_INT] * 2 + [_F32] * 2 + [_INT, _PTR],
+    # x, sx, qw, out, M, K, N, bf16, layout, stream
+    "rows": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+}
+_BOUND: dict = {}
+
+
 def _entry(route: str):
-    lib = _build.load("psram_matmul")
-    fn = {"decode": lib.psram_matmul_decode_launch, "wgmma": lib.psram_matmul_wgmma_launch,
-          "tile": lib.psram_matmul_launch, "epilogue": lib.psram_adc_epilogue_launch}[route]
-    if not fn.argtypes:
+    """``(library, launch function)`` of ``route``, bound once a process."""
+    got = _BOUND.get(route)
+    if got is None:
+        lib = _build.load("psram_matmul")
+        fn = getattr(lib, _ENTRIES[route])
         fn.restype = ctypes.c_int
-        if route == "epilogue":
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 \
-                + [ctypes.c_void_p]
-        else:
-            # ..., cluster / split (not on wgmma), raw, stream
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 \
-                + ([] if route == "wgmma" else [ctypes.c_int]) + [ctypes.c_int, ctypes.c_void_p]
-    return lib, fn
+        fn.argtypes = _ARGTYPES[route]
+        got = _BOUND[route] = (lib, fn)
+    return got
+
+
+def _call(fn, t: torch.Tensor, *args) -> int:
+    """``fn(*args, stream)`` on ``t``'s card and its current stream (the raw
+    handle), making the card current only where it is not already: a device
+    switch and a ``Stream`` object cost host time on every launch."""
+    idx = t.device.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def _lsb(k: int, adc_bits: int) -> float:
@@ -207,12 +251,15 @@ def psram_matmul_int32(qx: torch.Tensor, qw: torch.Tensor, route: str | None = N
 
 
 def psram_adc_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor, k: int,
-                       adc_bits: int = 16) -> torch.Tensor:
-    """``ADC(acc) * (sx * sw)`` as ``(M, N)`` f32 from int32 sums ``acc``
-    over a K of ``k`` (the full scale ``QMAX² · k``): one launch of
-    ``psram_adc_epilogue_kernel`` on CUDA tensors, the plain version's
-    arithmetic on CPU tensors; bit-equal to :func:`psram_matmul`'s own
-    epilogue."""
+                       adc_bits: int = 16, out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """``ADC(acc) * (sx * sw)`` as ``(M, N)`` ``out_dtype`` (f32 or bf16)
+    from int32 sums ``acc`` over a K of ``k`` (the full scale ``QMAX² ·
+    k``): one launch of ``psram_adc_epilogue_kernel`` on CUDA tensors, the
+    plain version's arithmetic on CPU tensors; bit-equal to
+    :func:`psram_matmul`'s own epilogue, and in bf16 to that f32 result
+    rounded once to bf16 (``.to(torch.bfloat16)``), which the kernel's
+    store does."""
     if acc.ndim != 2 or acc.dtype != torch.int32:
         raise TypeError(f"acc must be a 2-D int32 tensor, got {acc.dtype} {tuple(acc.shape)}")
     m, n = acc.shape
@@ -221,21 +268,99 @@ def psram_adc_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor, k:
                          f"{tuple(sx.shape)} / {tuple(sw.shape)}")
     if sx.dtype != torch.float32 or sw.dtype != torch.float32:
         raise TypeError(f"sx/sw must be float32, got {sx.dtype} / {sw.dtype}")
+    if out_dtype not in ACT_DTYPES:
+        raise TypeError(f"out_dtype must be one of {ACT_DTYPES}, got {out_dtype}")
     if not acc.is_cuda:
         full_scale = float(QMAX) * float(QMAX) * k
-        return adc_transfer(acc, 2 ** adc_bits, full_scale) * (sx * sw)
+        return (adc_transfer(acc, 2 ** adc_bits, full_scale) * (sx * sw)).to(out_dtype)
     if not 1 <= adc_bits <= 24:
         raise ValueError(f"adc_bits must be in 1..24 for the kernel, got {adc_bits}")
     acc, sx, sw = acc.contiguous(), sx.contiguous(), sw.contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=acc.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=acc.device)
     lib, fn = _entry("epilogue")
-    with torch.cuda.device(acc.device):
-        err = fn(acc.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(), m, n,
-                 _lsb(k, adc_bits), float(2 ** adc_bits // 2 - 1),
-                 torch.cuda.current_stream().cuda_stream)
+    err = _call(fn, acc, acc.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(), m, n,
+                _lsb(k, adc_bits), float(2 ** adc_bits // 2 - 1), int(out_dtype == torch.bfloat16))
     _build.check_launch(err, lib, "psram_adc_epilogue")
     psram_adc_epilogue.launches += 1
     return out
+
+
+def psram_matmul_int32_rows_torch(x: torch.Tensor, sx: torch.Tensor,
+                                  qw: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`psram_matmul_int32_rows`: the rows quantized
+    by the ops of ``quantize_symmetric`` on the given scales, then
+    :func:`psram_matmul_int32` on the codes (the parent's composition)."""
+    qx = torch.round(x / sx).clamp(-QMAX, QMAX).to(torch.int8)
+    return psram_matmul_int32(qx, qw)
+
+
+def rows_layout(nb: int, warps: int, cluster: int) -> int:
+    """The launch's layout word: ``nb`` 64-column blocks a warp (1 or 2),
+    ``warps`` a CTA (4 or 8), ``cluster`` CTAs splitting K (1..8)."""
+    if nb not in (1, 2) or warps not in (4, 8) or not 1 <= cluster <= MAX_TILE_SPLIT:
+        raise ValueError(f"a rows layout takes nb 1 or 2, warps 4 or 8 and cluster "
+                         f"1..{MAX_TILE_SPLIT}; got {nb} / {warps} / {cluster}")
+    return (nb << 16) | (warps << 8) | cluster
+
+
+def psram_matmul_int32_rows(x: torch.Tensor, sx: torch.Tensor, qw: torch.Tensor,
+                            layout: int = 0) -> torch.Tensor:
+    """One K slice's ``(M, N)`` int32 sums from the rows themselves:
+    ``x`` ``(M <= M_DECODE, K)`` f32 or bf16, ``sx`` ``(M, 1)`` its rows'
+    scales in ``x``'s dtype (``symmetric_scale`` of their whole-K maxima),
+    ``qw`` ``(K, N)`` int8. Bit-equal to
+    :func:`psram_matmul_int32_rows_torch`. On CUDA tensors one launch of
+    ``psram_matmul_rows_kernel``, which forms the int8 codes in registers
+    (no ``qx`` tensor, no quantization launches); ``layout``
+    (:func:`rows_layout`) forces how the same sums are computed, 0 is the
+    library's (``psram_matmul_rows_layout``). On CPU tensors the plain
+    version."""
+    if x.ndim != 2 or qw.ndim != 2 or x.shape[1] != qw.shape[0]:
+        raise ValueError(f"x (M, K) and qw (K, N) differ: {tuple(x.shape)} / {tuple(qw.shape)}")
+    m, k = x.shape
+    n = qw.shape[1]
+    if m > M_DECODE:
+        raise ValueError(f"the rows slice takes up to {M_DECODE} rows, got {m}")
+    if x.dtype not in ACT_DTYPES or sx.dtype != x.dtype or qw.dtype != torch.int8:
+        raise TypeError(f"x must be one of {ACT_DTYPES}, sx x's dtype and qw int8; got "
+                        f"{x.dtype} / {sx.dtype} / {qw.dtype}")
+    if tuple(sx.shape) != (m, 1):
+        raise ValueError(f"sx must be ({m}, 1), got {tuple(sx.shape)}")
+    if len({x.device, sx.device, qw.device}) != 1:
+        raise ValueError("x, sx, qw must live on one device")
+    if not x.is_cuda:
+        return psram_matmul_int32_rows_torch(x, sx, qw)
+    if k > MAX_K:
+        raise ValueError(f"K={k} exceeds {MAX_K}: the kernel's int32 sums would overflow")
+    x, sx, qw = x.contiguous(), sx.contiguous(), qw.contiguous()
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    lib, fn = _entry("rows")
+    err = _call(fn, x, x.data_ptr(), sx.data_ptr(), qw.data_ptr(), out.data_ptr(), m, k, n,
+                int(x.dtype == torch.bfloat16), layout)
+    _build.check_launch(err, lib, "psram_matmul")
+    psram_matmul_int32_rows.launches += 1
+    return out
+
+
+def _rows_division_probe() -> tuple[int, int, int]:
+    """The bf16 rows' quotient in ``psram_matmul_rows_kernel`` (from the
+    scale's reciprocal, ``hopper::psram_div``) against ``__fdiv_rn`` on the
+    card, exhaustively: every finite bf16 value at every bf16 scale from
+    the least ``symmetric_scale`` gives (``1e-12 / 127`` in bf16) to the
+    largest finite, where ``|v| <= 256 s``; each pair's int8 code. Returns
+    ``(pairs that differ, the least such (s bits << 16 | v bits), pairs
+    checked)``."""
+    s_lo = int(symmetric_scale(torch.zeros((1,), dtype=torch.bfloat16)).view(torch.int16)[0])
+    s_hi = 0x7F7F                             # the largest finite bf16
+    lib = _build.load("psram_matmul")
+    fn = lib.psram_rows_division_probe_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+    bad = torch.tensor([0, 2 ** 63 - 1, 0], dtype=torch.int64, device="cuda")
+    err = _call(fn, bad, s_lo, s_hi - s_lo + 1, bad.data_ptr())
+    _build.check_launch(err, lib, "psram_matmul")
+    count, first, checked = bad.tolist()
+    return count, first, checked
 
 
 def psram_matmul(
@@ -340,10 +465,8 @@ def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
     extra = () if route == "wgmma" else (int(cluster),)
     out = torch.empty((m, n), dtype=torch.int32 if raw else torch.float32, device=qx.device)
     lib, fn = _entry(route)
-    with torch.cuda.device(qx.device):
-        err = fn(qx.data_ptr(), qw.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                 out.data_ptr(), m, k, n, lsb, float(levels // 2 - 1), *extra, int(raw),
-                 torch.cuda.current_stream().cuda_stream)
+    err = _call(fn, qx, qx.data_ptr(), qw.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                out.data_ptr(), m, k, n, lsb, float(levels // 2 - 1), *extra, int(raw))
     _build.check_launch(err, lib, "psram_matmul")
     counter = psram_matmul_int32 if raw else psram_matmul
     counter.launches += 1
@@ -360,3 +483,5 @@ psram_matmul_int32.launches = 0
 psram_matmul_int32.routes = {route: 0 for route in ROUTES}
 #: launches of the epilogue alone
 psram_adc_epilogue.launches = 0
+#: launches of the K slice that quantizes its own rows
+psram_matmul_int32_rows.launches = 0

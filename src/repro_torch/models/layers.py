@@ -282,7 +282,7 @@ def _proj_placed(x, w, cfg: ArchConfig):
     partial sums are all-reduced."""
     from repro_torch.core.photonic_layer import _model_split, _psram_linear_placed
     if cfg.psram_projections:
-        return _psram_linear_placed(x, adc_bits=cfg.adc_bits, w=w).to(x.dtype)
+        return _psram_linear_placed(x, adc_bits=cfg.adc_bits, w=w, out_dtype=x.dtype).to(x.dtype)
     w = placement.gathered(w)
     split = _model_split(w)
     names = w.device_mesh.mesh_dim_names

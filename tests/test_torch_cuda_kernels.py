@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.photonic_layer import program_weights, psram_linear
 from repro_torch.core.psram import PsramConfig
-from repro_torch.core.quantization import quantize_symmetric
+from repro_torch.core.quantization import quantize_symmetric, symmetric_scale
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mttkrp as dm
 from repro_torch.kernels import ordered_fold as of
@@ -88,6 +88,95 @@ def test_psram_matmul_int32_split_k_bit_equal_to_fused(card, route, m, k, n, adc
     assert torch.equal(got, pm.psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits))
     cpu = pm.psram_adc_epilogue(acc.cpu(), sx.cpu(), sw.cpu(), k, adc_bits=adc_bits)
     assert torch.equal(got.cpu(), cpu)
+
+
+def _rows_operands(m, k, n, dtype, card, offset=0, seed=0):
+    """Rows ``x`` (M, K) in ``dtype`` with scales over a wider row's maximum,
+    int8 ``qw`` (K, N); ``offset`` elements in front of each in its buffer
+    (an unaligned base)."""
+    rng = np.random.default_rng(seed + m * 31 + k + n)
+    xs = rng.standard_normal((m, k)).astype(np.float32)
+    amax = np.abs(xs).max(axis=1, keepdims=True) * rng.uniform(1.0, 2.0, (m, 1))
+    x = torch.empty(m * k + offset, dtype=dtype, device=card)[offset:].view(m, k)
+    x.copy_(torch.tensor(xs))
+    sx = symmetric_scale(torch.tensor(amax, dtype=torch.float32).to(dtype).to(card))
+    qw = torch.empty(k * n + offset, dtype=torch.int8, device=card)[offset:].view(k, n)
+    qw.copy_(torch.tensor(rng.integers(-127, 128, (k, n)), dtype=torch.int8))
+    return x, sx, qw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("k,n,offset", [(1024, 4096, 0), (3584, 4096, 0), (1043, 200, 0),
+                                        (1024, 136, 1)])
+def test_psram_matmul_int32_rows_bit_equal_to_plain(card, m, k, n, offset, dtype):
+    """The slice that quantizes its own rows: the composition it replaces
+    (the quantization ops + the int32 decode route) bit for bit, and the
+    CPU's plain version; at every layout; one launch counted a call."""
+    x, sx, qw = _rows_operands(m, k, n, dtype, card, offset)
+    before = pm.psram_matmul_int32_rows.launches
+    got = pm.psram_matmul_int32_rows(x, sx, qw)
+    torch.cuda.synchronize()
+    assert pm.psram_matmul_int32_rows.launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got, pm.psram_matmul_int32_rows_torch(x, sx, qw))
+    assert torch.equal(got.cpu(), pm.psram_matmul_int32_rows(x.cpu(), sx.cpu(), qw.cpu()))
+    for nb in (1, 2):
+        for warps in (4, 8):
+            for cluster in (1, 2, 4, 8):
+                lay = pm.rows_layout(nb, warps, cluster)
+                assert torch.equal(pm.psram_matmul_int32_rows(x, sx, qw, layout=lay), got), lay
+
+
+def test_rows_division_probe_exhaustive(card):
+    """The bf16 rows' quotient from the scale's reciprocal gives
+    ``__fdiv_rn``'s code for every bf16 value at every bf16 scale
+    ``symmetric_scale`` can give."""
+    count, first, checked = pm._rows_division_probe()
+    assert checked > 10 ** 9
+    assert count == 0, f"{count} pairs differ, the first (s << 16 | v) {first:#x}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,n,offset", [(8, 4096, 0), (2048, 4096, 0), (5, 1030, 0),
+                                        (64, 4096, 1)])
+def test_psram_adc_epilogue_out_dtypes(card, m, n, offset, dtype):
+    """The epilogue launch in f32 and bf16, N % 4 = 0 and not, an unaligned
+    base: the plain arithmetic on the card and on the CPU, bf16 the f32
+    result rounded once; one launch counted a call."""
+    rng = np.random.default_rng(m + n + offset)
+    k = 1024
+    acc = torch.empty(m * n + offset, dtype=torch.int32, device=card)[offset:].view(m, n)
+    acc.copy_(torch.tensor(rng.integers(-(127 ** 2) * k, 127 ** 2 * k, (m, n)), dtype=torch.int32))
+    sx = torch.tensor(rng.uniform(1e-3, 1.0, (m, 1)), dtype=torch.float32, device=card)
+    sw = torch.tensor(rng.uniform(1e-3, 1.0, (1, n)), dtype=torch.float32, device=card)
+    before = pm.psram_adc_epilogue.launches
+    got = pm.psram_adc_epilogue(acc, sx, sw, k, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert pm.psram_adc_epilogue.launches == before + 1
+    assert got.dtype == dtype
+    want = pm.psram_adc_epilogue(acc.cpu(), sx.cpu(), sw.cpu(), k, out_dtype=dtype)
+    assert torch.equal(got.cpu(), want)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, pm.psram_adc_epilogue(acc, sx, sw, k).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 4096), (16, 1024 * 4 + 12, 96), (1, 6144, 256)])
+def test_rows_split_k_bit_equal_to_fused(card, m, k, n, dtype):
+    """Four K slices through the rows slice, their sums added, the epilogue
+    on the whole K: the fused kernel's bits on the codes of the whole K."""
+    x, sx, qw = _rows_operands(m, k, n, dtype, card, seed=3)
+    sx = symmetric_scale(x.abs().amax(dim=-1, keepdim=True))
+    rng = np.random.default_rng(k)
+    sw = torch.tensor(rng.uniform(1e-3, 1.0, (1, n)), dtype=torch.float32, device=card)
+    ks = k // 4
+    acc = sum(pm.psram_matmul_int32_rows(x[:, i * ks:(i + 1) * ks].contiguous(), sx,
+                                         qw[i * ks:(i + 1) * ks].contiguous())
+              for i in range(4))
+    got = pm.psram_adc_epilogue(acc.to(torch.int32), sx.float(), sw, k)
+    qx = torch.round(x / sx).clamp(-127, 127).to(torch.int8)
+    assert torch.equal(got, pm.psram_matmul(qx, qw.contiguous(), sx.float(), sw))
 
 
 @pytest.mark.parametrize("shape,nnz,rank,rows,eb,mode,adc_bits,alpha,route", [

@@ -1,5 +1,5 @@
-"""The port stands alone: importing ``repro_torch`` (every module of it) and
-``chip_smoke`` pulls in neither ``jax`` nor the reference package ``repro``,
+"""The port stands alone: importing ``repro_torch`` (every module of it),
+``chip_smoke`` and ``profile_projection`` pulls in neither ``jax`` nor the reference package ``repro``,
 nor ``ml_dtypes`` (the card's machine has none), and needs neither
 ``triton`` nor a CUDA compiler."""
 import pathlib
@@ -27,7 +27,8 @@ sys.exit(1 if bad else 0)
 """
 
 
-@pytest.mark.parametrize("extra", ["", "import chip_smoke"], ids=["package", "chip_smoke"])
+@pytest.mark.parametrize("extra", ["", "import chip_smoke", "import profile_projection"],
+                         ids=["package", "chip_smoke", "profile_projection"])
 def test_port_imports_neither_jax_nor_the_reference_package(extra):
     code = PROBE.format(src=str(ROOT / "src"), root=str(ROOT), extra=extra)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -44,3 +45,14 @@ def test_chip_smoke_fails_without_a_card():
                           capture_output=True, text=True, timeout=120, cwd=str(ROOT))
     assert proc.returncode == 1
     assert '"ok"' not in proc.stdout
+
+
+def test_profile_projection_fails_without_a_card():
+    """No CUDA device: exit code 1, no result line."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "profile_projection.py")],
+                          capture_output=True, text=True, timeout=120, cwd=str(ROOT))
+    assert proc.returncode == 1
+    assert '"projection"' not in proc.stdout
