@@ -60,7 +60,16 @@ What it does, in order — any failure raises and the run exits non-zero:
    must give every run of ``CHAIN_LONG_RUN`` nonzeros or more a cluster of
    8 CTAs (``layout``), and its head row's launch is timed alone; the
    instantiations' registers and spills from ``ptxas -v``; and small cases
-   bit-equal to the CPU (``psram_small``), one with long runs.
+   bit-equal to the CPU (``psram_small``), one with long runs. Kernel 6 at
+   32k tokens and D = 128, at Gemma-2-9B's attention (``FLASH_D256``: D =
+   256, softcap 50, bf16; the library timed without the softcap it does not
+   take) and on the slab kernel (``FLASH_SLAB``: D = 512, f32), each beside
+   its plain version, ``scaled_dot_product_attention`` and its bound, with
+   each instantiation's ``ptxas`` registers and spills; small cases at D up
+   to 512 in f32 and bf16. Kernel 2 with ``saturate=False`` on a planted
+   full-scale element at granite-8b's q projection, 8 and 512 rows
+   (``UNSAT_SHAPES``): bit-equal to its plain version, the element one code
+   past the rail, timed beside ``saturate=True``.
 4. ``main_path`` — the paths, each run with every launch counter set to 0
    just before it and read just after:
    a. ``cp_als(sparse=coo, rank=32, n_iter=3, backend="hopper")`` on the
@@ -159,6 +168,12 @@ What it does, in order — any failure raises and the run exits non-zero:
       attention widths (B=1, H=32, Hkv=8, D=128, bf16), and on layer 0's
       post-RoPE q/k/v of the served model below, against the model's own
       attention and (one-ulp envelope) against the kernel's plain version;
+   d'. ``main_path_flash_wide``: the same entry point at ``FLASH_D256``
+      (one launch of the bf16 kernel at D = 256) and ``FLASH_SLAB`` (one
+      launch of the slab kernel); after the exact serve below,
+      ``blocks.group_decode`` on its group 0 (``group_decode_case``: the
+      cache it writes in place bit-equal to ``group_decode_tokens`` +
+      ``apply_decode_deltas``, its output within ``GROUP_DECODE_TOL``);
    e. ``main_path_serve``: granite-8b at full width and depth (36 layers,
       bf16, 8.25 B random parameters seeded on the card) through
       ``ServeEngine.generate`` on 8 prompts x 1024 tokens, 64 new tokens,
@@ -304,7 +319,11 @@ What it does, in order — any failure raises and the run exits non-zero:
    world-1 NCCL group, exact and pSRAM, bit-equal to ``mesh=None``; the
    pSRAM run's row-parallel projections must launch the int32 ``wgmma``
    slice in a prefill and the slice that quantizes its own rows in each
-   decode step (the int32 decode route never). Then ``split_cases``: the
+   decode step (the int32 decode route never). ``psram_linear(saturate=
+   False)`` on the planted full-scale operands at ``UNSAT_SHAPES`` with the
+   weight row-parallel on the world-1 mesh (the K split's sums + the
+   epilogue launched with no clip) bit-equal to its plain version. Then
+   ``split_cases``: the
    bf16 rows' quotient held to ``__fdiv_rn`` for every bf16 value and scale,
    kernel 2 with K split 4 ways at o's and down's K (every route and the
    rows slice, bit-equal to the fused kernel and its plain version; the
@@ -350,6 +369,21 @@ MLP_SHAPE = (512, 4096, 14336)           # x (512, d_model) @ w (d_model, d_ff)
 RAGGED_SHAPE = (512, 4096, 1000)
 DENSE_SHAPE = (1024, 768, 1152)          # 3.62 GB of f32; every mode % 128 == 0
 FLASH_MAIN = (1, 32, 8, 32768, 128)      # (B, H, Hkv, S, D): prefill_32k at granite-8b's widths
+# Gemma-2-9B's attention (google/gemma-2-9b config.json: 16 query heads, 8
+# kv heads, head_dim 256, attn_logit_softcapping 50, query_pre_attn_scalar
+# 256 so the scale is D^-1/2, 8192 positions): kernel 6 at D = 256
+FLASH_D256 = (1, 16, 8, 8192, 256)
+FLASH_D256_SOFTCAP = 50.0
+# the slab kernel (D > 256) at Gemma-2-9B's heads and positions with D = 512,
+# a head dim no configuration of the repo has
+FLASH_SLAB = (1, 16, 8, 8192, 512)
+# kernel 2 with saturate=False at granite-8b's q projection (d_model 4096 ->
+# q_dim 4096), a decode step's rows (the decode route) and a prefill's (wgmma)
+UNSAT_SHAPES = ((8, 4096, 4096), (512, 4096, 4096))
+# group_decode on the card: a seeded cache of this many slots, written at
+# GROUP_DECODE_POS; its output within GROUP_DECODE_TOL of max |x| of the
+# read-only decode's (see group_decode_case)
+GROUP_DECODE_CACHE, GROUP_DECODE_POS, GROUP_DECODE_TOL = 64, 40, 2e-2
 SERVE_ARCH = "granite_8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 1024, 64
 # granite-8b's decode projections at M = SERVE_BATCH rows: q/o, k/v, wi/wg, down
@@ -698,8 +732,13 @@ def call_split(torch, fn, fold_launches: int, n: int = 3, attempts: int = 3) -> 
                          f"in each of {attempts} windows")
 
 
-# host seconds between a profile's warm call and its window
+# host seconds between a profile's warm calls and its window
 PROFILE_PAUSE_S = 1e-2
+# whole calls a profile makes before its window: the first records of a
+# profile can be lost, one call's worth or more (all 3 launches of a
+# blocked sparse MTTKRP's warm call and the window's first, in each of 5
+# windows of one run)
+PROFILE_WARM_CALLS = 3
 #: the CUDA runtime and driver calls that launch or enqueue device work; the
 #: profiler gives each the correlation id of the kernel, memset or copy it made
 RUNTIME_CALL = re.compile(r"cu(da)?[A-Z]\w*$")
@@ -712,9 +751,10 @@ def op_split(torch, fn, own: str, n: int = 3, attempts: int = 5) -> dict:
     launched it; the card's busy time, and the rest of the call's CUDA-event
     time (``idle_ms``), with the launches of each, per call (device time the
     profiler tied to no op is ``unattributed``). ``n`` calls under
-    ``torch.profiler`` after a warm call; the window's kernels are those
-    whose runtime call was made in it (``early_records``: how many of them
-    the device clock put before its start). A window that recorded no
+    ``torch.profiler`` after ``PROFILE_WARM_CALLS`` warm calls; the
+    window's kernels are those whose runtime call was made in it
+    (``early_records``: how many of them the device clock put before its
+    start). A window that recorded no
     kernel, or in which some kernel's launches are not a multiple of ``n``,
     lost records and is profiled again; the run fails where every attempt
     did."""
@@ -727,9 +767,11 @@ def op_split(torch, fn, own: str, n: int = 3, attempts: int = 5) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # a profile's first kernel records can be lost (the eager
             # quantization's first abs launch in every window; late in the
-            # script, the first three launches of each window, ~4.5 ms): a
-            # whole warm call and a pause, outside the window, take their place
-            fn()
+            # script, the first three launches of each window, ~4.5 ms; one
+            # run lost four of a blocked sparse MTTKRP's): whole warm calls
+            # and a pause, outside the window, take their place
+            for _ in range(PROFILE_WARM_CALLS):
+                fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAUSE_S)
             with record_function("split_calls"):
@@ -2104,8 +2146,13 @@ def flash_case(torch, b, h, hkv, s, d, dtype, causal=True, softcap=0.0, seed=0, 
                skv=None):
     """Kernel 6 against its plain version on seeded normal q/k/v (``s``
     queries, ``skv`` keys, default ``s``; see :func:`flash_check`), and with
-    ``timed`` its times, bound and (bf16) the floor of its two-term design."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_torch
+    ``timed`` its times, bound and its design's own floor (the wgmma route's
+    two-term P V; the slab route's scores formed once a slab).
+    ``scaled_dot_product_attention`` takes no softcap: with ``softcap`` the
+    library is timed without it, beside the kernel without it
+    (``ms_no_softcap``)."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_torch,
+                                                     kernel_head_dim, kernel_route)
 
     skv = s if skv is None else skv
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2118,22 +2165,33 @@ def flash_case(torch, b, h, hkv, s, d, dtype, causal=True, softcap=0.0, seed=0, 
         case["ms"] = time_ms(torch, lambda: flash_attention(q, k, v, causal=causal, softcap=softcap))
         case["plain_ms"] = time_ms(torch, lambda: flash_attention_torch(
             q, k, v, causal=causal, softcap=softcap), warmup=1, iters=3, reps=1)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        case["library_ms"] = time_ms(torch, lambda: sdpa(
+            q, k, v, is_causal=causal, scale=sc, enable_gqa=True))
         if softcap > 0:
-            case["library_ms"] = None
-        else:
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            case["library_ms"] = time_ms(torch, lambda: sdpa(
-                q, k, v, is_causal=causal, scale=sc, enable_gqa=True))
+            case["library_softcap"] = 0.0
+            case["ms_no_softcap"] = time_ms(torch, lambda: flash_attention(q, k, v,
+                                                                           causal=causal))
         # unmasked (query, key) pairs: row i sees keys 0..min(i, skv - 1)
         pairs = b * h * (sum(min(i + 1, skv) for i in range(s)) if causal else s * skv)
+        route = case["route"] = kernel_route(d, dtype)
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         ops_ms = 1e3 * 4.0 * d * pairs / peak
         bytes_ms = 1e3 * (nbytes(q, k, v) + nbytes(got)) / HBM_BYTES_PER_S
         case["bound_ms"] = max(ops_ms, bytes_ms)
         case["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
-        if dtype == torch.bfloat16:
+        if route == "wgmma":
             # P V twice (hi + lo): 6 D operations a pair on the tensor cores
             case["floor_ms"] = max(1e3 * 6.0 * d * pairs / peak, bytes_ms)
+        elif route == "slab":
+            # f32 on the CUDA cores; each of the ceil(D / 256) slabs forms the
+            # whole score (2 D a pair) before its share of P V (2 D a pair
+            # over all slabs)
+            dk = kernel_head_dim(d)
+            case["slabs"] = slabs = -(-dk // 256)
+            case["f32_bound_ms"] = max(1e3 * 4.0 * d * pairs / F32_FLOPS_PER_S, bytes_ms)
+            case["floor_ms"] = max(1e3 * 2.0 * dk * (slabs + 1) * pairs / F32_FLOPS_PER_S,
+                                   bytes_ms)
         case["tflops"] = 4.0 * d * pairs / (case["ms"] * 1e-3) / 1e12
     return case
 
@@ -2183,8 +2241,9 @@ def flash_check(torch, q, k, v, causal=True, softcap=0.0):
 def small_flash_cases(torch):
     """f32 and bf16; MHA / GQA / MQA; non-causal; softcap 50 at gemma2's
     widths (H=32, Hkv=16, D=128); S in {64, 128, 384}; a ragged S; causal
-    with Sq != Skv both ways (top-left aligned); and a shape the reference
-    refuses, which must raise."""
+    with Sq != Skv both ways (top-left aligned); D in {160, 192, 256, 320,
+    512} (the padding to 256, the bf16 kernel's D = 256, the slab kernel);
+    and a shape the reference refuses, which must raise."""
     from repro_torch.kernels.flash_attention import flash_attention
 
     cases = []
@@ -2197,6 +2256,15 @@ def small_flash_cases(torch):
         (1, 4, 2, 100, 128, True, 0.0, None),      # a partial q tile and kv tile
         (1, 8, 2, 128, 128, True, 0.0, 384),       # causal, Sq < Skv
         (1, 8, 2, 384, 128, True, 0.0, 128),       # causal, Sq > Skv
+        # head dims above 128: 160 and 192 padded to 256, 256 itself (the
+        # bf16 kernel's 64-key tiles), 320 and 512 on the slab kernel
+        (1, 8, 2, 256, 160, True, 50.0, None),
+        (1, 8, 2, 384, 192, True, 0.0, None),
+        (2, 16, 8, 384, 256, True, 50.0, None),    # gemma-2-9b's heads and softcap
+        (1, 4, 2, 100, 256, True, 0.0, None),      # a partial q tile and kv tile
+        (1, 8, 2, 128, 256, True, 0.0, 384),       # causal, Sq < Skv
+        (1, 8, 2, 256, 320, True, 50.0, None),
+        (1, 8, 2, 128, 512, False, 0.0, 256),      # non-causal, Sq != Skv
     ]):
         for dtype in (torch.float32, torch.bfloat16):
             cases.append(flash_case(torch, b, h, hkv, s, d, dtype, causal, softcap, seed=20 + i,
@@ -2209,6 +2277,150 @@ def small_flash_cases(torch):
     else:
         raise AssertionError("flash_attention took a shape the reference refuses")
     return cases
+
+
+def planted_operands(torch, m, k, n, gen):
+    """x (m, k) and w (k, n), seeded normal, with row 0 of x at its absolute
+    maximum everywhere and column 1 of w at one magnitude, their signs
+    matched: both quantize to +-127 with equal signs, so that element's
+    integer sum is the full scale 127^2 K and its unclipped ADC code
+    levels / 2, one past the rail."""
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / 8
+    signs = torch.where(torch.rand(k, generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    x[0] = 0.75 * signs
+    w[:, 1] = 0.125 * signs
+    return x, w
+
+
+def unsaturated_case(torch, m, k, n, seed, adc_bits=16):
+    """Kernel 2 with ``saturate=False`` (the epilogue launched with no clip)
+    on :func:`planted_operands`: bit-equal to
+    ``psram_matmul_torch(saturate=False)``, the planted element's code
+    ``levels / 2``, every other element equal to ``saturate=True``; both
+    timed in turns."""
+    from repro_torch.core.quantization import QMAX, quantize_symmetric
+    from repro_torch.kernels.psram_matmul import (_aligned, _route, psram_matmul,
+                                                  psram_matmul_torch)
+
+    x, w = planted_operands(torch, m, k, n, torch.Generator(device="cuda").manual_seed(seed))
+    qx, sx = quantize_symmetric(x, axis=-1)
+    qw, sw = quantize_symmetric(w, axis=0)
+    got = psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits, saturate=False)
+    torch.cuda.synchronize()
+    want = psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits, saturate=False)
+    sat = psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits)
+    ones_m = torch.ones((m, 1), device="cuda")
+    ones_n = torch.ones((1, n), device="cuda")
+    lsb = 2.0 * QMAX * QMAX * k / 2 ** adc_bits
+    code = psram_matmul(qx, qw, ones_m, ones_n, adc_bits=adc_bits, saturate=False)[0, 1] / lsb
+    case = {
+        "shape": [m, k, n], "route": _route(m, k, n, _aligned(qx, qw)), "adc_bits": adc_bits,
+        "bit_equal": bool(torch.equal(got, want)),
+        "max_abs_err": float((got - want).abs().max()),
+        "planted_code": float(torch.round(code)),
+        "differs_from_saturated_at": (got != sat).nonzero().tolist(),
+    }
+    # in turns: saturated, unsaturated, unsaturated, saturated
+    runs = [time_ms(torch, lambda sat=sat: psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits,
+                                                        saturate=sat))
+            for sat in (True, False, False, True)]
+    case.update(ms=statistics.fmean(runs[1:3]), saturated_ms=statistics.fmean(runs[::3]),
+                runs_ms=runs)
+    if not (case["bit_equal"] and case["planted_code"] == 2 ** adc_bits // 2
+            and case["differs_from_saturated_at"] == [[0, 1]]):
+        raise AssertionError(f"kernel 2 with saturate=False: {case}")
+    return case
+
+
+def unsaturated_split_cases(torch, mesh, adc_bits=16) -> list:
+    """:func:`unsaturated_case`'s planted operands at ``UNSAT_SHAPES``
+    through ``psram_linear(saturate=False)`` on a weight placed row-parallel
+    (K on ``"model"``) on ``mesh``: the K split's int32 sums (decode rows on
+    the slice that quantizes its own rows, the rest on ``wgmma``) + the
+    epilogue launched with no clip, bit-equal to
+    ``psram_matmul_torch(saturate=False)`` on the whole operands."""
+    from repro_torch.core.photonic_layer import program_weights, psram_linear
+    from repro_torch.core.quantization import quantize_symmetric
+    from repro_torch.dist.placement import distribute, full
+    from repro_torch.dist.sharding import logical_to_spec
+    from repro_torch.kernels.psram_matmul import (psram_adc_epilogue, psram_matmul_int32,
+                                                  psram_matmul_int32_rows, psram_matmul_torch)
+
+    counters = (psram_matmul_int32, psram_matmul_int32_rows, psram_adc_epilogue)
+    cases = []
+    for i, (m, k, n) in enumerate(UNSAT_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(90 + i)
+        x, w = planted_operands(torch, m, k, n, gen)
+        qx, sx = quantize_symmetric(x, axis=-1)
+        prog = program_weights(w)
+        want = psram_matmul_torch(qx, prog["q"], sx, prog["scale"], adc_bits=adc_bits,
+                                  saturate=False)
+        wd = distribute(w, mesh, logical_to_spec(("qdim", "embed"), w.shape, mesh))
+        xd = distribute(x, mesh, logical_to_spec(("batch", None), x.shape, mesh))
+        torch.cuda.synchronize()
+        before = [fn.launches for fn in counters]
+        with torch.inference_mode():
+            got = full(psram_linear(xd, program_weights(wd), adc_bits=adc_bits, saturate=False))
+        torch.cuda.synchronize()
+        launched = {fn.__name__: fn.launches - b for fn, b in zip(counters, before)}
+        case = {"shape": [m, k, n], "bit_equal": bool(torch.equal(got, want)),
+                "max_abs_err": float((got - want).abs().max()), "launches": launched}
+        sums = "psram_matmul_int32" if m > 16 else "psram_matmul_int32_rows"
+        if not (case["bit_equal"] and launched["psram_adc_epilogue"] == 1
+                and launched[sums] == 1):
+            raise AssertionError(f"psram_linear(saturate=False) on the K split: {case}")
+        cases.append(case)
+    return cases
+
+
+def group_decode_case(torch, cfg, params, seed=37) -> dict:
+    """``blocks.group_decode`` (the write-through decode) on the card: group
+    0 of ``params``, one token of seeded hidden state for ``SERVE_BATCH``
+    rows against a seeded ``GROUP_DECODE_CACHE``-slot cache at position
+    ``GROUP_DECODE_POS``. The cache it writes in place is bit-equal to
+    ``group_decode_tokens`` + ``apply_decode_deltas`` on a copy. Its output
+    attends over the written cache in one softmax, where the read-only
+    decode combines the cache with the token as two blocks (the history's
+    weights rounded to the cache's dtype), so the two are held within
+    ``GROUP_DECODE_TOL`` of max |x|, the error reported."""
+    from repro_torch.models.blocks import (apply_decode_deltas, group_decode,
+                                           group_decode_tokens, group_layout)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = params["embed"].dtype
+    shape = (SERVE_BATCH, GROUP_DECODE_CACHE, cfg.n_kv_heads, cfg.head_dim)
+    layout = group_layout(cfg)
+    if any(d.mixer != "attn" for d in layout):
+        raise ValueError("group_decode_case seeds attention caches only")
+    cache = {f"layer{i}": {name: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                           for name in ("k", "v")} for i in range(len(layout))}
+    x = torch.randn((SERVE_BATCH, 1, cfg.d_model), generator=gen, device="cuda").to(dtype)
+    copy = {key: {name: t.clone() for name, t in layer.items()} for key, layer in cache.items()}
+    leaves = {(key, name): t for key, layer in cache.items() for name, t in layer.items()}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_x, got_cache = group_decode(params["blocks"][0], x, cfg, cache, GROUP_DECODE_POS)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        want_x, deltas = group_decode_tokens(params["blocks"][0], x, cfg, copy,
+                                             GROUP_DECODE_POS)
+        apply_decode_deltas([copy], [deltas], cfg, GROUP_DECODE_POS)
+    err = float((got_x.float() - want_x.float()).abs().max())
+    top = float(want_x.float().abs().max())
+    case = {
+        "arch": cfg.name, "batch": SERVE_BATCH, "cache": GROUP_DECODE_CACHE,
+        "cache_pos": GROUP_DECODE_POS, "dtype": str(dtype).replace("torch.", ""),
+        "cache_bit_equal": all(torch.equal(got_cache[k][n], copy[k][n]) for k, n in leaves),
+        "written_in_place": all(got_cache[k][n] is t for (k, n), t in leaves.items()),
+        "x_max_abs_err": err, "x_err_over_max": err / max(top, 1e-30),
+        "finite": bool(torch.isfinite(got_x).all()), "wall_ms": wall_ms,
+    }
+    if not (case["cache_bit_equal"] and case["written_in_place"] and case["finite"]
+            and case["x_err_over_max"] <= GROUP_DECODE_TOL):
+        raise AssertionError(f"group_decode strays from the read-only decode: {case}")
+    return case
 
 
 # ------------------------------------------------------------ serving
@@ -2357,11 +2569,11 @@ def routes_agree(torch, eng, prompts, toks):
     launch = photonic.psram_matmul
     counts = {"compared": 0, "differing": 0}
 
-    def both(qx, qw, sx, sw, adc_bits=16):
-        out = launch(qx, qw, sx, sw, adc_bits=adc_bits)
+    def both(qx, qw, sx, sw, adc_bits=16, saturate=True):
+        out = launch(qx, qw, sx, sw, adc_bits=adc_bits, saturate=saturate)
         if qx.shape[0] <= M_DECODE:
             counts["compared"] += 1
-            tile = _launch(qx, qw, sx, sw, adc_bits=adc_bits, route="tile")
+            tile = _launch(qx, qw, sx, sw, adc_bits=adc_bits, route="tile", saturate=saturate)
             counts["differing"] += int(not torch.equal(out, tile))
         return out
 
@@ -2432,9 +2644,9 @@ def served_matmul_cases(torch, stages, layer0, want_calls, n_proj):
     ptrs = word_ptrs(layer0)
     seen = []
 
-    def record(qx, qw, sx, sw, adc_bits=16):
+    def record(qx, qw, sx, sw, adc_bits=16, saturate=True):
         before = dict(routes)
-        out = launch(qx, qw, sx, sw, adc_bits=adc_bits)
+        out = launch(qx, qw, sx, sw, adc_bits=adc_bits, saturate=saturate)
         if qw.data_ptr() in ptrs:
             route = next(r for r in routes if routes[r] != before[r])
             seen.append((qx, qw, sx, sw, adc_bits, out, route))
@@ -4665,10 +4877,10 @@ def dist_grad_cases(torch, cfg, params, batch) -> list:
     trained = photonic.psram_matmul_trained
     seen = []
 
-    def record(qx, qw, sx, sw, adc_bits=16):
+    def record(qx, qw, sx, sw, adc_bits=16, saturate=True):
         if len(seen) < 7:
             seen.append((qx, qw, sx.detach().clone(), sw.detach().clone(), adc_bits))
-        return trained(qx, qw, sx, sw, adc_bits=adc_bits)
+        return trained(qx, qw, sx, sw, adc_bits=adc_bits, saturate=saturate)
 
     from repro_torch._tree import tree_map
 
@@ -5447,12 +5659,14 @@ def main_path_multicard(torch, zero_counts, read_counts, tuning=False) -> tuple:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+        unsaturated = unsaturated_split_cases(torch, mesh)
         split = split_cases(torch, tuning)
     phase = {"phase": "main_path_multicard", "cards": 1, "world": 1,
              "arch": MULTI_ARCH, "layers": MULTI_LAYERS, "serve": MULTI_SERVE,
              "exact": exact, "psram": psram,
              "launches": {"exact": exact_launches, "psram": psram_launches},
-             **split, "wall_s": time.perf_counter() - t_phase}
+             "unsaturated_split": unsaturated, **split,
+             "wall_s": time.perf_counter() - t_phase}
     # the pSRAM run's o and down: prefill rows on the int32 wgmma route,
     # decode rows on the slice that quantizes its own rows; every epilogue
     # in bf16
@@ -5867,7 +6081,7 @@ def main(argv=None) -> int:
             fn.routes = {route: 0 for route in fn.routes}
 
     routed = (psram_matmul, stream_mttkrp_fused, ordered_fold, mttkrp_psram_fused,
-              mttkrp_psram_strided, blocked_segment_sum, psram_matmul_int32)
+              mttkrp_psram_strided, blocked_segment_sum, psram_matmul_int32, flash_attention)
 
     def read_counts():
         torch.cuda.synchronize()
@@ -5887,10 +6101,16 @@ def main(argv=None) -> int:
                     if "registers" in ln or "spill" in ln]
              for name, path in libs.items() if path.with_suffix(".log").exists()}
     sass = sass_counts(libs)
+    # kernel 6's instantiations: registers and spills (the bf16 consumers
+    # run under setmaxnreg 240; D = 256 holds O 128 + S 32 + P 32 floats)
+    flash_ptxas = ptxas_of("flash_attention", {
+        "bf16_d128": "flash_bf16_kernelILi128E", "bf16_d256": "flash_bf16_kernelILi256E",
+        "f32_d128": "flash_f32_kernelILi128E", "f32_d256": "flash_f32_kernelILi256E",
+        "slab": "flash_slab_kernel"})
     report["device"] = {
         "phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
-        "build_s": build_s, "ptxas": ptxas, "sass": sass,
+        "build_s": build_s, "ptxas": ptxas, "flash_ptxas": flash_ptxas, "sass": sass,
         "sass_check": "flash_attention: wgmma + TMA only; psram_matmul: integer wgmma + TMA"
                       if sass is not None else "skipped, no cuobjdump beside nvcc",
     }
@@ -6036,7 +6256,19 @@ def main(argv=None) -> int:
     psram_main = [psram_route_case(torch, csfs[m], init, cfg, cfg.adc.bits) for m in range(3)]
     psram_small = small_psram_cases(torch)
     f_main = flash_case(torch, *FLASH_MAIN, torch.bfloat16, causal=True, seed=21, timed=True)
+    # kernel 6 at Gemma-2-9B's D = 256 (bf16, softcap 50) and the slab
+    # kernel at D = 512 (f32)
+    f_d256 = flash_case(torch, *FLASH_D256, torch.bfloat16, causal=True,
+                        softcap=FLASH_D256_SOFTCAP, seed=23, timed=True)
+    f_d256["ptxas"] = flash_ptxas["bf16_d256"]
+    f_slab = flash_case(torch, *FLASH_SLAB, torch.float32, causal=True, seed=24, timed=True)
+    f_slab["ptxas"] = flash_ptxas["slab"]
+    if f_d256["route"] != "wgmma" or f_slab["route"] != "slab":
+        raise AssertionError("kernel 6 took another kernel than its head dims name")
     f_small = small_flash_cases(torch)
+    # kernel 2 with saturate=False: the planted full-scale element unclipped
+    b_unsat = [unsaturated_case(torch, *shape, seed=26 + i)
+               for i, shape in enumerate(UNSAT_SHAPES)]
     report["kernel_cases"] = {
         "phase": "kernel_cases", "stream_main": a_main, "stream_small": a_small,
         "matmul_main": b_main, "matmul_prefill": b_prefill, "matmul_ragged": b_ragged,
@@ -6050,7 +6282,8 @@ def main(argv=None) -> int:
         "dense_strided_main": s_main, "dense_strided_small": s_small,
         "segment_main": seg_main, "segment_small": seg_small, "segment_chain_main": chain_main,
         "segment_host_s": seg_host_s,
-        "flash_main": f_main, "flash_small": f_small,
+        "flash_main": f_main, "flash_d256": f_d256, "flash_slab": f_slab,
+        "flash_small": f_small, "matmul_unsaturated": b_unsat,
     }
     emit(report["kernel_cases"])
 
@@ -6491,6 +6724,38 @@ def main(argv=None) -> int:
     if not flash_path["finite"] or flash_launches["flash_attention"] < 1:
         raise AssertionError(f"flash_attention_op did not run the kernel: {flash_path}")
 
+    # 4d'. the same entry point at Gemma-2-9B's attention (D = 256, bf16,
+    # softcap 50) and at D = 512 (the slab kernel, f32) ----------------------
+    torch.cuda.synchronize()
+    wide_in = []
+    for i, (shape, dtype) in enumerate(((FLASH_D256, torch.bfloat16),
+                                        (FLASH_SLAB, torch.float32))):
+        gen = torch.Generator(device="cuda").manual_seed(27 + i)
+        wide_in.append([torch.randn((shape[0], heads, shape[3], shape[4]), generator=gen,
+                                    device="cuda", dtype=dtype)
+                        for heads in (shape[1], shape[2], shape[2])])
+    zero_counts()
+    t0 = time.perf_counter()
+    wide_out = [flash_attention_op(*wide_in[0], causal=True, softcap=FLASH_D256_SOFTCAP),
+                flash_attention_op(*wide_in[1], causal=True)]
+    torch.cuda.synchronize()
+    flash_wide_s = time.perf_counter() - t0
+    flash_wide_launches = read_counts()
+    flash_wide = {
+        "phase": "main_path_flash_wide", "shapes": [list(FLASH_D256), list(FLASH_SLAB)],
+        "dtypes": ["bfloat16", "float32"], "softcap": [FLASH_D256_SOFTCAP, 0.0],
+        "seconds": flash_wide_s, "launches": flash_wide_launches,
+        "finite": all(bool(torch.isfinite(o).all()) for o in wide_out),
+        "out_shapes": [list(o.shape) for o in wide_out],
+    }
+    del wide_in, wide_out
+    report["main_path_flash_wide"] = flash_wide
+    emit(flash_wide)
+    if not (flash_wide["finite"] and flash_wide_launches["flash_attention_wgmma"] == 1
+            and flash_wide_launches["flash_attention_slab"] == 1):
+        raise AssertionError(f"flash_attention_op at D = 256 / 512 did not run kernel 6's "
+                             f"bf16 and slab kernels once each: {flash_wide}")
+
     # 4e. serving granite-8b, exact and pSRAM projections -----------------
     scfg = get_config(SERVE_ARCH)
     torch.cuda.synchronize()
@@ -6520,7 +6785,9 @@ def main(argv=None) -> int:
         qkv = [t.transpose(1, 2).contiguous() for t in (q0, k0, v0)]
         zero_counts()
         flash_attn = flash_attention_op(*qkv, causal=True).transpose(1, 2)
-        flash_launches["flash_attention"] += read_counts()["flash_attention"]
+        served_counts = read_counts()
+        for key in ("flash_attention", *(f"flash_attention_{r}" for r in flash_attention.routes)):
+            flash_launches[key] += served_counts[key]
         attn_diff = (flash_attn.float() - model_attn.float()).abs()
         attn_ok = bool((attn_diff <= 3e-2 + 3e-2 * model_attn.float().abs()).all())
         # and the kernel against its plain version on the same served q/k/v,
@@ -6538,6 +6805,10 @@ def main(argv=None) -> int:
                              f"{flash_path}")
 
     exact_peak = torch.cuda.max_memory_allocated()
+    # the write-through decode (blocks.group_decode) on the served model's group 0
+    decode_write = {"phase": "group_decode", **group_decode_case(torch, scfg, sparams)}
+    report["group_decode"] = decode_write
+    emit(decode_write)
     del sparams
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6710,7 +6981,8 @@ def main(argv=None) -> int:
     f_served = flash_path["served_layer0"]["vs_plain"]
     main_paths = (launches, dense_launches, leg_launches, pst_launches, psc_launches,
                   tune_launches, mesh_launches, faults_launches, sched_launches,
-                  priced_launches, flash_launches, exact_launches, psram_launches,
+                  priced_launches, flash_launches, flash_wide_launches, exact_launches,
+                  psram_launches,
                   moe_exact_launches, moe_psram_launches, ssm_exact_launches,
                   ssm_psram_launches, encdec_exact_launches, encdec_psram_launches,
                   mrope_launches, paged_exact_launches, paged_psram_launches,
@@ -6831,6 +7103,7 @@ def main(argv=None) -> int:
                                              "library_ms", "tops")}
                           for c in [b_main] + b_prefill],
             "epilogue": b_epilogue,
+            "unsaturated": [c for c in b_unsat if c["route"] == "wgmma"],
         },
         {
             "name": "psram_matmul_tile", "route": "cuda",
@@ -6870,6 +7143,7 @@ def main(argv=None) -> int:
             "shape": b_decode[2]["shape"], "tile_ms": b_decode[2]["tile_ms"],
             "per_shape": [{k: c[k] for k in ("shape", "cluster", "ms", "tile_ms", "bound_ms",
                                              "library_ms")} for c in b_decode],
+            "unsaturated": [c for c in b_unsat if c["route"] == "decode"],
         },
         row("mttkrp_fused", "src/repro_torch/kernels/csrc/mttkrp.cu",
             "src/repro/kernels/mttkrp.py:54", d_main, d_small,
@@ -6972,6 +7246,47 @@ def main(argv=None) -> int:
             "max_err_over_envelope": max(c.get("max_err_over_envelope", 0.0)
                                          for c in [f_main, f_served] + f_small),
             "tflops": f_main["tflops"],
+            "routes": {r: total(f"flash_attention_{r}") for r in flash_attention.routes},
+        },
+        {
+            "name": "flash_attention_d256", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu (flash_bf16_kernel<256>: "
+                      "64-key K/V tiles, O m64n256k16; head dims 129..256 zero-padded to it)",
+            "replaces": "src/repro/kernels/flash_attention.py:74",
+            "launches": flash_wide_launches["flash_attention_wgmma"],
+            "max_abs_err": max(c["max_abs_err"] for c in [f_d256] + f_small
+                               if c["shape"][4] > 128 and c["dtype"] == "bfloat16"
+                               and c["shape"][4] <= 256),
+            "ms": f_d256["ms"], "plain_ms": f_d256["plain_ms"],
+            "bound_ms": f_d256["bound_ms"], "bound_by": f_d256["bound_by"],
+            "library_ms": f_d256["library_ms"],
+            "library": "scaled_dot_product_attention(is_causal, enable_gqa) without the "
+                       "softcap, which it does not take",
+            "shape": list(FLASH_D256), "softcap": FLASH_D256_SOFTCAP,
+            "ms_no_softcap": f_d256["ms_no_softcap"], "floor_ms": f_d256["floor_ms"],
+            "tflops": f_d256["tflops"], "ptxas": f_d256["ptxas"],
+            "max_err_over_envelope": f_d256["max_err_over_envelope"],
+            "tolerance": "bf16: one bf16 ulp of the plain version + 2^-16 of sum_j p_j |v_j| "
+                         "per element; deterministic",
+        },
+        {
+            "name": "flash_attention_slab", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu (flash_slab_kernel: "
+                      "D > 256, f32, a grid axis over 256-column output slabs, each forming "
+                      "the whole score)",
+            "replaces": "src/repro/kernels/flash_attention.py:74",
+            "launches": total("flash_attention_slab"),
+            "max_abs_err": max(c["max_abs_err"] for c in [f_slab] + f_small
+                               if c["shape"][4] > 256),
+            "ms": f_slab["ms"], "plain_ms": f_slab["plain_ms"],
+            "bound_ms": f_slab["bound_ms"], "bound_by": f_slab["bound_by"],
+            "library_ms": f_slab["library_ms"],
+            "library": "scaled_dot_product_attention(is_causal, enable_gqa), f32",
+            "shape": list(FLASH_SLAB), "dtype": "float32", "slabs": f_slab["slabs"],
+            "floor_ms": f_slab["floor_ms"], "tflops": f_slab["tflops"],
+            "ptxas": f_slab["ptxas"],
+            "tolerance": "f32: 1e-5 of max|out|; bf16 (staged to f32, rounded once): one bf16 "
+                         "ulp + 2^-16 of sum_j p_j |v_j|; deterministic",
         },
         {
             "name": "ordered_fold", "route": "cuda",

@@ -45,8 +45,7 @@ from repro_torch.kernels.psram_matmul import (ACT_DTYPES, M_DECODE, psram_adc_ep
                                               psram_matmul, psram_matmul_int32,
                                               psram_matmul_int32_rows, psram_matmul_trained)
 
-from .quantization import (ADCConfig, QMAX, adc_requantize, exact_int_matmul, quantize_symmetric,
-                           symmetric_scale)
+from .quantization import ADCConfig, QMAX, adc_requantize, quantize_symmetric, symmetric_scale
 
 
 def program_weights(w: torch.Tensor) -> dict:
@@ -65,9 +64,10 @@ def psram_linear(
 
     ``x`` is quantized per row in its own dtype (a bf16 activation gets a
     bf16 scale and a bf16 division, as in the reference); the scale product
-    ``sx * scale`` is f32. The kernel's epilogue always saturates at the
-    ADC rails, so ``saturate=False`` raises on a CUDA tensor; on the CPU it
-    takes the plain arithmetic with a wrapping curve.
+    ``sx * scale`` is f32. ``saturate=False`` leaves the ADC's codes
+    unclipped, as the reference does (no wrap: a full-scale accumulation
+    reads one code past the rail), through the same kernel launch on a CUDA
+    tensor, a placed weight included.
     """
     if type(x) is not torch.Tensor or type(programmed["q"]) is not torch.Tensor:
         from repro_torch.dist.placement import is_dtensor
@@ -81,18 +81,9 @@ def psram_linear(
     qx, sx = quantize_symmetric(x.reshape(-1, k), axis=-1)
     sx = sx.to(torch.float32)
     sw = sw.reshape(1, -1)
-    if saturate:
-        recording = torch.is_grad_enabled() and (sx.requires_grad or sw.requires_grad)
-        y = (psram_matmul_trained if recording else psram_matmul)(
-            qx, qw.contiguous(), sx, sw.contiguous(), adc_bits=adc_bits)
-    elif x.is_cuda:
-        raise ValueError(
-            "psram_linear(saturate=False): the psram_matmul kernel's ADC epilogue "
-            "clips at the rails and has no wrapping form")
-    else:
-        acc = exact_int_matmul(qx, qw)
-        adc = ADCConfig(bits=adc_bits, saturate=False)
-        y = adc_requantize(acc, adc, float(QMAX) * float(QMAX) * k) * (sx * sw)
+    recording = torch.is_grad_enabled() and (sx.requires_grad or sw.requires_grad)
+    y = (psram_matmul_trained if recording else psram_matmul)(
+        qx, qw.contiguous(), sx, sw.contiguous(), adc_bits=adc_bits, saturate=saturate)
     return y.reshape(*lead, y.shape[-1])
 
 
@@ -155,23 +146,24 @@ class _SplitScalesGrad(torch.autograd.Function):
     ``round``), ``sx`` its own dtype's."""
 
     @staticmethod
-    def forward(ctx, x, sx, qw, sw, k, adc_bits, group, out_dtype):
+    def forward(ctx, x, sx, qw, sw, k, adc_bits, group, out_dtype, saturate):
         acc = _split_sums(x, sx, qw, group)
         sx32 = sx.to(torch.float32)
         ctx.save_for_backward(acc, sx32, sw)
-        ctx.k, ctx.adc_bits, ctx.sx_dtype = k, adc_bits, sx.dtype
-        return psram_adc_epilogue(acc, sx32, sw, k, adc_bits=adc_bits, out_dtype=out_dtype)
+        ctx.k, ctx.adc_bits, ctx.sx_dtype, ctx.saturate = k, adc_bits, sx.dtype, saturate
+        return psram_adc_epilogue(acc, sx32, sw, k, adc_bits=adc_bits, out_dtype=out_dtype,
+                                  saturate=saturate)
 
     @staticmethod
     def backward(ctx, g):
         acc, sx, sw = ctx.saved_tensors
         a = psram_adc_epilogue(acc, torch.ones_like(sx), torch.ones_like(sw), ctx.k,
-                               adc_bits=ctx.adc_bits)
+                               adc_bits=ctx.adc_bits, saturate=ctx.saturate)
         ga = g * a
         grad_sx = ((ga * sw).sum(dim=1, keepdim=True).to(ctx.sx_dtype)
                    if ctx.needs_input_grad[1] else None)
         grad_sw = (ga * sx).sum(dim=0, keepdim=True) if ctx.needs_input_grad[3] else None
-        return None, grad_sx, None, grad_sw, None, None, None, None
+        return None, grad_sx, None, grad_sw, None, None, None, None, None
 
 
 def _psram_linear_placed(x, programmed=None, adc_bits: int = 16, saturate: bool = True,
@@ -183,8 +175,6 @@ def _psram_linear_placed(x, programmed=None, adc_bits: int = 16, saturate: bool 
     epilogue launch; the others are f32."""
     from repro_torch.dist.placement import (DTensor, Replicate, Shard, axis_group, gathered,
                                             settled, to_local_partial)
-    if not saturate:
-        raise ValueError("psram_linear(saturate=False) has no placed form")
     ref = gathered(w) if w is not None else settled(gathered(programmed["q"]))
     mesh = ref.device_mesh
     names = mesh.mesh_dim_names
@@ -205,7 +195,7 @@ def _psram_linear_placed(x, programmed=None, adc_bits: int = 16, saturate: bool 
     out = list(x.placements)
     if split != "k":
         y = psram_linear(x_l, program_weights(w_l) if w is not None
-                         else {"q": qw_l, "scale": sw_l}, adc_bits=adc_bits)
+                         else {"q": qw_l, "scale": sw_l}, adc_bits=adc_bits, saturate=saturate)
         if "model" in names:
             out[names.index("model")] = Shard(y.ndim - 1) if split == "n" else Replicate()
         return DTensor.from_local(y, mesh, out)
@@ -223,7 +213,7 @@ def _psram_linear_placed(x, programmed=None, adc_bits: int = 16, saturate: bool 
     recorded = torch.is_grad_enabled() and (sx.requires_grad or sw_l.requires_grad)
     y = _SplitScalesGrad.apply(xr, sx, qw_l.contiguous(), sw_l.contiguous(), k, adc_bits, group,
                                out_dtype if out_dtype in ACT_DTYPES and not recorded
-                               else torch.float32)
+                               else torch.float32, saturate)
     out[names.index("model")] = Replicate()
     return DTensor.from_local(y.reshape(*lead, y.shape[-1]), mesh, out)
 

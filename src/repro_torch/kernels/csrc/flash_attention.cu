@@ -24,17 +24,22 @@
 // 4 * D operations per unmasked (query, key) pair against 4 * D bytes per
 // token of q, k, v and out, far above the card's byte/operation balance.
 //
-// Two kernels:
+// The reference takes any head dim D. Here D = 16, 32, 64, 128 and 256 are
+// instantiated (the wrapper zero-pads any other D up to 256 to the next of
+// them) and D > 256 runs on the slab kernel (padded to a multiple of 64).
+//
+// Three kernels:
 //
 // * bf16 (the serving path's type), built on Hopper's warpgroup MMA (wgmma)
 //   and the tensor memory accelerator (TMA). A CTA is three warpgroups over
 //   a 128-row q tile: warpgroup 0 is the producer — one thread issues TMA
-//   loads of the Q tile (once) and of 128-key K and V tiles into a two-stage
+//   loads of the Q tile (once) and of BN-key K and V tiles (BN = 128 up to
+//   D = 128, 64 at D = 256: see Tiles) into a two-stage
 //   ring in shared memory, each stage with its own full (bytes landed) and
 //   empty (consumers done) mbarrier, K and V apart so that Q K^T can start
 //   before V lands; it gives its registers away (setmaxnreg 24). Warpgroups
 //   1 and 2 are consumers (setmaxnreg 240), each owning 64 q rows:
-//     S = Q K^T   wgmma m64n128k16, both operands from shared memory, K-major,
+//     S = Q K^T   wgmma m64nBNk16, both operands from shared memory, K-major,
 //                 in the 128-byte swizzle the TMA writes (descriptors match);
 //                 products of two bf16 values are exact in f32, so the
 //                 tensor cores compute the same sums as f32 FMAs up to order;
@@ -67,6 +72,9 @@
 //   over a 32-row q tile, 4 threads per row, each holding a quarter of the
 //   row's q and accumulator (dims sub, sub + 4, ...); a score is the
 //   quarter-sums added by a butterfly, so the four threads agree bit for bit.
+// * slabs (D > 256, f32): the f32 kernel's layout over a third grid axis of
+//   256-column output slabs, each CTA forming the whole score itself (see
+//   flash_slab_kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,14 +97,20 @@ __device__ __forceinline__ float score(float dot, float scale, float softcap, bo
 // ------------------------------------------------------------------ bf16 ---
 
 constexpr int BQ = 128;           // q rows per CTA: two consumer warpgroups x 64
-constexpr int BN = 128;           // keys per K/V tile
 constexpr int STAGES = 2;         // K/V tiles in the ring
 constexpr int WG = 128;           // threads of a warpgroup
 constexpr int BF16_THREADS = 3 * WG;
 constexpr int ROW_BYTES = 128;    // one row of a 128-byte swizzle atom: 64 bf16
 
+// Keys per K/V tile: 128 up to D = 128; 64 at D = 256, where a 128-key ring
+// (1 KB + Q 64 KB + 2 stages x (K + V) x 64 KB = 321 KB) passes the 227 KB a
+// CTA can have, and S (64 floats a thread at 128 keys) beside O (128 floats)
+// and the two P fragments passes the consumers' 240 registers. At 64 keys
+// the CTA holds 193 KB and a consumer thread O 128 + S 32 + P 32 registers:
+// the same 192 as at D = 128 with 128 keys.
 template <int D>
 struct Tiles {
+    static constexpr int BN = D > 128 ? 64 : 128;
     static constexpr int DP = D < 64 ? 64 : D;        // columns held in shared memory
     static constexpr int HALVES = DP / 64;            // 128-byte column blocks
     static constexpr int Q_BYTES = HALVES * BQ * ROW_BYTES;
@@ -107,9 +121,10 @@ struct Tiles {
 };
 
 // D = A B for a 64 x N tile, A (64 x 16) and B (16 x N) bf16 in shared
-// memory, both K-major (N = 128): _init overwrites d, the other
-// accumulates; the register-A form takes A as a fragment and B MN-major
-// (transpose bit), N = 128 or 64. N is the extent of d times 2.
+// memory, both K-major (N = 128 or 64, the tile's keys): _init overwrites d,
+// the other accumulates; the register-A form takes A as a fragment and B
+// MN-major (transpose bit), N = 64, 128 or 256 (the held head dim). N is the
+// extent of d times 2.
 __device__ __forceinline__ void wgmma_ss_init(float (&d)[64], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -146,6 +161,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(a), "l"(b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
     return static_cast<uint32_t>(__bfloat16_as_ushort(v.x)) |
            (static_cast<uint32_t>(__bfloat16_as_ushort(v.y)) << 16);
@@ -173,9 +215,10 @@ __device__ __forceinline__ void tile_scores(float (&s)[NS], int kv0, int row0, i
     }
 }
 
-// S = Q K^T for the warpgroup's 64 rows and one 128-key tile
+// S = Q K^T for the warpgroup's 64 rows and one tile of BN = 2 NS keys
 template <int D, int NS>
 __device__ __forceinline__ void issue_qk(float (&s)[NS], uint32_t q_wg, uint32_t kb) {
+    constexpr int BN = 2 * NS;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
         const uint64_t da = sw128_desc(q_wg + (kk / 4) * BQ * ROW_BYTES + (kk % 4) * 32, 16, 1024);
@@ -188,8 +231,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[NS], uint32_t q_wg, uint32_t
     }
 }
 
-// O += P_hi V + P_lo V for one 128-key tile of V
-template <int NO>
+// O += P_hi V + P_lo V for one tile of BN keys of V
+template <int BN, int NO>
 __device__ __forceinline__ void issue_pv(float (&o)[NO], const uint32_t (&ph)[BN / 16][4],
                                          const uint32_t (&pl)[BN / 16][4], uint32_t vb) {
 #pragma unroll
@@ -207,8 +250,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[NO], const uint32_t (&ph)[BN
 // lie.
 template <int NS, int NO>
 __device__ __forceinline__ void online_softmax(float (&s)[NS], float (&o)[NO],
-                                               uint32_t (&ph)[BN / 16][4],
-                                               uint32_t (&pl)[BN / 16][4], float& m0, float& m1,
+                                               uint32_t (&ph)[NS / 8][4],
+                                               uint32_t (&pl)[NS / 8][4], float& m0, float& m1,
                                                float& l0, float& l1, bool edge, int kv0, int row0,
                                                int row1, int t4, int Skv, int causal, float scale,
                                                float softcap) {
@@ -261,7 +304,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[NS], float (&o)[NO],
         o[4 * j + 3] *= alpha1;
     }
 #pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
+    for (int kc = 0; kc < NS / 8; ++kc) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
             const float x0 = s[4 * (2 * kc + (r >> 1)) + (r & 1) * 2];
@@ -288,9 +331,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
                   const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int H,
                   int Hkv, int Sq, int Skv, float scale, float softcap, int causal) {
     using T = Tiles<D>;
+    constexpr int BN = T::BN;
     constexpr int NS = BN / 2;        // S accumulator floats per thread
     constexpr int NO = T::DP / 2;     // O accumulator floats per thread
-    static_assert(D % 16 == 0 && D <= 128, "D must be 16, 32, 64 or 128");
+    static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                  "D must be 16, 32, 64, 128 or 256");
     extern __shared__ uint8_t smem_raw[];
     const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
     const uint32_t k_s = q_s + T::Q_BYTES;                   // stage st at + st * KV_BYTES
@@ -392,7 +437,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
             named_sync(1 + c);
             pin(o);
             wgmma_fence();
-            issue_pv(o, ph, pl, v_s + pst * T::KV_BYTES);
+            issue_pv<BN>(o, ph, pl, v_s + pst * T::KV_BYTES);
             issue_qk<D>(s, q_wg, k_s + st * T::KV_BYTES);
             wgmma_commit();
             named_arrive(2 - c);
@@ -412,7 +457,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
             named_sync(1 + c);
             pin(o);
             wgmma_fence();
-            issue_pv(o, ph, pl, v_s + pst * T::KV_BYTES);
+            issue_pv<BN>(o, ph, pl, v_s + pst * T::KV_BYTES);
             wgmma_commit();
             if (c == 0) named_arrive(2);
             wgmma_wait_all();
@@ -459,14 +504,20 @@ constexpr int FQ = 32;            // q rows per CTA (4 threads a row)
 constexpr int FKV = 32;           // keys per shared-memory tile
 constexpr int F32_THREADS = 128;
 
+// The K and V tiles as dynamic shared memory (2 x FKV x D floats: 64 KB at
+// D = 256, past the 48 KB a CTA can hold statically).
+template <int D>
+constexpr int f32_smem_bytes() { return 2 * FKV * D * static_cast<int>(sizeof(float)); }
+
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int H, int Hkv, int Sq,
                  int Skv, float scale, float softcap, int causal) {
     constexpr int NV = D / 4;         // dims a thread holds: sub, sub + 4, ...
-    __shared__ __align__(16) float Ks[FKV][D];
-    __shared__ __align__(16) float Vs[FKV][D];
+    extern __shared__ __align__(16) float f32_smem[];
+    float (*Ks)[D] = reinterpret_cast<float (*)[D]>(f32_smem);
+    float (*Vs)[D] = reinterpret_cast<float (*)[D]>(f32_smem + FKV * D);
 
     const int tid = threadIdx.x;
     const int sub = tid & 3;
@@ -546,12 +597,172 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
+// ---------------------------------------------------------------- slabs ---
+//
+// D > 256 (a multiple of 64; the wrapper zero-pads to one), f32 on the CUDA
+// cores: bf16 and fp16 are staged to f32 by the wrapper and rounded once. A
+// third grid axis runs over ceil(D / SLAB) slabs of output columns; each CTA
+// keeps its slab's accumulator in registers and forms the whole score
+// q k^T over all of D itself, in SLAB-column chunks of q, K (and, with the
+// last chunk, its slab of V) staged through shared memory, before the
+// softmax and P V over its own slab of V. So the scores are formed once a
+// slab: ceil(D / SLAB) times the q k^T work of one pass.
+// Layout: the f32 kernel's 32-row q tile, 4 threads a row, but thread `sub`
+// holds a contiguous quarter of each chunk (columns 64 sub .. 64 sub + 63)
+// rather than every fourth column, so it reads K and V as 16-byte vectors:
+// a warp's 4 distinct vectors (one per sub) sit in distinct banks because
+// each 64-column quarter of a staged row is padded by 4 floats (QUARTER),
+// and the 8 rows of a warp read them as one broadcast. One 16-byte load
+// feeds 4 FMAs a lane, where the f32 kernel's interleaved columns take one
+// 4-byte load an FMA. The staging loops keep 4 loads a thread in flight,
+// which leaves the registers to the accumulators (fully unrolled, ptxas
+// spilled).
+
+constexpr int SLAB = 256;
+constexpr int QUARTER = SLAB / 4 + 4;     // floats a padded quarter of a staged row
+constexpr int SROW = 4 * QUARTER;         // floats a staged row
+
+constexpr int slab_smem_bytes() {
+    return (FQ + 2 * FKV) * SROW * static_cast<int>(sizeof(float));
+}
+
+__global__ void __launch_bounds__(F32_THREADS)
+flash_slab_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out, int H, int Hkv, int Sq,
+                  int Skv, int D, float scale, float softcap, int causal) {
+    constexpr int NV = SLAB / 4;      // columns of a chunk or a slab a thread holds
+    extern __shared__ __align__(16) float slab_smem[];
+    float* Qs = slab_smem;                      // FQ staged rows
+    float* Ks = Qs + FQ * SROW;                 // FKV staged rows
+    float* Vs = Ks + FKV * SROW;                // FKV staged rows
+
+    const int tid = threadIdx.x;
+    const int sub = tid & 3;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * FQ;
+    const int row = q0 + (tid >> 2);
+    const int bh = blockIdx.y;
+    const int c0 = blockIdx.z * SLAB;                 // this CTA's output columns
+    const int kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+    const float* qb = q + static_cast<size_t>(bh) * Sq * D;
+    const float* kb = k + static_cast<size_t>(kvh) * Skv * D;
+    const float* vb = v + static_cast<size_t>(kvh) * Skv * D;
+    const int n_chunks = (D + SLAB - 1) / SLAB;
+    const int mine = sub * QUARTER;                   // this thread's quarter of a staged row
+
+    float acc[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc[i] = 0.f;
+    float m = NEG, l = 0.f;
+    int n_tiles = (Skv + FKV - 1) / FKV;
+    if (causal) n_tiles = min(n_tiles, (min(q0 + FQ, Sq) - 1) / FKV + 1);
+
+    // 32 rows x SLAB columns of t (n rows) from row r0 and column d0 into
+    // dst as staged rows, zeros past n or D
+    auto stage = [&](float* dst, const float* t, int n, int r0, int d0) {
+#pragma unroll 4
+        for (int it = 0; it < (32 * SLAB / 4) / F32_THREADS; ++it) {
+            const int c = tid + it * F32_THREADS;
+            const int r = c / (SLAB / 4);
+            const int col = (c % (SLAB / 4)) * 4;
+            float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (r0 + r < n && d0 + col < D) {
+                x = *reinterpret_cast<const float4*>(t + static_cast<size_t>(r0 + r) * D + d0 + col);
+            }
+            *reinterpret_cast<float4*>(dst + r * SROW + (col / NV) * QUARTER + col % NV) = x;
+        }
+    };
+    static_assert(FQ == 32 && FKV == 32, "stage copies 32 rows");
+
+    for (int t = 0; t < n_tiles; ++t) {
+        const int kv0 = t * FKV;
+        float s[FKV];
+#pragma unroll
+        for (int c = 0; c < FKV; ++c) s[c] = 0.f;
+        for (int ch = 0; ch < n_chunks; ++ch) {
+            const int d0 = ch * SLAB;
+            __syncthreads();          // the previous chunk (or V tile) is consumed
+            stage(Qs, qb, Sq, q0, d0);
+            stage(Ks, kb, Skv, kv0, d0);
+            if (ch == n_chunks - 1) stage(Vs, vb, Skv, kv0, c0);
+            __syncthreads();
+            float qr[NV];
+            const float* qrow = Qs + (tid >> 2) * SROW + mine;
+#pragma unroll
+            for (int i = 0; i < NV; i += 4) {
+                const float4 x = *reinterpret_cast<const float4*>(qrow + i);
+                qr[i] = x.x, qr[i + 1] = x.y, qr[i + 2] = x.z, qr[i + 3] = x.w;
+            }
+#pragma unroll
+            for (int c = 0; c < FKV; ++c) {
+                const float* krow = Ks + c * SROW + mine;
+                float part = 0.f;
+#pragma unroll
+                for (int i = 0; i < NV; i += 4) {
+                    const float4 x = *reinterpret_cast<const float4*>(krow + i);
+                    part = fmaf(qr[i], x.x, part);
+                    part = fmaf(qr[i + 1], x.y, part);
+                    part = fmaf(qr[i + 2], x.z, part);
+                    part = fmaf(qr[i + 3], x.w, part);
+                }
+                s[c] += part;
+            }
+        }
+        float mx = NEG;
+#pragma unroll
+        for (int c = 0; c < FKV; ++c) {
+            float dot = s[c];
+            dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+            dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+            const int col = kv0 + c;
+            s[c] = score(dot, scale, softcap, col >= Skv || (causal && col > row));
+            mx = fmaxf(mx, s[c]);
+        }
+        const float mn = fmaxf(m, mx);
+        const float alpha = expf(m - mn);
+        float sum = 0.f;
+#pragma unroll
+        for (int c = 0; c < FKV; ++c) {
+            s[c] = expf(s[c] - mn);
+            sum += s[c];
+        }
+        l = l * alpha + sum;
+        m = mn;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) acc[i] *= alpha;
+#pragma unroll
+        for (int c = 0; c < FKV; ++c) {
+            const float* vrow = Vs + c * SROW + mine;
+#pragma unroll
+            for (int i = 0; i < NV; i += 4) {
+                const float4 x = *reinterpret_cast<const float4*>(vrow + i);
+                acc[i] = fmaf(s[c], x.x, acc[i]);
+                acc[i + 1] = fmaf(s[c], x.y, acc[i + 1]);
+                acc[i + 2] = fmaf(s[c], x.z, acc[i + 2]);
+                acc[i + 3] = fmaf(s[c], x.w, acc[i + 3]);
+            }
+        }
+    }
+
+    // D is a multiple of 64: a thread's quarter of the slab is in D or not
+    if (row < Sq && c0 + sub * NV < D) {
+        const float d = fmaxf(l, 1e-30f);
+        float* orow = out + (static_cast<size_t>(bh) * Sq + row) * D + c0 + sub * NV;
+#pragma unroll
+        for (int i = 0; i < NV; i += 4) {
+            *reinterpret_cast<float4*>(orow + i) =
+                make_float4(__fdiv_rn(acc[i], d), __fdiv_rn(acc[i + 1], d),
+                            __fdiv_rn(acc[i + 2], d), __fdiv_rn(acc[i + 3], d));
+        }
+    }
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int H,
                    int Hkv, int Sq, int Skv, int bf16, float scale, float softcap, int causal,
                    cudaStream_t stream) {
     if (bf16) {
         CUtensorMap qm, km, vm;
+        constexpr int BN = Tiles<D>::BN;
         if (!tensor_map(&qm, q, D, Sq, B * H, BQ) || !tensor_map(&km, k, D, Skv, B * Hkv, BN) ||
             !tensor_map(&vm, v, D, Skv, B * Hkv, BN)) {
             return cudaErrorInvalidValue;
@@ -564,8 +775,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
         flash_bf16_kernel<D><<<grid, BF16_THREADS, smem, stream>>>(
             qm, km, vm, static_cast<__nv_bfloat16*>(out), H, Hkv, Sq, Skv, scale, softcap, causal);
     } else {
+        constexpr int smem = f32_smem_bytes<D>();
+        const cudaError_t err = cudaFuncSetAttribute(
+            flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
         dim3 grid((Sq + FQ - 1) / FQ, B * H);
-        flash_f32_kernel<D><<<grid, F32_THREADS, 0, stream>>>(
+        flash_f32_kernel<D><<<grid, F32_THREADS, smem, stream>>>(
             static_cast<const float*>(q), static_cast<const float*>(k),
             static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, Sq, Skv, scale,
             softcap, causal);
@@ -573,12 +788,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
     return cudaGetLastError();
 }
 
+cudaError_t launch_slab(const void* q, const void* k, const void* v, void* out, int B, int H,
+                        int Hkv, int Sq, int Skv, int D, float scale, float softcap, int causal,
+                        cudaStream_t stream) {
+    constexpr int smem = slab_smem_bytes();
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sq + FQ - 1) / FQ, B * H, (D + SLAB - 1) / SLAB);
+    flash_slab_kernel<<<grid, F32_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(out), H, Hkv, Sq, Skv, D, scale, softcap, causal);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B,H,Sq,D), k/v (B,Hkv,Skv,D), out (B,H,Sq,D): contiguous device pointers,
 // 16-byte aligned, all f32 (bf16 = 0) or all bf16 (bf16 = 1). D in
-// {16, 32, 64, 128}; H a multiple of Hkv; Sq / 128 <= 65535 in bf16.
-// Returns the launch's cudaError_t.
+// {16, 32, 64, 128, 256}, or in f32 a multiple of 64 above 256 (the slab
+// kernel); H a multiple of Hkv; Sq / 128 <= 65535 in bf16, B * H <= 65535
+// on the slab kernel. Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int H, int Hkv, int Sq, int Skv, int D, int bf16,
                                       float scale, float softcap, int causal, void* stream) {
@@ -591,7 +821,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
         case 32: return static_cast<int>(launch<32>(q, k, v, out, B, H, Hkv, Sq, Skv, bf16, scale, softcap, causal, s));
         case 64: return static_cast<int>(launch<64>(q, k, v, out, B, H, Hkv, Sq, Skv, bf16, scale, softcap, causal, s));
         case 128: return static_cast<int>(launch<128>(q, k, v, out, B, H, Hkv, Sq, Skv, bf16, scale, softcap, causal, s));
-        default: return static_cast<int>(cudaErrorInvalidValue);
+        case 256: return static_cast<int>(launch<256>(q, k, v, out, B, H, Hkv, Sq, Skv, bf16, scale, softcap, causal, s));
+        default:
+            if (bf16 || D <= 256 || D % 64 != 0 || B * H > 65535) {
+                return static_cast<int>(cudaErrorInvalidValue);
+            }
+            return static_cast<int>(launch_slab(q, k, v, out, B, H, Hkv, Sq, Skv, D, scale, softcap, causal, s));
     }
 }
 

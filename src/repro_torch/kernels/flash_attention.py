@@ -9,9 +9,11 @@ inside one CTA per (batch*head, q tile) that keeps them in registers; tiles
 wholly above the causal diagonal are skipped. bf16 inputs run their products
 on the tensor cores through ``wgmma``, fed by TMA loads of K and V tiles
 (exact bf16 products, f32 accumulation; the softmax weights as a two-term
-bf16 split, 2^-17 relative); f32 inputs run IEEE f32 FMAs, no TF32. What
-bounds it on the card is operations — see the source note in the ``.cu``
-file.
+bf16 split, 2^-17 relative); f32 inputs run IEEE f32 FMAs, no TF32. Head
+dims above 256 run on a third kernel, the slab kernel: f32 on the CUDA
+cores, a grid axis over 256-column slabs of the output, each CTA forming
+the whole score itself. What bounds it on the card is operations — see the
+source note in the ``.cu`` file.
 
 The causal mask is top-left aligned, as the reference kernel's
 ``rows >= cols`` on global indices: row ``i`` sees keys ``0..i`` whether
@@ -26,14 +28,17 @@ than one block's logits, rounded once to q's dtype at the end.
 Layouts are the reference's: q ``(B, H, Sq, D)``, k/v ``(B, Hkv, Skv, D)``,
 out ``(B, H, Sq, D)`` in q's dtype.
 
-The wrapper takes what the reference takes, up to ``D = 128``: any float
-dtype (f32 and bf16 run as they are; fp16 and f64 are staged to f32, run
-through the f32 kernel and cast back — the reference's kernel computes in
-f32 whatever it is given), and any head dim up to the largest of
-:data:`KERNEL_HEAD_DIMS` (one that is not in it is zero-padded to the next
-one: zero q/k columns add nothing to ``QKᵀ``, zero v columns are sliced
-off, and the softmax scale is formed from the true ``D``). A head dim above
-128 raises: no kernel is instantiated for it. ``bq``/``bkv`` are the reference's tile
+The wrapper takes what the reference takes: any float dtype (f32 and bf16
+run as they are; fp16 and f64 are staged to f32, run through the f32 kernel
+and cast back — the reference's kernel computes in f32 whatever it is
+given), and any head dim ``D >= 1`` (:func:`kernel_head_dim`). Up to 256 a
+``D`` that is not one of :data:`KERNEL_HEAD_DIMS` is zero-padded to the next
+one; above 256 it is zero-padded to a multiple of :data:`SLAB_MULTIPLE` and
+runs on the slab kernel, in f32 (bf16 is staged to f32 and rounded once at
+the end). Zero q/k columns add nothing to ``QKᵀ``, zero v columns are
+sliced off, and the softmax scale is formed from the true ``D``. The
+kernels launched are counted in ``flash_attention.routes`` by
+:func:`kernel_route`. ``bq``/``bkv`` are the reference's tile
 sizes: they are validated as the reference does (``Sq % min(bq, Sq) == 0``,
 ``Skv % min(bkv, Skv) == 0``) but they are not numerics — only the order of
 sums depends on them — so the CUDA tile is the kernel's own.
@@ -48,8 +53,13 @@ from . import _build
 
 NEG_INF = -1e30
 
-#: head dims the CUDA kernel is instantiated for
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the bf16 and f32 kernels are instantiated for
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims above 256 run on the slab kernel, padded to a multiple of this
+SLAB_MULTIPLE = 64
+#: the kernels of ``csrc/flash_attention.cu``, as ``flash_attention.routes``
+#: counts their launches
+ROUTES = ("wgmma", "f32", "slab")
 
 # elements of one block's f32 logits in the plain version (256 MB)
 _PLAIN_BLOCK_ELEMS = 1 << 26
@@ -129,14 +139,24 @@ def _entry():
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim the kernel runs a true head dim ``d`` at: the smallest of
-    :data:`KERNEL_HEAD_DIMS` that holds it; above 128 a ``ValueError``."""
+    """The head dim a true head dim ``d >= 1`` runs at: the smallest of
+    :data:`KERNEL_HEAD_DIMS` that holds it; above 256 the next multiple of
+    :data:`SLAB_MULTIPLE` (the slab kernel's)."""
+    if d < 1:
+        raise ValueError(f"a head dim is at least 1, got {d}")
     for dk in KERNEL_HEAD_DIMS:
         if d <= dk:
             return dk
-    raise ValueError(
-        f"the flash kernel takes head dims up to {KERNEL_HEAD_DIMS[-1]} (zero-padded to "
-        f"one of {KERNEL_HEAD_DIMS}), got {d}")
+    return -(-d // SLAB_MULTIPLE) * SLAB_MULTIPLE
+
+
+def kernel_route(d: int, dtype: torch.dtype) -> str:
+    """The kernel that runs a true head dim ``d`` of ``dtype``: ``"wgmma"``
+    (bf16 up to 256), ``"f32"`` (any other float dtype up to 256, staged to
+    f32) or ``"slab"`` (above 256, every dtype staged to f32)."""
+    if kernel_head_dim(d) > KERNEL_HEAD_DIMS[-1]:
+        return "slab"
+    return "wgmma" if dtype == torch.bfloat16 else "f32"
 
 
 def padded_attention(fn, q, k, v, causal: bool = True, softcap: float = 0.0,
@@ -157,8 +177,9 @@ def padded_attention(fn, q, k, v, causal: bool = True, softcap: float = 0.0,
 
 
 def _launch(q, k, v, causal, softcap, scale):
-    """One launch of the kernel on contiguous f32/bf16 q/k/v whose head dim
-    is one of :data:`KERNEL_HEAD_DIMS`."""
+    """One launch of a kernel on contiguous f32/bf16 q/k/v whose head dim is
+    one of :data:`KERNEL_HEAD_DIMS`, or on f32 ones whose head dim is a
+    larger multiple of :data:`SLAB_MULTIPLE`."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -173,13 +194,14 @@ def _launch(q, k, v, causal, softcap, scale):
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, lib, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.routes[kernel_route(d, q.dtype)] += 1
     return out
 
 
 def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0,
                     scale: float | None = None, bq: int = 128, bkv: int = 128):
     """Attention ``(B, H, Sq, D)`` in q's dtype. CUDA tensors (any float
-    dtype, ``D`` up to 128; see the module note on staging and padding) go
+    dtype, any ``D``; see the module note on staging and padding) go
     through one kernel launch on the current stream, without synchronizing;
     CPU tensors through :func:`flash_attention_torch`."""
     b, h, hkv, sq, skv, d = check_shapes(q, k, v, causal, bq, bkv)
@@ -187,8 +209,7 @@ def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0,
         return flash_attention_torch(q, k, v, causal, softcap, scale, bq, bkv)
     if not q.dtype.is_floating_point:
         raise TypeError(f"the flash kernel takes float tensors, got {q.dtype}")
-    kernel_head_dim(d)                      # raises above 128 before any copy
-    if q.dtype in (torch.float32, torch.bfloat16):
+    if q.dtype == torch.float32 or kernel_route(d, q.dtype) == "wgmma":
         return padded_attention(_launch, q, k, v, causal, softcap, scale)
     f32 = lambda t: t.to(torch.float32)
     return padded_attention(_launch, f32(q), f32(k), f32(v), causal, softcap,
@@ -197,3 +218,5 @@ def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0,
 
 #: kernel launches made by :func:`flash_attention` (CUDA path only)
 flash_attention.launches = 0
+#: the same launches by kernel (:func:`kernel_route`)
+flash_attention.routes = {route: 0 for route in ROUTES}

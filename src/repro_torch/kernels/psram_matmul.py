@@ -43,6 +43,15 @@ Three routes, one contract, chosen by shape and alignment alone
 Integer sums are exact under any split, so every route is bit-equal to the
 plain version.
 
+``saturate`` (default True) is the ADC's rail clip. With ``saturate=False``
+the code is left unclipped, ``round(acc / lsb)``, as the reference's ADC
+leaves it (``src/repro/core/quantization.py:adc_transfer``): since ``|acc|
+<= QMAX² · K``, the full scale, the code reaches at most ``±levels / 2``,
+one past the clip, on a full-scale accumulation only. Every epilogue clamps
+to ``±code_max``, a launch argument, so the launches take ``code_max =
++inf`` for it: ``fminf`` / ``fmaxf`` against infinities pass the code
+through unchanged. No other kernel is needed.
+
 K split across cards (a row-parallel projection on a model mesh): the ADC
 is nonlinear, so partial sums cannot pass through it card by card.
 :func:`psram_matmul_int32` is each route with its epilogue compiled out (a
@@ -85,6 +94,12 @@ ROUTES = ("wgmma", "tile", "decode")
 ACT_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _code_max(adc_bits: int, saturate: bool) -> float:
+    """The largest code magnitude the epilogue keeps: the rails'
+    ``levels / 2 - 1``, or ``+inf`` (no clip) with ``saturate=False``."""
+    return float(2 ** adc_bits // 2 - 1) if saturate else float("inf")
+
+
 def _check_operands(qx, qw, sx, sw):
     if qx.ndim != 2 or qw.ndim != 2:
         raise ValueError(f"qx/qw must be 2-D, got {tuple(qx.shape)} / {tuple(qw.shape)}")
@@ -110,15 +125,16 @@ def psram_matmul_torch(
     sx: torch.Tensor,   # (M, 1) f32
     sw: torch.Tensor,   # (1, N) f32
     adc_bits: int = 16,
+    saturate: bool = True,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, exact on every device: the
     accumulator is formed in float64 (every partial sum of int8 products is
     an exact integer there), converted once to f32, then the shared ADC
-    epilogue."""
+    epilogue (clipped at the rails unless ``saturate`` is False)."""
     _check_operands(qx, qw, sx, sw)
     acc = exact_int_matmul(qx, qw)
     full_scale = float(QMAX) * float(QMAX) * qx.shape[-1]
-    analog = adc_transfer(acc, 2 ** adc_bits, full_scale)
+    analog = adc_transfer(acc, 2 ** adc_bits, full_scale, saturate)
     return analog * (sx * sw)
 
 
@@ -251,15 +267,15 @@ def psram_matmul_int32(qx: torch.Tensor, qw: torch.Tensor, route: str | None = N
 
 
 def psram_adc_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor, k: int,
-                       adc_bits: int = 16, out_dtype: torch.dtype = torch.float32
-                       ) -> torch.Tensor:
+                       adc_bits: int = 16, out_dtype: torch.dtype = torch.float32,
+                       saturate: bool = True) -> torch.Tensor:
     """``ADC(acc) * (sx * sw)`` as ``(M, N)`` ``out_dtype`` (f32 or bf16)
     from int32 sums ``acc`` over a K of ``k`` (the full scale ``QMAX² ·
     k``): one launch of ``psram_adc_epilogue_kernel`` on CUDA tensors, the
     plain version's arithmetic on CPU tensors; bit-equal to
     :func:`psram_matmul`'s own epilogue, and in bf16 to that f32 result
     rounded once to bf16 (``.to(torch.bfloat16)``), which the kernel's
-    store does."""
+    store does. ``saturate=False`` leaves the codes unclipped."""
     if acc.ndim != 2 or acc.dtype != torch.int32:
         raise TypeError(f"acc must be a 2-D int32 tensor, got {acc.dtype} {tuple(acc.shape)}")
     m, n = acc.shape
@@ -272,14 +288,16 @@ def psram_adc_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor, k:
         raise TypeError(f"out_dtype must be one of {ACT_DTYPES}, got {out_dtype}")
     if not acc.is_cuda:
         full_scale = float(QMAX) * float(QMAX) * k
-        return (adc_transfer(acc, 2 ** adc_bits, full_scale) * (sx * sw)).to(out_dtype)
+        return (adc_transfer(acc, 2 ** adc_bits, full_scale, saturate)
+                * (sx * sw)).to(out_dtype)
     if not 1 <= adc_bits <= 24:
         raise ValueError(f"adc_bits must be in 1..24 for the kernel, got {adc_bits}")
     acc, sx, sw = acc.contiguous(), sx.contiguous(), sw.contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=acc.device)
     lib, fn = _entry("epilogue")
     err = _call(fn, acc, acc.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(), m, n,
-                _lsb(k, adc_bits), float(2 ** adc_bits // 2 - 1), int(out_dtype == torch.bfloat16))
+                _lsb(k, adc_bits), _code_max(adc_bits, saturate),
+                int(out_dtype == torch.bfloat16))
     _build.check_launch(err, lib, "psram_adc_epilogue")
     psram_adc_epilogue.launches += 1
     return out
@@ -369,15 +387,17 @@ def psram_matmul(
     sx: torch.Tensor,   # (M, 1) f32
     sw: torch.Tensor,   # (1, N) f32
     adc_bits: int = 16,
+    saturate: bool = True,
 ) -> torch.Tensor:
     """``ADC(qx @ qw) * (sx * sw)`` as ``(M, N)`` f32. Any ``M, K, N`` (the
     kernels mask ragged edges themselves). CUDA tensors go through one
     kernel launch on the current stream, without synchronizing, on the
     route :func:`_route` names. CPU tensors go through
-    :func:`psram_matmul_torch`."""
+    :func:`psram_matmul_torch`. ``saturate=False`` leaves the ADC's codes
+    unclipped (see the module note)."""
     if not qx.is_cuda:
-        return psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits)
-    return _launch(qx, qw, sx, sw, adc_bits)
+        return psram_matmul_torch(qx, qw, sx, sw, adc_bits=adc_bits, saturate=saturate)
+    return _launch(qx, qw, sx, sw, adc_bits, saturate=saturate)
 
 
 class _ScalesGrad(torch.autograd.Function):
@@ -398,34 +418,36 @@ class _ScalesGrad(torch.autograd.Function):
     codes ``qx``, ``qw`` it needs are saved anyway (1 byte an element)."""
 
     @staticmethod
-    def forward(ctx, qx, qw, sx, sw, adc_bits):
+    def forward(ctx, qx, qw, sx, sw, adc_bits, saturate):
         ctx.save_for_backward(qx, qw, sx, sw)
-        ctx.adc_bits = adc_bits
-        return psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits)
+        ctx.adc_bits, ctx.saturate = adc_bits, saturate
+        return psram_matmul(qx, qw, sx, sw, adc_bits=adc_bits, saturate=saturate)
 
     @staticmethod
     def backward(ctx, g):
         qx, qw, sx, sw = ctx.saved_tensors
         need_sx, need_sw = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
         if not (need_sx or need_sw):
-            return None, None, None, None, None
+            return None, None, None, None, None, None
         a = psram_matmul(qx, qw, torch.ones_like(sx), torch.ones_like(sw),
-                         adc_bits=ctx.adc_bits)
+                         adc_bits=ctx.adc_bits, saturate=ctx.saturate)
         ga = g * a
         grad_sx = (ga * sw).sum(dim=1, keepdim=True) if need_sx else None
         grad_sw = (ga * sx).sum(dim=0, keepdim=True) if need_sw else None
-        return None, None, grad_sx, grad_sw, None
+        return None, None, grad_sx, grad_sw, None, None
 
 
-def psram_matmul_trained(qx, qw, sx, sw, adc_bits: int = 16) -> torch.Tensor:
+def psram_matmul_trained(qx, qw, sx, sw, adc_bits: int = 16,
+                         saturate: bool = True) -> torch.Tensor:
     """:func:`psram_matmul` for autograd: the same forward (the kernel on
     CUDA tensors, the plain version on the CPU), with the reference's
-    scales-only gradient (:class:`_ScalesGrad`); the codes get none."""
-    return _ScalesGrad.apply(qx, qw, sx, sw, adc_bits)
+    scales-only gradient (:class:`_ScalesGrad`) through the same codes,
+    unclipped where ``saturate`` is False; the int8 codes get none."""
+    return _ScalesGrad.apply(qx, qw, sx, sw, adc_bits, saturate)
 
 
 def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
-            cluster: int = 0, raw: bool = False) -> torch.Tensor:
+            cluster: int = 0, raw: bool = False, saturate: bool = True) -> torch.Tensor:
     """One launch of kernel 2 on CUDA tensors. ``route`` None takes the
     route :func:`psram_matmul` takes; the checks name ``"wgmma"``,
     ``"tile"`` or ``"decode"`` to hold one route against another, and
@@ -433,7 +455,8 @@ def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
     is the library's decode cluster, or :func:`_tile_split`). Either only
     chooses how the same result is computed; a route that cannot take the
     operands raises. ``raw`` writes the int32 sums instead
-    (:func:`psram_matmul_int32`)."""
+    (:func:`psram_matmul_int32`); ``saturate=False`` launches the epilogue
+    with no clip (``code_max = +inf``)."""
     if route not in (None, *ROUTES):
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     m, k, n = _check_operands(qx, qw, sx, sw)
@@ -454,7 +477,6 @@ def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
     if route == "wgmma" and not _tma_takes(k, n, aligned):
         raise ValueError(f"the wgmma route needs 16-byte aligned operands and K, N multiples "
                          f"of 16; got K={k}, N={n}, aligned={aligned}")
-    levels = 2 ** adc_bits
     # exactly the plain version's LSB: formed in double, rounded once to f32
     lsb = _lsb(k, adc_bits)
     if not 0 <= cluster <= MAX_TILE_SPLIT:
@@ -466,7 +488,7 @@ def _launch(qx, qw, sx, sw, adc_bits: int = 16, route: str | None = None,
     out = torch.empty((m, n), dtype=torch.int32 if raw else torch.float32, device=qx.device)
     lib, fn = _entry(route)
     err = _call(fn, qx, qx.data_ptr(), qw.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                out.data_ptr(), m, k, n, lsb, float(levels // 2 - 1), *extra, int(raw))
+                out.data_ptr(), m, k, n, lsb, _code_max(adc_bits, saturate), *extra, int(raw))
     _build.check_launch(err, lib, "psram_matmul")
     counter = psram_matmul_int32 if raw else psram_matmul
     counter.launches += 1

@@ -7,13 +7,13 @@ layer in a group is described by a layout descriptor and owns norms + mixer
 one param dict (and one cache dict) per group, in a list, where the
 reference stacks them along a leading axis for its layer scan.
 
-Port of the reference module but for ``group_decode``: ``LayerDesc``,
-``group_layout`` (dense, ``alt_local_global``, MoE, SSM and the hybrid
-``hybrid_attn_period`` / ``moe_every`` pattern), ``group_defs``,
-``group_cache_defs``, ``_residual``, ``group_fwd``, ``group_decode_tokens``,
-``apply_decode_deltas``. The reference's write-through ``group_decode`` has
-no caller there or here (decoding goes through ``group_decode_tokens``) and
-is left out until one needs it.
+Port of the reference module: ``LayerDesc``, ``group_layout`` (dense,
+``alt_local_global``, MoE, SSM and the hybrid ``hybrid_attn_period`` /
+``moe_every`` pattern), ``group_defs``, ``group_cache_defs``,
+``_residual``, ``group_fwd``, ``group_decode`` (the write-through decode:
+the cache written in place, then read), ``group_decode_tokens`` and
+``apply_decode_deltas`` (the read-only decode the models step through,
+then the write-back).
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from .config import ArchConfig
 from .layers import (
     _new_kv,
     attention_cache_defs,
+    attention_decode,
     attention_decode_append,
     attention_defs,
     attention_fwd,
@@ -114,6 +115,27 @@ def group_fwd(p_group, x, cfg: ArchConfig, pos, collect_cache: bool = False):
         x = _residual(cfg, p, x, y, "post_norm")
         x = _mlp_block(cfg, desc, p, x)
     return x, (caches if collect_cache else None)
+
+
+def group_decode(p_group, x, cfg: ArchConfig, cache_group, cache_pos):
+    """One-token decode through one group. Returns (x, new_cache_group):
+    attention layers write the token's k/v into their cache IN PLACE at the
+    scalar ``cache_pos`` and attend over it (:func:`attention_decode`; the
+    reference returns updated copies), SSM layers return their new
+    (state, conv)."""
+    new_caches = {}
+    for i, desc in enumerate(group_layout(cfg)):
+        p = p_group[f"layer{i}"]
+        cache = cache_group[f"layer{i}"]
+        h = rmsnorm(p["pre_norm"], x, cfg.norm_eps)
+        if desc.mixer == "attn":
+            y, nc = attention_decode(p["mixer"], h, cfg, cache, cache_pos, layer_local=desc.local)
+        else:
+            y, nc = ssm_decode(p["mixer"], h, cfg, cache)
+        new_caches[f"layer{i}"] = nc
+        x = _residual(cfg, p, x, y, "post_norm")
+        x = _mlp_block(cfg, desc, p, x)
+    return x, new_caches
 
 
 def group_decode_tokens(p_group, x, cfg: ArchConfig, cache_group, cache_pos):

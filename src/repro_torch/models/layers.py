@@ -542,23 +542,33 @@ def _decode_core(qg, kn, vn, k_old, v_old, cache_pos, cfg: ArchConfig, layer_loc
 
 
 def attention_decode(p, x, cfg: ArchConfig, cache, cache_pos, *, layer_local: bool = False,
-                     cross: bool = False):
+                     cross: bool = False, precomputed_q=None, skip_kv_write: bool = False):
     """One-token decode against a (B, S, Hkv, hd) KV cache.
 
     cache: {"k": ..., "v": ...}; cache_pos: an int (or a 0-d tensor), the
     write position. For cross attention the cache is the (static) encoder
     KV: non-rotary, every position valid, nothing written. Otherwise the new
     token's k/v are written into the cache IN PLACE at ``cache_pos`` (the
-    reference returns an updated copy). Returns (y, cache).
+    reference returns an updated copy). ``precomputed_q`` (B, 1, H, hd), the
+    token's rotated q, skips the token's projections; ``skip_kv_write``
+    reads the cache as the caller left it (the token already written), so
+    the two together project nothing. Returns (y, cache).
     """
     b = x.shape[0]
     if cross:
         q = _split(_proj(x, p["wq"], cfg), b, 1, cfg.n_heads, cfg.head_dim)
     else:
-        kn, vn, q = _new_kv(p, x, cfg, cache_pos)
-        p0 = int(cache_pos)
-        cache["k"][:, p0:p0 + 1] = kn.to(cache["k"].dtype)
-        cache["v"][:, p0:p0 + 1] = vn.to(cache["v"].dtype)
+        if precomputed_q is not None:
+            q = precomputed_q
+        else:
+            kn, vn, q = _new_kv(p, x, cfg, cache_pos)
+        if not skip_kv_write:
+            if precomputed_q is not None:
+                raise ValueError("precomputed_q leaves no k/v to write: pass "
+                                 "skip_kv_write=True with it")
+            p0 = int(cache_pos)
+            cache["k"][:, p0:p0 + 1] = kn.to(cache["k"].dtype)
+            cache["v"][:, p0:p0 + 1] = vn.to(cache["v"].dtype)
     k, v = cache["k"], cache["v"]
     k_pos = torch.arange(k.shape[1], device=x.device)[None, :]
     if cross:

@@ -549,6 +549,13 @@ def _bf16_ulp(x):
     (1, 2, 2, 128, 64, 16, True, 0.0, 64),
     (1, 8, 2, 128, 384, 128, True, 0.0, 128),
     (1, 8, 2, 384, 128, 128, True, 0.0, 128),
+    # D = 256 (the bf16 kernel's 64-key tiles) and the slab kernel (D > 256)
+    (1, 8, 2, 320, 320, 256, True, 50.0, 64),
+    (1, 4, 2, 100, 100, 256, True, 0.0, 128),
+    (1, 8, 2, 128, 384, 256, True, 0.0, 128),
+    (1, 8, 2, 256, 256, 256, False, 0.0, 128),
+    (1, 4, 2, 320, 320, 320, True, 50.0, 64),
+    (1, 8, 2, 384, 128, 512, True, 0.0, 128),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_kernel_vs_plain(card, b, h, hkv, sq, skv, d, causal, softcap, tile, dtype):
@@ -578,14 +585,19 @@ def test_flash_kernel_vs_plain(card, b, h, hkv, sq, skv, d, causal, softcap, til
 
 
 def test_flash_kernel_refuses_what_the_reference_refuses(card):
-    """Shapes the reference refuses raise; so does a head dim above the
-    largest kernel (128), the one thing the kernel does not take."""
+    """Shapes the reference refuses raise, and only those: head dims above
+    128 run (160 on the bf16 kernel at D = 256, 320 on the slab kernel),
+    one launch each on the kernel :func:`kernel_route` names."""
     q = torch.zeros((1, 2, 192, 64), device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of bq"):
         fa.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        z = torch.zeros((1, 2, 64, 160), device=card, dtype=torch.bfloat16)
-        fa.flash_attention(z, z, z)
+    for d, route in ((160, "wgmma"), (320, "slab")):
+        z = torch.ones((1, 2, 64, d), device=card, dtype=torch.bfloat16)
+        before = dict(fa.flash_attention.routes)
+        got = fa.flash_attention(z, z, z)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.routes[route] == before[route] + 1
+        assert torch.equal(got, z)
 
 
 def test_psram_linear_bf16_activation_launches_the_kernel(card):
@@ -604,8 +616,12 @@ def test_psram_linear_bf16_activation_launches_the_kernel(card):
     qx, sx = quantize_symmetric(x.reshape(-1, 96), axis=-1)
     want = pm.psram_matmul_torch(qx, prog["q"], sx.float(), prog["scale"])
     assert torch.equal(got.reshape(-1, 72), want)
-    with pytest.raises(ValueError, match="saturate"):
-        psram_linear(x, prog, saturate=False)
+    # saturate=False: the same launch with the codes unclipped
+    got = psram_linear(x, prog, saturate=False)
+    torch.cuda.synchronize()
+    assert pm.psram_matmul.launches == before + 2
+    want = pm.psram_matmul_torch(qx, prog["q"], sx.float(), prog["scale"], saturate=False)
+    assert torch.equal(got.reshape(-1, 72), want)
 
 
 # ------------------------------------------------ kernel 2's decode route
@@ -1412,7 +1428,9 @@ def test_ordered_fold_kernel_bit_equal_to_cpu(card, r, offset):
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.float16, 80),
                                      (torch.float32, 48), (torch.float32, 96),
-                                     (torch.bfloat16, 80)])
+                                     (torch.bfloat16, 80), (torch.float32, 160),
+                                     (torch.bfloat16, 192), (torch.float16, 200),
+                                     (torch.bfloat16, 300), (torch.float32, 300)])
 def test_flash_kernel_fp16_and_padded_head_dims(card, dtype, d):
     """fp16 runs the f32 kernel on staged copies and rounds once; a head
     dim outside the kernel's runs zero-padded. One launch each, within the

@@ -87,8 +87,8 @@ def test_paged_psram_kernel2_equals_plain(card):
     loop = ServeLoop(cfg, None, ServeLoopConfig(**LOOP), device=card)
     launch, calls = photonic.psram_matmul, []
 
-    def record(qx, qw, sx, sw, adc_bits=16):
-        out = launch(qx, qw, sx, sw, adc_bits=adc_bits)
+    def record(qx, qw, sx, sw, adc_bits=16, saturate=True):
+        out = launch(qx, qw, sx, sw, adc_bits=adc_bits, saturate=saturate)
         calls.append((qx, qw, sx, sw, adc_bits, out))
         return out
 

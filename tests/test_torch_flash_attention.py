@@ -146,13 +146,16 @@ def test_plain_version_matches_model_chunked_attention():
     np.testing.assert_allclose(got.numpy(), want.transpose(1, 2).numpy(), rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("d", [48, 80, 96])
+@pytest.mark.parametrize("d", [48, 80, 96, 160, 192])
 def test_head_dims_outside_the_kernels_run_padded(d):
-    """A head dim the CUDA kernel is not built for runs zero-padded to the
-    next one it is, with the scale of the true D: the plain version through
-    that padding is within 1e-5 of max |out| of the interpreted Pallas kernel
-    at the true D, as the plain version at D is."""
-    from repro_torch.kernels.flash_attention import kernel_head_dim, padded_attention
+    """A head dim the CUDA kernels are not built for runs zero-padded to the
+    next one they are (up to 256), with the scale of the true D: the plain
+    version through that padding is within 1e-5 of max |out| of the
+    interpreted Pallas kernel at the true D, as the plain version at D is.
+    Above 128 the padding goes to 256, and above 256 to the slab kernel's
+    multiple of 64; no head dim is refused."""
+    from repro_torch.kernels.flash_attention import (kernel_head_dim, kernel_route,
+                                                     padded_attention)
 
     q, k, v = _qkv(1, 4, 2, 128, 128, d, seed=d)
     kernel = np.asarray(j_flash(*map(jnp.asarray, (q, k, v)), causal=True,
@@ -164,8 +167,32 @@ def test_head_dims_outside_the_kernels_run_padded(d):
     assert kernel_head_dim(d) > d and tuple(padded.shape) == q.shape
     assert np.abs(plain - kernel).max() <= 1e-5 * top
     assert np.abs(padded.numpy() - kernel).max() <= 1e-5 * top
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        kernel_head_dim(160)
+    assert [kernel_head_dim(x) for x in (160, 256, 257, 320, 500)] == [256, 256, 320, 320, 512]
+    assert kernel_route(d, torch.bfloat16) == "wgmma" and kernel_route(d, torch.float16) == "f32"
+    assert kernel_route(320, torch.bfloat16) == "slab" and kernel_route(256, torch.float32) == "f32"
+
+
+@pytest.mark.parametrize("d", [256, 320, 512])
+def test_wide_head_dims_match_interpreted_kernel(d):
+    """D = 256 (the bf16 and f32 kernels' widest instantiation) and D > 256
+    (the slab kernel's) at softcap 50, GQA and causal Sq != Skv (top-left
+    aligned): the plain version, at the head dim the card runs, within 1e-5
+    of max |out| of the interpreted Pallas kernel; the wrapper takes the
+    plain version for CPU tensors."""
+    from repro_torch.kernels.flash_attention import kernel_head_dim, padded_attention
+
+    assert kernel_head_dim(d) == d
+    for sq, skv in ((64, 128), (128, 64)):
+        q, k, v = _qkv(1, 4, 2, sq, skv, d, seed=d + sq)
+        kernel = np.asarray(j_flash(*map(jnp.asarray, (q, k, v)), causal=True, softcap=50.0,
+                                    bq=64, bkv=64, interpret=True))
+        top = float(np.abs(kernel).max())
+        tq, tk, tv = _t(q, k, v)
+        got = padded_attention(flash_attention_torch, tq, tk, tv, causal=True, softcap=50.0)
+        assert np.isfinite(got.numpy()).all() and tuple(got.shape) == (1, 4, sq, d)
+        assert np.abs(got.numpy() - kernel).max() <= 1e-5 * top
+        np.testing.assert_array_equal(
+            flash_attention(tq, tk, tv, causal=True, softcap=50.0).numpy(), got.numpy())
 
 
 def test_fp16_is_computed_in_f32_and_rounded_once():

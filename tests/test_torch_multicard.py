@@ -12,7 +12,9 @@ reference's own params (``convert.model_params``):
 * kernel 2's plain version behind a column-parallel (q) and a row-parallel
   (o: K split, the row and column maxima and the ADC's full scale over the
   whole K, the int32 sums all-reduced) projection **equal** to one process,
-  programmed on the fly and from stored int8 words;
+  programmed on the fly and from stored int8 words, and with
+  ``saturate=False`` on a planted full-scale row and column (the unclipped
+  code one past the rail);
 * ``ServeEngine(mesh=)``'s greedy tokens equal to the reference's engine;
 * 3 ``Trainer`` steps on ``(2, 2)`` with FSDP: losses and params within
   1e-5 relative of one process;
@@ -72,6 +74,31 @@ def _projections(cfg, params, x_q, x_o):
     return out
 
 
+def _planted(x, w, seed):
+    """``x`` (..., K) and ``w`` (K, N) with the first row of ``x`` at its
+    absolute maximum everywhere and column 1 of ``w`` at one magnitude, their
+    signs matched: that row and column accumulate the ADC's full scale."""
+    x, w = x.clone(), w.clone()
+    signs = torch.tensor(np.where(np.random.default_rng(seed).random(w.shape[0]) < 0.5,
+                                  -1.0, 1.0), dtype=torch.float32)
+    x.reshape(-1, x.shape[-1])[0] = 0.75 * signs
+    w[:, 1] = 0.125 * signs
+    return x, w
+
+
+def _unsaturated(cfg, planted, place=None):
+    """``psram_linear(saturate=False)`` behind q (column-parallel) and o
+    (row-parallel, the K split) on the planted operands, placed by
+    ``place(tensor, logical axes)`` where given."""
+    from repro_torch.core.photonic_layer import program_weights, psram_linear
+    out = {}
+    for name, (x, w, axes) in planted.items():
+        if place is not None:
+            x, w = place(x, ("batch", "seq", None)), place(w, axes)
+        out[name] = psram_linear(x, program_weights(w), adc_bits=cfg.adc_bits, saturate=False)
+    return out
+
+
 def _worker(rank, tmp):
     """One rank: every case on both meshes; rank 0 saves the results."""
     import torch.distributed as dist
@@ -115,6 +142,10 @@ def _worker(rank, tmp):
                 got = _projections(cfg, placed, distribute(x_q, mesh, spec),
                                    distribute(x_o, mesh, spec))
             out[arch, model, "proj"] = {k: full(v) for k, v in got.items()}
+            with torch.no_grad():
+                got = _unsaturated(cfg, inp[arch]["planted"], lambda t, axes: distribute(
+                    t, mesh, logical_to_spec(axes, t.shape, mesh)))
+            out[arch, model, "unsaturated"] = {k: full(v) for k, v in got.items()}
             eng = ServeEngine(cfg, params, max_len=PROMPT + NEW, mesh=mesh)
             out[arch, model, "tokens"] = eng.generate(prompts, PROMPT, NEW)
 
@@ -166,6 +197,7 @@ def runs(tmp_path_factory):
     from repro.serve import ServeEngine as JServeEngine
     from repro_torch import convert
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.photonic_layer import program_weights, psram_linear
     from repro_torch.models import transformer
     from repro_torch.models.config import ArchConfig
     from repro_torch.train import Trainer
@@ -183,15 +215,21 @@ def runs(tmp_path_factory):
         params = convert.model_params(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
         x_q = torch.tensor(rng.standard_normal((B, PROMPT, cfg.d_model)), dtype=torch.float32)
         x_o = torch.tensor(rng.standard_normal((B, PROMPT, cfg.q_dim)), dtype=torch.float32)
+        mixer = params["blocks"][0]["layer0"]["mixer"]
+        planted = {"q": (*_planted(x_q, mixer["wq"], 11), ("embed", "qdim")),
+                   "o": (*_planted(x_o, mixer["wo"], 12), ("qdim", "embed"))}
         inp[arch] = dict(cfg=cfg, params=params, prompts=torch.tensor(prompts), x_q=x_q,
-                         x_o=x_o, numpy=jax.tree.map(np.asarray, jparams))
+                         x_o=x_o, numpy=jax.tree.map(np.asarray, jparams), planted=planted)
         pcfg = dataclasses.replace(cfg, psram_projections=True)
         with torch.no_grad():
             ref[arch] = dict(
                 tokens=toks,
                 logits=transformer.forward(params, torch.tensor(prompts), cfg),
                 psram_logits=transformer.forward(params, torch.tensor(prompts), pcfg),
-                proj=_projections(cfg, params, x_q, x_o))
+                proj=_projections(cfg, params, x_q, x_o),
+                unsaturated=_unsaturated(cfg, planted), saturated={
+                    name: psram_linear(x, program_weights(w), adc_bits=cfg.adc_bits)
+                    for name, (x, w, _) in planted.items()})
     torch.save(inp, os.path.join(tmp, "inputs.pt"))
 
     cfg = inp["granite_8b"]["cfg"]
@@ -230,6 +268,19 @@ def test_psram_projections_equal_one_process(runs, arch, model):
     _, ref, out, _ = runs
     for name, want in ref[arch]["proj"].items():
         assert torch.equal(out[arch, model, "proj"][name], want), name
+
+
+@pytest.mark.parametrize("arch,model", CASES, ids=IDS)
+def test_psram_unsaturated_placed_equals_one_process(runs, arch, model):
+    """``psram_linear(saturate=False)`` on placed weights, column-parallel
+    (q) and through the K split (o), on the planted full-scale row: the
+    same bits as one process, which differ from ``saturate=True`` at the
+    planted element alone (the unclipped code, one LSB past the rail)."""
+    _, ref, out, _ = runs
+    for name, want in ref[arch]["unsaturated"].items():
+        assert torch.equal(out[arch, model, "unsaturated"][name], want), name
+        differ = (want != ref[arch]["saturated"][name]).reshape(-1, want.shape[-1])
+        assert differ.nonzero().tolist() == [[0, 1]], name
 
 
 @pytest.mark.parametrize("arch,model", CASES, ids=IDS)

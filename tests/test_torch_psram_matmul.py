@@ -241,3 +241,68 @@ def test_tile_split_by_shape_and_sm_count(m, k, n, sms, want):
     if split > 1:
         assert -(-m // TILE) * -(-n // TILE) * split <= sms
         assert split * MIN_TILE_STAGES <= -(-k // 64)
+
+
+def _planted_full_scale(m, k, n, seed):
+    """x (m, k) and w (k, n) from a numpy seed with row 0 of x at its
+    absolute maximum everywhere and column 1 of w at one magnitude, their
+    signs matched: both quantize to +-127 with equal signs, so that row and
+    column accumulate the full scale 127^2 K, whose unclipped ADC code is
+    levels / 2 (one past the rail)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32) / 8
+    signs = np.where(rng.random(k) < 0.5, -1.0, 1.0).astype(np.float32)
+    x[0] = 0.75 * signs
+    w[:, 1] = 0.125 * signs
+    return x, w
+
+
+@pytest.mark.parametrize("m", [8, 40])
+def test_unsaturated_full_scale_code_equals_reference(m):
+    """``psram_linear(saturate=False)`` on the planted full-scale row: bit for
+    bit the reference's (run op by op, as the port's bf16 test runs it), and
+    one LSB above ``saturate=True`` at that element and equal everywhere
+    else. The scales-only gradient through the unclipped codes matches
+    ``jax.grad`` of the reference."""
+    from repro.core import photonic_layer as jpl
+    from repro_torch.core import photonic_layer as tpl
+    from repro_torch.core.quantization import QMAX, quantize_symmetric
+
+    k, n, bits = 256, 24, 16
+    x, w = _planted_full_scale(m, k, n, seed=m)
+    jprog = jpl.program_weights(jnp.asarray(w))
+    with jax.disable_jit():
+        want = np.asarray(jpl.psram_linear(jnp.asarray(x), jprog, adc_bits=bits, saturate=False))
+    prog = {key: _t(v) for key, v in jprog.items()}
+    xt = torch.tensor(x)
+    got = tpl.psram_linear(xt, prog, adc_bits=bits, saturate=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+    sat = tpl.psram_linear(xt, prog, adc_bits=bits)
+    # the codes: the planted element is levels / 2 unclipped, the rail clipped
+    qx, sx = quantize_symmetric(xt, axis=-1)
+    assert int(qx[0].abs().min()) == QMAX and int(prog["q"][:, 1].abs().min()) == QMAX
+    ones_m, ones_n = torch.ones((m, 1)), torch.ones((1, n))
+    lsb = 2.0 * QMAX * QMAX * k / 2 ** bits
+    codes = [torch.round(psram_matmul_torch(qx, prog["q"], ones_m, ones_n, adc_bits=bits,
+                                            saturate=s) / lsb) for s in (False, True)]
+    assert codes[0][0, 1] == 2 ** bits // 2 and codes[1][0, 1] == 2 ** bits // 2 - 1
+    differ = (got != sat).nonzero().tolist()
+    assert differ == [[0, 1]]
+    assert torch.equal(codes[0] - codes[1], (codes[0] != codes[1]).float())
+    # the gradient through the scales, unclipped codes and all
+    g = np.random.default_rng(m + 1).standard_normal((m, n)).astype(np.float32)
+
+    def jloss(xx, scale):
+        prog_j = {"q": jprog["q"], "scale": scale}
+        return jnp.sum(jpl.psram_linear(xx, prog_j, adc_bits=bits, saturate=False) * g)
+
+    jgx, jgs = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jprog["scale"])
+    xg = xt.clone().requires_grad_(True)
+    sg = prog["scale"].clone().requires_grad_(True)
+    y = tpl.psram_linear(xg, {"q": prog["q"], "scale": sg}, adc_bits=bits, saturate=False)
+    (y * torch.tensor(g)).sum().backward()
+    np.testing.assert_allclose(xg.grad.numpy(), np.asarray(jgx), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(jgx).max()))
+    np.testing.assert_allclose(sg.grad.numpy(), np.asarray(jgs), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(jgs).max()))
